@@ -1,0 +1,70 @@
+"""Command line of keto_tpu_torch.
+
+    python -m keto_tpu_torch serve --config cfg.json [--tuples tuples.txt] [--device cuda]
+
+`serve` reads the JAX package's JSON config keys for Check (`namespaces`,
+`limit.max_read_depth`, `serve.read.host` / `serve.read.port`), loads the
+tuples of `--tuples` (one "ns:obj#rel@subject" per line) into an
+in-memory store, builds the device mirror, and serves the REST Check
+routes until SIGINT or SIGTERM. It prints one line
+`serving read=<host>:<port>` once it accepts requests.
+"""
+
+from __future__ import annotations
+
+import argparse
+import signal
+import sys
+import threading
+
+
+def _serve(args) -> int:
+    from .api.rest_server import make_server
+    from .config import Config
+    from .engine.torch_engine import TorchCheckEngine
+    from .ketoapi import RelationTuple
+    from .storage import MemoryManager
+
+    config = Config.from_file(args.config)
+    manager = MemoryManager()
+    if args.tuples:
+        with open(args.tuples, encoding="utf-8") as f:
+            lines = [line.strip() for line in f]
+        manager.write_relation_tuples(
+            [RelationTuple.from_string(s) for s in lines if s and not s.startswith("#")]
+        )
+    engine = TorchCheckEngine(manager, config, device=args.device)
+    engine.ensure_state()  # build and upload the mirror before serving
+    host, port = config.read_address()
+    server = make_server(engine, host, port)
+    stop = threading.Event()
+
+    def _stop(*_):
+        stop.set()
+
+    signal.signal(signal.SIGTERM, _stop)
+    signal.signal(signal.SIGINT, _stop)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    print(f"serving read={host}:{server.server_address[1]}", flush=True)
+    stop.wait()
+    server.shutdown()
+    server.server_close()
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="python -m keto_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+    serve = sub.add_parser("serve", help="serve the REST Check routes")
+    serve.add_argument("--config", required=True, help="JSON config file")
+    serve.add_argument("--tuples", help="file of relation tuples, one per line")
+    serve.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    args = parser.parse_args(argv)
+    if args.command == "serve":
+        return _serve(args)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,197 @@
+"""REST Check routes on a stdlib threaded HTTP server, in front of a
+TorchCheckEngine.
+
+  GET  /relation-tuples/check          -> 200 {"allowed": true} / 403 {"allowed": false}
+  POST /relation-tuples/check          -> the same, tuple as a JSON body
+  GET  /relation-tuples/check/openapi  -> always 200 {"allowed": ...}
+  POST /relation-tuples/check/batch    -> {"results": [{"allowed": bool} |
+                                          {"allowed": false, "error": str}],
+                                          "snaptoken": str}
+  GET  /health/alive, /health/ready    -> 200 {"status": "ok"}
+
+Keto's semantics: an unknown namespace on a single check answers
+{"allowed": false} rather than an error; the batch route reports it per
+item. Errors use the herodot shape {"error": {code, status, message}}.
+Checks carry an X-Keto-Snaptoken header with the store version they were
+evaluated at. The engine is not thread-safe, so requests take one lock
+around it.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import urllib.parse
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from ..errors import KetoError, MalformedInputError, NamespaceNotFoundError, NotFoundError
+from ..ketoapi import RelationTuple
+
+CHECK_ROUTE = "/relation-tuples/check"
+CHECK_OPENAPI_ROUTE = "/relation-tuples/check/openapi"
+CHECK_BATCH_ROUTE = "/relation-tuples/check/batch"
+HEALTH_ROUTES = ("/health/alive", "/health/ready")
+
+
+def encode_snaptoken(version: int, nid: str) -> str:
+    """The JAX package's snaptoken form: ktv1_<fnv1a-32 of nid>_<version>."""
+    h = 0x811C9DC5
+    for b in nid.encode("utf-8"):
+        h = ((h ^ b) * 0x01000193) & 0xFFFFFFFF
+    return f"ktv1_{h:08x}_{int(version)}"
+
+
+def _max_depth(params: dict) -> int:
+    raw = params.get("max-depth", "")
+    if not raw:
+        return 0
+    try:
+        return int(raw, 0)
+    except ValueError:
+        raise MalformedInputError(debug=f"invalid max-depth {raw!r}")
+
+
+class CheckService:
+    """The Check surface over one engine: namespace validation and one
+    lock around the engine."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self._mu = threading.Lock()
+
+    def validate_namespaces(self, t: RelationTuple) -> None:
+        nm = self.engine.config.namespace_manager()
+        nm.get_namespace_by_name(t.namespace)
+        if t.subject_set is not None:
+            nm.get_namespace_by_name(t.subject_set.namespace)
+
+    def check_batch(self, tuples, max_depth: int):
+        """(results, snaptoken) for one batch launch."""
+        with self._mu:
+            results, versions = self.engine.check_batch_resolve_v(
+                self.engine.check_batch_submit(tuples, max_depth)
+            )
+            version = self.engine.manager.version(nid=self.engine.nid)
+        evaluated = [v for v in versions if v is not None]
+        return results, encode_snaptoken(min(evaluated, default=version), self.engine.nid)
+
+
+def make_handler(service: CheckService):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+        server_version = "keto_tpu_torch"
+
+        def log_message(self, fmt, *args):  # quiet by default
+            pass
+
+        def _json(self, code: int, body, headers=()) -> None:
+            data = json.dumps(body).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            for k, v in headers:
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(data)
+
+        def _params(self) -> tuple[str, dict]:
+            url = urllib.parse.urlsplit(self.path)
+            return url.path, dict(urllib.parse.parse_qsl(url.query, keep_blank_values=True))
+
+        def _body(self):
+            n = int(self.headers.get("Content-Length") or 0)
+            try:
+                return json.loads(self.rfile.read(n) or b"null")
+            except json.JSONDecodeError as e:
+                raise MalformedInputError(f"could not unmarshal json: {e}")
+
+        def _route(self, method: str) -> None:
+            path, params = self._params()
+            try:
+                if path in HEALTH_ROUTES and method == "GET":
+                    self._json(200, {"status": "ok"})
+                elif path == CHECK_BATCH_ROUTE and method == "POST":
+                    self._check_batch(params)
+                elif path in (CHECK_ROUTE, CHECK_OPENAPI_ROUTE):
+                    self._check(method, params, mirror_status=path == CHECK_ROUTE)
+                else:
+                    raise NotFoundError(f"no route {method} {path}")
+            except KetoError as e:
+                self._json(e.status, e.to_dict())
+
+        def do_GET(self):
+            self._route("GET")
+
+        def do_POST(self):
+            self._route("POST")
+
+        def _check(self, method: str, params: dict, mirror_status: bool) -> None:
+            if method == "GET":
+                t = RelationTuple.from_url_query(params)
+            else:
+                body = self._body()
+                if not isinstance(body, dict):
+                    raise MalformedInputError("could not unmarshal json: expected object")
+                t = RelationTuple.from_dict(body)
+            max_depth = _max_depth(params)
+            try:
+                service.validate_namespaces(t)
+            except NamespaceNotFoundError:
+                self._json(403 if mirror_status else 200, {"allowed": False})
+                return
+            (res,), token = service.check_batch([t], max_depth)
+            if res.error is not None:
+                err = res.error
+                if isinstance(err, KetoError):
+                    raise err
+                raise KetoError(str(err))
+            code = 403 if (mirror_status and not res.allowed) else 200
+            self._json(code, {"allowed": res.allowed}, [("X-Keto-Snaptoken", token)])
+
+        def _check_batch(self, params: dict) -> None:
+            body = self._body()
+            if isinstance(body, dict):
+                raw = body.get("tuples")
+                if body.get("max_depth") is None:
+                    max_depth = _max_depth(params)
+                else:
+                    try:
+                        max_depth = int(body["max_depth"])
+                    except (TypeError, ValueError):
+                        raise MalformedInputError("max_depth must be an integer")
+            else:
+                raw = body
+                max_depth = _max_depth(params)
+            if not isinstance(raw, list):
+                raise MalformedInputError(
+                    "could not unmarshal json: expected array of relation tuples"
+                )
+            out: list = [None] * len(raw)
+            idx, tuples = [], []
+            for i, d in enumerate(raw):
+                try:
+                    if not isinstance(d, dict):
+                        raise MalformedInputError("could not unmarshal json: expected object")
+                    t = RelationTuple.from_dict(d)
+                    service.validate_namespaces(t)
+                except KetoError as e:
+                    out[i] = {"allowed": False, "error": e.message}
+                    continue
+                idx.append(i)
+                tuples.append(t)
+            results, token = service.check_batch(tuples, max_depth)
+            for i, res in zip(idx, results):
+                if res.error is not None:
+                    out[i] = {"allowed": False, "error": str(res.error)}
+                else:
+                    out[i] = {"allowed": res.allowed}
+            self._json(200, {"results": out, "snaptoken": token})
+
+    return Handler
+
+
+def make_server(engine, host: str, port: int) -> ThreadingHTTPServer:
+    """A threaded HTTP server serving the Check routes over `engine`."""
+    server = ThreadingHTTPServer((host, port), make_handler(CheckService(engine)))
+    server.daemon_threads = True
+    return server

@@ -1,0 +1,70 @@
+"""Configuration of the Check path: a dotted-key view over a JSON config.
+
+Reads the keys the JAX package's serve entry point reads for Check:
+`namespaces` (an inline list of namespace dicts), `limit.max_read_depth`
+(default 5, as Keto's embedx/config.schema.json) and `serve.read.host` /
+`serve.read.port`. Schema validation, namespace files and OPL stay with
+the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Mapping, Optional
+
+from .errors import KetoError
+from .namespace.definitions import MemoryNamespaceManager, Namespace
+
+DEFAULT_MAX_READ_DEPTH = 5
+DEFAULT_READ_PORT = 4466
+
+
+class ConfigError(KetoError):
+    status = 500
+    code = "internal_server_error"
+    default_message = "invalid configuration"
+
+
+class Config:
+    def __init__(self, values: Optional[Mapping[str, Any]] = None):
+        self._values: dict[str, Any] = dict(values or {})
+        self._namespace_manager: Optional[MemoryNamespaceManager] = None
+
+    @classmethod
+    def from_file(cls, path: str) -> "Config":
+        if not path.endswith(".json"):
+            raise ConfigError(f"config file must be JSON: {path}")
+        with open(path, "rb") as f:
+            return cls(json.load(f))
+
+    def get(self, key: str, default: Any = None) -> Any:
+        """Dotted-path lookup, e.g. 'limit.max_read_depth'."""
+        cur: Any = self._values
+        for part in key.split("."):
+            if not isinstance(cur, Mapping) or part not in cur:
+                return default
+            cur = cur[part]
+        return cur
+
+    def max_read_depth(self) -> int:
+        return int(self.get("limit.max_read_depth", DEFAULT_MAX_READ_DEPTH))
+
+    def read_address(self) -> tuple[str, int]:
+        return (
+            str(self.get("serve.read.host", "0.0.0.0")),
+            int(self.get("serve.read.port", DEFAULT_READ_PORT)),
+        )
+
+    def namespace_manager(self) -> MemoryNamespaceManager:
+        if self._namespace_manager is None:
+            raw = self.get("namespaces", [])
+            if not isinstance(raw, list):
+                raise ConfigError("`namespaces` must be an inline list")
+            self._namespace_manager = MemoryNamespaceManager(
+                Namespace.from_dict(d) if isinstance(d, Mapping) else d for d in raw
+            )
+        return self._namespace_manager
+
+    def set_namespaces(self, namespaces: list[Namespace]) -> None:
+        """Programmatic namespace injection (embedders and tests)."""
+        self._namespace_manager = MemoryNamespaceManager(namespaces)

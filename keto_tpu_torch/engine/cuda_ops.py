@@ -1,0 +1,236 @@
+"""Loader and wrappers of the check kernels (csrc/check_kernels.cu).
+
+The first call builds the CUDA source with nvcc into a shared library
+with a plain C interface under keto_tpu_torch/_build/ (named by the
+source's content hash, so an edited source rebuilds), and binds it with
+ctypes. Nothing is built or loaded at import time.
+
+Each wrapper checks device, type, shape and contiguity, allocates the
+outputs, launches on PyTorch's current stream without synchronising,
+raises if the launch reported an error, and adds one to its entry in
+`launches`. Scratch buffers a wrapper allocates may be dropped when it
+returns: PyTorch's caching allocator hands their memory out again only in
+stream order, after the launch. The wrappers take CUDA tensors only; the
+plain versions for CPU tensors live beside the dispatchers in
+engine/kernel.py.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "check_kernels.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+KERNELS = ("edge_probe", "pair_probe", "expand_gather", "dedupe_compact")
+launches = {name: 0 for name in KERNELS}
+
+_lib = None
+_lock = threading.Lock()
+build_info: dict = {}
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the check kernels need the CUDA toolkit")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"libketo_check_{digest[:16]}.so"
+
+
+def build(force: bool = False) -> Path:
+    """Compile the kernels unless this source's library exists (or
+    `force`). Returns its path; `build_info` records the seconds and the
+    compiler output."""
+    out = library_path()
+    if out.exists() and not force:
+        build_info.setdefault("seconds", 0.0)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    build_info.update(seconds=time.perf_counter() - t0, log=proc.stderr + proc.stdout)
+    return out
+
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    "keto_edge_probe": [_VP, _LL, _VP, _LL, _I, _I, _I, _I, _VP, _VP, _VP, _VP, _VP,
+                        _VP, _VP, _I, _VP],
+    "keto_pair_probe": [_VP, _LL, _I, _I, _VP, _VP, _I, _I, _I, _VP, _VP],
+    "keto_expand_gather": [_VP] * 9 + [_I] * 5 + [_VP] * 10,
+    "keto_dedupe_compact": [_VP] * 6 + [_I] * 5 + [_VP] * 9,
+}
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.keto_error_string.argtypes = [ctypes.c_int]
+            lib.keto_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def _check(lib, rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}: {lib.keto_error_string(rc).decode()}")
+    launches[name] += 1
+
+
+def _p(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _require(name: str, dtype, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: expects CUDA tensors, got one on {t.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expects {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expects contiguous tensors")
+
+
+def _require_pack(name: str, pack: torch.Tensor, width: int, spb: int) -> None:
+    _require(name, torch.int32, pack)
+    if pack.dim() != 2 or pack.shape[1] != width or pack.shape[0] % spb:
+        raise ValueError(f"{name}: expects a [cap, {width}] table with cap % {spb} == 0")
+    if pack.data_ptr() % 16:
+        raise ValueError(f"{name}: table must be 16-byte aligned")
+
+
+def edge_probe(dh_pack, dd_pack, obj, rel, q, qsub, depth, live, *,
+               dh_probes: int, spb: int, has_delta: bool) -> torch.Tensor:
+    """K1: hit[F] (bool) of the direct-edge probe, overlay and liveness fused."""
+    from .delta import DELTA_PROBES
+
+    name = "edge_probe"
+    _require_pack(name, dh_pack, 8, spb)
+    if has_delta:
+        _require_pack(name, dd_pack, 8, spb)
+    _require(name, torch.int32, obj, rel, q, qsub, depth)
+    _require(name, torch.bool, live)
+    F = obj.shape[0]
+    if qsub.dim() != 2 or qsub.shape[1] != 4 or qsub.data_ptr() % 16:
+        raise ValueError(f"{name}: qsub must be an aligned [B, 4] int32 tensor")
+    hit = torch.empty(F, dtype=torch.bool, device=obj.device)
+    lib = library()
+    rc = lib.keto_edge_probe(
+        _p(dh_pack), dh_pack.shape[0], _p(dd_pack) if has_delta else None,
+        dd_pack.shape[0] if has_delta else 0, spb, dh_probes, DELTA_PROBES,
+        int(has_delta), _p(obj), _p(rel), _p(q), _p(qsub), _p(depth), _p(live),
+        _p(hit), F, _stream(),
+    )
+    _check(lib, rc, name)
+    return hit
+
+
+def pair_probe(pack, obj, rels, *, probes: int, spb: int, n_vals: int) -> torch.Tensor:
+    """K2: [F, S, n_vals] value lanes of the (obj, rel) probe."""
+    name = "pair_probe"
+    _require_pack(name, pack, 4, spb)
+    _require(name, torch.int32, obj, rels)
+    if n_vals not in (1, 2):
+        raise ValueError(f"{name}: n_vals must be 1 or 2")
+    F, S = rels.shape
+    out = torch.empty(F, S, n_vals, dtype=torch.int32, device=obj.device)
+    lib = library()
+    rc = lib.keto_pair_probe(
+        _p(pack), pack.shape[0], spb, probes, _p(obj), _p(rels), F, S, n_vals,
+        _p(out), _stream(),
+    )
+    _check(lib, rc, name)
+    return out
+
+
+def expand_gather(counts, starts, slot_ctx, crel, is_comp, q, obj, depth, e_pack, *,
+                  wildcard_rel: int, n_queries: int):
+    """K3: the candidate columns (q, ctx, obj, rel, depth, valid) in scan
+    order, and the per-query frontier-overflow causes."""
+    name = "expand_gather"
+    _require(name, torch.int32, counts, starts, slot_ctx, crel, is_comp, q, obj, depth, e_pack)
+    F, S = counts.shape
+    for t in (starts, slot_ctx, crel, is_comp):
+        if t.shape != counts.shape:
+            raise ValueError(f"{name}: per-slot inputs must all be [F, S]")
+    dev = counts.device
+    offsets = torch.empty(F * S, dtype=torch.int32, device=dev)
+    total = torch.empty(1, dtype=torch.int32, device=dev)
+    overflow = torch.empty(n_queries, dtype=torch.int32, device=dev)
+    cols = [torch.empty(F, dtype=torch.int32, device=dev) for _ in range(5)]
+    valid = torch.empty(F, dtype=torch.bool, device=dev)
+    lib = library()
+    rc = lib.keto_expand_gather(
+        _p(counts), _p(starts), _p(slot_ctx), _p(crel), _p(is_comp), _p(q), _p(obj),
+        _p(depth), _p(e_pack), e_pack.shape[0], F, S, n_queries, wildcard_rel,
+        _p(offsets), _p(total), _p(overflow), *(_p(c) for c in cols), _p(valid),
+        _stream(),
+    )
+    _check(lib, rc, name)
+    return (*cols, valid, overflow)
+
+
+def dedupe_compact(q, ctx, obj, rel, depth, valid, *, F: int, n_queries: int):
+    """K4: (q, ctx, obj, rel, depth) of the next [F] frontier, n_new
+    (0-d), and the per-query frontier-overflow causes."""
+    from .kernel import dedupe_bits, dedupe_capacity
+
+    name = "dedupe_compact"
+    _require(name, torch.int32, q, ctx, obj, rel, depth)
+    _require(name, torch.bool, valid)
+    G = q.shape[0]
+    idx_bits = dedupe_bits(G)
+    cap = dedupe_capacity(G)
+    dev = q.device
+    winner = torch.empty(cap, dtype=torch.int32, device=dev)
+    overflow = torch.empty(n_queries, dtype=torch.int32, device=dev)
+    cols = [torch.empty(F, dtype=torch.int32, device=dev) for _ in range(5)]
+    n_new = torch.empty(1, dtype=torch.int32, device=dev)
+    lib = library()
+    rc = lib.keto_dedupe_compact(
+        _p(q), _p(ctx), _p(obj), _p(rel), _p(depth), _p(valid), G, F, n_queries, cap,
+        idx_bits, _p(winner), _p(overflow), *(_p(c) for c in cols), _p(n_new), _stream(),
+    )
+    _check(lib, rc, name)
+    return (*cols, n_new.reshape(()), overflow)

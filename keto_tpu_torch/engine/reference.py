@@ -1,0 +1,256 @@
+"""Host reference engine, Check only: exact Keto check semantics,
+evaluated sequentially. It is the oracle the device path is held
+against, and the evaluator for the queries the kernel flags for host
+replay.
+
+Semantics (Keto internal/check):
+  - checkIsAllowed = OR{checkDirect(d-1), checkExpandSubject(d),
+    rewrite(d)}, short-circuiting on IsMember or error; Unknown is
+    swallowed to NotMember by the OR
+  - every entry point answers Unknown when restDepth < 0; direct gets
+    d-1, expand-subject recurses with d-1, a computed subject set keeps
+    d, a tuple-to-subject-set recurses with d-1
+  - a visited set threaded through the whole check prunes re-visited
+    subjects on the expand-subject path
+  - wildcard-relation subject sets are never expanded by expand-subject
+    but are traversed by tuple-to-subject-set
+  - and: first non-IsMember -> NotMember; or: first IsMember wins;
+    not: flips IsMember/NotMember and keeps Unknown
+  - unknown namespace: no rewrite, no error; a namespace with relations
+    but without the queried relation: error
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..config import Config
+from ..errors import NamespaceNotFoundError, RelationNotFoundError
+from ..ketoapi import RelationQuery, RelationTuple, Tree, TreeNodeType
+from ..namespace import ast
+from ..storage.definitions import DEFAULT_NETWORK
+from .definitions import (
+    RESULT_NOT_MEMBER,
+    RESULT_UNKNOWN,
+    WILDCARD_RELATION,
+    CheckResult,
+    Membership,
+    leaf,
+    subject_visited_key,
+    with_edge,
+)
+
+
+class ReferenceEngine:
+    """Check over a tuple store with exact reference semantics."""
+
+    def __init__(self, manager, config: Config, *, visited_pruning: bool = True):
+        self.manager = manager
+        self.config = config
+        # False disables the visited-set pruning, which can miss members
+        # first reached at an exhausted depth; the device kernel explores
+        # completely, so cyclic-graph differentials compare against this
+        self.visited_pruning = visited_pruning
+
+    def check_relation_tuple(
+        self, r: RelationTuple, max_depth: int = 0, nid: str = DEFAULT_NETWORK
+    ) -> CheckResult:
+        rest_depth = self._clamp_depth(max_depth)
+        try:
+            return self._check_is_allowed(r, rest_depth, set(), nid)
+        except Exception as e:  # error as value at the top
+            return CheckResult(Membership.UNKNOWN, error=e)
+
+    def check_is_member(
+        self, r: RelationTuple, max_depth: int = 0, nid: str = DEFAULT_NETWORK
+    ) -> bool:
+        res = self.check_relation_tuple(r, max_depth, nid)
+        if res.error is not None:
+            raise res.error
+        return res.membership == Membership.IS_MEMBER
+
+    def _clamp_depth(self, requested: int) -> int:
+        global_max = self.config.max_read_depth()
+        if requested <= 0 or global_max < requested:
+            return global_max
+        return requested
+
+    def _check_is_allowed(
+        self, r: RelationTuple, rest_depth: int, visited: set[str], nid: str
+    ) -> CheckResult:
+        if rest_depth < 0:
+            return RESULT_UNKNOWN
+        res = self._check_direct(r, rest_depth - 1, nid)
+        if res.membership == Membership.IS_MEMBER:
+            return res
+        res = self._check_expand_subject(r, rest_depth, visited, nid)
+        if res.membership == Membership.IS_MEMBER:
+            return res
+        relation = self._ast_relation_for(r)
+        if relation is not None and relation.subject_set_rewrite is not None:
+            res = self._check_subject_set_rewrite(
+                r, relation.subject_set_rewrite, rest_depth, visited, nid
+            )
+            if res.error is not None:
+                raise res.error
+            if res.membership == Membership.IS_MEMBER:
+                return res
+        return RESULT_NOT_MEMBER
+
+    def _check_direct(self, r: RelationTuple, rest_depth: int, nid: str) -> CheckResult:
+        if rest_depth < 0:
+            return RESULT_UNKNOWN
+        if self.manager.relation_tuple_exists(r, nid=nid):
+            return CheckResult(Membership.IS_MEMBER, tree=leaf(r))
+        return RESULT_NOT_MEMBER
+
+    def _subject_sets(self, namespace: str, obj: str, relation: str, nid: str):
+        """Every tuple of (namespace, object, relation), page by page."""
+        query = RelationQuery(namespace=namespace, object=obj, relation=relation)
+        page_token = ""
+        while True:
+            tuples, page_token = self.manager.get_relation_tuples(
+                query, page_token=page_token, nid=nid
+            )
+            yield from tuples
+            if not page_token:
+                return
+
+    def _check_expand_subject(
+        self, r: RelationTuple, rest_depth: int, visited: set[str], nid: str
+    ) -> CheckResult:
+        if rest_depth < 0:
+            return RESULT_UNKNOWN
+        for s in self._subject_sets(r.namespace, r.object, r.relation, nid):
+            uid = subject_visited_key(s.subject)
+            if self.visited_pruning:
+                if uid in visited:
+                    continue
+                visited.add(uid)
+            sset = s.subject_set
+            if sset is None or sset.relation == WILDCARD_RELATION:
+                continue
+            res = self._check_is_allowed(
+                RelationTuple(
+                    namespace=sset.namespace, object=sset.object,
+                    relation=sset.relation,
+                    subject_id=r.subject_id, subject_set=r.subject_set,
+                ),
+                rest_depth - 1, visited, nid,
+            )
+            if res.membership == Membership.IS_MEMBER:
+                return res
+        return RESULT_NOT_MEMBER
+
+    def _ast_relation_for(self, r: RelationTuple) -> Optional[ast.Relation]:
+        try:
+            ns = self.config.namespace_manager().get_namespace_by_name(r.namespace)
+        except NamespaceNotFoundError:
+            return None
+        if not ns.relations:
+            return None
+        rel = ns.relation(r.relation)
+        if rel is None:
+            raise RelationNotFoundError(r.relation)
+        return rel
+
+    def _check_subject_set_rewrite(
+        self, r, rewrite: ast.SubjectSetRewrite, rest_depth: int, visited, nid
+    ) -> CheckResult:
+        if rest_depth < 0:
+            return RESULT_UNKNOWN
+        checks = [
+            lambda c=child: self._check_rewrite_child(r, c, rest_depth, visited, nid)
+            for child in rewrite.children
+        ]
+        if rewrite.operation == ast.Operator.AND:
+            return self._and(checks)
+        return self._or(checks)
+
+    def _check_rewrite_child(self, r, child, rest_depth: int, visited, nid) -> CheckResult:
+        if isinstance(child, ast.TupleToSubjectSet):
+            return with_edge(
+                TreeNodeType.TUPLE_TO_SUBJECT_SET, r,
+                self._check_ttu(r, child, rest_depth, visited, nid),
+            )
+        if isinstance(child, ast.ComputedSubjectSet):
+            return with_edge(
+                TreeNodeType.COMPUTED_SUBJECT_SET, r,
+                self._check_computed(r, child, rest_depth, visited, nid),
+            )
+        if isinstance(child, ast.SubjectSetRewrite):
+            edge = (
+                TreeNodeType.INTERSECTION
+                if child.operation == ast.Operator.AND
+                else TreeNodeType.UNION
+            )
+            return with_edge(
+                edge, r,
+                self._check_subject_set_rewrite(r, child, rest_depth, visited, nid),
+            )
+        if isinstance(child, ast.InvertResult):
+            return with_edge(
+                TreeNodeType.NOT, r,
+                self._check_inverted(r, child, rest_depth, visited, nid),
+            )
+        raise NotImplementedError(f"unknown rewrite child {type(child)}")
+
+    def _check_inverted(self, r, inverted: ast.InvertResult, rest_depth, visited, nid):
+        if rest_depth < 0:
+            return RESULT_UNKNOWN
+        res = self._check_rewrite_child(r, inverted.child, rest_depth, visited, nid)
+        if res.membership == Membership.IS_MEMBER:
+            return CheckResult(Membership.NOT_MEMBER, res.tree, res.error)
+        if res.membership == Membership.NOT_MEMBER:
+            return CheckResult(Membership.IS_MEMBER, res.tree, res.error)
+        return res
+
+    def _check_computed(self, r, computed: ast.ComputedSubjectSet, rest_depth, visited, nid):
+        if rest_depth < 0:
+            return RESULT_UNKNOWN
+        return self._check_is_allowed(
+            RelationTuple(
+                namespace=r.namespace, object=r.object, relation=computed.relation,
+                subject_id=r.subject_id, subject_set=r.subject_set,
+            ),
+            rest_depth, visited, nid,
+        )
+
+    def _check_ttu(self, r, ttu: ast.TupleToSubjectSet, rest_depth, visited, nid):
+        # plain subject ids are skipped; wildcard-relation sets ARE
+        # traversed here (unlike expand-subject)
+        if rest_depth < 0:
+            return RESULT_UNKNOWN
+        for t in self._subject_sets(r.namespace, r.object, ttu.relation, nid):
+            sset = t.subject_set
+            if sset is None:
+                continue
+            res = self._check_is_allowed(
+                RelationTuple(
+                    namespace=sset.namespace, object=sset.object,
+                    relation=ttu.computed_subject_set_relation,
+                    subject_id=r.subject_id, subject_set=r.subject_set,
+                ),
+                rest_depth - 1, visited, nid,
+            )
+            if res.membership == Membership.IS_MEMBER:
+                return res
+        return RESULT_NOT_MEMBER
+
+    def _or(self, checks) -> CheckResult:
+        for check in checks:
+            res = check()
+            if res.error is not None or res.membership == Membership.IS_MEMBER:
+                return res
+        return RESULT_NOT_MEMBER
+
+    def _and(self, checks) -> CheckResult:
+        if not checks:
+            return RESULT_NOT_MEMBER
+        tree = Tree(type=TreeNodeType.INTERSECTION, children=[])
+        for check in checks:
+            res = check()
+            if res.error is not None or res.membership != Membership.IS_MEMBER:
+                return CheckResult(Membership.NOT_MEMBER, error=res.error)
+            tree.children.append(res.tree)
+        return CheckResult(Membership.IS_MEMBER, tree=tree)

@@ -1,0 +1,578 @@
+"""Graph snapshot compiler, Check subset: relation tuples + namespace
+configs -> the host arrays the batched BFS check kernel runs over.
+
+  - dictionary encoding: namespaces, relations, scoped objects
+    ((ns, object) pairs -> dense int32 "object slots") and plain subject
+    ids each get dense int32 vocabularies
+  - direct-edge hash table: open addressing, double hashing, keyed
+    (obj_slot, rel, skind, sa, sb), for O(1) existence probes
+  - subject-set CSR: one row of subject-set edges per (obj_slot, rel),
+    addressed through a second hash table
+  - rewrite programs: each namespace relation's rewrite compiled to <= K
+    flat instructions {COMPUTED(rel'), TTU(rel, rel')} run per task in the
+    kernel. AND/NOT rewrites compile to islands (leaf sub-checks plus a
+    postfix circuit combined on the host); oversized programs are flagged
+    for exact host replay.
+
+The probe-table layout is an explicit parameter: "bucketized" (probes
+fill whole 256-byte bucket rows, one coalesced warp read on the GPU) or
+"compact" (classic double hashing, one slot per bucket). The hash, the
+probe sequence and the builder's winner rule are bit-identical to the JAX
+package's, so both packages build the same tables from the same tuples.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Sequence
+
+import numpy as np
+
+from ..ketoapi import RelationTuple
+from ..namespace import ast
+from ..namespace.definitions import Namespace
+from .definitions import WILDCARD_RELATION
+
+EMPTY = np.int32(-1)
+
+LAYOUTS = ("bucketized", "compact")
+
+# rewrite instruction kinds
+INSTR_NONE = 0
+INSTR_COMPUTED = 1
+INSTR_TTU = 2
+
+# per-(ns, rel) program flags
+FLAG_HOST_ONLY = 1  # rewrite exceeds the instruction/circuit caps
+FLAG_CONFIG_MISSING = 2  # namespace declares relations but not this one
+FLAG_ISLAND = 4  # rewrite has AND/NOT: island leaves + host circuit
+
+# island circuit op codes (host-side combine, engine/islands.py)
+CIRC_FALSE = "false"
+CIRC_LEAF = "leaf"
+CIRC_NOT = "not"
+CIRC_AND = "and"
+CIRC_OR = "or"
+
+# circuit length cap: a rewrite compiling past this goes host-only
+CIRCUIT_CAP = 48
+
+_GOLDEN = np.uint32(0x9E3779B9)
+
+
+def mix32(x: np.ndarray) -> np.ndarray:
+    """murmur3 fmix32, vectorized over uint32."""
+    x = np.asarray(x, dtype=np.uint32).copy()
+    x ^= x >> np.uint32(16)
+    x *= np.uint32(0x85EBCA6B)
+    x ^= x >> np.uint32(13)
+    x *= np.uint32(0xC2B2AE35)
+    x ^= x >> np.uint32(16)
+    return x
+
+
+def hash_combine(*parts: np.ndarray) -> np.ndarray:
+    h = np.zeros_like(np.asarray(parts[0], dtype=np.uint32)) + _GOLDEN
+    for p in parts:
+        h = mix32(h ^ np.asarray(p, dtype=np.uint32))
+    return h
+
+
+def check_layout(layout: str) -> str:
+    if layout not in LAYOUTS:
+        raise ValueError(f"table layout must be one of {LAYOUTS}, got {layout!r}")
+    return layout
+
+
+def slots_per_bucket(n_key_cols: int, layout: str) -> int:
+    """Slots per open-addressing bucket. Bucketized: every bucket is one
+    256-byte row, so 2-key pair tables (4-int entries) hold 16 slots and
+    5-key edge tables (8-int entries) hold 8. Compact: 1 slot per bucket
+    (classic double hashing)."""
+    if check_layout(layout) == "compact":
+        return 1
+    return 16 if n_key_cols <= 2 else 8
+
+
+def probe_slot(h1, h2, j, cap: int, spb: int):
+    """Slot of probe number `j` for a key with hashes (h1, h2) in a
+    power-of-two table of `cap` slots: probes fill the spb consecutive
+    slots of bucket (h1 + (j // spb) * h2) before stepping to the next
+    bucket. Builders and the kernel must agree on this sequence."""
+    sh = np.uint32(spb.bit_length() - 1)  # log2(spb); spb is 1, 8 or 16
+    bmask = np.uint32(cap // spb - 1)
+    jb = np.asarray(j, dtype=np.uint32) >> sh
+    js = np.asarray(j, dtype=np.uint32) & np.uint32(spb - 1)
+    return ((h1 + jb * h2) & bmask) * np.uint32(spb) + js
+
+
+def pad_headroom(n: int, quantum: int = 1024) -> int:
+    """Length of a vocab-dependent array (objslot_ns, ns_has_config) for
+    n entries: rounded up to a quantum with room for delta growth."""
+    return ((n // quantum) + 2) * quantum
+
+
+def hash_table_capacity(n: int, min_capacity: int = 64) -> int:
+    """Power-of-two capacity at load factor <= 0.25 for n entries (floor
+    64: the bucketized sequence needs at least one full bucket)."""
+    cap = max(min_capacity, 64)
+    while cap < 4 * n:
+        cap *= 2
+    return cap
+
+
+def table_capacity(n: int, layout: str, min_capacity: int = 64) -> int:
+    """Bucketized tables run half the 4n load, so that the probe limit
+    (the max bucket occupancy) stays inside one bucket row; compact
+    tables keep the 4n sizing."""
+    cap = hash_table_capacity(n, min_capacity)
+    if check_layout(layout) == "compact":
+        return cap
+    if cap < 8 * n:
+        cap *= 2
+    return cap
+
+
+def _build_hash_table(
+    keys: tuple[np.ndarray, ...], values: np.ndarray, layout: str,
+    min_capacity: int = 64, boost_load: bool = True,
+) -> tuple[np.ndarray, ...]:
+    """Open-addressing table built in probe rounds: per round, the lowest
+    pending index wins each contended free slot and the losers advance
+    one probe. Returns (key column arrays..., value array, probe_limit)."""
+    n = len(values)
+    cap = (
+        table_capacity(n, layout, min_capacity)
+        if boost_load
+        else hash_table_capacity(n, min_capacity)
+    )
+    spb = slots_per_bucket(len(keys), layout)
+    h1 = hash_combine(*keys)
+    h2 = mix32(h1 ^ _GOLDEN) | np.uint32(1)  # odd stride, pow2 table
+    while True:
+        table_keys = [np.full(cap, EMPTY, dtype=np.int32) for _ in keys]
+        table_vals = np.full(cap, EMPTY, dtype=np.int32)
+        pending = np.arange(n)
+        probe = np.zeros(n, dtype=np.uint32)
+        max_probes = 0
+        while len(pending):
+            max_probes += 1
+            if max_probes > 64:
+                break  # extremely clustered: grow and retry
+            slots = probe_slot(h1[pending], h2[pending], probe[pending], cap, spb)
+            if max_probes == 1:
+                free = np.ones(len(pending), dtype=bool)
+            else:
+                free = table_vals[slots] == EMPTY
+            order = np.argsort(slots[free], kind="stable")
+            free_idx = pending[free][order]
+            free_slots = slots[free][order]
+            if len(free_slots):
+                first = np.concatenate(
+                    [[0], np.flatnonzero(free_slots[1:] != free_slots[:-1]) + 1]
+                )
+            else:
+                first = np.array([], dtype=np.int64)
+            uniq_slots = free_slots[first]
+            winners = free_idx[first]
+            table_vals[uniq_slots] = values[winners]
+            for col, key in zip(table_keys, keys):
+                col[uniq_slots] = key[winners]
+            placed = np.zeros(n, dtype=bool)
+            placed[winners] = True
+            lost = pending[~placed[pending]]
+            probe[lost] += 1
+            pending = lost
+        if not len(pending):
+            return (*table_keys, table_vals, max(max_probes, 1))
+        cap *= 2
+
+
+def encode_edge_arrays(tuples, ns_ids, rel_ids, obj_slots, subj_ids):
+    """Encode tuples to (obj, rel, skind, sa, sb) int32 arrays under a
+    vocabulary that already holds every name."""
+    n_t = len(tuples)
+    t_obj = np.zeros(n_t, dtype=np.int32)
+    t_rel = np.zeros(n_t, dtype=np.int32)
+    t_skind = np.zeros(n_t, dtype=np.int32)
+    t_sa = np.zeros(n_t, dtype=np.int32)
+    t_sb = np.zeros(n_t, dtype=np.int32)
+    for i, t in enumerate(tuples):
+        n = ns_ids[t.namespace]
+        t_obj[i] = obj_slots[(n, t.object)]
+        t_rel[i] = rel_ids[t.relation]
+        if t.subject_set is not None:
+            s = t.subject_set
+            t_skind[i] = 1
+            t_sa[i] = obj_slots[(ns_ids[s.namespace], s.object)]
+            t_sb[i] = rel_ids[s.relation]
+        else:
+            t_sa[i] = subj_ids[t.subject_id or ""]
+    return t_obj, t_rel, t_skind, t_sa, t_sb
+
+
+def group_rows_csr(key_obj, key_rel, payloads, layout: str, min_capacity: int = 64):
+    """Group edges by (obj, rel) into a CSR addressed through a row hash
+    table, stable within a row. Returns (rh_obj, rh_rel, rh_row,
+    rh_probes, row_ptr, sorted_payloads)."""
+    n = len(key_obj)
+    if n:
+        order = np.lexsort((np.arange(n), key_rel, key_obj))
+        key_obj, key_rel = key_obj[order], key_rel[order]
+        payloads = tuple(p[order] for p in payloads)
+        row_change = np.empty(n, dtype=bool)
+        row_change[0] = True
+        row_change[1:] = (key_obj[1:] != key_obj[:-1]) | (key_rel[1:] != key_rel[:-1])
+        row_starts = np.flatnonzero(row_change)
+        row_ptr = np.append(row_starts, n).astype(np.int32)
+        rh_obj, rh_rel, rh_row, rh_probes = _build_hash_table(
+            (key_obj[row_starts], key_rel[row_starts]),
+            np.arange(len(row_starts), dtype=np.int32),
+            layout, min_capacity=min_capacity,
+        )
+    else:
+        cap = max(min_capacity, 64)
+        row_ptr = np.zeros(1, dtype=np.int32)
+        rh_obj = np.full(cap, EMPTY, np.int32)
+        rh_rel = np.full(cap, EMPTY, np.int32)
+        rh_row = np.full(cap, EMPTY, np.int32)
+        rh_probes = 1
+    return rh_obj, rh_rel, rh_row, rh_probes, row_ptr, payloads
+
+
+def build_edge_tables(t_obj, t_rel, t_skind, t_sa, t_sb, layout: str) -> dict:
+    """Direct-edge hash table + subject-set CSR from encoded edges.
+    Wildcard-relation subject sets stay in the CSR (TTU traverses them;
+    the kernel drops them from the expand-subject slot)."""
+    n_t = len(t_obj)
+    dh = _build_hash_table(
+        (t_obj, t_rel, t_skind, t_sa, t_sb), np.ones(n_t, dtype=np.int32), layout
+    )
+    dh_obj, dh_rel, dh_skind, dh_sa, dh_sb, dh_val, dh_probes = dh
+    is_set = t_skind == 1
+    rh_obj, rh_rel, rh_row, rh_probes, row_ptr, (e_obj, e_rel) = group_rows_csr(
+        t_obj[is_set], t_rel[is_set],
+        (t_sa[is_set].astype(np.int32), t_sb[is_set].astype(np.int32)),
+        layout,
+    )
+    return {
+        "dh_obj": dh_obj, "dh_rel": dh_rel, "dh_skind": dh_skind,
+        "dh_sa": dh_sa, "dh_sb": dh_sb, "dh_val": dh_val, "dh_probes": dh_probes,
+        "rh_obj": rh_obj, "rh_rel": rh_rel, "rh_row": rh_row, "rh_probes": rh_probes,
+        "row_ptr": row_ptr, "e_obj": e_obj, "e_rel": e_rel,
+    }
+
+
+@dataclass
+class GraphSnapshot:
+    """Immutable host mirror of one network's relation graph."""
+
+    ns_ids: dict[str, int]
+    rel_ids: dict[str, int]
+    obj_slots: dict  # (ns_id, object) -> slot
+    subj_ids: dict  # plain subject string -> id
+    n_config_rels: int  # rel ids < this may have rewrite programs
+    wildcard_rel: int  # rel id of "..."
+    layout: str  # probe-table layout every table of this snapshot uses
+
+    objslot_ns: np.ndarray  # obj_slot -> ns_id
+    ns_has_config: np.ndarray  # ns_id -> 1 iff it declares relations
+
+    dh_obj: np.ndarray
+    dh_rel: np.ndarray
+    dh_skind: np.ndarray
+    dh_sa: np.ndarray
+    dh_sb: np.ndarray
+    dh_val: np.ndarray
+    dh_probes: int
+
+    rh_obj: np.ndarray
+    rh_rel: np.ndarray
+    rh_row: np.ndarray
+    rh_probes: int
+
+    row_ptr: np.ndarray  # [n_rows + 1]
+    e_obj: np.ndarray  # [n_edges] subject-set object slot
+    e_rel: np.ndarray  # [n_edges] subject-set relation id
+
+    # rewrite programs, dense [n_ns * n_config_rels, K]; K is the effective
+    # max program length (the kernel's expansion slot count is K + 1)
+    instr_kind: np.ndarray
+    instr_rel: np.ndarray
+    instr_rel2: np.ndarray
+    prog_flags: np.ndarray
+    K: int
+
+    # island programs: pid -> postfix circuit over leaf values
+    island_circuits: dict = field(default_factory=dict)
+
+    version: int = 0
+    n_tuples: int = 0
+
+    def device_arrays(self) -> dict[str, np.ndarray]:
+        """The columnar arrays the kernel's packed tables are made from."""
+        return {
+            "objslot_ns": self.objslot_ns,
+            "ns_has_config": self.ns_has_config,
+            "dh_obj": self.dh_obj, "dh_rel": self.dh_rel,
+            "dh_skind": self.dh_skind, "dh_sa": self.dh_sa,
+            "dh_sb": self.dh_sb, "dh_val": self.dh_val,
+            "rh_obj": self.rh_obj, "rh_rel": self.rh_rel, "rh_row": self.rh_row,
+            "row_ptr": self.row_ptr, "e_obj": self.e_obj, "e_rel": self.e_rel,
+            "instr_kind": self.instr_kind, "instr_rel": self.instr_rel,
+            "instr_rel2": self.instr_rel2, "prog_flags": self.prog_flags,
+        }
+
+
+def _is_monotone(rw: ast.SubjectSetRewrite) -> bool:
+    if rw.operation != ast.Operator.OR:
+        return False
+    for child in rw.children:
+        if isinstance(child, ast.SubjectSetRewrite):
+            if not _is_monotone(child):
+                return False
+        elif isinstance(child, ast.InvertResult):
+            return False
+        elif not isinstance(child, (ast.ComputedSubjectSet, ast.TupleToSubjectSet)):
+            return False
+    return True
+
+
+def _compile_rewrite(rewrite, rel_ids: dict[str, int], K: int):
+    """Compile a rewrite AST. Returns (instructions, circuit, flags):
+    pure-union trees flatten to <= K inline instructions (circuit None);
+    trees with AND/NOT become an island, whose instructions are its leaf
+    sub-checks and whose circuit is a postfix program over the leaf bits
+    (FLAG_ISLAND); trees past the caps are FLAG_HOST_ONLY."""
+    if rewrite is None:
+        return [], None, 0
+
+    if _is_monotone(rewrite):
+        instrs: list[tuple[int, int, int]] = []
+
+        def walk(rw: ast.SubjectSetRewrite) -> None:
+            for child in rw.children:
+                if isinstance(child, ast.ComputedSubjectSet):
+                    instrs.append((INSTR_COMPUTED, rel_ids[child.relation], 0))
+                elif isinstance(child, ast.TupleToSubjectSet):
+                    instrs.append((
+                        INSTR_TTU,
+                        rel_ids[child.relation],
+                        rel_ids[child.computed_subject_set_relation],
+                    ))
+                else:
+                    walk(child)
+
+        walk(rewrite)
+        if len(instrs) > K:
+            return [], None, FLAG_HOST_ONLY
+        return instrs, None, 0
+
+    leaves: list[tuple[int, int, int]] = []
+    leaf_index: dict[tuple[int, int, int], int] = {}
+    ops: list[tuple] = []
+    ok = True
+
+    def leaf(key: tuple[int, int, int]) -> None:
+        k = leaf_index.get(key)
+        if k is None:
+            k = len(leaves)
+            leaf_index[key] = k
+            leaves.append(key)
+        ops.append((CIRC_LEAF, k))
+
+    def emit(node) -> None:
+        nonlocal ok
+        if isinstance(node, ast.ComputedSubjectSet):
+            leaf((INSTR_COMPUTED, rel_ids[node.relation], 0))
+        elif isinstance(node, ast.TupleToSubjectSet):
+            leaf((
+                INSTR_TTU,
+                rel_ids[node.relation],
+                rel_ids[node.computed_subject_set_relation],
+            ))
+        elif isinstance(node, ast.InvertResult):
+            emit(node.child)
+            ops.append((CIRC_NOT,))
+        elif isinstance(node, ast.SubjectSetRewrite):
+            if not node.children:
+                ops.append((CIRC_FALSE,))  # or([]) = and([]) = NotMember
+                return
+            combine = CIRC_AND if node.operation == ast.Operator.AND else CIRC_OR
+            for i, child in enumerate(node.children):
+                emit(child)
+                if i:
+                    ops.append((combine,))
+        else:
+            ok = False
+
+    emit(rewrite)
+    if not ok or len(leaves) > K or len(ops) > CIRCUIT_CAP:
+        return [], None, FLAG_HOST_ONLY
+    return leaves, tuple(ops), FLAG_ISLAND
+
+
+def _walk_rewrite_relations(rw: ast.SubjectSetRewrite):
+    """Yield (kind, relation, relation2) for every leaf of a rewrite."""
+    for child in rw.children:
+        if isinstance(child, ast.ComputedSubjectSet):
+            yield ("computed", child.relation, "")
+        elif isinstance(child, ast.TupleToSubjectSet):
+            yield ("ttu", child.relation, child.computed_subject_set_relation)
+        elif isinstance(child, ast.SubjectSetRewrite):
+            yield from _walk_rewrite_relations(child)
+        elif isinstance(child, ast.InvertResult):
+            sub = child.child
+            if isinstance(sub, ast.SubjectSetRewrite):
+                yield from _walk_rewrite_relations(sub)
+            elif isinstance(sub, ast.ComputedSubjectSet):
+                yield ("computed", sub.relation, "")
+            elif isinstance(sub, ast.TupleToSubjectSet):
+                yield ("ttu", sub.relation, sub.computed_subject_set_relation)
+
+
+def _register_config_vocab(namespaces, ns_id, rel_id) -> None:
+    """Config relations first, so rewrite-capable rel ids are dense in
+    [0, n_config_rels) and the program table stays small."""
+    rel_id(WILDCARD_RELATION)
+    for ns in namespaces:
+        ns_id(ns.name)
+        for rel in ns.relations:
+            rel_id(rel.name)
+            if rel.subject_set_rewrite is not None:
+                for _kind, a, b in _walk_rewrite_relations(rel.subject_set_rewrite):
+                    rel_id(a)
+                    if b:
+                        rel_id(b)
+
+
+def _build_programs(namespaces, ns_ids, rel_ids, n_config_rels, n_ns, K):
+    """Dense program tables of every namespace relation's rewrite."""
+    NR = n_ns * max(n_config_rels, 1)
+    compiled: dict[int, tuple] = {}
+    missing_flags: list[int] = []
+    for ns in namespaces:
+        nsid = ns_ids[ns.name]
+        if not ns.relations:
+            continue
+        declared = {rel.name for rel in ns.relations}
+        # an undeclared relation visited in this namespace is an error
+        for rel_name, rid in rel_ids.items():
+            if rid < n_config_rels and rel_name not in declared:
+                missing_flags.append(nsid * n_config_rels + rid)
+        for rel in ns.relations:
+            pidx = nsid * n_config_rels + rel_ids[rel.name]
+            compiled[pidx] = _compile_rewrite(rel.subject_set_rewrite, rel_ids, K)
+
+    K_eff = max([len(instrs) for instrs, _, _ in compiled.values()] + [1])
+    instr_kind = np.zeros((NR, K_eff), dtype=np.int32)
+    instr_rel = np.zeros((NR, K_eff), dtype=np.int32)
+    instr_rel2 = np.zeros((NR, K_eff), dtype=np.int32)
+    prog_flags = np.zeros(NR, dtype=np.int32)
+    island_circuits: dict[int, tuple] = {}
+    for pidx in missing_flags:
+        prog_flags[pidx] |= FLAG_CONFIG_MISSING
+    for pidx, (instrs, circuit, cflags) in compiled.items():
+        prog_flags[pidx] |= cflags
+        if circuit is not None:
+            island_circuits[pidx] = circuit
+        for k, (kind, a, b) in enumerate(instrs):
+            instr_kind[pidx, k] = kind
+            instr_rel[pidx, k] = a
+            instr_rel2[pidx, k] = b
+    return instr_kind, instr_rel, instr_rel2, prog_flags, K_eff, island_circuits
+
+
+def build_snapshot(
+    tuples: Sequence[RelationTuple],
+    namespaces: Sequence[Namespace],
+    *,
+    layout: str,
+    K: int = 8,
+    version: int = 0,
+) -> GraphSnapshot:
+    ns_ids: dict[str, int] = {}
+    rel_ids: dict[str, int] = {}
+    obj_slots: dict[tuple[int, str], int] = {}
+    subj_ids: dict[str, int] = {}
+
+    def ns_id(name: str) -> int:
+        return ns_ids.setdefault(name, len(ns_ids))
+
+    def rel_id(name: str) -> int:
+        return rel_ids.setdefault(name, len(rel_ids))
+
+    _register_config_vocab(namespaces, ns_id, rel_id)
+    n_config_rels = len(rel_ids)
+
+    for t in tuples:
+        n = ns_id(t.namespace)
+        obj_slots.setdefault((n, t.object), len(obj_slots))
+        rel_id(t.relation)
+        if t.subject_set is not None:
+            s = t.subject_set
+            obj_slots.setdefault((ns_id(s.namespace), s.object), len(obj_slots))
+            rel_id(s.relation)
+        else:
+            subj_ids.setdefault(t.subject_id or "", len(subj_ids))
+
+    n_ns = max(len(ns_ids), 1)
+    objslot_ns = np.zeros(pad_headroom(max(len(obj_slots), 1)), dtype=np.int32)
+    if obj_slots:
+        keys = np.fromiter((k[0] for k in obj_slots), dtype=np.int32, count=len(obj_slots))
+        slots = np.fromiter(obj_slots.values(), dtype=np.int64, count=len(obj_slots))
+        objslot_ns[slots] = keys
+    ns_has_config = np.zeros(pad_headroom(n_ns, 64), dtype=np.int32)
+    for ns in namespaces:
+        if ns.relations:
+            ns_has_config[ns_ids[ns.name]] = 1
+
+    edges = encode_edge_arrays(tuples, ns_ids, rel_ids, obj_slots, subj_ids)
+    tables = build_edge_tables(*edges, layout=layout)
+    (
+        instr_kind, instr_rel, instr_rel2, prog_flags, K_eff, island_circuits,
+    ) = _build_programs(namespaces, ns_ids, rel_ids, n_config_rels, n_ns, K)
+
+    return GraphSnapshot(
+        ns_ids=ns_ids, rel_ids=rel_ids, obj_slots=obj_slots, subj_ids=subj_ids,
+        n_config_rels=n_config_rels,
+        wildcard_rel=rel_ids[WILDCARD_RELATION],
+        layout=layout,
+        objslot_ns=objslot_ns, ns_has_config=ns_has_config,
+        dh_obj=tables["dh_obj"], dh_rel=tables["dh_rel"],
+        dh_skind=tables["dh_skind"], dh_sa=tables["dh_sa"],
+        dh_sb=tables["dh_sb"], dh_val=tables["dh_val"],
+        dh_probes=tables["dh_probes"],
+        rh_obj=tables["rh_obj"], rh_rel=tables["rh_rel"],
+        rh_row=tables["rh_row"], rh_probes=tables["rh_probes"],
+        row_ptr=tables["row_ptr"], e_obj=tables["e_obj"], e_rel=tables["e_rel"],
+        instr_kind=instr_kind, instr_rel=instr_rel, instr_rel2=instr_rel2,
+        prog_flags=prog_flags, K=K_eff, island_circuits=island_circuits,
+        version=version, n_tuples=len(tuples),
+    )
+
+
+def encode_query_batch(view, tuples: Sequence[RelationTuple], B: int):
+    """(q_obj, q_rel, q_skind, q_sa, q_sb, q_valid) arrays of length B.
+
+    A query whose node (namespace, object, relation) is unknown stays
+    invalid and is answered by exact host replay (a missing relation in a
+    configured namespace must still raise). An unknown subject keeps the
+    sentinel sa = -2: the walk still runs, so error flags surface, but no
+    direct probe can hit."""
+    q_obj = np.zeros(B, dtype=np.int32)
+    q_rel = np.zeros(B, dtype=np.int32)
+    q_skind = np.zeros(B, dtype=np.int32)
+    q_sa = np.full(B, -2, dtype=np.int32)
+    q_sb = np.zeros(B, dtype=np.int32)
+    q_valid = np.zeros(B, dtype=bool)
+    for i, t in enumerate(tuples):
+        node = view.encode_node(t.namespace, t.object, t.relation)
+        if node is None:
+            continue
+        q_obj[i], q_rel[i] = node
+        subject = view.encode_subject(t)
+        if subject is not None:
+            q_skind[i], q_sa[i], q_sb[i] = subject
+        q_valid[i] = True
+    return q_obj, q_rel, q_skind, q_sa, q_sb, q_valid

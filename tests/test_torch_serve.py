@@ -1,0 +1,179 @@
+"""The port's REST Check routes over a CPU engine: the serve entry point
+as a subprocess, and the routes in process, held against the JAX
+package's host oracle on the same tuples."""
+
+import json
+import os
+import subprocess
+import sys
+import threading
+import urllib.error
+import urllib.parse
+import urllib.request
+
+import pytest
+
+from keto_tpu.config import Config as JConfig
+from keto_tpu.engine import ReferenceEngine as JReference
+from keto_tpu.ketoapi import RelationTuple as JTuple
+from keto_tpu.storage import MemoryManager as JMemory
+
+from keto_tpu_torch.api.rest_server import encode_snaptoken, make_server
+from keto_tpu_torch.config import Config
+from keto_tpu_torch.engine.torch_engine import TorchCheckEngine
+from keto_tpu_torch.ketoapi import RelationTuple
+from keto_tpu_torch.storage import MemoryManager
+
+from test_torch_kernel import SCENARIOS
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _get(base, path, params=None):
+    url = base + path + ("?" + urllib.parse.urlencode(params) if params else "")
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def _post(base, path, body):
+    req = urllib.request.Request(
+        base + path, data=json.dumps(body).encode(), method="POST",
+        headers={"Content-Type": "application/json"},
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _params(s):
+    t = RelationTuple.from_string(s)
+    p = {"namespace": t.namespace, "object": t.object, "relation": t.relation}
+    if t.subject_set is not None:
+        p.update({
+            "subject_set.namespace": t.subject_set.namespace,
+            "subject_set.object": t.subject_set.object,
+            "subject_set.relation": t.subject_set.relation,
+        })
+    else:
+        p["subject_id"] = t.subject_id
+    return p
+
+
+@pytest.fixture(scope="module")
+def rewrite_server():
+    namespaces, tuples, queries, max_depth = SCENARIOS["rewrite_fixtures"]()
+    cfg = Config({"limit": {"max_read_depth": max_depth},
+                  "namespaces": [ns.to_dict() for ns in namespaces]})
+    m = MemoryManager()
+    m.write_relation_tuples([RelationTuple.from_string(s) for s in tuples])
+    server = make_server(TorchCheckEngine(m, cfg, device="cpu"), "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    jcfg = JConfig({"limit": {"max_read_depth": max_depth}})
+    jcfg.set_namespaces(namespaces)
+    jm = JMemory()
+    jm.write_relation_tuples([JTuple.from_string(s) for s in tuples])
+    yield f"http://127.0.0.1:{server.server_address[1]}", queries, JReference(jm, jcfg)
+    server.shutdown()
+    server.server_close()
+
+
+def test_check_routes_match_oracle(rewrite_server):
+    base, queries, oracle = rewrite_server
+    for q in queries:
+        want = oracle.check_relation_tuple(JTuple.from_string(q)).allowed
+        code, body, headers = _get(base, "/relation-tuples/check", _params(q))
+        assert (code, body) == ((200, {"allowed": True}) if want else (403, {"allowed": False})), q
+        assert headers["X-Keto-Snaptoken"] == encode_snaptoken(1, "default")
+        code, body, _ = _get(base, "/relation-tuples/check/openapi", _params(q))
+        assert (code, body) == (200, {"allowed": want}), q
+
+
+def test_batch_route_matches_oracle(rewrite_server):
+    base, queries, oracle = rewrite_server
+    items = [RelationTuple.from_string(q).to_dict() for q in queries]
+    items.append({"namespace": "ghost", "object": "o", "relation": "r", "subject_id": "u"})
+    items.append({"namespace": "doc"})
+    code, body = _post(base, "/relation-tuples/check/batch", {"tuples": items})
+    assert code == 200
+    want = [{"allowed": oracle.check_relation_tuple(JTuple.from_string(q)).allowed}
+            for q in queries]
+    assert body["results"][: len(queries)] == want
+    assert body["results"][-2]["allowed"] is False and "ghost" in body["results"][-2]["error"]
+    assert body["results"][-1]["allowed"] is False and body["results"][-1]["error"]
+    assert body["snaptoken"] == encode_snaptoken(1, "default")
+
+
+def test_errors_and_unknown_namespace(rewrite_server):
+    base, _queries, _oracle = rewrite_server
+    code, body, _ = _get(base, "/relation-tuples/check",
+                         {"namespace": "ghost", "object": "o", "relation": "r", "subject_id": "u"})
+    assert (code, body) == (403, {"allowed": False})
+    code, body, _ = _get(base, "/relation-tuples/check", {"namespace": "doc"})
+    assert code == 400 and body["error"]["code"] == 400
+    code, body = _post(base, "/relation-tuples/check/batch", {"tuples": "nope"})
+    assert code == 400
+    code, body, _ = _get(base, "/nowhere")
+    assert code == 404
+    code, body = _post(base, "/relation-tuples/check", [1])
+    assert code == 400 and body["error"]["status"] == "bad_request"
+    t = RelationTuple.from_string("doc:document#owner@user").to_dict()
+    assert _post(base, "/relation-tuples/check", t) == (200, {"allowed": True})
+
+
+def test_serve_entry_point(tmp_path):
+    """`python -m keto_tpu_torch serve` on the CPU: a 200, a 403 and a
+    batch over a small store, then a clean stop on SIGTERM."""
+    namespaces, tuples, _queries, _depth = SCENARIOS["cat_videos"]()
+    cfg = {
+        "namespaces": [ns.to_dict() for ns in namespaces],
+        "serve": {"read": {"host": "127.0.0.1", "port": 0}},
+    }
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    (tmp_path / "tuples.txt").write_text("\n".join(tuples) + "\n")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "keto_tpu_torch", "serve", "--config", str(tmp_path / "cfg.json"),
+         "--tuples", str(tmp_path / "tuples.txt"), "--device", "cpu"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": REPO},
+    )
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("serving read="), line + proc.stderr.read()
+        base = "http://" + line.split("=", 1)[1].strip()
+        code, body, _ = _get(base, "/relation-tuples/check",
+                             _params("videos:/cats/1.mp4#view@cat lady"))
+        assert (code, body) == (200, {"allowed": True})
+        code, body, _ = _get(base, "/relation-tuples/check",
+                             _params("videos:/cats/2.mp4#view@john"))
+        assert (code, body) == (403, {"allowed": False})
+        code, body = _post(base, "/relation-tuples/check/batch", [
+            RelationTuple.from_string(s).to_dict()
+            for s in ("videos:/cats/2.mp4#view@cat lady", "videos:/cats#owner@john")
+        ])
+        assert code == 200 and body["results"] == [{"allowed": True}, {"allowed": False}]
+    finally:
+        proc.terminate()
+        assert proc.wait(timeout=30) == 0
+        proc.stdout.close()
+        proc.stderr.close()
+
+
+def test_serve_on_cuda_without_a_card_fails(tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    (tmp_path / "cfg.json").write_text(json.dumps({"namespaces": []}))
+    proc = subprocess.run(
+        [sys.executable, "-m", "keto_tpu_torch", "serve", "--config", str(tmp_path / "cfg.json")],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
