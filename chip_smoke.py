@@ -6,9 +6,10 @@ the port builds, agrees with itself and runs its main path on the GPU.
 Phases, in order; any failure exits non-zero without the final line:
 
   1. card    — nvidia-smi's name and power limit
-  2. build   — nvcc builds csrc/check_kernels.cu from the checkout
-  3. kernels — each CUDA kernel against its plain PyTorch version on the
-               card, on inputs captured from one real batch of phase 4's
+  2. build   — nvcc builds csrc/check_kernels.cu and csrc/expand_kernels.cu
+               from the checkout, one compiler per source, in parallel
+  3. kernels — K1-K4 against their plain PyTorch versions on the card,
+               on inputs captured from one real batch of phase 4's
                workload over its tables; exact equality, times, bounds
   4. check   — the main path: ~1e6 tuples (the benchmark's videos
                namespace, view = owner | parent->view, 6,600 folders x
@@ -18,7 +19,16 @@ Phases, in order; any failure exits non-zero without the final line:
                oracle's; checks/s and p50 batch ms
   5. islands — an AND/NOT namespace batch against the host oracle
   6. serve   — `python -m keto_tpu_torch serve` on a free port: a 200, a
-               403 and a batch check
+               403, a batch check, an expand tree and an expand 404
+  7. expand  — (7a) data, (7b) X1 and X2 against their plain versions
+               on inputs captured from one real expand batch, as phase 3;
+               then the Expand path: ~1e6 tuples of bench.py's RBAC shape (role
+               member sets nesting earlier roles, docs with owner <
+               editor < viewer rewrites; 13,000 roles x 410,000 docs),
+               TorchCheckEngine.expand_batch over batches of 1024 role
+               member sets; zero host expands, X1, X2, K2 and K4 launched,
+               256 sampled trees equal the host oracle's; trees/s and p50
+               batch ms
 
 Before the last line it prints the kernel table as one JSON object
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -30,6 +40,7 @@ the wrapper's time per call between CUDA events, host enqueue included.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import random
@@ -51,12 +62,29 @@ N_USERS = 512
 BATCH = 4096
 MAX_DEPTH = 5
 ROUNDS = 20
-KERNEL_SOURCE = "keto_tpu_torch/csrc/check_kernels.cu"
+# expand phase: bench.py:374's RBAC shape, scaled from 64 roles x 2,000
+# docs to ~1e6 tuples; its batch and cap formulas (bench.py:437, :448)
+N_ROLES = 13000
+N_DOCS = 410000
+EXPAND_BATCH = 1024
+EXPAND_DEPTH = 6
+EXPAND_CAPS = dict(frontier_cap=max(1024, 4 * EXPAND_BATCH),
+                   edge_cap=max(4096, 16 * EXPAND_BATCH))
+KERNEL_SOURCES = {
+    "edge_probe": "keto_tpu_torch/csrc/check_kernels.cu",
+    "pair_probe": "keto_tpu_torch/csrc/check_kernels.cu",
+    "expand_gather": "keto_tpu_torch/csrc/check_kernels.cu",
+    "dedupe_compact": "keto_tpu_torch/csrc/check_kernels.cu",
+    "expand_emit": "keto_tpu_torch/csrc/expand_kernels.cu",
+    "pool_compact": "keto_tpu_torch/csrc/expand_kernels.cu",
+}
 REPLACES = {
     "edge_probe": "keto_tpu/engine/kernel.py:259",
     "pair_probe": "keto_tpu/engine/kernel.py:298",
     "expand_gather": "keto_tpu/engine/kernel.py:520",
     "dedupe_compact": "keto_tpu/engine/kernel.py:762",
+    "expand_emit": "keto_tpu/engine/expand_kernel.py:157",
+    "pool_compact": "keto_tpu/engine/expand_kernel.py:355",
 }
 
 
@@ -115,6 +143,64 @@ def build_dataset(n_folders: int, files_per_folder: int, seed: int = 1234):
     return tuples, queries
 
 
+def rbac_namespaces():
+    from keto_tpu_torch.namespace import Namespace
+
+    def computed(rel):
+        return {"operator": "or", "children": [{"type": "computed_subject_set", "relation": rel}]}
+
+    return [
+        Namespace.from_dict({"name": "role", "relations": [{"name": "member"}]}),
+        Namespace.from_dict({"name": "doc", "relations": [
+            {"name": "owner"},
+            {"name": "editor", "rewrite": computed("owner")},
+            {"name": "viewer", "rewrite": computed("editor")},
+        ]}),
+    ]
+
+
+def build_rbac_dataset(n_roles: int, n_docs: int, seed: int = 7):
+    """bench.py's config 3 in its own draw order: 4 direct members per
+    role, each later role nests one earlier role with p = 0.5; one owner
+    and one role-editor set per doc, a viewer with p = 0.3; then the
+    expand batch of role member sets."""
+    from keto_tpu_torch.ketoapi import RelationTuple, SubjectSet
+
+    rng = random.Random(seed)
+    tuples = []
+    for r in range(n_roles):
+        for _ in range(4):
+            tuples.append(RelationTuple("role", f"r{r}", "member",
+                                        subject_id=f"u{rng.randrange(N_USERS)}"))
+        if r and rng.random() < 0.5:
+            tuples.append(RelationTuple("role", f"r{r}", "member", subject_set=SubjectSet(
+                "role", f"r{rng.randrange(r)}", "member")))
+    for d in range(n_docs):
+        tuples.append(RelationTuple("doc", f"d{d}", "owner",
+                                    subject_id=f"u{rng.randrange(N_USERS)}"))
+        tuples.append(RelationTuple("doc", f"d{d}", "editor", subject_set=SubjectSet(
+            "role", f"r{rng.randrange(n_roles)}", "member")))
+        if rng.random() < 0.3:
+            tuples.append(RelationTuple("doc", f"d{d}", "viewer",
+                                        subject_id=f"u{rng.randrange(N_USERS)}"))
+    subjects = [SubjectSet("role", f"r{rng.randrange(n_roles)}", "member")
+                for _ in range(EXPAND_BATCH)]
+    return tuples, subjects
+
+
+def tree_size(tree) -> int:
+    return 0 if tree is None else 1 + sum(tree_size(c) for c in tree.children)
+
+
+def normalize(tree):
+    """Order-free form of a tree: the device lists a node's children in
+    CSR row order, the host oracle in store order."""
+    if tree is None:
+        return None
+    kids = sorted((normalize(c) for c in tree.children), key=repr)
+    return (tree.type.value, str(tree.tuple) if tree.tuple else None, tuple(kids))
+
+
 # -- kernels: capture, compare, time -------------------------------------------
 
 
@@ -133,6 +219,8 @@ class Recorder:
         import torch
 
         def clone(x):
+            if isinstance(x, tuple):
+                return tuple(clone(y) for y in x)
             return x.clone() if isinstance(x, torch.Tensor) else x
 
         for name in self.cuda_ops.KERNELS:
@@ -174,22 +262,27 @@ def wall_ms(fn, reps: int = 20) -> float:
 
 def device_ms(fn, reps: int = 20) -> float:
     """Device time per call: the profiler's self device time of every
-    kernel the calls launched, over `reps` calls."""
+    kernel the calls launched, over `reps` calls. The profiler now and
+    then reports no device time for so short a window; after three such
+    tries the time between CUDA events stands in (host enqueue included,
+    so never below the device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(evt.self_device_time_total for evt in prof.key_averages()
-                  if evt.device_type == DeviceType.CUDA)
-    if busy_us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return busy_us / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = sum(evt.self_device_time_total for evt in prof.key_averages()
+                      if evt.device_type == DeviceType.CUDA)
+        if busy_us > 0:
+            return busy_us / 1e3 / reps
+    log("  (the profiler saw no device time three times: CUDA-event time instead)")
+    return wall_ms(fn, reps)
 
 
 def max_abs_err(got, want) -> int:
@@ -296,37 +389,114 @@ def kernel_cases(rec, snap, tables):
     return cases
 
 
+def expand_kernel_cases(rec):
+    """(name, kernel fn, plain fn, bytes, operations, compare fn) of X1
+    (step 1 of a real expand batch) and X2 (its one call). X1 and X2
+    update buffers in place, so every call works on its own clones;
+    timing reuses one set of clones (a step's edges move eb_count by a few
+    slots of the E per call, far from the buffer's end). Bytes count what
+    the step's data needs: the gate columns of every task, the spans,
+    parents and query counts of the tasks that emit, their emitted edges
+    (three CSR columns read, five buffer columns written) and the [4F]
+    candidate columns; X2 reads B counts and flags and the used buffer
+    rows and writes the whole packed vector."""
+    import torch
+
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine import expand_kernel as tek
+
+    def cloned(args):
+        return [tuple(x.clone() for x in a) if isinstance(a, tuple)
+                else a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+
+    cases = []
+    args1, kw1 = rec.args("expand_emit")
+    t_q, _obj, _rel, t_depth, live, row, dirty, f_row_ptr = args1[:8]
+    eb_count = args1[12]
+    F, B = t_q.shape[0], eb_count.shape[0]
+    G = tek.EMIT_PER_TASK * F
+    emitting = int((live & (t_depth >= 2) & (row >= 0)).sum())
+
+    def run1(fn):
+        a = cloned(args1)
+        out = fn(*a, **kw1)
+        return (*out, *a[11], a[12], a[13])  # outputs, then the buffers it updated
+
+    probe = run1(tek.expand_emit_plain)
+    n_emit = int(probe[6])
+    timed1 = cloned(args1)
+    cases.append((
+        "expand_emit",
+        lambda: cuda_ops.expand_emit(*timed1, **kw1),
+        lambda: tek.expand_emit_plain(*timed1, **kw1),
+        F * (4 * 4 + 1) + emitting * (8 + 8 + 8) + n_emit * (12 + 20) + G * (4 * 4 + 1),
+        F * 20 + G * (3 * max(F, 2).bit_length() + 20),
+        lambda: max_abs_err(run1(cuda_ops.expand_emit), run1(tek.expand_emit_plain)),
+    ))
+
+    args2, kw2 = rec.args("pool_compact")
+    eb_count2 = args2[1]
+    B2, P = eb_count2.shape[0], kw2["pool_cap"]
+    used = int(eb_count2.clamp(0, kw2["edge_cap"]).sum().clamp(max=P))
+    cases.append((
+        "pool_compact",
+        lambda: cuda_ops.pool_compact(*args2, **kw2),
+        lambda: tek.pool_compact_plain(*args2, **kw2),
+        B2 * (4 + 2) + 32 + used * 5 * 4 + (3 * B2 + 1 + tek.N_LAUNCH_STATS + 5 * P) * 4,
+        B2 * 6 + P * (2 * max(B2, 2).bit_length() + 15),
+        lambda: max_abs_err(cuda_ops.pool_compact(*args2, **kw2),
+                            tek.pool_compact_plain(*args2, **kw2)),
+    ))
+    return cases
+
+
 # -- phases ------------------------------------------------------------------------
+
+
+def time_kernel(name, kernel, plain, nbytes, ops, compare) -> dict:
+    err = compare()
+    ms, plain_ms = device_ms(kernel), device_ms(plain)
+    k_wall, p_wall = wall_ms(kernel), wall_ms(plain)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / OPS_INT32_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"  {name}: max_abs_err {err}, device ms: kernel {ms:.5f}, plain {plain_ms:.5f}; "
+        f"wall ms: kernel {k_wall:.5f}, plain {p_wall:.5f}; "
+        f"bound {bound_ms:.6f} ms by {bound_by} ({nbytes} B, {ops} ops)")
+    if err != 0:
+        raise AssertionError(f"{name} disagrees with its plain version: {err}")
+    return {
+        "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
+        "replaces": REPLACES[name], "launches": None, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "wall_ms": k_wall, "plain_wall_ms": p_wall,
+        "bytes": nbytes, "ops": ops,
+    }
 
 
 def run_kernels(engine, queries):
     from keto_tpu_torch.engine import cuda_ops
 
-    t0 = phase("3 kernels: each CUDA kernel against its plain version, on a real batch")
+    t0 = phase("3 kernels: K1-K4 against their plain versions, on a real check batch")
     with Recorder(cuda_ops, step=1) as rec:
         engine.check_batch(queries, MAX_DEPTH)
     rows = []
     state = engine.ensure_state()
     for name, kernel, plain, nbytes, ops in kernel_cases(rec, state.snapshot, state.tables):
-        err = max_abs_err(kernel(), plain())
-        ms, plain_ms = device_ms(kernel), device_ms(plain)
-        k_wall, p_wall = wall_ms(kernel), wall_ms(plain)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / OPS_INT32_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        log(f"  {name}: max_abs_err {err}, device ms: kernel {ms:.5f}, plain {plain_ms:.5f}; "
-            f"wall ms: kernel {k_wall:.5f}, plain {p_wall:.5f}; "
-            f"bound {bound_ms:.6f} ms by {bound_by} ({nbytes} B, {ops} ops)")
-        if err != 0:
-            raise AssertionError(f"{name} disagrees with its plain version: {err}")
-        rows.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name], "launches": None, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "wall_ms": k_wall, "plain_wall_ms": p_wall,
-            "bytes": nbytes, "ops": ops,
-        })
+        rows.append(time_kernel(name, kernel, plain, nbytes, ops,
+                                lambda k=kernel, p=plain: max_abs_err(k(), p())))
+    log(f"  kernels phase {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def run_expand_kernels(engine, subjects):
+    from keto_tpu_torch.engine import cuda_ops
+
+    t0 = phase("7b kernels: X1 and X2 against their plain versions, on a real expand batch")
+    with Recorder(cuda_ops, step=1) as rec:
+        engine.expand_batch(subjects, EXPAND_DEPTH, **EXPAND_CAPS)
+    rows = [time_kernel(*case) for case in expand_kernel_cases(rec)]
     log(f"  kernels phase {time.perf_counter() - t0:.1f} s")
     return rows
 
@@ -364,9 +534,9 @@ def run_check(engine, queries, manager, config):
         lat.append((time.perf_counter() - s) * 1e3)
     if engine.stats["host_checks"] != before["host_checks"]:
         raise AssertionError("host replays during the timed rounds")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in cuda_ops.CHECK_KERNELS if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"kernels never launched on the check path: {missing}")
     # 512 sampled verdicts against the exact host oracle
     oracle = ReferenceEngine(manager, config)
     sample = random.Random(7).sample(range(len(queries)), min(512, len(queries)))
@@ -384,13 +554,43 @@ def run_check(engine, queries, manager, config):
                       "batch_ms": lat, "allowed": allowed}
 
 
+def device_profile(fn, label: str) -> dict:
+    """Device busy time by kernel over two calls of `fn` from the
+    profiler, and the idle share against the median unprofiled wall time
+    of the same two calls (the profiler's per-op host cost would inflate
+    the wall time it sees)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def two() -> float:
+        s = time.perf_counter()
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - s) * 1e3
+
+    wall = statistics.median(two() for _ in range(5))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled = two()
+    rows = sorted(
+        ((evt.key, evt.self_device_time_total / 1e3, evt.count) for evt in prof.key_averages()
+         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0),
+        key=lambda r: -r[1],
+    )
+    busy = sum(r[1] for r in rows)
+    out = {f"wall_ms_2_{label}": wall, f"profiled_wall_ms_2_{label}": profiled,
+           "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+           "n_device_kernels": sum(r[2] for r in rows),
+           "top": [{"name": k[:70], "ms": ms, "count": c} for k, ms, c in rows[:10]]}
+    return out
+
+
 def run_profile(engine, queries):
     """Where one batch's time goes: host stages (query encoding, the step
     loop with its kernels, the resolve readback) and, from the profiler,
     device time by kernel over two batches and the device's idle share."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from keto_tpu_torch.engine.snapshot import encode_query_batch
 
@@ -411,30 +611,8 @@ def run_profile(engine, queries):
         stages["resolve_ms"].append((t3 - t2) * 1e3)
     host = {k: statistics.median(v) for k, v in stages.items()}
 
-    def two_batches() -> float:
-        s = time.perf_counter()
-        for _ in range(2):
-            engine.check_batch(queries, MAX_DEPTH)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - s) * 1e3
-
-    # the idle share divides the profiled busy time by an unprofiled wall
-    # time of the same two batches: the profiler's per-op host cost would
-    # inflate the wall time it sees
-    wall_ms = statistics.median(two_batches() for _ in range(5))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiled_wall_ms = two_batches()
-    rows = [
-        (evt.key, evt.self_device_time_total / 1e3, evt.count)
-        for evt in prof.key_averages()
-        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0
-    ]
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
-    out = {"host_stages_ms": host, "wall_ms_2_batches": wall_ms,
-           "profiled_wall_ms_2_batches": profiled_wall_ms, "device_busy_ms": busy_ms,
-           "idle_share": 1 - busy_ms / wall_ms, "n_device_kernels": sum(r[2] for r in rows),
-           "top": [{"name": k[:70], "ms": ms, "count": c} for k, ms, c in rows[:10]]}
+    out = {"host_stages_ms": host,
+           **device_profile(lambda: engine.check_batch(queries, MAX_DEPTH), "batches")}
     log("  profile " + json.dumps(out))
     return out
 
@@ -491,6 +669,116 @@ def run_islands():
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+def setup_expand():
+    """The expand phase's store and engine, with its mirror and full-edge
+    CSR built and uploaded."""
+    import torch
+
+    from keto_tpu_torch.config import Config
+    from keto_tpu_torch.engine.torch_engine import TorchCheckEngine
+    from keto_tpu_torch.storage import MemoryManager
+
+    phase(f"7a data: {N_ROLES} roles x {N_DOCS} docs into the store")
+    t = time.perf_counter()
+    tuples, subjects = build_rbac_dataset(N_ROLES, N_DOCS)
+    config = Config({"limit": {"max_read_depth": EXPAND_DEPTH}})
+    config.set_namespaces(rbac_namespaces())
+    manager = MemoryManager()
+    manager.write_relation_tuples(tuples)
+    t_store = time.perf_counter() - t
+    engine = TorchCheckEngine(manager, config, device="cuda")
+    t = time.perf_counter()
+    engine.ensure_state()
+    torch.cuda.synchronize()
+    t_mirror = time.perf_counter() - t
+    t = time.perf_counter()
+    state = engine.ensure_expand_state()
+    torch.cuda.synchronize()
+    t_csr = time.perf_counter() - t
+    nbytes = engine.tables_nbytes(expand=True)
+    info = {"tuples": len(tuples), "store_s": t_store, "mirror_s": t_mirror,
+            "csr_build_upload_s": t_csr, "expand_table_bytes": sum(nbytes.values()),
+            "fh_probes": state.fh_probes, "layout": state.snapshot.layout}
+    log(f"  {len(tuples)} tuples: store {t_store:.1f} s, mirror {t_mirror:.1f} s, "
+        f"full-edge CSR build + upload {t_csr:.1f} s, expand tables "
+        f"{sum(nbytes.values()) / 1e6:.1f} MB: "
+        + ", ".join(f"{k} {v / 1e6:.2f} MB" for k, v in sorted(nbytes.items())))
+    return engine, manager, config, subjects, info
+
+
+def run_expand(engine, manager, config, subjects, info):
+    import torch
+
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine import torch_engine
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+
+    t0 = phase(f"7 expand: batches of {EXPAND_BATCH} role member sets on the main path")
+    cuda_ops.reset_launch_counts()
+    before = dict(engine.stats)
+    trees = engine.expand_batch(subjects, EXPAND_DEPTH, **EXPAND_CAPS)  # the main path, once
+    torch.cuda.synchronize()
+    launches = dict(cuda_ops.launches)
+    host = engine.stats["host_expands"] - before["host_expands"]
+    if host:
+        raise AssertionError(f"{host} host expands on the benchmark batch")
+    missing = [k for k in ("pair_probe", "dedupe_compact", *cuda_ops.EXPAND_KERNELS)
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the expand path: {missing}")
+    if any(launches[k] for k in ("edge_probe", "expand_gather")):
+        raise AssertionError(f"check-only kernels launched on the expand path: {launches}")
+
+    # where a batch's time goes: the launch (step loop, kernels, readback)
+    # against the host's encoding and tree assembly
+    launch_ms: list = []
+    orig = torch_engine.expand_kernel_packed
+
+    def timed_launch(*a, **kw):
+        s = time.perf_counter()
+        out = orig(*a, **kw).cpu()
+        launch_ms.append((time.perf_counter() - s) * 1e3)
+        return out
+
+    lat = []
+    torch_engine.expand_kernel_packed = timed_launch
+    try:
+        t1 = time.perf_counter()
+        for _ in range(ROUNDS):
+            s = time.perf_counter()
+            engine.expand_batch(subjects, EXPAND_DEPTH, **EXPAND_CAPS)
+            lat.append((time.perf_counter() - s) * 1e3)
+        wall = time.perf_counter() - t1
+    finally:
+        torch_engine.expand_kernel_packed = orig
+    if engine.stats["host_expands"] != before["host_expands"]:
+        raise AssertionError("host expands during the timed rounds")
+    profile = device_profile(
+        lambda: engine.expand_batch(subjects, EXPAND_DEPTH, **EXPAND_CAPS), "batches")
+
+    oracle = ReferenceEngine(manager, config)
+    sample = random.Random(11).sample(range(len(subjects)), 256)
+    bad = [i for i in sample
+           if normalize(trees[i]) != normalize(oracle.expand(subjects[i], EXPAND_DEPTH))]
+    if bad:
+        raise AssertionError(f"{len(bad)} of 256 sampled trees differ from the oracle")
+    nodes = [tree_size(t) for t in trees]
+    out = {
+        "trees_per_s": ROUNDS * EXPAND_BATCH / wall,
+        "p50_batch_ms": statistics.median(lat), "batch_ms": lat,
+        "p50_launch_readback_ms": statistics.median(launch_ms),
+        "mean_tree_nodes": sum(nodes) / len(nodes), "nil_trees": nodes.count(0),
+        "launches": {k: v for k, v in launches.items() if v}, **info, "profile": profile,
+    }
+    log(f"  launches on the expand path: {launches}")
+    log(f"  256 sampled trees equal the oracle; mean tree {out['mean_tree_nodes']:.2f} nodes")
+    log(f"  throughput {out['trees_per_s']:.1f} trees/s ({ROUNDS} batches of {EXPAND_BATCH}); "
+        f"p50 batch {out['p50_batch_ms']:.2f} ms (launch + readback "
+        f"{out['p50_launch_readback_ms']:.2f} ms); idle share {profile['idle_share']:.3f}")
+    log(f"  expand phase {time.perf_counter() - t0:.1f} s")
+    return launches, out
+
+
 def run_serve():
     import urllib.error
     import urllib.parse
@@ -524,8 +812,8 @@ def run_serve():
                 raise AssertionError(f"serve did not start: {line!r} {proc.stderr.read()}")
             base = "http://" + line.split("=", 1)[1].strip()
 
-            def get(params):
-                url = base + "/relation-tuples/check?" + urllib.parse.urlencode(params)
+            def get(params, route="/relation-tuples/check"):
+                url = base + route + "?" + urllib.parse.urlencode(params)
                 try:
                     with urllib.request.urlopen(url, timeout=60) as r:
                         return r.status, json.loads(r.read())
@@ -546,11 +834,27 @@ def run_serve():
             )
             with urllib.request.urlopen(req, timeout=60) as r:
                 batch = json.loads(r.read())
-            log(f"  GET allowed -> {allowed}, GET denied -> {denied}, batch -> {batch}")
+            tree = get({"namespace": "videos", "object": "/cats/1.mp4", "relation": "parent"},
+                       "/relation-tuples/expand")
+            nil = get({"namespace": "videos", "object": "/cats/9.mp4", "relation": "view"},
+                      "/relation-tuples/expand")
+            log(f"  GET allowed -> {allowed}, GET denied -> {denied}, batch -> {batch}, "
+                f"expand -> {tree}, expand nil -> {nil}")
             if allowed != (200, {"allowed": True}) or denied != (403, {"allowed": False}):
                 raise AssertionError("single checks answered wrongly")
             if [r["allowed"] for r in batch["results"]] != [True, True, False]:
                 raise AssertionError("batch check answered wrongly")
+
+            def node(obj, rel):
+                return {"namespace": "", "object": "", "relation": "",
+                        "subject_set": {"namespace": "videos", "object": obj, "relation": rel}}
+
+            want = (200, {"type": "union", "tuple": node("/cats/1.mp4", "parent"),
+                          "children": [{"type": "leaf", "tuple": node("/cats", "...")}]})
+            if tree != want:
+                raise AssertionError(f"expand answered wrongly: {tree}, want {want}")
+            if nil[0] != 404 or nil[1]["error"]["message"] != "no relation tuples found":
+                raise AssertionError(f"expand of a nil tree answered wrongly: {nil}")
         finally:
             proc.terminate()
             try:
@@ -583,7 +887,7 @@ def main() -> int:
     from keto_tpu_torch.engine.torch_engine import TorchCheckEngine
     from keto_tpu_torch.storage import MemoryManager
 
-    phase("2 build")
+    phase("2 build: one nvcc per source, in parallel, then one link")
     path = cuda_ops.build(force=True)
     cuda_ops.library()
     log(f"  built {os.path.relpath(path)} in {cuda_ops.build_info['seconds']:.1f} s")
@@ -611,15 +915,31 @@ def main() -> int:
 
     rows = run_kernels(engine, queries)
     launches, check = run_check(engine, queries, manager, config)
-    for row in rows:
-        row["launches"] = launches[row["name"]]
     profile = run_profile(engine, queries)
     run_islands()
     run_serve()
+    # the expand phase's store joins only now, so the check phases run in
+    # the same process state as before the expand slice existed
+    x_engine, x_manager, x_config, subjects, x_info = setup_expand()
+    # both stores' ~2M tuple objects stay for the rest of the run: move
+    # them out of the collector's scans, as a server does after loading,
+    # so a full collection does not land inside a timed batch
+    gc.collect()
+    gc.freeze()
+    rows += run_expand_kernels(x_engine, subjects)
+    x_launches, expand = run_expand(x_engine, x_manager, x_config, subjects, x_info)
+    for row in rows:
+        # each kernel's count on its own path: the check path for K1-K4,
+        # the expand path for X1 and X2; K2 and K4 run on both
+        own = x_launches if row["name"] in cuda_ops.EXPAND_KERNELS else launches
+        row["launches"] = own[row["name"]]
+        row["launches_by_path"] = {"check": launches[row["name"]],
+                                   "expand": x_launches[row["name"]]}
 
     log(json.dumps({"check": {**check, "card": smi, "tuples": snap.n_tuples,
                               "device_table_bytes": sum(nbytes.values()),
                               "profile": profile}}))
+    log(json.dumps({"expand": {**expand, "card": smi}}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

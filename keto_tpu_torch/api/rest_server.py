@@ -1,5 +1,5 @@
-"""REST Check routes on a stdlib threaded HTTP server, in front of a
-TorchCheckEngine.
+"""REST Check and Expand routes on a stdlib threaded HTTP server, in
+front of a TorchCheckEngine.
 
   GET  /relation-tuples/check          -> 200 {"allowed": true} / 403 {"allowed": false}
   POST /relation-tuples/check          -> the same, tuple as a JSON body
@@ -7,11 +7,15 @@ TorchCheckEngine.
   POST /relation-tuples/check/batch    -> {"results": [{"allowed": bool} |
                                           {"allowed": false, "error": str}],
                                           "snaptoken": str}
+  GET  /relation-tuples/expand         -> 200 the tree's JSON, 404 when no
+                                          tuple matches the subject set
+                                          (params namespace, object,
+                                          relation, optional max-depth)
   GET  /health/alive, /health/ready    -> 200 {"status": "ok"}
 
 Keto's semantics: an unknown namespace on a single check answers
 {"allowed": false} rather than an error; the batch route reports it per
-item. Errors use the herodot shape {"error": {code, status, message}}.
+item; Expand answers it with 404. Errors use the herodot shape {"error": {code, status, message}}.
 Checks carry an X-Keto-Snaptoken header with the store version they were
 evaluated at. The engine is not thread-safe, so requests take one lock
 around it.
@@ -25,11 +29,12 @@ import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..errors import KetoError, MalformedInputError, NamespaceNotFoundError, NotFoundError
-from ..ketoapi import RelationTuple
+from ..ketoapi import RelationTuple, SubjectSet
 
 CHECK_ROUTE = "/relation-tuples/check"
 CHECK_OPENAPI_ROUTE = "/relation-tuples/check/openapi"
 CHECK_BATCH_ROUTE = "/relation-tuples/check/batch"
+EXPAND_ROUTE = "/relation-tuples/expand"
 HEALTH_ROUTES = ("/health/alive", "/health/ready")
 
 
@@ -52,8 +57,8 @@ def _max_depth(params: dict) -> int:
 
 
 class CheckService:
-    """The Check surface over one engine: namespace validation and one
-    lock around the engine."""
+    """The Check and Expand surface over one engine: namespace validation
+    and one lock around the engine."""
 
     def __init__(self, engine):
         self.engine = engine
@@ -74,6 +79,10 @@ class CheckService:
             version = self.engine.manager.version(nid=self.engine.nid)
         evaluated = [v for v in versions if v is not None]
         return results, encode_snaptoken(min(evaluated, default=version), self.engine.nid)
+
+    def expand(self, subject_set: SubjectSet, max_depth: int):
+        with self._mu:
+            return self.engine.expand(subject_set, max_depth)
 
 
 def make_handler(service: CheckService):
@@ -112,6 +121,8 @@ def make_handler(service: CheckService):
                     self._json(200, {"status": "ok"})
                 elif path == CHECK_BATCH_ROUTE and method == "POST":
                     self._check_batch(params)
+                elif path == EXPAND_ROUTE and method == "GET":
+                    self._expand(params)
                 elif path in (CHECK_ROUTE, CHECK_OPENAPI_ROUTE):
                     self._check(method, params, mirror_status=path == CHECK_ROUTE)
                 else:
@@ -147,6 +158,26 @@ def make_handler(service: CheckService):
                 raise KetoError(str(err))
             code = 403 if (mirror_status and not res.allowed) else 200
             self._json(code, {"allowed": res.allowed}, [("X-Keto-Snaptoken", token)])
+
+        def _expand(self, params: dict) -> None:
+            max_depth = _max_depth(params)
+            try:
+                subject_set = SubjectSet(
+                    namespace=params["namespace"], object=params["object"],
+                    relation=params["relation"],
+                )
+            except KeyError:
+                raise MalformedInputError(
+                    debug="expand requires namespace, object, and relation"
+                )
+            service.engine.config.namespace_manager().get_namespace_by_name(
+                subject_set.namespace
+            )
+            tree = service.expand(subject_set, max_depth)
+            if tree is None:
+                self._json(404, NotFoundError("no relation tuples found").to_dict())
+                return
+            self._json(200, tree.to_dict())
 
         def _check_batch(self, params: dict) -> None:
             body = self._body()
@@ -191,7 +222,8 @@ def make_handler(service: CheckService):
 
 
 def make_server(engine, host: str, port: int) -> ThreadingHTTPServer:
-    """A threaded HTTP server serving the Check routes over `engine`."""
+    """A threaded HTTP server serving the Check and Expand routes over
+    `engine`."""
     server = ThreadingHTTPServer((host, port), make_handler(CheckService(engine)))
     server.daemon_threads = True
     return server

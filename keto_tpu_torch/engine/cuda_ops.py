@@ -1,9 +1,10 @@
-"""Loader and wrappers of the check kernels (csrc/check_kernels.cu).
+"""Loader and wrappers of the CUDA kernels (csrc/*.cu).
 
-The first call builds the CUDA source with nvcc into a shared library
-with a plain C interface under keto_tpu_torch/_build/ (named by the
-source's content hash, so an edited source rebuilds), and binds it with
-ctypes. Nothing is built or loaded at import time.
+The first call builds every CUDA source with nvcc, one compiler process
+per source, all started together, and links the objects into one shared
+library with a plain C interface under keto_tpu_torch/_build/ (named by
+the content hash of every source, so an edited source rebuilds); ctypes
+binds it. Nothing is built or loaded at import time.
 
 Each wrapper checks device, type, shape and contiguity, allocates the
 outputs, launches on PyTorch's current stream without synchronising,
@@ -12,7 +13,7 @@ raises if the launch reported an error, and adds one to its entry in
 returns: PyTorch's caching allocator hands their memory out again only in
 stream order, after the launch. The wrappers take CUDA tensors only; the
 plain versions for CPU tensors live beside the dispatchers in
-engine/kernel.py.
+engine/kernel.py and engine/expand_kernel.py.
 """
 
 from __future__ import annotations
@@ -29,15 +30,19 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "check_kernels.cu"
+SOURCES = (_PKG / "csrc" / "check_kernels.cu", _PKG / "csrc" / "expand_kernels.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-KERNELS = ("edge_probe", "pair_probe", "expand_gather", "dedupe_compact")
+CHECK_KERNELS = ("edge_probe", "pair_probe", "expand_gather", "dedupe_compact")
+EXPAND_KERNELS = ("expand_emit", "pool_compact")
+KERNELS = CHECK_KERNELS + EXPAND_KERNELS
 launches = {name: 0 for name in KERNELS}
+# the largest dynamic shared memory one block may take on Hopper, less
+# the kernels' static shared memory
+MAX_DYNAMIC_SMEM = 232448 - 1024
 
 _lib = None
 _lock = threading.Lock()
@@ -53,16 +58,18 @@ def _nvcc() -> str:
     for cand in (os.environ.get("NVCC"), shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the check kernels need the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
 def library_path() -> Path:
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libketo_check_{digest[:16]}.so"
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"libketo_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build(force: bool = False) -> Path:
-    """Compile the kernels unless this source's library exists (or
+    """Compile the kernels unless this source set's library exists (or
     `force`). Returns its path; `build_info` records the seconds and the
     compiler output."""
     out = library_path()
@@ -70,14 +77,29 @@ def build(force: bool = False) -> Path:
         build_info.setdefault("seconds", 0.0)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(SOURCES, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(src.name, log) for src, p, log in zip(SOURCES, procs, logs) if p.returncode]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f"{n}:\n{log}" for n, log in failed))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
-    build_info.update(seconds=time.perf_counter() - t0, log=proc.stderr + proc.stdout)
+    build_info.update(seconds=time.perf_counter() - t0,
+                      log="".join(logs) + proc.stderr + proc.stdout)
     return out
 
 
@@ -90,6 +112,8 @@ _SIGNATURES = {
     "keto_pair_probe": [_VP, _LL, _I, _I, _VP, _VP, _I, _I, _I, _VP, _VP],
     "keto_expand_gather": [_VP] * 9 + [_I] * 5 + [_VP] * 10,
     "keto_dedupe_compact": [_VP] * 6 + [_I] * 5 + [_VP] * 9,
+    "keto_expand_emit": [_VP] * 8 + [_I] + [_VP] * 3 + [_I] * 4 + [_VP] * 19,
+    "keto_pool_compact": [_VP] * 9 + [_I] * 3 + [_VP] * 3,
 }
 
 
@@ -234,3 +258,70 @@ def dedupe_compact(q, ctx, obj, rel, depth, valid, *, F: int, n_queries: int):
     )
     _check(lib, rc, name)
     return (*cols, n_new.reshape(()), overflow)
+
+
+def expand_emit(t_q, t_obj, t_rel, t_depth, live, row, dirty, f_row_ptr, f_skind, f_sa, f_sb,
+                eb, eb_count, needs_host, *, edge_cap: int):
+    """X1: one expand step's emission. Updates the five [B*E] buffers,
+    eb_count and needs_host in place; returns the [4F] child candidates
+    (q, ctx, obj, rel, depth, valid), ctx being q, and the step's
+    emitted-edge count (0-d)."""
+    from .expand_kernel import EMIT_PER_TASK
+
+    name = "expand_emit"
+    _require(name, torch.int32, t_q, t_obj, t_rel, t_depth, row, dirty, f_row_ptr, f_skind,
+             f_sa, f_sb, eb_count, *eb)
+    _require(name, torch.bool, live, needs_host)
+    F, B, E = t_q.shape[0], eb_count.shape[0], edge_cap
+    if any(t.shape != (F,) for t in (t_obj, t_rel, t_depth, live, row, dirty)):
+        raise ValueError(f"{name}: task columns must all be [F]")
+    if len(eb) != 5 or any(c.shape != (B * E,) for c in eb) or needs_host.shape != (B,):
+        raise ValueError(f"{name}: expects five [B * edge_cap] buffers and [B] flags")
+    if not (f_skind.shape == f_sa.shape == f_sb.shape) or f_row_ptr.dim() != 1:
+        raise ValueError(f"{name}: malformed CSR columns")
+    if F == 0 or 4 * (2 * F + B) > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"{name}: frontier {F} with {B} queries does not fit one block")
+    G = EMIT_PER_TASK * F
+    dev = t_q.device
+    start, alloc, offsets = (torch.empty(F, dtype=torch.int32, device=dev) for _ in range(3))
+    emit = torch.empty(F, dtype=torch.bool, device=dev)
+    total, emitted = (torch.empty(1, dtype=torch.int32, device=dev) for _ in range(2))
+    c_q, c_obj, c_rel, c_depth = (torch.empty(G, dtype=torch.int32, device=dev) for _ in range(4))
+    c_valid = torch.empty(G, dtype=torch.bool, device=dev)
+    lib = library()
+    rc = lib.keto_expand_emit(
+        _p(t_q), _p(t_obj), _p(t_rel), _p(t_depth), _p(live), _p(row), _p(dirty),
+        _p(f_row_ptr), f_row_ptr.shape[0] - 1, _p(f_skind), _p(f_sa), _p(f_sb),
+        f_skind.shape[0], F, B, E, *(_p(c) for c in eb), _p(eb_count), _p(needs_host),
+        _p(start), _p(alloc), _p(emit), _p(offsets), _p(total), _p(emitted),
+        _p(c_q), _p(c_obj), _p(c_rel), _p(c_depth), _p(c_valid), _stream(),
+    )
+    _check(lib, rc, name)
+    return c_q, c_q, c_obj, c_rel, c_depth, c_valid, emitted.reshape(())
+
+
+def pool_compact(eb, eb_count, root, needs_host, stats, *, edge_cap: int, pool_cap: int):
+    """X2: the packed expand result [offsets(B+1) | root(B) | needs_host(B)
+    | stats | pool(pool_cap * 5)] from the edge buffers."""
+    from .kernel import N_LAUNCH_STATS
+
+    name = "pool_compact"
+    _require(name, torch.int32, eb_count, stats, *eb)
+    _require(name, torch.bool, root, needs_host)
+    B, E = eb_count.shape[0], edge_cap
+    if len(eb) != 5 or any(c.shape != (B * E,) for c in eb):
+        raise ValueError(f"{name}: expects five [B * edge_cap] buffers")
+    if B == 0 or root.shape != (B,) or needs_host.shape != (B,):
+        raise ValueError(f"{name}: expects [B] root and needs_host flags, B > 0")
+    if stats.shape != (N_LAUNCH_STATS,):
+        raise ValueError(f"{name}: expects [{N_LAUNCH_STATS}] stats")
+    dev = eb_count.device
+    offs = torch.empty(B + 1, dtype=torch.int32, device=dev)
+    out = torch.empty(3 * B + 1 + N_LAUNCH_STATS + 5 * pool_cap, dtype=torch.int32, device=dev)
+    lib = library()
+    rc = lib.keto_pool_compact(
+        *(_p(c) for c in eb), _p(eb_count), _p(root), _p(needs_host), _p(stats), B, E,
+        pool_cap, _p(offs), _p(out), _stream(),
+    )
+    _check(lib, rc, name)
+    return out

@@ -1,6 +1,6 @@
-"""Host reference engine, Check only: exact Keto check semantics,
+"""Host reference engine: exact Keto Check and Expand semantics,
 evaluated sequentially. It is the oracle the device path is held
-against, and the evaluator for the queries the kernel flags for host
+against, and the evaluator for the queries the kernels flag for host
 replay.
 
 Semantics (Keto internal/check):
@@ -18,6 +18,12 @@ Semantics (Keto internal/check):
     not: flips IsMember/NotMember and keeps Unknown
   - unknown namespace: no rewrite, no error; a namespace with relations
     but without the queried relation: error
+
+Expand (Keto internal/expand/engine.go:35-104) follows stored tuples
+only, no rewrites: a depth-first tree whose visited set cuts cycles
+(a revisited subject set is nil, rendered by its parent as a leaf), a
+node with no tuples is nil, a node at restDepth <= 1 is a leaf, and a
+plain subject id is always a leaf.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from typing import Optional
 
 from ..config import Config
 from ..errors import NamespaceNotFoundError, RelationNotFoundError
-from ..ketoapi import RelationQuery, RelationTuple, Tree, TreeNodeType
+from ..ketoapi import RelationQuery, RelationTuple, Subject, SubjectSet, Tree, TreeNodeType
 from ..namespace import ast
 from ..storage.definitions import DEFAULT_NETWORK
 from .definitions import (
@@ -68,6 +74,11 @@ class ReferenceEngine:
         if res.error is not None:
             raise res.error
         return res.membership == Membership.IS_MEMBER
+
+    def expand(
+        self, subject: Subject, max_depth: int = 0, nid: str = DEFAULT_NETWORK
+    ) -> Optional[Tree]:
+        return self._build_tree(subject, self._clamp_depth(max_depth), set(), nid)
 
     def _clamp_depth(self, requested: int) -> int:
         global_max = self.config.max_read_depth()
@@ -254,3 +265,50 @@ class ReferenceEngine:
                 return CheckResult(Membership.NOT_MEMBER, error=res.error)
             tree.children.append(res.tree)
         return CheckResult(Membership.IS_MEMBER, tree=tree)
+
+    # -- expand ------------------------------------------------------------------
+
+    def _build_tree(
+        self, subject: Subject, rest_depth: int, visited: set[str], nid: str
+    ) -> Optional[Tree]:
+        if not isinstance(subject, SubjectSet):
+            return Tree(
+                type=TreeNodeType.LEAF,
+                tuple=RelationTuple(namespace="", object="", relation="", subject_id=subject),
+            )
+        uid = subject_visited_key(subject)
+        if uid in visited:
+            return None
+        visited.add(uid)
+        sub_tree = Tree(
+            type=TreeNodeType.UNION,
+            tuple=RelationTuple(namespace="", object="", relation="", subject_set=subject),
+        )
+        query = RelationQuery(
+            namespace=subject.namespace, object=subject.object, relation=subject.relation
+        )
+        page_token = ""
+        first_page = True
+        while True:
+            rels, page_token = self.manager.get_relation_tuples(
+                query, page_token=page_token, nid=nid
+            )
+            if first_page and not rels:
+                return None  # no matching tuples: nil
+            first_page = False
+            if rest_depth <= 1:
+                sub_tree.type = TreeNodeType.LEAF
+                return sub_tree
+            for rel in rels:
+                child = self._build_tree(rel.subject, rest_depth - 1, visited, nid)
+                if child is None:
+                    child = Tree(
+                        type=TreeNodeType.LEAF,
+                        tuple=RelationTuple(
+                            namespace="", object="", relation="",
+                            subject_id=rel.subject_id, subject_set=rel.subject_set,
+                        ),
+                    )
+                sub_tree.children.append(child)
+            if not page_token:
+                return sub_tree

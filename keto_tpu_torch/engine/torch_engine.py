@@ -1,11 +1,16 @@
-"""TorchCheckEngine: batched Check on the device mirror, with exact host
-replay for what the kernel flags.
+"""TorchCheckEngine: batched Check and Expand on the device mirror, with
+exact host replay for what the kernels flag.
 
 A check batch is encoded against the current snapshot, padded to a
 bucket size, and run as one check_kernel_packed launch; the packed result
 is read back once. AND/NOT islands are combined on the host, and queries
 the kernel flags (or whose vocabulary never reached the device) are
 answered by the host oracle, memoised within the batch.
+
+An expand batch runs as one expand_kernel_packed launch over the
+full-edge CSR, built lazily beside the mirror; the host assembles each
+tree from its slice of the packed pool. Subject ids, unknown vocabulary
+and flagged queries are expanded by the host oracle.
 
 The mirror is rebuilt in full when the store version or the namespace
 config changes; incremental overlay refresh is not part of this engine.
@@ -16,16 +21,27 @@ from __future__ import annotations
 import json
 import threading
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..config import Config
-from ..ketoapi import RelationTuple
+from ..ketoapi import RelationTuple, Subject, SubjectSet, Tree
 from ..storage.definitions import DEFAULT_NETWORK
 from .definitions import RESULT_IS_MEMBER, RESULT_NOT_MEMBER, CheckResult, Membership
 from .delta import SnapshotView
+from .expand_kernel import (
+    ExpandDecoder,
+    assemble_tree,
+    build_full_csr,
+    decode_edge_buffer,
+    expand_kernel_packed,
+    expand_tables_from_numpy,
+    pack_expand_queries,
+    pack_expand_tables,
+    unpack_expand_results,
+)
 from .islands import combine_islands
 from .kernel import (
     CAUSE_NAME_UNINDEXED,
@@ -65,6 +81,10 @@ class _EngineState:
     tables: dict
     covered_version: int
     config_fp: str
+    # full-edge CSR of the expand path, built at the first expand
+    expand_tables: Optional[dict] = None
+    fh_probes: int = 0
+    decoder: Optional[ExpandDecoder] = None
 
 
 class TorchCheckEngine:
@@ -94,6 +114,8 @@ class TorchCheckEngine:
             "host_checks": 0,
             "snapshot_builds": 0,
             "host_cause": {},
+            "device_expands": 0,
+            "host_expands": 0,
         }
 
     # -- mirror lifecycle ------------------------------------------------------
@@ -128,10 +150,32 @@ class TorchCheckEngine:
                 self.stats["snapshot_builds"] += 1
             return state
 
-    def tables_nbytes(self) -> dict[str, int]:
-        """Bytes of each device table of the current mirror."""
-        state = self.ensure_state()
-        return {k: v.numel() * v.element_size() for k, v in state.tables.items()}
+    def ensure_expand_state(self) -> _EngineState:
+        """The mirror with its full-edge CSR, built from the store at the
+        mirror's covered version (retried if a write lands meanwhile)."""
+        while True:
+            state = self.ensure_state()
+            with self._lock:
+                if state.expand_tables is not None:
+                    return state
+                tuples = self.manager.all_relation_tuples(nid=self.nid)
+                if self.manager.version(nid=self.nid) != state.covered_version:
+                    continue
+                csr = build_full_csr(tuples, state.snapshot, view=state.view)
+                state.fh_probes = csr.pop("fh_probes")
+                state.decoder = ExpandDecoder(state.snapshot)
+                # expand_tables is the readiness signal: set it last
+                state.expand_tables = expand_tables_from_numpy(
+                    pack_expand_tables(csr), self.device
+                )
+                return state
+
+    def tables_nbytes(self, expand: bool = False) -> dict[str, int]:
+        """Bytes of each device table of the current mirror (the expand
+        path's tables when `expand`)."""
+        state = self.ensure_expand_state() if expand else self.ensure_state()
+        tables = state.expand_tables if expand else state.tables
+        return {k: v.numel() * v.element_size() for k, v in tables.items()}
 
     # -- check API --------------------------------------------------------------
 
@@ -269,3 +313,74 @@ class TorchCheckEngine:
         self.stats["device_checks"] += n - n_host
         self.stats["host_checks"] += n_host
         return results, versions
+
+    # -- expand API -------------------------------------------------------------
+
+    def expand(self, subject: Subject, max_depth: int = 0) -> Optional[Tree]:
+        return self.expand_batch([subject], max_depth)[0]
+
+    def expand_batch(
+        self,
+        subjects: Sequence[Subject],
+        max_depth: int = 0,
+        frontier_cap: int = 1024,
+        edge_cap: int = 4096,
+        pool_cap: int = 0,
+    ) -> list[Optional[Tree]]:
+        """Batched Expand: one device BFS gather and exact host assembly.
+        `pool_cap` defaults to 32 edge records per bucketed query (at
+        least 4096); a query whose edges do not fit the frontier, its
+        buffer or the pool is expanded by the host oracle."""
+        n = len(subjects)
+        if n == 0:
+            return []
+        B = next((b for b in _BUCKETS if b >= n), None)
+        if B is None:
+            step = _BUCKETS[-1]
+            out: list[Optional[Tree]] = []
+            for i in range(0, n, step):
+                out.extend(self.expand_batch(
+                    subjects[i : i + step], max_depth, frontier_cap, edge_cap, pool_cap
+                ))
+            return out
+        state = self.ensure_expand_state()
+        global_max = self.config.max_read_depth()
+        depth = max_depth if 0 < max_depth <= global_max else global_max
+        q_obj = np.zeros(B, dtype=np.int32)
+        q_rel = np.zeros(B, dtype=np.int32)
+        q_valid = np.zeros(B, dtype=bool)
+        for i, sub in enumerate(subjects):
+            if isinstance(sub, SubjectSet):
+                node = state.view.encode_node(sub.namespace, sub.object, sub.relation)
+                if node is not None:
+                    q_obj[i], q_rel[i] = node
+                    q_valid[i] = True
+        pool_cap = pool_cap or max(32 * B, 4096)
+        qpack = torch.from_numpy(pack_expand_queries(q_obj, q_rel, depth, q_valid))
+        flat = expand_kernel_packed(
+            state.expand_tables, qpack.to(self.device), fh_probes=state.fh_probes,
+            # the step budget follows the global depth cap, not the call's
+            max_steps=global_max + 2, frontier_cap=max(frontier_cap, B),
+            edge_cap=edge_cap, pool_cap=pool_cap, layout=state.snapshot.layout,
+        )
+        # the batch's one device->host readback
+        offs, root, needs_host, pool_cols, _stats = unpack_expand_results(
+            flat.cpu().numpy(), B, pool_cap
+        )
+        results: list[Optional[Tree]] = []
+        n_host = 0
+        for i, sub in enumerate(subjects):
+            if not q_valid[i] or needs_host[i]:
+                n_host += 1
+                results.append(self.reference.expand(sub, max_depth, self.nid))
+                continue
+            adjacency = decode_edge_buffer(
+                *pool_cols, int(offs[i + 1] - offs[i]), int(offs[i])
+            )
+            results.append(assemble_tree(
+                sub, int(q_obj[i]), int(q_rel[i]), depth, adjacency, bool(root[i]),
+                state.decoder,
+            ))
+        self.stats["device_expands"] += n - n_host
+        self.stats["host_expands"] += n_host
+        return results

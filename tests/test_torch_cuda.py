@@ -1,6 +1,6 @@
 """The CUDA kernels of keto_tpu_torch against their plain PyTorch versions,
-on the card: each kernel alone on the same CUDA tensors, and whole
-check launches against the CPU run of the plain versions, under both
+on the card: each kernel alone on the same CUDA tensors, and whole check
+and expand launches against the CPU run of the plain versions, under both
 table layouts and with the delta overlay on and off. Tolerance: exact
 equality (every output is an integer).
 
@@ -12,11 +12,13 @@ nothing of the JAX package, so it runs where JAX is not installed:
 
 import random
 
+import numpy as np
 import pytest
 import torch
 
 from keto_tpu_torch.engine import cuda_ops
 from keto_tpu_torch.engine import delta as tdelta
+from keto_tpu_torch.engine import expand_kernel as tek
 from keto_tpu_torch.engine import kernel as tk
 from keto_tpu_torch.engine import snapshot as tsnap
 from keto_tpu_torch.ketoapi import RelationTuple
@@ -126,8 +128,6 @@ def qpack_for(snap, queries, B, depth):
     view = tdelta.SnapshotView(snap)
     cols = tsnap.encode_query_batch(view, [RelationTuple.from_string(q) for q in queries], B)
     q_obj, q_rel, q_skind, q_sa, q_sb, q_valid = cols
-    import numpy as np
-
     return torch.from_numpy(tk.pack_queries(
         q_obj, q_rel, np.full(B, depth, np.int32), q_skind, q_sa, q_sb, q_valid
     ))
@@ -161,7 +161,7 @@ def test_check_launch_matches_plain(cuda, scenario, layout, has_delta):
     got = tk.check_kernel_packed(tk.snapshot_tables(snap, cuda, delta), qpack.to(cuda), **cfg)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
-    assert all(cuda_ops.launches[k] > before[k] for k in cuda_ops.KERNELS)
+    assert all(cuda_ops.launches[k] > before[k] for k in cuda_ops.CHECK_KERNELS)
 
 
 @pytest.mark.cuda
@@ -220,3 +220,127 @@ def test_each_kernel_matches_plain_on_card(cuda, layout):
     want = tk.dedupe_compact_plain(ch, F=F, n_queries=B)
     for a, b in zip(got, want):
         assert torch.equal(a.to(b.dtype), b)
+
+
+# -- expand --------------------------------------------------------------------------
+
+
+def rbac(seed=7):
+    """bench.py's expand shape at toy size: role member sets nesting
+    earlier roles, docs granting editors through roles."""
+    rng = random.Random(seed)
+    ns = [{"name": "role", "relations": [{"name": "member"}]},
+          {"name": "doc", "relations": [
+              {"name": "owner"},
+              {"name": "editor", "rewrite": {"operator": "or",
+                                             "children": [_computed("owner")]}}]}]
+    tuples = set()
+    for r in range(60):
+        tuples.update(f"role:r{r}#member@u{rng.randrange(50)}" for _ in range(4))
+        if r and rng.random() < 0.5:
+            tuples.add(f"role:r{r}#member@(role:r{rng.randrange(r)}#member)")
+    for d in range(80):
+        tuples.add(f"doc:d{d}#owner@u{rng.randrange(50)}")
+        tuples.add(f"doc:d{d}#editor@(role:r{rng.randrange(60)}#member)")
+    queries = [f"role:r{rng.randrange(60)}#member" for _ in range(48)]
+    queries += [f"doc:d{d}#editor" for d in range(12)] + ["doc:ghost#editor"]
+    return ns, sorted(tuples), queries, 6
+
+
+def fanout():
+    """A 200-leaf row with nested sets, cycles and four 20-way fan-outs."""
+    ns = [{"name": "groups"}]
+    tuples = [f"groups:g#member@u{i}" for i in range(200)]
+    tuples += [f"groups:g#member@(groups:s{j}#member)" for j in range(20)]
+    tuples += [f"groups:f{k}#member@(groups:s{j}#member)" for k in range(4) for j in range(20)]
+    tuples += [f"groups:s{j}#member@(groups:s{(j + 1) % 20}#member)" for j in range(20)]
+    tuples += [f"groups:s{j}#member@m{j}" for j in range(20)]
+    queries = ["groups:g#member"] + [f"groups:f{k}#member" for k in range(4)]
+    queries += [f"groups:s{j}#member" for j in range(20)]
+    return ns, tuples, queries, 6
+
+
+EXPAND_SCENARIOS = {"rbac": rbac, "fanout": fanout}
+EXPAND_CAPS = {
+    "default": dict(frontier_cap=256, edge_cap=1024),
+    "tiny": dict(frontier_cap=64, edge_cap=16, pool_cap=128),
+}
+
+
+def expand_inputs(scenario, layout, has_delta):
+    ns, tuples, queries, depth = EXPAND_SCENARIOS[scenario]()
+    parsed = [RelationTuple.from_string(s) for s in tuples]
+    snap = tsnap.build_snapshot(parsed, [Namespace.from_dict(d) for d in ns], layout=layout)
+    delta = delta_for(snap, parsed, random.Random(5))[0] if has_delta else None
+    csr = tek.build_full_csr(parsed, snap)
+    fh_probes = csr.pop("fh_probes")
+    view = tdelta.SnapshotView(snap)
+    B = 64
+    q_obj, q_rel = np.zeros(B, np.int32), np.zeros(B, np.int32)
+    q_valid = np.zeros(B, bool)
+    for i, q in enumerate(queries):
+        ns_, rest = q.split(":", 1)
+        obj, rel = rest.split("#")
+        node = view.encode_node(ns_, obj, rel)
+        if node is not None:
+            (q_obj[i], q_rel[i]), q_valid[i] = node, True
+    qpack = torch.from_numpy(tek.pack_expand_queries(q_obj, q_rel, depth, q_valid))
+    return tek.pack_expand_tables(csr, delta), qpack, fh_probes, depth
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", sorted(EXPAND_CAPS))
+@pytest.mark.parametrize("has_delta", [False, True])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("scenario", sorted(EXPAND_SCENARIOS))
+def test_expand_launch_matches_plain(cuda, scenario, layout, has_delta, caps):
+    packed, qpack, fh_probes, depth = expand_inputs(scenario, layout, has_delta)
+    kw = dict(fh_probes=fh_probes, max_steps=depth + 2, layout=layout,
+              **{"pool_cap": 4096, **EXPAND_CAPS[caps]})
+    want = tek.expand_kernel_packed(tek.expand_tables_from_numpy(packed, "cpu"), qpack, **kw)
+    before = dict(cuda_ops.launches)
+    got = tek.expand_kernel_packed(tek.expand_tables_from_numpy(packed, cuda), qpack.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    used = ("pair_probe", "dedupe_compact") + cuda_ops.EXPAND_KERNELS
+    assert all(cuda_ops.launches[k] > before[k] for k in used)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_expand_kernels_match_plain_on_card(cuda, layout):
+    """Random task columns and buffers through X1 and X2 and their plain
+    versions, both on the same CUDA tensors (the buffers they update in
+    place are cloned for each)."""
+    packed, _qpack, _fh, _depth = expand_inputs("rbac", layout, True)
+    tables = tek.expand_tables_from_numpy(packed, cuda)
+    g = torch.Generator(device="cpu").manual_seed(1)
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32).to(cuda)
+
+    n_rows = tables["f_row_ptr"].shape[0] - 1
+    for F, B, E in ((512, 64, 64), (256, 256, 8), (1024, 16, 4096)):
+        eb = tuple(ri(-1, 50, B * E) for _ in range(5))
+        eb_count = ri(0, E // 2 + 1, B)
+        needs_host = ri(0, 10, B) == 0
+        cols = (ri(0, B, F), ri(0, 300, F), ri(0, 5, F), ri(-1, 5, F), ri(0, 8, F) > 0,
+                ri(-1, n_rows + 1, F), ri(-1, 4, F))
+        csr = (tables["f_row_ptr"], tables["f_skind"], tables["f_sa"], tables["f_sb"])
+        outs = []
+        for fn in (cuda_ops.expand_emit, tek.expand_emit_plain):
+            bufs = (tuple(c.clone() for c in eb), eb_count.clone(), needs_host.clone())
+            res = fn(*cols, *csr, *bufs, edge_cap=E)
+            outs.append((res, bufs))
+        (got, gbufs), (want, wbufs) = outs
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        for a, b in zip((*gbufs[0], *gbufs[1:]), (*wbufs[0], *wbufs[1:])):
+            assert torch.equal(a, b)
+        root = ri(0, 2, B) > 0
+        stats = ri(0, 100, tek.N_LAUNCH_STATS)
+        for pool_cap in (16, 4 * B):
+            args = (eb, eb_count, root, needs_host, stats)
+            kw = dict(edge_cap=E, pool_cap=pool_cap)
+            assert torch.equal(cuda_ops.pool_compact(*args, **kw),
+                               tek.pool_compact_plain(*args, **kw))

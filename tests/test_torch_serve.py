@@ -1,6 +1,6 @@
-"""The port's REST Check routes over a CPU engine: the serve entry point
-as a subprocess, and the routes in process, held against the JAX
-package's host oracle on the same tuples."""
+"""The port's REST Check and Expand routes over a CPU engine: the serve
+entry point as a subprocess, and the routes in process, held against the
+JAX package's host oracle and engine on the same tuples."""
 
 import json
 import os
@@ -15,7 +15,9 @@ import pytest
 
 from keto_tpu.config import Config as JConfig
 from keto_tpu.engine import ReferenceEngine as JReference
+from keto_tpu.engine.tpu_engine import TPUCheckEngine
 from keto_tpu.ketoapi import RelationTuple as JTuple
+from keto_tpu.ketoapi import SubjectSet as JSubjectSet
 from keto_tpu.storage import MemoryManager as JMemory
 
 from keto_tpu_torch.api.rest_server import encode_snaptoken, make_server
@@ -126,9 +128,64 @@ def test_errors_and_unknown_namespace(rewrite_server):
     assert _post(base, "/relation-tuples/check", t) == (200, {"allowed": True})
 
 
+@pytest.fixture(scope="module")
+def videos_server():
+    namespaces, tuples, _queries, max_depth = SCENARIOS["cat_videos"]()
+    cfg = Config({"limit": {"max_read_depth": max_depth},
+                  "namespaces": [ns.to_dict() for ns in namespaces]})
+    m = MemoryManager()
+    m.write_relation_tuples([RelationTuple.from_string(s) for s in tuples])
+    server = make_server(TorchCheckEngine(m, cfg, device="cpu"), "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    jcfg = JConfig({"limit": {"max_read_depth": max_depth}})
+    jcfg.set_namespaces(namespaces)
+    jm = JMemory()
+    jm.write_relation_tuples([JTuple.from_string(s) for s in tuples])
+    yield f"http://127.0.0.1:{server.server_address[1]}", TPUCheckEngine(jm, jcfg)
+    server.shutdown()
+    server.server_close()
+
+
+def _expand_params(subject_set, depth=None):
+    ns, rest = subject_set.split(":", 1)
+    obj, rel = rest.split("#")
+    p = {"namespace": ns, "object": obj, "relation": rel}
+    if depth is not None:
+        p["max-depth"] = str(depth)
+    return p
+
+
+@pytest.mark.parametrize("depth", [None, 1, 2, 3])
+def test_expand_route_matches_jax_engine(videos_server, depth):
+    base, jax_engine = videos_server
+    for s in ("videos:/cats/1.mp4#view", "videos:/cats/2.mp4#view", "videos:/cats#owner",
+              "videos:/cats/1.mp4#owner"):
+        want = jax_engine.expand(JSubjectSet.from_string(s), depth or 0)
+        code, body, _ = _get(base, "/relation-tuples/expand", _expand_params(s, depth))
+        assert (code, body) == (200, want.to_dict()), (s, depth)
+    if depth == 1:
+        assert body == {"type": "leaf", "tuple": body["tuple"]}
+
+
+def test_expand_route_errors(videos_server):
+    base, _jax = videos_server
+    code, body, _ = _get(base, "/relation-tuples/expand",
+                         _expand_params("videos:/cats/9.mp4#view"))
+    assert code == 404 and body["error"]["message"] == "no relation tuples found"
+    code, body, _ = _get(base, "/relation-tuples/expand", _expand_params("ghost:o#r"))
+    assert code == 404 and "ghost" in body["error"]["message"]
+    code, body, _ = _get(base, "/relation-tuples/expand",
+                         {"namespace": "videos", "object": "/cats"})
+    assert code == 400 and body["error"]["code"] == 400
+    code, body, _ = _get(base, "/relation-tuples/expand",
+                         {**_expand_params("videos:/cats#owner"), "max-depth": "x"})
+    assert code == 400
+
+
 def test_serve_entry_point(tmp_path):
-    """`python -m keto_tpu_torch serve` on the CPU: a 200, a 403 and a
-    batch over a small store, then a clean stop on SIGTERM."""
+    """`python -m keto_tpu_torch serve` on the CPU: a 200, a 403, a batch
+    and an expand over a small store, then a clean stop on SIGTERM."""
     namespaces, tuples, _queries, _depth = SCENARIOS["cat_videos"]()
     cfg = {
         "namespaces": [ns.to_dict() for ns in namespaces],
@@ -157,6 +214,9 @@ def test_serve_entry_point(tmp_path):
             for s in ("videos:/cats/2.mp4#view@cat lady", "videos:/cats#owner@john")
         ])
         assert code == 200 and body["results"] == [{"allowed": True}, {"allowed": False}]
+        code, body, _ = _get(base, "/relation-tuples/expand",
+                             _expand_params("videos:/cats/1.mp4#view"))
+        assert code == 200 and body["type"] == "union" and len(body["children"]) == 2
     finally:
         proc.terminate()
         assert proc.wait(timeout=30) == 0
