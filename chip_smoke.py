@@ -6,8 +6,9 @@ the port builds, agrees with itself and runs its main path on the GPU.
 Phases, in order; any failure exits non-zero without the final line:
 
   1. card    — nvidia-smi's name and power limit
-  2. build   — nvcc builds csrc/check_kernels.cu and csrc/expand_kernels.cu
-               from the checkout, one compiler per source, in parallel
+  2. build   — nvcc builds csrc/check_kernels.cu, csrc/expand_kernels.cu
+               and csrc/list_kernels.cu from the checkout, one compiler
+               per source, in parallel
   3. kernels — K1-K4 against their plain PyTorch versions on the card,
                on inputs captured from one real batch of phase 4's
                workload over its tables; exact equality, times, bounds
@@ -19,7 +20,8 @@ Phases, in order; any failure exits non-zero without the final line:
                oracle's; checks/s and p50 batch ms
   5. islands — an AND/NOT namespace batch against the host oracle
   6. serve   — `python -m keto_tpu_torch serve` on a free port: a 200, a
-               403, a batch check, an expand tree and an expand 404
+               403, a batch check, an expand tree, an expand 404, a
+               list-objects and a list-subjects 200 and a list-objects 400
   7. expand  — (7a) data, (7b) X1 and X2 against their plain versions
                on inputs captured from one real expand batch, as phase 3;
                then the Expand path: ~1e6 tuples of bench.py's RBAC shape (role
@@ -29,6 +31,19 @@ Phases, in order; any failure exits non-zero without the final line:
                member sets; zero host expands, X1, X2, K2 and K4 launched,
                256 sampled trees equal the host oracle's; trees/s and p50
                batch ms
+  8. list    — on phase 4's store and engine: (8a) the reverse and subjects
+               states' build seconds and table bytes; (8b) L1-L4 against
+               their plain versions on inputs captured from one real batch
+               of each leg, as phase 3; (8c) ListObjects, bench.py's batch
+               of 256 users' `view` at depth 5 with caps scaled to the
+               data: zero host replays, L1, L2, L4, K2 and K4 launched, 32
+               sampled answers equal to the generator's ownership maps, 4
+               of them held object by object against the host oracle's
+               check; (8d) ListSubjects of 256 random files' `view`, the
+               bench's caps: zero host replays, L1, L3, L4, K2 and K4
+               launched, 64 sampled answers equal to the host oracle's
+               list_subjects; lists/s, p50 batch ms, mean results per query
+               and the launch + readback against host decode split
 
 Before the last line it prints the kernel table as one JSON object
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -70,6 +85,18 @@ EXPAND_BATCH = 1024
 EXPAND_DEPTH = 6
 EXPAND_CAPS = dict(frontier_cap=max(1024, 4 * EXPAND_BATCH),
                    edge_cap=max(4096, 16 * EXPAND_BATCH))
+# list phase: bench.py:473 bench_reverse's batch (bench.py:82) and depth.
+# Its ListObjects caps (frontier 16384, results 2048, pool 64 B) were set
+# for 64 folders; over 6,600 folders a user reaches ~1,950 objects (3,031
+# at most in this batch, from the generator's draws) and one step expands
+# ~805k slots, so the caps scale with the data. ListSubjects keeps the
+# bench's own caps (1-2 subjects per file).
+LIST_BATCH = 256
+LIST_DEPTH = 5
+LIST_ROUNDS = 10
+LO_CAPS = dict(frontier_cap=1 << 20, result_cap=4096, pool_cap=LIST_BATCH * 4096)
+LS_CAPS = dict(frontier_cap=max(16384, 4 * LIST_BATCH), result_cap=2048,
+               pool_cap=64 * LIST_BATCH)
 KERNEL_SOURCES = {
     "edge_probe": "keto_tpu_torch/csrc/check_kernels.cu",
     "pair_probe": "keto_tpu_torch/csrc/check_kernels.cu",
@@ -77,6 +104,10 @@ KERNEL_SOURCES = {
     "dedupe_compact": "keto_tpu_torch/csrc/check_kernels.cu",
     "expand_emit": "keto_tpu_torch/csrc/expand_kernels.cu",
     "pool_compact": "keto_tpu_torch/csrc/expand_kernels.cu",
+    "list_emit": "keto_tpu_torch/csrc/list_kernels.cu",
+    "reverse_gather": "keto_tpu_torch/csrc/list_kernels.cu",
+    "subjects_gather": "keto_tpu_torch/csrc/list_kernels.cu",
+    "list_pool_compact": "keto_tpu_torch/csrc/list_kernels.cu",
 }
 REPLACES = {
     "edge_probe": "keto_tpu/engine/kernel.py:259",
@@ -85,6 +116,10 @@ REPLACES = {
     "dedupe_compact": "keto_tpu/engine/kernel.py:762",
     "expand_emit": "keto_tpu/engine/expand_kernel.py:157",
     "pool_compact": "keto_tpu/engine/expand_kernel.py:355",
+    "list_emit": "keto_tpu/engine/reverse_kernel.py:250",
+    "reverse_gather": "keto_tpu/engine/reverse_kernel.py:301",
+    "subjects_gather": "keto_tpu/engine/reverse_kernel.py:649",
+    "list_pool_compact": "keto_tpu/engine/reverse_kernel.py:565",
 }
 
 
@@ -206,12 +241,13 @@ def normalize(tree):
 
 class Recorder:
     """Wraps the cuda_ops wrappers during one batch and keeps a clone of
-    the arguments of each kernel's call at BFS step `step` (or its last
-    call, for a shorter walk)."""
+    the arguments of each kernel's call number `step` (or of `steps[name]`
+    for that kernel; its last call, for a shorter walk)."""
 
-    def __init__(self, cuda_ops, step: int = 1):
+    def __init__(self, cuda_ops, step: int = 1, steps: dict | None = None):
         self.cuda_ops = cuda_ops
         self.step = step
+        self.steps = steps or {}
         self.calls: dict = {}
         self.originals: dict = {}
 
@@ -229,7 +265,7 @@ class Recorder:
 
             def wrapped(*args, _name=name, _orig=orig, **kw):
                 seen = self.calls.setdefault(_name, [])
-                if len(seen) <= self.step:
+                if len(seen) <= self.steps.get(_name, self.step):
                     seen.append(([clone(a) for a in args], dict(kw)))
                 return _orig(*args, **kw)
 
@@ -241,7 +277,8 @@ class Recorder:
             setattr(self.cuda_ops, name, orig)
 
     def args(self, name):
-        return self.calls[name][min(self.step, len(self.calls[name]) - 1)]
+        step = self.steps.get(name, self.step)
+        return self.calls[name][min(step, len(self.calls[name]) - 1)]
 
 
 def wall_ms(fn, reps: int = 20) -> float:
@@ -446,6 +483,101 @@ def expand_kernel_cases(rec):
         B2 * 6 + P * (2 * max(B2, 2).bit_length() + 15),
         lambda: max_abs_err(cuda_ops.pool_compact(*args2, **kw2),
                             tek.pool_compact_plain(*args2, **kw2)),
+    ))
+    return cases
+
+
+def list_kernel_cases(rec_lo, rec_ls):
+    """(name, kernel fn, plain fn, bytes, operations, compare fn) of L1
+    and L2 (ListObjects' emission at step 2 and expansion at step 1, its
+    largest of each), L3 (ListSubjects' step 1) and L4 (ListObjects' one
+    call). L1 updates its buffers in place, so every call works on its own
+    clones; timing reuses one set (the emissions land in res each time,
+    at the same slots of a buffer whose counts only grow). Bytes count
+    what the data needs: each task's columns, the instruction rows, edge
+    rows and namespaces of the candidates that land, each output once."""
+    import torch
+
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine import reverse_kernel as trk
+
+    def cloned(args):
+        return [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+
+    def landed_candidates(counts_fn, F):
+        c = counts_fn().flatten().long()
+        ends = c.cumsum(0)
+        return int((ends.clamp(max=F) - (ends - c)).clamp(min=0).sum())
+
+    cases = []
+    args1, kw1 = rec_lo.args("list_emit")
+    q, emit = args1[0], args1[1]
+    N, B = q.shape[0], args1[4].shape[0]
+
+    def run1(fn):
+        a = cloned(args1)
+        return (fn(*a, **kw1), a[3], a[4], a[5])
+
+    n_emit = int(emit.sum())
+    n_land = int(run1(trk.list_emit_plain)[0])
+    timed1 = cloned(args1)
+    cases.append((
+        "list_emit",
+        lambda: cuda_ops.list_emit(*timed1, **kw1),
+        lambda: trk.list_emit_plain(*timed1, **kw1),
+        N * 5 + n_emit * 4 + n_land * 4 + B * 4 * 3,
+        N * 3 + n_emit * 12,
+        lambda: max_abs_err(run1(cuda_ops.list_emit), run1(trk.list_emit_plain)),
+    ))
+
+    args2, kw2 = rec_lo.args("reverse_gather")
+    q, obj, rel, depth, live, ns_t, rstart, rlen, rinstr, rv_pack = args2[:10]
+    F = q.shape[0]
+    S = 1 + rinstr.shape[1] // 4
+    ch, _cause = trk.reverse_gather_plain(*args2, **kw2)
+    n_out = int(ch.valid.sum())
+    cases.append((
+        "reverse_gather",
+        lambda: cuda_ops.reverse_gather(*args2, **kw2),
+        lambda: trk.reverse_gather_plain(*args2, **kw2),
+        F * (7 * 4 + 1) + rinstr.numel() * 4 + n_out * (16 + 4) + F * (4 * 4 + 1)
+        + kw2["n_queries"] * 4,
+        F * S * 8 + F * (2 * (F * S).bit_length() + 24),
+        lambda: max_abs_err(cuda_ops.reverse_gather(*args2, **kw2),
+                            (lambda c, x: (c.q, c.ctx, c.obj, c.rel, c.depth, c.valid, x))(
+                                *trk.reverse_gather_plain(*args2, **kw2))),
+    ))
+
+    args3, kw3 = rec_ls.args("subjects_gather")
+    q3, spans, ik = args3[0], args3[4], args3[5]
+    F3, K = ik.shape
+    ch3, emit3, _v, _c = trk.subjects_gather_plain(*args3, **kw3)
+    n_out3 = int((ch3.valid | emit3).sum())
+    cases.append((
+        "subjects_gather",
+        lambda: cuda_ops.subjects_gather(*args3, **kw3),
+        lambda: trk.subjects_gather_plain(*args3, **kw3),
+        F3 * (3 * 4 + 1) + spans.numel() * 4 + ik.numel() * 12 + n_out3 * 16
+        + F3 * (5 * 4 + 2) + kw3["n_queries"] * 4,
+        F3 * (K + 1) * 8 + F3 * (2 * (F3 * (K + 1)).bit_length() + 24),
+        lambda: max_abs_err(cuda_ops.subjects_gather(*args3, **kw3),
+                            (lambda c, e, v, x: (c.q, c.ctx, c.obj, c.rel, c.depth, c.valid,
+                                                 e, v, x))(
+                                *trk.subjects_gather_plain(*args3, **kw3))),
+    ))
+
+    args4, kw4 = rec_lo.args("list_pool_compact")
+    res_count = args4[1]
+    B4, P = res_count.shape[0], kw4["pool_cap"]
+    used = int(res_count.clamp(0, kw4["result_cap"]).sum().clamp(max=P))
+    cases.append((
+        "list_pool_compact",
+        lambda: cuda_ops.list_pool_compact(*args4, **kw4),
+        lambda: trk.list_pool_compact_plain(*args4, **kw4),
+        B4 * 8 + 32 + used * 4 + (2 * B4 + 1 + 8 + P) * 4,
+        B4 * 6 + P * (2 * max(B4, 2).bit_length() + 10),
+        lambda: max_abs_err(cuda_ops.list_pool_compact(*args4, **kw4),
+                            trk.list_pool_compact_plain(*args4, **kw4)),
     ))
     return cases
 
@@ -695,10 +827,10 @@ def setup_expand():
     state = engine.ensure_expand_state()
     torch.cuda.synchronize()
     t_csr = time.perf_counter() - t
-    nbytes = engine.tables_nbytes(expand=True)
+    nbytes = engine.tables_nbytes("expand")
     info = {"tuples": len(tuples), "store_s": t_store, "mirror_s": t_mirror,
             "csr_build_upload_s": t_csr, "expand_table_bytes": sum(nbytes.values()),
-            "fh_probes": state.fh_probes, "layout": state.snapshot.layout}
+            "fh_probes": state.expand_np["fh_probes"], "layout": state.snapshot.layout}
     log(f"  {len(tuples)} tuples: store {t_store:.1f} s, mirror {t_mirror:.1f} s, "
         f"full-edge CSR build + upload {t_csr:.1f} s, expand tables "
         f"{sum(nbytes.values()) / 1e6:.1f} MB: "
@@ -779,6 +911,202 @@ def run_expand(engine, manager, config, subjects, info):
     return launches, out
 
 
+def ownership(tuples):
+    """The generator's ownership maps: user -> owned folders, user ->
+    directly owned files, and the files of each folder."""
+    folders_of, files_of, files_in = {}, {}, {}
+    for t in tuples:
+        if t.relation == "owner":
+            obj = t.object
+            target = files_of if "/v" in obj else folders_of
+            target.setdefault(t.subject_id, []).append(obj)
+        elif t.relation == "parent":
+            files_in.setdefault(t.subject_set.object, []).append(t.object)
+    return folders_of, files_of, files_in
+
+
+def list_queries():
+    """bench.py:489-507's draws: 256 users for ListObjects, then 256
+    random files for ListSubjects."""
+    rng = random.Random(11)
+    lo = [("videos", "view", f"user{rng.randrange(N_USERS)}") for _ in range(LIST_BATCH)]
+    ls = [("videos", f"/d{rng.randrange(N_FOLDERS)}/v{rng.randrange(FILES_PER_FOLDER)}.mp4",
+           "view") for _ in range(LIST_BATCH)]
+    return lo, ls
+
+
+def setup_list(engine):
+    import torch
+
+    phase("8a list: the reverse and subjects states on phase 4's engine")
+    out = {}
+    for path, ensure in (("reverse", engine.ensure_reverse_state),
+                         ("subjects", engine.ensure_subjects_state)):
+        t = time.perf_counter()
+        ensure()
+        torch.cuda.synchronize()
+        out[f"{path}_build_upload_s"] = time.perf_counter() - t
+        nbytes = engine.tables_nbytes(path)
+        out[f"{path}_table_bytes"] = sum(nbytes.values())
+        log(f"  {path} state: build + upload {out[f'{path}_build_upload_s']:.1f} s, tables "
+            f"{out[f'{path}_table_bytes'] / 1e6:.1f} MB: "
+            + ", ".join(f"{k} {v / 1e6:.2f} MB" for k, v in sorted(nbytes.items())))
+    rnp = engine.ensure_reverse_state().reverse_np
+    out.update(RK=rnp["RK"], rvh_probes=rnp["rvh_probes"], rsh_probes=rnp["rsh_probes"])
+    return out
+
+
+def run_list_kernels(engine, lo_queries, ls_queries):
+    from keto_tpu_torch.engine import cuda_ops
+
+    t0 = phase("8b kernels: L1-L4 against their plain versions, on real list batches")
+    with Recorder(cuda_ops, step=1, steps={"list_emit": 2}) as rec_lo:
+        engine.list_objects_batch(lo_queries, LIST_DEPTH, **LO_CAPS)
+    with Recorder(cuda_ops, step=1) as rec_ls:
+        engine.list_subjects_batch(ls_queries, LIST_DEPTH, **LS_CAPS)
+    rows = [time_kernel(*case) for case in list_kernel_cases(rec_lo, rec_ls)]
+    log(f"  kernels phase {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def run_list_leg(engine, leg, queries, caps, want_kernels, check):
+    """One list leg's main path once, its launches, LIST_ROUNDS timed
+    batches split into launch + readback and host decode, the device
+    profile, and `check(results)`."""
+    import torch
+
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine import torch_engine
+
+    batch = getattr(engine, f"list_{leg}_batch")
+    host_key = f"host_list_{leg}"
+    cuda_ops.reset_launch_counts()
+    before = engine.stats[host_key]
+    results = batch(queries, LIST_DEPTH, **caps)  # the main path, once
+    torch.cuda.synchronize()
+    launches = dict(cuda_ops.launches)
+    if engine.stats[host_key] != before:
+        raise AssertionError(f"{engine.stats[host_key] - before} host replays on the {leg} batch")
+    missing = [k for k in want_kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the list_{leg} path: {missing}")
+    stray = [k for k in cuda_ops.KERNELS if k not in want_kernels and launches[k]]
+    if stray:
+        raise AssertionError(f"kernels of other paths launched on the list_{leg} path: {stray}")
+
+    name = f"list_{leg}_kernel_packed"
+    orig = getattr(torch_engine, name)
+    launch_ms: list = []
+
+    def timed_launch(*a, **kw):
+        s = time.perf_counter()
+        out = orig(*a, **kw).cpu()
+        launch_ms.append((time.perf_counter() - s) * 1e3)
+        return out
+
+    lat = []
+    setattr(torch_engine, name, timed_launch)
+    try:
+        t1 = time.perf_counter()
+        for _ in range(LIST_ROUNDS):
+            s = time.perf_counter()
+            batch(queries, LIST_DEPTH, **caps)
+            lat.append((time.perf_counter() - s) * 1e3)
+        wall = time.perf_counter() - t1
+    finally:
+        setattr(torch_engine, name, orig)
+    if engine.stats[host_key] != before:
+        raise AssertionError(f"host replays during the timed {leg} rounds")
+    profile = device_profile(lambda: batch(queries, LIST_DEPTH, **caps), "batches")
+    check(results)
+    sizes = [len(r) for r in results]
+    p50_launch = statistics.median(launch_ms)
+    out = {
+        "lists_per_s": LIST_ROUNDS * len(queries) / wall,
+        "p50_batch_ms": statistics.median(lat), "batch_ms": lat,
+        "p50_launch_readback_ms": p50_launch,
+        "p50_host_decode_ms": statistics.median(b - a for a, b in zip(launch_ms, lat)),
+        "mean_results": sum(sizes) / len(sizes), "max_results": max(sizes),
+        "launches": {k: v for k, v in launches.items() if v}, "profile": profile,
+    }
+    log(f"  launches on the list_{leg} path: {launches}")
+    log(f"  throughput {out['lists_per_s']:.1f} lists/s ({LIST_ROUNDS} batches of {len(queries)}); "
+        f"p50 batch {out['p50_batch_ms']:.2f} ms (launch + readback {p50_launch:.2f} ms, host "
+        f"decode {out['p50_host_decode_ms']:.2f} ms); mean {out['mean_results']:.1f} results "
+        f"per query (max {out['max_results']}); idle share {profile['idle_share']:.3f}")
+    return launches, out
+
+
+def run_list_objects(engine, manager, config, queries, owners):
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+    from keto_tpu_torch.ketoapi import RelationTuple
+
+    t0 = phase(f"8c list objects: batches of {len(queries)} users' view on the main path")
+    folders_of, files_of, files_in = owners
+
+    def expected(user):
+        folders = folders_of.get(user, [])
+        nested = [f for d in folders for f in files_in.get(d, [])]
+        return sorted(set(folders) | set(nested) | set(files_of.get(user, [])))
+
+    def check(results):
+        rng = random.Random(13)
+        sample = rng.sample(range(len(queries)), 32)
+        bad = [i for i in sample if results[i] != expected(queries[i][2])]
+        if bad:
+            raise AssertionError(f"{len(bad)} of 32 sampled ListObjects answers differ from "
+                                 "the ownership maps")
+        # the oracle's own list_objects would check all ~800k objects per
+        # query, minutes each: hold 16 returned and 16 other objects of 4
+        # queries against its check instead
+        oracle = ReferenceEngine(manager, config)
+        all_folders = sorted(d for ds in folders_of.values() for d in ds)
+        for i in sample[:4]:
+            user = queries[i][2]
+            got = set(results[i])
+            near = rng.sample(all_folders, 64)
+            near += [f for d in near for f in files_in.get(d, [])[:2]]
+            others = sorted(o for o in set(near) if o not in got)
+            picks = [(o, True) for o in rng.sample(sorted(got), 16)]
+            picks += [(o, False) for o in rng.sample(others, 16)]
+            for obj, want in picks:
+                allowed = oracle.check_relation_tuple(
+                    RelationTuple("videos", obj, "view", subject_id=user), LIST_DEPTH).allowed
+                if allowed != want:
+                    raise AssertionError(f"{user} {obj}: oracle says {allowed}, list says {want}")
+        log("  32 sampled answers equal the ownership maps; 4 x 32 objects equal the oracle's "
+            "check")
+
+    launches, out = run_list_leg(
+        engine, "objects", queries, LO_CAPS,
+        ("pair_probe", "dedupe_compact", "list_emit", "reverse_gather", "list_pool_compact"),
+        check)
+    log(f"  list objects phase {time.perf_counter() - t0:.1f} s")
+    return launches, out
+
+
+def run_list_subjects(engine, manager, config, queries):
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+
+    t0 = phase(f"8d list subjects: batches of {len(queries)} files' view on the main path")
+
+    def check(results):
+        oracle = ReferenceEngine(manager, config)
+        sample = random.Random(17).sample(range(len(queries)), 64)
+        bad = [i for i in sample if results[i] != oracle.list_subjects(*queries[i], LIST_DEPTH)]
+        if bad:
+            raise AssertionError(f"{len(bad)} of 64 sampled ListSubjects answers differ from "
+                                 "the oracle's")
+        log("  64 sampled answers equal the oracle's list_subjects")
+
+    launches, out = run_list_leg(
+        engine, "subjects", queries, LS_CAPS,
+        ("pair_probe", "dedupe_compact", "list_emit", "subjects_gather", "list_pool_compact"),
+        check)
+    log(f"  list subjects phase {time.perf_counter() - t0:.1f} s")
+    return launches, out
+
+
 def run_serve():
     import urllib.error
     import urllib.parse
@@ -838,8 +1166,15 @@ def run_serve():
                        "/relation-tuples/expand")
             nil = get({"namespace": "videos", "object": "/cats/9.mp4", "relation": "view"},
                       "/relation-tuples/expand")
+            objects = get({"namespace": "videos", "relation": "view", "subject_id": "cat lady"},
+                          "/relation-tuples/list-objects")
+            subjects = get({"namespace": "videos", "object": "/cats/1.mp4", "relation": "view"},
+                           "/relation-tuples/list-subjects")
+            no_rel = get({"namespace": "videos", "subject_id": "cat lady"},
+                         "/relation-tuples/list-objects")
             log(f"  GET allowed -> {allowed}, GET denied -> {denied}, batch -> {batch}, "
-                f"expand -> {tree}, expand nil -> {nil}")
+                f"expand -> {tree}, expand nil -> {nil}, list-objects -> {objects}, "
+                f"list-subjects -> {subjects}, list-objects without relation -> {no_rel}")
             if allowed != (200, {"allowed": True}) or denied != (403, {"allowed": False}):
                 raise AssertionError("single checks answered wrongly")
             if [r["allowed"] for r in batch["results"]] != [True, True, False]:
@@ -855,6 +1190,12 @@ def run_serve():
                 raise AssertionError(f"expand answered wrongly: {tree}, want {want}")
             if nil[0] != 404 or nil[1]["error"]["message"] != "no relation tuples found":
                 raise AssertionError(f"expand of a nil tree answered wrongly: {nil}")
+            if objects != (200, {"objects": ["/cats", "/cats/1.mp4"], "next_page_token": ""}):
+                raise AssertionError(f"list-objects answered wrongly: {objects}")
+            if subjects != (200, {"subject_ids": ["cat lady"], "next_page_token": ""}):
+                raise AssertionError(f"list-subjects answered wrongly: {subjects}")
+            if no_rel[0] != 400:
+                raise AssertionError(f"list-objects without a relation answered {no_rel}")
         finally:
             proc.terminate()
             try:
@@ -911,6 +1252,7 @@ def main() -> int:
         f"({snap.layout}, dh_probes {snap.dh_probes}, rh_probes {snap.rh_probes}, K {snap.K})")
     log(f"  device tables {sum(nbytes.values()) / 1e6:.1f} MB: "
         + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in sorted(nbytes.items())))
+    owners = ownership(tuples)
     del tuples
 
     rows = run_kernels(engine, queries)
@@ -928,18 +1270,31 @@ def main() -> int:
     gc.freeze()
     rows += run_expand_kernels(x_engine, subjects)
     x_launches, expand = run_expand(x_engine, x_manager, x_config, subjects, x_info)
+    # the list phases run on phase 4's store and engine
+    lo_queries, ls_queries = list_queries()
+    l_info = setup_list(engine)
+    rows += run_list_kernels(engine, lo_queries, ls_queries)
+    lo_launches, list_objects = run_list_objects(engine, manager, config, lo_queries, owners)
+    ls_launches, list_subjects = run_list_subjects(engine, manager, config, ls_queries)
+    by_path = {"check": launches, "expand": x_launches, "list_objects": lo_launches,
+               "list_subjects": ls_launches}
+    # each kernel's count on its own path: check for K1-K4, expand for X1
+    # and X2, ListObjects for L1, L2 and L4, ListSubjects for L3; K2, K4,
+    # L1 and L4 run on several
+    own = {name: "expand" for name in cuda_ops.EXPAND_KERNELS}
+    own.update(list_emit="list_objects", reverse_gather="list_objects",
+               list_pool_compact="list_objects", subjects_gather="list_subjects")
     for row in rows:
-        # each kernel's count on its own path: the check path for K1-K4,
-        # the expand path for X1 and X2; K2 and K4 run on both
-        own = x_launches if row["name"] in cuda_ops.EXPAND_KERNELS else launches
-        row["launches"] = own[row["name"]]
-        row["launches_by_path"] = {"check": launches[row["name"]],
-                                   "expand": x_launches[row["name"]]}
+        row["launches"] = by_path[own.get(row["name"], "check")][row["name"]]
+        row["launches_by_path"] = {path: counts[row["name"]] for path, counts in by_path.items()}
 
     log(json.dumps({"check": {**check, "card": smi, "tuples": snap.n_tuples,
                               "device_table_bytes": sum(nbytes.values()),
                               "profile": profile}}))
     log(json.dumps({"expand": {**expand, "card": smi}}))
+    log(json.dumps({"list": {**l_info, "card": smi, "list_objects": list_objects,
+                             "list_subjects": list_subjects,
+                             "caps": {"list_objects": LO_CAPS, "list_subjects": LS_CAPS}}}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

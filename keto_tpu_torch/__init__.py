@@ -1,5 +1,5 @@
-"""keto_tpu_torch — keto-tpu's Check and Expand paths in PyTorch, for one
-NVIDIA H100.
+"""keto_tpu_torch — keto-tpu's Check, Expand and List paths in PyTorch, for
+one NVIDIA H100.
 
 The port of the JAX package `keto_tpu` (the reference it is tested
 against): tuples go into a store, a snapshot compiles them into packed
@@ -9,16 +9,19 @@ are hand-written CUDA kernels (csrc/check_kernels.cu). AND/NOT islands
 combine on the host, and flagged queries replay on the exact host oracle.
 Expand walks a full-edge CSR breadth-first on the card, gathering each
 query's edges into a packed pool (csrc/expand_kernels.cu), and the host
-assembles the trees.
+assembles the trees. ListObjects walks a transposed mirror backwards and
+ListSubjects the full-edge CSR forwards with the rewrites, each emitting
+its results into a packed pool (csrc/list_kernels.cu) that the host
+decodes.
 
 Layout:
   ketoapi     — relation tuples, subject sets, string and JSON forms
   namespace   — namespace model and rewrite AST
-  config      — JSON configuration of the Check path
+  config      — JSON configuration of the read paths
   storage     — in-memory versioned tuple store
-  engine      — snapshot compiler, host oracle, check and expand kernels,
-                the engine
-  api         — REST server (Check, batch Check and Expand)
+  engine      — snapshot compiler, host oracle, check, expand and list
+                kernels, the engine
+  api         — REST server (Check, batch Check, Expand and List)
 
 Entry points run on the card (device="cuda") unless the caller passes
 device="cpu", where every kernel runs its plain PyTorch version.

@@ -2,11 +2,12 @@
 
     python -m keto_tpu_torch serve --config cfg.json [--tuples tuples.txt] [--device cuda]
 
-`serve` reads the JAX package's JSON config keys for Check (`namespaces`,
-`limit.max_read_depth`, `serve.read.host` / `serve.read.port`), loads the
-tuples of `--tuples` (one "ns:obj#rel@subject" per line) into an
-in-memory store, builds the device mirror, and serves the REST Check and
-Expand routes until SIGINT or SIGTERM. It prints one line
+`serve` reads the JAX package's JSON config keys for the read routes
+(`namespaces`, `limit.max_read_depth`, `limit.page_size`,
+`serve.read.host` / `serve.read.port`), loads the tuples of `--tuples`
+(one "ns:obj#rel@subject" per line) into an in-memory store, builds the
+device mirror, and serves the REST Check, Expand, ListObjects and
+ListSubjects routes until SIGINT or SIGTERM. It prints one line
 `serving read=<host>:<port>` once it accepts requests.
 """
 
@@ -56,7 +57,7 @@ def _serve(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m keto_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
-    serve = sub.add_parser("serve", help="serve the REST Check and Expand routes")
+    serve = sub.add_parser("serve", help="serve the REST Check, Expand and List routes")
     serve.add_argument("--config", required=True, help="JSON config file")
     serve.add_argument("--tuples", help="file of relation tuples, one per line")
     serve.add_argument("--device", default="cuda", help="torch device (default: cuda)")

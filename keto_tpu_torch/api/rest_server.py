@@ -1,5 +1,5 @@
-"""REST Check and Expand routes on a stdlib threaded HTTP server, in
-front of a TorchCheckEngine.
+"""REST Check, Expand and List routes on a stdlib threaded HTTP server,
+in front of a TorchCheckEngine.
 
   GET  /relation-tuples/check          -> 200 {"allowed": true} / 403 {"allowed": false}
   POST /relation-tuples/check          -> the same, tuple as a JSON body
@@ -11,11 +11,21 @@ front of a TorchCheckEngine.
                                           tuple matches the subject set
                                           (params namespace, object,
                                           relation, optional max-depth)
+  GET  /relation-tuples/list-objects   -> {"objects": [...], "next_page_token": str}
+                                          (params namespace, relation, subject_id
+                                          or subject_set.namespace/object/relation)
+  GET  /relation-tuples/list-subjects  -> {"subject_ids": [...], "next_page_token": str}
+                                          (params namespace, object, relation)
+                                          both list routes also take max-depth,
+                                          page_size and page_token
   GET  /health/alive, /health/ready    -> 200 {"status": "ok"}
 
 Keto's semantics: an unknown namespace on a single check answers
 {"allowed": false} rather than an error; the batch route reports it per
-item; Expand answers it with 404. Errors use the herodot shape {"error": {code, status, message}}.
+item; Expand and the list routes answer it with 404. A missing parameter
+or a malformed page token is a 400; an unknown object, relation or
+subject lists nothing. Errors use the herodot shape {"error": {code,
+status, message}}.
 Checks carry an X-Keto-Snaptoken header with the store version they were
 evaluated at. The engine is not thread-safe, so requests take one lock
 around it.
@@ -35,6 +45,8 @@ CHECK_ROUTE = "/relation-tuples/check"
 CHECK_OPENAPI_ROUTE = "/relation-tuples/check/openapi"
 CHECK_BATCH_ROUTE = "/relation-tuples/check/batch"
 EXPAND_ROUTE = "/relation-tuples/expand"
+LIST_OBJECTS_ROUTE = "/relation-tuples/list-objects"
+LIST_SUBJECTS_ROUTE = "/relation-tuples/list-subjects"
 HEALTH_ROUTES = ("/health/alive", "/health/ready")
 
 
@@ -56,9 +68,32 @@ def _max_depth(params: dict) -> int:
         raise MalformedInputError(debug=f"invalid max-depth {raw!r}")
 
 
+def _page_size(params: dict, default: int) -> int:
+    raw = params.get("page_size", "")
+    if not raw:
+        return default
+    try:
+        return int(raw) or default
+    except ValueError:
+        raise MalformedInputError(debug=f"invalid page_size {raw!r}")
+
+
+def _subject(params: dict):
+    """subject_id, or subject_set.{namespace,object,relation}."""
+    if "subject_id" in params:
+        return params["subject_id"]
+    try:
+        return SubjectSet(
+            namespace=params["subject_set.namespace"], object=params["subject_set.object"],
+            relation=params["subject_set.relation"],
+        )
+    except KeyError:
+        raise MalformedInputError(debug="a subject_id or subject_set.* subject is required")
+
+
 class CheckService:
-    """The Check and Expand surface over one engine: namespace validation
-    and one lock around the engine."""
+    """The Check, Expand and List surface over one engine: namespace
+    validation and one lock around the engine."""
 
     def __init__(self, engine):
         self.engine = engine
@@ -83,6 +118,14 @@ class CheckService:
     def expand(self, subject_set: SubjectSet, max_depth: int):
         with self._mu:
             return self.engine.expand(subject_set, max_depth)
+
+    def list_objects(self, *args, **kw):
+        with self._mu:
+            return self.engine.list_objects(*args, **kw)
+
+    def list_subjects(self, *args, **kw):
+        with self._mu:
+            return self.engine.list_subjects(*args, **kw)
 
 
 def make_handler(service: CheckService):
@@ -123,6 +166,10 @@ def make_handler(service: CheckService):
                     self._check_batch(params)
                 elif path == EXPAND_ROUTE and method == "GET":
                     self._expand(params)
+                elif path == LIST_OBJECTS_ROUTE and method == "GET":
+                    self._list_objects(params)
+                elif path == LIST_SUBJECTS_ROUTE and method == "GET":
+                    self._list_subjects(params)
                 elif path in (CHECK_ROUTE, CHECK_OPENAPI_ROUTE):
                     self._check(method, params, mirror_status=path == CHECK_ROUTE)
                 else:
@@ -179,6 +226,40 @@ def make_handler(service: CheckService):
                 return
             self._json(200, tree.to_dict())
 
+        def _list_objects(self, params: dict) -> None:
+            max_depth = _max_depth(params)
+            namespace, relation = params.get("namespace"), params.get("relation")
+            if not namespace or not relation:
+                raise MalformedInputError(debug="list-objects requires namespace and relation")
+            subject = _subject(params)
+            nm = service.engine.config.namespace_manager()
+            nm.get_namespace_by_name(namespace)
+            if isinstance(subject, SubjectSet):
+                nm.get_namespace_by_name(subject.namespace)
+            objects, token = service.list_objects(
+                namespace, relation, subject, max_depth,
+                page_size=_page_size(params, service.engine.config.page_size()),
+                page_token=params.get("page_token", ""),
+            )
+            self._json(200, {"objects": objects, "next_page_token": token})
+
+        def _list_subjects(self, params: dict) -> None:
+            max_depth = _max_depth(params)
+            try:
+                namespace, obj = params["namespace"], params["object"]
+                relation = params["relation"]
+            except KeyError:
+                raise MalformedInputError(
+                    debug="list-subjects requires namespace, object, and relation"
+                )
+            service.engine.config.namespace_manager().get_namespace_by_name(namespace)
+            subjects, token = service.list_subjects(
+                namespace, obj, relation, max_depth,
+                page_size=_page_size(params, service.engine.config.page_size()),
+                page_token=params.get("page_token", ""),
+            )
+            self._json(200, {"subject_ids": subjects, "next_page_token": token})
+
         def _check_batch(self, params: dict) -> None:
             body = self._body()
             if isinstance(body, dict):
@@ -222,8 +303,8 @@ def make_handler(service: CheckService):
 
 
 def make_server(engine, host: str, port: int) -> ThreadingHTTPServer:
-    """A threaded HTTP server serving the Check and Expand routes over
-    `engine`."""
+    """A threaded HTTP server serving the Check, Expand and List routes
+    over `engine`."""
     server = ThreadingHTTPServer((host, port), make_handler(CheckService(engine)))
     server.daemon_threads = True
     return server

@@ -1,9 +1,10 @@
 """Configuration of the Check path: a dotted-key view over a JSON config.
 
-Reads the keys the JAX package's serve entry point reads for Check:
-`namespaces` (an inline list of namespace dicts), `limit.max_read_depth`
-(default 5, as Keto's embedx/config.schema.json) and `serve.read.host` /
-`serve.read.port`. Schema validation, namespace files and OPL stay with
+Reads the keys the JAX package's serve entry point reads for the read
+routes: `namespaces` (an inline list of namespace dicts),
+`limit.max_read_depth` (default 5, as Keto's embedx/config.schema.json),
+`limit.page_size` (the list routes' default page, 100) and
+`serve.read.host` / `serve.read.port`. Schema validation, namespace files and OPL stay with
 the JAX package.
 """
 
@@ -14,6 +15,7 @@ from typing import Any, Mapping, Optional
 
 from .errors import KetoError
 from .namespace.definitions import MemoryNamespaceManager, Namespace
+from .storage.definitions import DEFAULT_PAGE_SIZE
 
 DEFAULT_MAX_READ_DEPTH = 5
 DEFAULT_READ_PORT = 4466
@@ -48,6 +50,9 @@ class Config:
 
     def max_read_depth(self) -> int:
         return int(self.get("limit.max_read_depth", DEFAULT_MAX_READ_DEPTH))
+
+    def page_size(self) -> int:
+        return int(self.get("limit.page_size", DEFAULT_PAGE_SIZE))
 
     def read_address(self) -> tuple[str, int]:
         return (

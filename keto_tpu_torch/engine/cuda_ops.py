@@ -13,7 +13,7 @@ raises if the launch reported an error, and adds one to its entry in
 returns: PyTorch's caching allocator hands their memory out again only in
 stream order, after the launch. The wrappers take CUDA tensors only; the
 plain versions for CPU tensors live beside the dispatchers in
-engine/kernel.py and engine/expand_kernel.py.
+engine/kernel.py, engine/expand_kernel.py and engine/reverse_kernel.py.
 """
 
 from __future__ import annotations
@@ -30,7 +30,9 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "check_kernels.cu", _PKG / "csrc" / "expand_kernels.cu")
+SOURCES = tuple(
+    _PKG / "csrc" / name for name in ("check_kernels.cu", "expand_kernels.cu", "list_kernels.cu")
+)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -38,7 +40,8 @@ NVCC_FLAGS = (
 
 CHECK_KERNELS = ("edge_probe", "pair_probe", "expand_gather", "dedupe_compact")
 EXPAND_KERNELS = ("expand_emit", "pool_compact")
-KERNELS = CHECK_KERNELS + EXPAND_KERNELS
+LIST_KERNELS = ("list_emit", "reverse_gather", "subjects_gather", "list_pool_compact")
+KERNELS = CHECK_KERNELS + EXPAND_KERNELS + LIST_KERNELS
 launches = {name: 0 for name in KERNELS}
 # the largest dynamic shared memory one block may take on Hopper, less
 # the kernels' static shared memory
@@ -114,6 +117,11 @@ _SIGNATURES = {
     "keto_dedupe_compact": [_VP] * 6 + [_I] * 5 + [_VP] * 9,
     "keto_expand_emit": [_VP] * 8 + [_I] + [_VP] * 3 + [_I] * 4 + [_VP] * 19,
     "keto_pool_compact": [_VP] * 9 + [_I] * 3 + [_VP] * 3,
+    "keto_list_emit_blocks": [_I],
+    "keto_list_emit": [_VP] * 3 + [_I] * 3 + [_VP] * 6,
+    "keto_reverse_gather": [_VP] * 9 + [_I] + [_VP] + [_I] + [_VP] + [_I] * 5 + [_VP] * 12,
+    "keto_subjects_gather": [_VP] * 8 + [_I] + [_VP] + [_I] * 4 + [_VP] * 14,
+    "keto_list_pool_compact": [_VP] * 4 + [_I] * 3 + [_VP] * 3,
 }
 
 
@@ -322,6 +330,136 @@ def pool_compact(eb, eb_count, root, needs_host, stats, *, edge_cap: int, pool_c
     rc = lib.keto_pool_compact(
         *(_p(c) for c in eb), _p(eb_count), _p(root), _p(needs_host), _p(stats), B, E,
         pool_cap, _p(offs), _p(out), _stream(),
+    )
+    _check(lib, rc, name)
+    return out
+
+
+def list_emit(q, emit, value, res, res_count, needs_host, *, result_cap: int):
+    """L1: bump-allocate one result slot per emitting entry, in entry
+    order within each query, and write the values that land. Updates
+    res, res_count and needs_host in place; returns the landed count
+    (0-d). The queries of emitting entries must lie in [0, B)."""
+    name = "list_emit"
+    _require(name, torch.int32, q, value, res, res_count, needs_host)
+    _require(name, torch.bool, emit)
+    N, B, R = q.shape[0], res_count.shape[0], result_cap
+    if emit.shape != (N,) or value.shape != (N,):
+        raise ValueError(f"{name}: q, emit and value must all be [N]")
+    if res.shape != (B * R,) or needs_host.shape != (B,):
+        raise ValueError(f"{name}: expects a [B * result_cap] buffer and [B] causes")
+    if N == 0 or B == 0 or 4 * B > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"{name}: {N} entries over {B} queries do not fit its blocks")
+    lib = library()
+    dev = q.device
+    hist = torch.empty(lib.keto_list_emit_blocks(N) * B, dtype=torch.int32, device=dev)
+    landed = torch.empty(1, dtype=torch.int32, device=dev)
+    rc = lib.keto_list_emit(
+        _p(q), _p(emit), _p(value), N, B, R, _p(res), _p(res_count), _p(needs_host),
+        _p(hist), _p(landed), _stream(),
+    )
+    _check(lib, rc, name)
+    return landed.reshape(())
+
+
+def _slot_scratch(F: int, S: int, dev):
+    nblk = -(-F // 256)
+    return (torch.empty(F * S, dtype=torch.int32, device=dev),
+            torch.empty(F * S, dtype=torch.int32, device=dev),
+            torch.empty(nblk, dtype=torch.int32, device=dev),
+            torch.empty(nblk, dtype=torch.int32, device=dev),
+            torch.empty(1, dtype=torch.int32, device=dev))
+
+
+def _aligned(name: str, t: torch.Tensor, width: int) -> None:
+    if t.dim() != 2 or t.shape[1] % width or t.data_ptr() % (4 * width):
+        raise ValueError(f"{name}: a table of {width}-int rows must be aligned to them")
+
+
+def reverse_gather(q, obj, rel, depth, live, ns_t, rstart, rlen, rinstr_pack, rv_pack,
+                   objslot_ns, *, wildcard_rel: int, n_config_rels: int, n_queries: int):
+    """L2: ListObjects' predecessor candidates (q, ctx, obj, rel, depth,
+    valid), ctx being q, in scan order, and the per-query causes
+    (frontier overflow, POISON)."""
+    name = "reverse_gather"
+    _require(name, torch.int32, q, obj, rel, depth, ns_t, rstart, rlen, rinstr_pack, rv_pack,
+             objslot_ns)
+    _require(name, torch.bool, live)
+    F = q.shape[0]
+    if any(t.shape != (F,) for t in (obj, rel, depth, live, ns_t, rstart, rlen)):
+        raise ValueError(f"{name}: task columns must all be [F]")
+    _aligned(name, rinstr_pack, 4)
+    _aligned(name, rv_pack, 4)
+    if rinstr_pack.shape[0] < max(n_config_rels, 1) or rv_pack.shape[1] != 4:
+        raise ValueError(f"{name}: malformed rinstr_pack or rv_pack")
+    RK = rinstr_pack.shape[1] // 4
+    dev = q.device
+    scratch = _slot_scratch(F, RK + 1, dev)
+    cause = torch.empty(n_queries, dtype=torch.int32, device=dev)
+    cols = [torch.empty(F, dtype=torch.int32, device=dev) for _ in range(4)]
+    valid = torch.empty(F, dtype=torch.bool, device=dev)
+    lib = library()
+    rc = lib.keto_reverse_gather(
+        _p(q), _p(obj), _p(rel), _p(depth), _p(live), _p(ns_t), _p(rstart), _p(rlen),
+        _p(rinstr_pack), RK, _p(rv_pack), rv_pack.shape[0], _p(objslot_ns),
+        objslot_ns.shape[0], F, n_queries, wildcard_rel, n_config_rels,
+        *(_p(t) for t in scratch), _p(cause), *(_p(c) for c in cols), _p(valid), _stream(),
+    )
+    _check(lib, rc, name)
+    return cols[0], cols[0], cols[1], cols[2], cols[3], valid, cause
+
+
+def subjects_gather(q, obj, depth, live, spans, ik, ir, ir2, fe_pack, *, wildcard_rel: int,
+                    n_queries: int):
+    """L3: ListSubjects' candidates (q, ctx, obj, rel, depth, valid), ctx
+    being q, in scan order, the result mask and value of each, and the
+    per-query frontier-overflow causes."""
+    name = "subjects_gather"
+    _require(name, torch.int32, q, obj, depth, spans, ik, ir, ir2, fe_pack)
+    _require(name, torch.bool, live)
+    F, K = ik.shape
+    if any(t.shape != (F,) for t in (q, obj, depth, live)) or ir.shape != ik.shape \
+            or ir2.shape != ik.shape or spans.shape != (F, K + 1, 2):
+        raise ValueError(f"{name}: expects [F] tasks, [F, K] lanes and [F, K + 1, 2] spans")
+    if spans.data_ptr() % 8:
+        raise ValueError(f"{name}: spans must be 8-byte aligned")
+    _aligned(name, fe_pack, 4)
+    dev = q.device
+    scratch = _slot_scratch(F, K + 1, dev)
+    cause = torch.empty(n_queries, dtype=torch.int32, device=dev)
+    cols = [torch.empty(F, dtype=torch.int32, device=dev) for _ in range(4)]
+    valid, emit = (torch.empty(F, dtype=torch.bool, device=dev) for _ in range(2))
+    value = torch.empty(F, dtype=torch.int32, device=dev)
+    lib = library()
+    rc = lib.keto_subjects_gather(
+        _p(q), _p(obj), _p(depth), _p(live), _p(spans), _p(ik), _p(ir), _p(ir2), K,
+        _p(fe_pack), fe_pack.shape[0], F, n_queries, wildcard_rel,
+        *(_p(t) for t in scratch), _p(cause), *(_p(c) for c in cols), _p(valid), _p(emit),
+        _p(value), _stream(),
+    )
+    _check(lib, rc, name)
+    return cols[0], cols[0], cols[1], cols[2], cols[3], valid, emit, value, cause
+
+
+def list_pool_compact(res, res_count, needs_host, stats, *, result_cap: int, pool_cap: int):
+    """L4: the packed list result [offsets(B+1) | needs_host(B) | stats |
+    pool(pool_cap)] from the result buffer."""
+    from .kernel import N_LAUNCH_STATS
+
+    name = "list_pool_compact"
+    _require(name, torch.int32, res, res_count, needs_host, stats)
+    B, R = res_count.shape[0], result_cap
+    if B == 0 or res.shape != (B * R,) or needs_host.shape != (B,):
+        raise ValueError(f"{name}: expects a [B * result_cap] buffer and [B] causes, B > 0")
+    if stats.shape != (N_LAUNCH_STATS,):
+        raise ValueError(f"{name}: expects [{N_LAUNCH_STATS}] stats")
+    dev = res.device
+    offs = torch.empty(B + 1, dtype=torch.int32, device=dev)
+    out = torch.empty(2 * B + 1 + N_LAUNCH_STATS + pool_cap, dtype=torch.int32, device=dev)
+    lib = library()
+    rc = lib.keto_list_pool_compact(
+        _p(res), _p(res_count), _p(needs_host), _p(stats), B, R, pool_cap, _p(offs), _p(out),
+        _stream(),
     )
     _check(lib, rc, name)
     return out

@@ -25,6 +25,25 @@ def subject_visited_key(sub) -> str:
     return f"id:{sub}"
 
 
+def paginate_names(names: list, page_size: int, page_token: str) -> tuple[list, str]:
+    """Offset pagination over a sorted enumeration (ListObjects and
+    ListSubjects): the token is the next start offset, "" when exhausted.
+    A malformed or negative token is a MalformedInputError."""
+    start = 0
+    if page_token:
+        try:
+            start = int(page_token)
+        except ValueError:
+            start = -1
+        if start < 0:
+            from ..errors import MalformedInputError
+
+            raise MalformedInputError(f"invalid page token {page_token!r}")
+    size = page_size if page_size > 0 else len(names)
+    next_token = str(start + size) if start + size < len(names) else ""
+    return names[start : start + size], next_token
+
+
 class Membership(IntEnum):
     UNKNOWN = 0
     IS_MEMBER = 1

@@ -8,6 +8,10 @@ probes beside the compacted ones.
   - dirty-row table keyed (obj, rel): a bitmask of rows whose edge list
     changed; a task expanding a check-dirty row sends its query to exact
     host replay
+  - reverse-dirty table keyed (subject, reverse_subject_tag) for a
+    subject whose direct edges changed and (subject slot, 0) for a
+    subject slot whose reverse-edge row changed: a ListObjects walk that
+    seeds from or visits such a key sends its query to host replay
 
 This slice's engine rebuilds the whole snapshot on a store-version
 change, so it always runs with the empty overlay and `has_delta=False`;
@@ -26,9 +30,11 @@ from ..ketoapi import RelationTuple
 from .snapshot import EMPTY, GraphSnapshot, _build_hash_table
 
 # fixed overlay shapes: each op adds one dd entry and at most one dirty
-# row, at the builder's 0.25 load for DELTA_COMPACT_THRESHOLD ops
+# row (two reverse-dirty entries), at the builder's 0.25 load for
+# DELTA_COMPACT_THRESHOLD ops
 DELTA_CAPACITY = 8192
 DIRTY_CAPACITY = 8192
+RDIRTY_CAPACITY = 16384
 DELTA_COMPACT_THRESHOLD = 2048
 DELTA_PROBES = 8  # static probe depth of the overlay tables
 
@@ -67,12 +73,18 @@ class SnapshotView:
             v = getattr(self.overlay, extra_name).get(key)
         return v
 
+    def ns_id(self, name: str):
+        return self._lookup(self.snapshot.ns_ids, "ns_ids", name)
+
+    def rel_id(self, name: str):
+        return self._lookup(self.snapshot.rel_ids, "rel_ids", name)
+
     def encode_node(self, namespace: str, obj: str, relation: str):
-        ns = self._lookup(self.snapshot.ns_ids, "ns_ids", namespace)
+        ns = self.ns_id(namespace)
         if ns is None:
             return None
         slot = self._lookup(self.snapshot.obj_slots, "obj_slots", (ns, obj))
-        rel = self._lookup(self.snapshot.rel_ids, "rel_ids", relation)
+        rel = self.rel_id(relation)
         if slot is None or rel is None:
             return None
         return slot, rel
@@ -112,6 +124,9 @@ def empty_delta_tables() -> dict[str, np.ndarray]:
         "dirty_obj": np.full(DIRTY_CAPACITY, EMPTY, np.int32),
         "dirty_rel": np.full(DIRTY_CAPACITY, EMPTY, np.int32),
         "dirty_val": np.full(DIRTY_CAPACITY, EMPTY, np.int32),
+        "rd_obj": np.full(RDIRTY_CAPACITY, EMPTY, np.int32),
+        "rd_tag": np.full(RDIRTY_CAPACITY, EMPTY, np.int32),
+        "rd_val": np.full(RDIRTY_CAPACITY, EMPTY, np.int32),
     }
 
 
@@ -178,18 +193,25 @@ def build_delta_tables(
 ) -> dict[str, np.ndarray]:
     """Compile pending (op, tuple) pairs to the overlay tables under an
     overlay-aware view, in the snapshot's table layout."""
+    from .snapshot import reverse_subject_tag
+
     if len(ops) > DELTA_COMPACT_THRESHOLD:
         raise DeltaOverflow
     layout = view.snapshot.layout
     last: dict[tuple[int, int, int, int, int], int] = {}
     dirty_ss: set[tuple[int, int]] = set()
     dirty_all: set[tuple[int, int]] = set()
+    # a changed edge makes its subject's seed row stale and, for a
+    # subject-set edge, the subject slot's reverse-edge row
+    rdirty: set[tuple[int, int]] = set()
     for op, t in ops:
         obj, rel = view.encode_node(t.namespace, t.object, t.relation)
         skind, sa, sb = view.encode_subject(t)
         if skind == 1:
             dirty_ss.add((obj, rel))
+            rdirty.add((sa, 0))
         dirty_all.add((obj, rel))
+        rdirty.add((sa, int(reverse_subject_tag(skind, sb))))
         last[(obj, rel, skind, sa, sb)] = 1 if op == "insert" else 0
 
     tables = empty_delta_tables()
@@ -208,5 +230,11 @@ def build_delta_tables(
         vals = np.array(list(marks.values()), dtype=np.int32)
         tables["dirty_obj"], tables["dirty_rel"], tables["dirty_val"] = (
             _fixed_capacity_table(tuple(keys), vals, DIRTY_CAPACITY, layout)
+        )
+    if rdirty:
+        keys = np.array(sorted(rdirty), dtype=np.int32).T
+        vals = np.ones(len(rdirty), dtype=np.int32)
+        tables["rd_obj"], tables["rd_tag"], tables["rd_val"] = _fixed_capacity_table(
+            tuple(keys), vals, RDIRTY_CAPACITY, layout
         )
     return tables

@@ -43,6 +43,7 @@ from .kernel import (
     _pack_columns,
     dedupe_compact,
     pair_probe,
+    tables_from_numpy,
     update_launch_stats,
 )
 from .snapshot import EMPTY, GraphSnapshot, group_rows_csr, slots_per_bucket
@@ -102,10 +103,7 @@ def pack_expand_tables(csr: dict, delta: Optional[dict] = None) -> dict[str, np.
 def expand_tables_from_numpy(packed: dict, device) -> dict[str, torch.Tensor]:
     """Packed numpy expand tables (pack_expand_tables, or the JAX package's
     expand tables read back as numpy) -> int32 tensors on `device`."""
-    return {
-        k: torch.from_numpy(np.require(packed[k], np.int32, ("C", "W"))).to(device)
-        for k in EXPAND_TABLE_KEYS
-    }
+    return tables_from_numpy(packed, device, EXPAND_TABLE_KEYS)
 
 
 # -- X1 expand_emit ------------------------------------------------------------
@@ -344,9 +342,10 @@ def unpack_expand_results(flat: np.ndarray, B: int, pool_cap: int):
 
 
 class ExpandDecoder:
-    """Reverse vocabularies that decode device ids back to names, with a
-    memo of the decoded subject sets (tree assembly resolves the same hot
-    (slot, relation) pairs across every tree of a batch)."""
+    """Reverse vocabularies that decode device ids back to names, with
+    memos of the decoded subject sets (tree assembly resolves the same hot
+    (slot, relation) pairs across every tree of a batch) and subject
+    names (ListSubjects' results)."""
 
     def __init__(self, snapshot: GraphSnapshot):
         self.ns_names = {v: k for k, v in snapshot.ns_ids.items()}
@@ -354,6 +353,7 @@ class ExpandDecoder:
         self.slot_to_obj = {v: k for k, v in snapshot.obj_slots.items()}
         self.subj_names = {v: k for k, v in snapshot.subj_ids.items()}
         self._ss_memo: dict = {}
+        self._subj_memo: dict = {}
 
     def subject_set(self, obj_slot: int, rel: int) -> SubjectSet:
         key = (obj_slot, rel)
@@ -364,6 +364,13 @@ class ExpandDecoder:
                             relation=self.rel_names[rel])
             self._ss_memo[key] = ss
         return ss
+
+    def subject_name(self, subj_id: int) -> str:
+        name = self._subj_memo.get(subj_id)
+        if name is None:
+            name = self.subj_names[subj_id]
+            self._subj_memo[subj_id] = name
+        return name
 
 
 def _node_tuple(subject_set: SubjectSet) -> RelationTuple:

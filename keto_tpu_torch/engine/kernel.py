@@ -658,6 +658,36 @@ def _pack_columns(cols, width: int) -> np.ndarray:
     return out
 
 
+def pack_pair_table(obj, rel, val) -> np.ndarray:
+    """Interleave three (obj, rel) -> val columns into [cap, 4] rows."""
+    return _pack_columns([obj, rel, val], 4)
+
+
+def pack_rh_span_table(rh_obj, rh_rel, rh_row, row_ptr) -> np.ndarray:
+    """(obj, rel) -> CSR span as [cap, 4] rows (obj, rel, row_start,
+    row_end): the span rides the probe's own bucket-row read. EMPTY rows
+    pack (-1, -1)."""
+    valid = rh_row != EMPTY
+    if row_ptr.shape[0] >= 2:
+        rc = np.clip(rh_row, 0, row_ptr.shape[0] - 2)
+        start = np.where(valid, row_ptr[rc], EMPTY)
+        end = np.where(valid, row_ptr[rc + 1], EMPTY)
+    else:
+        start = end = np.full(rh_row.shape, EMPTY, np.int32)
+    return _pack_columns([rh_obj, rh_rel, start, end], 4)
+
+
+def pack_instr_table(instr_kind, instr_rel, instr_rel2) -> np.ndarray:
+    """Interleave the K-slot instruction columns into [NP, K*4] rows of
+    (kind, rel, rel2, 0) lanes: one row read per task."""
+    NP, K = instr_kind.shape
+    ipack = np.zeros((NP, K, 4), dtype=np.int32)
+    ipack[..., 0] = instr_kind
+    ipack[..., 1] = instr_rel
+    ipack[..., 2] = instr_rel2
+    return ipack.reshape(NP, K * 4)
+
+
 def pack_raw_tables(raw: dict) -> dict:
     """Interleave the snapshot's columns into the packed device layout:
     [cap, 8] edge rows (obj, rel, skind, sa, sb, val, 0, 0), [cap, 4]
@@ -668,37 +698,24 @@ def pack_raw_tables(raw: dict) -> dict:
     out["dh_pack"] = _pack_columns(
         [raw[f"dh_{c}"] for c in ("obj", "rel", "skind", "sa", "sb", "val")], 8
     )
-    rh_row, row_ptr = raw["rh_row"], raw["row_ptr"]
-    valid = rh_row != EMPTY
-    if row_ptr.shape[0] >= 2:
-        rc = np.clip(rh_row, 0, row_ptr.shape[0] - 2)
-        start = np.where(valid, row_ptr[rc], EMPTY)
-        end = np.where(valid, row_ptr[rc + 1], EMPTY)
-    else:
-        start = end = np.full(rh_row.shape, EMPTY, np.int32)
-    out["rh_pack"] = _pack_columns([raw["rh_obj"], raw["rh_rel"], start, end], 4)
+    out["rh_pack"] = pack_rh_span_table(raw["rh_obj"], raw["rh_rel"], raw["rh_row"], raw["row_ptr"])
     out["e_pack"] = np.stack([raw["e_obj"], raw["e_rel"]], axis=-1).astype(np.int32)
-    NP, K = raw["instr_kind"].shape
-    ipack = np.zeros((NP, K, 4), dtype=np.int32)
-    ipack[..., 0] = raw["instr_kind"]
-    ipack[..., 1] = raw["instr_rel"]
-    ipack[..., 2] = raw["instr_rel2"]
-    out["instr_pack"] = ipack.reshape(NP, K * 4)
+    out["instr_pack"] = pack_instr_table(raw["instr_kind"], raw["instr_rel"], raw["instr_rel2"])
     out["dd_pack"] = _pack_columns(
         [raw[f"dd_{c}"] for c in ("obj", "rel", "skind", "sa", "sb", "val")], 8
     )
-    out["dirty_pack"] = _pack_columns([raw["dirty_obj"], raw["dirty_rel"], raw["dirty_val"]], 4)
+    out["dirty_pack"] = pack_pair_table(raw["dirty_obj"], raw["dirty_rel"], raw["dirty_val"])
     return out
 
 
-def tables_from_numpy(packed: dict, device) -> dict:
-    """Packed numpy tables (this module's pack_raw_tables, or the JAX
-    package's packed device tables read back as numpy) -> the kernel's
-    int32 tensors on `device`. Keys the check kernel does not read are
-    left out."""
+def tables_from_numpy(packed: dict, device, keys=TABLE_KEYS) -> dict:
+    """Packed numpy tables (this package's packers, or the JAX package's
+    packed device tables read back as numpy) -> int32 tensors on
+    `device`: the check kernel's tables, or those of `keys`. Keys the
+    kernel does not read are left out."""
     return {
         k: torch.from_numpy(np.require(packed[k], np.int32, ("C", "W"))).to(device)
-        for k in TABLE_KEYS
+        for k in keys
         if k in packed
     }
 

@@ -24,6 +24,16 @@ only, no rewrites: a depth-first tree whose visited set cuts cycles
 (a revisited subject set is nil, rendered by its parent as a leaf), a
 node with no tuples is nil, a node at restDepth <= 1 is a leaf, and a
 plain subject id is always a leaf.
+
+ListObjects and ListSubjects are defined by enumeration:
+  list_objects(ns, rel, S) = sorted { obj : Check(ns:obj#rel@S) is member }
+  list_subjects(ns, obj, rel) = sorted { id : Check(ns:obj#rel@id) is member }
+over every object of the namespace, or every plain subject id, in the
+store (a member must bottom out in a direct edge, so no other candidate
+can be one). A candidate whose check errors is left out. Membership is
+evaluated without visited-set pruning, which can miss members first
+reached at an exhausted depth: the device walks explore completely, and
+the lists are defined by the complete walk on every graph.
 """
 
 from __future__ import annotations
@@ -79,6 +89,59 @@ class ReferenceEngine:
         self, subject: Subject, max_depth: int = 0, nid: str = DEFAULT_NETWORK
     ) -> Optional[Tree]:
         return self._build_tree(subject, self._clamp_depth(max_depth), set(), nid)
+
+    # -- ListObjects / ListSubjects ------------------------------------------------
+
+    def _complete_checker(self) -> "ReferenceEngine":
+        if not self.visited_pruning:
+            return self
+        return ReferenceEngine(self.manager, self.config, visited_pruning=False)
+
+    def _all_tuples(self, nid: str, query: Optional[RelationQuery] = None):
+        query = query or RelationQuery()
+        page_token = ""
+        while True:
+            tuples, page_token = self.manager.get_relation_tuples(
+                query, page_token=page_token, nid=nid
+            )
+            yield from tuples
+            if not page_token:
+                return
+
+    def list_objects(
+        self, namespace: str, relation: str, subject: Subject, max_depth: int = 0,
+        nid: str = DEFAULT_NETWORK,
+    ) -> list[str]:
+        """Sorted objects of `namespace` the subject reaches via `relation`."""
+        candidates = {t.object for t in self._all_tuples(nid, RelationQuery(namespace=namespace))}
+        checker = self._complete_checker()
+        out: list[str] = []
+        for obj in sorted(candidates):
+            r = RelationTuple(namespace=namespace, object=obj, relation=relation)
+            if isinstance(subject, SubjectSet):
+                r.subject_set = subject
+            else:
+                r.subject_id = subject
+            res = checker.check_relation_tuple(r, max_depth, nid)
+            if res.error is None and res.membership == Membership.IS_MEMBER:
+                out.append(obj)
+        return out
+
+    def list_subjects(
+        self, namespace: str, obj: str, relation: str, max_depth: int = 0,
+        nid: str = DEFAULT_NETWORK,
+    ) -> list[str]:
+        """Sorted plain subject ids that reach namespace:obj#relation
+        (subject sets are the expand tree's business)."""
+        candidates = {t.subject_id for t in self._all_tuples(nid) if t.subject_id is not None}
+        checker = self._complete_checker()
+        out: list[str] = []
+        for sid in sorted(candidates):
+            r = RelationTuple(namespace=namespace, object=obj, relation=relation, subject_id=sid)
+            res = checker.check_relation_tuple(r, max_depth, nid)
+            if res.error is None and res.membership == Membership.IS_MEMBER:
+                out.append(sid)
+        return out
 
     def _clamp_depth(self, requested: int) -> int:
         global_max = self.config.max_read_depth()

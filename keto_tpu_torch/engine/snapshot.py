@@ -431,6 +431,139 @@ def _walk_rewrite_relations(rw: ast.SubjectSetRewrite):
                 yield ("ttu", sub.relation, sub.computed_subject_set_relation)
 
 
+# -- the transposed mirror of the list paths (engine/reverse_kernel.py) ---------
+#
+# ListObjects walks the graph backwards from a subject: a reverse-edge CSR
+# of subject-set edges keyed by the subject slot, a reverse-seed CSR of
+# all edges keyed by the full subject key, and each relation's rewrite
+# inverted into entries keyed by the relation it pulls from.
+
+# inverted-instruction kinds (rinstr_kind lanes)
+RINSTR_NONE = 0
+RINSTR_COMPUTED = 1  # pred (task obj, rel_p) at the same depth, ns-gated
+RINSTR_TTU = 2  # pred (edge obj, rel_p) at depth - 1 when edge rel == rel_t
+RINSTR_POISON = 3  # an island program pulls from this relation: host replay
+
+# entries under one target relation past this collapse to one any-ns POISON
+RINSTR_CAP = 16
+
+# plain/set discriminator stride of reverse_subject_tag: a fixed constant,
+# so builders, the delta's reverse-dirty entries and query encoding agree
+# whatever the vocabulary's size
+_REVERSE_TAG_STRIDE = 1 << 20
+
+
+def reverse_subject_tag(skind, sb):
+    """Second key column of the reverse-seed CSR: tells plain subject ids
+    from subject-set slots that share an int. Tag 0 is reserved for the
+    reverse-dirty table's row-level entries."""
+    return (
+        np.asarray(skind, dtype=np.int32) * np.int32(_REVERSE_TAG_STRIDE)
+        + np.asarray(sb, dtype=np.int32)
+        + np.int32(1)
+    )
+
+
+def build_reverse_tables(t_obj, t_rel, t_skind, t_sa, t_sb, layout: str) -> dict:
+    """The transposed twin of build_edge_tables from the same encoded
+    edges: the reverse-edge CSR (subject-set edges by subject slot) and
+    the reverse-seed CSR (all edges by full subject key)."""
+    is_set = np.asarray(t_skind) == 1
+    rvh_obj, rvh_rel, rvh_row, rvh_probes, rv_row_ptr, (rv_pobj, rv_prel, rv_sb) = (
+        group_rows_csr(
+            t_sa[is_set].astype(np.int32),
+            np.zeros(int(is_set.sum()), dtype=np.int32),
+            (t_obj[is_set].astype(np.int32), t_rel[is_set].astype(np.int32),
+             t_sb[is_set].astype(np.int32)),
+            layout,
+        )
+    )
+    tags = reverse_subject_tag(t_skind, t_sb)
+    rsh_obj, rsh_tag, rsh_row, rsh_probes, rs_row_ptr, (rs_obj, rs_rel) = group_rows_csr(
+        t_sa.astype(np.int32), tags, (t_obj.astype(np.int32), t_rel.astype(np.int32)), layout
+    )
+    return {
+        "rvh_obj": rvh_obj, "rvh_rel": rvh_rel, "rvh_row": rvh_row,
+        "rvh_probes": rvh_probes, "rv_row_ptr": rv_row_ptr,
+        "rv_pobj": rv_pobj, "rv_prel": rv_prel, "rv_sb": rv_sb,
+        "rsh_obj": rsh_obj, "rsh_tag": rsh_tag, "rsh_row": rsh_row,
+        "rsh_probes": rsh_probes, "rs_row_ptr": rs_row_ptr,
+        "rs_obj": rs_obj, "rs_rel": rs_rel,
+    }
+
+
+def _walk_rewrite_leaves(rw: ast.SubjectSetRewrite, has_not: bool = False):
+    """Yield (kind, relation, relation2, under_not) for every leaf of a
+    rewrite, AND/NOT islands included: the inverted table must see every
+    leaf to know where a reverse walk enters a program."""
+    for child in rw.children:
+        if isinstance(child, ast.ComputedSubjectSet):
+            yield ("computed", child.relation, "", has_not)
+        elif isinstance(child, ast.TupleToSubjectSet):
+            yield ("ttu", child.relation, child.computed_subject_set_relation, has_not)
+        elif isinstance(child, ast.SubjectSetRewrite):
+            yield from _walk_rewrite_leaves(child, has_not)
+        elif isinstance(child, ast.InvertResult):
+            sub = child.child
+            if isinstance(sub, ast.SubjectSetRewrite):
+                yield from _walk_rewrite_leaves(sub, True)
+            elif isinstance(sub, ast.ComputedSubjectSet):
+                yield ("computed", sub.relation, "", True)
+            elif isinstance(sub, ast.TupleToSubjectSet):
+                yield ("ttu", sub.relation, sub.computed_subject_set_relation, True)
+
+
+def build_reverse_programs(namespaces, ns_ids: dict, rel_ids: dict, n_config_rels: int,
+                           cap: int = RINSTR_CAP):
+    """Invert every namespace relation's rewrite for the reverse walk.
+    Returns (rinstr_kind, rinstr_relp, rinstr_relt, rinstr_ns), dense
+    [max(n_config_rels, 1), RK] tables keyed by the target relation rel_c,
+    RK, and host_all:
+
+      - a monotone COMPUTED(rel_c) in (ns, rel_p) inverts to
+        (COMPUTED, rel_p, 0, ns) and a TTU(rel_t, rel_c) to
+        (TTU, rel_p, rel_t, ns)
+      - an AND island's leaves invert to POISON entries (ns-gated for
+        COMPUTED, any ns (-1) for TTU): a member of the island is a member
+        of every leaf, so the walk reaches a leaf relation first
+      - any NOT sets host_all: NOT members exist where no path exists,
+        which a reachability walk cannot see
+      - more than `cap` entries under one rel_c collapse to one any-ns
+        POISON."""
+    per_target: dict[int, list[tuple[int, int, int, int]]] = {}
+    host_all = False
+    for ns in namespaces:
+        nsid = ns_ids[ns.name]
+        for rel in ns.relations:
+            rw = rel.subject_set_rewrite
+            if rw is None:
+                continue
+            rel_p = rel_ids[rel.name]
+            monotone = _is_monotone(rw)
+            for kind, a, b, under_not in _walk_rewrite_leaves(rw):
+                host_all |= under_not
+                if kind == "computed":
+                    rel_c, rel_t = rel_ids[a], 0
+                    ekind = RINSTR_COMPUTED if monotone else RINSTR_POISON
+                    ens = nsid
+                else:
+                    rel_c, rel_t = rel_ids[b], rel_ids[a]
+                    ekind = RINSTR_TTU if monotone else RINSTR_POISON
+                    ens = nsid if monotone else -1
+                per_target.setdefault(rel_c, []).append((ekind, rel_p, rel_t, ens))
+    for rel_c, entries in per_target.items():
+        uniq = list(dict.fromkeys(entries))  # shared sub-rewrites repeat entries
+        per_target[rel_c] = uniq if len(uniq) <= cap else [(RINSTR_POISON, 0, 0, -1)]
+    RK = max([len(v) for v in per_target.values()] + [1])
+    NR = max(n_config_rels, 1)
+    cols = [np.zeros((NR, RK), dtype=np.int32) for _ in range(4)]
+    for rel_c, entries in per_target.items():
+        for k, entry in enumerate(entries):
+            for col, v in zip(cols, entry):
+                col[rel_c, k] = v
+    return (*cols, RK, host_all)
+
+
 def _register_config_vocab(namespaces, ns_id, rel_id) -> None:
     """Config relations first, so rewrite-capable rel ids are dense in
     [0, n_config_rels) and the program table stays small."""

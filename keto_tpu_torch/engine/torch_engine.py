@@ -12,6 +12,14 @@ full-edge CSR, built lazily beside the mirror; the host assembles each
 tree from its slice of the packed pool. Subject ids, unknown vocabulary
 and flagged queries are expanded by the host oracle.
 
+A ListObjects batch runs as one list_objects_kernel_packed launch over
+the transposed mirror, a ListSubjects batch as one
+list_subjects_kernel_packed launch over the full-edge CSR; both are built
+lazily beside the mirror. The host decodes, sorts and dedupes each
+query's slice of the pool; flagged queries are answered by the host
+oracle, and names the mirror does not know answer []. A NOT anywhere in
+the config sends every ListObjects query to the oracle.
+
 The mirror is rebuilt in full when the store version or the namespace
 config changes; incremental overlay refresh is not part of this engine.
 """
@@ -29,7 +37,13 @@ import torch
 from ..config import Config
 from ..ketoapi import RelationTuple, Subject, SubjectSet, Tree
 from ..storage.definitions import DEFAULT_NETWORK
-from .definitions import RESULT_IS_MEMBER, RESULT_NOT_MEMBER, CheckResult, Membership
+from .definitions import (
+    RESULT_IS_MEMBER,
+    RESULT_NOT_MEMBER,
+    CheckResult,
+    Membership,
+    paginate_names,
+)
 from .delta import SnapshotView
 from .expand_kernel import (
     ExpandDecoder,
@@ -53,6 +67,19 @@ from .kernel import (
     unpack_results,
 )
 from .reference import ReferenceEngine
+from .reverse_kernel import (
+    build_reverse_state,
+    decode_pool_slice,
+    list_objects_kernel_packed,
+    list_subjects_kernel_packed,
+    pack_list_objects_queries,
+    pack_list_subjects_queries,
+    pack_reverse_tables,
+    pack_subjects_tables,
+    reverse_tables_from_numpy,
+    subjects_tables_from_numpy,
+    unpack_list_results,
+)
 from .snapshot import GraphSnapshot, build_snapshot, check_layout, encode_query_batch
 
 _BUCKETS = (16, 64, 256, 1024, 4096, 16384)
@@ -81,10 +108,15 @@ class _EngineState:
     tables: dict
     covered_version: int
     config_fp: str
-    # full-edge CSR of the expand path, built at the first expand
+    # full-edge CSR of the expand path (host arrays and device tables),
+    # built at the first expand or ListSubjects
+    expand_np: Optional[dict] = None
     expand_tables: Optional[dict] = None
-    fh_probes: int = 0
     decoder: Optional[ExpandDecoder] = None
+    # the transposed mirror of ListObjects and the tables of ListSubjects
+    reverse_np: Optional[dict] = None
+    reverse_tables: Optional[dict] = None
+    subjects_tables: Optional[dict] = None
 
 
 class TorchCheckEngine:
@@ -116,6 +148,10 @@ class TorchCheckEngine:
             "host_cause": {},
             "device_expands": 0,
             "host_expands": 0,
+            "device_list_objects": 0,
+            "host_list_objects": 0,
+            "device_list_subjects": 0,
+            "host_list_subjects": 0,
         }
 
     # -- mirror lifecycle ------------------------------------------------------
@@ -162,19 +198,57 @@ class TorchCheckEngine:
                 if self.manager.version(nid=self.nid) != state.covered_version:
                     continue
                 csr = build_full_csr(tuples, state.snapshot, view=state.view)
-                state.fh_probes = csr.pop("fh_probes")
-                state.decoder = ExpandDecoder(state.snapshot)
+                state.expand_np = csr
+                state.decoder = state.decoder or ExpandDecoder(state.snapshot)
                 # expand_tables is the readiness signal: set it last
                 state.expand_tables = expand_tables_from_numpy(
                     pack_expand_tables(csr), self.device
                 )
                 return state
 
-    def tables_nbytes(self, expand: bool = False) -> dict[str, int]:
-        """Bytes of each device table of the current mirror (the expand
-        path's tables when `expand`)."""
-        state = self.ensure_expand_state() if expand else self.ensure_state()
-        tables = state.expand_tables if expand else state.tables
+    def ensure_reverse_state(self) -> _EngineState:
+        """The mirror with its transposed twin (reverse-edge CSR,
+        reverse-seed CSR, inverted programs), built from the store at the
+        mirror's covered version (retried if a write lands meanwhile)."""
+        while True:
+            state = self.ensure_state()
+            namespaces = self.config.namespace_manager().namespaces()
+            with self._lock:
+                if state.reverse_tables is not None:
+                    return state
+                tuples = self.manager.all_relation_tuples(nid=self.nid)
+                if self.manager.version(nid=self.nid) != state.covered_version:
+                    continue
+                rnp = build_reverse_state(tuples, state.snapshot, namespaces, view=state.view)
+                state.reverse_np = rnp
+                state.decoder = state.decoder or ExpandDecoder(state.snapshot)
+                # reverse_tables is the readiness signal: set it last
+                state.reverse_tables = reverse_tables_from_numpy(
+                    pack_reverse_tables(rnp, state.snapshot), self.device
+                )
+                return state
+
+    def ensure_subjects_state(self) -> _EngineState:
+        """The mirror with the ListSubjects tables, packed from the expand
+        state's host full-edge CSR (so built at the same covered version)."""
+        state = self.ensure_expand_state()
+        with self._lock:
+            if state.subjects_tables is None:
+                state.subjects_tables = subjects_tables_from_numpy(
+                    pack_subjects_tables(state.expand_np, state.snapshot), self.device
+                )
+        return state
+
+    def tables_nbytes(self, path: str = "check") -> dict[str, int]:
+        """Bytes of each device table of the current mirror on one path:
+        "check", "expand", "reverse" (ListObjects) or "subjects"."""
+        ensure, attr = {
+            "check": (self.ensure_state, "tables"),
+            "expand": (self.ensure_expand_state, "expand_tables"),
+            "reverse": (self.ensure_reverse_state, "reverse_tables"),
+            "subjects": (self.ensure_subjects_state, "subjects_tables"),
+        }[path]
+        tables = getattr(ensure(), attr)
         return {k: v.numel() * v.element_size() for k, v in tables.items()}
 
     # -- check API --------------------------------------------------------------
@@ -358,7 +432,7 @@ class TorchCheckEngine:
         pool_cap = pool_cap or max(32 * B, 4096)
         qpack = torch.from_numpy(pack_expand_queries(q_obj, q_rel, depth, q_valid))
         flat = expand_kernel_packed(
-            state.expand_tables, qpack.to(self.device), fh_probes=state.fh_probes,
+            state.expand_tables, qpack.to(self.device), fh_probes=state.expand_np["fh_probes"],
             # the step budget follows the global depth cap, not the call's
             max_steps=global_max + 2, frontier_cap=max(frontier_cap, B),
             edge_cap=edge_cap, pool_cap=pool_cap, layout=state.snapshot.layout,
@@ -384,3 +458,139 @@ class TorchCheckEngine:
         self.stats["device_expands"] += n - n_host
         self.stats["host_expands"] += n_host
         return results
+
+    # -- ListObjects / ListSubjects ---------------------------------------------
+
+    def list_objects_batch(
+        self,
+        queries: Sequence[tuple],
+        max_depth: int = 0,
+        frontier_cap: int = 4096,
+        result_cap: int = 2048,
+        pool_cap: int = 0,
+    ) -> list[list[str]]:
+        """Batched ListObjects: queries are (namespace, relation, subject)
+        triples; each answer is the sorted list of objects of the
+        namespace whose check for the subject is a member, as the host
+        oracle's list_objects defines it. One reverse-BFS launch per
+        bucketed batch; `pool_cap` defaults to 8 results per bucketed
+        query (at least 4096)."""
+        n = len(queries)
+        if n == 0:
+            return []
+        state = self.ensure_reverse_state()
+        rnp = state.reverse_np
+        if rnp["host_all"]:
+            # a NOT in the config: its members exist where no path exists,
+            # which a reachability walk cannot see
+            self._count_reverse("list_objects", 0, n, {"island_host": n})
+            return [self.reference.list_objects(ns, rel, sub, max_depth, self.nid)
+                    for ns, rel, sub in queries]
+        B = next((b for b in _BUCKETS if b >= n), None)
+        if B is None:
+            step = _BUCKETS[-1]
+            return [r for i in range(0, n, step) for r in self.list_objects_batch(
+                queries[i : i + step], max_depth, frontier_cap, result_cap, pool_cap)]
+        global_max = self.config.max_read_depth()
+        depth = max_depth if 0 < max_depth <= global_max else global_max
+        qpack, unknown = pack_list_objects_queries(state.view, queries, B, depth)
+        snap = state.snapshot
+        flat = list_objects_kernel_packed(
+            state.reverse_tables, torch.from_numpy(qpack).to(self.device),
+            rvh_probes=rnp["rvh_probes"], rsh_probes=rnp["rsh_probes"],
+            max_steps=int(global_max + snap.n_config_rels + 4), wildcard_rel=snap.wildcard_rel,
+            n_config_rels=max(snap.n_config_rels, 1), frontier_cap=max(frontier_cap, B),
+            result_cap=result_cap, pool_cap=pool_cap or max(8 * B, 4096), has_delta=False,
+            layout=snap.layout,
+        )
+        # the batch's one device->host readback
+        offs, needs, pool, _stats = unpack_list_results(flat.cpu().numpy(), B)
+        slot_to_obj = state.decoder.slot_to_obj
+        return self._resolve_reverse(
+            "list_objects", queries, unknown, needs,
+            lambda i: sorted(slot_to_obj[s][1]
+                             for s in decode_pool_slice(pool, int(offs[i]), int(offs[i + 1]))),
+            lambda qr: self.reference.list_objects(qr[0], qr[1], qr[2], max_depth, self.nid),
+        )
+
+    def list_subjects_batch(
+        self,
+        queries: Sequence[tuple],
+        max_depth: int = 0,
+        frontier_cap: int = 4096,
+        result_cap: int = 2048,
+        pool_cap: int = 0,
+    ) -> list[list[str]]:
+        """Batched ListSubjects: queries are (namespace, object, relation)
+        triples; each answer is the sorted list of plain subject ids whose
+        check is a member (the oracle's list_subjects). One forward-BFS
+        launch per bucketed batch over the full-edge CSR and the rewrite
+        instructions; the same host replay as list_objects_batch."""
+        n = len(queries)
+        if n == 0:
+            return []
+        B = next((b for b in _BUCKETS if b >= n), None)
+        if B is None:
+            step = _BUCKETS[-1]
+            return [r for i in range(0, n, step) for r in self.list_subjects_batch(
+                queries[i : i + step], max_depth, frontier_cap, result_cap, pool_cap)]
+        state = self.ensure_subjects_state()
+        global_max = self.config.max_read_depth()
+        depth = max_depth if 0 < max_depth <= global_max else global_max
+        qpack, unknown = pack_list_subjects_queries(state.view, queries, B, depth)
+        snap = state.snapshot
+        flat = list_subjects_kernel_packed(
+            state.subjects_tables, torch.from_numpy(qpack).to(self.device),
+            fsh_probes=state.expand_np["fh_probes"], max_steps=int(global_max + snap.n_config_rels + 4),
+            wildcard_rel=snap.wildcard_rel, n_config_rels=max(snap.n_config_rels, 1),
+            frontier_cap=max(frontier_cap, B), result_cap=result_cap,
+            pool_cap=pool_cap or max(8 * B, 4096), has_delta=False, layout=snap.layout,
+        )
+        # the batch's one device->host readback
+        offs, needs, pool, _stats = unpack_list_results(flat.cpu().numpy(), B)
+        name = state.decoder.subject_name
+        return self._resolve_reverse(
+            "list_subjects", queries, unknown, needs,
+            lambda i: sorted(name(s)
+                             for s in decode_pool_slice(pool, int(offs[i]), int(offs[i + 1]))),
+            lambda qr: self.reference.list_subjects(qr[0], qr[1], qr[2], max_depth, self.nid),
+        )
+
+    def _count_reverse(self, leg: str, n_device: int, n_host: int, causes: dict) -> None:
+        self.stats[f"device_{leg}"] += n_device
+        self.stats[f"host_{leg}"] += n_host
+        host_causes = self.stats["host_cause"]
+        for cause, count in causes.items():
+            host_causes[cause] = host_causes.get(cause, 0) + count
+
+    def _resolve_reverse(self, leg, queries, unknown, needs, decode_fn, host_fn):
+        """Both list legs' answers: [] for names the mirror does not know,
+        the host oracle for flagged queries, the decoded pool otherwise."""
+        results: list[list[str]] = []
+        n_host = 0
+        causes: dict[str, int] = {}
+        for i, qr in enumerate(queries):
+            if i in unknown:
+                results.append([])
+            elif needs[i]:
+                n_host += 1
+                cause = CAUSE_NAMES.get(int(needs[i]), CAUSE_NAME_UNINDEXED)
+                causes[cause] = causes.get(cause, 0) + 1
+                results.append(host_fn(qr))
+            else:
+                results.append(decode_fn(i))
+        self._count_reverse(leg, len(queries) - n_host, n_host, causes)
+        return results
+
+    def list_objects(self, namespace: str, relation: str, subject, max_depth: int = 0,
+                     page_size: int = 100, page_token: str = "") -> tuple[list[str], str]:
+        """One ListObjects query, paginated: (object names, next page
+        token). Tokens are offsets into the sorted enumeration."""
+        objs = self.list_objects_batch([(namespace, relation, subject)], max_depth)[0]
+        return paginate_names(objs, page_size, page_token)
+
+    def list_subjects(self, namespace: str, obj: str, relation: str, max_depth: int = 0,
+                      page_size: int = 100, page_token: str = "") -> tuple[list[str], str]:
+        """One ListSubjects query, paginated: (subject ids, next page token)."""
+        subs = self.list_subjects_batch([(namespace, obj, relation)], max_depth)[0]
+        return paginate_names(subs, page_size, page_token)

@@ -1,8 +1,8 @@
 """The CUDA kernels of keto_tpu_torch against their plain PyTorch versions,
-on the card: each kernel alone on the same CUDA tensors, and whole check
-and expand launches against the CPU run of the plain versions, under both
-table layouts and with the delta overlay on and off. Tolerance: exact
-equality (every output is an integer).
+on the card: each kernel alone on the same CUDA tensors, and whole check,
+expand, ListObjects and ListSubjects launches against the CPU run of the
+plain versions, under both table layouts and with the delta overlay on
+and off. Tolerance: exact equality (every output is an integer).
 
 These tests need an NVIDIA card and skip elsewhere; this file imports
 nothing of the JAX package, so it runs where JAX is not installed:
@@ -20,6 +20,7 @@ from keto_tpu_torch.engine import cuda_ops
 from keto_tpu_torch.engine import delta as tdelta
 from keto_tpu_torch.engine import expand_kernel as tek
 from keto_tpu_torch.engine import kernel as tk
+from keto_tpu_torch.engine import reverse_kernel as trk
 from keto_tpu_torch.engine import snapshot as tsnap
 from keto_tpu_torch.ketoapi import RelationTuple
 from keto_tpu_torch.namespace import Namespace
@@ -344,3 +345,146 @@ def test_expand_kernels_match_plain_on_card(cuda, layout):
             kw = dict(edge_cap=E, pool_cap=pool_cap)
             assert torch.equal(cuda_ops.pool_compact(*args, **kw),
                                tek.pool_compact_plain(*args, **kw))
+
+
+# -- ListObjects / ListSubjects ----------------------------------------------------
+
+
+LIST_SCENARIOS = {"videos": videos, "islands": islands, "random_monotone": random_monotone}
+LIST_CAPS = {
+    "default": dict(frontier_cap=256, result_cap=64, pool_cap=4096),
+    "tiny": dict(frontier_cap=64, result_cap=4, pool_cap=40),
+}
+
+
+def list_inputs(scenario, layout, has_delta):
+    """Both legs' packed tables and query packs for a scenario's queries:
+    ListObjects asks for each query's (namespace, relation, subject),
+    ListSubjects for its (namespace, object, relation)."""
+    ns, tuples, queries, depth = LIST_SCENARIOS[scenario]()
+    parsed = [RelationTuple.from_string(s) for s in tuples]
+    namespaces = [Namespace.from_dict(d) for d in ns]
+    snap = tsnap.build_snapshot(parsed, namespaces, layout=layout)
+    delta = delta_for(snap, parsed, random.Random(6))[0] if has_delta else None
+    view = tdelta.SnapshotView(snap)
+    qs = [RelationTuple.from_string(q) for q in queries][:64]
+    lo_q, _ = trk.pack_list_objects_queries(
+        view, [(t.namespace, t.relation, t.subject_set or t.subject_id) for t in qs], 64, depth)
+    ls_q, _ = trk.pack_list_subjects_queries(
+        view, [(t.namespace, t.object, t.relation) for t in qs], 64, depth)
+    rnp = trk.build_reverse_state(parsed, snap, namespaces)
+    csr = tek.build_full_csr(parsed, snap)
+    lo_kw = dict(rvh_probes=rnp["rvh_probes"], rsh_probes=rnp["rsh_probes"],
+                 max_steps=depth + snap.n_config_rels + 4, wildcard_rel=snap.wildcard_rel,
+                 n_config_rels=max(snap.n_config_rels, 1), has_delta=has_delta, layout=layout)
+    ls_kw = dict(fsh_probes=csr["fh_probes"], max_steps=lo_kw["max_steps"],
+                 wildcard_rel=snap.wildcard_rel, n_config_rels=lo_kw["n_config_rels"],
+                 has_delta=has_delta, layout=layout)
+    return (snap, trk.pack_reverse_tables(rnp, snap, delta), torch.from_numpy(lo_q), lo_kw,
+            trk.pack_subjects_tables(csr, snap, delta), torch.from_numpy(ls_q), ls_kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", sorted(LIST_CAPS))
+@pytest.mark.parametrize("has_delta", [False, True])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("scenario", sorted(LIST_SCENARIOS))
+def test_list_launches_match_plain(cuda, scenario, layout, has_delta, caps):
+    _snap, rev, lo_q, lo_kw, sub, ls_q, ls_kw = list_inputs(scenario, layout, has_delta)
+    for fn, packed, to_tensors, qpack, kw, kernel in (
+        (trk.list_objects_kernel_packed, rev, trk.reverse_tables_from_numpy, lo_q, lo_kw,
+         "reverse_gather"),
+        (trk.list_subjects_kernel_packed, sub, trk.subjects_tables_from_numpy, ls_q, ls_kw,
+         "subjects_gather"),
+    ):
+        kw = {**kw, **LIST_CAPS[caps]}
+        want = fn(to_tensors(packed, "cpu"), qpack, **kw)
+        before = dict(cuda_ops.launches)
+        got = fn(to_tensors(packed, cuda), qpack.to(cuda), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), fn.__name__
+        used = ("pair_probe", "dedupe_compact", "list_emit", "list_pool_compact", kernel)
+        assert all(cuda_ops.launches[k] > before[k] for k in used), fn.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,B,R", [(700, 1, 8), (5000, 64, 16), (300_000, 256, 4096),
+                                   (70_000, 16384, 2)])
+def test_list_emit_matches_plain_on_card(cuda, N, B, R):
+    """L1 on queries in random order, past one block, against its plain
+    version; the buffers it updates in place are cloned for each side."""
+    g = torch.Generator(device="cpu").manual_seed(N)
+    q = torch.randint(0, B, (N,), generator=g, dtype=torch.int32).to(cuda)
+    emit = (torch.randint(0, 3, (N,), generator=g) > 0).to(cuda)
+    value = torch.randint(0, 1 << 20, (N,), generator=g, dtype=torch.int32).to(cuda)
+    res = torch.full((B * R,), -1, dtype=torch.int32).to(cuda)
+    res_count = torch.randint(0, R + 1, (B,), generator=g, dtype=torch.int32).to(cuda)
+    needs = torch.randint(0, 3, (B,), generator=g, dtype=torch.int32).to(cuda)
+    outs = []
+    for fn in (cuda_ops.list_emit, trk.list_emit_plain):
+        bufs = (res.clone(), res_count.clone(), needs.clone())
+        landed = fn(q, emit, value, *bufs, result_cap=R)
+        outs.append((landed, *bufs))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_list_gathers_match_plain_on_card(cuda, layout):
+    """Random task columns through L2, L3 and L4 and their plain versions,
+    both on the same CUDA tensors."""
+    snap, rev, _lo_q, lo_kw, sub, _ls_q, _ls_kw = list_inputs("random_monotone", layout, True)
+    rt = trk.reverse_tables_from_numpy(rev, cuda)
+    st = trk.subjects_tables_from_numpy(sub, cuda)
+    g = torch.Generator(device="cpu").manual_seed(2)
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32).to(cuda)
+
+    n_obj, n_rel = len(snap.obj_slots), len(snap.rel_ids)
+    ncr = max(snap.n_config_rels, 1)
+    for F, B in ((512, 64), (4096, 16), (20000, 256)):
+        q, obj, rel, depth = ri(0, B, F), ri(0, n_obj, F), ri(0, n_rel, F), ri(-1, 5, F)
+        live = ri(0, 8, F) > 0
+        ns_t = rt["objslot_ns"][obj.long()]
+        spans = tk.pair_probe_plain(rt["rvh_pack"], obj, torch.zeros_like(obj)[:, None],
+                                    probes=lo_kw["rvh_probes"],
+                                    spb=tsnap.slots_per_bucket(2, layout), n_vals=2)[:, 0]
+        rstart = spans[:, 0].contiguous()
+        rlen = torch.where(rstart < 0, 0, spans[:, 1] - rstart).to(torch.int32).contiguous()
+        args = (q, obj, rel, depth, live, ns_t, rstart, rlen, rt["rinstr_pack"], rt["rv_pack"],
+                rt["objslot_ns"])
+        kw = dict(wildcard_rel=snap.wildcard_rel, n_config_rels=ncr, n_queries=B)
+        *cols, cause = cuda_ops.reverse_gather(*args, **kw)
+        ch, want_cause = trk.reverse_gather_plain(*args, **kw)
+        for a, b in zip(cols, (ch.q, ch.ctx, ch.obj, ch.rel, ch.depth, ch.valid)):
+            assert torch.equal(a, b)
+        assert torch.equal(cause, want_cause)
+        assert int(ch.valid.sum()) > 0
+
+        K = snap.K
+        ik, ir, ir2 = ri(0, 3, F, K), ri(0, n_rel, F, K), ri(0, n_rel, F, K)
+        n_edges = st["fe_pack"].shape[0]
+        start = ri(-1, n_edges, F, K + 1)
+        spans3 = torch.stack([start, (start + ri(0, 4, F, K + 1)).clamp(max=n_edges)], dim=-1)
+        args3 = (q, obj, depth, live, spans3.contiguous(), ik, ir, ir2, st["fe_pack"])
+        kw3 = dict(wildcard_rel=snap.wildcard_rel, n_queries=B)
+        *cols, emit, value, cause = cuda_ops.subjects_gather(*args3, **kw3)
+        ch, want_emit, want_value, want_cause = trk.subjects_gather_plain(*args3, **kw3)
+        for a, b in zip((*cols, emit, value, cause),
+                        (ch.q, ch.ctx, ch.obj, ch.rel, ch.depth, ch.valid, want_emit,
+                         want_value, want_cause)):
+            assert torch.equal(a, b)
+
+        R = 8
+        res = ri(-1, 1000, B * R)
+        res_count = ri(0, R + 1, B)
+        needs = ri(0, 9, B)
+        stats = ri(0, 100, tk.N_LAUNCH_STATS)
+        for pool_cap in (7, B * R // 2, 2 * B * R):
+            args4 = (res, res_count, needs, stats)
+            kw4 = dict(result_cap=R, pool_cap=pool_cap)
+            assert torch.equal(cuda_ops.list_pool_compact(*args4, **kw4),
+                               trk.list_pool_compact_plain(*args4, **kw4))
+
