@@ -6,8 +6,9 @@ the port builds, agrees with itself and runs its main path on the GPU.
 Phases, in order; any failure exits non-zero without the final line:
 
   1. card    — nvidia-smi's name and power limit
-  2. build   — nvcc builds csrc/check_kernels.cu, csrc/expand_kernels.cu
-               and csrc/list_kernels.cu from the checkout, one compiler
+  2. build   — nvcc builds csrc/check_kernels.cu, csrc/expand_kernels.cu,
+               csrc/list_kernels.cu and csrc/closure_filter_kernels.cu
+               from the checkout, one compiler
                per source, in parallel
   3. kernels — K1-K4 against their plain PyTorch versions on the card,
                on inputs captured from one real batch of phase 4's
@@ -44,6 +45,26 @@ Phases, in order; any failure exits non-zero without the final line:
                launched, 64 sampled answers equal to the host oracle's
                list_subjects; lists/s, p50 batch ms, mean results per query
                and the launch + readback against host decode split
+  9. closure — (9a) bench.py:1162's deep-1e6 topology (22,857 chains of
+               20 parent hops, a tail owner each, 520,003 direct viewer
+               grants; max read depth 24) into a second store, and the
+               closure index built over it: extract, power, pack and upload
+               seconds, covered nodes and entries (held to keto_tpu's
+               959,994 and 6,310,111) and table bytes; (9b) one closure
+               batch captured for C1; (9) batches of 4096 chain-head checks
+               with the closure on (one C1 launch, every query a hit) and
+               off (the BFS) in alternating rounds, equal verdicts, 512
+               sampled equal to the oracle; then one write: every check
+               falls back (stale_snapshot), still correct, until the index
+               is built again
+ 10. filter  — (10a) the frontier tier on phase 4's engine: 10,000
+               candidates (bench.py:547's draws) for the owner of /d0, one
+               shared walk; (10b) the closure tier on phase 9's engine:
+               10,000 chain heads for a chain owner, one C1 launch; each
+               with zero host replays, 200 sampled verdicts equal to the
+               oracle and all equal to check_batch over the same pairs,
+               objects/s; (10c) C1 and F1 against their plain versions,
+               and torch.searchsorted on F1's inputs as its yardstick
 
 Before the last line it prints the kernel table as one JSON object
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -97,6 +118,23 @@ LIST_ROUNDS = 10
 LO_CAPS = dict(frontier_cap=1 << 20, result_cap=4096, pool_cap=LIST_BATCH * 4096)
 LS_CAPS = dict(frontier_cap=max(16384, 4 * LIST_BATCH), result_cap=2048,
                pool_cap=64 * LIST_BATCH)
+# closure phase: bench.py:1162 _powering_context(1_000_000) over
+# bench.py:1092 _deep_columns: chains of 20 parent hops capped so the
+# closure universe stays under 2^20 nodes, one tail owner a chain, and
+# direct viewer grants on random chain nodes up to 1e6 tuples
+DEEP_TUPLES = 1_000_000
+DEEP_DEPTH = 20
+DEEP_USERS = 128
+DEEP_CHAINS = min(DEEP_TUPLES // (DEEP_DEPTH + 1), 960_000 // (2 * (DEEP_DEPTH + 1)))
+DEEP_MAX_DEPTH = DEEP_DEPTH + 4
+DEEP_ROUNDS = 10  # per arm, alternating
+# covered nodes and entries keto_tpu's host powering gives on this
+# topology (POWERING_AB_r19.json)
+DEEP_CLOSURE = (959_994, 6_310_111)
+# filter phase: bench.py:547 bench_filter's column of 10,000 candidates
+FILTER_OBJECTS = 10_000
+FILTER_ROUNDS = 5
+FILTER_CHUNK = 16384
 KERNEL_SOURCES = {
     "edge_probe": "keto_tpu_torch/csrc/check_kernels.cu",
     "pair_probe": "keto_tpu_torch/csrc/check_kernels.cu",
@@ -108,6 +146,8 @@ KERNEL_SOURCES = {
     "reverse_gather": "keto_tpu_torch/csrc/list_kernels.cu",
     "subjects_gather": "keto_tpu_torch/csrc/list_kernels.cu",
     "list_pool_compact": "keto_tpu_torch/csrc/list_kernels.cu",
+    "closure_probe": "keto_tpu_torch/csrc/closure_filter_kernels.cu",
+    "filter_mark": "keto_tpu_torch/csrc/closure_filter_kernels.cu",
 }
 REPLACES = {
     "edge_probe": "keto_tpu/engine/kernel.py:259",
@@ -120,6 +160,8 @@ REPLACES = {
     "reverse_gather": "keto_tpu/engine/reverse_kernel.py:301",
     "subjects_gather": "keto_tpu/engine/reverse_kernel.py:649",
     "list_pool_compact": "keto_tpu/engine/reverse_kernel.py:565",
+    "closure_probe": "keto_tpu/engine/closure_kernel.py:153",
+    "filter_mark": "keto_tpu/engine/filter_kernel.py:185",
 }
 
 
@@ -703,16 +745,21 @@ def device_profile(fn, label: str) -> dict:
         return (time.perf_counter() - s) * 1e3
 
     wall = statistics.median(two() for _ in range(5))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        profiled = two()
-    rows = sorted(
-        ((evt.key, evt.self_device_time_total / 1e3, evt.count) for evt in prof.key_averages()
-         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0),
-        key=lambda r: -r[1],
-    )
-    busy = sum(r[1] for r in rows)
+    # the profiler now and then reports no device time at all: try again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiled = two()
+        rows = sorted(
+            ((evt.key, evt.self_device_time_total / 1e3, evt.count) for evt in prof.key_averages()
+             if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0),
+            key=lambda r: -r[1],
+        )
+        if rows:
+            break
+    # no device time three times over is "not measured", not an idle card
+    busy = sum(r[1] for r in rows) if rows else None
     out = {f"wall_ms_2_{label}": wall, f"profiled_wall_ms_2_{label}": profiled,
-           "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+           "device_busy_ms": busy, "idle_share": 1 - busy / wall if rows else None,
            "n_device_kernels": sum(r[2] for r in rows),
            "top": [{"name": k[:70], "ms": ms, "count": c} for k, ms, c in rows[:10]]}
     return out
@@ -906,7 +953,7 @@ def run_expand(engine, manager, config, subjects, info):
     log(f"  256 sampled trees equal the oracle; mean tree {out['mean_tree_nodes']:.2f} nodes")
     log(f"  throughput {out['trees_per_s']:.1f} trees/s ({ROUNDS} batches of {EXPAND_BATCH}); "
         f"p50 batch {out['p50_batch_ms']:.2f} ms (launch + readback "
-        f"{out['p50_launch_readback_ms']:.2f} ms); idle share {profile['idle_share']:.3f}")
+        f"{out['p50_launch_readback_ms']:.2f} ms); idle share {profile['idle_share']}")
     log(f"  expand phase {time.perf_counter() - t0:.1f} s")
     return launches, out
 
@@ -1033,7 +1080,7 @@ def run_list_leg(engine, leg, queries, caps, want_kernels, check):
     log(f"  throughput {out['lists_per_s']:.1f} lists/s ({LIST_ROUNDS} batches of {len(queries)}); "
         f"p50 batch {out['p50_batch_ms']:.2f} ms (launch + readback {p50_launch:.2f} ms, host "
         f"decode {out['p50_host_decode_ms']:.2f} ms); mean {out['mean_results']:.1f} results "
-        f"per query (max {out['max_results']}); idle share {profile['idle_share']:.3f}")
+        f"per query (max {out['max_results']}); idle share {profile['idle_share']}")
     return launches, out
 
 
@@ -1105,6 +1152,379 @@ def run_list_subjects(engine, manager, config, queries):
         check)
     log(f"  list subjects phase {time.perf_counter() - t0:.1f} s")
     return launches, out
+
+
+def deep_namespace():
+    from keto_tpu_torch.namespace import Namespace
+
+    return Namespace.from_dict({"name": "deep", "relations": [
+        {"name": "owner"}, {"name": "parent"},
+        {"name": "viewer", "rewrite": {"operator": "or", "children": [
+            {"type": "computed_subject_set", "relation": "owner"},
+            {"type": "tuple_to_subject_set", "relation": "parent",
+             "computed_subject_set_relation": "viewer"},
+        ]}},
+    ]})
+
+
+def build_deep_dataset(seed: int = 9):
+    """bench.py:1092 _deep_columns' draws (numpy seed 9) as tuples: the
+    tail owners, the parent chains, then the direct viewer grants; and a
+    check batch as bench.py:818-822 (seed 6): chain heads' viewer, half
+    the chain's owner and half a random user."""
+    import numpy as np
+
+    from keto_tpu_torch.ketoapi import RelationTuple, SubjectSet
+
+    rng = np.random.default_rng(seed)
+    n_chains, depth = DEEP_CHAINS, DEEP_DEPTH
+    n_direct = DEEP_TUPLES - n_chains * (depth + 1)
+    owners = [f"u{u}" for u in rng.integers(0, DEEP_USERS, n_chains).tolist()]
+    tuples = [RelationTuple("deep", f"c{c}f{depth}", "owner", subject_id=owners[c])
+              for c in range(n_chains)]
+    tuples += [RelationTuple("deep", f"c{c}f{i}", "parent",
+                             subject_set=SubjectSet("deep", f"c{c}f{i + 1}", "..."))
+               for c in range(n_chains) for i in range(depth)]
+    dc = rng.integers(0, n_chains, n_direct).tolist()
+    dl = rng.integers(0, depth + 1, n_direct).tolist()
+    du = rng.integers(0, DEEP_USERS, n_direct).tolist()
+    tuples += [RelationTuple("deep", f"c{c}f{lv}", "viewer", subject_id=f"u{u}")
+               for c, lv, u in zip(dc, dl, du)]
+    qrng = random.Random(6)
+    queries = []
+    for i in range(BATCH):
+        c = qrng.randrange(n_chains)
+        sub = owners[c] if i % 2 == 0 else f"u{qrng.randrange(DEEP_USERS)}"
+        queries.append(RelationTuple("deep", f"c{c}f0", "viewer", subject_id=sub))
+    return tuples, owners, queries
+
+
+def setup_closure():
+    """Phase 9's store and engine, with the mirror and the closure index
+    built and uploaded."""
+    import torch
+
+    from keto_tpu_torch.config import Config
+    from keto_tpu_torch.engine.torch_engine import TorchCheckEngine
+    from keto_tpu_torch.storage import MemoryManager
+
+    phase(f"9a data: {DEEP_CHAINS} chains of {DEEP_DEPTH} hops + direct grants into the store")
+    t = time.perf_counter()
+    tuples, owners, queries = build_deep_dataset()
+    config = Config({"limit": {"max_read_depth": DEEP_MAX_DEPTH}, "closure": {"enabled": True}})
+    config.set_namespaces([deep_namespace()])
+    manager = MemoryManager()
+    manager.write_relation_tuples(tuples)
+    n_tuples = len(tuples)
+    del tuples
+    t_store = time.perf_counter() - t
+    engine = TorchCheckEngine(manager, config, device="cuda")
+    t = time.perf_counter()
+    stored = engine.ensure_state().snapshot.n_tuples  # a repeated draw is stored once
+    torch.cuda.synchronize()
+    t_mirror = time.perf_counter() - t
+    t = time.perf_counter()
+    if not engine.closure_ensure_built():
+        raise AssertionError("the closure index did not build over the deep store")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t
+    idx = engine.closure_index().describe()
+    nbytes = engine.tables_nbytes("closure")
+    info = {"tuples": n_tuples, "stored_tuples": stored, "store_s": t_store,
+            "mirror_s": t_mirror, "closure_build_s": t_build,
+            **{k: idx[k] for k in ("covered_nodes", "entries", "universe", "extract_s",
+                                   "power_s", "pack_s", "upload_s")},
+            "closure_table_bytes": sum(nbytes.values()),
+            "closure_tables": nbytes}
+    log(f"  {n_tuples} tuples drawn, {stored} stored: store {t_store:.1f} s, snapshot + upload "
+        f"{t_mirror:.1f} s; closure "
+        f"build {t_build:.1f} s (extract {idx['extract_s']:.1f}, power {idx['power_s']:.1f}, "
+        f"pack {idx['pack_s']:.1f}, upload {idx['upload_s']:.2f}); universe {idx['universe']}, "
+        f"covered nodes {idx['covered_nodes']}, entries {idx['entries']}; tables "
+        f"{info['closure_table_bytes'] / 1e6:.1f} MB: "
+        + ", ".join(f"{k} {v / 1e6:.2f} MB" for k, v in sorted(nbytes.items())))
+    if (idx["covered_nodes"], idx["entries"]) != DEEP_CLOSURE:
+        raise AssertionError("the closure build differs from keto_tpu's on this topology")
+    return engine, manager, config, owners, queries, info
+
+
+def run_closure(engine, manager, config, queries):
+    """Closure on and off (the BFS) on the same batch in alternating
+    rounds, the main path's launches, the oracle, and a write that turns
+    the index stale until it is built again."""
+    import torch
+
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+    from keto_tpu_torch.ketoapi import RelationTuple
+
+    t0 = phase(f"9 closure: batches of {BATCH} chain-head checks, closure on and off")
+    engine.closure_enabled = False
+    expected = [r.allowed for r in engine.check_batch(queries)]  # the BFS, warm
+    engine.closure_enabled = True
+    cuda_ops.reset_launch_counts()
+    before = {k: engine.stats[k] for k in ("closure_hits", "host_checks")}
+    fallbacks = dict(engine.stats["closure_fallback"])
+    results = engine.check_batch(queries)  # the main path, once
+    torch.cuda.synchronize()
+    launches = dict(cuda_ops.launches)
+    hits = engine.stats["closure_hits"] - before["closure_hits"]
+    if launches["closure_probe"] != 1 or any(v for k, v in launches.items() if k != "closure_probe"):
+        raise AssertionError(f"the closure batch did not ride one C1 launch alone: {launches}")
+    if hits != len(queries) or engine.stats["closure_fallback"] != fallbacks \
+            or engine.stats["host_checks"] != before["host_checks"]:
+        raise AssertionError(f"{hits} closure hits of {len(queries)}; fallbacks "
+                             f"{engine.stats['closure_fallback']}")
+    if [r.allowed for r in results] != expected:
+        raise AssertionError("closure verdicts differ from the BFS's")
+    cuda_ops.reset_launch_counts()
+    engine.closure_enabled = False
+    engine.check_batch(queries)
+    torch.cuda.synchronize()
+    bfs_steps = cuda_ops.launches["edge_probe"]
+
+    lat = {"on": [], "off": []}
+    mismatches = 0
+    for i in range(2 * DEEP_ROUNDS):
+        arm = "on" if i % 2 else "off"
+        engine.closure_enabled = arm == "on"
+        s = time.perf_counter()
+        got = engine.check_batch(queries)
+        torch.cuda.synchronize()
+        lat[arm].append((time.perf_counter() - s) * 1e3)
+        mismatches += sum(r.allowed != w for r, w in zip(got, expected))
+    if mismatches:
+        raise AssertionError(f"{mismatches} verdicts differ between the arms")
+    oracle = ReferenceEngine(manager, config)
+    sample = random.Random(7).sample(range(len(queries)), min(512, len(queries)))
+    bad = [i for i in sample if oracle.check_relation_tuple(queries[i]).allowed != expected[i]]
+    if bad:
+        raise AssertionError(f"{len(bad)} of 512 sampled verdicts differ from the oracle")
+    engine.closure_enabled = False
+    profile = device_profile(lambda: engine.check_batch(queries), "batches")
+    engine.closure_enabled = True
+    profile_on = device_profile(lambda: engine.check_batch(queries), "batches")
+
+    # one write: the mirror rebuilds, the index no longer serves it, and
+    # every check falls back to the BFS, still correct
+    c = int(queries[0].object[1:].split("f")[0])
+    fresh = RelationTuple("deep", f"c{c}f0", "viewer", subject_id="newbie")
+    stale_batch = list(queries[:-1]) + [fresh]
+    manager.write_relation_tuples([RelationTuple("deep", f"c{c}f{DEEP_DEPTH}", "owner",
+                                                 subject_id="newbie")])
+    t_w = time.perf_counter()
+    stale = engine.stats["closure_fallback"].get("stale_snapshot", 0)
+    got = engine.check_batch(stale_batch)
+    t_stale = time.perf_counter() - t_w
+    n_stale = engine.stats["closure_fallback"].get("stale_snapshot", 0) - stale
+    want = expected[:-1] + [True]
+    if n_stale != len(stale_batch) or [r.allowed for r in got] != want:
+        raise AssertionError(f"after a write: {n_stale} stale fallbacks, verdicts "
+                             f"{'equal' if [r.allowed for r in got] == want else 'differ'}")
+    t_w = time.perf_counter()
+    engine.closure_ensure_built()
+    t_rebuild = time.perf_counter() - t_w
+    hits = engine.stats["closure_hits"]
+    got = engine.check_batch(stale_batch)
+    if engine.stats["closure_hits"] - hits != len(stale_batch) or \
+            [r.allowed for r in got] != want:
+        raise AssertionError("the rebuilt index did not resume the hits")
+
+    out = {
+        "on_checks_per_s": BATCH / (statistics.median(lat["on"]) / 1e3),
+        "off_checks_per_s": BATCH / (statistics.median(lat["off"]) / 1e3),
+        "on_p50_batch_ms": statistics.median(lat["on"]),
+        "off_p50_batch_ms": statistics.median(lat["off"]),
+        "batch_ms": lat, "off_steps_per_batch": bfs_steps,
+        "allowed": sum(expected), "launches": {k: v for k, v in launches.items() if v},
+        "stale_batch_s_incl_mirror_rebuild": t_stale, "closure_rebuild_s": t_rebuild,
+        "profile_off": profile, "profile_on": profile_on,
+    }
+    log(f"  launches on the closure path: {launches}; {len(queries)} closure hits, 0 fallbacks")
+    log(f"  closure on {out['on_checks_per_s']:.1f} checks/s, p50 {out['on_p50_batch_ms']:.2f} ms "
+        f"(idle share {profile_on['idle_share']}); off (BFS, {bfs_steps} steps) "
+        f"{out['off_checks_per_s']:.1f} checks/s, p50 {out['off_p50_batch_ms']:.2f} ms "
+        f"(idle share {profile['idle_share']}); {DEEP_ROUNDS} rounds each, alternating; "
+        f"0 mismatches; 512 sampled equal the oracle; {sum(expected)} allowed")
+    log(f"  a write: {n_stale} stale_snapshot fallbacks, verdicts correct ({t_stale:.1f} s with "
+        f"the mirror rebuild); closure rebuilt in {t_rebuild:.1f} s, hits resumed")
+    log(f"  closure phase {time.perf_counter() - t0:.1f} s")
+    return launches, out
+
+
+def closure_filter_kernel_cases(rec_c, rec_f):
+    """(name, kernel fn, plain fn, bytes, operations, compare fn) of C1 (one
+    closure batch) and F1 (step 1 of the videos filter walk). Bytes count
+    the query pack, the bucket rows the probes this data needs read (cc for
+    valid queries, ch for covered ones) and the output; F1's the task
+    columns, the candidate column once, the hit slots it sets, the status
+    and the count.
+    F1 updates hit and status in place, so every call works on its own
+    clones."""
+    import torch
+
+    from keto_tpu_torch.engine import closure_kernel as tck
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine import filter_kernel as tfk
+    from keto_tpu_torch.engine.snapshot import slots_per_bucket
+
+    cases = []
+    args, kw = rec_c.args("closure_probe")
+    qpack = args[3]
+    B = qpack.shape[1]
+    out = tck.closure_probe_plain(*args, **kw)
+    n_valid = int((qpack[6] != 0).sum())
+    n_cov = int((out[B : 2 * B] == 0).sum())
+    s2, s5 = slots_per_bucket(2, kw["layout"]), slots_per_bucket(5, kw["layout"])
+    pb2, pb5 = -(-kw["cc_probes"] // s2), -(-kw["ch_probes"] // s5)
+    cases.append((
+        "closure_probe",
+        lambda: cuda_ops.closure_probe(*args, **kw),
+        lambda: tck.closure_probe_plain(*args, **kw),
+        7 * B * 4 + n_valid * pb2 * s2 * 16 + n_cov * pb5 * s5 * 32 + (2 * B + 8) * 4,
+        n_valid * (3 * HASH_OPS + pb2 * s2 * 4) + n_cov * (6 * HASH_OPS + pb5 * s5 * 6),
+        lambda: max_abs_err(cuda_ops.closure_probe(*args, **kw), tck.closure_probe_plain(*args, **kw)),
+    ))
+
+    args2, _kw2 = rec_f.args("filter_mark")
+    obj, rel, depth, live, cand, head = args2[:6]
+    F, C = obj.shape[0], cand.shape[0]
+    match = live & (rel == head[2]) & (depth >= 0)
+    n_match = int(match.sum())
+    # the hit mask is never read: F1 writes only the slots it finds
+    pos = torch.searchsorted(cand, obj[match]).clamp(max=C - 1)
+    n_slots = int(torch.unique(pos[cand[pos] == obj[match]]).numel())
+
+    def run(fn):
+        a = [x.clone() for x in args2]
+        return (fn(*a).to(torch.int32), a[6], a[7])
+
+    timed = [x.clone() for x in args2]
+    cases.append((
+        "filter_mark",
+        lambda: cuda_ops.filter_mark(*timed),
+        lambda: tfk.filter_mark_plain(*timed),
+        F * 13 + 20 + C * 4 + n_slots * 4 + 16 + 4,
+        F * 4 + n_match * (3 * (C.bit_length() + 1) + 4),
+        lambda: max_abs_err(run(cuda_ops.filter_mark), run(tfk.filter_mark_plain)),
+    ))
+    return cases, (lambda: torch.searchsorted(cand, obj))
+
+
+def run_closure_kernels(engine, queries):
+    from keto_tpu_torch.engine import cuda_ops
+
+    t0 = phase("9b kernels: C1 against its plain version, on a real closure batch")
+    engine.closure_enabled = True
+    with Recorder(cuda_ops, step=0) as rec:
+        engine.check_batch(queries)
+    log(f"  kernels phase {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
+def filter_candidates():
+    rng = random.Random(77)
+    return [f"/d{rng.randrange(N_FOLDERS)}/v{rng.randrange(FILES_PER_FOLDER)}.mp4"
+            for _ in range(FILTER_OBJECTS)]
+
+
+def run_filter_leg(engine, manager, config, subject, objects, namespace, relation, tier,
+                   want_kernels):
+    """One filter leg's main path once, its launches and tiers, the
+    oracle on 200 sampled candidates, check_batch over the same pairs, and
+    FILTER_ROUNDS timed calls."""
+    import torch
+
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+    from keto_tpu_torch.engine.snapshot import encode_object_column
+    from keto_tpu_torch.ketoapi import RelationTuple
+
+    keys = ("filter_vocab", "filter_closure", "filter_frontier", "filter_host")
+    before = {k: engine.stats[k] for k in keys}
+    cuda_ops.reset_launch_counts()
+    verdicts = engine.filter_batch(namespace, relation, subject, objects,
+                                   chunk_size=FILTER_CHUNK)  # the main path, once
+    torch.cuda.synchronize()
+    launches = dict(cuda_ops.launches)
+    tiers = {k: engine.stats[k] - before[k] for k in keys}
+    if tiers["filter_host"] or tiers[tier] + tiers["filter_vocab"] != len(objects):
+        raise AssertionError(f"filter tiers {tiers} over {len(objects)} candidates")
+    missing = [k for k in want_kernels if launches[k] == 0]
+    stray = [k for k in cuda_ops.KERNELS if k not in want_kernels and launches[k]]
+    if missing or stray:
+        raise AssertionError(f"filter launches {launches}: missing {missing}, stray {stray}")
+    oracle = ReferenceEngine(manager, config)
+    sample = random.Random(78).sample(range(len(objects)), 200)
+    want = oracle.filter_objects(namespace, relation, subject, [objects[i] for i in sample])
+    if [verdicts[i] for i in sample] != want:
+        raise AssertionError("sampled filter verdicts differ from the oracle")
+    pairs = [RelationTuple(namespace, o, relation, subject_id=subject) for o in objects]
+    t = time.perf_counter()
+    checks = engine.check_batch(pairs)
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t
+    if [r.allowed for r in checks] != verdicts:
+        raise AssertionError("filter verdicts differ from check_batch over the same pairs")
+    lat = []
+    for _ in range(FILTER_ROUNDS):
+        s = time.perf_counter()
+        engine.filter_batch(namespace, relation, subject, objects, chunk_size=FILTER_CHUNK)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - s)
+    wall = sum(lat)
+    profile = device_profile(lambda: engine.filter_batch(namespace, relation, subject, objects,
+                                                         chunk_size=FILTER_CHUNK), "filters")
+    view = engine.ensure_state().view
+    t = time.perf_counter()
+    encode_object_column(view, view.ns_id(namespace), objects)
+    encode_ms = (time.perf_counter() - t) * 1e3
+    return launches, {
+        "profile": profile, "encode_ms": encode_ms,
+        "objects_per_s": FILTER_ROUNDS * len(objects) / wall,
+        "us_per_object": wall / (FILTER_ROUNDS * len(objects)) * 1e6,
+        "p50_filter_ms": statistics.median(lat) * 1e3,
+        "check_batch_us_per_object": check_s / len(objects) * 1e6,
+        "allowed": sum(verdicts), "tiers": tiers,
+        "launches": {k: v for k, v in launches.items() if v},
+    }
+
+
+def run_filter(v_engine, v_manager, v_config, v_subject, d_engine, d_manager, d_config,
+               d_subject):
+    from keto_tpu_torch.engine import cuda_ops
+
+    t0 = phase(f"10 filter: {FILTER_OBJECTS} candidates, one subject")
+    objects = filter_candidates()
+    v_engine.closure_enabled = False
+    with Recorder(cuda_ops, step=1) as rec_f:
+        v_engine.filter_batch("videos", "view", v_subject, objects, chunk_size=FILTER_CHUNK)
+    f_launches, frontier = run_filter_leg(
+        v_engine, v_manager, v_config, v_subject, objects, "videos", "view", "filter_frontier",
+        ("filter_mark", "pair_probe", "reverse_gather", "dedupe_compact"))
+    frontier["steps_per_walk"] = f_launches["filter_mark"]
+    log(f"  (a) frontier tier, videos-1e6, subject {v_subject}: launches {f_launches}; tiers "
+        f"{frontier['tiers']}; {frontier['allowed']} allowed; {frontier['objects_per_s']:.1f} "
+        f"objects/s, {frontier['us_per_object']:.3f} us/object (check_batch "
+        f"{frontier['check_batch_us_per_object']:.3f} us/object); "
+        f"{frontier['steps_per_walk']} steps a walk; candidate encoding "
+        f"{frontier['encode_ms']:.2f} ms; idle share {frontier['profile']['idle_share']}")
+
+    chain_rng = random.Random(79)
+    heads = [f"c{chain_rng.randrange(DEEP_CHAINS)}f0" for _ in range(FILTER_OBJECTS)]
+    d_engine.closure_enabled = True
+    c_launches, closure = run_filter_leg(
+        d_engine, d_manager, d_config, d_subject, heads, "deep", "viewer", "filter_closure",
+        ("closure_probe",))
+    if c_launches["closure_probe"] != 1:
+        raise AssertionError(f"the closure tier took {c_launches['closure_probe']} C1 launches")
+    log(f"  (b) closure tier, deep-1e6, subject {d_subject}: launches {c_launches}; tiers "
+        f"{closure['tiers']}; {closure['allowed']} allowed; {closure['objects_per_s']:.1f} "
+        f"objects/s, {closure['us_per_object']:.3f} us/object (check_batch "
+        f"{closure['check_batch_us_per_object']:.3f} us/object); candidate encoding "
+        f"{closure['encode_ms']:.2f} ms; idle share {closure['profile']['idle_share']}")
+    log(f"  filter phase {time.perf_counter() - t0:.1f} s")
+    return f_launches, rec_f, {"frontier": frontier, "closure": closure}
 
 
 def run_serve():
@@ -1276,14 +1696,32 @@ def main() -> int:
     rows += run_list_kernels(engine, lo_queries, ls_queries)
     lo_launches, list_objects = run_list_objects(engine, manager, config, lo_queries, owners)
     ls_launches, list_subjects = run_list_subjects(engine, manager, config, ls_queries)
+    # the closure phase's deep store joins now; the filter phase runs on
+    # phase 4's engine (reverse state from phase 8) and on phase 9's
+    d_engine, d_manager, d_config, d_owners, d_queries, d_info = setup_closure()
+    gc.collect()
+    gc.freeze()
+    rec_c = run_closure_kernels(d_engine, d_queries)
+    c_launches, closure = run_closure(d_engine, d_manager, d_config, d_queries)
+    folders_of = owners[0]
+    v_subject = next(u for u, ds in folders_of.items() if "/d0" in ds)
+    f_launches, rec_f, filt = run_filter(engine, manager, config, v_subject, d_engine,
+                                         d_manager, d_config, d_owners[0])
+    cases, searchsorted = closure_filter_kernel_cases(rec_c, rec_f)
+    phase("10c kernels: C1 and F1 against their plain versions")
+    for case in cases:
+        rows.append(time_kernel(*case))
+    rows[-1]["library_ms"] = device_ms(searchsorted)
+    log(f"  torch.searchsorted on F1's (cand, obj): {rows[-1]['library_ms']:.5f} ms")
     by_path = {"check": launches, "expand": x_launches, "list_objects": lo_launches,
-               "list_subjects": ls_launches}
+               "list_subjects": ls_launches, "closure": c_launches, "filter": f_launches}
     # each kernel's count on its own path: check for K1-K4, expand for X1
-    # and X2, ListObjects for L1, L2 and L4, ListSubjects for L3; K2, K4,
-    # L1 and L4 run on several
+    # and X2, ListObjects for L1, L2 and L4, ListSubjects for L3, closure
+    # for C1, filter for F1; K2, K4, L1, L2 and L4 run on several
     own = {name: "expand" for name in cuda_ops.EXPAND_KERNELS}
     own.update(list_emit="list_objects", reverse_gather="list_objects",
-               list_pool_compact="list_objects", subjects_gather="list_subjects")
+               list_pool_compact="list_objects", subjects_gather="list_subjects",
+               closure_probe="closure", filter_mark="filter")
     for row in rows:
         row["launches"] = by_path[own.get(row["name"], "check")][row["name"]]
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in by_path.items()}
@@ -1295,6 +1733,8 @@ def main() -> int:
     log(json.dumps({"list": {**l_info, "card": smi, "list_objects": list_objects,
                              "list_subjects": list_subjects,
                              "caps": {"list_objects": LO_CAPS, "list_subjects": LS_CAPS}}}))
+    log(json.dumps({"closure": {**d_info, **closure, "card": smi}}))
+    log(json.dumps({"filter": {**filt, "card": smi}}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

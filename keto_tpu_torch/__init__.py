@@ -1,5 +1,5 @@
-"""keto_tpu_torch — keto-tpu's Check, Expand and List paths in PyTorch, for
-one NVIDIA H100.
+"""keto_tpu_torch — keto-tpu's Check, Expand, List and Filter paths in
+PyTorch, for one NVIDIA H100.
 
 The port of the JAX package `keto_tpu` (the reference it is tested
 against): tuples go into a store, a snapshot compiles them into packed
@@ -12,16 +12,20 @@ query's edges into a packed pool (csrc/expand_kernels.cu), and the host
 assembles the trees. ListObjects walks a transposed mirror backwards and
 ListSubjects the full-edge CSR forwards with the rewrites, each emitting
 its results into a packed pool (csrc/list_kernels.cu) that the host
-decodes.
+decodes. With the Leopard closure index on, a check batch is one probe
+launch over the powered closure sets whatever the chain depth, and
+BatchFilter answers a column of candidates for one subject through that
+probe or one shared reverse walk that marks them
+(csrc/closure_filter_kernels.cu).
 
 Layout:
   ketoapi     — relation tuples, subject sets, string and JSON forms
   namespace   — namespace model and rewrite AST
   config      — JSON configuration of the read paths
   storage     — in-memory versioned tuple store
-  engine      — snapshot compiler, host oracle, check, expand and list
-                kernels, the engine
-  api         — REST server (Check, batch Check, Expand and List)
+  engine      — snapshot compiler, host oracle, check, expand, list,
+                closure and filter kernels, the closure index, the engine
+  api         — REST server (Check, batch Check, Expand, List and Filter)
 
 Entry points run on the card (device="cuda") unless the caller passes
 device="cpu", where every kernel runs its plain PyTorch version.

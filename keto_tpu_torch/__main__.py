@@ -4,10 +4,11 @@
 
 `serve` reads the JAX package's JSON config keys for the read routes
 (`namespaces`, `limit.max_read_depth`, `limit.page_size`,
-`serve.read.host` / `serve.read.port`), loads the tuples of `--tuples`
-(one "ns:obj#rel@subject" per line) into an in-memory store, builds the
-device mirror, and serves the REST Check, Expand, ListObjects and
-ListSubjects routes until SIGINT or SIGTERM. It prints one line
+`serve.read.host` / `serve.read.port`, `closure.*`, `filter.*`), loads
+the tuples of `--tuples` (one "ns:obj#rel@subject" per line) into an
+in-memory store, builds the device mirror (and, with `closure.enabled`,
+the closure index), and serves the REST Check, Expand, ListObjects,
+ListSubjects and Filter routes until SIGINT or SIGTERM. It prints one line
 `serving read=<host>:<port>` once it accepts requests.
 """
 
@@ -36,6 +37,8 @@ def _serve(args) -> int:
         )
     engine = TorchCheckEngine(manager, config, device=args.device)
     engine.ensure_state()  # build and upload the mirror before serving
+    if config.closure_enabled():
+        engine.closure_ensure_built()
     host, port = config.read_address()
     server = make_server(engine, host, port)
     stop = threading.Event()
@@ -57,7 +60,7 @@ def _serve(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m keto_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
-    serve = sub.add_parser("serve", help="serve the REST Check, Expand and List routes")
+    serve = sub.add_parser("serve", help="serve the REST Check, Expand, List and Filter routes")
     serve.add_argument("--config", required=True, help="JSON config file")
     serve.add_argument("--tuples", help="file of relation tuples, one per line")
     serve.add_argument("--device", default="cuda", help="torch device (default: cuda)")

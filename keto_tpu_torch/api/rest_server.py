@@ -1,5 +1,5 @@
-"""REST Check, Expand and List routes on a stdlib threaded HTTP server,
-in front of a TorchCheckEngine.
+"""REST Check, Expand, List and Filter routes on a stdlib threaded HTTP
+server, in front of a TorchCheckEngine.
 
   GET  /relation-tuples/check          -> 200 {"allowed": true} / 403 {"allowed": false}
   POST /relation-tuples/check          -> the same, tuple as a JSON body
@@ -18,13 +18,21 @@ in front of a TorchCheckEngine.
                                           (params namespace, object, relation)
                                           both list routes also take max-depth,
                                           page_size and page_token
+  POST /relation-tuples/filter         -> {"allowed_objects": [...]}, the
+                                          candidates the subject can see in
+                                          request order, duplicates kept
+                                          (body namespace, relation,
+                                          subject_id or subject_set, objects,
+                                          optional max_depth); no snaptoken
   GET  /health/alive, /health/ready    -> 200 {"status": "ok"}
 
 Keto's semantics: an unknown namespace on a single check answers
 {"allowed": false} rather than an error; the batch route reports it per
 item; Expand and the list routes answer it with 404. A missing parameter
 or a malformed page token is a 400; an unknown object, relation or
-subject lists nothing. Errors use the herodot shape {"error": {code,
+subject lists nothing. A filter body whose objects are not a list of
+strings, that lacks a namespace, a relation or a subject, or that carries
+more objects than `filter.max_objects` is a 400. Errors use the herodot shape {"error": {code,
 status, message}}.
 Checks carry an X-Keto-Snaptoken header with the store version they were
 evaluated at. The engine is not thread-safe, so requests take one lock
@@ -38,8 +46,15 @@ import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from ..errors import KetoError, MalformedInputError, NamespaceNotFoundError, NotFoundError
-from ..ketoapi import RelationTuple, SubjectSet
+from ..errors import (
+    FilterTooLargeError,
+    KetoError,
+    MalformedInputError,
+    NamespaceNotFoundError,
+    NilSubjectError,
+    NotFoundError,
+)
+from ..ketoapi import RelationTuple, SubjectSet, _subject_fields_from_dict
 
 CHECK_ROUTE = "/relation-tuples/check"
 CHECK_OPENAPI_ROUTE = "/relation-tuples/check/openapi"
@@ -47,6 +62,7 @@ CHECK_BATCH_ROUTE = "/relation-tuples/check/batch"
 EXPAND_ROUTE = "/relation-tuples/expand"
 LIST_OBJECTS_ROUTE = "/relation-tuples/list-objects"
 LIST_SUBJECTS_ROUTE = "/relation-tuples/list-subjects"
+FILTER_ROUTE = "/relation-tuples/filter"
 HEALTH_ROUTES = ("/health/alive", "/health/ready")
 
 
@@ -127,6 +143,10 @@ class CheckService:
         with self._mu:
             return self.engine.list_subjects(*args, **kw)
 
+    def filter_objects(self, *args, **kw):
+        with self._mu:
+            return self.engine.filter_objects(*args, **kw)
+
 
 def make_handler(service: CheckService):
     class Handler(BaseHTTPRequestHandler):
@@ -170,6 +190,8 @@ def make_handler(service: CheckService):
                     self._list_objects(params)
                 elif path == LIST_SUBJECTS_ROUTE and method == "GET":
                     self._list_subjects(params)
+                elif path == FILTER_ROUTE and method == "POST":
+                    self._filter(params)
                 elif path in (CHECK_ROUTE, CHECK_OPENAPI_ROUTE):
                     self._check(method, params, mirror_status=path == CHECK_ROUTE)
                 else:
@@ -260,6 +282,44 @@ def make_handler(service: CheckService):
             )
             self._json(200, {"subject_ids": subjects, "next_page_token": token})
 
+        def _filter(self, params: dict) -> None:
+            """The subset of the candidate column the subject can see. The
+            port's routes send no snaptoken yet, so neither does this."""
+            body = self._body()
+            if not isinstance(body, dict):
+                raise MalformedInputError("could not unmarshal json: expected object")
+            objects = body.get("objects")
+            if not isinstance(objects, list) or not all(isinstance(o, str) for o in objects):
+                raise MalformedInputError('filter requires "objects": an array of object names')
+            max_objects = service.engine.config.filter_max_objects()
+            if len(objects) > max_objects:
+                raise FilterTooLargeError(
+                    f"filter candidate list has {len(objects)} objects; filter.max_objects "
+                    f"allows {max_objects}: split the list"
+                )
+            namespace, relation = body.get("namespace"), body.get("relation")
+            if not namespace or not relation:
+                raise MalformedInputError(debug="filter requires namespace and relation")
+            subject_id, subject_set = _subject_fields_from_dict(body)
+            if subject_id is None and subject_set is None:
+                raise NilSubjectError()
+            if body.get("max_depth") is None:
+                max_depth = _max_depth(params)
+            else:
+                try:
+                    max_depth = int(body["max_depth"])
+                except (TypeError, ValueError):
+                    raise MalformedInputError("max_depth must be an integer")
+            nm = service.engine.config.namespace_manager()
+            nm.get_namespace_by_name(namespace)
+            if subject_set is not None:
+                nm.get_namespace_by_name(subject_set.namespace)
+            allowed = service.filter_objects(
+                namespace, relation, subject_set if subject_set is not None else subject_id,
+                objects, max_depth,
+            )
+            self._json(200, {"allowed_objects": allowed})
+
         def _check_batch(self, params: dict) -> None:
             body = self._body()
             if isinstance(body, dict):
@@ -303,8 +363,8 @@ def make_handler(service: CheckService):
 
 
 def make_server(engine, host: str, port: int) -> ThreadingHTTPServer:
-    """A threaded HTTP server serving the Check, Expand and List routes
-    over `engine`."""
+    """A threaded HTTP server serving the Check, Expand, List and Filter
+    routes over `engine`."""
     server = ThreadingHTTPServer((host, port), make_handler(CheckService(engine)))
     server.daemon_threads = True
     return server

@@ -3,9 +3,14 @@
 Reads the keys the JAX package's serve entry point reads for the read
 routes: `namespaces` (an inline list of namespace dicts),
 `limit.max_read_depth` (default 5, as Keto's embedx/config.schema.json),
-`limit.page_size` (the list routes' default page, 100) and
-`serve.read.host` / `serve.read.port`. Schema validation, namespace files and OPL stay with
-the JAX package.
+`limit.page_size` (the list routes' default page, 100),
+`serve.read.host` / `serve.read.port`, `closure.enabled` (the Leopard
+index routes checks and filters, default false), `closure.max_set_rows`
+(the largest closure set a covered node may hold, 4096),
+`filter.chunk_size` (candidates per filter evaluation, 4096) and
+`filter.max_objects` (the largest candidate list a filter request may
+carry, 65536). Schema validation, namespace files and OPL stay with the
+JAX package.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from .storage.definitions import DEFAULT_PAGE_SIZE
 
 DEFAULT_MAX_READ_DEPTH = 5
 DEFAULT_READ_PORT = 4466
+DEFAULT_FILTER_CHUNK_SIZE = 4096
+DEFAULT_FILTER_MAX_OBJECTS = 65536
 
 
 class ConfigError(KetoError):
@@ -53,6 +60,12 @@ class Config:
 
     def page_size(self) -> int:
         return int(self.get("limit.page_size", DEFAULT_PAGE_SIZE))
+
+    def closure_enabled(self) -> bool:
+        return bool(self.get("closure.enabled", False))
+
+    def filter_max_objects(self) -> int:
+        return int(self.get("filter.max_objects", DEFAULT_FILTER_MAX_OBJECTS))
 
     def read_address(self) -> tuple[str, int]:
         return (

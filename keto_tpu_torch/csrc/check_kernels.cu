@@ -15,33 +15,13 @@
 //                        e_pack child gather.
 // K4 keto_dedupe_compact replaces dedupe_phase.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "probe.cuh"
 
 namespace {
 
-constexpr uint32_t kGolden = 0x9E3779B9u;
-constexpr int kEmpty = -1;
 constexpr int kCauseFrontierOverflow = 2;
-// threads that share one probe task: 16 lanes x 16 B = one 256 B bucket
-// row per load round
-constexpr int kGroup = 16;
 constexpr int kProbeThreads = 256;
 constexpr int kScanThreads = 1024;
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-// mask of the 16 lanes of this thread's probe group inside its warp
-__device__ __forceinline__ unsigned group_mask() {
-  return 0xFFFFu << (threadIdx.x & 16);
-}
 
 // ---------------------------------------------------------------------------
 // K1 edge_probe
@@ -56,40 +36,6 @@ __device__ __forceinline__ unsigned group_mask() {
 // overlay override and the live / depth >= 1 gate are fused, so the hit
 // mask is the only output.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void probe_edge_table(
-    const int4* __restrict__ pack, uint32_t nb, int spb, int pb, const int key[5],
-    uint32_t h1, uint32_t h2, int lane, unsigned gmask, bool& found, int& val) {
-  const int per_row = 2 * spb;  // int4 chunks per bucket row (8 ints a slot)
-  const int total = pb * per_row;
-  bool f = false;
-  int v = kEmpty;
-  for (int base = 0; base < total; base += kGroup) {
-    const int c = base + lane;
-    const bool in = c < total;
-    int4 x = make_int4(0, 0, 0, 0);
-    if (in) {
-      const int r = c / per_row;
-      const uint32_t b = (h1 + (uint32_t)r * h2) & (nb - 1u);
-      x = __ldg(pack + (size_t)b * per_row + (c - r * per_row));
-    }
-    // even lanes hold lanes 0-3 of a slot, odd lanes lanes 4-7
-    const bool part = (lane & 1) == 0
-        ? (x.x == key[0] && x.y == key[1] && x.z == key[2] && x.w == key[3])
-        : (x.x == key[4]);
-    const bool other = __shfl_xor_sync(gmask, (int)part, 1) != 0;
-    if ((lane & 1) && in && part && other) {
-      f = true;
-      v = max(v, x.y);  // lane 5 of the slot
-    }
-  }
-  for (int off = kGroup / 2; off >= 1; off >>= 1) {
-    f = (__shfl_xor_sync(gmask, (int)f, off) != 0) || f;
-    v = max(v, __shfl_xor_sync(gmask, v, off));
-  }
-  found = f;
-  val = v;
-}
 
 __global__ void edge_probe_kernel(
     const int4* __restrict__ dh, uint32_t dh_nb, const int4* __restrict__ dd,
@@ -109,9 +55,8 @@ __global__ void edge_probe_kernel(
   const unsigned gmask = group_mask();
   const int4 s = qsub[q[task]];
   const int key[5] = {obj[task], rel[task], s.x, s.y, s.z};
-  uint32_t h1 = kGolden;
-  for (int k = 0; k < 5; ++k) h1 = mix32(h1 ^ (uint32_t)key[k]);
-  const uint32_t h2 = mix32(h1 ^ kGolden) | 1u;
+  const uint32_t h1 = key_hash(key, 5);
+  const uint32_t h2 = stride_hash(h1);
   bool found;
   int val;
   probe_edge_table(dh, dh_nb, spb, dh_pb, key, h1, h2, lane, gmask, found, val);
@@ -143,28 +88,8 @@ __global__ void pair_probe_kernel(
   const int lane = threadIdx.x % kGroup;
   if (task >= (long long)F * S) return;
   const unsigned gmask = group_mask();
-  const int o = obj[task / S];
-  const int r = rels[task];
-  const uint32_t h1 = mix32(mix32(kGolden ^ (uint32_t)o) ^ (uint32_t)r);
-  const uint32_t h2 = mix32(h1 ^ kGolden) | 1u;
-  const int total = pb * spb;  // one int4 chunk per slot
-  int v0 = kEmpty, v1 = kEmpty;
-  for (int base = 0; base < total; base += kGroup) {
-    const int c = base + lane;
-    if (c < total) {
-      const int row = c / spb;
-      const uint32_t b = (h1 + (uint32_t)row * h2) & (nb - 1u);
-      const int4 x = __ldg(pack + (size_t)b * spb + (c - row * spb));
-      if (x.x == o && x.y == r) {
-        v0 = max(v0, x.z);
-        v1 = max(v1, x.w);
-      }
-    }
-  }
-  for (int off = kGroup / 2; off >= 1; off >>= 1) {
-    v0 = max(v0, __shfl_xor_sync(gmask, v0, off));
-    v1 = max(v1, __shfl_xor_sync(gmask, v1, off));
-  }
+  int v0, v1;
+  probe_pair_table(pack, nb, spb, pb, obj[task / S], rels[task], lane, gmask, v0, v1);
   if (lane == 0) {
     out[task * n_vals] = v0;
     if (n_vals == 2) out[task * 2 + 1] = v1;
@@ -354,10 +279,6 @@ __global__ void dedupe_compact_kernel(
     nt_depth[p] = 0;
   }
   if (t == 0) *n_new = n_in;
-}
-
-int blocks_for(long long threads, int per_block) {
-  return (int)((threads + per_block - 1) / per_block);
 }
 
 }  // namespace

@@ -13,7 +13,8 @@ raises if the launch reported an error, and adds one to its entry in
 returns: PyTorch's caching allocator hands their memory out again only in
 stream order, after the launch. The wrappers take CUDA tensors only; the
 plain versions for CPU tensors live beside the dispatchers in
-engine/kernel.py, engine/expand_kernel.py and engine/reverse_kernel.py.
+engine/kernel.py, engine/expand_kernel.py, engine/reverse_kernel.py,
+engine/closure_kernel.py and engine/filter_kernel.py.
 """
 
 from __future__ import annotations
@@ -31,8 +32,12 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(
-    _PKG / "csrc" / name for name in ("check_kernels.cu", "expand_kernels.cu", "list_kernels.cu")
+    _PKG / "csrc" / name
+    for name in ("check_kernels.cu", "expand_kernels.cu", "list_kernels.cu",
+                 "closure_filter_kernels.cu")
 )
+# headers the sources include: part of the library's content hash
+HEADERS = (_PKG / "csrc" / "probe.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -41,7 +46,9 @@ NVCC_FLAGS = (
 CHECK_KERNELS = ("edge_probe", "pair_probe", "expand_gather", "dedupe_compact")
 EXPAND_KERNELS = ("expand_emit", "pool_compact")
 LIST_KERNELS = ("list_emit", "reverse_gather", "subjects_gather", "list_pool_compact")
-KERNELS = CHECK_KERNELS + EXPAND_KERNELS + LIST_KERNELS
+CLOSURE_KERNELS = ("closure_probe",)
+FILTER_KERNELS = ("filter_mark",)
+KERNELS = CHECK_KERNELS + EXPAND_KERNELS + LIST_KERNELS + CLOSURE_KERNELS + FILTER_KERNELS
 launches = {name: 0 for name in KERNELS}
 # the largest dynamic shared memory one block may take on Hopper, less
 # the kernels' static shared memory
@@ -66,7 +73,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"libketo_kernels_{h.hexdigest()[:16]}.so"
 
@@ -122,6 +129,9 @@ _SIGNATURES = {
     "keto_reverse_gather": [_VP] * 9 + [_I] + [_VP] + [_I] + [_VP] + [_I] * 5 + [_VP] * 12,
     "keto_subjects_gather": [_VP] * 8 + [_I] + [_VP] + [_I] * 4 + [_VP] * 14,
     "keto_list_pool_compact": [_VP] * 4 + [_I] * 3 + [_VP] * 3,
+    "keto_closure_probe": [_VP, _LL, _I, _VP, _LL, _I, _I, _I, _VP, _LL, _I, _I, _VP, _I, _VP,
+                           _VP],
+    "keto_filter_mark": [_VP] * 4 + [_I, _VP, _I] + [_VP] * 5,
 }
 
 
@@ -463,3 +473,56 @@ def list_pool_compact(res, res_count, needs_host, stats, *, result_cap: int, poo
     )
     _check(lib, rc, name)
     return out
+
+
+def closure_probe(cc_pack, ch_pack, cd_pack, qpack, *, cc_probes: int, ch_probes: int,
+                  has_dirty: bool, layout: str) -> torch.Tensor:
+    """C1: the closure verdicts of a [7, B] query pack, [member(B) |
+    cause(B) | stats(8)] int32. cd_pack is read only when has_dirty."""
+    from .delta import DELTA_PROBES
+    from .kernel import N_LAUNCH_STATS
+    from .snapshot import slots_per_bucket
+
+    name = "closure_probe"
+    spb_pair, spb_edge = slots_per_bucket(2, layout), slots_per_bucket(5, layout)
+    _require_pack(name, cc_pack, 4, spb_pair)
+    _require_pack(name, ch_pack, 8, spb_edge)
+    if has_dirty:
+        _require_pack(name, cd_pack, 4, spb_pair)
+    _require(name, torch.int32, qpack)
+    if qpack.dim() != 2 or qpack.shape[0] != 7:
+        raise ValueError(f"{name}: expects a [7, B] query pack")
+    B = qpack.shape[1]
+    out = torch.empty(2 * B + N_LAUNCH_STATS, dtype=torch.int32, device=qpack.device)
+    lib = library()
+    rc = lib.keto_closure_probe(
+        _p(cc_pack), cc_pack.shape[0], cc_probes, _p(cd_pack) if has_dirty else None,
+        cd_pack.shape[0] if has_dirty else 0, DELTA_PROBES, int(has_dirty), spb_pair,
+        _p(ch_pack), ch_pack.shape[0], ch_probes, spb_edge, _p(qpack), B, _p(out), _stream(),
+    )
+    _check(lib, rc, name)
+    return out
+
+
+def filter_mark(obj, rel, depth, live, cand, head, hit, status) -> torch.Tensor:
+    """F1: one filter step's candidate intersection. Tasks that are live,
+    of the query's relation (head[2]) and at depth >= 0 set the hit slot
+    of their object in the sorted column `cand`; hit and the running count
+    of hit slots, status[2], update in place. Returns the matching tasks'
+    count (0-d)."""
+    name = "filter_mark"
+    _require(name, torch.int32, obj, rel, depth, cand, head, hit, status)
+    _require(name, torch.bool, live)
+    F, C = obj.shape[0], cand.shape[0]
+    if any(t.shape != (F,) for t in (rel, depth, live)):
+        raise ValueError(f"{name}: task columns must all be [F]")
+    if C == 0 or hit.shape != (C,) or head.shape[0] < 3 or status.shape[0] < 3:
+        raise ValueError(f"{name}: expects a [C > 0] column and hit mask, head and status")
+    marks = torch.empty(1, dtype=torch.int32, device=obj.device)
+    lib = library()
+    rc = lib.keto_filter_mark(
+        _p(obj), _p(rel), _p(depth), _p(live), F, _p(cand), C, _p(head), _p(hit), _p(status),
+        _p(marks), _stream(),
+    )
+    _check(lib, rc, name)
+    return marks.reshape(())

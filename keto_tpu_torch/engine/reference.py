@@ -33,7 +33,10 @@ store (a member must bottom out in a direct edge, so no other candidate
 can be one). A candidate whose check errors is left out. Membership is
 evaluated without visited-set pruning, which can miss members first
 reached at an exhausted depth: the device walks explore completely, and
-the lists are defined by the complete walk on every graph.
+the lists are defined by the complete walk on every graph. BatchFilter
+is the same admission rule over an explicit candidate column:
+filter_objects(ns, rel, S, objects)[i] = Check(ns:objects[i]#rel@S) is
+member, by the complete walk, an erroring candidate being False.
 """
 
 from __future__ import annotations
@@ -125,6 +128,25 @@ class ReferenceEngine:
             res = checker.check_relation_tuple(r, max_depth, nid)
             if res.error is None and res.membership == Membership.IS_MEMBER:
                 out.append(obj)
+        return out
+
+    def filter_objects(
+        self, namespace: str, relation: str, subject: Subject, objects: list[str],
+        max_depth: int = 0, nid: str = DEFAULT_NETWORK,
+    ) -> list[bool]:
+        """verdicts[i]: Check(namespace:objects[i]#relation@subject) is a
+        member, one complete check per candidate; a candidate whose check
+        errors is not visible (False)."""
+        checker = self._complete_checker()
+        out: list[bool] = []
+        for obj in objects:
+            r = RelationTuple(namespace=namespace, object=obj, relation=relation)
+            if isinstance(subject, SubjectSet):
+                r.subject_set = subject
+            else:
+                r.subject_id = subject
+            res = checker.check_relation_tuple(r, max_depth, nid)
+            out.append(res.error is None and res.membership == Membership.IS_MEMBER)
         return out
 
     def list_subjects(

@@ -685,6 +685,24 @@ def build_snapshot(
     )
 
 
+def encode_object_column(view, ns_id: int, objects: Sequence[str]):
+    """(slots [n] int32, valid [n] bool) of candidate objects of one
+    namespace, the BatchFilter shape: one dict lookup per object, then the
+    view's overlay for names first seen after the base snapshot."""
+    get = view.snapshot.obj_slots.get
+    slots = np.fromiter((get((ns_id, o), -1) for o in objects), dtype=np.int64,
+                        count=len(objects))
+    valid = slots != -1
+    ov = view.overlay
+    if ov is not None and ov.obj_slots and not valid.all():
+        for i in np.flatnonzero(~valid):
+            slot = ov.obj_slots.get((ns_id, objects[int(i)]))
+            if slot is not None:
+                slots[i] = slot
+                valid[i] = True
+    return slots.astype(np.int32), valid
+
+
 def encode_query_batch(view, tuples: Sequence[RelationTuple], B: int):
     """(q_obj, q_rel, q_skind, q_sa, q_sb, q_valid) arrays of length B.
 

@@ -20,6 +20,15 @@ query's slice of the pool; flagged queries are answered by the host
 oracle, and names the mirror does not know answer []. A NOT anywhere in
 the config sends every ListObjects query to the oracle.
 
+With `closure.enabled`, a check batch first rides one closure launch
+over the Leopard index (engine/closure.py, built by closure_ensure_built,
+never on the submit path): the queries it resolves are answered, the
+rest go through the BFS kernel once and merge back in order. A
+BatchFilter chunk runs four tiers in order: unknown names under a
+monotone config are definitive non-members, the closure launch over the
+candidate column, one shared-frontier walk (engine/filter_kernel.py) over
+the leftovers, and the host oracle for whatever is still unresolved.
+
 The mirror is rebuilt in full when the store version or the namespace
 config changes; incremental overlay refresh is not part of this engine.
 """
@@ -34,7 +43,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import DEFAULT_FILTER_CHUNK_SIZE, Config
 from ..ketoapi import RelationTuple, Subject, SubjectSet, Tree
 from ..storage.definitions import DEFAULT_NETWORK
 from .definitions import (
@@ -44,6 +53,8 @@ from .definitions import (
     Membership,
     paginate_names,
 )
+from .closure import DEFAULT_MAX_SET_ROWS, ClosureIndex
+from .closure_kernel import CL_CAUSE_NAMES, closure_kernel_packed, unpack_closure_results
 from .delta import SnapshotView
 from .expand_kernel import (
     ExpandDecoder,
@@ -56,6 +67,7 @@ from .expand_kernel import (
     pack_expand_tables,
     unpack_expand_results,
 )
+from .filter_kernel import filter_kernel_packed, pack_filter_query, unpack_filter_results
 from .islands import combine_islands
 from .kernel import (
     CAUSE_NAME_UNINDEXED,
@@ -80,7 +92,16 @@ from .reverse_kernel import (
     subjects_tables_from_numpy,
     unpack_list_results,
 )
-from .snapshot import GraphSnapshot, build_snapshot, check_layout, encode_query_batch
+from .snapshot import (
+    FLAG_HOST_ONLY,
+    FLAG_ISLAND,
+    GraphSnapshot,
+    build_snapshot,
+    check_layout,
+    encode_object_column,
+    encode_query_batch,
+    reverse_subject_tag,
+)
 
 _BUCKETS = (16, 64, 256, 1024, 4096, 16384)
 # rewrite instructions per program; a rewrite that needs more compiles
@@ -152,7 +173,22 @@ class TorchCheckEngine:
             "host_list_objects": 0,
             "device_list_subjects": 0,
             "host_list_subjects": 0,
+            "closure_hits": 0,
+            "closure_fallback": {},
+            "filter_requests": 0,
+            "filter_vocab": 0,
+            "filter_closure": 0,
+            "filter_frontier": 0,
+            "filter_host": 0,
         }
+        # an attribute, not re-read per batch, so that a caller can toggle
+        # it between calls
+        self.closure_enabled = config.closure_enabled()
+        # exists whether or not closure_enabled routes checks through it
+        self._closure = ClosureIndex(
+            self.nid, self.device,
+            max_set_rows=int(config.get("closure.max_set_rows", DEFAULT_MAX_SET_ROWS)),
+        )
 
     # -- mirror lifecycle ------------------------------------------------------
 
@@ -241,7 +277,12 @@ class TorchCheckEngine:
 
     def tables_nbytes(self, path: str = "check") -> dict[str, int]:
         """Bytes of each device table of the current mirror on one path:
-        "check", "expand", "reverse" (ListObjects) or "subjects"."""
+        "check", "expand", "reverse" (ListObjects), "subjects", or
+        "closure" (the index's tables, empty before a build)."""
+        if path == "closure":
+            view, _cause = self.closure_index().view_for(self.ensure_state())
+            tables = view.tables if view is not None else {}
+            return {k: v.numel() * v.element_size() for k, v in tables.items()}
         ensure, attr = {
             "check": (self.ensure_state, "tables"),
             "expand": (self.ensure_expand_state, "expand_tables"),
@@ -250,6 +291,47 @@ class TorchCheckEngine:
         }[path]
         tables = getattr(ensure(), attr)
         return {k: v.numel() * v.element_size() for k, v in tables.items()}
+
+    # -- Leopard closure index ---------------------------------------------------
+
+    def closure_index(self) -> ClosureIndex:
+        """The engine's closure index, empty until closure_ensure_built."""
+        return self._closure
+
+    def closure_ensure_built(self) -> bool:
+        """Power the index for the current mirror unless it is built for
+        it; returns readiness. Never called on the submit path: powering
+        there would stall a batch."""
+        state = self.ensure_state()
+        return self.closure_index().ensure_for(state, self.config.max_read_depth())
+
+    def _closure_gate(self, state):
+        """(view, None) when the index serves this state, else (None,
+        cause): the host-side cause every query of the batch counts under."""
+        return self.closure_index().view_for(state)
+
+    def _count_closure_fallback(self, cause: str, n: int) -> None:
+        per = self.stats["closure_fallback"]
+        per[cause] = per.get(cause, 0) + n
+
+    @staticmethod
+    def _closure_launch(view, qpack: torch.Tensor) -> torch.Tensor:
+        # the port has no overlay, so no node is dirty: cd is never probed
+        return closure_kernel_packed(view.tables, qpack, cc_probes=view.cc_probes,
+                                     ch_probes=view.ch_probes, has_dirty=False,
+                                     layout=view.layout)
+
+    def _closure_read(self, outputs: torch.Tensor, B: int, n: int, counted=None):
+        """(member, resolved) of the first n queries of one closure launch,
+        after its one device->host readback. Each declined query of
+        `counted` (default: all n) counts its cause as a closure fallback."""
+        member, cause, _stats = unpack_closure_results(outputs.cpu().numpy(), B)
+        member, cause = member[:n], cause[:n]
+        resolved = cause == 0
+        declined = ~resolved if counted is None else counted & ~resolved
+        for code, count in zip(*np.unique(cause[declined], return_counts=True)):
+            self._count_closure_fallback(CL_CAUSE_NAMES.get(int(code), "uncovered"), int(count))
+        return member, resolved
 
     # -- check API --------------------------------------------------------------
 
@@ -269,9 +351,13 @@ class TorchCheckEngine:
         """Batched membership checks (no proof trees)."""
         return self.check_batch_resolve(self.check_batch_submit(tuples, max_depth))
 
-    def check_batch_submit(self, tuples: Sequence[RelationTuple], max_depth: int = 0):
+    def check_batch_submit(self, tuples: Sequence[RelationTuple], max_depth: int = 0,
+                           allow_closure: bool = True):
         """Run the device launch for one batch; returns a handle whose
-        result vector stays on the device until check_batch_resolve."""
+        result vector stays on the device until check_batch_resolve. With
+        the closure enabled and serving this mirror, the launch is the
+        closure probe; allow_closure=False is the resolve-time BFS ride of
+        the queries it left unresolved."""
         n = len(tuples)
         if n == 0:
             return ("empty", None, None)
@@ -284,7 +370,7 @@ class TorchCheckEngine:
             step = self._allowed_buckets[-1]
             return (
                 "multi",
-                [self.check_batch_submit(tuples[i : i + step], max_depth)
+                [self.check_batch_submit(tuples[i : i + step], max_depth, allow_closure)
                  for i in range(0, n, step)],
                 None,
             )
@@ -292,6 +378,16 @@ class TorchCheckEngine:
             state.view, tuples, B
         )
         q_depth = np.full(B, depth, dtype=np.int32)
+        qpack = torch.from_numpy(
+            pack_queries(q_obj, q_rel, q_depth, q_skind, q_sa, q_sb, q_valid)
+        ).to(self.device)
+        meta = {"state": state, "tuples": tuples, "n": n, "B": B, "max_depth": max_depth,
+                "q_valid": q_valid}
+        if allow_closure and self.closure_enabled:
+            view, cause = self._closure_gate(state)
+            if view is not None:
+                return ("closure", self._closure_launch(view, qpack), meta)
+            self._count_closure_fallback(cause, n)
         # each launch's frontier scales with its bucket (step cost is
         # O(frontier)): 4x headroom over the seed tasks, at least 64
         launch_cap = min(self.frontier_cap, max(4 * B, 64))
@@ -301,14 +397,8 @@ class TorchCheckEngine:
             state.snapshot, global_max, launch_cap, n_island_cap=island_cap,
             has_delta=False,
         )
-        qpack = torch.from_numpy(
-            pack_queries(q_obj, q_rel, q_depth, q_skind, q_sa, q_sb, q_valid)
-        ).to(self.device)
         outputs = check_kernel_packed(state.tables, qpack, **cfg)
-        meta = {
-            "state": state, "tuples": tuples, "n": n, "B": B,
-            "max_depth": max_depth, "q_valid": q_valid, "island_cap": cfg["n_island_cap"],
-        }
+        meta["island_cap"] = cfg["n_island_cap"]
         return ("batch", outputs, meta)
 
     def check_batch_resolve(self, handle) -> list[CheckResult]:
@@ -329,7 +419,30 @@ class TorchCheckEngine:
                 results.extend(r)
                 versions.extend(v)
             return results, versions
+        if kind == "closure":
+            return self._resolve_closure(outputs, meta)
         return self._resolve(outputs, meta)
+
+    def _resolve_closure(self, outputs, meta):
+        """Answer the queries one closure launch resolved, at the mirror's
+        covered version; the rest ride the BFS kernel once
+        (allow_closure=False) and merge back in request order."""
+        tuples, n, B = meta["tuples"], meta["n"], meta["B"]
+        member, resolved = self._closure_read(outputs, B, n)
+        results = [RESULT_IS_MEMBER if m else RESULT_NOT_MEMBER for m in member.tolist()]
+        versions: list = [meta["state"].covered_version] * n
+        leftover = np.flatnonzero(~resolved).tolist()
+        n_hits = n - len(leftover)
+        self.stats["closure_hits"] += n_hits
+        self.stats["device_checks"] += n_hits
+        if leftover:
+            sub = self.check_batch_submit([tuples[i] for i in leftover], meta["max_depth"],
+                                          allow_closure=False)
+            sub_res, sub_ver = self.check_batch_resolve_v(sub)
+            for j, i in enumerate(leftover):
+                results[i] = sub_res[j]
+                versions[i] = sub_ver[j]
+        return results, versions
 
     def _resolve(self, outputs, meta):
         state = meta["state"]
@@ -594,3 +707,163 @@ class TorchCheckEngine:
         """One ListSubjects query, paginated: (subject ids, next page token)."""
         subs = self.list_subjects_batch([(namespace, obj, relation)], max_depth)[0]
         return paginate_names(subs, page_size, page_token)
+
+    # -- BatchFilter ----------------------------------------------------------------
+
+    def filter_batch(
+        self,
+        namespace: str,
+        relation: str,
+        subject,
+        objects: Sequence[str],
+        max_depth: int = 0,
+        frontier_cap: int = 4096,
+        chunk_size: int = 0,
+    ) -> list[bool]:
+        """verdicts[i]: Check(namespace:objects[i]#relation@subject) is a
+        member, for a column of candidates sharing one subject. Evaluated
+        in chunks of `chunk_size` (0 reads filter.chunk_size, at most the
+        largest bucket), each through the vocab, closure, frontier and
+        host tiers."""
+        n = len(objects)
+        if n == 0:
+            return []
+        self.stats["filter_requests"] += 1
+        chunk = int(chunk_size or self.config.get("filter.chunk_size", DEFAULT_FILTER_CHUNK_SIZE))
+        chunk = max(1, min(chunk, _BUCKETS[-1]))
+        out: list[bool] = []
+        for i in range(0, n, chunk):
+            out.extend(self._filter_chunk(namespace, relation, subject,
+                                          list(objects[i : i + chunk]), max_depth, frontier_cap))
+        return out
+
+    def filter_objects(self, namespace: str, relation: str, subject, objects: Sequence[str],
+                       max_depth: int = 0) -> list[str]:
+        """The candidates the subject can see, in request order, each
+        occurrence of a duplicate answered on its own."""
+        verdicts = self.filter_batch(namespace, relation, subject, objects, max_depth)
+        return [o for o, ok in zip(objects, verdicts) if ok]
+
+    def _count_filter(self, n_closure: int, n_frontier: int, n_host: int, causes: dict) -> None:
+        self.stats["filter_closure"] += n_closure
+        self.stats["filter_frontier"] += n_frontier
+        self.stats["filter_host"] += n_host
+        host_causes = self.stats["host_cause"]
+        for cause, count in causes.items():
+            host_causes[cause] = host_causes.get(cause, 0) + count
+
+    def _filter_chunk(self, namespace, relation, subject, objects, max_depth,
+                      frontier_cap) -> list[bool]:
+        """One chunk through the tiers in order, each taking what the ones
+        before it left unresolved."""
+        n = len(objects)
+        state = self.ensure_state()
+        snap = state.snapshot
+        global_max = self.config.max_read_depth()
+        depth = max_depth if 0 < max_depth <= global_max else global_max
+
+        # under a monotone config (no island, no host-only program) a
+        # member needs an edge path, so a name the mirror does not know is
+        # a definitive non-member; otherwise a NOT could make it one
+        monotone = not bool(np.any(snap.prog_flags & (FLAG_HOST_ONLY | FLAG_ISLAND)))
+        ns_id, rel_id = state.view.ns_id(namespace), state.view.rel_id(relation)
+        proxy = RelationTuple(namespace=namespace, object="", relation=relation)
+        if isinstance(subject, SubjectSet):
+            proxy.subject_set = subject
+        else:
+            proxy.subject_id = subject
+        sub = state.view.encode_subject(proxy)
+        if ns_id is not None and rel_id is not None and sub is None and monotone:
+            # no edge mentions the subject
+            self.stats["filter_vocab"] += n
+            return [False] * n
+        if ns_id is None or rel_id is None or sub is None:
+            verdicts = self.reference.filter_objects(namespace, relation, subject, objects,
+                                                     max_depth, self.nid)
+            self._count_filter(0, 0, n, {CAUSE_NAME_UNINDEXED: n})
+            return verdicts
+        skind, sa, sb = (int(x) for x in sub)
+        c_obj, c_valid = encode_object_column(state.view, int(ns_id), objects)
+
+        resolved = np.zeros(n, dtype=bool)
+        value = np.zeros(n, dtype=bool)
+        causes: dict[str, int] = {}
+        n_closure = n_frontier = 0
+        if monotone and not c_valid.all():
+            resolved |= ~c_valid  # unknown candidates: value stays False
+            self.stats["filter_vocab"] += int((~c_valid).sum())
+
+        # 1. the closure tier: one launch over the candidate column
+        if self.closure_enabled:
+            view, cl_cause = self._closure_gate(state)
+            if view is not None:
+                B = next(b for b in _BUCKETS if b >= n)
+                q_obj = np.zeros(B, dtype=np.int32)
+                q_obj[:n] = c_obj
+                q_valid = np.zeros(B, dtype=bool)
+                q_valid[:n] = c_valid
+
+                def col(v):
+                    return np.full(B, v, dtype=np.int32)
+
+                qpack = pack_queries(q_obj, col(rel_id), col(depth), col(skind), col(sa),
+                                     col(sb), q_valid)
+                outputs = self._closure_launch(view, torch.from_numpy(qpack).to(self.device))
+                # unknown candidates are the vocab tier's, not fallbacks
+                member, ok = self._closure_read(outputs, B, n, counted=c_valid)
+                ok &= c_valid
+                value |= member & ok
+                resolved |= ok
+                n_closure = int(ok.sum())
+            else:
+                self._count_closure_fallback(cl_cause, n)
+
+        # 2. the frontier tier: one shared walk over the leftover column
+        vp = np.flatnonzero(c_valid & ~resolved)
+        if len(vp):
+            rstate = self.ensure_reverse_state()
+            rnp = rstate.reverse_np
+            if rstate.snapshot is not snap:
+                # a write rebuilt the mirror since the encode: the slots no
+                # longer address these tables
+                causes[CAUSE_NAME_UNINDEXED] = causes.get(CAUSE_NAME_UNINDEXED, 0) + len(vp)
+            elif rnp["host_all"]:
+                # a NOT in the config: its members exist where no path
+                # exists, which a reachability walk cannot see
+                causes["island_host"] = causes.get("island_host", 0) + len(vp)
+            else:
+                uniq = np.unique(c_obj[vp])
+                C = next((b for b in _BUCKETS if b >= len(uniq)), _BUCKETS[-1])
+                qc = pack_filter_query(sa, int(reverse_subject_tag(skind, sb)), rel_id, depth,
+                                       uniq, C)
+                flat = filter_kernel_packed(
+                    rstate.reverse_tables, torch.from_numpy(qc).to(self.device),
+                    rvh_probes=rnp["rvh_probes"], rsh_probes=rnp["rsh_probes"],
+                    max_steps=int(global_max + snap.n_config_rels + 4),
+                    wildcard_rel=snap.wildcard_rel, n_config_rels=max(snap.n_config_rels, 1),
+                    frontier_cap=max(frontier_cap, 1024), has_delta=False, layout=snap.layout,
+                )
+                # the walk's one result readback
+                hit, wcause, _stats = unpack_filter_results(flat.cpu().numpy(), C)
+                if wcause == 0:
+                    # a clean, complete walk: unmarked candidates are
+                    # definitive non-members
+                    value[vp] = hit[np.searchsorted(uniq, c_obj[vp])]
+                    resolved[vp] = True
+                    n_frontier = len(vp)
+                else:
+                    name = CAUSE_NAMES.get(wcause, CAUSE_NAME_UNINDEXED)
+                    causes[name] = causes.get(name, 0) + len(vp)
+
+        # 3. the host tier: exact replay of everything still unresolved
+        host_idx = np.flatnonzero(~resolved)
+        if len(host_idx):
+            unindexed = len(host_idx) - sum(causes.values())
+            if unindexed > 0:
+                causes[CAUSE_NAME_UNINDEXED] = causes.get(CAUSE_NAME_UNINDEXED, 0) + unindexed
+            value[host_idx] = self.reference.filter_objects(
+                namespace, relation, subject, [objects[i] for i in host_idx.tolist()],
+                max_depth, self.nid,
+            )
+        self._count_filter(n_closure, n_frontier, len(host_idx), causes)
+        return value.tolist()

@@ -98,3 +98,11 @@ class InvalidPageTokenError(KetoError):
     status = 400
     code = "bad_request"
     default_message = "invalid page token"
+
+
+class FilterTooLargeError(KetoError):
+    # the filter candidate list exceeds `filter.max_objects`: refused
+    # before any work
+    status = 400
+    code = "bad_request"
+    default_message = "filter candidate list exceeds filter.max_objects"

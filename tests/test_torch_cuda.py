@@ -1,8 +1,9 @@
 """The CUDA kernels of keto_tpu_torch against their plain PyTorch versions,
 on the card: each kernel alone on the same CUDA tensors, and whole check,
-expand, ListObjects and ListSubjects launches against the CPU run of the
-plain versions, under both table layouts and with the delta overlay on
-and off. Tolerance: exact equality (every output is an integer).
+expand, ListObjects, ListSubjects, closure and filter launches against
+the CPU run of the plain versions, under both table layouts and with the
+delta overlay (or the dirty table) on and off. Tolerance: exact equality
+(every output is an integer).
 
 These tests need an NVIDIA card and skip elsewhere; this file imports
 nothing of the JAX package, so it runs where JAX is not installed:
@@ -488,3 +489,115 @@ def test_list_gathers_match_plain_on_card(cuda, layout):
             assert torch.equal(cuda_ops.list_pool_compact(*args4, **kw4),
                                trk.list_pool_compact_plain(*args4, **kw4))
 
+
+
+# -- the closure probe and the filter walk ------------------------------------------
+
+
+def closure_inputs(scenario, layout, has_dirty, B=64):
+    """The closure tables of a scenario (a dirty table over every other
+    covered node when has_dirty) and the [7, B] pack of its queries at
+    mixed depths."""
+    from keto_tpu_torch.engine import closure as tcl
+    from keto_tpu_torch.engine import closure_kernel as tck
+
+    snap, _parsed, queries, depth = build(scenario, layout)
+    graph = tcl.extract_graph(snap)
+    built = tcl.power_closure(graph, snap, depth, 4096, 0)
+    tables, cc_probes, ch_probes = tcl.pack_closure_tables(built, graph.R, layout)
+    tables["cd_pack"] = (tcl.build_dirty_table(built.covered_keys[::2][:1000], graph.R, layout)
+                         if has_dirty else tcl.empty_dirty_table())
+    qpack = qpack_for(snap, queries[:B], B, depth)
+    qpack[2] = torch.from_numpy(np.random.default_rng(0).integers(0, depth + 2, B)).to(torch.int32)
+    kw = dict(cc_probes=cc_probes, ch_probes=ch_probes, has_dirty=has_dirty, layout=layout)
+    return tables, qpack, kw, tck
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_dirty", [False, True])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+def test_closure_launch_matches_plain(cuda, scenario, layout, has_dirty):
+    tables, qpack, kw, tck = closure_inputs(scenario, layout, has_dirty)
+    want = tck.closure_kernel_packed(tck.closure_tables_from_numpy(tables, "cpu"), qpack, **kw)
+    before = cuda_ops.launches["closure_probe"]
+    dev = tck.closure_tables_from_numpy(tables, cuda)
+    got = tck.closure_kernel_packed(dev, qpack.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert cuda_ops.launches["closure_probe"] == before + 1
+    # the plain version on the same CUDA tensors, at a large random batch
+    g = torch.Generator(device="cpu").manual_seed(3)
+    big = qpack[:, torch.randint(0, qpack.shape[1], (16384,), generator=g)].contiguous()
+    big[6, ::7] = 0
+    a = cuda_ops.closure_probe(dev["cc_pack"], dev["ch_pack"], dev["cd_pack"], big.to(cuda), **kw)
+    b = tck.closure_probe_plain(dev["cc_pack"], dev["ch_pack"], dev["cd_pack"], big.to(cuda),
+                                **kw)
+    assert torch.equal(a, b)
+
+
+def filter_inputs(scenario, layout, has_delta):
+    from keto_tpu_torch.engine import filter_kernel as tfk
+
+    snap, rev, _lo_q, lo_kw, _sub, _ls_q, _ls_kw = list_inputs(scenario, layout, has_delta)
+    ns, tuples, queries, depth = LIST_SCENARIOS[scenario]()
+    view = tdelta.SnapshotView(snap)
+    packs = []
+    for q in queries[:12]:
+        t = RelationTuple.from_string(q)
+        sub = view.encode_subject(t)
+        ns_id, rel_id = view.ns_id(t.namespace), view.rel_id(t.relation)
+        if sub is None or ns_id is None or rel_id is None:
+            continue
+        cand = sorted({s for (n, _o), s in snap.obj_slots.items() if n == ns_id})
+        packs.append(torch.from_numpy(tfk.pack_filter_query(
+            sub[1], int(tsnap.reverse_subject_tag(sub[0], sub[2])), rel_id, depth,
+            np.array(cand, np.int32), 16 if len(cand) <= 16 else 64 if len(cand) <= 64 else 256)))
+    kw = {k: v for k, v in lo_kw.items() if k not in ("frontier_cap",)}
+    return rev, packs, kw, tfk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frontier_cap", [4, 1024])
+@pytest.mark.parametrize("has_delta", [False, True])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("scenario", sorted(LIST_SCENARIOS))
+def test_filter_launch_matches_plain(cuda, scenario, layout, has_delta, frontier_cap):
+    rev, packs, kw, tfk = filter_inputs(scenario, layout, has_delta)
+    assert packs
+    cpu_tables = trk.reverse_tables_from_numpy(rev, "cpu")
+    dev_tables = trk.reverse_tables_from_numpy(rev, cuda)
+    for qc in packs:
+        want = tfk.filter_kernel_packed(cpu_tables, qc, frontier_cap=frontier_cap, **kw)
+        got = tfk.filter_kernel_packed(dev_tables, qc.to(cuda), frontier_cap=frontier_cap, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,C,n", [(512, 16, 9), (4096, 16384, 9937), (70_000, 1024, 1000)])
+def test_filter_mark_matches_plain_on_card(cuda, F, C, n):
+    """F1 on random task columns, duplicate objects included, against its
+    plain version on the same CUDA tensors; hit and status update in
+    place, so each side works on its own clones."""
+    from keto_tpu_torch.engine import filter_kernel as tfk
+
+    rng = np.random.default_rng(F)
+    cand = np.full(C, tfk.CAND_PAD, np.int32)
+    cand[:n] = np.sort(rng.choice(4 * n, n, replace=False))
+    cols = [torch.from_numpy(x).to(cuda) for x in (
+        rng.integers(0, 4 * n + 8, F).astype(np.int32), rng.integers(0, 3, F).astype(np.int32),
+        rng.integers(-1, 3, F).astype(np.int32))]
+    live = torch.from_numpy(rng.random(F) < 0.9).to(cuda)
+    cand_t = torch.from_numpy(cand).to(cuda)
+    head = torch.tensor([0, 0, 1, 0, n], dtype=torch.int32, device=cuda)
+    hit0 = torch.from_numpy((rng.random(C) < 0.1) & (np.arange(C) < n)).to(torch.int32).to(cuda)
+    status0 = torch.tensor([F, 0, int(hit0.sum()), n], dtype=torch.int32, device=cuda)
+    outs = []
+    for fn in (cuda_ops.filter_mark, tfk.filter_mark_plain):
+        hit, status = hit0.clone(), status0.clone()
+        marks = fn(*cols, live, cand_t, head, hit, status)
+        outs.append((marks.to(torch.int32), hit, status))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert int(outs[0][0]) > 0

@@ -1,6 +1,6 @@
-"""The port's REST Check and Expand routes over a CPU engine: the serve
-entry point as a subprocess, and the routes in process, held against the
-JAX package's host oracle and engine on the same tuples."""
+"""The port's REST Check, Expand and Filter routes over a CPU engine: the
+serve entry point as a subprocess, and the routes in process, held
+against the JAX package's host oracle and engine on the same tuples."""
 
 import json
 import os
@@ -26,6 +26,8 @@ from keto_tpu_torch.engine.torch_engine import TorchCheckEngine
 from keto_tpu_torch.ketoapi import RelationTuple
 from keto_tpu_torch.storage import MemoryManager
 
+from test_torch_filter import TUPLES as FILTER_TUPLES
+from test_torch_filter import namespaces as filter_namespaces
 from test_torch_kernel import SCENARIOS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -183,13 +185,102 @@ def test_expand_route_errors(videos_server):
     assert code == 400
 
 
+@pytest.fixture(scope="module")
+def filter_server():
+    namespaces, tuples = filter_namespaces(), FILTER_TUPLES
+    cfg = {"limit": {"max_read_depth": 12}, "closure": {"enabled": True},
+           "filter": {"max_objects": 8}}
+    tcfg = Config({**cfg, "namespaces": [ns.to_dict() for ns in namespaces]})
+    m = MemoryManager()
+    m.write_relation_tuples([RelationTuple.from_string(s) for s in tuples])
+    engine = TorchCheckEngine(m, tcfg, device="cpu")
+    assert engine.closure_ensure_built()
+    server = make_server(engine, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    jcfg = JConfig(cfg)
+    jcfg.set_namespaces(namespaces)
+    jm = JMemory()
+    jm.write_relation_tuples([JTuple.from_string(s) for s in tuples])
+    yield f"http://127.0.0.1:{server.server_address[1]}", TPUCheckEngine(jm, jcfg), engine
+    server.shutdown()
+    server.server_close()
+
+
+FILTER_ROUTE = "/relation-tuples/filter"
+FILTER_OK = {
+    "subject_id": ({"namespace": "videos", "relation": "view", "subject_id": "v_alice",
+                    "objects": ["/d1", "/d2", "/d2/v1", "/nope"]}, "v_alice"),
+    "duplicates_kept_in_order": ({"namespace": "videos", "relation": "view",
+                                  "subject_id": "v_alice",
+                                  "objects": ["/d2/v1", "/d1/v1", "/d2/v1", "/d2"]}, "v_alice"),
+    "subject_set": ({"namespace": "videos", "relation": "view",
+                     "subject_set": {"namespace": "groups", "object": "eng",
+                                     "relation": "member"},
+                     "objects": ["/d1", "/d1/v2", "/d2"]}, "groups:eng#member"),
+    "max_depth": ({"namespace": "chain", "relation": "member", "subject_id": "d_alice",
+                   "objects": ["g0", "g4", "g5", "g6"], "max_depth": 2}, "d_alice"),
+    "unknown_subject": ({"namespace": "videos", "relation": "view", "subject_id": "ghost",
+                         "objects": ["/d1"]}, "ghost"),
+    "empty_column": ({"namespace": "files", "relation": "owner", "subject_id": "f_alice",
+                      "objects": []}, "f_alice"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FILTER_OK))
+def test_filter_route_matches_jax_engine(filter_server, case):
+    base, jax_engine, _engine = filter_server
+    body, subject = FILTER_OK[case]
+    sub = JSubjectSet.from_string(subject) if "#" in subject else subject
+    want = jax_engine.filter_objects(body["namespace"], body["relation"], sub, body["objects"],
+                                     body.get("max_depth", 0))
+    assert _post(base, FILTER_ROUTE, body) == (200, {"allowed_objects": want})
+    if case == "duplicates_kept_in_order":
+        assert want == ["/d2/v1", "/d1/v1", "/d2/v1"]
+
+
+def test_filter_route_rides_the_closure(filter_server):
+    base, _jax, engine = filter_server
+    before = engine.stats["filter_closure"]
+    code, body = _post(base, FILTER_ROUTE, {"namespace": "chain", "relation": "member",
+                                            "subject_id": "d_alice", "objects": ["g1", "g6"]})
+    assert (code, body) == (200, {"allowed_objects": ["g1", "g6"]})
+    assert engine.stats["filter_closure"] == before + 2
+
+
+@pytest.mark.parametrize("body,status", [
+    ({"namespace": "videos", "relation": "view", "subject_id": "a", "objects": "/d1"}, 400),
+    ({"namespace": "videos", "relation": "view", "subject_id": "a", "objects": ["/d1", 3]}, 400),
+    ({"relation": "view", "subject_id": "a", "objects": ["/d1"]}, 400),
+    ({"namespace": "videos", "subject_id": "a", "objects": ["/d1"]}, 400),
+    ({"namespace": "videos", "relation": "view", "objects": ["/d1"]}, 400),
+    ({"namespace": "videos", "relation": "view", "subject_id": "a",
+      "subject_set": {"namespace": "groups", "object": "eng", "relation": "member"},
+      "objects": ["/d1"]}, 400),
+    ({"namespace": "videos", "relation": "view", "subject_id": "a", "objects": ["/d1"] * 9},
+     400),
+    ({"namespace": "videos", "relation": "view", "subject_id": "a", "objects": ["/d1"],
+      "max_depth": "x"}, 400),
+    ([1, 2], 400),
+    ({"namespace": "ghost", "relation": "view", "subject_id": "a", "objects": ["/d1"]}, 404),
+])
+def test_filter_route_errors(filter_server, body, status):
+    base, _jax, _engine = filter_server
+    code, got = _post(base, FILTER_ROUTE, body)
+    assert code == status and got["error"]["code"] == status
+    if isinstance(body, dict) and len(body.get("objects", [])) == 9:
+        assert "filter.max_objects" in got["error"]["message"]
+
+
 def test_serve_entry_point(tmp_path):
-    """`python -m keto_tpu_torch serve` on the CPU: a 200, a 403, a batch
-    and an expand over a small store, then a clean stop on SIGTERM."""
+    """`python -m keto_tpu_torch serve` on the CPU with the closure on: a
+    200, a 403, a batch, an expand and a filter over a small store, then a
+    clean stop on SIGTERM."""
     namespaces, tuples, _queries, _depth = SCENARIOS["cat_videos"]()
     cfg = {
         "namespaces": [ns.to_dict() for ns in namespaces],
         "serve": {"read": {"host": "127.0.0.1", "port": 0}},
+        "closure": {"enabled": True},
     }
     (tmp_path / "cfg.json").write_text(json.dumps(cfg))
     (tmp_path / "tuples.txt").write_text("\n".join(tuples) + "\n")
@@ -217,6 +308,10 @@ def test_serve_entry_point(tmp_path):
         code, body, _ = _get(base, "/relation-tuples/expand",
                              _expand_params("videos:/cats/1.mp4#view"))
         assert code == 200 and body["type"] == "union" and len(body["children"]) == 2
+        code, body = _post(base, FILTER_ROUTE, {
+            "namespace": "videos", "relation": "view", "subject_id": "cat lady",
+            "objects": ["/cats/2.mp4", "/cats/9.mp4", "/cats/1.mp4"]})
+        assert (code, body) == (200, {"allowed_objects": ["/cats/2.mp4", "/cats/1.mp4"]})
     finally:
         proc.terminate()
         assert proc.wait(timeout=30) == 0
