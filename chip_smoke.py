@@ -7,9 +7,9 @@ Phases, in order; any failure exits non-zero without the final line:
 
   1. card    — nvidia-smi's name and power limit
   2. build   — nvcc builds csrc/check_kernels.cu, csrc/expand_kernels.cu,
-               csrc/list_kernels.cu and csrc/closure_filter_kernels.cu
-               from the checkout, one compiler
-               per source, in parallel
+               csrc/list_kernels.cu, csrc/closure_filter_kernels.cu and
+               csrc/closure_power_kernels.cu from the checkout, one
+               compiler per source, in parallel
   3. kernels — K1-K4 against their plain PyTorch versions on the card,
                on inputs captured from one real batch of phase 4's
                workload over its tables; exact equality, times, bounds
@@ -48,15 +48,23 @@ Phases, in order; any failure exits non-zero without the final line:
   9. closure — (9a) bench.py:1162's deep-1e6 topology (22,857 chains of
                20 parent hops, a tail owner each, 520,003 direct viewer
                grants; max read depth 24) into a second store, and the
-               closure index built over it: extract, power, pack and upload
-               seconds, covered nodes and entries (held to keto_tpu's
-               959,994 and 6,310,111) and table bytes; (9b) one closure
+               closure index built over it, powered on the card
+               (closure.powering = "device"; the build's launches are the
+               "closure_build" path: P1-P3 launched, nothing else): extract,
+               power (host prep and waves), pack and upload seconds, covered
+               nodes and entries (held to keto_tpu's 959,994 and 6,310,111)
+               and table bytes; (9p) the host builder on the same graph,
+               timed, equal to the device build array for array; a device
+               build at max_set_rows 4 held to keto_tpu's 543,981 and
+               645,912; (9q) P1-P3 against their plain versions on inputs
+               captured from the widest wave of that build, as phase 3, and
+               scatter_reduce's segment max as P1's yardstick; (9b) one closure
                batch captured for C1; (9) batches of 4096 chain-head checks
                with the closure on (one C1 launch, every query a hit) and
                off (the BFS) in alternating rounds, equal verdicts, 512
                sampled equal to the oracle; then one write: every check
                falls back (stale_snapshot), still correct, until the index
-               is built again
+               is powered on the card again and the hits resume
  10. filter  — (10a) the frontier tier on phase 4's engine: 10,000
                candidates (bench.py:547's draws) for the owner of /d0, one
                shared walk; (10b) the closure tier on phase 9's engine:
@@ -131,6 +139,9 @@ DEEP_ROUNDS = 10  # per arm, alternating
 # covered nodes and entries keto_tpu's host powering gives on this
 # topology (POWERING_AB_r19.json)
 DEEP_CLOSURE = (959_994, 6_310_111)
+# and at max_set_rows 4 (its build_sweep), the row-cap kill at this scale
+DEEP_CAP_ROWS = 4
+DEEP_CLOSURE_CAPPED = (543_981, 645_912)
 # filter phase: bench.py:547 bench_filter's column of 10,000 candidates
 FILTER_OBJECTS = 10_000
 FILTER_ROUNDS = 5
@@ -148,6 +159,9 @@ KERNEL_SOURCES = {
     "list_pool_compact": "keto_tpu_torch/csrc/list_kernels.cu",
     "closure_probe": "keto_tpu_torch/csrc/closure_filter_kernels.cu",
     "filter_mark": "keto_tpu_torch/csrc/closure_filter_kernels.cu",
+    "power_step": "keto_tpu_torch/csrc/closure_power_kernels.cu",
+    "power_account": "keto_tpu_torch/csrc/closure_power_kernels.cu",
+    "power_poison": "keto_tpu_torch/csrc/closure_power_kernels.cu",
 }
 REPLACES = {
     "edge_probe": "keto_tpu/engine/kernel.py:259",
@@ -162,6 +176,9 @@ REPLACES = {
     "list_pool_compact": "keto_tpu/engine/reverse_kernel.py:565",
     "closure_probe": "keto_tpu/engine/closure_kernel.py:153",
     "filter_mark": "keto_tpu/engine/filter_kernel.py:185",
+    "power_step": "keto_tpu/engine/closure_power.py:132",
+    "power_account": "keto_tpu/engine/closure_power.py:132",
+    "power_poison": "keto_tpu/engine/closure_power.py:132",
 }
 
 
@@ -339,27 +356,34 @@ def wall_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, only: tuple[str, ...] | None = None) -> float:
     """Device time per call: the profiler's self device time of every
-    kernel the calls launched, over `reps` calls. The profiler now and
-    then reports no device time for so short a window; after three such
-    tries the time between CUDA events stands in (host enqueue included,
-    so never below the device time)."""
+    kernel the calls launched (or of those whose name holds one of
+    `only`), over `reps` calls. The profiler now and then reports no
+    device time for so short a window; after three such tries the time
+    between CUDA events stands in (host enqueue included, so never below
+    the device time), but only without `only`: a filter that matches no
+    kernel the profiler saw (a renamed kernel) raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    seen: set[str] = set()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        busy_us = sum(evt.self_device_time_total for evt in prof.key_averages()
-                      if evt.device_type == DeviceType.CUDA)
+        events = [evt for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA]
+        seen.update(evt.key for evt in events)
+        busy_us = sum(evt.self_device_time_total for evt in events
+                      if only is None or any(o in evt.key for o in only))
         if busy_us > 0:
             return busy_us / 1e3 / reps
+    if only is not None:
+        raise AssertionError(f"no device time for {only}; the profiler saw {sorted(seen)}")
     log("  (the profiler saw no device time three times: CUDA-event time instead)")
     return wall_ms(fn, reps)
 
@@ -627,9 +651,12 @@ def list_kernel_cases(rec_lo, rec_ls):
 # -- phases ------------------------------------------------------------------------
 
 
-def time_kernel(name, kernel, plain, nbytes, ops, compare) -> dict:
+def time_kernel(name, kernel, plain, nbytes, ops, compare, only=None) -> dict:
+    """Compare, then time a kernel and its plain version; `only` names the
+    CUDA functions and memsets of the kernel's entry point, where its call
+    also resets inputs it updates."""
     err = compare()
-    ms, plain_ms = device_ms(kernel), device_ms(plain)
+    ms, plain_ms = device_ms(kernel, only=only), device_ms(plain)
     k_wall, p_wall = wall_ms(kernel), wall_ms(plain)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / OPS_INT32_PER_S * 1e3
@@ -1205,13 +1232,15 @@ def setup_closure():
     import torch
 
     from keto_tpu_torch.config import Config
+    from keto_tpu_torch.engine import cuda_ops
     from keto_tpu_torch.engine.torch_engine import TorchCheckEngine
     from keto_tpu_torch.storage import MemoryManager
 
     phase(f"9a data: {DEEP_CHAINS} chains of {DEEP_DEPTH} hops + direct grants into the store")
     t = time.perf_counter()
     tuples, owners, queries = build_deep_dataset()
-    config = Config({"limit": {"max_read_depth": DEEP_MAX_DEPTH}, "closure": {"enabled": True}})
+    config = Config({"limit": {"max_read_depth": DEEP_MAX_DEPTH},
+                     "closure": {"enabled": True, "powering": "device"}})
     config.set_namespaces([deep_namespace()])
     manager = MemoryManager()
     manager.write_relation_tuples(tuples)
@@ -1223,29 +1252,218 @@ def setup_closure():
     stored = engine.ensure_state().snapshot.n_tuples  # a repeated draw is stored once
     torch.cuda.synchronize()
     t_mirror = time.perf_counter() - t
+    cuda_ops.reset_launch_counts()
     t = time.perf_counter()
-    if not engine.closure_ensure_built():
+    if not engine.closure_ensure_built():  # the closure_build path, once
         raise AssertionError("the closure index did not build over the deep store")
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t
+    launches = dict(cuda_ops.launches)
+    missing = [k for k in cuda_ops.POWER_KERNELS if launches[k] == 0]
+    stray = [k for k in cuda_ops.KERNELS if k not in cuda_ops.POWER_KERNELS and launches[k]]
     idx = engine.closure_index().describe()
+    if missing or stray or idx["device_builds"] != 1 or idx["device_fallbacks"]:
+        raise AssertionError(f"the build did not power on the card: launches {launches}, "
+                             f"{idx['device_builds']} device builds, "
+                             f"{idx['device_fallbacks']} fallbacks")
     nbytes = engine.tables_nbytes("closure")
     info = {"tuples": n_tuples, "stored_tuples": stored, "store_s": t_store,
             "mirror_s": t_mirror, "closure_build_s": t_build,
             **{k: idx[k] for k in ("covered_nodes", "entries", "universe", "extract_s",
-                                   "power_s", "pack_s", "upload_s")},
+                                   "power_s", "power_prep_s", "power_wave_s", "pack_s",
+                                   "upload_s", "power_waves", "power_steps", "power_hbm")},
             "closure_table_bytes": sum(nbytes.values()),
-            "closure_tables": nbytes}
+            "closure_tables": nbytes,
+            "build_launches": {k: v for k, v in launches.items() if v}}
     log(f"  {n_tuples} tuples drawn, {stored} stored: store {t_store:.1f} s, snapshot + upload "
         f"{t_mirror:.1f} s; closure "
-        f"build {t_build:.1f} s (extract {idx['extract_s']:.1f}, power {idx['power_s']:.1f}, "
+        f"build {t_build:.1f} s (extract {idx['extract_s']:.1f}, power {idx['power_s']:.2f} on "
+        f"the card: host prep {idx['power_prep_s']:.2f}, waves {idx['power_wave_s']:.2f}, "
+        f"{idx['power_waves']} waves, {idx['power_steps']} steps; "
         f"pack {idx['pack_s']:.1f}, upload {idx['upload_s']:.2f}); universe {idx['universe']}, "
         f"covered nodes {idx['covered_nodes']}, entries {idx['entries']}; tables "
         f"{info['closure_table_bytes'] / 1e6:.1f} MB: "
         + ", ".join(f"{k} {v / 1e6:.2f} MB" for k, v in sorted(nbytes.items())))
+    log(f"  launches on the closure_build path: {info['build_launches']}")
     if (idx["covered_nodes"], idx["entries"]) != DEEP_CLOSURE:
         raise AssertionError("the closure build differs from keto_tpu's on this topology")
-    return engine, manager, config, owners, queries, info
+    return engine, manager, config, owners, queries, launches, info
+
+
+def run_powering(engine):
+    """Phase 9p: the host builder against the index's device build on the
+    same graph, then a device build at max_set_rows 4 whose widest wave's
+    inputs are kept for P1-P3."""
+    import numpy as np
+    import torch
+
+    from keto_tpu_torch.engine import closure as tcl
+    from keto_tpu_torch.engine import closure_power as tcp
+
+    t0 = phase("9p powering: the host builder against the device build; a row cap of "
+               f"{DEEP_CAP_ROWS}")
+    idx = engine.closure_index()
+    desc = idx.describe()
+    graph, snap, built = idx._graph, idx._snapshot, idx._build
+    t = time.perf_counter()
+    host = tcl.power_closure(graph, snap, DEEP_MAX_DEPTH, idx.max_set_rows, built.base_version)
+    host_s = time.perf_counter() - t
+    fields = ("covered_keys", "ent_obj", "ent_rel", "ent_skind", "ent_sa", "ent_sb", "ent_req")
+    differ = [k for k in fields if getattr(host, k).dtype != getattr(built, k).dtype
+              or not np.array_equal(getattr(host, k), getattr(built, k))]
+    if differ or (host.n_nodes, host.vocab_fp, host.n_entries) != (
+            built.n_nodes, built.vocab_fp, built.n_entries):
+        raise AssertionError(f"the device build differs from the host's: {differ}")
+
+    widest: dict = {}
+    wave = tcp.closure_power_wave
+
+    def keep_widest(*args, **kw):
+        e_src, _e_dst, d_rows, _pois, R0, lvl0, _counts0 = args
+        size = (e_src.shape[0] + 2 * R0.shape[0] + d_rows.shape[0]) * lvl0.shape[1]
+        if size > widest.get("size", -1):
+            widest.update(size=size, args=[a.clone() for a in args])
+        return wave(*args, **kw)
+
+    tcp.closure_power_wave = keep_widest
+    try:
+        t = time.perf_counter()
+        capped, record = tcp.power_closure_device(graph, snap, DEEP_MAX_DEPTH, DEEP_CAP_ROWS,
+                                                  built.base_version, device="cuda")
+        torch.cuda.synchronize()
+        capped_s = time.perf_counter() - t
+    finally:
+        tcp.closure_power_wave = wave
+    if (len(capped.covered_keys), capped.n_entries) != DEEP_CLOSURE_CAPPED:
+        raise AssertionError(f"the build at max_set_rows {DEEP_CAP_ROWS} gives "
+                             f"{len(capped.covered_keys)} nodes, {capped.n_entries} entries")
+    e_src, _e_dst, d_rows, _pois, R0, lvl0, _counts0 = widest["args"]
+    info = {"host_power_s": host_s, "device_power_s": desc["power_s"],
+            "device_prep_s": desc["power_prep_s"], "device_wave_s": desc["power_wave_s"],
+            "waves": desc["power_waves"], "steps": desc["power_steps"],
+            "capped": {"max_set_rows": DEEP_CAP_ROWS, "covered_nodes": len(capped.covered_keys),
+                       "entries": capped.n_entries, "build_s": capped_s,
+                       **{k: record[k] for k in ("waves", "steps", "lanes", "nodes", "edges",
+                                                 "hbm", "device_hbm", "prep_s", "wave_s")}},
+            "widest_wave": {"nodes": R0.shape[0], "edges": e_src.shape[0],
+                            "d_rows": d_rows.shape[0], "lanes": lvl0.shape[1]}}
+    log(f"  host power_closure {host_s:.2f} s against the device's {desc['power_s']:.2f} s (host "
+        f"prep {desc['power_prep_s']:.2f}, waves {desc['power_wave_s']:.2f}; {desc['power_waves']} "
+        f"waves, {desc['power_steps']} steps, {record['lanes']} lanes): the seven arrays equal, "
+        f"{len(built.covered_keys)} nodes, {built.n_entries} entries")
+    log(f"  max_set_rows {DEEP_CAP_ROWS}: {len(capped.covered_keys)} nodes, {capped.n_entries} "
+        f"entries in {capped_s:.2f} s (prep {record['prep_s']:.2f}, waves "
+        f"{record['wave_s']:.2f}; {record['waves']} waves, {record['steps']} steps); widest wave "
+        f"{info['widest_wave']}")
+    log(f"  powering phase {time.perf_counter() - t0:.1f} s")
+    return widest["args"], idx.max_set_rows, info
+
+
+def power_kernel_cases(wave_args, max_set_rows):
+    """(name, kernel fn, plain fn, bytes, operations, compare fn, kernel
+    functions) of P1 and P2 at step 1 of the widest wave and P3 at its end,
+    and the yardstick of P1: scatter_reduce's segment max over keto_tpu's
+    unpacked uint8 planes of the step's gathered rows (the unpack outside
+    the timed call). Bytes count what the step's data needs: the edge
+    sources and destinations, the F rows those edges gather (each
+    once), R read only at the words the gathered OR set (fresh = acc & ~R
+    is 0 elsewhere; P1's dense pass over acc and R is its design's cost,
+    not the function's) and written where fresh lands, fresh written
+    whole (the output), the counts fresh bits touch; P2 reads fresh once,
+    writes F, and a level
+    byte where a fresh bit lands on a direct row; P3 the mask, the seen rows
+    of poisoned nodes and the summary. P1 and P2 update inputs in place,
+    so every call works on clones, and a timed call first resets them
+    (the kernel's time excludes the copies; the plain version's includes
+    them)."""
+    import torch
+
+    from keto_tpu_torch.engine import closure_power as tcp
+    from keto_tpu_torch.engine import cuda_ops
+
+    with Recorder(cuda_ops, step=1) as rec:
+        tcp.closure_power_wave(*wave_args, max_depth=DEEP_MAX_DEPTH, max_set_rows=max_set_rows)
+    torch.cuda.synchronize()
+
+    def resetting(args, updated):
+        saved = {i: args[i].clone() for i in updated}
+
+        def call(fn, kw):
+            def run():
+                for i, t in saved.items():
+                    args[i].copy_(t)
+                return fn(*args, **kw)
+            return run
+
+        return call
+
+    def compared(fn, args, kw, updated):
+        def run(f):
+            a = [x.clone() if i in updated else x for i, x in enumerate(args)]
+            return (f(*a, **kw), *(a[i] for i in updated))
+        return lambda: max_abs_err(run(fn[0]), run(fn[1]))
+
+    cases = []
+    args1, kw1 = rec.args("power_step")
+    F, R, e_src, e_dst, counts, stats, status = args1
+    N, W = F.shape
+    S = 32 * W
+    fresh = tcp.power_step_plain(*[a.clone() for a in args1])
+    n_fresh_words = int((fresh != 0).sum())
+    n_fresh_bits = int(tcp._popcount(fresh).sum())
+    n_lanes = int((tcp._unpack(fresh).sum(0) > 0).sum())
+    n_rows = int(torch.unique(e_src).numel())
+    E = e_src.shape[0]
+    # the (node, word) pairs the gathered OR sets: the words of R that
+    # fresh = acc & ~R needs
+    live = (F[e_src.long()] != 0).nonzero()
+    n_acc_words = int(torch.unique(e_dst.long()[live[:, 0]] * W + live[:, 1]).numel())
+    call1 = resetting(args1, (1, 4, 5))
+    cases.append((
+        "power_step",
+        call1(cuda_ops.power_step, kw1),
+        call1(tcp.power_step_plain, kw1),
+        E * 8 + n_rows * W * 4 + n_acc_words * 4 + n_fresh_words * 4 + N * W * 4
+        + n_lanes * 8 + 8 * 4 * 2 + 4,
+        E * W * 3 + n_acc_words * 3 + n_fresh_bits * 3,
+        compared((cuda_ops.power_step, tcp.power_step_plain), args1, kw1, (1, 4, 5)),
+        ("power_gather_kernel", "power_fresh_kernel", "Memset"),
+    ))
+
+    args2, kw2 = rec.args("power_account")
+    fresh2, lvl, counts2, d_rows, status2 = args2
+    D = d_rows.shape[0]
+    freshd = tcp._unpack(fresh2[d_rows.long()])
+    n_lvl = int(((lvl < 0) & (freshd > 0)).sum())
+    call2 = resetting(args2, (1, 4))
+    cases.append((
+        "power_account",
+        call2(cuda_ops.power_account, kw2),
+        call2(tcp.power_account_plain, kw2),
+        N * W * 4 + S * 4 + D * 4 + n_lvl * 2 + N * W * 4 + 4,
+        S * 2 + N * W * 3 + D * W * 2 + n_lvl * 3,
+        compared((cuda_ops.power_account, tcp.power_account_plain), args2, kw2, (1, 4)),
+        ("power_account_kernel", "Memset"),
+    ))
+
+    args3, kw3 = rec.args("power_poison")
+    R3, pois = args3[0], args3[1]
+    n_pois = int((pois != 0).sum())
+    cases.append((
+        "power_poison",
+        lambda: cuda_ops.power_poison(*args3, **kw3),
+        lambda: tcp.power_poison_plain(*args3, **kw3),
+        N + n_pois * W * 4 + S * 4 + 8 * 4 + (2 * S + 8) * 4,
+        N + n_pois * W + (2 * S + 8) * 2,
+        lambda: max_abs_err(cuda_ops.power_poison(*args3, **kw3),
+                            tcp.power_poison_plain(*args3, **kw3)),
+        None,
+    ))
+
+    planes = tcp._unpack(F[e_src.long()])
+    index = e_dst.long()[:, None].expand_as(planes)
+    base = torch.zeros(N, S, dtype=torch.uint8, device=F.device)
+    return cases, (lambda: base.scatter_reduce(0, index, planes, "amax"))
 
 
 def run_closure(engine, manager, config, queries):
@@ -1324,6 +1542,10 @@ def run_closure(engine, manager, config, queries):
     t_w = time.perf_counter()
     engine.closure_ensure_built()
     t_rebuild = time.perf_counter() - t_w
+    rebuilt = engine.closure_index().describe()
+    if rebuilt["device_builds"] != 2 or rebuilt["device_fallbacks"]:
+        raise AssertionError(f"the rebuild was not powered on the card: {rebuilt['device_builds']} "
+                             f"device builds, {rebuilt['device_fallbacks']} fallbacks")
     hits = engine.stats["closure_hits"]
     got = engine.check_batch(stale_batch)
     if engine.stats["closure_hits"] - hits != len(stale_batch) or \
@@ -1338,6 +1560,7 @@ def run_closure(engine, manager, config, queries):
         "batch_ms": lat, "off_steps_per_batch": bfs_steps,
         "allowed": sum(expected), "launches": {k: v for k, v in launches.items() if v},
         "stale_batch_s_incl_mirror_rebuild": t_stale, "closure_rebuild_s": t_rebuild,
+        "rebuild_power": {k: rebuilt[k] for k in ("power_s", "power_prep_s", "power_wave_s")},
         "profile_off": profile, "profile_on": profile_on,
     }
     log(f"  launches on the closure path: {launches}; {len(queries)} closure hits, 0 fallbacks")
@@ -1347,7 +1570,8 @@ def run_closure(engine, manager, config, queries):
         f"(idle share {profile['idle_share']}); {DEEP_ROUNDS} rounds each, alternating; "
         f"0 mismatches; 512 sampled equal the oracle; {sum(expected)} allowed")
     log(f"  a write: {n_stale} stale_snapshot fallbacks, verdicts correct ({t_stale:.1f} s with "
-        f"the mirror rebuild); closure rebuilt in {t_rebuild:.1f} s, hits resumed")
+        f"the mirror rebuild); closure rebuilt in {t_rebuild:.1f} s (power on the card "
+        f"{rebuilt['power_s']:.2f} s), hits resumed")
     log(f"  closure phase {time.perf_counter() - t0:.1f} s")
     return launches, out
 
@@ -1698,9 +1922,17 @@ def main() -> int:
     ls_launches, list_subjects = run_list_subjects(engine, manager, config, ls_queries)
     # the closure phase's deep store joins now; the filter phase runs on
     # phase 4's engine (reverse state from phase 8) and on phase 9's
-    d_engine, d_manager, d_config, d_owners, d_queries, d_info = setup_closure()
+    d_engine, d_manager, d_config, d_owners, d_queries, b_launches, d_info = setup_closure()
     gc.collect()
     gc.freeze()
+    wave_args, wave_rows, powering = run_powering(d_engine)
+    phase("9q kernels: P1-P3 against their plain versions, on the widest wave")
+    p_cases, segment_max = power_kernel_cases(wave_args, wave_rows)
+    for case in p_cases:
+        rows.append(time_kernel(*case))
+    rows[-3]["library_ms"] = device_ms(segment_max)
+    log(f"  scatter_reduce amax over P1's unpacked planes: {rows[-3]['library_ms']:.5f} ms")
+    del wave_args, p_cases, segment_max
     rec_c = run_closure_kernels(d_engine, d_queries)
     c_launches, closure = run_closure(d_engine, d_manager, d_config, d_queries)
     folders_of = owners[0]
@@ -1714,11 +1946,14 @@ def main() -> int:
     rows[-1]["library_ms"] = device_ms(searchsorted)
     log(f"  torch.searchsorted on F1's (cand, obj): {rows[-1]['library_ms']:.5f} ms")
     by_path = {"check": launches, "expand": x_launches, "list_objects": lo_launches,
-               "list_subjects": ls_launches, "closure": c_launches, "filter": f_launches}
+               "list_subjects": ls_launches, "closure_build": b_launches, "closure": c_launches,
+               "filter": f_launches}
     # each kernel's count on its own path: check for K1-K4, expand for X1
     # and X2, ListObjects for L1, L2 and L4, ListSubjects for L3, closure
-    # for C1, filter for F1; K2, K4, L1, L2 and L4 run on several
+    # for C1, filter for F1, closure_build for P1-P3; K2, K4, L1, L2 and
+    # L4 run on several
     own = {name: "expand" for name in cuda_ops.EXPAND_KERNELS}
+    own.update({name: "closure_build" for name in cuda_ops.POWER_KERNELS})
     own.update(list_emit="list_objects", reverse_gather="list_objects",
                list_pool_compact="list_objects", subjects_gather="list_subjects",
                closure_probe="closure", filter_mark="filter")
@@ -1733,7 +1968,7 @@ def main() -> int:
     log(json.dumps({"list": {**l_info, "card": smi, "list_objects": list_objects,
                              "list_subjects": list_subjects,
                              "caps": {"list_objects": LO_CAPS, "list_subjects": LS_CAPS}}}))
-    log(json.dumps({"closure": {**d_info, **closure, "card": smi}}))
+    log(json.dumps({"closure": {**d_info, **closure, "powering": powering, "card": smi}}))
     log(json.dumps({"filter": {**filt, "card": smi}}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

@@ -7,6 +7,12 @@ routes: `namespaces` (an inline list of namespace dicts),
 `serve.read.host` / `serve.read.port`, `closure.enabled` (the Leopard
 index routes checks and filters, default false), `closure.max_set_rows`
 (the largest closure set a covered node may hold, 4096),
+`closure.powering` ("host", the default, powers the index with numpy;
+"device" on the engine's device, engine/closure_power.py; on the
+1e6-tuple deep hierarchy of chip_smoke.py phase 9p "device" is no clear
+gain, 11.3-15.4 s of powering against 12.2-14.4 s for "host" in the
+same runs on an NVIDIA H100 80GB HBM3 at 700 W, since its host
+preparation and R·D product outweigh the waves),
 `filter.chunk_size` (candidates per filter evaluation, 4096) and
 `filter.max_objects` (the largest candidate list a filter request may
 carry, 65536). Schema validation, namespace files and OPL stay with the

@@ -27,6 +27,12 @@ index goes stale on a write and is powered again by `ensure_for` (never
 on the check submit path); it has no overlay, so no dirty marks and no
 lag. The dirty-node table (`build_dirty_table`) is kept so the kernel's
 dirty branch has real inputs in the tests.
+
+`powering="device"` powers the closure on the index's device instead of
+with numpy (engine/closure_power.py), array for array the same build.
+Only `PoweringUnsupported`, raised before any launch, sends a build back
+to the host builder, counted; a kernel that fails to build or launch
+raises.
 """
 
 from __future__ import annotations
@@ -540,14 +546,25 @@ class ClosureView:
         self.layout = layout
 
 
-class ClosureIndex:
-    """Per-engine Leopard index: one build, its tables on `device`.
-    Thread-safe; powering runs outside the lock."""
+POWERINGS = ("host", "device")
 
-    def __init__(self, nid: str, device, max_set_rows: int = DEFAULT_MAX_SET_ROWS):
+
+class ClosureIndex:
+    """Per-engine Leopard index: one build, its tables on `device`, powered
+    on the host or (`powering="device"`) on `device`. Thread-safe;
+    powering runs outside the lock."""
+
+    def __init__(self, nid: str, device, max_set_rows: int = DEFAULT_MAX_SET_ROWS,
+                 powering: str = "host"):
+        if powering not in POWERINGS:
+            raise ValueError(f"closure.powering must be one of {POWERINGS}, not {powering!r}")
         self.nid = nid
         self.device = device
         self.max_set_rows = int(max_set_rows)
+        self.powering = powering
+        # the device buffers of the last device build's widest wave, as
+        # P1-P3 hold them (closure_power.device_power_bytes)
+        self._power_hbm: dict = {}
         self._mu = threading.Lock()
         self._graph: Optional[ClosureGraph] = None
         self._build: Optional[ClosureBuild] = None
@@ -557,7 +574,8 @@ class ClosureIndex:
         self._synced_version = -1
         # seconds of the last build's stages
         self.last_build: dict = {}
-        self.stats = {"builds": 0}
+        self.stats = {"builds": 0, "device_builds": 0, "device_fallbacks": 0,
+                      "power_waves": 0, "power_steps": 0}
 
     def ensure_for(self, state, max_depth: int) -> bool:
         """Build the index for `state`'s snapshot unless it is built for
@@ -577,9 +595,9 @@ class ClosureIndex:
         t0 = time.perf_counter()
         graph = extract_graph(snap)
         t1 = time.perf_counter()
-        build = None
+        build, split = None, {}
         if graph is not None:
-            build = power_closure(graph, snap, max_depth, self.max_set_rows, base_version)
+            build, split = self._power(graph, snap, max_depth, base_version)
             self.stats["builds"] += 1
         t2 = time.perf_counter()
         view = None
@@ -590,7 +608,7 @@ class ClosureIndex:
             dev = closure_tables_from_numpy(tables, self.device)
             view = ClosureView(dev, cc_probes, ch_probes, snap.layout)
         t4 = time.perf_counter()
-        self.last_build = {"extract_s": t1 - t0, "power_s": t2 - t1}
+        self.last_build = {"extract_s": t1 - t0, "power_s": t2 - t1, **split}
         if build is not None:
             self.last_build.update(pack_s=t3 - t2, upload_s=t4 - t3)
         with self._mu:
@@ -600,6 +618,32 @@ class ClosureIndex:
             self._stale = build is None
             self._synced_version = base_version if build is not None else -1
             self._view = view
+
+    def _power(self, graph: ClosureGraph, snap: GraphSnapshot, max_depth: int,
+               base_version: int) -> tuple[ClosureBuild, dict]:
+        """Power one build with the configured builder: (build, the part of
+        last_build it adds). On the device, the build's seconds split into
+        host subgraph preparation and waves; a PoweringUnsupported shape
+        is powered on the host, counted, with its reason kept."""
+        fallback = {}
+        if self.powering == "device":
+            from .closure_power import PoweringUnsupported, power_closure_device
+
+            try:
+                build, record = power_closure_device(
+                    graph, snap, max_depth, self.max_set_rows, base_version,
+                    device=self.device)
+            except PoweringUnsupported as exc:
+                self.stats["device_fallbacks"] += 1
+                fallback = {"power_fallback": str(exc)}
+            else:
+                self.stats["device_builds"] += 1
+                self.stats["power_waves"] += record["waves"]
+                self.stats["power_steps"] += record["steps"]
+                self._power_hbm = dict(record["device_hbm"])
+                return build, {"power_prep_s": record["prep_s"],
+                               "power_wave_s": record["wave_s"]}
+        return power_closure(graph, snap, max_depth, self.max_set_rows, base_version), fallback
 
     def view_for(self, state) -> tuple[Optional[ClosureView], Optional[str]]:
         """The device view for one submit, or (None, cause). Never touches
@@ -627,6 +671,8 @@ class ClosureIndex:
                 "covered_nodes": len(build.covered_keys) if build is not None else 0,
                 "entries": build.n_entries if build is not None else 0,
                 "universe": len(self._graph.universe) if self._graph is not None else 0,
+                "powering": self.powering,
+                "power_hbm": dict(self._power_hbm),
                 **self.last_build,
                 **self.stats,
             }

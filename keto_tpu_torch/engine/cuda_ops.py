@@ -14,7 +14,8 @@ returns: PyTorch's caching allocator hands their memory out again only in
 stream order, after the launch. The wrappers take CUDA tensors only; the
 plain versions for CPU tensors live beside the dispatchers in
 engine/kernel.py, engine/expand_kernel.py, engine/reverse_kernel.py,
-engine/closure_kernel.py and engine/filter_kernel.py.
+engine/closure_kernel.py, engine/filter_kernel.py and
+engine/closure_power.py.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(
     _PKG / "csrc" / name
     for name in ("check_kernels.cu", "expand_kernels.cu", "list_kernels.cu",
-                 "closure_filter_kernels.cu")
+                 "closure_filter_kernels.cu", "closure_power_kernels.cu")
 )
 # headers the sources include: part of the library's content hash
 HEADERS = (_PKG / "csrc" / "probe.cuh",)
@@ -48,7 +49,9 @@ EXPAND_KERNELS = ("expand_emit", "pool_compact")
 LIST_KERNELS = ("list_emit", "reverse_gather", "subjects_gather", "list_pool_compact")
 CLOSURE_KERNELS = ("closure_probe",)
 FILTER_KERNELS = ("filter_mark",)
-KERNELS = CHECK_KERNELS + EXPAND_KERNELS + LIST_KERNELS + CLOSURE_KERNELS + FILTER_KERNELS
+POWER_KERNELS = ("power_step", "power_account", "power_poison")
+KERNELS = (CHECK_KERNELS + EXPAND_KERNELS + LIST_KERNELS + CLOSURE_KERNELS + FILTER_KERNELS
+           + POWER_KERNELS)
 launches = {name: 0 for name in KERNELS}
 # the largest dynamic shared memory one block may take on Hopper, less
 # the kernels' static shared memory
@@ -132,6 +135,9 @@ _SIGNATURES = {
     "keto_closure_probe": [_VP, _LL, _I, _VP, _LL, _I, _I, _I, _VP, _LL, _I, _I, _VP, _I, _VP,
                            _VP],
     "keto_filter_mark": [_VP] * 4 + [_I, _VP, _I] + [_VP] * 5,
+    "keto_power_step": [_VP] * 4 + [_I] * 3 + [_VP] * 6,
+    "keto_power_account": [_VP] * 4 + [_I] * 5 + [_VP] * 3,
+    "keto_power_poison": [_VP] * 4 + [_I] * 2 + [_VP] * 3,
 }
 
 
@@ -526,3 +532,76 @@ def filter_mark(obj, rel, depth, live, cand, head, hit, status) -> torch.Tensor:
     )
     _check(lib, rc, name)
     return marks.reshape(())
+
+
+def _require_words(name: str, *mats: torch.Tensor) -> tuple[int, int]:
+    """(N, W) of [N, W] int32 bit matrices of one shape, W a power of two
+    (a row's lane group is min(W, 32) threads of one warp)."""
+    _require(name, torch.int32, *mats)
+    N, W = mats[0].shape
+    if any(m.shape != (N, W) for m in mats) or W < 1 or W & (W - 1):
+        raise ValueError(f"{name}: expects [N, W] bit matrices, W a power of two")
+    return N, W
+
+
+def power_step(F, R, e_src, e_dst, counts, stats, status) -> torch.Tensor:
+    """P1: one powering step over the edges (e_src, e_dst), node indices
+    below N; returns fresh [N, W]. Updates R, counts and stats in place;
+    status[0] is the popcount of F before the step."""
+    from .kernel import N_LAUNCH_STATS
+
+    name = "power_step"
+    N, W = _require_words(name, F, R)
+    _require(name, torch.int32, e_src, e_dst, counts, stats, status)
+    E = e_src.shape[0]
+    if e_src.dim() != 1 or e_dst.shape != (E,) or counts.shape != (32 * W,):
+        raise ValueError(f"{name}: expects [E] sources and destinations and [32 W] counts")
+    if stats.shape != (N_LAUNCH_STATS,) or status.numel() < 1:
+        raise ValueError(f"{name}: expects [{N_LAUNCH_STATS}] stats and a status")
+    acc = torch.empty_like(F)
+    fresh = torch.empty_like(F)
+    lib = library()
+    rc = lib.keto_power_step(_p(F), _p(R), _p(e_src), _p(e_dst), E, N, W, _p(acc), _p(fresh),
+                             _p(counts), _p(stats), _p(status), _stream())
+    _check(lib, rc, name)
+    return fresh
+
+
+def power_account(fresh, lvl, counts, d_rows, status, *, level: int,
+                  max_set_rows: int) -> torch.Tensor:
+    """P2: the next frontier F = fresh & ~kill; lvl and status[0] (F's
+    popcount) update in place."""
+    name = "power_account"
+    N, W = _require_words(name, fresh)
+    _require(name, torch.int32, counts, d_rows, status)
+    _require(name, torch.int8, lvl)
+    D = d_rows.shape[0]
+    if lvl.shape != (D, 32 * W) or counts.shape != (32 * W,) or status.numel() < 1:
+        raise ValueError(f"{name}: expects a [D, 32 W] level plane, [32 W] counts and a status")
+    F = torch.empty_like(fresh)
+    lib = library()
+    rc = lib.keto_power_account(_p(fresh), _p(lvl), _p(counts), _p(d_rows), N, D, W, level,
+                                max_set_rows, _p(F), _p(status), _stream())
+    _check(lib, rc, name)
+    return F
+
+
+def power_poison(R, pois_mask, counts, stats) -> torch.Tensor:
+    """P3: the wave's summary [counts(S) | poison(S) | stats(8)] int32."""
+    from .kernel import N_LAUNCH_STATS
+
+    name = "power_poison"
+    N, W = _require_words(name, R)
+    _require(name, torch.uint8, pois_mask)
+    _require(name, torch.int32, counts, stats)
+    S = 32 * W
+    if pois_mask.shape != (N,) or counts.shape != (S,) or stats.shape != (N_LAUNCH_STATS,):
+        raise ValueError(f"{name}: expects an [N] mask, [32 W] counts and "
+                         f"[{N_LAUNCH_STATS}] stats")
+    pw = torch.empty(W, dtype=torch.int32, device=R.device)
+    out = torch.empty(2 * S + N_LAUNCH_STATS, dtype=torch.int32, device=R.device)
+    lib = library()
+    rc = lib.keto_power_poison(_p(R), _p(pois_mask), _p(counts), _p(stats), N, W, _p(pw), _p(out),
+                               _stream())
+    _check(lib, rc, name)
+    return out

@@ -188,6 +188,7 @@ class TorchCheckEngine:
         self._closure = ClosureIndex(
             self.nid, self.device,
             max_set_rows=int(config.get("closure.max_set_rows", DEFAULT_MAX_SET_ROWS)),
+            powering=str(config.get("closure.powering", "host")),
         )
 
     # -- mirror lifecycle ------------------------------------------------------

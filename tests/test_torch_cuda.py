@@ -2,8 +2,9 @@
 on the card: each kernel alone on the same CUDA tensors, and whole check,
 expand, ListObjects, ListSubjects, closure and filter launches against
 the CPU run of the plain versions, under both table layouts and with the
-delta overlay (or the dirty table) on and off. Tolerance: exact equality
-(every output is an integer).
+delta overlay (or the dirty table) on and off; the closure powering's P1-P3
+step by step on random waves, and whole device-powered builds against the
+CPU's. Tolerance: exact equality (every output is an integer).
 
 These tests need an NVIDIA card and skip elsewhere; this file imports
 nothing of the JAX package, so it runs where JAX is not installed:
@@ -601,3 +602,139 @@ def test_filter_mark_matches_plain_on_card(cuda, F, C, n):
     for a, b in zip(*outs):
         assert torch.equal(a, b)
     assert int(outs[0][0]) > 0
+
+
+# -- closure powering ----------------------------------------------------------------
+
+
+def power_wave(lanes, seed, n_sub, n_edges):
+    """One wave's inputs laid out as power_closure_device lays them out: a
+    random subgraph with a dummy node at n_sub, dst-sorted edges and direct
+    rows padded with it, a few poisoned nodes, and lanes - 3 sources (the
+    last word holds padding lanes) with their self bits, levels and counts."""
+    from keto_tpu_torch.engine import closure_power as tcp
+
+    rng = np.random.default_rng(seed)
+    Nq, Eq = tcp._next_pow2(n_sub + 1, 2), tcp._next_pow2(n_edges, 1)
+    src, dst = rng.integers(0, n_sub, n_edges), rng.integers(0, n_sub, n_edges)
+    order = np.argsort(dst, kind="stable")
+    e_src, e_dst = np.full(Eq, n_sub, np.int32), np.full(Eq, n_sub, np.int32)
+    e_src[:n_edges], e_dst[:n_edges] = src[order], dst[order]
+    dnodes = np.sort(rng.choice(n_sub, n_sub // 2, replace=False)).astype(np.int32)
+    d_rows = np.full(tcp._next_pow2(len(dnodes), 1), n_sub, np.int32)
+    d_rows[:len(dnodes)] = dnodes
+    pois = np.zeros(Nq, np.uint8)
+    pois[rng.choice(n_sub, 3, replace=False)] = 1
+    nl = lanes - 3
+    snode, lane_ids = rng.integers(0, n_sub, nl), np.arange(nl)
+    R0 = np.zeros((Nq, lanes // 32), np.uint32)
+    np.bitwise_or.at(R0, (snode, lane_ids // 32), np.uint32(1) << (lane_ids % 32).astype(np.uint32))
+    lvl0 = np.full((len(d_rows), lanes), -1, np.int8)
+    pos = np.searchsorted(dnodes, snode).clip(0, len(dnodes) - 1)
+    at_d = dnodes[pos] == snode
+    lvl0[pos[at_d], lane_ids[at_d]] = 0
+    counts0 = np.zeros(lanes, np.int32)
+    counts0[:nl] = 1
+    return [torch.from_numpy(a) for a in (e_src, e_dst, d_rows, pois, R0.view(np.int32), lvl0,
+                                          counts0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_set_rows", [1 << 20, 3])
+@pytest.mark.parametrize("lanes,n_sub,n_edges", [(32, 40, 70), (256, 300, 500),
+                                                 (8192, 3000, 5000)])
+def test_power_kernels_match_plain_on_card(cuda, lanes, n_sub, n_edges, max_set_rows):
+    """P1, P2 and P3 against their plain versions on the same CUDA tensors
+    at every step of a wave (1, 8 and 256 words a row; with a row-cap kill;
+    with poisoned nodes), each side updating its own clones; then the whole
+    wave on the card against the CPU's."""
+    from keto_tpu_torch.engine import closure_power as tcp
+
+    inputs = power_wave(lanes, lanes + max_set_rows, n_sub, n_edges)
+    e_src, e_dst, d_rows, pois, R0, lvl0, counts0 = (t.to(cuda) for t in inputs)
+    R, F, lvl, counts = R0.clone(), R0, lvl0.clone(), counts0.clone()
+    stats = torch.zeros(tk.N_LAUNCH_STATS, dtype=torch.int32, device=cuda)
+    status = tcp._popcount(R0).sum().to(torch.int32).reshape(1)
+    before = {k: cuda_ops.launches[k] for k in cuda_ops.POWER_KERNELS}
+    level, killed = 0, False
+    while level < 12 and int(status[0]):
+        sides = []
+        for fn in (cuda_ops.power_step, tcp.power_step_plain):
+            r, c, st = R.clone(), counts.clone(), stats.clone()
+            sides.append((fn(F, r, e_src, e_dst, c, st, status), r, c, st))
+        for a, b in zip(*sides):
+            assert torch.equal(a, b), level
+        fresh, R, counts, stats = sides[0]
+        level += 1
+        sides = []
+        for fn in (cuda_ops.power_account, tcp.power_account_plain):
+            lv, st = lvl.clone(), status.clone()
+            sides.append((fn(fresh, lv, counts, d_rows, st, level=level,
+                             max_set_rows=max_set_rows), lv, st))
+        for a, b in zip(*sides):
+            assert torch.equal(a, b), level
+        F, lvl, status = sides[0]
+        killed |= bool((counts > max_set_rows).any())
+    summary = cuda_ops.power_poison(R, pois, counts, stats)
+    assert torch.equal(summary, tcp.power_poison_plain(R, pois, counts, stats))
+    S = lanes
+    assert level >= 2 and summary[S:2 * S].any() and killed == (max_set_rows == 3)
+    assert {k: cuda_ops.launches[k] - before[k] for k in before} == {
+        "power_step": level, "power_account": level, "power_poison": 1}
+
+    got = tcp.closure_power_wave(e_src, e_dst, d_rows, pois, R0, lvl0, counts0, max_depth=12,
+                                 max_set_rows=max_set_rows)
+    want = tcp.closure_power_wave(*inputs, max_depth=12, max_set_rows=max_set_rows)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def deep_chains(n_chains=60, depth=9, seed=5):
+    """view = owner | parent->view chains with a tail owner each, direct
+    viewer grants and one AND island that poisons the chains reaching it."""
+    rng = random.Random(seed)
+    ns = [{"name": "deep", "relations": [
+        {"name": "owner"}, {"name": "parent"}, {"name": "allow"}, {"name": "deny"},
+        {"name": "gate", "rewrite": {"operator": "and", "children": [
+            _computed("allow"), {"type": "invert", "inverted": _computed("deny")}]}},
+        {"name": "viewer", "rewrite": {"operator": "or", "children": [
+            _computed("owner"), _ttu("parent", "viewer")]}},
+    ]}]
+    tuples = []
+    for c in range(n_chains):
+        tuples += [f"deep:c{c}f{i}#parent@(deep:c{c}f{i + 1}#...)" for i in range(depth)]
+        tuples.append(f"deep:c{c}f{depth}#owner@u{rng.randrange(16)}")
+        tuples.append(f"deep:c{c}f{rng.randrange(depth)}#viewer@u{rng.randrange(16)}")
+    tuples += ["deep:c0f3#viewer@(deep:g#gate)", "deep:g#allow@u1"]
+    return ns, tuples, depth + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_set_rows,budget", [(4096, 256 << 20), (3, 256 << 20),
+                                                 (4096, 0)])
+def test_power_closure_device_on_card_equals_cpu(cuda, max_set_rows, budget):
+    from keto_tpu_torch.engine import closure as tcl
+    from keto_tpu_torch.engine import closure_power as tcp
+
+    ns, tuples, depth = deep_chains()
+    snap = tsnap.build_snapshot([RelationTuple.from_string(s) for s in tuples],
+                                [Namespace.from_dict(d) for d in ns], layout="bucketized")
+    graph = tcl.extract_graph(snap)
+    want, wrec = tcp.power_closure_device(graph, snap, depth, max_set_rows, 0, device="cpu",
+                                          budget_bytes=budget)
+    before = cuda_ops.launches["power_step"]
+    got, rec = tcp.power_closure_device(graph, snap, depth, max_set_rows, 0, device=cuda,
+                                        budget_bytes=budget)
+    for k in ("covered_keys", "ent_obj", "ent_rel", "ent_skind", "ent_sa", "ent_sb", "ent_req"):
+        a, b = getattr(got, k), getattr(want, k)
+        assert a.dtype == b.dtype and np.array_equal(a, b), k
+    assert (got.n_nodes, got.vocab_fp, got.n_entries) == (want.n_nodes, want.vocab_fp,
+                                                          want.n_entries)
+    assert {k: rec[k] for k in ("waves", "steps", "lanes", "nodes", "edges", "hbm")} == {
+        k: wrec[k] for k in ("waves", "steps", "lanes", "nodes", "edges", "hbm")}
+    assert cuda_ops.launches["power_step"] - before == rec["steps"]
+    host = tcl.power_closure(graph, snap, depth, max_set_rows, 0)
+    assert np.array_equal(got.covered_keys, host.covered_keys)
+    assert np.array_equal(got.ent_req, host.ent_req)
+    assert 0 < len(got.covered_keys) < len(graph.universe)

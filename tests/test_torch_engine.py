@@ -194,7 +194,7 @@ def test_import_boundary():
         "import keto_tpu_torch.engine.torch_engine, keto_tpu_torch.api.rest_server\n"
         "import keto_tpu_torch.engine.expand_kernel, keto_tpu_torch.engine.reverse_kernel\n"
         "import keto_tpu_torch.engine.closure, keto_tpu_torch.engine.closure_kernel\n"
-        "import keto_tpu_torch.engine.filter_kernel\n"
+        "import keto_tpu_torch.engine.filter_kernel, keto_tpu_torch.engine.closure_power\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'keto_tpu' or m.startswith('keto_tpu.'))\n"
         "print(bad)\n"
