@@ -7,9 +7,9 @@ Phases, in order; any failure exits non-zero without the final line:
 
   1. card    — nvidia-smi's name and power limit
   2. build   — nvcc builds csrc/check_kernels.cu, csrc/expand_kernels.cu,
-               csrc/list_kernels.cu, csrc/closure_filter_kernels.cu and
-               csrc/closure_power_kernels.cu from the checkout, one
-               compiler per source, in parallel
+               csrc/list_kernels.cu, csrc/closure_filter_kernels.cu,
+               csrc/closure_power_kernels.cu and csrc/microbench_kernels.cu
+               from the checkout, one compiler per source, in parallel
   3. kernels — K1-K4 against their plain PyTorch versions on the card,
                on inputs captured from one real batch of phase 4's
                workload over its tables; exact equality, times, bounds
@@ -22,7 +22,9 @@ Phases, in order; any failure exits non-zero without the final line:
   5. islands — an AND/NOT namespace batch against the host oracle
   6. serve   — `python -m keto_tpu_torch serve` on a free port: a 200, a
                403, a batch check, an expand tree, an expand 404, a
-               list-objects and a list-subjects 200 and a list-objects 400
+               list-objects and a list-subjects 200 and a list-objects 400,
+               a check with a snaptoken ahead of the store (409) and a
+               list-objects with a satisfied one
   7. expand  — (7a) data, (7b) X1 and X2 against their plain versions
                on inputs captured from one real expand batch, as phase 3;
                then the Expand path: ~1e6 tuples of bench.py's RBAC shape (role
@@ -73,6 +75,15 @@ Phases, in order; any failure exits non-zero without the final line:
                oracle and all equal to check_batch over the same pairs,
                objects/s; (10c) C1 and F1 against their plain versions,
                and torch.searchsorted on F1's inputs as its yardstick
+ 11. microbench — the TPU microbenchmarks' primitives (B8, B9): (11a)
+               `python -m keto_tpu_torch.tools.microbench` and
+               `... .tools.microbench_feasibility` as subprocesses, every
+               line checked; (11b) both entry points again in process, the
+               "microbench" launch path: M1-M10 launched; (11c) M1-M10
+               against their plain versions on the tools' draws (the hash
+               probe with planted keys, so both probe arms hit), exact,
+               timed with bounds and PyTorch yardsticks; M3, M5 and M6
+               also at F = 2^20 (the row's "large" entry)
 
 Before the last line it prints the kernel table as one JSON object
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -162,6 +173,9 @@ KERNEL_SOURCES = {
     "power_step": "keto_tpu_torch/csrc/closure_power_kernels.cu",
     "power_account": "keto_tpu_torch/csrc/closure_power_kernels.cu",
     "power_poison": "keto_tpu_torch/csrc/closure_power_kernels.cu",
+    **{name: "keto_tpu_torch/csrc/microbench_kernels.cu" for name in (
+        "mb_probe", "mb_probe_smem", "mb_scatmax", "mb_scatmax_smem", "mb_pack_block",
+        "mb_pack", "mb_hashprobe", "mb_add", "mb_row_gather", "mb_block_gather")},
 }
 REPLACES = {
     "edge_probe": "keto_tpu/engine/kernel.py:259",
@@ -179,6 +193,16 @@ REPLACES = {
     "power_step": "keto_tpu/engine/closure_power.py:132",
     "power_account": "keto_tpu/engine/closure_power.py:132",
     "power_poison": "keto_tpu/engine/closure_power.py:132",
+    "mb_probe": "tools/microbench_pallas.py:51",
+    "mb_probe_smem": "tools/microbench_pallas.py:51",
+    "mb_scatmax": "tools/microbench_pallas.py:94",
+    "mb_scatmax_smem": "tools/microbench_pallas.py:94",
+    "mb_pack_block": "tools/microbench_pallas.py:137",
+    "mb_pack": "tools/microbench_pallas.py:137",
+    "mb_hashprobe": "tools/microbench_pallas.py:181",
+    "mb_add": "tools/microbench_pallas_feasibility.py:41",
+    "mb_row_gather": "tools/microbench_pallas_feasibility.py:58",
+    "mb_block_gather": "tools/microbench_pallas_feasibility.py:80",
 }
 
 
@@ -356,13 +380,21 @@ def wall_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+# profile windows timed, and those that missed some of their launches
+PROFILE_WINDOWS = {"timed": 0, "short": 0}
+
+
 def device_ms(fn, reps: int = 20, only: tuple[str, ...] | None = None) -> float:
-    """Device time per call: the profiler's self device time of every
-    kernel the calls launched (or of those whose name holds one of
-    `only`), over `reps` calls. The profiler now and then reports no
-    device time for so short a window; after three such tries the time
-    between CUDA events stands in (host enqueue included, so never below
-    the device time), but only without `only`: a filter that matches no
+    """Device time per call over `reps` calls: for every kernel the calls
+    launched (or those whose name holds one of `only`), the profiler's
+    mean self device time a launch times its launches a call. The
+    profiler now and then misses a window's first launches (on the H100,
+    18 or 19 records of a kernel launched once a call, 20 times), so a
+    kernel's launches a call are its count over `reps` rounded up: a few
+    lost records neither lower the time nor drop a kernel. A window with
+    no device time at all is taken again; after three, the time between
+    CUDA events stands in (host enqueue included, so never below the
+    device time), but only without `only`: a filter that matches no
     kernel the profiler saw (a renamed kernel) raises."""
     import torch
     from torch.autograd import DeviceType
@@ -376,12 +408,16 @@ def device_ms(fn, reps: int = 20, only: tuple[str, ...] | None = None) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [evt for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA]
+        events = [evt for evt in prof.key_averages()
+                  if evt.device_type == DeviceType.CUDA and evt.count]
         seen.update(evt.key for evt in events)
-        busy_us = sum(evt.self_device_time_total for evt in events
-                      if only is None or any(o in evt.key for o in only))
+        picked = [evt for evt in events if only is None or any(o in evt.key for o in only)]
+        busy_us = sum(evt.self_device_time_total / evt.count * -(-evt.count // reps)
+                      for evt in picked)
         if busy_us > 0:
-            return busy_us / 1e3 / reps
+            PROFILE_WINDOWS["timed"] += 1
+            PROFILE_WINDOWS["short"] += any(evt.count % reps for evt in picked)
+            return busy_us / 1e3
     if only is not None:
         raise AssertionError(f"no device time for {only}; the profiler saw {sorted(seen)}")
     log("  (the profiler saw no device time three times: CUDA-event time instead)")
@@ -651,15 +687,17 @@ def list_kernel_cases(rec_lo, rec_ls):
 # -- phases ------------------------------------------------------------------------
 
 
-def time_kernel(name, kernel, plain, nbytes, ops, compare, only=None) -> dict:
+def time_kernel(name, kernel, plain, nbytes, ops, compare, only=None,
+                ops_per_s=OPS_INT32_PER_S) -> dict:
     """Compare, then time a kernel and its plain version; `only` names the
     CUDA functions and memsets of the kernel's entry point, where its call
-    also resets inputs it updates."""
+    also resets inputs it updates. `ops` count at `ops_per_s`, the card's
+    rate for their type (32-bit integer by default)."""
     err = compare()
     ms, plain_ms = device_ms(kernel, only=only), device_ms(plain)
     k_wall, p_wall = wall_ms(kernel), wall_ms(plain)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / OPS_INT32_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     log(f"  {name}: max_abs_err {err}, device ms: kernel {ms:.5f}, plain {plain_ms:.5f}; "
@@ -1756,6 +1794,8 @@ def run_serve():
     import urllib.parse
     import urllib.request
 
+    from keto_tpu_torch.engine.snaptoken import encode_snaptoken
+
     t0 = phase("6 serve: python -m keto_tpu_torch serve on a free port")
     repo = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
@@ -1816,9 +1856,15 @@ def run_serve():
                            "/relation-tuples/list-subjects")
             no_rel = get({"namespace": "videos", "subject_id": "cat lady"},
                          "/relation-tuples/list-objects")
+            ahead = get({**q, "subject_id": "cat lady",
+                         "snaptoken": encode_snaptoken(99, "default")})
+            pinned = get({"namespace": "videos", "relation": "view", "subject_id": "cat lady",
+                          "snaptoken": encode_snaptoken(1, "default")},
+                         "/relation-tuples/list-objects")
             log(f"  GET allowed -> {allowed}, GET denied -> {denied}, batch -> {batch}, "
                 f"expand -> {tree}, expand nil -> {nil}, list-objects -> {objects}, "
-                f"list-subjects -> {subjects}, list-objects without relation -> {no_rel}")
+                f"list-subjects -> {subjects}, list-objects without relation -> {no_rel}, "
+                f"check ahead of the store -> {ahead}, list-objects at v1 -> {pinned}")
             if allowed != (200, {"allowed": True}) or denied != (403, {"allowed": False}):
                 raise AssertionError("single checks answered wrongly")
             if [r["allowed"] for r in batch["results"]] != [True, True, False]:
@@ -1840,6 +1886,10 @@ def run_serve():
                 raise AssertionError(f"list-subjects answered wrongly: {subjects}")
             if no_rel[0] != 400:
                 raise AssertionError(f"list-objects without a relation answered {no_rel}")
+            if ahead[0] != 409 or ahead[1]["error"]["status"] != "conflict":
+                raise AssertionError(f"a token ahead of the store answered {ahead}")
+            if pinned != objects:
+                raise AssertionError(f"list-objects at a satisfied token answered {pinned}")
         finally:
             proc.terminate()
             try:
@@ -1850,6 +1900,94 @@ def run_serve():
             proc.stdout.close()
             proc.stderr.close()
     log(f"  serve phase {time.perf_counter() - t0:.1f} s")
+
+
+def run_microbench():
+    """Phase 11: the tools as subprocesses, then in process (the
+    "microbench" launch path), then M1-M10 against their plain versions,
+    timed. Returns (launches, kernel rows, the tools' lines)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.tools import microbench as mb
+    from keto_tpu_torch.tools import microbench_feasibility as mf
+
+    t0 = phase("11a microbench: both tools as subprocesses")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    card = torch.cuda.get_device_name(0)
+    ops_names = ["probe", "probe_smem", "scatmax", "scatmax_smem", "pack_block", "pack",
+                 "hashprobe"] + [f"{op}_F{mb.F_LARGE}" for op in ("scatmax", "pack_block", "pack")]
+    ops_names += ["torch_gather", "torch_scatter_max", "torch_masked_select",
+                  f"torch_scatter_max_F{mb.F_LARGE}", f"torch_masked_select_F{mb.F_LARGE}",
+                  "device"]
+
+    def check_bench(lines):
+        if [line["op"] for line in lines] != ops_names:
+            raise AssertionError(f"microbench printed {[line['op'] for line in lines]}")
+        for line in lines[:-1]:
+            if not (line["ms"] > 0 and line["bound_ms"] > 0):
+                raise AssertionError(f"microbench line {line}")
+        if card not in lines[-1]["note"]:
+            raise AssertionError(f"microbench ran on {lines[-1]['note']}")
+
+    def check_feasibility(lines):
+        if len(lines) != 4 or card not in lines[0]["device"] or not all(
+                line["ok"] is True for line in lines[1:]):
+            raise AssertionError(f"microbench_feasibility printed {lines}")
+
+    tools = {}
+    for module, argv, check in (("microbench", ["--n", "20"], check_bench),
+                                ("microbench_feasibility", [], check_feasibility)):
+        proc = subprocess.run([sys.executable, "-m", f"keto_tpu_torch.tools.{module}", *argv],
+                              cwd=repo, capture_output=True, text=True, timeout=300,
+                              env={**os.environ, "PYTHONPATH": repo})
+        if proc.returncode != 0:
+            raise AssertionError(f"{module} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        lines = [json.loads(line) for line in proc.stdout.splitlines()]
+        check(lines)
+        tools[module] = lines
+        for line in lines:
+            log(f"  {module}: {json.dumps(line)}")
+
+    phase("11b microbench: both entry points in process, the microbench launch path")
+    buf = io.StringIO()
+    cuda_ops.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        mb.main(["--n", "3"])
+        mf.main([])
+    torch.cuda.synchronize()
+    launches = dict(cuda_ops.launches)
+    lines = [json.loads(line) for line in buf.getvalue().splitlines()]
+    check_bench(lines[:len(ops_names)])
+    check_feasibility(lines[len(ops_names):])
+    log("  launches: " + ", ".join(f"{k} {launches[k]}" for k in cuda_ops.MICROBENCH_KERNELS))
+    missing = [k for k in cuda_ops.MICROBENCH_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the microbench path did not launch {missing}")
+
+    phase("11c kernels: M1-M10 against their plain versions")
+    inp = mb.make_inputs(mb.F_TOOL, mb.CAP_TOOL)
+    inp["keys"] = mb.plant_keys(inp["keys"], inp["qk"], mb.F_TOOL // 4)
+    cases = mb.ops(inp, "cuda", large=mb.make_inputs(mb.F_LARGE, mb.CAP_TOOL)) + mf.ops("cuda")
+    rows, by_kernel = [], {}
+    for o in cases:
+        row = time_kernel(o.kernel, o.run, o.plain, o.nbytes, o.ops,
+                          lambda o=o: max_abs_err(o.run(), o.plain()), ops_per_s=o.ops_per_s)
+        row["library_ms"] = device_ms(o.library) if o.library is not None else None
+        row["note"] = o.note
+        log(f"  {o.op}: library {row['library_ms']} ms")
+        if o.kernel in by_kernel:
+            by_kernel[o.kernel]["large"] = {k: row[k] for k in (
+                "note", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "wall_ms", "plain_wall_ms", "bytes", "ops")}
+        else:
+            by_kernel[o.kernel] = row
+            rows.append(row)
+    log(f"  microbench phase {time.perf_counter() - t0:.1f} s")
+    return launches, rows, tools
 
 
 def main() -> int:
@@ -1945,18 +2083,23 @@ def main() -> int:
         rows.append(time_kernel(*case))
     rows[-1]["library_ms"] = device_ms(searchsorted)
     log(f"  torch.searchsorted on F1's (cand, obj): {rows[-1]['library_ms']:.5f} ms")
+    m_launches, m_rows, tools = run_microbench()
+    rows += m_rows
     by_path = {"check": launches, "expand": x_launches, "list_objects": lo_launches,
                "list_subjects": ls_launches, "closure_build": b_launches, "closure": c_launches,
-               "filter": f_launches}
+               "filter": f_launches, "microbench": m_launches}
     # each kernel's count on its own path: check for K1-K4, expand for X1
     # and X2, ListObjects for L1, L2 and L4, ListSubjects for L3, closure
-    # for C1, filter for F1, closure_build for P1-P3; K2, K4, L1, L2 and
-    # L4 run on several
+    # for C1, filter for F1, closure_build for P1-P3, microbench for
+    # M1-M10; K2, K4, L1, L2 and L4 run on several
     own = {name: "expand" for name in cuda_ops.EXPAND_KERNELS}
     own.update({name: "closure_build" for name in cuda_ops.POWER_KERNELS})
+    own.update({name: "microbench" for name in cuda_ops.MICROBENCH_KERNELS})
     own.update(list_emit="list_objects", reverse_gather="list_objects",
                list_pool_compact="list_objects", subjects_gather="list_subjects",
                closure_probe="closure", filter_mark="filter")
+    if sorted(row["name"] for row in rows) != sorted(cuda_ops.KERNELS):
+        raise AssertionError(f"the kernel table lists {[row['name'] for row in rows]}")
     for row in rows:
         row["launches"] = by_path[own.get(row["name"], "check")][row["name"]]
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in by_path.items()}
@@ -1970,6 +2113,9 @@ def main() -> int:
                              "caps": {"list_objects": LO_CAPS, "list_subjects": LS_CAPS}}}))
     log(json.dumps({"closure": {**d_info, **closure, "powering": powering, "card": smi}}))
     log(json.dumps({"filter": {**filt, "card": smi}}))
+    log(json.dumps({"microbench": {**tools, "card": smi}}))
+    log(f"profile windows that missed launches: {PROFILE_WINDOWS['short']} of "
+        f"{PROFILE_WINDOWS['timed']}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

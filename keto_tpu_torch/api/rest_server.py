@@ -6,7 +6,9 @@ server, in front of a TorchCheckEngine.
   GET  /relation-tuples/check/openapi  -> always 200 {"allowed": ...}
   POST /relation-tuples/check/batch    -> {"results": [{"allowed": bool} |
                                           {"allowed": false, "error": str}],
-                                          "snaptoken": str}
+                                          "snaptoken": str}; the request
+                                          token as a query param or a
+                                          "snaptoken" body field
   GET  /relation-tuples/expand         -> 200 the tree's JSON, 404 when no
                                           tuple matches the subject set
                                           (params namespace, object,
@@ -18,12 +20,13 @@ server, in front of a TorchCheckEngine.
                                           (params namespace, object, relation)
                                           both list routes also take max-depth,
                                           page_size and page_token
-  POST /relation-tuples/filter         -> {"allowed_objects": [...]}, the
-                                          candidates the subject can see in
-                                          request order, duplicates kept
-                                          (body namespace, relation,
-                                          subject_id or subject_set, objects,
-                                          optional max_depth); no snaptoken
+  POST /relation-tuples/filter         -> {"allowed_objects": [...],
+                                          "snaptoken": str}, the candidates
+                                          the subject can see in request
+                                          order, duplicates kept (body
+                                          namespace, relation, subject_id or
+                                          subject_set, objects, optional
+                                          max_depth and snaptoken)
   GET  /health/alive, /health/ready    -> 200 {"status": "ok"}
 
 Keto's semantics: an unknown namespace on a single check answers
@@ -34,9 +37,13 @@ subject lists nothing. A filter body whose objects are not a list of
 strings, that lacks a namespace, a relation or a subject, or that carries
 more objects than `filter.max_objects` is a 400. Errors use the herodot shape {"error": {code,
 status, message}}.
-Checks carry an X-Keto-Snaptoken header with the store version they were
-evaluated at. The engine is not thread-safe, so requests take one lock
-around it.
+Every route but Expand takes a `snaptoken` (engine/snaptoken.py) and
+enforces it before it validates names: a malformed token, or one of
+another network, is a 400, one ahead of the store a 409. The answer
+carries the store version read at enforcement, in the X-Keto-Snaptoken
+header (check and list routes) or a "snaptoken" body field (batch and
+filter). The engine is not thread-safe, so requests take one lock around
+it.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from ..errors import (
     NilSubjectError,
     NotFoundError,
 )
+from ..engine.snaptoken import encode_snaptoken, enforce_snaptoken
 from ..ketoapi import RelationTuple, SubjectSet, _subject_fields_from_dict
 
 CHECK_ROUTE = "/relation-tuples/check"
@@ -64,14 +72,6 @@ LIST_OBJECTS_ROUTE = "/relation-tuples/list-objects"
 LIST_SUBJECTS_ROUTE = "/relation-tuples/list-subjects"
 FILTER_ROUTE = "/relation-tuples/filter"
 HEALTH_ROUTES = ("/health/alive", "/health/ready")
-
-
-def encode_snaptoken(version: int, nid: str) -> str:
-    """The JAX package's snaptoken form: ktv1_<fnv1a-32 of nid>_<version>."""
-    h = 0x811C9DC5
-    for b in nid.encode("utf-8"):
-        h = ((h ^ b) * 0x01000193) & 0xFFFFFFFF
-    return f"ktv1_{h:08x}_{int(version)}"
 
 
 def _max_depth(params: dict) -> int:
@@ -108,8 +108,9 @@ def _subject(params: dict):
 
 
 class CheckService:
-    """The Check, Expand and List surface over one engine: namespace
-    validation and one lock around the engine."""
+    """The Check, Expand, List and Filter surface over one engine:
+    snaptoken enforcement, namespace validation and one lock around the
+    engine."""
 
     def __init__(self, engine):
         self.engine = engine
@@ -121,15 +122,15 @@ class CheckService:
         if t.subject_set is not None:
             nm.get_namespace_by_name(t.subject_set.namespace)
 
+    def snaptoken(self, token: str) -> str:
+        """Enforce a request's token; the response token, at the store
+        version read here."""
+        nid = self.engine.nid
+        return encode_snaptoken(enforce_snaptoken(self.engine.manager, token, nid), nid)
+
     def check_batch(self, tuples, max_depth: int):
-        """(results, snaptoken) for one batch launch."""
         with self._mu:
-            results, versions = self.engine.check_batch_resolve_v(
-                self.engine.check_batch_submit(tuples, max_depth)
-            )
-            version = self.engine.manager.version(nid=self.engine.nid)
-        evaluated = [v for v in versions if v is not None]
-        return results, encode_snaptoken(min(evaluated, default=version), self.engine.nid)
+            return self.engine.check_batch(tuples, max_depth)
 
     def expand(self, subject_set: SubjectSet, max_depth: int):
         with self._mu:
@@ -206,27 +207,27 @@ def make_handler(service: CheckService):
             self._route("POST")
 
         def _check(self, method: str, params: dict, mirror_status: bool) -> None:
-            if method == "GET":
-                t = RelationTuple.from_url_query(params)
-            else:
+            if method != "GET":
                 body = self._body()
                 if not isinstance(body, dict):
                     raise MalformedInputError("could not unmarshal json: expected object")
-                t = RelationTuple.from_dict(body)
             max_depth = _max_depth(params)
+            t = RelationTuple.from_url_query(params) if method == "GET" else \
+                RelationTuple.from_dict(body)
+            token = [("X-Keto-Snaptoken", service.snaptoken(params.get("snaptoken", "")))]
             try:
                 service.validate_namespaces(t)
             except NamespaceNotFoundError:
-                self._json(403 if mirror_status else 200, {"allowed": False})
+                self._json(403 if mirror_status else 200, {"allowed": False}, token)
                 return
-            (res,), token = service.check_batch([t], max_depth)
+            (res,) = service.check_batch([t], max_depth)
             if res.error is not None:
                 err = res.error
                 if isinstance(err, KetoError):
                     raise err
                 raise KetoError(str(err))
             code = 403 if (mirror_status and not res.allowed) else 200
-            self._json(code, {"allowed": res.allowed}, [("X-Keto-Snaptoken", token)])
+            self._json(code, {"allowed": res.allowed}, token)
 
         def _expand(self, params: dict) -> None:
             max_depth = _max_depth(params)
@@ -254,16 +255,18 @@ def make_handler(service: CheckService):
             if not namespace or not relation:
                 raise MalformedInputError(debug="list-objects requires namespace and relation")
             subject = _subject(params)
+            token = service.snaptoken(params.get("snaptoken", ""))
             nm = service.engine.config.namespace_manager()
             nm.get_namespace_by_name(namespace)
             if isinstance(subject, SubjectSet):
                 nm.get_namespace_by_name(subject.namespace)
-            objects, token = service.list_objects(
+            objects, next_page = service.list_objects(
                 namespace, relation, subject, max_depth,
                 page_size=_page_size(params, service.engine.config.page_size()),
                 page_token=params.get("page_token", ""),
             )
-            self._json(200, {"objects": objects, "next_page_token": token})
+            self._json(200, {"objects": objects, "next_page_token": next_page},
+                       [("X-Keto-Snaptoken", token)])
 
         def _list_subjects(self, params: dict) -> None:
             max_depth = _max_depth(params)
@@ -274,17 +277,19 @@ def make_handler(service: CheckService):
                 raise MalformedInputError(
                     debug="list-subjects requires namespace, object, and relation"
                 )
+            token = service.snaptoken(params.get("snaptoken", ""))
             service.engine.config.namespace_manager().get_namespace_by_name(namespace)
-            subjects, token = service.list_subjects(
+            subjects, next_page = service.list_subjects(
                 namespace, obj, relation, max_depth,
                 page_size=_page_size(params, service.engine.config.page_size()),
                 page_token=params.get("page_token", ""),
             )
-            self._json(200, {"subject_ids": subjects, "next_page_token": token})
+            self._json(200, {"subject_ids": subjects, "next_page_token": next_page},
+                       [("X-Keto-Snaptoken", token)])
 
         def _filter(self, params: dict) -> None:
-            """The subset of the candidate column the subject can see. The
-            port's routes send no snaptoken yet, so neither does this."""
+            """The subset of the candidate column the subject can see, in
+            request order."""
             body = self._body()
             if not isinstance(body, dict):
                 raise MalformedInputError("could not unmarshal json: expected object")
@@ -310,6 +315,7 @@ def make_handler(service: CheckService):
                     max_depth = int(body["max_depth"])
                 except (TypeError, ValueError):
                     raise MalformedInputError("max_depth must be an integer")
+            token = service.snaptoken(body.get("snaptoken") or params.get("snaptoken", ""))
             nm = service.engine.config.namespace_manager()
             nm.get_namespace_by_name(namespace)
             if subject_set is not None:
@@ -318,7 +324,7 @@ def make_handler(service: CheckService):
                 namespace, relation, subject_set if subject_set is not None else subject_id,
                 objects, max_depth,
             )
-            self._json(200, {"allowed_objects": allowed})
+            self._json(200, {"allowed_objects": allowed, "snaptoken": token})
 
         def _check_batch(self, params: dict) -> None:
             body = self._body()
@@ -338,6 +344,10 @@ def make_handler(service: CheckService):
                 raise MalformedInputError(
                     "could not unmarshal json: expected array of relation tuples"
                 )
+            req_token = params.get("snaptoken", "")
+            if isinstance(body, dict):
+                req_token = body.get("snaptoken") or req_token
+            token = service.snaptoken(req_token)
             out: list = [None] * len(raw)
             idx, tuples = [], []
             for i, d in enumerate(raw):
@@ -351,7 +361,7 @@ def make_handler(service: CheckService):
                     continue
                 idx.append(i)
                 tuples.append(t)
-            results, token = service.check_batch(tuples, max_depth)
+            results = service.check_batch(tuples, max_depth)
             for i, res in zip(idx, results):
                 if res.error is not None:
                     out[i] = {"allowed": False, "error": str(res.error)}

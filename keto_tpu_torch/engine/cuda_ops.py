@@ -14,8 +14,8 @@ returns: PyTorch's caching allocator hands their memory out again only in
 stream order, after the launch. The wrappers take CUDA tensors only; the
 plain versions for CPU tensors live beside the dispatchers in
 engine/kernel.py, engine/expand_kernel.py, engine/reverse_kernel.py,
-engine/closure_kernel.py, engine/filter_kernel.py and
-engine/closure_power.py.
+engine/closure_kernel.py, engine/filter_kernel.py,
+engine/closure_power.py and tools/microbench.py.
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(
     _PKG / "csrc" / name
     for name in ("check_kernels.cu", "expand_kernels.cu", "list_kernels.cu",
-                 "closure_filter_kernels.cu", "closure_power_kernels.cu")
+                 "closure_filter_kernels.cu", "closure_power_kernels.cu",
+                 "microbench_kernels.cu")
 )
 # headers the sources include: part of the library's content hash
 HEADERS = (_PKG / "csrc" / "probe.cuh",)
@@ -50,8 +51,12 @@ LIST_KERNELS = ("list_emit", "reverse_gather", "subjects_gather", "list_pool_com
 CLOSURE_KERNELS = ("closure_probe",)
 FILTER_KERNELS = ("filter_mark",)
 POWER_KERNELS = ("power_step", "power_account", "power_poison")
+# M1-M10: the primitives of the TPU microbenchmarks (tools/microbench.py)
+MICROBENCH_KERNELS = ("mb_probe", "mb_probe_smem", "mb_scatmax", "mb_scatmax_smem",
+                      "mb_pack_block", "mb_pack", "mb_hashprobe", "mb_add", "mb_row_gather",
+                      "mb_block_gather")
 KERNELS = (CHECK_KERNELS + EXPAND_KERNELS + LIST_KERNELS + CLOSURE_KERNELS + FILTER_KERNELS
-           + POWER_KERNELS)
+           + POWER_KERNELS + MICROBENCH_KERNELS)
 launches = {name: 0 for name in KERNELS}
 # the largest dynamic shared memory one block may take on Hopper, less
 # the kernels' static shared memory
@@ -138,6 +143,17 @@ _SIGNATURES = {
     "keto_power_step": [_VP] * 4 + [_I] * 3 + [_VP] * 6,
     "keto_power_account": [_VP] * 4 + [_I] * 5 + [_VP] * 3,
     "keto_power_poison": [_VP] * 4 + [_I] * 2 + [_VP] * 3,
+    "keto_mb_probe": [_VP, _VP, _I, _VP, _VP],
+    "keto_mb_probe_smem": [_VP, _I, _VP, _I, _VP, _VP],
+    "keto_mb_scatmax": [_VP, _VP, _I, _VP, _I, _VP],
+    "keto_mb_scatmax_smem": [_VP, _VP, _I, _VP, _I, _VP],
+    "keto_mb_pack_block": [_VP, _VP, _I, _VP, _VP, _VP],
+    "keto_mb_pack_blocks": [_I],
+    "keto_mb_pack": [_VP, _VP, _I, _VP, _VP, _VP, _VP],
+    "keto_mb_hashprobe": [_VP, _VP, _I, _VP, _I, _VP, _VP],
+    "keto_mb_add": [_VP, _VP, _I, _VP, _VP],
+    "keto_mb_row_gather": [_VP, _I, _VP, _I, _VP, _VP],
+    "keto_mb_block_gather": [_VP, _I, _VP, _I, _VP, _VP],
 }
 
 
@@ -603,5 +619,174 @@ def power_poison(R, pois_mask, counts, stats) -> torch.Tensor:
     lib = library()
     rc = lib.keto_power_poison(_p(R), _p(pois_mask), _p(counts), _p(stats), N, W, _p(pw), _p(out),
                                _stream())
+    _check(lib, rc, name)
+    return out
+
+
+# -- M1-M10: the microbenchmark primitives (tools/microbench.py) -------------
+
+
+def _require_aligned(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors read 16 bytes at a time must be 16-byte aligned")
+
+
+def _require_smem(name: str, nbytes: int) -> None:
+    if nbytes > MAX_DYNAMIC_SMEM:
+        raise ValueError(f"{name}: {nbytes} bytes do not fit one block's shared memory")
+
+
+def mb_probe(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """M1: out[i] = tab[idx[i]] over the flat tensors; out has idx's
+    shape. Indices must lie in [0, tab.numel())."""
+    name = "mb_probe"
+    _require(name, torch.int32, tab, idx)
+    out = torch.empty_like(idx)
+    lib = library()
+    _check(lib, lib.keto_mb_probe(_p(tab), _p(idx), idx.numel(), _p(out), _stream()), name)
+    return out
+
+
+def mb_probe_smem(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """M2: M1 with the table staged in each block's shared memory."""
+    name = "mb_probe_smem"
+    _require(name, torch.int32, tab, idx)
+    _require_aligned(name, tab)
+    cap = tab.numel()
+    if cap % 4:
+        raise ValueError(f"{name}: the table's size must be a multiple of 4")
+    _require_smem(name, 4 * cap)
+    out = torch.empty_like(idx)
+    lib = library()
+    rc = lib.keto_mb_probe_smem(_p(tab), cap, _p(idx), idx.numel(), _p(out), _stream())
+    _check(lib, rc, name)
+    return out
+
+
+def _scatmax_out(b: torch.Tensor, n_out: int) -> torch.Tensor:
+    return torch.empty((n_out, *b.shape[1:]), dtype=torch.int32, device=b.device)
+
+
+def mb_scatmax(b: torch.Tensor, p: torch.Tensor, *, n_out: int) -> torch.Tensor:
+    """M3: zeros(n_out) then out[b[i]] = max(out[b[i]], p[i]); out is
+    [n_out, *b.shape[1:]]. Buckets must lie in [0, n_out)."""
+    name = "mb_scatmax"
+    _require(name, torch.int32, b, p)
+    if p.shape != b.shape:
+        raise ValueError(f"{name}: buckets and priorities must have one shape")
+    out = _scatmax_out(b, n_out)
+    lib = library()
+    _check(lib, lib.keto_mb_scatmax(_p(b), _p(p), b.numel(), _p(out), n_out, _stream()), name)
+    return out
+
+
+def mb_scatmax_smem(b: torch.Tensor, p: torch.Tensor, *, n_out: int) -> torch.Tensor:
+    """M4: M3 on one block, the output held in its shared memory."""
+    name = "mb_scatmax_smem"
+    _require(name, torch.int32, b, p)
+    if p.shape != b.shape:
+        raise ValueError(f"{name}: buckets and priorities must have one shape")
+    _require_smem(name, 4 * n_out)
+    out = _scatmax_out(b, n_out)
+    lib = library()
+    rc = lib.keto_mb_scatmax_smem(_p(b), _p(p), b.numel(), _p(out), n_out, _stream())
+    _check(lib, rc, name)
+    return out
+
+
+def _pack_args(name: str, keep: torch.Tensor, vals: torch.Tensor):
+    _require(name, torch.int32, keep, vals)
+    _require_aligned(name, keep, vals)
+    if keep.shape != vals.shape:
+        raise ValueError(f"{name}: keep and vals must have one shape")
+    out = torch.empty_like(vals)
+    n = torch.empty((1, 1), dtype=torch.int32, device=vals.device)
+    return out, n
+
+
+def mb_pack_block(keep: torch.Tensor, vals: torch.Tensor):
+    """M5: (out, n): vals[keep != 0] in input order, zeros past the count
+    n ([1, 1]); one block."""
+    name = "mb_pack_block"
+    out, n = _pack_args(name, keep, vals)
+    lib = library()
+    rc = lib.keto_mb_pack_block(_p(keep), _p(vals), vals.numel(), _p(out), _p(n), _stream())
+    _check(lib, rc, name)
+    return out, n
+
+
+def mb_pack(keep: torch.Tensor, vals: torch.Tensor):
+    """M6: M5's function on many blocks (per-block counts, then a scan
+    and a scatter)."""
+    name = "mb_pack"
+    out, n = _pack_args(name, keep, vals)
+    lib = library()
+    F = vals.numel()
+    counts = torch.empty(lib.keto_mb_pack_blocks(F), dtype=torch.int32, device=vals.device)
+    rc = lib.keto_mb_pack(_p(keep), _p(vals), F, _p(counts), _p(out), _p(n), _stream())
+    _check(lib, rc, name)
+    return out, n
+
+
+def mb_hashprobe(keys: torch.Tensor, kvals: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """M7: the two-probe double-hash lookup of q in (keys, kvals), whose
+    size is a power of two: the value, or -1."""
+    name = "mb_hashprobe"
+    _require(name, torch.int32, keys, kvals, q)
+    cap = keys.numel()
+    if kvals.numel() != cap or cap < 1 or cap & (cap - 1):
+        raise ValueError(f"{name}: keys and values must be one power-of-two size")
+    out = torch.empty_like(q)
+    lib = library()
+    rc = lib.keto_mb_hashprobe(_p(keys), _p(kvals), cap, _p(q), q.numel(), _p(out), _stream())
+    _check(lib, rc, name)
+    return out
+
+
+def mb_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """M8: x + y, float32."""
+    name = "mb_add"
+    _require(name, torch.float32, x, y)
+    if x.shape != y.shape:
+        raise ValueError(f"{name}: x and y must have one shape")
+    out = torch.empty_like(x)
+    lib = library()
+    _check(lib, lib.keto_mb_add(_p(x), _p(y), x.numel(), _p(out), _stream()), name)
+    return out
+
+
+def _require_rows(name: str, tab: torch.Tensor) -> int:
+    _require_aligned(name, tab)
+    if tab.dim() != 2 or tab.shape[1] % 4:
+        raise ValueError(f"{name}: expects an [R, C] table, C a multiple of 4")
+    return tab.shape[1]
+
+
+def mb_row_gather(idx: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
+    """M9: out[i, :] = tab[idx[i], :]. Indices must lie in [0, R)."""
+    name = "mb_row_gather"
+    _require(name, torch.int32, idx, tab)
+    C = _require_rows(name, tab)
+    n = idx.numel()
+    out = torch.empty((n, C), dtype=torch.int32, device=tab.device)
+    lib = library()
+    _check(lib, lib.keto_mb_row_gather(_p(idx), n, _p(tab), C, _p(out), _stream()), name)
+    return out
+
+
+def mb_block_gather(bidx: torch.Tensor, tab: torch.Tensor, *, block_rows: int) -> torch.Tensor:
+    """M10: the [block_rows, C] blocks bidx[i] of tab, stacked into
+    [len(bidx) * block_rows, C]. Block indices must lie in
+    [0, R / block_rows)."""
+    name = "mb_block_gather"
+    _require(name, torch.int32, bidx, tab)
+    C = _require_rows(name, tab)
+    if block_rows < 1 or tab.shape[0] % block_rows:
+        raise ValueError(f"{name}: the table's rows must be whole blocks of {block_rows}")
+    nb = bidx.numel()
+    out = torch.empty((nb * block_rows, C), dtype=torch.int32, device=tab.device)
+    lib = library()
+    rc = lib.keto_mb_block_gather(_p(bidx), nb, _p(tab), block_rows * C, _p(out), _stream())
     _check(lib, rc, name)
     return out

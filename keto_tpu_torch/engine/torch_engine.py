@@ -403,23 +403,14 @@ class TorchCheckEngine:
         return ("batch", outputs, meta)
 
     def check_batch_resolve(self, handle) -> list[CheckResult]:
-        return self.check_batch_resolve_v(handle)[0]
-
-    def check_batch_resolve_v(self, handle):
-        """(results, versions): versions[i] is the store version a device
-        answer is authoritative at, None for host-replayed items (the
-        replay reads the live store)."""
         kind, outputs, meta = handle
         if kind == "empty":
-            return [], []
+            return []
         if kind == "multi":
             results: list[CheckResult] = []
-            versions: list = []
             for h in outputs:
-                r, v = self.check_batch_resolve_v(h)
-                results.extend(r)
-                versions.extend(v)
-            return results, versions
+                results.extend(self.check_batch_resolve(h))
+            return results
         if kind == "closure":
             return self._resolve_closure(outputs, meta)
         return self._resolve(outputs, meta)
@@ -431,7 +422,6 @@ class TorchCheckEngine:
         tuples, n, B = meta["tuples"], meta["n"], meta["B"]
         member, resolved = self._closure_read(outputs, B, n)
         results = [RESULT_IS_MEMBER if m else RESULT_NOT_MEMBER for m in member.tolist()]
-        versions: list = [meta["state"].covered_version] * n
         leftover = np.flatnonzero(~resolved).tolist()
         n_hits = n - len(leftover)
         self.stats["closure_hits"] += n_hits
@@ -439,11 +429,9 @@ class TorchCheckEngine:
         if leftover:
             sub = self.check_batch_submit([tuples[i] for i in leftover], meta["max_depth"],
                                           allow_closure=False)
-            sub_res, sub_ver = self.check_batch_resolve_v(sub)
-            for j, i in enumerate(leftover):
-                results[i] = sub_res[j]
-                versions[i] = sub_ver[j]
-        return results, versions
+            for i, res in zip(leftover, self.check_batch_resolve(sub)):
+                results[i] = res
+        return results
 
     def _resolve(self, outputs, meta):
         state = meta["state"]
@@ -463,18 +451,13 @@ class TorchCheckEngine:
             )
         else:
             member = ctx_hit[:B]
-        covered = state.covered_version
 
         if bool(q_valid[:n].all()) and not bool((needs_host[:n] > 0).any()):
             # every query answered on the device: the steady serving state
             self.stats["device_checks"] += n
-            return (
-                [RESULT_IS_MEMBER if m else RESULT_NOT_MEMBER for m in member[:n].tolist()],
-                [covered] * n,
-            )
+            return [RESULT_IS_MEMBER if m else RESULT_NOT_MEMBER for m in member[:n].tolist()]
 
         results: list[CheckResult] = []
-        versions: list = []
         n_host = 0
         host_causes = self.stats["host_cause"]
         # identical replayed queries within one batch evaluate once
@@ -482,7 +465,6 @@ class TorchCheckEngine:
         for i, t in enumerate(tuples):
             if q_valid[i] and not needs_host[i]:
                 results.append(RESULT_IS_MEMBER if member[i] else RESULT_NOT_MEMBER)
-                versions.append(covered)
                 continue
             n_host += 1
             cause = (
@@ -497,10 +479,9 @@ class TorchCheckEngine:
                 res = self.reference.check_relation_tuple(t, max_depth, self.nid)
                 replay_memo[key] = res
             results.append(res)
-            versions.append(None)
         self.stats["device_checks"] += n - n_host
         self.stats["host_checks"] += n_host
-        return results, versions
+        return results
 
     # -- expand API -------------------------------------------------------------
 

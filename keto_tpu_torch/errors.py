@@ -106,3 +106,17 @@ class FilterTooLargeError(KetoError):
     status = 400
     code = "bad_request"
     default_message = "filter candidate list exceeds filter.max_objects"
+
+
+class SnaptokenMalformedError(KetoError):
+    # a token that does not parse, or one minted for another network
+    status = 400
+    code = "bad_request"
+    default_message = "malformed snaptoken"
+
+
+class SnaptokenUnsatisfiableError(KetoError):
+    # the token demands a store version this store has not reached
+    status = 409
+    code = "conflict"
+    default_message = "snaptoken requires a newer snapshot than this store has"

@@ -4,7 +4,9 @@ expand, ListObjects, ListSubjects, closure and filter launches against
 the CPU run of the plain versions, under both table layouts and with the
 delta overlay (or the dirty table) on and off; the closure powering's P1-P3
 step by step on random waves, and whole device-powered builds against the
-CPU's. Tolerance: exact equality (every output is an integer).
+CPU's; the microbenchmark primitives M1-M10 (keto_tpu_torch/tools) on the
+TPU tools' draws and on edge sizes. Tolerance: exact equality (every
+output is an integer, and M8's float32 add is one rounding either way).
 
 These tests need an NVIDIA card and skip elsewhere; this file imports
 nothing of the JAX package, so it runs where JAX is not installed:
@@ -12,6 +14,7 @@ nothing of the JAX package, so it runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import json
 import random
 
 import numpy as np
@@ -738,3 +741,98 @@ def test_power_closure_device_on_card_equals_cpu(cuda, max_set_rows, budget):
     assert np.array_equal(got.covered_keys, host.covered_keys)
     assert np.array_equal(got.ent_req, host.ent_req)
     assert 0 < len(got.covered_keys) < len(graph.universe)
+
+
+def _same(got, want) -> bool:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return all(a.shape == b.shape and torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,CAP,F_large", [(256, 512, 4099), (16384, 32768, 1 << 20),
+                                           (5001, 4096, (1 << 20) + 5)])
+def test_microbench_kernels_match_plain_on_card(cuda, F, CAP, F_large):
+    """M1-M7 against their plain versions on the same CUDA tensors, on the
+    TPU tool's draws (its hash probe with planted keys so both probe arms
+    hit), M3, M5 and M6 also at a larger F; ragged sizes included."""
+    from keto_tpu_torch.tools import microbench as mb
+
+    inp = mb.make_inputs(F, CAP, seed=F)
+    inp["keys"] = mb.plant_keys(inp["keys"], inp["qk"], min(F // 4, 1024))
+    ops = mb.ops(inp, cuda, large=mb.make_inputs(F_large, CAP, seed=F_large))
+    assert len(ops) == 10
+    for o in ops:
+        before = cuda_ops.launches[o.kernel]
+        got = o.run()
+        assert cuda_ops.launches[o.kernel] == before + 1, o.op
+        assert _same(got, o.plain()), o.op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 2047, 2048, 2049, 4096 * 3 + 1, (1 << 20) + 3])
+@pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
+def test_pack_kernels_edge_counts_on_card(cuda, n, density):
+    """M5 and M6: survivors in input order and zeros past the count for
+    empty, full and ragged columns, across tile and block boundaries."""
+    from keto_tpu_torch.tools import microbench as mb
+
+    g = torch.Generator().manual_seed(n)
+    keep = (torch.rand(n, 1, generator=g) < density).to(torch.int32)
+    vals = torch.randint(1, 1 << 20, (n, 1), generator=g, dtype=torch.int32)
+    want = mb.pack_plain(keep, vals)
+    for fn in (cuda_ops.mb_pack_block, cuda_ops.mb_pack):
+        out, cnt = fn(keep.to(cuda), vals.to(cuda))
+        assert torch.equal(out.cpu(), want[0]) and torch.equal(cnt.cpu(), want[1]), fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out", [1, 7, 4096])
+def test_scatmax_kernels_under_contention_on_card(cuda, n_out):
+    """M3 and M4 with many updates a bucket, negative priorities included
+    (the output starts at zero, so they never win)."""
+    from keto_tpu_torch.tools import microbench as mb
+
+    g = torch.Generator().manual_seed(n_out)
+    b = torch.randint(0, n_out, (100_003, 1), generator=g, dtype=torch.int32)
+    p = torch.randint(-(1 << 30), 1 << 30, (100_003, 1), generator=g, dtype=torch.int32)
+    want = mb.scatmax_plain(b, p, n_out=n_out)
+    for fn in (cuda_ops.mb_scatmax, cuda_ops.mb_scatmax_smem):
+        assert torch.equal(fn(b.to(cuda), p.to(cuda), n_out=n_out).cpu(), want), fn
+
+
+@pytest.mark.cuda
+def test_feasibility_kernels_match_plain_on_card(cuda):
+    """M8-M10 on the TPU tool's constants, then on wider shapes."""
+    from keto_tpu_torch.tools import microbench_feasibility as mf
+
+    for o in mf.ops(cuda):
+        before = cuda_ops.launches[o.kernel]
+        assert _same(o.run(), o.plain()), o.op
+        assert cuda_ops.launches[o.kernel] == before + 1
+    g = torch.Generator().manual_seed(3)
+    x, y = torch.randn(3, 1001, generator=g), torch.randn(3, 1001, generator=g)
+    assert torch.equal(cuda_ops.mb_add(x.to(cuda), y.to(cuda)).cpu(), x + y)
+    tab = torch.randint(-100, 100, (1024, 260), generator=g, dtype=torch.int32)
+    idx = torch.randint(0, 1024, (777,), generator=g, dtype=torch.int32)
+    assert torch.equal(cuda_ops.mb_row_gather(idx.to(cuda), tab.to(cuda)).cpu(),
+                       mf.row_gather_plain(idx, tab))
+    bidx = torch.randint(0, 256, (300,), generator=g, dtype=torch.int32)
+    got = cuda_ops.mb_block_gather(bidx.to(cuda), tab.to(cuda), block_rows=4)
+    assert torch.equal(got.cpu(), mf.block_gather_plain(bidx, tab, block_rows=4))
+
+
+@pytest.mark.cuda
+def test_microbench_entry_points_on_card(cuda, capsys):
+    """Both tools on the card: every op line well formed, every probe ok."""
+    from keto_tpu_torch.tools import microbench as mb
+    from keto_tpu_torch.tools import microbench_feasibility as mf
+
+    assert mb.main(["--n", "2"]) == 0
+    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
+    assert len(lines) == 16 and lines[-1]["op"] == "device"
+    assert torch.cuda.get_device_name(0) in lines[-1]["note"]
+    assert all(line["ms"] > 0 and line["bound_ms"] > 0 for line in lines[:-1])
+    assert mf.main([]) == 0
+    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
+    assert [line.get("ok") for line in lines[1:]] == [True, True, True]

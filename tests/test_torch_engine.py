@@ -186,8 +186,8 @@ def test_cuda_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_import_boundary():
-    """Importing the port, its engine and its entry point loads neither
-    jax nor any module of keto_tpu."""
+    """Importing the port, its engine, its entry point and its tools loads
+    neither jax nor any module of keto_tpu."""
     code = (
         "import sys, runpy\n"
         "import keto_tpu_torch, keto_tpu_torch.__main__\n"
@@ -195,6 +195,8 @@ def test_import_boundary():
         "import keto_tpu_torch.engine.expand_kernel, keto_tpu_torch.engine.reverse_kernel\n"
         "import keto_tpu_torch.engine.closure, keto_tpu_torch.engine.closure_kernel\n"
         "import keto_tpu_torch.engine.filter_kernel, keto_tpu_torch.engine.closure_power\n"
+        "import keto_tpu_torch.engine.snaptoken, keto_tpu_torch.tools.microbench\n"
+        "import keto_tpu_torch.tools.microbench_feasibility\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'keto_tpu' or m.startswith('keto_tpu.'))\n"
         "print(bad)\n"

@@ -20,7 +20,8 @@ from keto_tpu.ketoapi import RelationTuple as JTuple
 from keto_tpu.ketoapi import SubjectSet as JSubjectSet
 from keto_tpu.storage import MemoryManager as JMemory
 
-from keto_tpu_torch.api.rest_server import encode_snaptoken, make_server
+from keto_tpu_torch.api.rest_server import make_server
+from keto_tpu_torch.engine.snaptoken import encode_snaptoken
 from keto_tpu_torch.config import Config
 from keto_tpu_torch.engine.torch_engine import TorchCheckEngine
 from keto_tpu_torch.ketoapi import RelationTuple
@@ -234,7 +235,8 @@ def test_filter_route_matches_jax_engine(filter_server, case):
     sub = JSubjectSet.from_string(subject) if "#" in subject else subject
     want = jax_engine.filter_objects(body["namespace"], body["relation"], sub, body["objects"],
                                      body.get("max_depth", 0))
-    assert _post(base, FILTER_ROUTE, body) == (200, {"allowed_objects": want})
+    assert _post(base, FILTER_ROUTE, body) == (
+        200, {"allowed_objects": want, "snaptoken": encode_snaptoken(1, "default")})
     if case == "duplicates_kept_in_order":
         assert want == ["/d2/v1", "/d1/v1", "/d2/v1"]
 
@@ -244,7 +246,8 @@ def test_filter_route_rides_the_closure(filter_server):
     before = engine.stats["filter_closure"]
     code, body = _post(base, FILTER_ROUTE, {"namespace": "chain", "relation": "member",
                                             "subject_id": "d_alice", "objects": ["g1", "g6"]})
-    assert (code, body) == (200, {"allowed_objects": ["g1", "g6"]})
+    assert (code, body) == (200, {"allowed_objects": ["g1", "g6"],
+                                  "snaptoken": encode_snaptoken(1, "default")})
     assert engine.stats["filter_closure"] == before + 2
 
 
@@ -311,7 +314,8 @@ def test_serve_entry_point(tmp_path):
         code, body = _post(base, FILTER_ROUTE, {
             "namespace": "videos", "relation": "view", "subject_id": "cat lady",
             "objects": ["/cats/2.mp4", "/cats/9.mp4", "/cats/1.mp4"]})
-        assert (code, body) == (200, {"allowed_objects": ["/cats/2.mp4", "/cats/1.mp4"]})
+        assert (code, body) == (200, {"allowed_objects": ["/cats/2.mp4", "/cats/1.mp4"],
+                                      "snaptoken": encode_snaptoken(1, "default")})
     finally:
         proc.terminate()
         assert proc.wait(timeout=30) == 0
