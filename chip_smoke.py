@@ -37,7 +37,9 @@ Phases, in order; any failure exits non-zero without the final line:
   8. list    — on phase 4's store and engine: (8a) the reverse and subjects
                states' build seconds and table bytes; (8b) L1-L4 against
                their plain versions on inputs captured from one real batch
-               of each leg, as phase 3; (8c) ListObjects, bench.py's batch
+               of each leg, as phase 3, and K4 on ListObjects' step-1
+               launch at G = F = 2^20 (the dedupe_compact row's "large"
+               entry); (8c) ListObjects, bench.py's batch
                of 256 users' `view` at depth 5 with caps scaled to the
                data: zero host replays, L1, L2, L4, K2 and K4 launched, 32
                sampled answers equal to the generator's ownership maps, 4
@@ -512,20 +514,26 @@ def kernel_cases(rec, snap, tables):
         F3 * S3 * 3 + n_out * (2 * (F3 * S3).bit_length() + 20),
     ))
 
-    args4, kw4 = rec.args("dedupe_compact")
-    G = args4[0].shape[0]
-
-    def plain4():
-        return tk.dedupe_compact_plain(tk.Expansion(*args4), **kw4)
-
-    cases.append((
-        "dedupe_compact",
-        lambda: cuda_ops.dedupe_compact(*args4, **kw4),
-        plain4,
-        G * (5 * 4 + 1) + kw4["F"] * 5 * 4 + 4 + kw4["n_queries"] * 4,
-        G * (2 * (3 * HASH_OPS + 10) + 3),
-    ))
+    cases.append(dedupe_kernel_case(*rec.args("dedupe_compact")))
     return cases
+
+
+def dedupe_kernel_case(args, kw):
+    """K4's (name, kernel fn, plain fn, bytes, operations) on captured
+    inputs: the five columns and valid read once, the [F] frontier, n_new
+    and the causes written once; per candidate two hashes and the keep
+    test."""
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine import kernel as tk
+
+    G = args[0].shape[0]
+    return (
+        "dedupe_compact",
+        lambda: cuda_ops.dedupe_compact(*args, **kw),
+        lambda: tk.dedupe_compact_plain(tk.Expansion(*args), **kw),
+        G * (5 * 4 + 1) + kw["F"] * 5 * 4 + 4 + kw["n_queries"] * 4,
+        G * (2 * (3 * HASH_OPS + 10) + 3),
+    )
 
 
 def expand_kernel_cases(rec):
@@ -685,6 +693,12 @@ def list_kernel_cases(rec_lo, rec_ls):
 
 
 # -- phases ------------------------------------------------------------------------
+
+
+# the keys of a kernel row's nested "large" entry: the same kernel timed
+# again at a larger shape
+LARGE_KEYS = ("note", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "wall_ms", "plain_wall_ms", "bytes", "ops")
 
 
 def time_kernel(name, kernel, plain, nbytes, ops, compare, only=None,
@@ -1069,16 +1083,24 @@ def setup_list(engine):
 
 
 def run_list_kernels(engine, lo_queries, ls_queries):
+    """L1-L4's rows, and K4 on ListObjects' step-1 launch (G = F = 2^20)
+    as the dedupe_compact row's "large" entry."""
     from keto_tpu_torch.engine import cuda_ops
 
-    t0 = phase("8b kernels: L1-L4 against their plain versions, on real list batches")
+    t0 = phase("8b kernels: L1-L4 and K4 at G = 2^20 against their plain versions, "
+               "on real list batches")
     with Recorder(cuda_ops, step=1, steps={"list_emit": 2}) as rec_lo:
         engine.list_objects_batch(lo_queries, LIST_DEPTH, **LO_CAPS)
     with Recorder(cuda_ops, step=1) as rec_ls:
         engine.list_subjects_batch(ls_queries, LIST_DEPTH, **LS_CAPS)
     rows = [time_kernel(*case) for case in list_kernel_cases(rec_lo, rec_ls)]
+    args4, kw4 = rec_lo.args("dedupe_compact")
+    name, kernel, plain, nbytes, ops = dedupe_kernel_case(args4, kw4)
+    large = time_kernel(name, kernel, plain, nbytes, ops,
+                        lambda: max_abs_err(kernel(), plain()))
+    large["note"] = f"ListObjects' step-1 launch, G = {args4[0].shape[0]}, F = {kw4['F']}"
     log(f"  kernels phase {time.perf_counter() - t0:.1f} s")
-    return rows
+    return rows, {k: large[k] for k in LARGE_KEYS}
 
 
 def run_list_leg(engine, leg, queries, caps, want_kernels, check):
@@ -1980,9 +2002,7 @@ def run_microbench():
         row["note"] = o.note
         log(f"  {o.op}: library {row['library_ms']} ms")
         if o.kernel in by_kernel:
-            by_kernel[o.kernel]["large"] = {k: row[k] for k in (
-                "note", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "wall_ms", "plain_wall_ms", "bytes", "ops")}
+            by_kernel[o.kernel]["large"] = {k: row[k] for k in LARGE_KEYS}
         else:
             by_kernel[o.kernel] = row
             rows.append(row)
@@ -2055,7 +2075,9 @@ def main() -> int:
     # the list phases run on phase 4's store and engine
     lo_queries, ls_queries = list_queries()
     l_info = setup_list(engine)
-    rows += run_list_kernels(engine, lo_queries, ls_queries)
+    list_rows, dedupe_large = run_list_kernels(engine, lo_queries, ls_queries)
+    next(row for row in rows if row["name"] == "dedupe_compact")["large"] = dedupe_large
+    rows += list_rows
     lo_launches, list_objects = run_list_objects(engine, manager, config, lo_queries, owners)
     ls_launches, list_subjects = run_list_subjects(engine, manager, config, ls_queries)
     # the closure phase's deep store joins now; the filter phase runs on

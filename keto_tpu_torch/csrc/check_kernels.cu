@@ -12,16 +12,30 @@
 //                        (the rh span probe and the dirty-row probe).
 // K3 keto_expand_gather  replaces expand_phase's counts -> exclusive scan
 //                        -> covering-segment map -> source gather ->
-//                        e_pack child gather.
-// K4 keto_dedupe_compact replaces dedupe_phase.
+//                        e_pack child gather: tile sums, then a scan of
+//                        each tile from its base, then the gather.
+// K4 keto_dedupe_compact replaces dedupe_phase: claim, keep and count,
+//                        then scan and scatter.
+//
+// K3's and K4's scans are multi-block (scan.cuh): a launch over the slots
+// or the candidates never runs on one block; only the at most kMaxTiles
+// tile sums are summed by each block on its own.
 
 #include "probe.cuh"
+#include "scan.cuh"
 
 namespace {
 
 constexpr int kCauseFrontierOverflow = 2;
 constexpr int kProbeThreads = 256;
-constexpr int kScanThreads = 1024;
+// K3's counts and K4's candidates a tile (scan_tile doubles it past
+// kMaxTiles tiles): one round of 4 a thread. Timed against 2,048 and
+// 4,096 (PERF.md §6): fewer items a block win at every shape.
+constexpr int kScanTile = 1024;
+// K3: output slots a gather block
+constexpr int kGatherThreads = 256;
+// K4's keep pass: candidates a thread loads before it waits on any
+constexpr int kKeepUnroll = 4;
 
 // ---------------------------------------------------------------------------
 // K1 edge_probe
@@ -97,67 +111,110 @@ __global__ void pair_probe_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Block-wide exclusive scan (any block size that is a multiple of 32).
-// ---------------------------------------------------------------------------
-
-__device__ unsigned block_exclusive_scan(unsigned v, unsigned* warp_sums) {
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  unsigned x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned y = __shfl_up_sync(0xFFFFFFFFu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    unsigned w = lane < nwarps ? warp_sums[lane] : 0u;
-    for (int o = 1; o < 32; o <<= 1) {
-      const unsigned y = __shfl_up_sync(0xFFFFFFFFu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < nwarps) warp_sums[lane] = w;
-  }
-  __syncthreads();
-  const unsigned prefix = wid > 0 ? warp_sums[wid - 1] : 0u;
-  return prefix + x - v;
-}
-
-// ---------------------------------------------------------------------------
 // K3 expand_gather
 //
-// Bound: bytes, and latency at these sizes: the counts are F*S ints and
-// the outputs six [F] columns, a few hundred KB in all. Design: pass 1 is
-// one block that scans the counts in thread-contiguous chunks (so the
-// offsets come out in candidate order) and raises the frontier-overflow
-// cause of every segment the cap cuts off; pass 2 gives each output slot
-// j a binary search for the last segment whose offset is <= j (the
-// searchsorted map of the JAX kernel), then gathers the source columns
-// and the (obj, rel) edge pair. Candidates land in the same order as the
-// JAX kernel's.
+// Bound: bytes: the F*S counts read once; per candidate that lands, its
+// segment's starts, slot_ctx, crel and is_comp, its task's q, obj and
+// depth, and an e_pack pair; six [F] columns and the causes written. A
+// few hundred KB at Check's shape, so the launches' latency, not the
+// card's memory rate, sets the time. Design: three launches, none of
+// them one block over the slots. (1) Each block sums a tile of the flat
+// counts with 16-byte loads (and the grid zeroes the causes). (2) Each
+// block sums the tile sums before its own (scan.cuh), scans its tile in
+// slot order from there, writes the exclusive offsets and raises the
+// frontier-overflow cause of every segment the cap cuts off (c > 0 and
+// off + c > F); block 0 writes the total. (3) One thread per output slot
+// j < F binary-searches the offsets, now in L2, for its segment,
+// searchsorted(offsets, j, right) - 1 clamped to [0, F*S - 1], and
+// gathers the source columns and the (obj, rel) edge pair. A slot at or
+// past the total maps to the last segment, F*S - 1, and carries its
+// columns with valid 0, as the plain version does. (A block-local map,
+// each block finding its first segment by a 256-way search and searching
+// the offsets after it in shared memory, timed slower at Check's shape:
+// PERF.md §6.) This replaced one block that scanned the counts in
+// thread-contiguous, uncoalesced chunks. Candidates land in the same
+// order as the JAX kernel's.
 // ---------------------------------------------------------------------------
 
-__global__ void expand_scan_kernel(
-    const int* __restrict__ counts, int n, int F, int S, const int* __restrict__ q,
-    int* __restrict__ offsets, int* __restrict__ total_out, int* __restrict__ overflow) {
-  __shared__ unsigned warp_sums[32];
-  const int t = threadIdx.x;
-  const int chunk = (n + blockDim.x - 1) / blockDim.x;
-  const int lo = min(n, t * chunk);
-  const int hi = min(n, lo + chunk);
-  unsigned s = 0;
-  for (int i = lo; i < hi; ++i) s += (unsigned)counts[i];
-  unsigned run = block_exclusive_scan(s, warp_sums);
-  for (int i = lo; i < hi; ++i) {
-    const int c = counts[i];
-    offsets[i] = (int)run;
-    if (c > 0 && (int)(run + (unsigned)c) > F) {
-      atomicMax(&overflow[q[i / S]], kCauseFrontierOverflow);
-    }
-    run += (unsigned)c;
+// the 4 ints of a from i0, zeros at or past hi; one 16-byte load where
+// all four lie below hi and the address is aligned
+__device__ __forceinline__ int4 load4(const int* __restrict__ a, int i0, int hi) {
+  if (i0 + 3 < hi && (reinterpret_cast<uintptr_t>(a + i0) & 15) == 0) {
+    return __ldg(reinterpret_cast<const int4*>(a + i0));
   }
-  if (t == (int)blockDim.x - 1) *total_out = (int)run;
+  int4 v;
+  v.x = i0 < hi ? __ldg(a + i0) : 0;
+  v.y = i0 + 1 < hi ? __ldg(a + i0 + 1) : 0;
+  v.z = i0 + 2 < hi ? __ldg(a + i0 + 2) : 0;
+  v.w = i0 + 3 < hi ? __ldg(a + i0 + 3) : 0;
+  return v;
+}
+
+// Raises query qi's frontier-overflow cause. The read first means a
+// query that many candidates overflow (a filter walk's one query) takes
+// a few atomics, not one each.
+__device__ __forceinline__ void raise_overflow(int* overflow, int qi) {
+  if (overflow[qi] < kCauseFrontierOverflow) atomicMax(&overflow[qi], kCauseFrontierOverflow);
+}
+
+// a[0, n) = 0 over the whole grid: the per-query causes, zeroed by the
+// first pass of K3 and K4 instead of a memset launch of their own
+__device__ __forceinline__ void zero_grid(int* a, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) a[i] = 0;
+}
+
+// zeroes overflow too: the offsets pass, one launch later, raises it
+__global__ void expand_tile_sums_kernel(const int* __restrict__ counts, int n, int tile,
+                                        int* __restrict__ tile_sums, int* __restrict__ overflow,
+                                        int n_queries) {
+  __shared__ unsigned warp_sums[64];
+  zero_grid(overflow, n_queries);
+  const int lo = blockIdx.x * tile;
+  const int hi = min(n, lo + tile);
+  unsigned s = 0;
+  for (int i0 = lo + 4 * (int)threadIdx.x; i0 < hi; i0 += 4 * (int)blockDim.x) {
+    const int4 c = load4(counts, i0, hi);
+    s += (unsigned)c.x + (unsigned)c.y + (unsigned)c.z + (unsigned)c.w;
+  }
+  s = block_sum(s, warp_sums);
+  if (threadIdx.x == 0) tile_sums[blockIdx.x] = (int)s;
+}
+
+// offsets is 16-byte aligned (the wrapper allocates it), and so is every
+// i0 below, tiles being whole rounds of 4 slots a thread
+__global__ void expand_offsets_kernel(
+    const int* __restrict__ counts, int n, int tile, const int* __restrict__ tile_sums,
+    int n_tiles, int F, int S, const int* __restrict__ q, int* __restrict__ offsets,
+    int* __restrict__ total, int* __restrict__ overflow) {
+  __shared__ unsigned warp_sums[64];
+  unsigned all;
+  unsigned base = tile_base(tile_sums, n_tiles, warp_sums, &all);
+  const int lo = blockIdx.x * tile;
+  const int hi = min(n, lo + tile);
+  for (int r = lo; r < hi; r += 4 * (int)blockDim.x) {
+    const int i0 = r + 4 * (int)threadIdx.x;
+    const int4 c4 = load4(counts, i0, hi);
+    const int c[4] = {c4.x, c4.y, c4.z, c4.w};
+    unsigned round_total;
+    unsigned off = base + block_exclusive_scan(
+        (unsigned)c[0] + (unsigned)c[1] + (unsigned)c[2] + (unsigned)c[3], warp_sums,
+        &round_total);
+    int o[4];
+    for (int e = 0; e < 4; ++e) {
+      o[e] = (int)off;
+      if (i0 + e < hi && c[e] > 0 && (int)(off + (unsigned)c[e]) > F) {
+        raise_overflow(overflow, q[(i0 + e) / S]);
+      }
+      off += (unsigned)c[e];
+    }
+    if (i0 + 3 < hi) {
+      *reinterpret_cast<int4*>(offsets + i0) = make_int4(o[0], o[1], o[2], o[3]);
+    } else {
+      for (int e = 0; e < 4 && i0 + e < hi; ++e) offsets[i0 + e] = o[e];
+    }
+    base += round_total;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *total = (int)all;
 }
 
 __global__ void expand_gather_kernel(
@@ -171,6 +228,7 @@ __global__ void expand_gather_kernel(
     uint8_t* __restrict__ out_valid) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= F) return;
+  const int tot = *total;
   int lo = 0, hi = n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -180,7 +238,7 @@ __global__ void expand_gather_kernel(
   const int ti = seg / S;
   const bool slot0 = (seg % S) == 0;
   const bool comp = is_comp[seg] != 0;
-  const bool in_range = j < min(*total, F);
+  const bool in_range = j < min(tot, F);
   const int within = j - offsets[seg];
   int e = starts[seg] + within;
   e = min(max(e, 0), max(n_edges - 1, 0));
@@ -201,14 +259,28 @@ __global__ void expand_gather_kernel(
 // ---------------------------------------------------------------------------
 // K4 dedupe_compact
 //
-// Bound: bytes and atomics: G candidates of 24 B each read twice, one
-// atomicMax each into a 2G-bucket table that stays in L2, F frontier rows
-// written. Design: pass 1 races every valid candidate for its bucket
-// with atomicMax on the unsigned priority (depth << idx_bits) | index;
-// pass 2 is one block: each thread takes a contiguous chunk, reads its
-// candidates' winners back, applies the same-key test, scans the keep
-// counts, and writes the survivors to the next frontier in candidate
-// order (zeros past the survivors, as the JAX scatter leaves them).
+// Bound: bytes: G candidates of 21 B (five int columns and valid) read
+// once, F frontier rows of 20 B and the causes written; besides, one L2
+// atomicMax a valid candidate into a winner table of 2G buckets (8 MB at
+// G = 2^20, held in the 50 MB L2) and a random read of its bucket's
+// winner and, when it lost, of the winner's key. Design: four grid-wide
+// passes in the shape of M6 (microbench_kernels.cu pack_count_kernel /
+// pack_scatter_kernel). (1) A memset of the winner table. (2) Claim: one
+// thread a candidate races for its bucket with atomicMax on (depth <<
+// idx_bits) | index; the max is order-free, so the winner is
+// deterministic. (3) Keep and count: each block takes a tile of
+// candidates, kKeepUnroll a thread a round (coalesced), computes keep
+// once (valid, and it won its bucket or lost to a different key), writes
+// it to a [G] byte scratch and the tile's count to tile_counts; the grid
+// zeroes the causes. (4) Scan and scatter: each block sums the counts of
+// the tiles before its own (scan.cuh), scans its tile's keep bytes in
+// candidate order (4 a thread a round, one 4-byte load), writes the five
+// columns of a survivor below F and raises the overflow cause of one at
+// or past F, and zeroes its grid-stride share of [min(n_keep, F), F),
+// where the JAX scatter leaves zeros; block 0 writes n_new. This
+// replaced one block of 1,024 threads that walked thread-contiguous
+// chunks (uncoalesced), re-hashing each candidate twice, while 131 SMs
+// idled.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t hash3(int a, int b, int c) {
@@ -228,57 +300,103 @@ __global__ void dedupe_claim_kernel(
   atomicMax(&winner[b], (dc << idx_bits) | (uint32_t)i);
 }
 
-__device__ __forceinline__ bool dedupe_keep(
-    int i, const int* ctx, const int* obj, const int* rel, const uint8_t* valid,
-    uint32_t cap, uint32_t idx_mask, const unsigned* winner) {
-  if (!valid[i]) return false;
-  const int c = ctx[i], o = obj[i], r = rel[i];
-  const int w = (int)(winner[hash3(c, o, r) & (cap - 1u)] & idx_mask);
-  if (w == i) return true;
-  return !(ctx[w] == c && obj[w] == o && rel[w] == r);
+// zeroes overflow too: the scatter pass, one launch later, raises it
+__global__ void dedupe_keep_kernel(
+    const int* __restrict__ ctx, const int* __restrict__ obj, const int* __restrict__ rel,
+    const uint8_t* __restrict__ valid, int G, int tile, uint32_t cap, int idx_bits,
+    const unsigned* __restrict__ winner, uint8_t* __restrict__ keep,
+    int* __restrict__ tile_counts, int* __restrict__ overflow, int n_queries) {
+  __shared__ unsigned warp_sums[64];
+  zero_grid(overflow, n_queries);
+  const uint32_t idx_mask = (1u << idx_bits) - 1u;
+  const int lo = blockIdx.x * tile;
+  const int hi = min(G, lo + tile);
+  unsigned kept = 0;
+  // kKeepUnroll candidates a thread a round, each level of loads issued
+  // for all of them before any is used: three waits a round, not three
+  // a candidate
+  for (int r = lo; r < hi; r += kKeepUnroll * (int)blockDim.x) {
+    int c[kKeepUnroll], o[kKeepUnroll], rl[kKeepUnroll], w[kKeepUnroll];
+    bool v[kKeepUnroll];
+#pragma unroll
+    for (int u = 0; u < kKeepUnroll; ++u) {
+      const int i = r + u * (int)blockDim.x + (int)threadIdx.x;
+      v[u] = i < hi && valid[i];
+      c[u] = v[u] ? ctx[i] : 0;
+      o[u] = v[u] ? obj[i] : 0;
+      rl[u] = v[u] ? rel[i] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kKeepUnroll; ++u) {
+      w[u] = v[u] ? (int)(winner[hash3(c[u], o[u], rl[u]) & (cap - 1u)] & idx_mask) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kKeepUnroll; ++u) {
+      const int i = r + u * (int)blockDim.x + (int)threadIdx.x;
+      const bool k = v[u] && (w[u] == i || !(ctx[w[u]] == c[u] && obj[w[u]] == o[u] &&
+                                              rel[w[u]] == rl[u]));
+      if (i < hi) keep[i] = k;
+      kept += k;
+    }
+  }
+  kept = block_sum(kept, warp_sums);
+  if (threadIdx.x == 0) tile_counts[blockIdx.x] = (int)kept;
 }
 
-__global__ void dedupe_compact_kernel(
+// keep is 4-byte aligned (the wrapper allocates it), and so is every i0
+__global__ void dedupe_scatter_kernel(
     const int* __restrict__ q, const int* __restrict__ ctx, const int* __restrict__ obj,
     const int* __restrict__ rel, const int* __restrict__ depth,
-    const uint8_t* __restrict__ valid, int G, int F, uint32_t cap, int idx_bits,
-    const unsigned* __restrict__ winner, int* __restrict__ overflow,
+    const uint8_t* __restrict__ keep, int G, int F, int tile,
+    const int* __restrict__ tile_counts, int n_tiles, int* __restrict__ overflow,
     int* __restrict__ nt_q, int* __restrict__ nt_ctx, int* __restrict__ nt_obj,
     int* __restrict__ nt_rel, int* __restrict__ nt_depth, int* __restrict__ n_new) {
-  __shared__ unsigned warp_sums[32];
-  __shared__ int kept_total;
-  const uint32_t idx_mask = (1u << idx_bits) - 1u;
-  const int t = threadIdx.x;
-  const int chunk = (G + blockDim.x - 1) / blockDim.x;
-  const int lo = min(G, t * chunk);
-  const int hi = min(G, lo + chunk);
-  unsigned s = 0;
-  for (int i = lo; i < hi; ++i) s += dedupe_keep(i, ctx, obj, rel, valid, cap, idx_mask, winner);
-  unsigned pos = block_exclusive_scan(s, warp_sums);
-  for (int i = lo; i < hi; ++i) {
-    if (!dedupe_keep(i, ctx, obj, rel, valid, cap, idx_mask, winner)) continue;
-    if ((int)pos < F) {
-      nt_q[pos] = q[i];
-      nt_ctx[pos] = ctx[i];
-      nt_obj[pos] = obj[i];
-      nt_rel[pos] = rel[i];
-      nt_depth[pos] = depth[i];
-    } else {
-      atomicMax(&overflow[q[i]], kCauseFrontierOverflow);
+  __shared__ unsigned warp_sums[64];
+  unsigned all;
+  unsigned pos = tile_base(tile_counts, n_tiles, warp_sums, &all);
+  const int lo = blockIdx.x * tile;
+  const int hi = min(G, lo + tile);
+  for (int r = lo; r < hi; r += 4 * (int)blockDim.x) {
+    const int i0 = r + 4 * (int)threadIdx.x;
+    uchar4 k4 = make_uchar4(0, 0, 0, 0);
+    if (i0 + 3 < hi) {
+      k4 = __ldg(reinterpret_cast<const uchar4*>(keep + i0));
+    } else if (i0 < hi) {
+      k4.x = keep[i0];
+      k4.y = i0 + 1 < hi ? keep[i0 + 1] : 0;
+      k4.z = i0 + 2 < hi ? keep[i0 + 2] : 0;
     }
-    ++pos;
+    const uint8_t k[4] = {k4.x, k4.y, k4.z, k4.w};
+    unsigned round_total;
+    unsigned p = pos + block_exclusive_scan(
+        (unsigned)k[0] + (unsigned)k[1] + (unsigned)k[2] + (unsigned)k[3], warp_sums,
+        &round_total);
+    for (int e = 0; e < 4; ++e) {
+      if (!k[e]) continue;
+      const int i = i0 + e;
+      if ((int)p < F) {
+        nt_q[p] = q[i];
+        nt_ctx[p] = ctx[i];
+        nt_obj[p] = obj[i];
+        nt_rel[p] = rel[i];
+        nt_depth[p] = depth[i];
+      } else {
+        raise_overflow(overflow, q[i]);
+      }
+      ++p;
+    }
+    pos += round_total;
   }
-  if (t == (int)blockDim.x - 1) kept_total = (int)pos;
-  __syncthreads();
-  const int n_in = min(kept_total, F);
-  for (int p = n_in + t; p < F; p += blockDim.x) {
-    nt_q[p] = 0;
-    nt_ctx[p] = 0;
-    nt_obj[p] = 0;
-    nt_rel[p] = 0;
-    nt_depth[p] = 0;
+  const int n_in = min((int)all, F);
+  for (int t = n_in + blockIdx.x * blockDim.x + threadIdx.x; t < F;
+       t += gridDim.x * blockDim.x) {
+    nt_q[t] = 0;
+    nt_ctx[t] = 0;
+    nt_obj[t] = 0;
+    nt_rel[t] = 0;
+    nt_depth[t] = 0;
   }
-  if (t == 0) *n_new = n_in;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *n_new = n_in;
 }
 
 }  // namespace
@@ -322,15 +440,18 @@ int keto_expand_gather(
     const int* counts, const int* starts, const int* slot_ctx, const int* crel,
     const int* is_comp, const int* q, const int* obj, const int* depth,
     const int* e_pack, int n_edges, int F, int S, int n_queries, int wildcard_rel,
-    int* offsets, int* total, int* overflow, int* out_q, int* out_ctx, int* out_obj,
-    int* out_rel, int* out_depth, uint8_t* out_valid, void* stream) {
+    int* offsets, int* total, int* tile_sums, int* overflow, int* out_q, int* out_ctx,
+    int* out_obj, int* out_rel, int* out_depth, uint8_t* out_valid, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int n = F * S;
-  cudaMemsetAsync(overflow, 0, sizeof(int) * (size_t)n_queries, st);
-  if (n > 0) {
-    expand_scan_kernel<<<1, kScanThreads, 0, st>>>(counts, n, F, S, q, offsets, total,
-                                                   overflow);
-    expand_gather_kernel<<<blocks_for(F, 256), 256, 0, st>>>(
+  const int tile = scan_tile(n, kScanTile);
+  const int nt = scan_tiles(n, tile);
+  expand_tile_sums_kernel<<<nt, kTileThreads, 0, st>>>(counts, n, tile, tile_sums, overflow,
+                                                       n_queries);
+  expand_offsets_kernel<<<nt, kTileThreads, 0, st>>>(counts, n, tile, tile_sums, nt, F, S, q,
+                                                     offsets, total, overflow);
+  if (F > 0) {
+    expand_gather_kernel<<<blocks_for(F, kGatherThreads), kGatherThreads, 0, st>>>(
         offsets, n, total, F, S, starts, slot_ctx, crel, is_comp, q, obj, depth,
         (const int2*)e_pack, n_edges, wildcard_rel, out_q, out_ctx, out_obj, out_rel,
         out_depth, out_valid);
@@ -341,18 +462,22 @@ int keto_expand_gather(
 int keto_dedupe_compact(
     const int* q, const int* ctx, const int* obj, const int* rel, const int* depth,
     const uint8_t* valid, int G, int F, int n_queries, int cap, int idx_bits,
-    unsigned* winner, int* overflow, int* nt_q, int* nt_ctx, int* nt_obj, int* nt_rel,
-    int* nt_depth, int* n_new, void* stream) {
+    unsigned* winner, uint8_t* keep, int* tile_counts, int* overflow, int* nt_q,
+    int* nt_ctx, int* nt_obj, int* nt_rel, int* nt_depth, int* n_new, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaMemsetAsync(winner, 0, sizeof(unsigned) * (size_t)cap, st);
-  cudaMemsetAsync(overflow, 0, sizeof(int) * (size_t)n_queries, st);
+  const int tile = scan_tile(G, kScanTile);
+  const int nt = scan_tiles(G, tile);
   if (G > 0) {
     dedupe_claim_kernel<<<blocks_for(G, 256), 256, 0, st>>>(
         ctx, obj, rel, depth, valid, G, (uint32_t)cap, idx_bits, winner);
   }
-  dedupe_compact_kernel<<<1, kScanThreads, 0, st>>>(
-      q, ctx, obj, rel, depth, valid, G, F, (uint32_t)cap, idx_bits, winner, overflow,
-      nt_q, nt_ctx, nt_obj, nt_rel, nt_depth, n_new);
+  dedupe_keep_kernel<<<nt, kTileThreads, 0, st>>>(ctx, obj, rel, valid, G, tile, (uint32_t)cap,
+                                                  idx_bits, winner, keep, tile_counts, overflow,
+                                                  n_queries);
+  dedupe_scatter_kernel<<<nt, kTileThreads, 0, st>>>(
+      q, ctx, obj, rel, depth, keep, G, F, tile, tile_counts, nt, overflow, nt_q, nt_ctx,
+      nt_obj, nt_rel, nt_depth, n_new);
   return (int)cudaGetLastError();
 }
 

@@ -39,7 +39,7 @@ SOURCES = tuple(
                  "microbench_kernels.cu")
 )
 # headers the sources include: part of the library's content hash
-HEADERS = (_PKG / "csrc" / "probe.cuh",)
+HEADERS = (_PKG / "csrc" / "probe.cuh", _PKG / "csrc" / "scan.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -61,6 +61,9 @@ launches = {name: 0 for name in KERNELS}
 # the largest dynamic shared memory one block may take on Hopper, less
 # the kernels' static shared memory
 MAX_DYNAMIC_SMEM = 232448 - 1024
+# the most tiles K3's and K4's multi-block scans cut their input into
+# (csrc/scan.cuh kMaxTiles): the size of their tile-sum scratch
+SCAN_MAX_TILES = 1024
 
 _lib = None
 _lock = threading.Lock()
@@ -128,8 +131,8 @@ _SIGNATURES = {
     "keto_edge_probe": [_VP, _LL, _VP, _LL, _I, _I, _I, _I, _VP, _VP, _VP, _VP, _VP,
                         _VP, _VP, _I, _VP],
     "keto_pair_probe": [_VP, _LL, _I, _I, _VP, _VP, _I, _I, _I, _VP, _VP],
-    "keto_expand_gather": [_VP] * 9 + [_I] * 5 + [_VP] * 10,
-    "keto_dedupe_compact": [_VP] * 6 + [_I] * 5 + [_VP] * 9,
+    "keto_expand_gather": [_VP] * 9 + [_I] * 5 + [_VP] * 11,
+    "keto_dedupe_compact": [_VP] * 6 + [_I] * 5 + [_VP] * 11,
     "keto_expand_emit": [_VP] * 8 + [_I] + [_VP] * 3 + [_I] * 4 + [_VP] * 19,
     "keto_pool_compact": [_VP] * 9 + [_I] * 3 + [_VP] * 3,
     "keto_list_emit_blocks": [_I],
@@ -261,6 +264,7 @@ def expand_gather(counts, starts, slot_ctx, crel, is_comp, q, obj, depth, e_pack
     dev = counts.device
     offsets = torch.empty(F * S, dtype=torch.int32, device=dev)
     total = torch.empty(1, dtype=torch.int32, device=dev)
+    tile_sums = torch.empty(SCAN_MAX_TILES, dtype=torch.int32, device=dev)
     overflow = torch.empty(n_queries, dtype=torch.int32, device=dev)
     cols = [torch.empty(F, dtype=torch.int32, device=dev) for _ in range(5)]
     valid = torch.empty(F, dtype=torch.bool, device=dev)
@@ -268,8 +272,8 @@ def expand_gather(counts, starts, slot_ctx, crel, is_comp, q, obj, depth, e_pack
     rc = lib.keto_expand_gather(
         _p(counts), _p(starts), _p(slot_ctx), _p(crel), _p(is_comp), _p(q), _p(obj),
         _p(depth), _p(e_pack), e_pack.shape[0], F, S, n_queries, wildcard_rel,
-        _p(offsets), _p(total), _p(overflow), *(_p(c) for c in cols), _p(valid),
-        _stream(),
+        _p(offsets), _p(total), _p(tile_sums), _p(overflow), *(_p(c) for c in cols),
+        _p(valid), _stream(),
     )
     _check(lib, rc, name)
     return (*cols, valid, overflow)
@@ -288,13 +292,16 @@ def dedupe_compact(q, ctx, obj, rel, depth, valid, *, F: int, n_queries: int):
     cap = dedupe_capacity(G)
     dev = q.device
     winner = torch.empty(cap, dtype=torch.int32, device=dev)
+    keep = torch.empty(G, dtype=torch.uint8, device=dev)
+    tile_counts = torch.empty(SCAN_MAX_TILES, dtype=torch.int32, device=dev)
     overflow = torch.empty(n_queries, dtype=torch.int32, device=dev)
     cols = [torch.empty(F, dtype=torch.int32, device=dev) for _ in range(5)]
     n_new = torch.empty(1, dtype=torch.int32, device=dev)
     lib = library()
     rc = lib.keto_dedupe_compact(
         _p(q), _p(ctx), _p(obj), _p(rel), _p(depth), _p(valid), G, F, n_queries, cap,
-        idx_bits, _p(winner), _p(overflow), *(_p(c) for c in cols), _p(n_new), _stream(),
+        idx_bits, _p(winner), _p(keep), _p(tile_counts), _p(overflow),
+        *(_p(c) for c in cols), _p(n_new), _stream(),
     )
     _check(lib, rc, name)
     return (*cols, n_new.reshape(()), overflow)

@@ -228,6 +228,131 @@ def test_each_kernel_matches_plain_on_card(cuda, layout):
         assert torch.equal(a.to(b.dtype), b)
 
 
+# -- K3 and K4 at the shapes their tiles stress ----------------------------------------
+#
+# csrc/check_kernels.cu scans K3's F * S slot counts and K4's G candidates
+# in tiles of SCAN_TILE (kScanTile). The cases sit one below, at and one
+# above a tile, at three tiles and 5, and in the regimes the scans keep
+# apart. tests/test_torch_kernel.py holds the plain version of K4 to
+# keto_tpu's dedupe_phase on the same cases.
+
+SCAN_TILE = 1024
+# name: (G, F, n_queries, kind)
+DEDUPE_CASES = {
+    "below_tile": (SCAN_TILE - 1, SCAN_TILE - 1, 64, "dups"),
+    "at_tile": (SCAN_TILE, SCAN_TILE, 64, "dups"),
+    "above_tile": (SCAN_TILE + 1, SCAN_TILE + 1, 64, "dups"),
+    "three_tiles_and_5": (3 * SCAN_TILE + 5, 3 * SCAN_TILE + 5, 64, "dups"),
+    "expand_4F": (4 * 1024, 1024, 256, "dups"),
+    "all_invalid": (SCAN_TILE + 1, SCAN_TILE + 1, 64, "invalid"),
+    "all_kept_overflow": (3 * SCAN_TILE + 5, 2500, 16, "distinct"),
+    "one_query": (3 * SCAN_TILE + 5, 1000, 1, "one_query"),
+}
+
+
+def dedupe_case(kind: str, G: int, B: int, seed: int = 0) -> tuple:
+    """(q, ctx, obj, rel, depth, valid) numpy columns of G candidates:
+    "dups" draws narrow keys (duplicates and bucket collisions), root
+    ctxs being the query ids; "invalid" the same, none valid; "distinct"
+    gives every candidate its own key, all valid, so every one is kept;
+    "one_query" puts every candidate in query 0, as a filter walk does."""
+    rng = np.random.default_rng(seed)
+    obj = rng.integers(0, 40 if G < 1 << 16 else 4096, G)
+    rel = rng.integers(0, 3, G)
+    depth = rng.integers(-1, 6, G)
+    valid = rng.random(G) < 0.8
+    if kind == "distinct":
+        ctx, valid = np.arange(G), np.ones(G, bool)
+        q = ctx % B
+    elif kind == "one_query":
+        q = ctx = np.zeros(G, np.int64)
+        obj = rng.integers(0, 4000, G)
+    else:
+        q = ctx = rng.integers(0, B, G)
+        if kind == "invalid":
+            valid = np.zeros(G, bool)
+    i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)  # noqa: E731
+    return i32(q), i32(ctx), i32(obj), i32(rel), i32(depth), valid
+
+
+# name: (F, S, regime); SCAN_TILE counts a tile
+GATHER_CASES = {
+    "below_tile": (SCAN_TILE - 1, 1, "dense"),
+    "at_tile": (SCAN_TILE // 2, 2, "dense"),
+    "above_tile": (205, 5, "dense"),
+    "three_tiles_and_5": (3 * SCAN_TILE + 5, 1, "dense"),
+    "past_total": (3 * SCAN_TILE // 2 + 5, 2, "sparse"),
+    "all_empty": (SCAN_TILE + 1, 2, "empty"),
+    "long_segments": (4096, 4, "long"),
+}
+
+
+def gather_case(F: int, S: int, regime: str, seed: int = 0, n_edges: int = 500):
+    """expand_gather's inputs over F tasks of S slots, and its keywords.
+    Every regime leaves the last tasks' segments empty. "dense" counts 0-3
+    a slot (total > F: overflow); "sparse" few non-empty slots (total <
+    F: slots past the total); "empty" none; "long" a few segments of
+    hundreds of candidates with thousands of empty ones between them."""
+    rng = np.random.default_rng(seed)
+    B, wildcard_rel = 64, 5
+    if regime == "dense":
+        counts = rng.integers(0, 4, (F, S))
+    elif regime == "sparse":
+        counts = (rng.random((F, S)) < 0.1) * rng.integers(1, 3, (F, S))
+    elif regime == "long":
+        counts = np.zeros((F, S), np.int64)
+        counts.flat[[3, 2500, 7000, 9100, 12000]] = [700, 333, 901, 450, 600]
+    else:
+        counts = np.zeros((F, S), np.int64)
+    counts[-(F // 20 + 1):] = 0
+    starts = np.where(counts > 0, rng.integers(0, n_edges, (F, S)), -1)
+    e_pack = np.stack([rng.integers(0, 1000, n_edges), rng.integers(0, 6, n_edges)], axis=1)
+    i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)  # noqa: E731
+    args = (i32(counts), i32(starts), i32(rng.integers(0, B, (F, S))),
+            i32(rng.integers(0, 6, (F, S))), i32(rng.integers(0, 2, (F, S))),
+            i32(rng.integers(0, B, F)), i32(rng.integers(0, 1000, F)),
+            i32(rng.integers(0, 5, F)), i32(e_pack))
+    return args, dict(wildcard_rel=wildcard_rel, n_queries=B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GATHER_CASES))
+def test_expand_gather_tiles_on_card(cuda, case):
+    """K3 against its plain version at the tile edges, every column of
+    every output slot compared, those past the total included."""
+    F, S, regime = GATHER_CASES[case]
+    args, kw = gather_case(F, S, regime)
+    args = tuple(torch.from_numpy(a).to(cuda) for a in args)
+    *cols, over = cuda_ops.expand_gather(*args, **kw)
+    ch, want_over = tk.expand_gather_plain(*args, **kw)
+    for name, a, b in zip(("q", "ctx", "obj", "rel", "depth", "valid"), cols,
+                          (ch.q, ch.ctx, ch.obj, ch.rel, ch.depth, ch.valid)):
+        assert torch.equal(a, b), name
+    assert torch.equal(over, want_over)
+    total = int(args[0].sum())
+    assert (total > F) == bool(over.any())
+    assert bool(ch.valid[min(total, F):].any()) is False
+    if regime != "empty":
+        assert ch.valid.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DEDUPE_CASES) + ["large"])
+def test_dedupe_compact_tiles_on_card(cuda, case):
+    """K4 against its plain version at the tile edges and at ListObjects'
+    G = F = 2^20: every column of the frontier, the zeroed tail past
+    n_new included, n_new and the causes."""
+    G, F, B, kind = DEDUPE_CASES.get(case, (1 << 20, 1 << 20, 256, "dups"))
+    cols = [torch.from_numpy(c).to(cuda) for c in dedupe_case(kind, G, B)]
+    got = cuda_ops.dedupe_compact(*cols, F=F, n_queries=B)
+    want = tk.dedupe_compact_plain(tk.Expansion(*cols), F=F, n_queries=B)
+    for name, a, b in zip(("q", "ctx", "obj", "rel", "depth", "n_new", "overflow"), got, want):
+        assert torch.equal(a.to(b.dtype), b), name
+    n_new = int(want[5])
+    assert (n_new == 0) == (kind == "invalid")
+    assert bool(want[6].any()) == (F < G and kind != "invalid")
+
+
 # -- expand --------------------------------------------------------------------------
 
 

@@ -42,6 +42,7 @@ from keto_tpu_torch.ketoapi import RelationTuple as TTuple
 from keto_tpu_torch.namespace import Namespace as TNamespace
 
 from test_reference_engine import REWRITE_CASES, REWRITE_NAMESPACES, REWRITE_TUPLES
+from test_torch_cuda import DEDUPE_CASES, dedupe_case
 
 LAYOUTS = ("compact", "bucketized")
 
@@ -417,30 +418,13 @@ def test_pair_probe_plain_matches_multi_pair_key_probe(layout, n_vals):
     assert (want >= 0).any()
 
 
-@pytest.mark.parametrize("has_delta", [False, True])
-@pytest.mark.parametrize("n_island_cap", [0, 6])
-@pytest.mark.parametrize("scenario", ["random_islands", "rewrite_fixtures", "host_causes"])
-def test_expand_phase_matches(layout, scenario, n_island_cap, has_delta):
-    """The port's expand phase (glue + pair_probe + expand_gather) against
-    the JAX expand_phase: candidate columns in the same order, the
-    per-query causes and the island table."""
-    rng = np.random.default_rng(9)
-    jsn, _ = build_both(scenario, layout)
-    namespaces, tuples, _q, _d = SCENARIOS[scenario]()
-    delta = None
-    if has_delta:
-        ops = delta_ops(tuples, random.Random(13))
-        view = jdelta.SnapshotView(jsn, jdelta.build_vocab_overlay(jsn, ops))
-        delta = jdelta.build_delta_tables(view, ops)
-    packed = jax_packed(jsn, delta)
-    F, B = 64, 16
-    n_obj = max(jsn.obj_slots.values()) + 1
-    q = rng.integers(0, B, F).astype(np.int32)
-    ctx = q.copy()
-    obj = rng.integers(0, n_obj, F).astype(np.int32)
-    rel = rng.integers(0, len(jsn.rel_ids), F).astype(np.int32)
-    depth = rng.integers(0, 4, F).astype(np.int32)
-    live = rng.random(F) < 0.8
+def expand_both(jsn, layout, packed, cols, *, B, n_island_cap=0, has_delta=False):
+    """The port's expand phase (glue + pair_probe + expand_gather) and the
+    JAX expand_phase on the same task columns (q, ctx, obj, rel, depth,
+    live): the candidate columns in the same order, the per-query causes
+    and the island table must be equal. Returns the port's (candidates,
+    causes)."""
+    q, ctx, obj, rel, depth, live = cols
     isl = (np.zeros(max(n_island_cap, 1), np.int32),) * 2 + (np.int32(2),)
     ncr = max(jsn.n_config_rels, 1)
     jt = {k: _jnp(v) for k, v in packed.items()}
@@ -468,6 +452,88 @@ def test_expand_phase_matches(layout, scenario, n_island_cap, has_delta):
     np.testing.assert_array_equal(tover.numpy(), np.asarray(jover))
     for t_, j_ in zip(tisl, jisl):
         np.testing.assert_array_equal(np.asarray(t_), np.asarray(j_))
+    return tch, tover
+
+
+@pytest.mark.parametrize("has_delta", [False, True])
+@pytest.mark.parametrize("n_island_cap", [0, 6])
+@pytest.mark.parametrize("scenario", ["random_islands", "rewrite_fixtures", "host_causes"])
+def test_expand_phase_matches(layout, scenario, n_island_cap, has_delta):
+    """The port's expand phase against the JAX expand_phase on random
+    tasks (expand_both)."""
+    rng = np.random.default_rng(9)
+    jsn, _ = build_both(scenario, layout)
+    namespaces, tuples, _q, _d = SCENARIOS[scenario]()
+    delta = None
+    if has_delta:
+        ops = delta_ops(tuples, random.Random(13))
+        view = jdelta.SnapshotView(jsn, jdelta.build_vocab_overlay(jsn, ops))
+        delta = jdelta.build_delta_tables(view, ops)
+    packed = jax_packed(jsn, delta)
+    F, B = 64, 16
+    n_obj = max(jsn.obj_slots.values()) + 1
+    q = rng.integers(0, B, F).astype(np.int32)
+    ctx = q.copy()
+    obj = rng.integers(0, n_obj, F).astype(np.int32)
+    rel = rng.integers(0, len(jsn.rel_ids), F).astype(np.int32)
+    depth = rng.integers(0, 4, F).astype(np.int32)
+    live = rng.random(F) < 0.8
+    tch, _ = expand_both(jsn, layout, packed, (q, ctx, obj, rel, depth, live), B=B,
+                         n_island_cap=n_island_cap, has_delta=has_delta)
+    assert tch.valid.any()
+
+
+def fanout_snapshot():
+    """K = 1, so S = 2: `view` = `member` over 200 objects whose member rows
+    hold 0-12 subject sets (some of them the `...` wildcard), so a task's
+    segment counts are its row's length and its computed slot's 1."""
+    rng = random.Random(5)
+    ns = _ns("f", [
+        Relation(name="member"),
+        Relation(name="view", subject_set_rewrite=_union(ComputedSubjectSet(relation="member"))),
+    ])
+    tuples = {
+        f"f:o{i}#member@(f:o{rng.randrange(200)}#{rng.choice(['member', 'view', '...'])})"
+        for i in range(200) for _ in range(rng.randrange(13))
+    }
+    return jsnap.build_snapshot([JTuple.from_string(s) for s in sorted(tuples)], [ns])
+
+
+# name: (F tasks, live share); S = 2, so a 1,024-count tile of K3's scan
+# (csrc/check_kernels.cu kScanTile) is 512 tasks
+EXPAND_TILE_CASES = {
+    "below_tile": (511, 0.9),
+    "at_tile": (512, 0.9),
+    "above_tile": (513, 0.9),
+    "three_tiles_and_5": (3 * 512 + 5, 0.9),
+    "past_total": (3 * 512 + 5, 0.1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EXPAND_TILE_CASES))
+def test_expand_phase_matches_at_tiles(layout, case):
+    """expand_gather_plain inside the port's expand phase against the JAX
+    expand_phase where K3's tiles break: F * S one below, at and one above
+    a tile and at three tiles and 10 slots, the last tasks dead (trailing
+    empty segments); dense tasks overflow the frontier (total > F),
+    sparse ones leave slots past the total, whose columns still come from
+    the last segment."""
+    F, live_share = EXPAND_TILE_CASES[case]
+    rng = np.random.default_rng(F)
+    jsn = fanout_snapshot()
+    assert jsn.K == 1
+    B = 64
+    q = rng.integers(0, B, F).astype(np.int32)
+    obj = rng.integers(0, max(jsn.obj_slots.values()) + 1, F).astype(np.int32)
+    rel = rng.integers(0, len(jsn.rel_ids), F).astype(np.int32)
+    depth = rng.integers(0, 4, F).astype(np.int32)
+    live = rng.random(F) < live_share
+    live[-(F // 20):] = False
+    tch, tover = expand_both(jsn, layout, jax_packed(jsn), (q, q.copy(), obj, rel, depth, live),
+                             B=B)
+    dense = live_share > 0.5
+    assert bool(tover.any()) == dense
+    assert bool(tch.valid[-1]) is False or dense
     assert tch.valid.any()
 
 
@@ -489,6 +555,25 @@ def test_dedupe_plain_matches_dedupe_phase(F):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
     assert 0 < int(got[5]) < int(valid.sum())  # duplicates were dropped
+
+
+@pytest.mark.parametrize("case", sorted(DEDUPE_CASES))
+def test_dedupe_plain_matches_dedupe_phase_at_tiles(case):
+    """dedupe_compact_plain against the JAX dedupe_phase where K4's tiles
+    break (G one below, at and one above a tile, three tiles and 5), at
+    Expand's G = 4F, with every candidate invalid, with every one kept and
+    F short (overflow raised per query), and with one query owning every
+    candidate, as in a filter walk: every frontier column, the zeros past
+    n_new, n_new and the causes."""
+    G, F, B, kind = DEDUPE_CASES[case]
+    cols = dedupe_case(kind, G, B)
+    want = jk.dedupe_phase(jk.Expansion(*(_jnp(x) for x in cols)), F, B)
+    got = tk.dedupe_compact(tk.Expansion(*(torch.from_numpy(c) for c in cols)),
+                            F=F, n_queries=B)
+    for name, g, w in zip(("q", "ctx", "obj", "rel", "depth", "n_new", "overflow"), got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w), err_msg=name)
+    assert (int(got[5]) == 0) == (kind == "invalid")
+    assert bool(got[6].any()) == (F < G and kind != "invalid")
 
 
 def test_dedupe_rejects_too_many_candidates():
