@@ -1503,7 +1503,7 @@ def power_kernel_cases(wave_args, max_set_rows):
         N * W * 4 + S * 4 + D * 4 + n_lvl * 2 + N * W * 4 + 4,
         S * 2 + N * W * 3 + D * W * 2 + n_lvl * 3,
         compared((cuda_ops.power_account, tcp.power_account_plain), args2, kw2, (1, 4)),
-        ("power_account_kernel", "Memset"),
+        ("power_account_vec_kernel", "Memset"),
     ))
 
     args3, kw3 = rec.args("power_poison")
@@ -1637,14 +1637,13 @@ def run_closure(engine, manager, config, queries):
 
 
 def closure_filter_kernel_cases(rec_c, rec_f):
-    """(name, kernel fn, plain fn, bytes, operations, compare fn) of C1 (one
-    closure batch) and F1 (step 1 of the videos filter walk). Bytes count
-    the query pack, the bucket rows the probes this data needs read (cc for
-    valid queries, ch for covered ones) and the output; F1's the task
-    columns, the candidate column once, the hit slots it sets, the status
-    and the count.
-    F1 updates hit and status in place, so every call works on its own
-    clones."""
+    """(name, kernel fn, plain fn, bytes, operations, compare fn, kernel
+    functions) of C1 (one closure batch) and F1 (step 1 of the videos
+    filter walk). Bytes count the query pack, the bucket rows the probes
+    this data needs read (cc for valid queries, ch for covered ones) and
+    the output; F1's the task columns, the candidate column once, the hit
+    slots it sets, the status and the count. F1 updates hit and status in
+    place, so every call works on its own clones."""
     import torch
 
     from keto_tpu_torch.engine import closure_kernel as tck
@@ -1668,6 +1667,7 @@ def closure_filter_kernel_cases(rec_c, rec_f):
         7 * B * 4 + n_valid * pb2 * s2 * 16 + n_cov * pb5 * s5 * 32 + (2 * B + 8) * 4,
         n_valid * (3 * HASH_OPS + pb2 * s2 * 4) + n_cov * (6 * HASH_OPS + pb5 * s5 * 6),
         lambda: max_abs_err(cuda_ops.closure_probe(*args, **kw), tck.closure_probe_plain(*args, **kw)),
+        None,
     ))
 
     args2, _kw2 = rec_f.args("filter_mark")
@@ -1691,6 +1691,7 @@ def closure_filter_kernel_cases(rec_c, rec_f):
         F * 13 + 20 + C * 4 + n_slots * 4 + 16 + 4,
         F * 4 + n_match * (3 * (C.bit_length() + 1) + 4),
         lambda: max_abs_err(run(cuda_ops.filter_mark), run(tfk.filter_mark_plain)),
+        ("filter_mark_staged_kernel", "Memset"),
     ))
     return cases, (lambda: torch.searchsorted(cand, obj))
 

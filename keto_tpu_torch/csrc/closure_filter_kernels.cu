@@ -14,6 +14,7 @@
 //                       of one shared-frontier step.
 
 #include "probe.cuh"
+#include "reduce.cuh"
 
 namespace {
 
@@ -99,45 +100,78 @@ __global__ void closure_probe_kernel(
 // ---------------------------------------------------------------------------
 // F1 filter_mark
 //
-// Bound: operations, lightly: each of F tasks does one binary search of
-// ceil(log2 C) + 1 dependent loads in the sorted C-wide candidate column
-// (64 KB at C = 16384, so it stays in L2 and L1 after the first warps),
-// and the F task columns are read once. Design: one thread per task; a
-// task whose relation is the query's at depth >= 0 searches for the lower
-// bound of its object (jnp.searchsorted's side), and a match sets its hit
-// slot with atomicExch, so that the thread which sets a slot first counts
-// it into the running count of hit slots (status[2]): the host's loop
-// predicate reads every candidate as hit when that count reaches n_cand.
-// `marks` counts matching tasks, not slots, as the JAX stats do: a warp
-// ballot, one shared atomic per warp and one global atomic per block.
-// Staging the column in shared memory is for a later version.
+// Bound: latency. The bytes are few (F task columns, the candidate
+// column once, the hit slots set: 0.000035 ms at the filter walk's F =
+// 4,096 and C = 16,384), and each task's lower-bound search is a chain of
+// dependent loads (ceil(log2 C) + 1 = 15 for a binary search over the
+// whole column). Design, one launch a call and a shallow search: one
+// thread a task; each block first reads a table of kSamples evenly spaced
+// keys into shared memory, one key a thread in one coalesced pass that
+// goes out with the task columns. A thread searches the table in shared
+// memory, then the at most C / kSamples + 1 keys between two samples in
+// global memory (64 at C = 16,384: two 128-byte lines, so after the first
+// load the search runs in L1), for the lower bound of its object
+// (jnp.searchsorted's left side). A match sets its hit slot with
+// atomicExch, so that the thread which sets a slot first counts it into
+// the running count of hit slots (status[2]; the host's loop predicate
+// reads every candidate as hit when it reaches n_cand). `marks` counts
+// matching tasks, not slots, as the JAX stats do: a warp ballot and a
+// shared count a block, then the last-block sum of reduce.cuh, so no
+// memset precedes the kernel. One warp a task reading 32 keys a round
+// (a 33-way search: two rounds and 32 neighbours at C = 16,384) was the
+// other design timed, 7-10% slower at the filter walk's shape (PERF.md
+// §6).
 // ---------------------------------------------------------------------------
 
-__global__ void filter_mark_kernel(
+constexpr int kSamples = kThreads;  // one table key a thread
+static_assert(kSamples == 256, "sample s sits at (s * C) >> 8");
+
+__global__ void __launch_bounds__(kThreads) filter_mark_staged_kernel(
     const int* __restrict__ obj, const int* __restrict__ rel, const int* __restrict__ depth,
     const uint8_t* __restrict__ live, int F, const int* __restrict__ cand, int C,
     const int* __restrict__ head, int* __restrict__ hit, int* __restrict__ status,
-    int* __restrict__ marks) {
-  __shared__ int n_found;
-  if (threadIdx.x == 0) n_found = 0;
+    int* __restrict__ marks, unsigned long long* __restrict__ scratch) {
+  __shared__ int table[kSamples];
+  __shared__ int n_found, n_new;
+  if (threadIdx.x == 0) {
+    n_found = 0;
+    n_new = 0;
+  }
+  table[threadIdx.x] = cand[(int)(((long long)threadIdx.x * C) >> 8)];
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  bool match = false;
+  int o = 0;
+  if (j < F) {
+    match = (live[j] != 0) & (rel[j] == head[2]) & (depth[j] >= 0);
+    o = obj[j];
+  }
   __syncthreads();
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
   bool found = false;
-  if (j < F && live[j] && rel[j] == head[2] && depth[j] >= 0) {
-    const int o = obj[j];
-    int lo = 0, hi = C;
+  if (match) {
+    // a = the samples below o: the bound lies past sample a - 1, and at
+    // or before sample a
+    int a = 0, b = kSamples;
+    while (a < b) {
+      const int mid = (a + b) >> 1;
+      if (table[mid] < o) a = mid + 1; else b = mid;
+    }
+    int lo = a ? (int)(((long long)(a - 1) * C) >> 8) + 1 : 0;
+    int hi = a < kSamples ? (int)(((long long)a * C) >> 8) : C;
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
       if (cand[mid] < o) lo = mid + 1; else hi = mid;
     }
     const int pos = min(lo, C - 1);
     found = cand[pos] == o;
-    if (found && atomicExch(&hit[pos], 1) == 0) atomicAdd(&status[2], 1);
+    if (found && atomicExch(&hit[pos], 1) == 0) atomicAdd(&n_new, 1);
   }
   const unsigned ballot = __ballot_sync(0xFFFFFFFFu, found);
   if ((threadIdx.x & 31) == 0 && ballot) atomicAdd(&n_found, __popc(ballot));
   __syncthreads();
-  if (threadIdx.x == 0 && n_found) atomicAdd(marks, n_found);
+  if (threadIdx.x == 0) {
+    if (n_new) atomicAdd(&status[2], n_new);
+    grid_sum_last_block(n_found, scratch, marks);
+  }
 }
 
 }  // namespace
@@ -162,14 +196,13 @@ int keto_closure_probe(
 
 int keto_filter_mark(
     const int* obj, const int* rel, const int* depth, const uint8_t* live, int F,
-    const int* cand, int C, const int* head, int* hit, int* status, int* marks,
+    const int* cand, int C, const int* head, int* hit, int* status, int* marks, void* scratch,
     void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaMemsetAsync(marks, 0, sizeof(int), st);
-  if (F > 0) {
-    filter_mark_kernel<<<blocks_for(F, kThreads), kThreads, 0, st>>>(
-        obj, rel, depth, live, F, cand, C, head, hit, status, marks);
-  }
+  // fewer than 2^23 blocks for F < 2^31: within the grid sum's tickets
+  filter_mark_staged_kernel<<<F > 0 ? blocks_for(F, kThreads) : 1, kThreads, 0,
+                              (cudaStream_t)stream>>>(
+      obj, rel, depth, live, F, cand, C, head, hit, status, marks,
+      (unsigned long long*)scratch);
   return (int)cudaGetLastError();
 }
 

@@ -22,6 +22,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "reduce.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -146,60 +148,176 @@ __global__ void power_fresh_kernel(
 // P2 power_account
 //
 // Bound: bytes. It reads fresh once, writes F once ([N, W] each), reads
-// the fresh words of the D direct rows and writes a level byte only where
-// a fresh bit lands; operations are an AND-NOT and a popcount a word.
-// Design: each block first turns the S reach counts into the W kill words
-// in shared memory (32 counts a warp ballot: bit s of word w is set when
-// source w * 32 + s holds more than max_set_rows), since every count is
-// final once P1 has run. Then a grid-stride loop over N * W frontier words
-// (F = fresh & ~kill, popcount into the status) and D * W direct-row words
-// (for each fresh bit, lvl = level where it is still -1; one thread per
-// (row, word) owns those 32 bytes, so no two threads write one). The
-// popcount reduces in the block and lands with one atomic per block in
-// status[0], which the entry point zeroes first.
+// the D direct rows' node ids and writes a level byte where a fresh bit
+// lands on one; operations are an AND-NOT and a popcount a word. Design,
+// one launch a call on a grid of the card's resident blocks, 32-bit index
+// math (W = 1 << lw: shifts and masks, no division a word):
+// - each block turns the S reach counts into the W kill words in shared
+//   memory (32 counts a warp ballot, a lane's counts of up to 8 words
+//   read at once: bit s of word w is set when source w * 32 + s holds
+//   more than max_set_rows; every count is final once P1 has run), while
+//   each thread's first frontier item and first level item (the direct
+//   row's node, then its fresh words) are already being read;
+// - a grid-stride pass over the frontier, four words a thread in one
+//   16-byte load and store when W >= 4 (one word when W is 1 or 2): F =
+//   fresh & ~kill, its popcount summed;
+// - then one thread per (direct row j, item of words w) reads the item
+//   of fresh at node d_rows[j] (one 16-byte load when W >= 4) and, for
+//   each non-zero word, owns the row's 32 level bytes of that word (so no
+//   two threads write one): two 16-byte loads, lvl = level in each byte
+//   whose fresh bit is set and which is still negative, two 16-byte
+//   stores;
+// - the popcount reduces in the block and lands in status[0] through the
+//   last-block sum of reduce.cuh: no memset precedes the kernel.
+// The resident grid (8 blocks an SM, the kernel held to 32 registers)
+// beat 528 blocks and 6 blocks an SM at 40 registers, and four words a
+// level item beat one (PERF.md §6).
 // ---------------------------------------------------------------------------
 
-__global__ void power_account_kernel(
+__device__ __forceinline__ uint32_t kill_word(uint32_t v, const uint32_t* kill, int w, int& pop) {
+  const uint32_t f = v & ~kill[w];
+  pop += __popc(f);
+  return f;
+}
+
+__device__ __forceinline__ uint4 kill_word(uint4 v, const uint32_t* kill, int w, int& pop) {
+  const uint4 k = *reinterpret_cast<const uint4*>(kill + w);
+  const uint4 f = make_uint4(v.x & ~k.x, v.y & ~k.y, v.z & ~k.z, v.w & ~k.w);
+  pop += __popc(f.x) + __popc(f.y) + __popc(f.z) + __popc(f.w);
+  return f;
+}
+
+// Four level bytes x of lanes 4i..4i+3 of a word whose fresh bits are f:
+// `level` in each byte whose bit of f is set and whose value is negative.
+__device__ __forceinline__ uint32_t level_bytes(uint32_t x, uint32_t f, int i, uint32_t lev4) {
+  const uint32_t bits = ((f >> (4 * i)) & 0xFu) * 0x204081u & 0x01010101u;  // bit b -> byte b
+  const uint32_t set = (bits & (x >> 7) & 0x01010101u) * 0xFFu;
+  return (x & ~set) | (lev4 & set);
+}
+
+__device__ __forceinline__ uint4 level_bytes(uint4 x, uint32_t f, int i, uint32_t lev4) {
+  return make_uint4(level_bytes(x.x, f, i, lev4), level_bytes(x.y, f, i + 1, lev4),
+                    level_bytes(x.z, f, i + 2, lev4), level_bytes(x.w, f, i + 3, lev4));
+}
+
+// The 32 level bytes of one fresh word f, at `chunk`.
+__device__ __forceinline__ void level_word(uint32_t f, uint4* chunk, uint32_t lev4) {
+  if (f) {
+    const uint4 lo = chunk[0], hi = chunk[1];
+    chunk[0] = level_bytes(lo, f, 0, lev4);
+    chunk[1] = level_bytes(hi, f, 4, lev4);
+  }
+}
+
+__device__ __forceinline__ void level_words(uint32_t f, uint4* chunk, uint32_t lev4) {
+  level_word(f, chunk, lev4);
+}
+
+__device__ __forceinline__ void level_words(uint4 f, uint4* chunk, uint32_t lev4) {
+  level_word(f.x, chunk, lev4);
+  level_word(f.y, chunk + 2, lev4);
+  level_word(f.z, chunk + 4, lev4);
+  level_word(f.w, chunk + 6, lev4);
+}
+
+// The fresh word that word w of the direct rows ([D, W], flat) reads:
+// word w & (W - 1) of node d_rows[w >> lw].
+__device__ __forceinline__ unsigned lvl_item(const int* __restrict__ d_rows, unsigned w, int lw) {
+  return ((unsigned)d_rows[w >> lw] << lw) | (w & ((1u << lw) - 1u));
+}
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kKillRounds = 8;  // W = 64 in one round of kWarps warps
+// 32 registers a thread, so that an SM holds 8 blocks (2,048 threads)
+constexpr int kAccountBlocksPerSM = 8;
+
+// T is one item of words: uint4 (four) or uint32_t (one). n_items and
+// n_lvl count items of the frontier and of the direct rows.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kAccountBlocksPerSM) power_account_vec_kernel(
     const uint32_t* __restrict__ fresh, int8_t* __restrict__ lvl, const int* __restrict__ counts,
-    const int* __restrict__ d_rows, int N, int D, int W, int level, int max_set_rows,
-    uint32_t* __restrict__ F, int* __restrict__ status) {
-  extern __shared__ uint32_t kill[];
+    const int* __restrict__ d_rows, int n_items, int n_lvl, int lw, int level, int max_set_rows,
+    uint32_t* __restrict__ F, int* __restrict__ status,
+    unsigned long long* __restrict__ scratch) {
+  constexpr int kWords = sizeof(T) / sizeof(uint32_t);
+  extern __shared__ __align__(16) uint32_t kill[];
   __shared__ int s_pop;
+  const int W = 1 << lw;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const T* __restrict__ fresh_t = reinterpret_cast<const T*>(fresh);
+  T* __restrict__ F_t = reinterpret_cast<T*>(F);
+  // unsigned: e + stride stays exact past n_items, which is below 2^31
+  const unsigned stride = gridDim.x * kThreads, n = n_items;
+  unsigned e = blockIdx.x * kThreads + threadIdx.x;
+  // the thread's first frontier item, and the direct-row node and fresh
+  // item of its first level item (its first index at or past n), go out
+  // before the kill words are built
+  T first{}, first_lvl{};
+  if (e < n) first = fresh_t[e];
+  const unsigned i0 = e < n ? e + (n - e + stride - 1) / stride * stride - n : e - n;
+  if (i0 < (unsigned)n_lvl) first_lvl = fresh_t[lvl_item(d_rows, i0 * kWords, lw) / kWords];
   if (threadIdx.x == 0) s_pop = 0;
-  for (int w = warp; w < W; w += nwarps) {
-    const unsigned b = __ballot_sync(0xFFFFFFFFu, counts[w * 32 + lane] > max_set_rows);
-    if (lane == 0) kill[w] = b;
+  // each lane's counts of up to kKillRounds words are read at once
+  for (int w0 = warp; w0 < W; w0 += kKillRounds * kWarps) {
+    int c[kKillRounds];
+#pragma unroll
+    for (int r = 0; r < kKillRounds; ++r) {
+      const int w = w0 + r * kWarps;
+      c[r] = w < W ? counts[(w << 5) | lane] : 0;
+    }
+#pragma unroll
+    for (int r = 0; r < kKillRounds; ++r) {
+      const int w = w0 + r * kWarps;
+      const unsigned b = __ballot_sync(0xFFFFFFFFu, c[r] > max_set_rows);
+      if (lane == 0 && w < W) kill[w] = b;
+    }
   }
   __syncthreads();
-  const long long nF = (long long)N * W;
-  const long long total = nF + (long long)D * W;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const int S = W * 32;
   int pop = 0;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride) {
-    if (e < nF) {
-      const uint32_t f = fresh[e] & ~kill[e % W];
-      F[e] = f;
-      pop += __popc(f);
-    } else {
-      const long long e2 = e - nF;
-      const int j = (int)(e2 / W);
-      const int w = (int)(e2 % W);
-      uint32_t f = fresh[(size_t)d_rows[j] * W + w];
-      int8_t* row = lvl + (size_t)j * S + w * 32;
-      for (; f; f &= f - 1u) {
-        const int b = __ffs(f) - 1;
-        if (row[b] < 0) row[b] = (int8_t)level;
-      }
-    }
+  if (e < n) {
+    F_t[e] = kill_word(first, kill, (e * kWords) & (W - 1), pop);
+    e += stride;
+  }
+  for (; e + stride < n; e += 2 * stride) {
+    const T a = fresh_t[e], b = fresh_t[e + stride];
+    F_t[e] = kill_word(a, kill, (e * kWords) & (W - 1), pop);
+    F_t[e + stride] = kill_word(b, kill, ((e + stride) * kWords) & (W - 1), pop);
+  }
+  if (e < n) {
+    F_t[e] = kill_word(fresh_t[e], kill, (e * kWords) & (W - 1), pop);
+    e += stride;
+  }
+  const uint32_t lev4 = (uint32_t)(uint8_t)level * 0x01010101u;
+  // level byte 32 w + s is lane 32 (w & (W - 1)) + s of direct row w >> lw
+  uint4* const lvl16 = reinterpret_cast<uint4*>(lvl);
+  if (i0 < (unsigned)n_lvl) level_words(first_lvl, lvl16 + 2 * i0 * kWords, lev4);
+  for (unsigned i = i0 + stride; i < (unsigned)n_lvl; i += stride) {
+    level_words(fresh_t[lvl_item(d_rows, i * kWords, lw) / kWords], lvl16 + 2 * i * kWords,
+                lev4);
   }
   pop = warp_sum(pop);
   if (lane == 0 && pop) atomicAdd(&s_pop, pop);
   __syncthreads();
-  if (threadIdx.x == 0 && s_pop) atomicAdd(status, s_pop);
+  if (threadIdx.x == 0) grid_sum_last_block(s_pop, scratch, status);
+}
+
+// The blocks of P2 the current card holds at once: the grid of its
+// grid-stride pass. The blocks an SM holds depend on the kernel alone
+// (its registers and kThreads; the kill words are at most a few KB), so
+// they are asked once a process.
+template <typename T>
+int account_blocks() {
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, power_account_vec_kernel<T>, kThreads,
+                                                  0);
+    per_sm = per_sm > 0 ? per_sm : 1;
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms * per_sm;
 }
 
 // ---------------------------------------------------------------------------
@@ -261,13 +379,18 @@ int keto_power_step(
 
 int keto_power_account(
     const int* fresh, int8_t* lvl, const int* counts, const int* d_rows, int N, int D, int W,
-    int level, int max_set_rows, int* F, int* status, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaMemsetAsync(status, 0, sizeof(int), st);
-  power_account_kernel<<<blocks_for((long long)(N + D) * W, kMaxBlocks), kThreads,
-                         W * sizeof(uint32_t), st>>>(
-      (const uint32_t*)fresh, lvl, counts, d_rows, N, D, W, level, max_set_rows,
-      (uint32_t*)F, status);
+    int level, int max_set_rows, int* F, int* status, void* scratch, void* stream) {
+  const int lw = __builtin_ctz((unsigned)W);
+  const size_t smem = W * sizeof(uint32_t);
+  const bool vec = W >= 4;
+  const int n_items = vec ? N * W / 4 : N * W;
+  const int n_lvl = vec ? D * W / 4 : D * W;
+  auto kernel = vec ? power_account_vec_kernel<uint4> : power_account_vec_kernel<uint32_t>;
+  const int cap = vec ? account_blocks<uint4>() : account_blocks<uint32_t>();
+  const int blocks = blocks_for((long long)n_items + n_lvl, cap);
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)fresh, lvl, counts, d_rows, n_items, n_lvl, lw, level, max_set_rows,
+      (uint32_t*)F, status, (unsigned long long*)scratch);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,35 @@
+// A grid-wide sum in one launch, with no memset before it: F1 filter_mark
+// (closure_filter_kernels.cu) and P2 power_account
+// (closure_power_kernels.cu). The scratch is one 64-bit word: the sum in
+// its low 40 bits, the tickets taken in its high 24. Every block adds its
+// value and one ticket in a single atomic, so the block that takes the
+// last ticket sees every other block's value in what the atomic returns
+// (no fence, no second round trip); it stores the sum and returns the
+// scratch to zero. The scratch is zeroed once, when the wrapper allocates
+// it (engine/cuda_ops.py grid_scratch, one per device and stream):
+// launches on one stream run one after the other, so each finds it at
+// zero, and no two launches in flight share it.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kSumBits = 40;
+
+// Thread 0 of every block calls this once, with the block's final value
+// (v >= 0, the grid's sum below 2^40, fewer than 2^24 blocks). *out gets
+// the sum's low 32 bits: the plain versions' int32 result.
+__device__ __forceinline__ void grid_sum_last_block(long long v, unsigned long long* scratch,
+                                                    int* out) {
+  const unsigned long long add = (1ull << kSumBits) | (unsigned long long)v;
+  const unsigned long long before = atomicAdd(scratch, add);
+  if ((before >> kSumBits) == gridDim.x - 1) {
+    *out = (int)(uint32_t)(before + (unsigned long long)v);
+    *scratch = 0ull;
+  }
+}
+
+}  // namespace

@@ -39,7 +39,7 @@ SOURCES = tuple(
                  "microbench_kernels.cu")
 )
 # headers the sources include: part of the library's content hash
-HEADERS = (_PKG / "csrc" / "probe.cuh", _PKG / "csrc" / "scan.cuh")
+HEADERS = tuple(_PKG / "csrc" / name for name in ("probe.cuh", "scan.cuh", "reduce.cuh"))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -68,6 +68,9 @@ SCAN_MAX_TILES = 1024
 _lib = None
 _lock = threading.Lock()
 build_info: dict = {}
+# the scratch word of csrc/reduce.cuh's last-block sum, one per (device,
+# stream): see grid_scratch
+_grid_scratch: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -142,9 +145,9 @@ _SIGNATURES = {
     "keto_list_pool_compact": [_VP] * 4 + [_I] * 3 + [_VP] * 3,
     "keto_closure_probe": [_VP, _LL, _I, _VP, _LL, _I, _I, _I, _VP, _LL, _I, _I, _VP, _I, _VP,
                            _VP],
-    "keto_filter_mark": [_VP] * 4 + [_I, _VP, _I] + [_VP] * 5,
+    "keto_filter_mark": [_VP] * 4 + [_I, _VP, _I] + [_VP] * 6,
     "keto_power_step": [_VP] * 4 + [_I] * 3 + [_VP] * 6,
-    "keto_power_account": [_VP] * 4 + [_I] * 5 + [_VP] * 3,
+    "keto_power_account": [_VP] * 4 + [_I] * 5 + [_VP] * 4,
     "keto_power_poison": [_VP] * 4 + [_I] * 2 + [_VP] * 3,
     "keto_mb_probe": [_VP, _VP, _I, _VP, _VP],
     "keto_mb_probe_smem": [_VP, _I, _VP, _I, _VP, _VP],
@@ -187,6 +190,23 @@ def _p(t: torch.Tensor | None):
 
 def _stream():
     return torch.cuda.current_stream().cuda_stream
+
+
+def grid_scratch(device: torch.device, stream: int) -> torch.Tensor:
+    """The 64-bit scratch word of F1's and P2's one-launch grid sums
+    (csrc/reduce.cuh) on `device` for launches on `stream` (a
+    cuda_stream handle): zeroed once here, and left at zero by every
+    launch that uses it. Launches on one stream run one after the other,
+    so they may share it; another stream gets its own, so no two launches
+    in flight do."""
+    key = (device.index, stream)
+    t = _grid_scratch.get(key)
+    if t is None:
+        with _lock:
+            t = _grid_scratch.get(key)
+            if t is None:
+                t = _grid_scratch[key] = torch.zeros(1, dtype=torch.int64, device=device)
+    return t
 
 
 def _require(name: str, dtype, *tensors: torch.Tensor) -> None:
@@ -549,9 +569,10 @@ def filter_mark(obj, rel, depth, live, cand, head, hit, status) -> torch.Tensor:
         raise ValueError(f"{name}: expects a [C > 0] column and hit mask, head and status")
     marks = torch.empty(1, dtype=torch.int32, device=obj.device)
     lib = library()
+    stream = _stream()
     rc = lib.keto_filter_mark(
         _p(obj), _p(rel), _p(depth), _p(live), F, _p(cand), C, _p(head), _p(hit), _p(status),
-        _p(marks), _stream(),
+        _p(marks), _p(grid_scratch(obj.device, stream)), stream,
     )
     _check(lib, rc, name)
     return marks.reshape(())
@@ -593,7 +614,9 @@ def power_step(F, R, e_src, e_dst, counts, stats, status) -> torch.Tensor:
 def power_account(fresh, lvl, counts, d_rows, status, *, level: int,
                   max_set_rows: int) -> torch.Tensor:
     """P2: the next frontier F = fresh & ~kill; lvl and status[0] (F's
-    popcount) update in place."""
+    popcount) update in place. The kernel indexes in 32 bits and moves 16
+    bytes at a time: N * W and the level plane's D * 32 W bytes must stay
+    below 2^31, fresh (when W >= 4) and lvl be 16-byte aligned."""
     name = "power_account"
     N, W = _require_words(name, fresh)
     _require(name, torch.int32, counts, d_rows, status)
@@ -601,10 +624,17 @@ def power_account(fresh, lvl, counts, d_rows, status, *, level: int,
     D = d_rows.shape[0]
     if lvl.shape != (D, 32 * W) or counts.shape != (32 * W,) or status.numel() < 1:
         raise ValueError(f"{name}: expects a [D, 32 W] level plane, [32 W] counts and a status")
+    if N * W >= 2**31 or D * 32 * W >= 2**31:
+        raise ValueError(f"{name}: [{N}, {W}] words and a [{D}, {32 * W}] level plane overflow "
+                         "its 32-bit indices")
+    if lvl.data_ptr() % 16 or (W >= 4 and fresh.data_ptr() % 16):
+        raise ValueError(f"{name}: fresh and lvl must be 16-byte aligned")
     F = torch.empty_like(fresh)
     lib = library()
+    stream = _stream()
     rc = lib.keto_power_account(_p(fresh), _p(lvl), _p(counts), _p(d_rows), N, D, W, level,
-                                max_set_rows, _p(F), _p(status), _stream())
+                                max_set_rows, _p(F), _p(status),
+                                _p(grid_scratch(fresh.device, stream)), stream)
     _check(lib, rc, name)
     return F
 

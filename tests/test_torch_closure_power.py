@@ -228,9 +228,12 @@ def wave_inputs(lanes, seed, n_sub=40, n_edges=70):
     return e_src, e_dst, d_rows, pois, R0, lvl0, counts0
 
 
-@pytest.mark.parametrize("max_set_rows", [1 << 20, 3])
-@pytest.mark.parametrize("lanes", [32, 64, 128])
+@pytest.mark.parametrize("max_set_rows", [1 << 20, 3, 0])
+@pytest.mark.parametrize("lanes", [32, 64, 128, 2048])
 def test_wave_identical(lanes, max_set_rows):
+    """One wave against keto_tpu's at 1, 2, 4 and 64 words a row (2,048
+    lanes: the widest deep-1e6 wave's), with no row cap, a cap of 3 and a
+    cap of 0 (every source is killed after its first step)."""
     import jax.numpy as jnp
 
     inputs = wave_inputs(lanes, seed=lanes + max_set_rows)
@@ -246,9 +249,11 @@ def test_wave_identical(lanes, max_set_rows):
     np.testing.assert_array_equal(summary.numpy(), want_summary)
     counts, pois_out = summary[:lanes].numpy(), summary[lanes:2 * lanes].numpy()
     stats = summary[2 * lanes:].numpy()
-    # the cases reached what they are for: several steps, poison, a kill
-    assert stats[0] >= 2 and pois_out.any() and (lvl.numpy() > 0).any()
-    assert (counts > max_set_rows).any() == (max_set_rows == 3)
+    # the cases reached what they are for: several steps (one under a cap
+    # of 0), poison, a kill
+    assert stats[0] == 1 if max_set_rows == 0 else stats[0] >= 2
+    assert pois_out.any() and (lvl.numpy() > 0).any()
+    assert (counts > max_set_rows).any() == (max_set_rows < 1 << 20)
     # inputs are not updated in place
     np.testing.assert_array_equal(R0.view(np.int32), inputs[4].view(np.int32))
 

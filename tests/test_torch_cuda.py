@@ -703,52 +703,137 @@ def test_filter_launch_matches_plain(cuda, scenario, layout, has_delta, frontier
         assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("F,C,n", [(512, 16, 9), (4096, 16384, 9937), (70_000, 1024, 1000)])
-def test_filter_mark_matches_plain_on_card(cuda, F, C, n):
-    """F1 on random task columns, duplicate objects included, against its
-    plain version on the same CUDA tensors; hit and status update in
-    place, so each side works on its own clones."""
+def filter_columns(cuda, F, C, n, seed):
+    """F1's inputs: a sorted column of n candidates padded to C, F random
+    tasks (duplicate objects included, a quarter of them on a candidate),
+    a hit mask with a tenth of the candidates already hit, and a status."""
     from keto_tpu_torch.engine import filter_kernel as tfk
 
-    rng = np.random.default_rng(F)
+    rng = np.random.default_rng(seed)
     cand = np.full(C, tfk.CAND_PAD, np.int32)
     cand[:n] = np.sort(rng.choice(4 * n, n, replace=False))
     cols = [torch.from_numpy(x).to(cuda) for x in (
         rng.integers(0, 4 * n + 8, F).astype(np.int32), rng.integers(0, 3, F).astype(np.int32),
         rng.integers(-1, 3, F).astype(np.int32))]
     live = torch.from_numpy(rng.random(F) < 0.9).to(cuda)
-    cand_t = torch.from_numpy(cand).to(cuda)
     head = torch.tensor([0, 0, 1, 0, n], dtype=torch.int32, device=cuda)
-    hit0 = torch.from_numpy((rng.random(C) < 0.1) & (np.arange(C) < n)).to(torch.int32).to(cuda)
-    status0 = torch.tensor([F, 0, int(hit0.sum()), n], dtype=torch.int32, device=cuda)
+    hit = torch.from_numpy((rng.random(C) < 0.1) & (np.arange(C) < n)).to(torch.int32).to(cuda)
+    status = torch.tensor([F, 0, int(hit.sum()), n], dtype=torch.int32, device=cuda)
+    return [*cols, live, torch.from_numpy(cand).to(cuda), head], hit, status
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,C,n", [(512, 16, 9), (4096, 16384, 9937), (70_000, 1024, 1000),
+                                   (512, 1, 1), (4096, 1 << 20, 10**6)])
+def test_filter_mark_matches_plain_on_card(cuda, F, C, n):
+    """F1 on random task columns against its plain version on the same
+    CUDA tensors, one slot and a 2^20-slot column of 10^6 candidates
+    included; hit and status update in place, so each side works on its
+    own clones."""
+    from keto_tpu_torch.engine import filter_kernel as tfk
+
+    cols, hit0, status0 = filter_columns(cuda, F, C, n, seed=F)
     outs = []
     for fn in (cuda_ops.filter_mark, tfk.filter_mark_plain):
         hit, status = hit0.clone(), status0.clone()
-        marks = fn(*cols, live, cand_t, head, hit, status)
+        marks = fn(*cols, hit, status)
         outs.append((marks.to(torch.int32), hit, status))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
     assert int(outs[0][0]) > 0
 
 
+@pytest.mark.cuda
+def test_filter_mark_calls_in_a_row_on_card(cuda):
+    """F1's marks come from a one-launch grid sum over a scratch that each
+    launch leaves at zero: five calls in a row on one hit mask, with no
+    reset between them, then F1 and P2 calls interleaved on the same
+    stream, each exact against its plain version."""
+    from keto_tpu_torch.engine import closure_power as tcp
+    from keto_tpu_torch.engine import filter_kernel as tfk
+
+    cols, hit0, status0 = filter_columns(cuda, 4096, 16384, 10_000, seed=11)
+    got = (hit0.clone(), status0.clone())
+    want = (hit0.clone(), status0.clone())
+    marks = []
+    for k in range(5):
+        obj = torch.roll(cols[0], 97 * k)  # another object column each call
+        a = cuda_ops.filter_mark(obj, *cols[1:], *got)
+        b = tfk.filter_mark_plain(obj, *cols[1:], *want)
+        assert int(a) == int(b) > 0, k
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), k
+        marks.append(int(a))
+    assert len(set(marks)) > 1
+
+    inputs = power_wave(2048, 7, 1000, 2000)
+    e_src, e_dst, d_rows, _pois, R0, lvl0, counts0 = (t.to(cuda) for t in inputs)
+    fresh = tcp.power_step_plain(R0, R0.clone(), e_src, e_dst, counts0.clone(),
+                                 torch.zeros(tk.N_LAUNCH_STATS, dtype=torch.int32, device=cuda),
+                                 torch.ones(1, dtype=torch.int32, device=cuda))
+    for k in range(3):
+        sides = []
+        for fn in (cuda_ops.power_account, tcp.power_account_plain):
+            lvl, status = lvl0.clone(), torch.zeros(1, dtype=torch.int32, device=cuda)
+            sides.append((fn(fresh, lvl, counts0, d_rows, status, level=1, max_set_rows=k),
+                          lvl, status))
+        for a, b in zip(*sides):
+            assert torch.equal(a, b), k
+        hit, status = hit0.clone(), status0.clone()
+        a = cuda_ops.filter_mark(*cols, hit, status)
+        want_hit, want_status = hit0.clone(), status0.clone()
+        assert int(a) == int(tfk.filter_mark_plain(*cols, want_hit, want_status)), k
+        assert torch.equal(hit, want_hit) and torch.equal(status, want_status), k
+
+
+@pytest.mark.cuda
+def test_filter_mark_and_power_account_launch_one_kernel_on_card(cuda):
+    """A call of F1 or P2 launches its one kernel and no memset: the
+    profiler sees nothing else over 20 calls (it may lose a few records,
+    never add one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cols, hit, status = filter_columns(cuda, 4096, 16384, 10_000, seed=3)
+    e_src, e_dst, d_rows, _pois, R0, lvl0, counts0 = (t.to(cuda) for t in
+                                                       power_wave(2048, 5, 1000, 2000))
+    p2_status = torch.zeros(1, dtype=torch.int32, device=cuda)
+    calls = {
+        "filter_mark_staged_kernel": lambda: cuda_ops.filter_mark(*cols, hit, status),
+        "power_account_vec_kernel": lambda: cuda_ops.power_account(
+            R0, lvl0, counts0, d_rows, p2_status, level=1, max_set_rows=3),
+    }
+    for kernel, call in calls.items():
+        call()  # builds the library and the stream's scratch
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                call()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
+        assert len(events) == 1 and kernel in events[0].key, [e.key for e in events]
+        assert 0 < events[0].count <= 20
+
+
 # -- closure powering ----------------------------------------------------------------
 
 
-def power_wave(lanes, seed, n_sub, n_edges):
+def power_wave(lanes, seed, n_sub, n_edges, n_nodes=None, n_direct=None):
     """One wave's inputs laid out as power_closure_device lays them out: a
     random subgraph with a dummy node at n_sub, dst-sorted edges and direct
     rows padded with it, a few poisoned nodes, and lanes - 3 sources (the
-    last word holds padding lanes) with their self bits, levels and counts."""
+    last word holds padding lanes) with their self bits, levels and counts.
+    n_nodes (rows of the bit matrices, past n_sub) defaults to the
+    layout's power of two, n_direct (direct nodes) to half of n_sub."""
     from keto_tpu_torch.engine import closure_power as tcp
 
     rng = np.random.default_rng(seed)
-    Nq, Eq = tcp._next_pow2(n_sub + 1, 2), tcp._next_pow2(n_edges, 1)
+    Nq, Eq = n_nodes or tcp._next_pow2(n_sub + 1, 2), tcp._next_pow2(n_edges, 1)
     src, dst = rng.integers(0, n_sub, n_edges), rng.integers(0, n_sub, n_edges)
     order = np.argsort(dst, kind="stable")
     e_src, e_dst = np.full(Eq, n_sub, np.int32), np.full(Eq, n_sub, np.int32)
     e_src[:n_edges], e_dst[:n_edges] = src[order], dst[order]
-    dnodes = np.sort(rng.choice(n_sub, n_sub // 2, replace=False)).astype(np.int32)
+    n_direct = n_sub // 2 if n_direct is None else n_direct
+    dnodes = np.sort(rng.choice(n_sub, n_direct, replace=False)).astype(np.int32)
     d_rows = np.full(tcp._next_pow2(len(dnodes), 1), n_sub, np.int32)
     d_rows[:len(dnodes)] = dnodes
     pois = np.zeros(Nq, np.uint8)
@@ -758,9 +843,10 @@ def power_wave(lanes, seed, n_sub, n_edges):
     R0 = np.zeros((Nq, lanes // 32), np.uint32)
     np.bitwise_or.at(R0, (snode, lane_ids // 32), np.uint32(1) << (lane_ids % 32).astype(np.uint32))
     lvl0 = np.full((len(d_rows), lanes), -1, np.int8)
-    pos = np.searchsorted(dnodes, snode).clip(0, len(dnodes) - 1)
-    at_d = dnodes[pos] == snode
-    lvl0[pos[at_d], lane_ids[at_d]] = 0
+    if n_direct:
+        pos = np.searchsorted(dnodes, snode).clip(0, len(dnodes) - 1)
+        at_d = dnodes[pos] == snode
+        lvl0[pos[at_d], lane_ids[at_d]] = 0
     counts0 = np.zeros(lanes, np.int32)
     counts0[:nl] = 1
     return [torch.from_numpy(a) for a in (e_src, e_dst, d_rows, pois, R0.view(np.int32), lvl0,
@@ -768,17 +854,22 @@ def power_wave(lanes, seed, n_sub, n_edges):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("max_set_rows", [1 << 20, 3])
-@pytest.mark.parametrize("lanes,n_sub,n_edges", [(32, 40, 70), (256, 300, 500),
-                                                 (8192, 3000, 5000)])
-def test_power_kernels_match_plain_on_card(cuda, lanes, n_sub, n_edges, max_set_rows):
+@pytest.mark.parametrize("max_set_rows", [1 << 20, 3, 0])
+@pytest.mark.parametrize("lanes,n_sub,n_edges,n_nodes,n_direct", [
+    (32, 40, 70, None, None), (64, 40, 70, None, None), (256, 300, 500, None, None),
+    (2048, 1000, 2000, None, None), (8192, 3000, 5000, None, None),
+    (32, 6, 12, 7, 0), (64, 6, 12, 7, 0)])
+def test_power_kernels_match_plain_on_card(cuda, lanes, n_sub, n_edges, n_nodes, n_direct,
+                                           max_set_rows):
     """P1, P2 and P3 against their plain versions on the same CUDA tensors
-    at every step of a wave (1, 8 and 256 words a row; with a row-cap kill;
-    with poisoned nodes), each side updating its own clones; then the whole
-    wave on the card against the CPU's."""
+    at every step of a wave (1, 2, 8, 64 and 256 words a row; 7 nodes with
+    only the dummy direct row, so N W is no multiple of 4 and D = 1; with
+    a row-cap kill, one that kills every source after its first step, and
+    poisoned nodes), each side updating its own clones; then the whole wave
+    on the card against the CPU's."""
     from keto_tpu_torch.engine import closure_power as tcp
 
-    inputs = power_wave(lanes, lanes + max_set_rows, n_sub, n_edges)
+    inputs = power_wave(lanes, lanes + max_set_rows, n_sub, n_edges, n_nodes, n_direct)
     e_src, e_dst, d_rows, pois, R0, lvl0, counts0 = (t.to(cuda) for t in inputs)
     R, F, lvl, counts = R0.clone(), R0, lvl0.clone(), counts0.clone()
     stats = torch.zeros(tk.N_LAUNCH_STATS, dtype=torch.int32, device=cuda)
@@ -806,7 +897,8 @@ def test_power_kernels_match_plain_on_card(cuda, lanes, n_sub, n_edges, max_set_
     summary = cuda_ops.power_poison(R, pois, counts, stats)
     assert torch.equal(summary, tcp.power_poison_plain(R, pois, counts, stats))
     S = lanes
-    assert level >= 2 and summary[S:2 * S].any() and killed == (max_set_rows == 3)
+    assert level == 1 if max_set_rows == 0 else level >= 2
+    assert summary[S:2 * S].any() and killed == (max_set_rows < 1 << 20)
     assert {k: cuda_ops.launches[k] - before[k] for k in before} == {
         "power_step": level, "power_account": level, "power_poison": 1}
 

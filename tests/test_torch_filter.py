@@ -189,10 +189,9 @@ def test_filter_vector_identical(fixtures, variant):
         assert steps[-2] == 2 and steps[-3] > 2
 
 
-@pytest.mark.parametrize("seed", range(4))
-def test_filter_mark_plain_equals_jax_step(seed):
-    """The plain F1 against the JAX step's marking (searchsorted, clip,
-    drop-mode scatter) on random columns with duplicate tasks."""
+def _jax_mark(obj, rel, depth, live, cand, q_rel, hit):
+    """The JAX step's marking (keto_tpu/engine/filter_kernel.py _filter_impl
+    step 2): searchsorted, clip, drop-mode scatter; (hit, marks)."""
     import jax
     import jax.numpy as jnp
 
@@ -203,6 +202,23 @@ def test_filter_mark_plain_equals_jax_step(seed):
         found = match & (cand[pos] == obj)
         return hit.at[jnp.where(found, pos, cand.shape[0])].set(True, mode="drop"), found.sum()
 
+    want_hit, want_marks = reference(*(jnp.asarray(x) for x in (obj, rel, depth, live, cand)),
+                                     jnp.int32(q_rel), jnp.asarray(hit))
+    return np.asarray(want_hit), int(want_marks)
+
+
+def _port_mark(obj, rel, depth, live, cand, n, hit, status):
+    """The plain F1 on the same numpy columns; hit and status update in
+    place; returns the marks."""
+    head = torch.tensor([0, 0, 1, 0, n], dtype=torch.int32)
+    return int(tfk.filter_mark_plain(*(torch.from_numpy(x) for x in (obj, rel, depth, live, cand)),
+                                     head, hit, status))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_filter_mark_plain_equals_jax_step(seed):
+    """The plain F1 against the JAX step's marking (searchsorted, clip,
+    drop-mode scatter) on random columns with duplicate tasks."""
     rng = np.random.default_rng(seed)
     F, n = 512, int(rng.integers(1, C))
     cand = np.full(C, tfk.CAND_PAD, np.int32)
@@ -213,16 +229,68 @@ def test_filter_mark_plain_equals_jax_step(seed):
     live = rng.random(F) < 0.8
     hit0 = rng.random(C) < 0.2
     hit0[n:] = False
-    want_hit, want_marks = reference(*(jnp.asarray(x) for x in (obj, rel, depth, live, cand)),
-                                     jnp.int32(1), jnp.asarray(hit0))
-    head = torch.tensor([0, 0, 1, 0, n], dtype=torch.int32)
+    want_hit, want_marks = _jax_mark(obj, rel, depth, live, cand, 1, hit0)
     hit = torch.from_numpy(hit0.astype(np.int32))
     status = torch.tensor([F, 0, int(hit0.sum()), n], dtype=torch.int32)
-    marks = tfk.filter_mark_plain(*(torch.from_numpy(x) for x in (obj, rel, depth, live, cand)),
-                                  head, hit, status)
-    np.testing.assert_array_equal(hit.numpy().astype(bool), np.asarray(want_hit))
-    assert int(marks) == int(want_marks) > 0
-    assert int(status[2]) == int(np.asarray(want_hit).sum())
+    marks = _port_mark(obj, rel, depth, live, cand, n, hit, status)
+    np.testing.assert_array_equal(hit.numpy().astype(bool), want_hit)
+    assert marks == want_marks > 0
+    assert int(status[2]) == int(want_hit.sum())
+
+
+# (F tasks, C slots, candidates, object draw): the F1 kernel's edge shapes
+MARK_EDGES = {
+    "c1": (64, 1, 1, "near"),
+    "all_padding": (64, 16, 0, "near"),
+    "no_padding": (256, 32, 32, "near"),
+    "one_object": (128, 16, 9, "one"),
+    "outside": (128, 16, 9, "outside"),
+    "f_gt_c": (4096, 64, 40, "near"),
+    "second_call_sets_nothing": (256, 32, 20, "near"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MARK_EDGES))
+def test_filter_mark_plain_edges_equal_jax_step(case):
+    """The plain F1 against the JAX step on its edge shapes: one slot; a
+    column of padding only, or none; every task on one object; objects
+    below the first candidate and above the last; more tasks than slots;
+    and a second call on the same hit mask, which sets nothing new and
+    still counts its matching tasks."""
+    F, Cc, n, draw = MARK_EDGES[case]
+    rng = np.random.default_rng(len(case))
+    cand = np.full(Cc, tfk.CAND_PAD, np.int32)
+    cand[:n] = np.sort(rng.choice(np.arange(10, 10 + 4 * max(n, 1)), n, replace=False))
+    if draw == "one":
+        obj = np.full(F, cand[n // 2], np.int32)
+    elif draw == "outside":
+        obj = np.where(rng.random(F) < 0.5, rng.integers(-5, cand[0], F),
+                       rng.integers(cand[n - 1] + 1, cand[n - 1] + 50, F)).astype(np.int32)
+    else:
+        obj = rng.integers(0, 20 + 4 * max(n, 1), F).astype(np.int32)
+    rel = rng.integers(0, 3, F).astype(np.int32)
+    depth = rng.integers(-1, 3, F).astype(np.int32)
+    live = rng.random(F) < 0.9
+    hit0 = np.zeros(Cc, bool)
+    hit = torch.zeros(Cc, dtype=torch.int32)
+    status = torch.tensor([F, 0, 0, n], dtype=torch.int32)
+    calls = 2 if case == "second_call_sets_nothing" else 1
+    for _ in range(calls):
+        want_hit, want_marks = _jax_mark(obj, rel, depth, live, cand, 1, hit0)
+        before = int(status[2])
+        marks = _port_mark(obj, rel, depth, live, cand, n, hit, status)
+        np.testing.assert_array_equal(hit.numpy().astype(bool), want_hit)
+        assert marks == want_marks
+        assert int(status[2]) == int(want_hit.sum())
+        hit0 = want_hit
+    if case == "second_call_sets_nothing":
+        assert int(status[2]) == before > 0 and marks > 0
+    elif case in ("all_padding", "outside"):
+        assert marks == 0 and not hit.any()
+    else:
+        assert marks > 0
+    if case == "one_object":
+        assert int(status[2]) == 1
 
 
 # -- the engines ---------------------------------------------------------------------

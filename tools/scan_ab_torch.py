@@ -1,6 +1,6 @@
-"""Time K3 `expand_gather` and K4 `dedupe_compact` of one or more
-checkouts of keto_tpu_torch on one NVIDIA card, in turns, on the same
-inputs.
+"""Time K3 `expand_gather`, K4 `dedupe_compact`, F1 `filter_mark` and P2
+`power_account` of one or more checkouts of keto_tpu_torch on one NVIDIA
+card, in turns, on the same inputs.
 
     python tools/scan_ab_torch.py --roots _checkout/parent . . _checkout/parent
 
@@ -10,8 +10,12 @@ _build/), makes the inputs from a seed at the shapes of chip_smoke.py's
 cells, holds each kernel to its plain version (max_abs_err must be 0) and
 times it: device ms per call from torch.profiler, every kernel and memset
 of the call, its mean time a launch times its launches a call, and those
-parts by name. The inputs
-are drawn, not captured: chip_smoke.py times the kernels on real batches.
+parts by name. F1 and P2 update inputs in place: each side of the
+comparison works on its own clones, F1 is timed on one set of clones
+call after call (as chip_smoke.py times it), and each timed P2 call first
+copies its level plane and status back (the copies are reported among the
+parts, not in the kernel's time). The inputs are drawn, not captured:
+chip_smoke.py times the kernels on real batches.
 One JSON line per root, after a line with the card's name and power limit.
 Needs a card; exits 1 without one.
 """
@@ -25,10 +29,17 @@ import subprocess
 import sys
 
 REPS = 50
-# name: (kernel, G or F, F, S or n_queries); the cells of chip_smoke.py
-# (PERF.md §4): Check's frontier of 8,192 (S = K + 1 = 3 for its videos
-# namespace) and 4,096 queries, Expand's 4F candidates, ListSubjects' and
-# the filter walk's frontiers of 16,384, ListObjects' of 2^20
+# name: (kernel, *shape); the cells of chip_smoke.py (PERF.md §4). K3 and
+# K4: (G or F, F, S or n_queries): Check's frontier of 8,192 (S = K + 1 =
+# 3 for its videos namespace) and 4,096 queries, Expand's 4F candidates,
+# ListSubjects' and the filter walk's frontiers of 16,384, ListObjects' of
+# 2^20. F1: (F tasks, C slots, candidates): filter_batch's frontier of
+# 4,096 against the 16,384-slot bucket of bench_filter's 10,000
+# candidates. P2: (N nodes, lanes, D direct rows): the widest wave of
+# the max_set_rows-4 deep-1e6 build (32,768 nodes, 2,048 lanes, so W =
+# 64, and 16,384 direct rows), with a step's fresh bits as sparse as on
+# that wave (p2_wave) and one word in eight non-zero (p2_dense: the level
+# pass's heavy case).
 CASES = {
     "k3_check": ("expand_gather", 8192, 8192, 3),
     "k4_check": ("dedupe_compact", 8192, 8192, 4096),
@@ -36,14 +47,24 @@ CASES = {
     "k4_list_subjects": ("dedupe_compact", 16384, 16384, 256),
     "k4_filter": ("dedupe_compact", 16384, 16384, 1),
     "k4_list_objects": ("dedupe_compact", 1 << 20, 1 << 20, 256),
+    "f1_filter": ("filter_mark", 4096, 16384, 10000),
+    "p2_wave": ("power_account", 32768, 2048, 16384),
+    "p2_dense": ("power_account", 32768, 2048, 16384),
 }
+# the arguments F1 and P2 update in place
+UPDATED = {"filter_mark": (6, 7), "power_account": (1, 4)}
 
 
 def inputs(name: str, dev):
     """(args, kwargs) of the case's wrapper, drawn from seed 0: K3 a
     quarter of the slots non-empty (the total stays under F, as on a batch
     that needs no host replay); K4 narrow keys (duplicates and bucket
-    collisions) with 80% valid."""
+    collisions) with 80% valid; F1 a sorted column padded as the walk pads
+    it, objects that hit it a quarter of the time, 90% live; P2 reach
+    counts of 0-8 against a row cap of 4, so about half the sources are
+    killed, and two fresh bits a source at random nodes (as a chain
+    advances a node a step; p2_wave) or one fresh word in eight non-zero
+    (p2_dense)."""
     import numpy as np
     import torch
 
@@ -52,6 +73,33 @@ def inputs(name: str, dev):
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+
+    if kernel == "filter_mark":
+        from keto_tpu_torch.engine.filter_kernel import CAND_PAD
+
+        C, n_cand = F, m
+        cand = np.full(C, CAND_PAD, np.int32)
+        cand[:n_cand] = np.sort(rng.choice(4 * n_cand, n_cand, replace=False))
+        live = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+        return (t(rng.integers(0, 4 * n_cand, n)), t(rng.integers(0, 3, n)),
+                t(rng.integers(-1, 3, n)), live, t(cand), t([0, 0, 1, 0, n_cand]),
+                t(np.zeros(C)), t([n, 0, 0, n_cand])), {}
+    if kernel == "power_account":
+        N, S, D = n, F, m
+        W = S // 32
+        if name == "p2_dense":
+            fresh = rng.integers(0, 1 << 32, (N, W), dtype=np.uint64)
+            fresh &= rng.integers(0, 1 << 32, (N, W), dtype=np.uint64)  # sparse bits
+            fresh[rng.random((N, W)) >= 0.125] = 0
+        else:
+            fresh = np.zeros((N, W), np.uint64)
+            lane = np.repeat(np.arange(S), 2)
+            np.bitwise_or.at(fresh, (rng.integers(0, N, 2 * S), lane // 32),
+                             np.uint64(1) << (lane % 32).astype(np.uint64))
+        lvl = np.where(rng.random((D, S)) < 0.9, -1, rng.integers(0, 3, (D, S))).astype(np.int8)
+        args = (t(fresh.astype(np.uint32).view(np.int32)), torch.from_numpy(lvl).to(dev),
+                t(rng.integers(0, 9, S)), t(np.sort(rng.choice(N, D, replace=False))), t([0]))
+        return args, dict(level=2, max_set_rows=4)
 
     if kernel == "expand_gather":
         S, B, n_edges = m, 4096, 1 << 20
@@ -108,18 +156,52 @@ def worker(root: str) -> dict:
     out = {"root": root, "card": torch.cuda.get_device_name(0)}
     for name, (kernel, *_shape) in CASES.items():
         args, kw = inputs(name, torch.device("cuda"))
-        run = lambda: getattr(cuda_ops, kernel)(*args, **kw)  # noqa: E731
-        if kernel == "expand_gather":
+        fn = getattr(cuda_ops, kernel)
+        run = lambda: fn(*args, **kw)  # noqa: E731
+        if kernel in UPDATED:
+            got, want, run = in_place(kernel, fn, args, kw)
+        elif kernel == "expand_gather":
+            got = run()
             ch, over = tk.expand_gather_plain(*args, **kw)
             want = (ch.q, ch.ctx, ch.obj, ch.rel, ch.depth, ch.valid, over)
         else:
-            want = tk.dedupe_compact_plain(tk.Expansion(*args), **kw)
+            got, want = run(), tk.dedupe_compact_plain(tk.Expansion(*args), **kw)
         err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
-                  for g, w in zip(run(), want))
+                  for g, w in zip(got, want))
         if err:
             raise AssertionError(f"{root} {name}: max_abs_err {err}")
-        out[name], out[f"{name}_parts"] = device_ms(run)
+        _total, parts = device_ms(run)
+        out[name] = sum(ms for part, ms in parts.items() if not part.startswith("Memcpy"))
+        out[f"{name}_parts"] = parts
     return out
+
+
+def in_place(kernel: str, fn, args, kw):
+    """F1's or P2's outputs and updated inputs from its plain version and
+    from the kernel, each on its own clones, and the call to time."""
+    import torch
+
+    from keto_tpu_torch.engine import closure_power as tcp
+    from keto_tpu_torch.engine import filter_kernel as tfk
+
+    plain = tfk.filter_mark_plain if kernel == "filter_mark" else tcp.power_account_plain
+    updated = UPDATED[kernel]
+
+    def side(f):
+        a = [x.clone() if i in updated else x for i, x in enumerate(args)]
+        return (f(*a, **kw), *(a[i] for i in updated))
+
+    got, want = side(fn), side(plain)
+    timed = [x.clone() if i in updated else x for i, x in enumerate(args)]
+    if kernel == "filter_mark":
+        return got, want, lambda: fn(*timed, **kw)
+
+    def reset_and_run():
+        for i in updated:
+            timed[i].copy_(args[i])
+        return fn(*timed, **kw)
+
+    return got, want, reset_and_run
 
 
 def main(argv=None) -> int:
