@@ -26,7 +26,9 @@ Phases, in order; any failure exits non-zero without the final line:
                a check with a snaptoken ahead of the store (409) and a
                list-objects with a satisfied one
   7. expand  — (7a) data, (7b) X1 and X2 against their plain versions
-               on inputs captured from one real expand batch, as phase 3;
+               on inputs captured from one real expand batch, as phase 3,
+               and X1 again on the same batch at a frontier cap of 32,768
+               (the expand_emit row's "large" entry);
                then the Expand path: ~1e6 tuples of bench.py's RBAC shape (role
                member sets nesting earlier roles, docs with owner <
                editor < viewer rewrites; 13,000 roles x 410,000 docs),
@@ -127,6 +129,9 @@ EXPAND_BATCH = 1024
 EXPAND_DEPTH = 6
 EXPAND_CAPS = dict(frontier_cap=max(1024, 4 * EXPAND_BATCH),
                    edge_cap=max(4096, 16 * EXPAND_BATCH))
+# X1's "large" entry: a frontier whose 4 (2F + B) bytes the first X1, one
+# block, could not hold in shared memory
+EXPAND_LARGE_FRONTIER = 32768
 # list phase: bench.py:473 bench_reverse's batch (bench.py:82) and depth.
 # Its ListObjects caps (frontier 16384, results 2048, pool 64 B) were set
 # for 64 folders; over 6,600 folders a user reaches ~1,950 objects (3,031
@@ -536,17 +541,32 @@ def dedupe_kernel_case(args, kw):
     )
 
 
-def expand_kernel_cases(rec):
-    """(name, kernel fn, plain fn, bytes, operations, compare fn) of X1
-    (step 1 of a real expand batch) and X2 (its one call). X1 and X2
-    update buffers in place, so every call works on its own clones;
-    timing reuses one set of clones (a step's edges move eb_count by a few
-    slots of the E per call, far from the buffer's end). Bytes count what
-    the step's data needs: the gate columns of every task, the spans,
-    parents and query counts of the tasks that emit, their emitted edges
-    (three CSR columns read, five buffer columns written) and the [4F]
-    candidate columns; X2 reads B counts and flags and the used buffer
-    rows and writes the whole packed vector."""
+def resetting(args, updated):
+    """call(fn, kw): a call of fn on args that first copies the arguments
+    at `updated` back to their values now, so that every timed call sees
+    the captured state."""
+    saved = {i: args[i].clone() for i in updated}
+
+    def call(fn, kw):
+        def run():
+            for i, t in saved.items():
+                args[i].copy_(t)
+            return fn(*args, **kw)
+        return run
+
+    return call
+
+
+def expand_emit_case(args1, kw1):
+    """X1's (name, kernel fn, plain fn, bytes, operations, compare fn,
+    kernel functions) on captured inputs. X1 updates its buffers in place,
+    so every compared call works on its own clones; a timed call reuses one
+    set, first copying eb_count and needs_host back (the kernel's time
+    excludes the copies; the plain version's includes them), so it writes
+    the same slots every time. Bytes count what the step's data needs: the
+    gate columns of every task, the spans, parents and query counts of the
+    tasks that emit, their emitted edges (three CSR columns read, five
+    buffer columns written) and the [4F] candidate columns."""
     import torch
 
     from keto_tpu_torch.engine import cuda_ops
@@ -556,11 +576,8 @@ def expand_kernel_cases(rec):
         return [tuple(x.clone() for x in a) if isinstance(a, tuple)
                 else a.clone() if isinstance(a, torch.Tensor) else a for a in args]
 
-    cases = []
-    args1, kw1 = rec.args("expand_emit")
-    t_q, _obj, _rel, t_depth, live, row, dirty, f_row_ptr = args1[:8]
-    eb_count = args1[12]
-    F, B = t_q.shape[0], eb_count.shape[0]
+    t_q, _obj, _rel, t_depth, live, row = args1[:6]
+    F = t_q.shape[0]
     G = tek.EMIT_PER_TASK * F
     emitting = int((live & (t_depth >= 2) & (row >= 0)).sum())
 
@@ -569,18 +586,28 @@ def expand_kernel_cases(rec):
         out = fn(*a, **kw1)
         return (*out, *a[11], a[12], a[13])  # outputs, then the buffers it updated
 
-    probe = run1(tek.expand_emit_plain)
-    n_emit = int(probe[6])
-    timed1 = cloned(args1)
-    cases.append((
+    n_emit = int(run1(tek.expand_emit_plain)[6])
+    call = resetting(cloned(args1), (12, 13))
+    return (
         "expand_emit",
-        lambda: cuda_ops.expand_emit(*timed1, **kw1),
-        lambda: tek.expand_emit_plain(*timed1, **kw1),
+        call(cuda_ops.expand_emit, kw1),
+        call(tek.expand_emit_plain, kw1),
         F * (4 * 4 + 1) + emitting * (8 + 8 + 8) + n_emit * (12 + 20) + G * (4 * 4 + 1),
         F * 20 + G * (3 * max(F, 2).bit_length() + 20),
         lambda: max_abs_err(run1(cuda_ops.expand_emit), run1(tek.expand_emit_plain)),
-    ))
+        ("expand_emit_", "Memset"),
+    )
 
+
+def expand_kernel_cases(rec):
+    """(name, kernel fn, plain fn, bytes, operations, compare fn[, kernel
+    functions]) of X1 (step 1 of a real expand batch, expand_emit_case)
+    and X2 (its one call): X2 reads B counts and flags and the used buffer
+    rows and writes the whole packed vector."""
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine import expand_kernel as tek
+
+    cases = [expand_emit_case(*rec.args("expand_emit"))]
     args2, kw2 = rec.args("pool_compact")
     eb_count2 = args2[1]
     B2, P = eb_count2.shape[0], kw2["pool_cap"]
@@ -598,14 +625,16 @@ def expand_kernel_cases(rec):
 
 
 def list_kernel_cases(rec_lo, rec_ls):
-    """(name, kernel fn, plain fn, bytes, operations, compare fn) of L1
-    and L2 (ListObjects' emission at step 2 and expansion at step 1, its
-    largest of each), L3 (ListSubjects' step 1) and L4 (ListObjects' one
-    call). L1 updates its buffers in place, so every call works on its own
-    clones; timing reuses one set (the emissions land in res each time,
-    at the same slots of a buffer whose counts only grow). Bytes count
-    what the data needs: each task's columns, the instruction rows, edge
-    rows and namespaces of the candidates that land, each output once."""
+    """(name, kernel fn, plain fn, bytes, operations, compare fn[, kernel
+    functions]) of L1 and L2 (ListObjects' emission at step 2 and
+    expansion at step 1, its largest of each), L3 (ListSubjects' step 1)
+    and L4 (ListObjects' one call). L1 updates its buffers in place, so
+    every compared call works on its own clones; a timed call reuses one
+    set, first copying res_count and needs_host back (the kernel's time
+    excludes the copies; the plain version's includes them), so the
+    emissions land at the same slots every time. Bytes count what the data
+    needs: each task's columns, the instruction rows, edge rows and
+    namespaces of the candidates that land, each output once."""
     import torch
 
     from keto_tpu_torch.engine import cuda_ops
@@ -630,14 +659,15 @@ def list_kernel_cases(rec_lo, rec_ls):
 
     n_emit = int(emit.sum())
     n_land = int(run1(trk.list_emit_plain)[0])
-    timed1 = cloned(args1)
+    call1 = resetting(cloned(args1), (4, 5))
     cases.append((
         "list_emit",
-        lambda: cuda_ops.list_emit(*timed1, **kw1),
-        lambda: trk.list_emit_plain(*timed1, **kw1),
+        call1(cuda_ops.list_emit, kw1),
+        call1(trk.list_emit_plain, kw1),
         N * 5 + n_emit * 4 + n_land * 4 + B * 4 * 3,
         N * 3 + n_emit * 12,
         lambda: max_abs_err(run1(cuda_ops.list_emit), run1(trk.list_emit_plain)),
+        ("list_emit_", "Memset"),
     ))
 
     args2, kw2 = rec_lo.args("reverse_gather")
@@ -746,10 +776,19 @@ def run_kernels(engine, queries):
 def run_expand_kernels(engine, subjects):
     from keto_tpu_torch.engine import cuda_ops
 
-    t0 = phase("7b kernels: X1 and X2 against their plain versions, on a real expand batch")
+    t0 = phase("7b kernels: X1 and X2 against their plain versions, on a real expand batch; "
+                f"X1 also at F = {EXPAND_LARGE_FRONTIER}")
     with Recorder(cuda_ops, step=1) as rec:
         engine.expand_batch(subjects, EXPAND_DEPTH, **EXPAND_CAPS)
     rows = [time_kernel(*case) for case in expand_kernel_cases(rec)]
+    with Recorder(cuda_ops, step=1) as rec_large:
+        engine.expand_batch(subjects, EXPAND_DEPTH,
+                            **{**EXPAND_CAPS, "frontier_cap": EXPAND_LARGE_FRONTIER})
+    args, kw = rec_large.args("expand_emit")
+    large = time_kernel(*expand_emit_case(args, kw))
+    large["note"] = (f"step 1 of the same batch at frontier_cap {EXPAND_LARGE_FRONTIER}, "
+                     f"F = {args[0].shape[0]}, B = {args[12].shape[0]}, E = {kw['edge_cap']}")
+    rows[0]["large"] = {k: large[k] for k in LARGE_KEYS}
     log(f"  kernels phase {time.perf_counter() - t0:.1f} s")
     return rows
 
@@ -1444,18 +1483,6 @@ def power_kernel_cases(wave_args, max_set_rows):
     with Recorder(cuda_ops, step=1) as rec:
         tcp.closure_power_wave(*wave_args, max_depth=DEEP_MAX_DEPTH, max_set_rows=max_set_rows)
     torch.cuda.synchronize()
-
-    def resetting(args, updated):
-        saved = {i: args[i].clone() for i in updated}
-
-        def call(fn, kw):
-            def run():
-                for i, t in saved.items():
-                    args[i].copy_(t)
-                return fn(*args, **kw)
-            return run
-
-        return call
 
     def compared(fn, args, kw, updated):
         def run(f):

@@ -14,9 +14,15 @@
 //                       child candidates.
 // X2 keto_pool_compact  replaces expand_kernel_packed's tail: the pool
 //                       scan, the pool gather and the packed result.
+//
+// X1's bump allocation is csrc/keyed_rank.cuh's keyed scan, shared with
+// L1; the block scans come from csrc/scan.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "keyed_rank.cuh"
+#include "scan.cuh"
 
 namespace {
 
@@ -26,40 +32,28 @@ constexpr int kEmitPerTask = 4;
 constexpr int kScanThreads = 1024;
 constexpr int kThreads = 256;
 
-// Block-wide exclusive scan (any block size that is a multiple of 32).
-__device__ unsigned block_exclusive_scan(unsigned v, unsigned* warp_sums) {
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  unsigned x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned y = __shfl_up_sync(0xFFFFFFFFu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    unsigned w = lane < nwarps ? warp_sums[lane] : 0u;
-    for (int o = 1; o < 32; o <<= 1) {
-      const unsigned y = __shfl_up_sync(0xFFFFFFFFu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < nwarps) warp_sums[lane] = w;
-  }
-  __syncthreads();
-  const unsigned prefix = wid > 0 ? warp_sums[wid - 1] : 0u;
-  return prefix + x - v;
-}
+constexpr int kGatherSample = 1024;  // offsets X1's gather stages a block
 
-// Index of the last entry of the nondecreasing a[0:n] that is <= j
-// (searchsorted side=right, minus one), clamped into [0, n).
-__device__ __forceinline__ int last_le(const int* a, int n, int j) {
+// The number of entries of the nondecreasing a[0:n] that are <= j
+// (searchsorted side=right).
+__device__ __forceinline__ int count_le(const int* a, int n, int j) {
   int lo = 0, hi = n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (a[mid] <= j) lo = mid + 1; else hi = mid;
   }
-  return min(max(lo - 1, 0), n - 1);
+  return lo;
+}
+
+// The last index in [lo, hi) of the nondecreasing a whose entry is <= j,
+// given a[lo] <= j.
+__device__ __forceinline__ int last_le_from(const int* a, int lo, int hi, int j) {
+  int l = lo + 1;
+  while (l < hi) {
+    const int mid = (l + hi) >> 1;
+    if (a[mid] <= j) l = mid + 1; else hi = mid;
+  }
+  return l - 1;
 }
 
 // ---------------------------------------------------------------------------
@@ -68,21 +62,23 @@ __device__ __forceinline__ int last_le(const int* a, int n, int j) {
 // Bound: bytes, and latency at these sizes: per step it reads the [F]
 // task columns and the rows of the tasks that emit, writes their edges
 // into the buffers and the [4F] candidate columns; a few hundred KB.
-// Design: pass 1 is one block. Its threads compute each task's row span,
-// gates and count into shared memory; then one warp walks the tasks in
-// index order, 32 at a time, and gives each task its first edge slot:
-// lanes of the same query find each other with __match_any_sync, sum the
-// counts of their lower lanes, and add the query's next free slot (kept
-// in shared memory, loaded from eb_count once), which the group's highest
-// lane then advances. That is the JAX kernel's stable
-// sort by query and segmented scan without a sort: within a query, slots
-// go in task-index order, and a task that overflows still shifts the
-// later ones. The block then scans the emitted counts in thread-contiguous
-// chunks (offsets in task order), flags truncated rows and adds each
-// task's landed edges to its query's count. Pass 2 gives each of the 4F
-// emission slots a binary search for its task, gathers the edge, writes
-// the buffers and the child candidate, every column as the JAX kernel
-// fills it, including the out-of-range lanes.
+// Design: five launches, none of them over per-task data on one block.
+// Passes 1-3 are csrc/keyed_rank.cuh's keyed scan with weight = the
+// task's row length (key t_q where the task emits), from eb_count: the
+// JAX kernel's stable sort by query and segmented scan without a sort.
+// Pass 1 computes each task's row span and gates (a dirty row flags the
+// query) and its count, written for pass 3 (-1 where it does not emit),
+// and the chunk sums. Pass 2 scans them per query. Pass 3 gives each
+// emitting task its first edge slot, drops a task whose row does not fit
+// (it flags its query, but its count still shifts the later tasks of its
+// query) and writes each block's sum of the emitted counts. Pass 4 scans
+// the emitted counts in task order over the same tiles (csrc/scan.cuh's
+// tile bases), flags truncated rows and adds each task's landed edges to
+// its query's count. Pass 5 gives each of the 4F emission slots its task
+// (a search of 1,024 offsets staged in shared memory, then of the few
+// between two of them in global memory), gathers the edge, writes the
+// buffers and the child candidate, every column as the JAX kernel fills
+// it, including the out-of-range lanes.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void row_span(const int* __restrict__ row_ptr, int n_rows, int row,
@@ -97,101 +93,159 @@ __device__ __forceinline__ void row_span(const int* __restrict__ row_ptr, int n_
   len = row_ptr[min(rc + 1, n_rows)] - start;
 }
 
-__global__ void emit_alloc_kernel(
+template <bool kShared>
+__global__ void expand_emit_count_kernel(
     const int* __restrict__ t_q, const int* __restrict__ t_depth,
     const uint8_t* __restrict__ live, const int* __restrict__ row,
-    const int* __restrict__ dirty, const int* __restrict__ row_ptr, int n_rows, int F,
-    int B, int E, int* __restrict__ eb_count, uint8_t* __restrict__ needs_host,
-    int* __restrict__ start_out, int* __restrict__ alloc_out, uint8_t* __restrict__ emit_out,
-    int* __restrict__ offsets_out, int* __restrict__ total_out, int* __restrict__ emitted_out) {
-  extern __shared__ int smem[];
-  int* sc = smem;          // [F] emit ? count : -1, then emit after overflow ? count : -1
-  int* sq = smem + F;      // [F] query of each task
-  int* run = smem + 2 * F;  // [B] each query's next free edge slot
-  __shared__ unsigned warp_sums[32];
-  __shared__ int total_sh;
-  const int t = threadIdx.x;
-
-  for (int b = t; b < B; b += blockDim.x) run[b] = eb_count[b];
-  for (int i = t; i < F; i += blockDim.x) {
-    const int q = t_q[i];
-    int start, len;
-    row_span(row_ptr, n_rows, row[i], start, len);
-    bool emit = live[i] && t_depth[i] >= 2;
-    if (emit && (max(dirty[i], 0) & kDirtyForExpand)) {
-      needs_host[q] = 1;
-      emit = false;
+    const int* __restrict__ dirty, const int* __restrict__ row_ptr, int n_rows, int F, int B,
+    int rounds, int* __restrict__ table, uint8_t* __restrict__ needs_host,
+    int* __restrict__ start_out, int* __restrict__ cnt_out) {
+  extern __shared__ __align__(16) int smem[];
+  const WarpCounts<kShared> counts = warp_counts<kShared>(smem, table, B);
+  const int lo = ((int)blockIdx.x * (int)(blockDim.x >> 5) + (int)(threadIdx.x >> 5)) *
+                 rounds * 32 + (int)(threadIdx.x & 31);
+  // a group's first-level columns; the next group's are in flight while
+  // a group's rows are read and ranked
+  struct Cols {
+    int q[kRankUnroll], row[kRankUnroll], depth[kRankUnroll], dirty[kRankUnroll];
+    bool live[kRankUnroll];
+  } cur, next;
+  auto load = [&](int r0, Cols& c) {
+#pragma unroll
+    for (int u = 0; u < kRankUnroll; ++u) {
+      const int i = lo + (r0 + u) * 32;
+      const bool in = r0 + u < rounds && i < F;
+      c.q[u] = in ? t_q[i] : 0;
+      c.row[u] = in ? row[i] : kEmpty;
+      c.depth[u] = in ? t_depth[i] : 0;
+      c.live[u] = in && live[i];
+      c.dirty[u] = in ? dirty[i] : 0;
     }
-    sc[i] = emit ? len : -1;
-    sq[i] = q;
-    start_out[i] = start;
+  };
+  load(0, cur);
+  rank_begin<kShared>(smem, table, B, true);  // while the first loads are in flight
+  for (int r0 = 0; r0 < rounds; r0 += kRankUnroll) {
+    load(r0 + kRankUnroll, next);
+    int start[kRankUnroll], len[kRankUnroll];
+    bool emit[kRankUnroll];
+#pragma unroll
+    for (int u = 0; u < kRankUnroll; ++u) {
+      row_span(row_ptr, n_rows, cur.row[u], start[u], len[u]);
+      emit[u] = cur.live[u] && cur.depth[u] >= 2;
+      if (emit[u] && (max(cur.dirty[u], 0) & kDirtyForExpand)) {
+        needs_host[cur.q[u]] = 1;
+        emit[u] = false;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRankUnroll; ++u) {
+      const int i = lo + (r0 + u) * 32;
+      if (r0 + u < rounds && i < F) {
+        start_out[i] = start[u];
+        cnt_out[i] = emit[u] ? len[u] : -1;
+      }
+      rank_round<false>(emit[u] ? cur.q[u] : -1, emit[u] ? (unsigned)len[u] : 0u, counts);
+    }
+    cur = next;
   }
-  __syncthreads();
+  rank_end<kShared>(smem, table, B);
+}
 
-  if (t < 32) {
-    const unsigned lower = (1u << t) - 1u;
-    for (int base = 0; base < F; base += 32) {
-      const int i = base + t;
-      const bool in = i < F;
-      const int c = in ? sc[i] : -1;
-      // only tasks that emit take slots: the others add no count
-      const bool takes = c >= 0;
-      if (__ballot_sync(0xFFFFFFFFu, takes) == 0u) {
-        if (in) emit_out[i] = 0;
-        continue;
-      }
-      const int q = takes ? sq[i] : -1;
-      const unsigned same = __match_any_sync(0xFFFFFFFFu, q);
-      int before = 0;
-      if (takes) {
-        for (unsigned m = same & lower; m; m &= m - 1) before += sc[base + __ffs(m) - 1];
-      }
-      const int alloc = takes ? run[q] + before : 0;
-      __syncwarp();
-      bool emit = false;
-      if (takes) {
-        if (((same >> t) >> 1) == 0u) run[q] += before + c;  // highest lane of the group
-        emit = alloc + c <= E;
-        if (!emit) needs_host[q] = 1;  // the row does not fit: overflow
-        sc[i] = emit ? c : -1;
-      }
-      if (in) {
-        alloc_out[i] = alloc;
+__global__ void expand_emit_scan_kernel(int* __restrict__ table, int B, int chunks, int group,
+                                        const int* __restrict__ eb_count) {
+  __shared__ unsigned sums[kRankScanThreads / 32];
+  const int k = rank_scan_key_of(group);
+  rank_scan_key(table, k, B, chunks, group, k < B ? (unsigned)eb_count[k] : 0u, sums);
+}
+
+template <bool kShared>
+__global__ void expand_emit_rank_kernel(
+    const int* __restrict__ t_q, const int* __restrict__ cnt, int F, int B, int E,
+    int rounds, int* __restrict__ table, uint8_t* __restrict__ needs_host,
+    int* __restrict__ alloc_out, uint8_t* __restrict__ emit_out,
+    int* __restrict__ tile_sums) {
+  extern __shared__ __align__(16) int smem[];
+  __shared__ unsigned warp_sums[64];
+  const WarpCounts<kShared> counts = warp_counts<kShared>(smem, table, B);
+  const int lo = ((int)blockIdx.x * (int)(blockDim.x >> 5) + (int)(threadIdx.x >> 5)) *
+                 rounds * 32 + (int)(threadIdx.x & 31);
+  unsigned emitted = 0;
+  int qq[kRankUnroll], c[kRankUnroll], next_q[kRankUnroll], next_c[kRankUnroll];
+  auto load = [&](int r0, int* qv, int* cv) {
+#pragma unroll
+    for (int u = 0; u < kRankUnroll; ++u) {
+      const int i = lo + (r0 + u) * 32;
+      const bool in = r0 + u < rounds && i < F;
+      cv[u] = in ? cnt[i] : -1;
+      qv[u] = in ? t_q[i] : 0;
+    }
+  };
+  load(0, qq, c);
+  rank_begin<kShared>(smem, table, B, false);  // while the first loads are in flight
+  for (int r0 = 0; r0 < rounds; r0 += kRankUnroll) {
+    load(r0 + kRankUnroll, next_q, next_c);  // in flight while this group is ranked
+#pragma unroll
+    for (int u = 0; u < kRankUnroll; ++u) {
+      const int i = lo + (r0 + u) * 32;
+      const bool takes = c[u] >= 0;
+      const int alloc =
+          (int)rank_round<false>(takes ? qq[u] : -1, takes ? (unsigned)c[u] : 0u, counts);
+      const bool emit = takes && (long long)alloc + c[u] <= E;
+      if (takes && !emit) needs_host[qq[u]] = 1;  // the row does not fit: overflow
+      if (r0 + u < rounds && i < F) {
+        alloc_out[i] = takes ? alloc : 0;
         emit_out[i] = emit;
       }
-      __syncwarp();
+      emitted += emit ? (unsigned)c[u] : 0u;
+      qq[u] = next_q[u];
+      c[u] = next_c[u];
     }
   }
-  __syncthreads();
+  emitted = block_sum(emitted, warp_sums);
+  if (threadIdx.x == 0) tile_sums[blockIdx.x] = (int)emitted;
+}
 
+__global__ void expand_emit_offsets_kernel(
+    const int* __restrict__ t_q, const int* __restrict__ cnt,
+    const uint8_t* __restrict__ emit, int F, int tile, const int* __restrict__ tile_sums,
+    int n_tiles, int* __restrict__ eb_count, uint8_t* __restrict__ needs_host,
+    int* __restrict__ offsets_out, int* __restrict__ total_out,
+    int* __restrict__ emitted_out) {
+  __shared__ unsigned warp_sums[64];
   const int G = kEmitPerTask * F;
-  const int chunk = (F + blockDim.x - 1) / blockDim.x;
-  const int lo = min(F, t * chunk);
-  const int hi = min(F, lo + chunk);
-  unsigned s = 0;
-  for (int i = lo; i < hi; ++i) s += (unsigned)max(sc[i], 0);
-  unsigned off = block_exclusive_scan(s, warp_sums);
-  if (t == (int)blockDim.x - 1) total_sh = (int)(off + s);
-  __syncthreads();
-  const int lim = min(total_sh, G);
+  const int lo_tile = (int)blockIdx.x * tile;
+  const int hi_tile = min(F, lo_tile + tile);
+  const int per = (tile + blockDim.x - 1) / blockDim.x;
+  const int lo = min(hi_tile, lo_tile + (int)threadIdx.x * per);
+  const int hi = min(hi_tile, lo + per);
+  // the thread's first task is in flight while the tile sums are read
+  const int first = lo < hi && emit[lo] ? cnt[lo] : 0;
+  unsigned all;
+  const unsigned base = tile_base(tile_sums, n_tiles, warp_sums, &all);
+  unsigned s = (unsigned)first;
+  for (int i = lo + 1; i < hi; ++i) s += emit[i] ? (unsigned)cnt[i] : 0u;
+  unsigned block_total;
+  unsigned off = base + block_exclusive_scan(s, warp_sums, &block_total);
+  const int lim = min((int)all, G);
   for (int i = lo; i < hi; ++i) {
-    const int c = sc[i];
-    const int fc = max(c, 0);
+    const bool e = emit[i];
+    const int fc = i == lo ? first : e ? cnt[i] : 0;
     offsets_out[i] = (int)off;
-    if (c >= 0) {
-      if ((int)off + fc > G) needs_host[sq[i]] = 1;
+    if (e) {
+      const int q = t_q[i];
+      if ((int)off + fc > G) needs_host[q] = 1;
       const int landed = min(max(lim - (int)off, 0), fc);
-      if (landed > 0) atomicAdd(&eb_count[sq[i]], landed);
+      if (landed > 0) atomicAdd(&eb_count[q], landed);
     }
     off += (unsigned)fc;
   }
-  if (t == 0) {
-    *total_out = total_sh;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *total_out = (int)all;
     *emitted_out = lim;
   }
 }
 
-__global__ void emit_gather_kernel(
+__global__ void expand_emit_gather_kernel(
     const int* __restrict__ offsets, const int* __restrict__ total, int F, int B, int E,
     const int* __restrict__ start, const int* __restrict__ alloc,
     const uint8_t* __restrict__ emit, const int* __restrict__ t_q,
@@ -202,10 +256,18 @@ __global__ void emit_gather_kernel(
     int* __restrict__ eb_sa, int* __restrict__ eb_sb, int* __restrict__ c_q,
     int* __restrict__ c_obj, int* __restrict__ c_rel, int* __restrict__ c_depth,
     uint8_t* __restrict__ c_valid) {
+  // the block stages every step-th offset, searches them, then at most
+  // step - 1 offsets in global memory
+  __shared__ int sample[kGatherSample];
+  const int step = (F + kGatherSample - 1) / kGatherSample;
+  const int n_sample = (F + step - 1) / step;
+  for (int s = threadIdx.x; s < n_sample; s += blockDim.x) sample[s] = offsets[s * step];
+  __syncthreads();
   const int G = kEmitPerTask * F;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= G) return;
-  const int seg = last_le(offsets, F, j);
+  const int p = count_le(sample, n_sample, j);
+  const int seg = p == 0 ? 0 : last_le_from(offsets, (p - 1) * step, min(F, p * step), j);
   const int within = j - offsets[seg];
   const bool in_range = j < min(*total, G);
   int e = start[seg] + within;
@@ -258,7 +320,8 @@ __global__ void pool_scan_kernel(
   const int hi = min(B, lo + chunk);
   unsigned s = 0;
   for (int b = lo; b < hi; ++b) s += (unsigned)min(max(eb_count[b], 0), E);
-  unsigned run = block_exclusive_scan(s, warp_sums);
+  unsigned all;
+  unsigned run = block_exclusive_scan(s, warp_sums, &all);
   int* out_offs = out;
   int* out_root = out + B + 1;
   int* out_needs = out + 2 * B + 1;
@@ -308,33 +371,87 @@ int blocks_for(long long threads, int per_block) {
   return (int)((threads + per_block - 1) / per_block);
 }
 
+// X1's scratch, one buffer of keto_expand_emit_scratch(F, B) ints: the
+// keyed-rank table (first, so 16-byte aligned), its tiles' sums, start,
+// alloc, cnt and offsets F ints each, total one int and emit F bytes,
+// each from a multiple of 4 ints. Returns the ints; fills *x from base.
+struct EmitScratch {
+  int *table, *tile_sums, *start, *alloc, *cnt, *offsets, *total;
+  uint8_t* emit;
+};
+
+long long emit_scratch(int* base, int F, int B, const RankShape& s, EmitScratch* x) {
+  long long at = 0;
+  auto take = [&](long long n) {
+    int* p = base ? base + at : nullptr;
+    at += (n + 3) & ~3LL;
+    return p;
+  };
+  EmitScratch y;
+  y.table = take(rank_table_ints(s, B));
+  y.tile_sums = take(s.blocks);
+  y.start = take(F);
+  y.alloc = take(F);
+  y.cnt = take(F);
+  y.offsets = take(F);
+  y.total = take(1);
+  y.emit = reinterpret_cast<uint8_t*>(take((F + 3) / 4));
+  if (x) *x = y;
+  return at;
+}
+
 }  // namespace
 
 extern "C" {
 
+long long keto_expand_emit_scratch(int F, int B) {
+  return F > 0 && B > 0 ? emit_scratch(nullptr, F, B, rank_shape(F, B), nullptr) : 0;
+}
+
+// Scratch: keto_expand_emit_scratch(F, B) ints; emitted one int.
 int keto_expand_emit(
     const int* t_q, const int* t_obj, const int* t_rel, const int* t_depth,
     const uint8_t* live, const int* row, const int* dirty, const int* row_ptr, int n_rows,
     const int* f_skind, const int* f_sa, const int* f_sb, int n_edges, int F, int B, int E,
     int* eb_pobj, int* eb_prel, int* eb_skind, int* eb_sa, int* eb_sb, int* eb_count,
-    uint8_t* needs_host, int* start, int* alloc, uint8_t* emit, int* offsets, int* total,
-    int* emitted, int* c_q, int* c_obj, int* c_rel, int* c_depth, uint8_t* c_valid,
-    void* stream) {
+    uint8_t* needs_host, int* scratch, int* emitted, int* c_q, int* c_obj, int* c_rel,
+    int* c_depth, uint8_t* c_valid, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (F <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(int) * (2 * (size_t)F + (size_t)B);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(emit_alloc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
+  if (F <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
+  const RankShape s = rank_shape(F, B);
+  EmitScratch x;
+  emit_scratch(scratch, F, B, s, &x);
+  const size_t smem = rank_smem(s, B);
+  const int threads = 32 * s.warps;
+  if (s.shared) {
+    int rc = rank_allow_smem((const void*)expand_emit_count_kernel<true>, smem);
+    if (rc == 0) rc = rank_allow_smem((const void*)expand_emit_rank_kernel<true>, smem);
+    if (rc != 0) return rc;
+    expand_emit_count_kernel<true><<<s.blocks, threads, smem, st>>>(
+        t_q, t_depth, live, row, dirty, row_ptr, n_rows, F, B, s.rounds, x.table, needs_host,
+        x.start, x.cnt);
+  } else {
+    expand_emit_count_kernel<false><<<s.blocks, threads, 0, st>>>(
+        t_q, t_depth, live, row, dirty, row_ptr, n_rows, F, B, s.rounds, x.table, needs_host,
+        x.start, x.cnt);
   }
-  emit_alloc_kernel<<<1, kScanThreads, smem, st>>>(
-      t_q, t_depth, live, row, dirty, row_ptr, n_rows, F, B, E, eb_count, needs_host,
-      start, alloc, emit, offsets, total, emitted);
+  expand_emit_scan_kernel<<<rank_scan_blocks(s, B), kRankScanThreads, 0, st>>>(
+      x.table, B, s.warps * s.blocks, s.group, eb_count);
+  if (s.shared) {
+    expand_emit_rank_kernel<true><<<s.blocks, threads, smem, st>>>(
+        t_q, x.cnt, F, B, E, s.rounds, x.table, needs_host, x.alloc, x.emit, x.tile_sums);
+  } else {
+    expand_emit_rank_kernel<false><<<s.blocks, threads, 0, st>>>(
+        t_q, x.cnt, F, B, E, s.rounds, x.table, needs_host, x.alloc, x.emit, x.tile_sums);
+  }
+  expand_emit_offsets_kernel<<<s.blocks, kThreads, 0, st>>>(
+      t_q, x.cnt, x.emit, F, threads * s.rounds, x.tile_sums, s.blocks, eb_count, needs_host,
+      x.offsets, x.total, emitted);
   const int G = kEmitPerTask * F;
-  emit_gather_kernel<<<blocks_for(G, kThreads), kThreads, 0, st>>>(
-      offsets, total, F, B, E, start, alloc, emit, t_q, t_obj, t_rel, t_depth, f_skind,
-      f_sa, f_sb, n_edges, eb_pobj, eb_prel, eb_skind, eb_sa, eb_sb, c_q, c_obj, c_rel,
-      c_depth, c_valid);
+  expand_emit_gather_kernel<<<blocks_for(G, kThreads), kThreads, 0, st>>>(
+      x.offsets, x.total, F, B, E, x.start, x.alloc, x.emit, t_q, t_obj, t_rel, t_depth,
+      f_skind, f_sa, f_sb, n_edges, eb_pobj, eb_prel, eb_skind, eb_sa, eb_sb, c_q, c_obj,
+      c_rel, c_depth, c_valid);
   return (int)cudaGetLastError();
 }
 

@@ -20,9 +20,17 @@
 // L4 keto_list_pool_compact replaces the packed tail of
 //                           list_objects_kernel_packed and
 //                           list_subjects_kernel_packed.
+//
+// L1 is csrc/keyed_rank.cuh's keyed scan, shared with X1, and its landed
+// count csrc/reduce.cuh's last-block sum; the block scans of L2-L4 come
+// from csrc/scan.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "keyed_rank.cuh"
+#include "reduce.cuh"
+#include "scan.cuh"
 
 namespace {
 
@@ -36,35 +44,6 @@ constexpr int kRinstrTtu = 2;
 constexpr int kRinstrPoison = 3;
 constexpr int kThreads = 256;
 constexpr int kScanThreads = 1024;
-constexpr int kEmitThreads = 1024;
-// L1 gives each block at most this many blocks' worth of rounds, so the
-// per-(block, query) counts stay at most kEmitMaxBlocks * B ints
-constexpr int kEmitMaxBlocks = 256;
-
-// Block-wide exclusive scan (any block size that is a multiple of 32).
-__device__ unsigned block_exclusive_scan(unsigned v, unsigned* warp_sums) {
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  unsigned x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned y = __shfl_up_sync(0xFFFFFFFFu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    unsigned w = lane < nwarps ? warp_sums[lane] : 0u;
-    for (int o = 1; o < 32; o <<= 1) {
-      const unsigned y = __shfl_up_sync(0xFFFFFFFFu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < nwarps) warp_sums[lane] = w;
-  }
-  __syncthreads();
-  const unsigned prefix = wid > 0 ? warp_sums[wid - 1] : 0u;
-  return prefix + x - v;
-}
 
 // Index of the last entry of the nondecreasing a[0:n] that is <= j
 // (searchsorted side=right, minus one), clamped into [0, n).
@@ -84,102 +63,106 @@ int blocks_for(long long threads, int per_block) {
 // ---------------------------------------------------------------------------
 // L1 list_emit
 //
-// Bound: bytes: N entries' (q, emit, value) read, the landed values
-// written, and per-(block, query) counts that stay in L2. Design: the
-// entries' order is the order of the slots, for any order of q, so the
-// rank is a multi-block segmented count. Pass 1: each block counts its
-// emitting entries per query in shared memory and writes the row of B
-// counts. Pass 2: one warp per query scans that query's counts over the
-// blocks, adds res_count[q], and leaves each block its first slot for the
-// query; it also advances res_count by the entries that land (slots below
-// R). Pass 3: each block walks its entries in index order, 32 at a time,
-// one warp after the other: lanes of the same query find each other with
-// __match_any_sync, rank among their lower lanes, and the group's highest
-// lane advances the query's next slot in shared memory. A slot at or past
-// R raises CAUSE_FRONTIER_OVERFLOW on the query by atomicMax; the others
-// write the value.
+// Bound: bytes: N entries' q and emit read, the values of the entries
+// that emit read and the landed ones written, B counts and causes.
+// Design: csrc/keyed_rank.cuh's keyed scan with weight 1 (key q[i] where
+// the entry emits), in three launches and no memset. Pass 1 counts each
+// chunk's emitting entries per query. Pass 2 turns them into first slots
+// from res_count, advances res_count by the entries that land (slots
+// below R) and sums them into the landed count with
+// csrc/reduce.cuh's last-block sum. Pass 3 gives every emitting entry its
+// slot: a slot below R writes the value; a slot at or past R raises
+// CAUSE_FRONTIER_OVERFLOW on the query by atomicMax, once a round's group
+// (from its last lane, which holds the group's highest slot). The walks
+// load q, emit and value kRankUnroll rounds at a time, the next group's
+// in flight while a group is ranked.
 // ---------------------------------------------------------------------------
 
-__global__ void emit_hist_kernel(const int* __restrict__ q, const uint8_t* __restrict__ emit,
-                                 int N, int B, int per_block, int* __restrict__ hist) {
-  extern __shared__ int cnt[];
-  for (int b = threadIdx.x; b < B; b += blockDim.x) cnt[b] = 0;
-  __syncthreads();
-  const int lo = blockIdx.x * per_block;
-  const int hi = min(N, lo + per_block);
-  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-    if (emit[i]) atomicAdd(&cnt[q[i]], 1);
+template <bool kShared>
+__global__ void list_emit_count_kernel(const int* __restrict__ q,
+                                       const uint8_t* __restrict__ emit, int N, int B,
+                                       int rounds, int* __restrict__ table) {
+  extern __shared__ __align__(16) int smem[];
+  const WarpCounts<kShared> counts = warp_counts<kShared>(smem, table, B);
+  const long long lo = ((long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) *
+                       rounds * 32 + (threadIdx.x & 31);
+  int key[kRankUnroll], next[kRankUnroll];
+  auto load = [&](int r0, int* k) {
+#pragma unroll
+    for (int u = 0; u < kRankUnroll; ++u) {
+      const long long i = lo + (long long)(r0 + u) * 32;
+      const bool in = r0 + u < rounds && i < N;
+      const int qq = in ? q[i] : -1;
+      k[u] = in && emit[i] ? qq : -1;
+    }
+  };
+  load(0, key);
+  rank_begin<kShared>(smem, table, B, true);  // while the first loads are in flight
+  for (int r0 = 0; r0 < rounds; r0 += kRankUnroll) {
+    load(r0 + kRankUnroll, next);  // in flight while this group is ranked
+#pragma unroll
+    for (int u = 0; u < kRankUnroll; ++u) {
+      rank_round<true>(key[u], 1u, counts);
+      key[u] = next[u];
+    }
   }
-  __syncthreads();
-  int* row = hist + (size_t)blockIdx.x * B;
-  for (int b = threadIdx.x; b < B; b += blockDim.x) row[b] = cnt[b];
+  rank_end<kShared>(smem, table, B);
 }
 
-__global__ void emit_scan_kernel(int* __restrict__ hist, int nblk, int B, int R,
-                                 int* __restrict__ res_count, int* __restrict__ landed) {
-  const int warp = (int)((blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (warp >= B) return;  // the whole warp leaves together
-  const int per = (nblk + 31) / 32;
-  const int lo = min(nblk, lane * per);
-  const int hi = min(nblk, lo + per);
-  int s = 0;
-  for (int b = lo; b < hi; ++b) s += hist[(size_t)b * B + warp];
-  int x = s;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xFFFFFFFFu, x, o);
-    if (lane >= o) x += y;
+__global__ void list_emit_scan_kernel(int* __restrict__ table, int B, int chunks, int group,
+                                      int R, int* __restrict__ res_count,
+                                      int* __restrict__ landed,
+                                      unsigned long long* __restrict__ scratch) {
+  __shared__ unsigned warp_sums[64];
+  __shared__ unsigned sums[kRankScanThreads / 32];
+  const int k = rank_scan_key_of(group);
+  // every warp of the key reads its count before the one that writes it
+  // passes the scan's barrier
+  const int rc = k < B ? res_count[k] : 0;
+  const unsigned total = rank_scan_key(table, k, B, chunks, group, (unsigned)rc, sums);
+  unsigned land = 0;
+  if (k < B && (threadIdx.x & (32 * group - 1)) == 0) {
+    land = (unsigned)min(max(R - rc, 0), (int)total);
+    res_count[k] = rc + (int)land;
   }
-  const int total = __shfl_sync(0xFFFFFFFFu, x, 31);
-  const int rc = res_count[warp];
-  int run = rc + x - s;
-  for (int b = lo; b < hi; ++b) {
-    const size_t k = (size_t)b * B + warp;
-    const int c = hist[k];
-    hist[k] = run;
-    run += c;
-  }
-  if (lane == 0) {
-    const int land = min(max(R - rc, 0), total);
-    res_count[warp] = rc + land;
-    if (land > 0) atomicAdd(landed, land);
-  }
+  land = block_sum(land, warp_sums);
+  if (threadIdx.x == 0) grid_sum_last_block(land, scratch, landed);
 }
 
-__global__ void emit_rank_kernel(const int* __restrict__ q, const uint8_t* __restrict__ emit,
-                                 const int* __restrict__ value, int N, int B, int R,
-                                 int per_block, const int* __restrict__ hist,
-                                 int* __restrict__ res, int* __restrict__ needs_host) {
-  extern __shared__ int run[];
-  const int* row = hist + (size_t)blockIdx.x * B;
-  for (int b = threadIdx.x; b < B; b += blockDim.x) run[b] = row[b];
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const unsigned lower = (1u << lane) - 1u;
-  const int lo = blockIdx.x * per_block;
-  const int hi = min(N, lo + per_block);
-  for (int base = lo; base < hi; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const bool takes = i < hi && emit[i];
-    const int qq = takes ? q[i] : -1;
-    // ranks inside the warp need no order between warps
-    const unsigned same = __match_any_sync(0xFFFFFFFFu, qq);
-    const int rank = __popc(same & lower);
-    const bool last = ((same >> lane) >> 1) == 0u;
-    for (int w = 0; w < nwarps; ++w) {
-      if (wid == w && takes) {
-        const int slot = run[qq] + rank;
-        __syncwarp(same);
-        if (last) run[qq] = slot + 1;
-        if (slot >= R) {
-          atomicMax(&needs_host[qq], kCauseFrontierOverflow);
-        } else {
-          res[(size_t)qq * R + slot] = value[i];
-        }
-      }
-      __syncthreads();
+template <bool kShared>
+__global__ void list_emit_rank_kernel(const int* __restrict__ q,
+                                      const uint8_t* __restrict__ emit,
+                                      const int* __restrict__ value, int N, int B, int R,
+                                      int rounds, int* __restrict__ table,
+                                      int* __restrict__ res, int* __restrict__ needs_host) {
+  extern __shared__ __align__(16) int smem[];
+  const WarpCounts<kShared> counts = warp_counts<kShared>(smem, table, B);
+  const long long lo = ((long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) *
+                       rounds * 32 + (threadIdx.x & 31);
+  int key[kRankUnroll], val[kRankUnroll], next_key[kRankUnroll], next_val[kRankUnroll];
+  auto load = [&](int r0, int* k, int* v) {
+#pragma unroll
+    for (int u = 0; u < kRankUnroll; ++u) {
+      const long long i = lo + (long long)(r0 + u) * 32;
+      const bool in = r0 + u < rounds && i < N;
+      const int qq = in ? q[i] : -1;
+      v[u] = in ? value[i] : 0;
+      k[u] = in && emit[i] ? qq : -1;
+    }
+  };
+  load(0, key, val);
+  rank_begin<kShared>(smem, table, B, false);  // while the first loads are in flight
+  for (int r0 = 0; r0 < rounds; r0 += kRankUnroll) {
+    load(r0 + kRankUnroll, next_key, next_val);  // in flight while this group is ranked
+#pragma unroll
+    for (int u = 0; u < kRankUnroll; ++u) {
+      bool last;
+      const int slot = (int)rank_round<true>(key[u], 1u, counts, &last);
+      if (key[u] >= 0 && slot < R) res[(size_t)key[u] * R + slot] = val[u];
+      // the group's last lane holds its highest slot: one atomic a group
+      if (last && slot >= R) atomicMax(&needs_host[key[u]], kCauseFrontierOverflow);
+      key[u] = next_key[u];
+      val[u] = next_val[u];
     }
   }
 }
@@ -194,8 +177,9 @@ __global__ void emit_rank_kernel(const int* __restrict__ q, const uint8_t* __res
 
 __device__ __forceinline__ void block_sum_out(unsigned s, unsigned* warp_sums,
                                               int* __restrict__ block_sums) {
-  const unsigned ex = block_exclusive_scan(s, warp_sums);
-  if (threadIdx.x == blockDim.x - 1) block_sums[blockIdx.x] = (int)(ex + s);
+  unsigned total;
+  block_exclusive_scan(s, warp_sums, &total);
+  if (threadIdx.x == 0) block_sums[blockIdx.x] = (int)total;
 }
 
 __global__ void scan_block_sums_kernel(const int* __restrict__ sums, int n,
@@ -207,7 +191,8 @@ __global__ void scan_block_sums_kernel(const int* __restrict__ sums, int n,
   const int hi = min(n, lo + chunk);
   unsigned s = 0;
   for (int i = lo; i < hi; ++i) s += (unsigned)sums[i];
-  unsigned run = block_exclusive_scan(s, warp_sums);
+  unsigned all;
+  unsigned run = block_exclusive_scan(s, warp_sums, &all);
   for (int i = lo; i < hi; ++i) {
     offs[i] = (int)run;
     run += (unsigned)sums[i];
@@ -226,7 +211,8 @@ __global__ void slot_offsets_kernel(const int* __restrict__ counts, int F, int S
   if (in) {
     for (int k = 0; k < S; ++k) s += (unsigned)counts[(size_t)i * S + k];
   }
-  unsigned off = (unsigned)block_offs[blockIdx.x] + block_exclusive_scan(s, warp_sums);
+  unsigned all;
+  unsigned off = (unsigned)block_offs[blockIdx.x] + block_exclusive_scan(s, warp_sums, &all);
   if (!in) return;
   bool cut = false;
   for (int k = 0; k < S; ++k) {
@@ -454,7 +440,8 @@ __global__ void list_pool_scan_kernel(
   const int hi = min(B, lo + chunk);
   unsigned s = 0;
   for (int b = lo; b < hi; ++b) s += (unsigned)min(max(res_count[b], 0), R);
-  unsigned run = block_exclusive_scan(s, warp_sums);
+  unsigned all;
+  unsigned run = block_exclusive_scan(s, warp_sums, &all);
   int* out_needs = out + B + 1;
   for (int b = lo; b < hi; ++b) {
     const int c = min(max(res_count[b], 0), R);
@@ -488,41 +475,45 @@ __global__ void list_pool_gather_kernel(const int* __restrict__ offs, int B, int
   pool[j] = valid ? res[src] : kEmpty;
 }
 
-int set_smem(const void* fn, size_t smem) {
-  if (smem > 48 * 1024) {
-    return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)smem);
-  }
-  return 0;
-}
-
 }  // namespace
 
 extern "C" {
 
-// Scratch: hist holds list_emit_blocks(N) * B ints, landed one int.
-int keto_list_emit_blocks(int N) {
-  const int rounds = blocks_for(N, kEmitThreads * kEmitMaxBlocks);
-  return blocks_for(N, (long long)rounds * kEmitThreads);
+// The ints of L1's keyed-rank table (csrc/keyed_rank.cuh) for N entries
+// over B queries.
+long long keto_list_emit_scratch(int N, int B) {
+  return B > 0 ? rank_table_ints(rank_shape(N, B), B) : 0;
 }
 
+// Scratch: table keto_list_emit_scratch(N, B) ints; landed one int;
+// scratch the zeroed word of csrc/reduce.cuh, left at zero.
 int keto_list_emit(const int* q, const uint8_t* emit, const int* value, int N, int B, int R,
-                   int* res, int* res_count, int* needs_host, int* hist, int* landed,
-                   void* stream) {
+                   int* res, int* res_count, int* needs_host, int* table, int* landed,
+                   unsigned long long* scratch, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (N <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
-  const int nblk = keto_list_emit_blocks(N);
-  const int per_block = blocks_for(N, nblk);
-  const size_t smem = sizeof(int) * (size_t)B;
-  int rc = set_smem((const void*)emit_hist_kernel, smem);
-  if (rc == 0) rc = set_smem((const void*)emit_rank_kernel, smem);
-  if (rc != 0) return rc;
-  cudaMemsetAsync(landed, 0, sizeof(int), st);
-  emit_hist_kernel<<<nblk, kEmitThreads, smem, st>>>(q, emit, N, B, per_block, hist);
-  emit_scan_kernel<<<blocks_for((long long)B * 32, kThreads), kThreads, 0, st>>>(
-      hist, nblk, B, R, res_count, landed);
-  emit_rank_kernel<<<nblk, kEmitThreads, smem, st>>>(q, emit, value, N, B, R, per_block,
-                                                     hist, res, needs_host);
+  const RankShape s = rank_shape(N, B);
+  const size_t smem = rank_smem(s, B);
+  const int threads = 32 * s.warps;
+  if (s.shared) {
+    int rc = rank_allow_smem((const void*)list_emit_count_kernel<true>, smem);
+    if (rc == 0) rc = rank_allow_smem((const void*)list_emit_rank_kernel<true>, smem);
+    if (rc != 0) return rc;
+    list_emit_count_kernel<true><<<s.blocks, threads, smem, st>>>(q, emit, N, B, s.rounds,
+                                                                   table);
+  } else {
+    list_emit_count_kernel<false><<<s.blocks, threads, 0, st>>>(q, emit, N, B, s.rounds,
+                                                                 table);
+  }
+  list_emit_scan_kernel<<<rank_scan_blocks(s, B), kRankScanThreads, 0, st>>>(
+      table, B, s.warps * s.blocks, s.group, R, res_count, landed, scratch);
+  if (s.shared) {
+    list_emit_rank_kernel<true><<<s.blocks, threads, smem, st>>>(
+        q, emit, value, N, B, R, s.rounds, table, res, needs_host);
+  } else {
+    list_emit_rank_kernel<false><<<s.blocks, threads, 0, st>>>(
+        q, emit, value, N, B, R, s.rounds, table, res, needs_host);
+  }
   return (int)cudaGetLastError();
 }
 

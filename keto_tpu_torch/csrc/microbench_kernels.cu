@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scan.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -123,43 +125,9 @@ __global__ void scatmax_smem_kernel(const int* __restrict__ b, const int* __rest
 }
 
 // ---------------------------------------------------------------------------
-// Block-wide scans and sums (all threads of the block must call them)
+// M5 and M6 compact through csrc/scan.cuh's block scans and sums (all
+// threads of the block must call them)
 // ---------------------------------------------------------------------------
-
-// exclusive prefix of v over the block's threads in thread order; *total
-// gets the block's sum. Ends with a barrier, so the caller may call it
-// again at once.
-__device__ unsigned block_exclusive_scan(unsigned v, unsigned* warp_sums, unsigned* total) {
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  unsigned x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned y = __shfl_up_sync(0xFFFFFFFFu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    unsigned w = lane < nwarps ? warp_sums[lane] : 0u;
-    for (int o = 1; o < 32; o <<= 1) {
-      const unsigned y = __shfl_up_sync(0xFFFFFFFFu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < nwarps) warp_sums[lane] = w;
-  }
-  __syncthreads();
-  const unsigned prefix = wid > 0 ? warp_sums[wid - 1] : 0u;
-  *total = warp_sums[nwarps - 1];
-  __syncthreads();
-  return prefix + x - v;
-}
-
-__device__ unsigned block_sum(unsigned v, unsigned* warp_sums) {
-  unsigned total;
-  block_exclusive_scan(v, warp_sums, &total);
-  return total;
-}
 
 // keep flags and values of the 4 inputs from i0 (16-byte loads when all
 // four lie below hi; keep, vals and i0 are 16-byte aligned)
@@ -233,7 +201,7 @@ __global__ void pack_block_kernel(const int* __restrict__ keep, const int* __res
 // ---------------------------------------------------------------------------
 
 __global__ void pack_count_kernel(const int* __restrict__ keep, int F, int* __restrict__ counts) {
-  __shared__ unsigned warp_sums[32];
+  __shared__ unsigned warp_sums[64];
   const int lo = blockIdx.x * kPackTile;
   const int hi = min(F, lo + kPackTile);
   unsigned c = 0;
@@ -252,15 +220,9 @@ __global__ void pack_count_kernel(const int* __restrict__ keep, int F, int* __re
 __global__ void pack_scatter_kernel(const int* __restrict__ keep, const int* __restrict__ vals,
                                     int F, const int* __restrict__ counts, int n_blocks,
                                     int* __restrict__ out, int* __restrict__ n_out) {
-  __shared__ unsigned warp_sums[32];
-  unsigned before = 0, all = 0;
-  for (int j = threadIdx.x; j < n_blocks; j += blockDim.x) {
-    const unsigned c = (unsigned)__ldg(counts + j);
-    all += c;
-    if (j < (int)blockIdx.x) before += c;
-  }
-  before = block_sum(before, warp_sums);
-  all = block_sum(all, warp_sums);
+  __shared__ unsigned warp_sums[64];
+  unsigned all;
+  const unsigned before = tile_base(counts, n_blocks, warp_sums, &all);
   const int lo = blockIdx.x * kPackTile;
   const int hi = min(F, lo + kPackTile);
   tile_compact(keep, vals, lo, hi, before, out, warp_sums);

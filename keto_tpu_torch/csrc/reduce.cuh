@@ -1,6 +1,7 @@
 // A grid-wide sum in one launch, with no memset before it: F1 filter_mark
-// (closure_filter_kernels.cu) and P2 power_account
-// (closure_power_kernels.cu). The scratch is one 64-bit word: the sum in
+// (closure_filter_kernels.cu), P2 power_account
+// (closure_power_kernels.cu) and L1 list_emit's landed count
+// (list_kernels.cu). The scratch is one 64-bit word: the sum in
 // its low 40 bits, the tickets taken in its high 24. Every block adds its
 // value and one ticket in a single atomic, so the block that takes the
 // last ticket sees every other block's value in what the atomic returns

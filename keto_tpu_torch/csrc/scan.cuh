@@ -5,6 +5,10 @@
 // its own tile in item order from that base. No launch over per-item data
 // runs on one block, and the tiles are scanned in order, so a scatter
 // lands where a serial scan would put it.
+//
+// The one copy of the block scans and sums: K3 and K4, X1's task-order
+// offsets (its tiles are the keyed rank's blocks), L2-L4, X2 and M5/M6
+// use them.
 
 #pragma once
 

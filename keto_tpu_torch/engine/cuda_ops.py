@@ -39,7 +39,8 @@ SOURCES = tuple(
                  "microbench_kernels.cu")
 )
 # headers the sources include: part of the library's content hash
-HEADERS = tuple(_PKG / "csrc" / name for name in ("probe.cuh", "scan.cuh", "reduce.cuh"))
+HEADERS = tuple(_PKG / "csrc" / name
+                for name in ("probe.cuh", "scan.cuh", "reduce.cuh", "keyed_rank.cuh"))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -136,10 +137,11 @@ _SIGNATURES = {
     "keto_pair_probe": [_VP, _LL, _I, _I, _VP, _VP, _I, _I, _I, _VP, _VP],
     "keto_expand_gather": [_VP] * 9 + [_I] * 5 + [_VP] * 11,
     "keto_dedupe_compact": [_VP] * 6 + [_I] * 5 + [_VP] * 11,
-    "keto_expand_emit": [_VP] * 8 + [_I] + [_VP] * 3 + [_I] * 4 + [_VP] * 19,
+    "keto_expand_emit_scratch": [_I, _I],
+    "keto_expand_emit": [_VP] * 8 + [_I] + [_VP] * 3 + [_I] * 4 + [_VP] * 15,
     "keto_pool_compact": [_VP] * 9 + [_I] * 3 + [_VP] * 3,
-    "keto_list_emit_blocks": [_I],
-    "keto_list_emit": [_VP] * 3 + [_I] * 3 + [_VP] * 6,
+    "keto_list_emit_scratch": [_I, _I],
+    "keto_list_emit": [_VP] * 3 + [_I] * 3 + [_VP] * 7,
     "keto_reverse_gather": [_VP] * 9 + [_I] + [_VP] + [_I] + [_VP] + [_I] * 5 + [_VP] * 12,
     "keto_subjects_gather": [_VP] * 8 + [_I] + [_VP] + [_I] * 4 + [_VP] * 14,
     "keto_list_pool_compact": [_VP] * 4 + [_I] * 3 + [_VP] * 3,
@@ -172,6 +174,8 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name in ("keto_expand_emit_scratch", "keto_list_emit_scratch"):
+                getattr(lib, name).restype = ctypes.c_longlong
             lib.keto_error_string.argtypes = [ctypes.c_int]
             lib.keto_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -193,7 +197,7 @@ def _stream():
 
 
 def grid_scratch(device: torch.device, stream: int) -> torch.Tensor:
-    """The 64-bit scratch word of F1's and P2's one-launch grid sums
+    """The 64-bit scratch word of F1's, P2's and L1's grid sums
     (csrc/reduce.cuh) on `device` for launches on `stream` (a
     cuda_stream handle): zeroed once here, and left at zero by every
     launch that uses it. Launches on one stream run one after the other,
@@ -346,22 +350,21 @@ def expand_emit(t_q, t_obj, t_rel, t_depth, live, row, dirty, f_row_ptr, f_skind
         raise ValueError(f"{name}: expects five [B * edge_cap] buffers and [B] flags")
     if not (f_skind.shape == f_sa.shape == f_sb.shape) or f_row_ptr.dim() != 1:
         raise ValueError(f"{name}: malformed CSR columns")
-    if F == 0 or 4 * (2 * F + B) > MAX_DYNAMIC_SMEM:
-        raise ValueError(f"{name}: frontier {F} with {B} queries does not fit one block")
+    if F == 0 or B == 0:
+        raise ValueError(f"{name}: expects a frontier and queries, got F = {F}, B = {B}")
     G = EMIT_PER_TASK * F
     dev = t_q.device
-    start, alloc, offsets = (torch.empty(F, dtype=torch.int32, device=dev) for _ in range(3))
-    emit = torch.empty(F, dtype=torch.bool, device=dev)
-    total, emitted = (torch.empty(1, dtype=torch.int32, device=dev) for _ in range(2))
+    lib = library()
+    scratch = torch.empty(lib.keto_expand_emit_scratch(F, B), dtype=torch.int32, device=dev)
+    emitted = torch.empty(1, dtype=torch.int32, device=dev)
     c_q, c_obj, c_rel, c_depth = (torch.empty(G, dtype=torch.int32, device=dev) for _ in range(4))
     c_valid = torch.empty(G, dtype=torch.bool, device=dev)
-    lib = library()
     rc = lib.keto_expand_emit(
         _p(t_q), _p(t_obj), _p(t_rel), _p(t_depth), _p(live), _p(row), _p(dirty),
         _p(f_row_ptr), f_row_ptr.shape[0] - 1, _p(f_skind), _p(f_sa), _p(f_sb),
         f_skind.shape[0], F, B, E, *(_p(c) for c in eb), _p(eb_count), _p(needs_host),
-        _p(start), _p(alloc), _p(emit), _p(offsets), _p(total), _p(emitted),
-        _p(c_q), _p(c_obj), _p(c_rel), _p(c_depth), _p(c_valid), _stream(),
+        _p(scratch), _p(emitted), _p(c_q), _p(c_obj), _p(c_rel), _p(c_depth), _p(c_valid),
+        _stream(),
     )
     _check(lib, rc, name)
     return c_q, c_q, c_obj, c_rel, c_depth, c_valid, emitted.reshape(())
@@ -407,15 +410,16 @@ def list_emit(q, emit, value, res, res_count, needs_host, *, result_cap: int):
         raise ValueError(f"{name}: q, emit and value must all be [N]")
     if res.shape != (B * R,) or needs_host.shape != (B,):
         raise ValueError(f"{name}: expects a [B * result_cap] buffer and [B] causes")
-    if N == 0 or B == 0 or 4 * B > MAX_DYNAMIC_SMEM:
-        raise ValueError(f"{name}: {N} entries over {B} queries do not fit its blocks")
+    if N == 0 or B == 0:
+        raise ValueError(f"{name}: expects entries and queries, got N = {N}, B = {B}")
     lib = library()
     dev = q.device
-    hist = torch.empty(lib.keto_list_emit_blocks(N) * B, dtype=torch.int32, device=dev)
+    stream = _stream()
+    table = torch.empty(lib.keto_list_emit_scratch(N, B), dtype=torch.int32, device=dev)
     landed = torch.empty(1, dtype=torch.int32, device=dev)
     rc = lib.keto_list_emit(
         _p(q), _p(emit), _p(value), N, B, R, _p(res), _p(res_count), _p(needs_host),
-        _p(hist), _p(landed), _stream(),
+        _p(table), _p(landed), _p(grid_scratch(dev, stream)), stream,
     )
     _check(lib, rc, name)
     return landed.reshape(())

@@ -4,8 +4,10 @@ expand, ListObjects, ListSubjects, closure and filter launches against
 the CPU run of the plain versions, under both table layouts and with the
 delta overlay (or the dirty table) on and off; the closure powering's P1-P3
 step by step on random waves, and whole device-powered builds against the
-CPU's; the microbenchmark primitives M1-M10 (keto_tpu_torch/tools) on the
-TPU tools' draws and on edge sizes. Tolerance: exact equality (every
+CPU's; L1's and X1's keyed rank on queries in runs, at random and all on
+one query, past one block's frontier and shared memory; the
+microbenchmark primitives M1-M10 (keto_tpu_torch/tools) on the TPU tools'
+draws and on edge sizes. Tolerance: exact equality (every
 output is an integer, and M8's float32 add is one rounding either way).
 
 These tests need an NVIDIA card and skip elsewhere; this file imports
@@ -559,6 +561,222 @@ def test_list_emit_matches_plain_on_card(cuda, N, B, R):
         assert torch.equal(a, b)
 
 
+def keyed_queries(order: str, N: int, B: int, rng) -> np.ndarray:
+    """The queries of N entries over B: sorted into runs (as L2's
+    candidates and K4's frontier come), at random, or all one query."""
+    if order == "runs":
+        q = np.sort(rng.integers(0, B, N))
+    elif order == "random":
+        q = rng.integers(0, B, N)
+    else:
+        q = np.full(N, rng.integers(0, B))
+    return q.astype(np.int32)
+
+
+def on_card(cuda, a, dtype=torch.int32):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(cuda)
+
+
+# (order, N, B, R, overflows): ListObjects' step-2 launch (2^20 entries,
+# the padding tail not emitting) in runs, at random and on one query (its
+# cap overflows); ListSubjects' launch; one entry; one query; 16,384
+# queries; caps that overflow; 65,536 queries, whose counts do not fit one
+# block's shared memory (csrc/keyed_rank.cuh keeps them in its table).
+# `overflows`: some emitting entry finds its query's R slots taken.
+L1_CASES = {
+    "runs_list_objects": ("runs", 1 << 20, 256, 4096, True),
+    "random_list_objects": ("random", 1 << 20, 256, 4096, True),
+    "one_key_list_objects": ("one_key", 1 << 20, 256, 4096, True),
+    "runs_list_subjects": ("runs", 16384, 256, 2048, True),
+    "runs_one_entry": ("runs", 1, 1, 1, False),
+    "random_one_entry": ("random", 1, 256, 8, False),
+    "one_key_one_query": ("one_key", 70_000, 1, 100_000, False),
+    "runs_b16384": ("runs", 1 << 20, 16384, 64, True),
+    "random_b16384": ("random", 1 << 20, 16384, 64, True),
+    "runs_overflow": ("runs", 300_000, 256, 16, True),
+    "random_overflow": ("random", 300_000, 256, 16, True),
+    "runs_b65536": ("runs", 200_000, 65536, 4, True),
+    "random_b65536": ("random", 200_000, 65536, 4, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(L1_CASES))
+def test_list_emit_key_orders_on_card(cuda, case):
+    """L1's keyed rank against its plain version for any order of the
+    queries; the buffers it updates in place are cloned for each side.
+    Each case reaches what it was built for: the landed count is each
+    query's emitting entries up to its free slots, and where a query
+    overflows, CAUSE_FRONTIER_OVERFLOW is raised on it."""
+    order, N, B, R, overflows = L1_CASES[case]
+    rng = np.random.default_rng(N + B)
+    q = keyed_queries(order, N, B, rng)
+    emit = (rng.random(N) < 0.7) & (np.arange(N) < int(0.6 * N))
+    emit[0] = True
+    args = (on_card(cuda, q), on_card(cuda, emit, torch.bool),
+            on_card(cuda, rng.integers(0, 1 << 20, N)))
+    res_count, needs = rng.integers(0, R + 1, B), rng.integers(0, 3, B)
+    res = torch.full((B * R,), -1, dtype=torch.int32, device=cuda)
+    outs = []
+    for fn in (cuda_ops.list_emit, trk.list_emit_plain):
+        bufs = (res.clone(), on_card(cuda, res_count), on_card(cuda, needs))
+        landed = fn(*args, *bufs, result_cap=R)
+        outs.append((landed, *bufs))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    per_query = np.bincount(q[emit], minlength=B)
+    landed, want_needs = int(outs[1][0]), outs[1][3].cpu().numpy()
+    assert landed == int(np.minimum(per_query, R - res_count).sum())
+    assert (landed < int(emit.sum())) == overflows
+    raised = (res_count + per_query > R) & (needs < tk.CAUSE_FRONTIER_OVERFLOW)
+    assert raised.any() == overflows
+    assert (want_needs[raised] == tk.CAUSE_FRONTIER_OVERFLOW).all()
+
+
+def x1_reach(q, live, depth, row, dirty, row_ptr, eb_count, needs, E):
+    """What one X1 step must do on these numpy inputs: the queries that
+    only its buffer test flags (a row that does not fit, on a query not
+    flagged before, by a dirty row or by the 4F cut), its emitted total
+    before the 4F cut, and the rows' demand before the buffer test."""
+    F, n_rows = q.shape[0], row_ptr.shape[0] - 1
+    rc = np.clip(row, 0, n_rows)
+    length = np.where(row == -1, 0, row_ptr[np.minimum(rc + 1, n_rows)] - row_ptr[rc])
+    gated = live & (depth >= 2)
+    dirty_task = gated & ((np.maximum(dirty, 0) & 1) != 0)
+    emit = gated & ~dirty_task
+    counts = np.where(emit, length, 0)
+    order = np.argsort(q, kind="stable")
+    cum = np.cumsum(counts[order]) - counts[order]
+    first = np.r_[True, q[order][1:] != q[order][:-1]]
+    alloc = np.empty(F, np.int64)
+    alloc[order] = eb_count[q[order]] + cum - np.maximum.accumulate(np.where(first, cum, 0))
+    over = emit & (alloc + counts > E)
+    ends = np.cumsum(np.where(emit & ~over, counts, 0))
+    trunc = emit & ~over & (ends > 4 * F)
+    flagged = np.concatenate([q[dirty_task], q[trunc], np.flatnonzero(needs)])
+    return np.setdiff1d(q[over], flagged), int(ends[-1]), int(counts.sum())
+
+
+# (order, F, B, E, reaches): Expand's step-1 launch; frontiers of 32,768
+# and 65,536 over 1,024 queries (the first X1 refused them: its one
+# block's shared memory); 16,384 queries; every task on one query; 65,536
+# queries. `reaches`: "drop", rows the buffer test drops; "flag", queries
+# only it flags; "4F", emissions past the 4F budget.
+X1_CASES = {
+    "runs_f4096": ("runs", 4096, 1024, 16384, ("4F",)),
+    "runs_f32768": ("runs", 32768, 1024, 256, ("drop", "flag", "4F")),
+    "random_f32768": ("random", 32768, 1024, 256, ("drop", "flag", "4F")),
+    "runs_f65536": ("runs", 65536, 1024, 512, ("drop", "flag", "4F")),
+    "random_f65536": ("random", 65536, 1024, 512, ("drop", "flag", "4F")),
+    "runs_f4096_b16384": ("runs", 4096, 16384, 64, ("4F",)),
+    "random_f4096_b16384": ("random", 4096, 16384, 64, ("drop", "flag", "4F")),
+    "one_key_f4096": ("one_key", 4096, 1024, 4096, ("drop",)),
+    "runs_b65536": ("runs", 8192, 65536, 8, ("drop", "flag")),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(X1_CASES))
+def test_expand_emit_frontiers_on_card(cuda, case):
+    """X1 against its plain version on tasks grouped by query and in
+    random order, with rows that overflow the edge buffer and emissions
+    past the 4F budget; the buffers it updates are cloned for each side.
+    Each case reaches what it was built for (x1_reach), and the step
+    emits its total up to 4F."""
+    order, F, B, E, reaches = X1_CASES[case]
+    rng = np.random.default_rng(F + B)
+    n_rows = 5000
+    row_ptr = np.concatenate([[0], np.cumsum(rng.integers(0, 17, n_rows))])
+    n_edges = int(row_ptr[-1])
+    csr = (row_ptr, rng.integers(0, 2, n_edges), rng.integers(0, 1 << 20, n_edges),
+           rng.integers(0, 8, n_edges))
+    cols = (keyed_queries(order, F, B, rng), rng.integers(0, 300, F), rng.integers(0, 5, F),
+            rng.integers(1, 7, F))
+    live = rng.random(F) < 0.9
+    row = rng.integers(-1, n_rows + 1, F)
+    dirty = np.where(rng.random(F) < 0.05, rng.integers(0, 4, F), -1)
+    args = (*(on_card(cuda, c) for c in cols), on_card(cuda, live, torch.bool),
+            on_card(cuda, row), on_card(cuda, dirty), *(on_card(cuda, c) for c in csr))
+    eb_count, needs = rng.integers(0, E // 2 + 1, B), rng.random(B) < 0.1
+    only_e, total, demand = x1_reach(cols[0], live, cols[3], row, dirty, row_ptr, eb_count,
+                                     needs, E)
+    outs = []
+    for fn in (cuda_ops.expand_emit, tek.expand_emit_plain):
+        eb = tuple(torch.full((B * E,), -1, dtype=torch.int32, device=cuda) for _ in range(5))
+        bufs = (eb, on_card(cuda, eb_count), on_card(cuda, needs, torch.bool))
+        outs.append((fn(*args, *bufs, edge_cap=E), bufs))
+    torch.cuda.synchronize()
+    (got, gbufs), (want, wbufs) = outs
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip((*gbufs[0], *gbufs[1:]), (*wbufs[0], *wbufs[1:])):
+        assert torch.equal(a, b)
+    assert (total < demand) == ("drop" in reaches)
+    assert (len(only_e) > 0) == ("flag" in reaches)
+    assert wbufs[2].cpu().numpy()[only_e].all()
+    assert (total > 4 * F) == ("4F" in reaches)
+    assert int(want[-1]) == min(total, 4 * F)
+
+
+def profiled(call, calls: int = 20):
+    """The CUDA events (kernels, memsets, copies) of `calls` calls, after
+    one call that builds the library and the stream's scratch. A window
+    in which the profiler saw no device event at all is taken again, up
+    to three times (CUPTI on the H100 now and then hands back an empty
+    window, as chip_smoke.py's device_ms notes); a window may lose a few
+    records of a kernel, never add one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
+        if events:
+            break
+    return events
+
+
+@pytest.mark.cuda
+def test_list_emit_and_expand_emit_launch_no_memset_on_card(cuda):
+    """A call of L1 launches its three keyed-rank kernels and X1 its five,
+    and neither a memset: the profiler sees those names and nothing else
+    over 20 calls."""
+    rng = np.random.default_rng(4)
+    N, B, R = 1 << 16, 256, 64
+    l1 = (on_card(cuda, keyed_queries("runs", N, B, rng)),
+          on_card(cuda, rng.random(N) < 0.5, torch.bool), on_card(cuda, rng.integers(0, 9, N)),
+          torch.full((B * R,), -1, dtype=torch.int32, device=cuda),
+          torch.zeros(B, dtype=torch.int32, device=cuda),
+          torch.zeros(B, dtype=torch.int32, device=cuda))
+    F, B2, E = 4096, 1024, 64
+    row_ptr = on_card(cuda, np.arange(0, 4 * 501, 4))
+    x1 = (on_card(cuda, keyed_queries("runs", F, B2, rng)), *(on_card(cuda, rng.integers(0, 5, F))
+                                                             for _ in range(2)),
+          on_card(cuda, rng.integers(1, 7, F)), on_card(cuda, rng.random(F) < 0.9, torch.bool),
+          on_card(cuda, rng.integers(-1, 501, F)), on_card(cuda, np.full(F, -1)), row_ptr,
+          *(on_card(cuda, rng.integers(0, 2, 2000)) for _ in range(3)),
+          tuple(torch.full((B2 * E,), -1, dtype=torch.int32, device=cuda) for _ in range(5)),
+          torch.zeros(B2, dtype=torch.int32, device=cuda),
+          torch.zeros(B2, dtype=torch.bool, device=cuda))
+    calls = {
+        ("list_emit_count_kernel", "list_emit_scan_kernel", "list_emit_rank_kernel"):
+            lambda: cuda_ops.list_emit(*l1, result_cap=R),
+        ("expand_emit_count_kernel", "expand_emit_scan_kernel", "expand_emit_rank_kernel",
+         "expand_emit_offsets_kernel", "expand_emit_gather_kernel"):
+            lambda: cuda_ops.expand_emit(*x1, edge_cap=E),
+    }
+    for kernels, call in calls.items():
+        keys = [e.key for e in profiled(call)]
+        assert len(keys) == len(kernels), keys
+        assert all(any(k in key for key in keys) for k in kernels), keys
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_list_gathers_match_plain_on_card(cuda, layout):
@@ -790,9 +1008,6 @@ def test_filter_mark_and_power_account_launch_one_kernel_on_card(cuda):
     """A call of F1 or P2 launches its one kernel and no memset: the
     profiler sees nothing else over 20 calls (it may lose a few records,
     never add one)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     cols, hit, status = filter_columns(cuda, 4096, 16384, 10_000, seed=3)
     e_src, e_dst, d_rows, _pois, R0, lvl0, counts0 = (t.to(cuda) for t in
                                                        power_wave(2048, 5, 1000, 2000))
@@ -803,13 +1018,7 @@ def test_filter_mark_and_power_account_launch_one_kernel_on_card(cuda):
             R0, lvl0, counts0, d_rows, p2_status, level=1, max_set_rows=3),
     }
     for kernel, call in calls.items():
-        call()  # builds the library and the stream's scratch
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                call()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
+        events = profiled(call)
         assert len(events) == 1 and kernel in events[0].key, [e.key for e in events]
         assert 0 < events[0].count <= 20
 

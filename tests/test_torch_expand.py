@@ -7,7 +7,7 @@ package's on identical inputs, on the CPU.
 - expand_kernel_packed (plain versions of X1 and X2 around K2 and K4)
   returns a vector bit-identical to keto_tpu's, launch stats included,
   over the tests/test_expand_kernel.py fixtures and the overflow,
-  truncation and dirty-row cases
+  truncation and dirty-row cases, and at a frontier of 32,768
 - TorchCheckEngine(device="cpu").expand_batch trees equal
   TPUCheckEngine.expand_batch's exactly, and both equal their oracles
 - the port's ReferenceEngine.expand equals keto_tpu's
@@ -248,6 +248,18 @@ def test_expand_kernel_packed_caps(layout, case):
     np.testing.assert_array_equal(got, want)
     _offs, _root, needs, _pool, _stats_ = tek.unpack_expand_results(got, B, kw["pool_cap"])
     assert needs.any()  # the case reached the flag it was built for
+
+
+# past the one-block frontier the first X1 refused: 4 (2F + B) bytes
+# of shared memory over 231,424 at F = 32,768
+@pytest.mark.parametrize("scenario", ["wide_fanout", "random_3"])
+def test_expand_kernel_packed_frontier_past_one_block(layout, scenario):
+    jt, _tt, jsn, _tsn, queries, max_depth = build_both(scenario, layout)
+    tables, fh_probes = jax_expand_tables(jsn, jt)
+    got, want, B, kw = run_both(jsn, layout, tables, fh_probes, queries, max_depth,
+                                frontier_cap=32768, edge_cap=1024)
+    np.testing.assert_array_equal(got, want)
+    assert _stats(got, B)[5] > 0  # edges emitted
 
 
 def test_expand_kernel_packed_dirty_rows(layout):

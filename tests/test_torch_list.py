@@ -13,7 +13,8 @@ the CPU.
   store, each shape under its own namespaces), with tiny frontier,
   result and pool caps, step exhaustion, a non-empty reverse-dirty table
   and a non-empty dirty table; the plain list_emit equals keto_tpu's
-  _bump_emit arithmetic on queries in random order
+  _bump_emit arithmetic on queries in random order, in long runs and all
+  on one query
 - engines: TorchCheckEngine(device="cpu").list_*_batch equals
   TPUCheckEngine's and both host oracles', with a NOT config, unknown
   names and chained page tokens; the REST list routes answer the expected
@@ -466,12 +467,13 @@ def test_packed_vector_dirty_tables(leg):
     assert 4 in needs and (needs == 0).sum() > 20  # CAUSE_DIRTY, and not everywhere
 
 
-@pytest.mark.parametrize("N,nq,R", [(64, 4, 4), (500, 16, 8), (3000, 128, 3)])
-def test_list_emit_plain_equals_bump_emit(N, nq, R):
+def _list_emit_against_bump_emit(q, emit, value, rc, needs, R) -> int:
     """The plain L1 against keto_tpu's _bump_emit and the result write
-    around it, on queries in random order."""
+    around it, on the same numpy inputs; returns the landed count."""
     import jax
     import jax.numpy as jnp
+
+    N, nq = q.shape[0], rc.shape[0]
 
     @jax.jit
     def reference(q, emit, value, rc, needs, res):
@@ -483,21 +485,47 @@ def test_list_emit_plain_equals_bump_emit(N, nq, R):
         res = res.at[dest].set(value, mode="drop")
         return res, rc.at[q].add(land.astype(jnp.int32)), needs, land.sum()
 
-    rng = np.random.default_rng(N)
-    q = rng.integers(0, nq, N).astype(np.int32)
-    emit = rng.random(N) < 0.6
-    value = rng.integers(0, 1 << 20, N).astype(np.int32)
-    rc = rng.integers(0, R + 1, nq).astype(np.int32)
-    needs = rng.integers(0, 3, nq).astype(np.int32)
     res = np.full(nq * R, -1, np.int32)
-
     *want, want_landed = reference(*(jnp.asarray(x) for x in (q, emit, value, rc, needs, res)))
     bufs = [torch.from_numpy(x.copy()) for x in (res, rc, needs)]
     landed = trk.list_emit_plain(torch.from_numpy(q), torch.from_numpy(emit),
                                  torch.from_numpy(value), *bufs, result_cap=R)
     for got, w in zip(bufs, want):
         np.testing.assert_array_equal(got.numpy(), np.asarray(w))
-    assert int(landed) == int(want_landed) > 0
+    assert int(landed) == int(want_landed)
+    return int(landed)
+
+
+@pytest.mark.parametrize("N,nq,R", [(64, 4, 4), (500, 16, 8), (3000, 128, 3)])
+def test_list_emit_plain_equals_bump_emit(N, nq, R):
+    """The plain L1 against keto_tpu's _bump_emit and the result write
+    around it, on queries in random order."""
+    rng = np.random.default_rng(N)
+    q = rng.integers(0, nq, N).astype(np.int32)
+    emit = rng.random(N) < 0.6
+    value = rng.integers(0, 1 << 20, N).astype(np.int32)
+    rc = rng.integers(0, R + 1, nq).astype(np.int32)
+    needs = rng.integers(0, 3, nq).astype(np.int32)
+    assert _list_emit_against_bump_emit(q, emit, value, rc, needs, R) > 0
+
+
+# keys in long runs (sorted by query, as L2's candidates and K4's frontier
+# come), then a tail of padding that does not emit; all on one key
+@pytest.mark.parametrize("order,N,nq,R", [("runs", 5000, 8, 300), ("runs", 4000, 64, 40),
+                                          ("one_key", 3000, 16, 1000)])
+def test_list_emit_plain_equals_bump_emit_in_runs(order, N, nq, R):
+    rng = np.random.default_rng(N + nq)
+    if order == "runs":
+        q = np.sort(rng.integers(0, nq, N))
+    else:
+        q = np.full(N, rng.integers(0, nq))
+    q = q.astype(np.int32)
+    emit = (rng.random(N) < 0.7) & (np.arange(N) < int(0.6 * N))
+    value = rng.integers(0, 1 << 20, N).astype(np.int32)
+    rc = rng.integers(0, R // 2, nq).astype(np.int32)
+    needs = rng.integers(0, 3, nq).astype(np.int32)
+    landed = _list_emit_against_bump_emit(q, emit, value, rc, needs, R)
+    assert 0 < landed < int(emit.sum())  # some land, some overflow their query's cap
 
 
 # -- (c) the engines -------------------------------------------------------------------

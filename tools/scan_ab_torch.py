@@ -1,8 +1,10 @@
-"""Time K3 `expand_gather`, K4 `dedupe_compact`, F1 `filter_mark` and P2
-`power_account` of one or more checkouts of keto_tpu_torch on one NVIDIA
-card, in turns, on the same inputs.
+"""Time K3 `expand_gather`, K4 `dedupe_compact`, F1 `filter_mark`, P2
+`power_account`, L1 `list_emit` and X1 `expand_emit` of one or more
+checkouts of keto_tpu_torch on one NVIDIA card, in turns, on the same
+inputs.
 
     python tools/scan_ab_torch.py --roots _checkout/parent . . _checkout/parent
+    python tools/scan_ab_torch.py --cases l1_list_objects x1_expand --roots . _checkout/parent
 
 Each root runs in a process of its own, which imports keto_tpu_torch from
 that root (so its kernels build from the root's csrc/ into the root's
@@ -10,11 +12,16 @@ _build/), makes the inputs from a seed at the shapes of chip_smoke.py's
 cells, holds each kernel to its plain version (max_abs_err must be 0) and
 times it: device ms per call from torch.profiler, every kernel and memset
 of the call, its mean time a launch times its launches a call, and those
-parts by name. F1 and P2 update inputs in place: each side of the
-comparison works on its own clones, F1 is timed on one set of clones
-call after call (as chip_smoke.py times it), and each timed P2 call first
-copies its level plane and status back (the copies are reported among the
-parts, not in the kernel's time). The inputs are drawn, not captured:
+parts by name; and wall ms per call (`<case>_wall`), between CUDA events
+around back-to-back calls (the median of five windows), the wrapper's
+host work and any copies back included. F1, P2, L1 and X1 update inputs in place: each side of
+the comparison works on its own clones, F1 is timed on one set of clones
+call after call (as chip_smoke.py times it), and each timed P2, L1 or X1
+call first copies back what the next call would otherwise see changed
+(P2's level plane and status, L1's result counts and causes, X1's edge
+counts and flags; the copies are reported among the parts, not in the
+kernel's time; L1's and X1's buffers are written at the same slots
+every call). The inputs are drawn, not captured:
 chip_smoke.py times the kernels on real batches.
 One JSON line per root, after a line with the card's name and power limit.
 Needs a card; exits 1 without one.
@@ -39,7 +46,14 @@ REPS = 50
 # the max_set_rows-4 deep-1e6 build (32,768 nodes, 2,048 lanes, so W =
 # 64, and 16,384 direct rows), with a step's fresh bits as sparse as on
 # that wave (p2_wave) and one word in eight non-zero (p2_dense: the level
-# pass's heavy case).
+# pass's heavy case). L1: (N entries, B queries, R result cap):
+# ListObjects' step-2 launch (the 2^20 frontier cap, 256 queries, 4,096
+# results a query) and ListSubjects' (16,384, 256, 2,048). X1: (F tasks,
+# B queries, E edge cap): Expand's step-1 launch (4,096, 1,024, 16,384),
+# and a one-subject Expand (TorchCheckEngine.expand): the engine's
+# smallest bucket of 16 queries, one of them live, at expand_batch's
+# default caps (frontier 1,024, edge cap 4,096), so every live task of a
+# round has one query.
 CASES = {
     "k3_check": ("expand_gather", 8192, 8192, 3),
     "k4_check": ("dedupe_compact", 8192, 8192, 4096),
@@ -50,9 +64,16 @@ CASES = {
     "f1_filter": ("filter_mark", 4096, 16384, 10000),
     "p2_wave": ("power_account", 32768, 2048, 16384),
     "p2_dense": ("power_account", 32768, 2048, 16384),
+    "l1_list_objects": ("list_emit", 1 << 20, 256, 4096),
+    "l1_list_subjects": ("list_emit", 16384, 256, 2048),
+    "x1_expand": ("expand_emit", 4096, 1024, 16384),
+    "x1_one_subject": ("expand_emit", 1024, 16, 4096),
 }
-# the arguments F1 and P2 update in place
-UPDATED = {"filter_mark": (6, 7), "power_account": (1, 4)}
+# the arguments each kernel updates in place, and those a timed call
+# first copies back
+UPDATED = {"filter_mark": (6, 7), "power_account": (1, 4), "list_emit": (3, 4, 5),
+           "expand_emit": (11, 12, 13)}
+RESET = {"power_account": (1, 4), "list_emit": (4, 5), "expand_emit": (12, 13)}
 
 
 def inputs(name: str, dev):
@@ -64,7 +85,12 @@ def inputs(name: str, dev):
     counts of 0-8 against a row cap of 4, so about half the sources are
     killed, and two fresh bits a source at random nodes (as a chain
     advances a node a step; p2_wave) or one fresh word in eight non-zero
-    (p2_dense)."""
+    (p2_dense); L1 a frontier whose first 60% are live, grouped by query
+    (K4 keeps task order), two in three of them emitting, the padding tail
+    not, into result counts a few slots deep; X1 half the frontier live,
+    grouped by query (all on query 0 in x1_one_subject), at depths 1-6, on
+    rows of 0-16 edges, into edge counts a few slots deep (rows land, and
+    the step emits most of its 4F budget)."""
     import numpy as np
     import torch
 
@@ -101,6 +127,29 @@ def inputs(name: str, dev):
                 t(rng.integers(0, 9, S)), t(np.sort(rng.choice(N, D, replace=False))), t([0]))
         return args, dict(level=2, max_set_rows=4)
 
+    if kernel == "list_emit":
+        N, B, R = n, F, m
+        n_live = int(0.6 * N)
+        q = np.zeros(N, np.int64)
+        q[:n_live] = np.sort(rng.integers(0, B, n_live))
+        emit = torch.from_numpy((rng.random(N) < 2 / 3) & (np.arange(N) < n_live)).to(dev)
+        return (t(q), emit, t(rng.integers(0, 1 << 20, N)), t(np.full(B * R, -1)),
+                t(rng.integers(0, R // 8, B)), t(np.zeros(B))), dict(result_cap=R)
+    if kernel == "expand_emit":
+        F, B, E = n, F, m
+        n_rows = 5000
+        row_ptr = np.concatenate([[0], np.cumsum(rng.integers(0, 17, n_rows))])
+        n_edges = int(row_ptr[-1])
+        q = np.zeros(F, np.int64)
+        q[:F // 2] = np.sort(rng.integers(0, 1 if name == "x1_one_subject" else B, F // 2))
+        live = torch.from_numpy(np.arange(F) < F // 2).to(dev)
+        eb = tuple(t(np.full(B * E, -1)) for _ in range(5))
+        return (t(q), t(rng.integers(0, 1 << 20, F)), t(rng.integers(0, 6, F)),
+                t(rng.integers(1, 7, F)), live, t(rng.integers(-1, n_rows, F)),
+                t(np.full(F, -1)), t(row_ptr), t(rng.integers(0, 2, n_edges)),
+                t(rng.integers(0, 1 << 20, n_edges)), t(rng.integers(0, 6, n_edges)), eb,
+                t(rng.integers(0, E // 16, B)),
+                torch.zeros(B, dtype=torch.bool, device=dev)), dict(edge_cap=E)
     if kernel == "expand_gather":
         S, B, n_edges = m, 4096, 1 << 20
         counts = (rng.random((F, S)) < 0.23) * rng.integers(1, 2, (F, S))
@@ -145,7 +194,29 @@ def device_ms(fn, reps: int = REPS) -> tuple[float, dict]:
     raise RuntimeError("the profiler saw no device time")
 
 
-def worker(root: str) -> dict:
+def wall_ms(fn, reps: int = REPS, windows: int = 5) -> float:
+    """Ms per call between CUDA events around `reps` back-to-back calls,
+    the median of `windows` windows (the host's cores are shared, so one
+    window can stall): the host's enqueue of each call is included."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(windows):
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def worker(root: str, cases: list[str]) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -154,7 +225,8 @@ def worker(root: str) -> dict:
 
     cuda_ops.library()
     out = {"root": root, "card": torch.cuda.get_device_name(0)}
-    for name, (kernel, *_shape) in CASES.items():
+    for name in cases:
+        kernel = CASES[name][0]
         args, kw = inputs(name, torch.device("cuda"))
         fn = getattr(cuda_ops, kernel)
         run = lambda: fn(*args, **kw)  # noqa: E731
@@ -173,31 +245,40 @@ def worker(root: str) -> dict:
         _total, parts = device_ms(run)
         out[name] = sum(ms for part, ms in parts.items() if not part.startswith("Memcpy"))
         out[f"{name}_parts"] = parts
+        out[f"{name}_wall"] = wall_ms(run)
     return out
 
 
 def in_place(kernel: str, fn, args, kw):
-    """F1's or P2's outputs and updated inputs from its plain version and
-    from the kernel, each on its own clones, and the call to time."""
-    import torch
-
+    """F1's, P2's, L1's or X1's outputs and updated inputs from its plain
+    version and from the kernel, each on its own clones (as flat lists of
+    tensors), and the call to time."""
     from keto_tpu_torch.engine import closure_power as tcp
+    from keto_tpu_torch.engine import expand_kernel as tek
     from keto_tpu_torch.engine import filter_kernel as tfk
+    from keto_tpu_torch.engine import reverse_kernel as trk
 
-    plain = tfk.filter_mark_plain if kernel == "filter_mark" else tcp.power_account_plain
+    plain = {"filter_mark": tfk.filter_mark_plain, "power_account": tcp.power_account_plain,
+             "list_emit": trk.list_emit_plain, "expand_emit": tek.expand_emit_plain}[kernel]
     updated = UPDATED[kernel]
 
+    def clone(x):
+        return tuple(y.clone() for y in x) if isinstance(x, tuple) else x.clone()
+
+    def flat(x):
+        return [y for z in x for y in flat(z)] if isinstance(x, (tuple, list)) else [x]
+
     def side(f):
-        a = [x.clone() if i in updated else x for i, x in enumerate(args)]
-        return (f(*a, **kw), *(a[i] for i in updated))
+        a = [clone(x) if i in updated else x for i, x in enumerate(args)]
+        return flat([f(*a, **kw), *(a[i] for i in updated)])
 
     got, want = side(fn), side(plain)
-    timed = [x.clone() if i in updated else x for i, x in enumerate(args)]
-    if kernel == "filter_mark":
+    timed = [clone(x) if i in updated else x for i, x in enumerate(args)]
+    if kernel not in RESET:
         return got, want, lambda: fn(*timed, **kw)
 
     def reset_and_run():
-        for i in updated:
+        for i in RESET[kernel]:
             timed[i].copy_(args[i])
         return fn(*timed, **kw)
 
@@ -207,6 +288,7 @@ def in_place(kernel: str, fn, args, kw):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--roots", nargs="+", default=["."])
+    ap.add_argument("--cases", nargs="+", choices=sorted(CASES), default=list(CASES))
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     import torch
@@ -215,14 +297,15 @@ def main(argv=None) -> int:
         print("no CUDA device is available: the kernels need an NVIDIA card", file=sys.stderr)
         return 1
     if a.worker:
-        print(json.dumps(worker(a.worker)), flush=True)
+        print(json.dumps(worker(a.worker, a.cases)), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip(), flush=True)
     rc = 0
     for root in a.roots:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root,
+                               "--cases", *a.cases],
                               capture_output=True, text=True, timeout=600)
         print(proc.stdout.strip() or json.dumps({"root": root, "rc": proc.returncode,
                                                  "stderr": proc.stderr[-2000:]}), flush=True)
