@@ -1466,8 +1466,7 @@ def power_kernel_cases(wave_args, max_set_rows):
     the timed call). Bytes count what the step's data needs: the edge
     sources and destinations, the F rows those edges gather (each
     once), R read only at the words the gathered OR set (fresh = acc & ~R
-    is 0 elsewhere; P1's dense pass over acc and R is its design's cost,
-    not the function's) and written where fresh lands, fresh written
+    is 0 elsewhere) and written where fresh lands, fresh written
     whole (the output), the counts fresh bits touch; P2 reads fresh once,
     writes F, and a level
     byte where a fresh bit lands on a direct row; P3 the mask, the seen rows
@@ -1514,7 +1513,7 @@ def power_kernel_cases(wave_args, max_set_rows):
         + n_lanes * 8 + 8 * 4 * 2 + 4,
         E * W * 3 + n_acc_words * 3 + n_fresh_bits * 3,
         compared((cuda_ops.power_step, tcp.power_step_plain), args1, kw1, (1, 4, 5)),
-        ("power_gather_kernel", "power_fresh_kernel", "Memset"),
+        ("power_step_gather_kernel", "power_step_walk_kernel"),
     ))
 
     args2, kw2 = rec.args("power_account")
@@ -1544,7 +1543,7 @@ def power_kernel_cases(wave_args, max_set_rows):
         N + n_pois * W + (2 * S + 8) * 2,
         lambda: max_abs_err(cuda_ops.power_poison(*args3, **kw3),
                             tcp.power_poison_plain(*args3, **kw3)),
-        None,
+        ("power_poison_kernel",),
     ))
 
     planes = tcp._unpack(F[e_src.long()])

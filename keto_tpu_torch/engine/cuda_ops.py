@@ -72,6 +72,9 @@ build_info: dict = {}
 # the scratch word of csrc/reduce.cuh's last-block sum, one per (device,
 # stream): see grid_scratch
 _grid_scratch: dict = {}
+# P1's and P3's accumulator and P1's lists, one pair per (device,
+# stream): see power_scratch
+_power_scratch: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -148,9 +151,10 @@ _SIGNATURES = {
     "keto_closure_probe": [_VP, _LL, _I, _VP, _LL, _I, _I, _I, _VP, _LL, _I, _I, _VP, _I, _VP,
                            _VP],
     "keto_filter_mark": [_VP] * 4 + [_I, _VP, _I] + [_VP] * 6,
-    "keto_power_step": [_VP] * 4 + [_I] * 3 + [_VP] * 6,
+    "keto_power_step_scratch": [_I] * 3,
+    "keto_power_step": [_VP] * 4 + [_I] * 3 + [_VP] * 7,
     "keto_power_account": [_VP] * 4 + [_I] * 5 + [_VP] * 4,
-    "keto_power_poison": [_VP] * 4 + [_I] * 2 + [_VP] * 3,
+    "keto_power_poison": [_VP] * 4 + [_I] * 2 + [_VP] * 4,
     "keto_mb_probe": [_VP, _VP, _I, _VP, _VP],
     "keto_mb_probe_smem": [_VP, _I, _VP, _I, _VP, _VP],
     "keto_mb_scatmax": [_VP, _VP, _I, _VP, _I, _VP],
@@ -174,7 +178,8 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            for name in ("keto_expand_emit_scratch", "keto_list_emit_scratch"):
+            for name in ("keto_expand_emit_scratch", "keto_list_emit_scratch",
+                         "keto_power_step_scratch"):
                 getattr(lib, name).restype = ctypes.c_longlong
             lib.keto_error_string.argtypes = [ctypes.c_int]
             lib.keto_error_string.restype = ctypes.c_char_p
@@ -197,8 +202,8 @@ def _stream():
 
 
 def grid_scratch(device: torch.device, stream: int) -> torch.Tensor:
-    """The 64-bit scratch word of F1's, P2's and L1's grid sums
-    (csrc/reduce.cuh) on `device` for launches on `stream` (a
+    """The 64-bit scratch word of F1's, P2's and L1's grid sums and of P3's
+    last-block ticket (csrc/reduce.cuh) on `device` for launches on `stream` (a
     cuda_stream handle): zeroed once here, and left at zero by every
     launch that uses it. Launches on one stream run one after the other,
     so they may share it; another stream gets its own, so no two launches
@@ -211,6 +216,29 @@ def grid_scratch(device: torch.device, stream: int) -> torch.Tensor:
             if t is None:
                 t = _grid_scratch[key] = torch.zeros(1, dtype=torch.int64, device=device)
     return t
+
+
+def power_scratch(device: torch.device, stream: int, acc_words: int = 0,
+                  list_ints: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """P1's and P3's scratch on `device` for launches on `stream`: an int32
+    accumulator of at least acc_words words (P1's [N, W], P3's W), zeroed
+    when it is allocated and left at zero by every launch (P1's walk and
+    P3's last block return each word they read to zero), and P1's int32
+    lists of at least list_ints ints, written before they are read, so
+    never reset. Each grows to the largest call it has served. As for
+    grid_scratch, launches on one stream may share them and another stream
+    gets its own."""
+    key = (device.index, stream)
+    got = _power_scratch.get(key)
+    if got is None or got[0].numel() < acc_words or got[1].numel() < list_ints:
+        with _lock:
+            acc, lists = _power_scratch.get(key) or (None, None)
+            if acc is None or acc.numel() < acc_words:
+                acc = torch.zeros(acc_words, dtype=torch.int32, device=device)
+            if lists is None or lists.numel() < list_ints:
+                lists = torch.empty(list_ints, dtype=torch.int32, device=device)
+            got = _power_scratch[key] = (acc, lists)
+    return got
 
 
 def _require(name: str, dtype, *tensors: torch.Tensor) -> None:
@@ -592,10 +620,17 @@ def _require_words(name: str, *mats: torch.Tensor) -> tuple[int, int]:
     return N, W
 
 
+def _require_32bit(name: str, *sizes: int) -> None:
+    if any(n >= 2**31 for n in sizes):
+        raise ValueError(f"{name}: {max(sizes)} words overflow its 32-bit indices")
+
+
 def power_step(F, R, e_src, e_dst, counts, stats, status) -> torch.Tensor:
     """P1: one powering step over the edges (e_src, e_dst), node indices
     below N; returns fresh [N, W]. Updates R, counts and stats in place;
-    status[0] is the popcount of F before the step."""
+    status[0] is the popcount of F before the step. The kernels index in
+    32 bits and read F 16 bytes at a time: N * W and E * W must stay below
+    2^31, and F (when W >= 4) be 16-byte aligned."""
     from .kernel import N_LAUNCH_STATS
 
     name = "power_step"
@@ -606,11 +641,15 @@ def power_step(F, R, e_src, e_dst, counts, stats, status) -> torch.Tensor:
         raise ValueError(f"{name}: expects [E] sources and destinations and [32 W] counts")
     if stats.shape != (N_LAUNCH_STATS,) or status.numel() < 1:
         raise ValueError(f"{name}: expects [{N_LAUNCH_STATS}] stats and a status")
-    acc = torch.empty_like(F)
+    _require_32bit(name, N * W, E * W)
+    if W >= 4 and F.data_ptr() % 16:
+        raise ValueError(f"{name}: F must be 16-byte aligned")
     fresh = torch.empty_like(F)
     lib = library()
-    rc = lib.keto_power_step(_p(F), _p(R), _p(e_src), _p(e_dst), E, N, W, _p(acc), _p(fresh),
-                             _p(counts), _p(stats), _p(status), _stream())
+    stream = _stream()
+    acc, lists = power_scratch(F.device, stream, N * W, lib.keto_power_step_scratch(E, N, W))
+    rc = lib.keto_power_step(_p(F), _p(R), _p(e_src), _p(e_dst), E, N, W, _p(acc), _p(lists),
+                             _p(fresh), _p(counts), _p(stats), _p(status), stream)
     _check(lib, rc, name)
     return fresh
 
@@ -628,9 +667,7 @@ def power_account(fresh, lvl, counts, d_rows, status, *, level: int,
     D = d_rows.shape[0]
     if lvl.shape != (D, 32 * W) or counts.shape != (32 * W,) or status.numel() < 1:
         raise ValueError(f"{name}: expects a [D, 32 W] level plane, [32 W] counts and a status")
-    if N * W >= 2**31 or D * 32 * W >= 2**31:
-        raise ValueError(f"{name}: [{N}, {W}] words and a [{D}, {32 * W}] level plane overflow "
-                         "its 32-bit indices")
+    _require_32bit(name, N * W, D * 32 * W)
     if lvl.data_ptr() % 16 or (W >= 4 and fresh.data_ptr() % 16):
         raise ValueError(f"{name}: fresh and lvl must be 16-byte aligned")
     F = torch.empty_like(fresh)
@@ -644,7 +681,10 @@ def power_account(fresh, lvl, counts, d_rows, status, *, level: int,
 
 
 def power_poison(R, pois_mask, counts, stats) -> torch.Tensor:
-    """P3: the wave's summary [counts(S) | poison(S) | stats(8)] int32."""
+    """P3: the wave's summary [counts(S) | poison(S) | stats(8)] int32. The
+    kernel reads the mask 16 bytes at a time and holds W words in shared
+    memory: pois_mask must be 16-byte aligned, W at most 256 (8,192
+    lanes) and N * W below 2^31."""
     from .kernel import N_LAUNCH_STATS
 
     name = "power_poison"
@@ -655,11 +695,18 @@ def power_poison(R, pois_mask, counts, stats) -> torch.Tensor:
     if pois_mask.shape != (N,) or counts.shape != (S,) or stats.shape != (N_LAUNCH_STATS,):
         raise ValueError(f"{name}: expects an [N] mask, [32 W] counts and "
                          f"[{N_LAUNCH_STATS}] stats")
-    pw = torch.empty(W, dtype=torch.int32, device=R.device)
-    out = torch.empty(2 * S + N_LAUNCH_STATS, dtype=torch.int32, device=R.device)
+    if W > 256:
+        raise ValueError(f"{name}: expects at most 256 words a row, got {W}")
+    _require_32bit(name, N * W)
+    if pois_mask.data_ptr() % 16:
+        raise ValueError(f"{name}: pois_mask must be 16-byte aligned")
+    dev = R.device
+    out = torch.empty(2 * S + N_LAUNCH_STATS, dtype=torch.int32, device=dev)
     lib = library()
-    rc = lib.keto_power_poison(_p(R), _p(pois_mask), _p(counts), _p(stats), N, W, _p(pw), _p(out),
-                               _stream())
+    stream = _stream()
+    pw, _lists = power_scratch(dev, stream, W)
+    rc = lib.keto_power_poison(_p(R), _p(pois_mask), _p(counts), _p(stats), N, W, _p(pw),
+                               _p(grid_scratch(dev, stream)), _p(out), stream)
     _check(lib, rc, name)
     return out
 

@@ -229,11 +229,12 @@ def wave_inputs(lanes, seed, n_sub=40, n_edges=70):
 
 
 @pytest.mark.parametrize("max_set_rows", [1 << 20, 3, 0])
-@pytest.mark.parametrize("lanes", [32, 64, 128, 2048])
+@pytest.mark.parametrize("lanes", [32, 64, 128, 2048, 8192])
 def test_wave_identical(lanes, max_set_rows):
-    """One wave against keto_tpu's at 1, 2, 4 and 64 words a row (2,048
-    lanes: the widest deep-1e6 wave's), with no row cap, a cap of 3 and a
-    cap of 0 (every source is killed after its first step)."""
+    """One wave against keto_tpu's at 1, 2, 4, 64 and 256 words a row
+    (2,048 lanes: the widest deep-1e6 wave's; 8,192: the widest wave the
+    kernels take), with no row cap, a cap of 3 and a cap of 0 (every
+    source is killed after its first step)."""
     import jax.numpy as jnp
 
     inputs = wave_inputs(lanes, seed=lanes + max_set_rows)

@@ -3,7 +3,9 @@ on the card: each kernel alone on the same CUDA tensors, and whole check,
 expand, ListObjects, ListSubjects, closure and filter launches against
 the CPU run of the plain versions, under both table layouts and with the
 delta overlay (or the dirty table) on and off; the closure powering's P1-P3
-step by step on random waves, and whole device-powered builds against the
+step by step on random waves, on shapes that change call after call, dense
+frontiers, no edges and every poison mask (their persistent scratch read
+back zero after every call), and whole device-powered builds against the
 CPU's; L1's and X1's keyed rank on queries in runs, at random and all on
 one query, past one block's frontier and shared memory; the
 microbenchmark primitives M1-M10 (keto_tpu_torch/tools) on the TPU tools'
@@ -1117,6 +1119,147 @@ def test_power_kernels_match_plain_on_card(cuda, lanes, n_sub, n_edges, n_nodes,
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+def scratch_is_zero(cuda) -> bool:
+    """P1's and P3's accumulator and the grid-sum word of this stream are
+    all zero, as every launch must leave them (P1's lists are written
+    before they are read)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    acc, _lists = cuda_ops.power_scratch(cuda, stream)
+    return not acc.any() and not cuda_ops.grid_scratch(cuda, stream).any()
+
+
+def step_both(cuda, F, R, e_src, e_dst, counts, stats, status):
+    """P1 and its plain version on clones of R, counts and stats: asserts
+    fresh and the three updated tensors equal and the scratch left zero;
+    returns the kernel's (fresh, R, counts, stats)."""
+    from keto_tpu_torch.engine import closure_power as tcp
+
+    sides = []
+    for fn in (cuda_ops.power_step, tcp.power_step_plain):
+        r, c, st = R.clone(), counts.clone(), stats.clone()
+        sides.append((fn(F, r, e_src, e_dst, c, st, status), r, c, st))
+    for a, b in zip(*sides):
+        assert torch.equal(a, b)
+    assert scratch_is_zero(cuda)
+    return sides[0]
+
+
+def poison_both(cuda, R, pois, counts, stats):
+    from keto_tpu_torch.engine import closure_power as tcp
+
+    got = cuda_ops.power_poison(R, pois, counts, stats)
+    assert torch.equal(got, tcp.power_poison_plain(R, pois, counts, stats))
+    assert scratch_is_zero(cuda)
+    return got
+
+
+@pytest.mark.cuda
+def test_power_kernels_shapes_in_a_row_on_card(cuda):
+    """P1 and P3 on one stream whose shapes change call after call (W =
+    64, then 1, then 256, then 64 at another N): the cached accumulator
+    grows, each whole wave stays exact, and after every call the scratch
+    is zero again."""
+    from keto_tpu_torch.engine import closure_power as tcp
+
+    shapes = [(2048, 1000, 2000, None), (32, 6, 12, 7), (8192, 3000, 5000, None),
+              (2048, 300, 500, None)]
+    for k, (lanes, n_sub, n_edges, n_nodes) in enumerate(shapes):
+        inputs = power_wave(lanes, 40 + k, n_sub, n_edges, n_nodes, 0 if n_nodes else None)
+        e_src, e_dst, d_rows, pois, R0, lvl0, counts0 = (t.to(cuda) for t in inputs)
+        R, F, lvl, counts = R0.clone(), R0, lvl0.clone(), counts0.clone()
+        stats = torch.zeros(tk.N_LAUNCH_STATS, dtype=torch.int32, device=cuda)
+        status = tcp._popcount(R0).sum().to(torch.int32).reshape(1)
+        level = 0
+        while level < 12 and int(status[0]):
+            fresh, R, counts, stats = step_both(cuda, F, R, e_src, e_dst, counts, stats, status)
+            level += 1
+            F = cuda_ops.power_account(fresh, lvl, counts, d_rows, status, level=level,
+                                       max_set_rows=1 << 20)
+        assert level >= 2, k
+        summary = poison_both(cuda, R, pois, counts, stats)
+        assert summary[lanes:2 * lanes].any(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [32, 64, 128, 2048, 8192])
+def test_power_step_dense_frontier_on_card(cuda, lanes):
+    """P1 with every word of F set on every node (so every gathered word is
+    non-zero, every destination word is touched, and many edges race to
+    set each bit), against R empty and against R already holding half the
+    bits."""
+    e_src, e_dst, _d, _pois, R0, _lvl, counts0 = (t.to(cuda) for t in
+                                                  power_wave(lanes, 9, 500, 1000))
+    F = torch.full_like(R0, -1)
+    for R in (torch.zeros_like(R0), torch.full_like(R0, 0x55555555)):
+        stats = torch.zeros(tk.N_LAUNCH_STATS, dtype=torch.int32, device=cuda)
+        status = torch.full((1,), 32 * F.numel(), dtype=torch.int32, device=cuda)
+        fresh, *_ = step_both(cuda, F, R, e_src, e_dst, counts0, stats, status)
+        assert fresh.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [32, 64, 2048])
+def test_power_step_no_edges_and_padding_on_card(cuda, lanes):
+    """P1 with no edge at all (E = 0), and with every edge a padding edge at
+    the dummy node: fresh is all zero, R and the counts stay, the stats
+    count one step."""
+    e_src, _e_dst, _d, _pois, R0, _lvl, counts0 = (t.to(cuda) for t in
+                                                   power_wave(lanes, 3, 40, 70))
+    dummy = 40
+    none = torch.zeros(0, dtype=torch.int32, device=cuda)
+    pad = torch.full_like(e_src, dummy)
+    for src, dst in ((none, none), (pad, pad)):
+        stats = torch.zeros(tk.N_LAUNCH_STATS, dtype=torch.int32, device=cuda)
+        status = torch.ones(1, dtype=torch.int32, device=cuda)
+        fresh, R, counts, stats = step_both(cuda, R0, R0.clone(), src, dst, counts0, stats,
+                                            status)
+        assert not fresh.any() and torch.equal(R, R0) and torch.equal(counts, counts0)
+        assert stats[0] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_nodes", [7, 16, 37, 512, 1029, 32768])
+@pytest.mark.parametrize("lanes", [32, 2048, 8192])
+def test_power_poison_masks_on_card(cuda, n_nodes, lanes):
+    """P3 with no node poisoned, every node poisoned and a few at random,
+    at N a multiple of 16 and not (7, 37, 1,029: the mask's tail is read
+    byte by byte), within one 512-node tile and across many."""
+    rng = np.random.default_rng(n_nodes + lanes)
+    W = lanes // 32
+    r = rng.integers(0, 1 << 32, (n_nodes, W), dtype=np.uint64)
+    r[rng.random((n_nodes, W)) >= 0.25] = 0
+    R = torch.from_numpy(r.astype(np.uint32).view(np.int32)).to(cuda)
+    counts = torch.from_numpy(rng.integers(0, 9, lanes).astype(np.int32)).to(cuda)
+    stats = torch.from_numpy(rng.integers(0, 100, tk.N_LAUNCH_STATS).astype(np.int32)).to(cuda)
+    some = np.zeros(n_nodes, np.uint8)
+    k = min(3, n_nodes)
+    some[rng.choice(n_nodes, k, replace=False)] = rng.integers(1, 256, k)
+    for mask in (np.zeros(n_nodes, np.uint8), np.ones(n_nodes, np.uint8), some):
+        poison_both(cuda, R, torch.from_numpy(mask).to(cuda), counts, stats)
+
+
+@pytest.mark.cuda
+def test_power_step_and_poison_launch_no_memset_on_card(cuda):
+    """A call of P1 launches its gather and its walk, and P3 its one
+    kernel; neither a memset: the profiler sees those names and nothing
+    else over 20 calls."""
+    e_src, e_dst, _d, pois, R0, _lvl, counts0 = (t.to(cuda) for t in
+                                                 power_wave(2048, 5, 1000, 2000))
+    R, counts = R0.clone(), counts0.clone()
+    stats = torch.zeros(tk.N_LAUNCH_STATS, dtype=torch.int32, device=cuda)
+    status = torch.ones(1, dtype=torch.int32, device=cuda)
+    calls = {
+        ("power_step_gather_kernel", "power_step_walk_kernel"):
+            lambda: cuda_ops.power_step(R0, R, e_src, e_dst, counts, stats, status),
+        ("power_poison_kernel",): lambda: cuda_ops.power_poison(R0, pois, counts0, stats),
+    }
+    for kernels, call in calls.items():
+        keys = [e.key for e in profiled(call)]
+        assert len(keys) == len(kernels), keys
+        assert all(any(k in key for key in keys) for k in kernels), keys
+    assert scratch_is_zero(cuda)
 
 
 def deep_chains(n_chains=60, depth=9, seed=5):

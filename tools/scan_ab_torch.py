@@ -1,28 +1,31 @@
-"""Time K3 `expand_gather`, K4 `dedupe_compact`, F1 `filter_mark`, P2
-`power_account`, L1 `list_emit` and X1 `expand_emit` of one or more
-checkouts of keto_tpu_torch on one NVIDIA card, in turns, on the same
-inputs.
+"""Time K3 `expand_gather`, K4 `dedupe_compact`, F1 `filter_mark`, P1
+`power_step`, P2 `power_account`, P3 `power_poison`, L1 `list_emit` and
+X1 `expand_emit` of one or more checkouts of keto_tpu_torch on one NVIDIA
+card, in turns, on the same inputs.
 
     python tools/scan_ab_torch.py --roots _checkout/parent . . _checkout/parent
     python tools/scan_ab_torch.py --cases l1_list_objects x1_expand --roots . _checkout/parent
+    python tools/scan_ab_torch.py --cases p1_wave p1_dense p3_wave p3_all --roots . _checkout/parent
 
 Each root runs in a process of its own, which imports keto_tpu_torch from
 that root (so its kernels build from the root's csrc/ into the root's
 _build/), makes the inputs from a seed at the shapes of chip_smoke.py's
 cells, holds each kernel to its plain version (max_abs_err must be 0) and
 times it: device ms per call from torch.profiler, every kernel and memset
-of the call, its mean time a launch times its launches a call, and those
+of the call (a P3 call of an older checkout is two kernels and a
+memset), its mean time a launch times its launches a call, and those
 parts by name; and wall ms per call (`<case>_wall`), between CUDA events
-around back-to-back calls (the median of five windows), the wrapper's
-host work and any copies back included. F1, P2, L1 and X1 update inputs in place: each side of
-the comparison works on its own clones, F1 is timed on one set of clones
-call after call (as chip_smoke.py times it), and each timed P2, L1 or X1
-call first copies back what the next call would otherwise see changed
-(P2's level plane and status, L1's result counts and causes, X1's edge
-counts and flags; the copies are reported among the parts, not in the
-kernel's time; L1's and X1's buffers are written at the same slots
-every call). The inputs are drawn, not captured:
-chip_smoke.py times the kernels on real batches.
+around back-to-back calls (the least of 21 windows), the wrapper's
+host work and any copies back included. F1, P1, P2, L1 and X1 update
+inputs in place: each side of the comparison works on its own clones, F1
+is timed on one set of clones call after call (as chip_smoke.py times
+it), and each timed P1, P2, L1 or X1 call first copies back what the next
+call would otherwise see changed (P1's R, counts and stats, P2's level
+plane and status, L1's result counts and causes, X1's edge counts and
+flags; the copies are reported among the parts, not in the kernel's
+time; L1's and X1's buffers are written at the same slots every call).
+The inputs are drawn, not captured: chip_smoke.py times the kernels on
+real batches.
 One JSON line per root, after a line with the card's name and power limit.
 Needs a card; exits 1 without one.
 """
@@ -46,7 +49,12 @@ REPS = 50
 # the max_set_rows-4 deep-1e6 build (32,768 nodes, 2,048 lanes, so W =
 # 64, and 16,384 direct rows), with a step's fresh bits as sparse as on
 # that wave (p2_wave) and one word in eight non-zero (p2_dense: the level
-# pass's heavy case). L1: (N entries, B queries, R result cap):
+# pass's heavy case). P1: (N nodes, lanes, E edges) of the same wave
+# (32,768 edges, the tail padding at the dummy node), on a step-1
+# frontier as sparse as the wave's, one bit a source (p1_wave), and on one
+# word of F in eight non-zero (p1_dense). P3: (N nodes, lanes, poisoned
+# nodes) of the same wave, three nodes poisoned (p3_wave) or every node
+# (p3_all). L1: (N entries, B queries, R result cap):
 # ListObjects' step-2 launch (the 2^20 frontier cap, 256 queries, 4,096
 # results a query) and ListSubjects' (16,384, 256, 2,048). X1: (F tasks,
 # B queries, E edge cap): Expand's step-1 launch (4,096, 1,024, 16,384),
@@ -64,6 +72,10 @@ CASES = {
     "f1_filter": ("filter_mark", 4096, 16384, 10000),
     "p2_wave": ("power_account", 32768, 2048, 16384),
     "p2_dense": ("power_account", 32768, 2048, 16384),
+    "p1_wave": ("power_step", 32768, 2048, 32768),
+    "p1_dense": ("power_step", 32768, 2048, 32768),
+    "p3_wave": ("power_poison", 32768, 2048, 3),
+    "p3_all": ("power_poison", 32768, 2048, 32768),
     "l1_list_objects": ("list_emit", 1 << 20, 256, 4096),
     "l1_list_subjects": ("list_emit", 16384, 256, 2048),
     "x1_expand": ("expand_emit", 4096, 1024, 16384),
@@ -71,9 +83,10 @@ CASES = {
 }
 # the arguments each kernel updates in place, and those a timed call
 # first copies back
-UPDATED = {"filter_mark": (6, 7), "power_account": (1, 4), "list_emit": (3, 4, 5),
-           "expand_emit": (11, 12, 13)}
-RESET = {"power_account": (1, 4), "list_emit": (4, 5), "expand_emit": (12, 13)}
+UPDATED = {"filter_mark": (6, 7), "power_step": (1, 4, 5), "power_account": (1, 4),
+           "list_emit": (3, 4, 5), "expand_emit": (11, 12, 13)}
+RESET = {"power_step": (1, 4, 5), "power_account": (1, 4), "list_emit": (4, 5),
+         "expand_emit": (12, 13)}
 
 
 def inputs(name: str, dev):
@@ -85,9 +98,16 @@ def inputs(name: str, dev):
     counts of 0-8 against a row cap of 4, so about half the sources are
     killed, and two fresh bits a source at random nodes (as a chain
     advances a node a step; p2_wave) or one fresh word in eight non-zero
-    (p2_dense); L1 a frontier whose first 60% are live, grouped by query
-    (K4 keeps task order), two in three of them emitting, the padding tail
-    not, into result counts a few slots deep; X1 half the frontier live,
+    (p2_dense); P1 24,000 nodes below the dummy, 20,000 edges from
+    distinct sources (as on chains, each node one out-edge) to random
+    destinations, sorted by destination, the rest padding at the dummy,
+    and R = F as at a wave's first step: F one bit for each of 2,045
+    sources at distinct nodes (p1_wave) or one word in eight non-zero
+    (p1_dense); P3 a seen matrix with one word in eight non-zero and
+    three random nodes poisoned (p3_wave) or all (p3_all); L1 a frontier
+    whose first 60% are live, grouped by query (K4 keeps task order), two
+    in three of them emitting, the padding tail not, into result counts a
+    few slots deep; X1 half the frontier live,
     grouped by query (all on query 0 in x1_one_subject), at depths 1-6, on
     rows of 0-16 edges, into edge counts a few slots deep (rows land, and
     the step emits most of its 4F budget)."""
@@ -126,6 +146,39 @@ def inputs(name: str, dev):
         args = (t(fresh.astype(np.uint32).view(np.int32)), torch.from_numpy(lvl).to(dev),
                 t(rng.integers(0, 9, S)), t(np.sort(rng.choice(N, D, replace=False))), t([0]))
         return args, dict(level=2, max_set_rows=4)
+
+    if kernel == "power_step":
+        N, S, E = n, F, m
+        W, n_sub, n_edges = S // 32, 24_000, 20_000
+        src = rng.choice(n_sub, n_edges, replace=False)
+        dst = rng.integers(0, n_sub, n_edges)
+        order = np.argsort(dst, kind="stable")
+        e_src, e_dst = np.full(E, n_sub), np.full(E, n_sub)
+        e_src[:n_edges], e_dst[:n_edges] = src[order], dst[order]
+        if name == "p1_dense":
+            f = rng.integers(0, 1 << 32, (N, W), dtype=np.uint64)
+            f &= rng.integers(0, 1 << 32, (N, W), dtype=np.uint64)
+            f[rng.random((N, W)) >= 0.125] = 0
+            f[n_sub:] = 0
+        else:
+            f = np.zeros((N, W), np.uint64)
+            lane = np.arange(S - 3)
+            f[rng.choice(n_sub, S - 3, replace=False), lane // 32] = (
+                np.uint64(1) << (lane % 32).astype(np.uint64))
+        F_ = t(f.astype(np.uint32).view(np.int32))
+        counts = np.zeros(S)
+        counts[:S - 3] = 1
+        return (F_, F_.clone(), t(e_src), t(e_dst), t(counts), t(np.zeros(8)),
+                t([int(np.unpackbits(f.astype(np.uint32).view(np.uint8)).sum())])), {}
+    if kernel == "power_poison":
+        N, S, n_pois = n, F, m
+        W = S // 32
+        r = rng.integers(0, 1 << 32, (N, W), dtype=np.uint64)
+        r[rng.random((N, W)) >= 0.125] = 0
+        pois = np.zeros(N, np.uint8)
+        pois[rng.choice(N, n_pois, replace=False)] = 1
+        return (t(r.astype(np.uint32).view(np.int32)), torch.from_numpy(pois).to(dev),
+                t(rng.integers(0, 9, S)), t(rng.integers(0, 1000, 8))), {}
 
     if kernel == "list_emit":
         N, B, R = n, F, m
@@ -194,12 +247,11 @@ def device_ms(fn, reps: int = REPS) -> tuple[float, dict]:
     raise RuntimeError("the profiler saw no device time")
 
 
-def wall_ms(fn, reps: int = REPS, windows: int = 5) -> float:
+def wall_ms(fn, reps: int = REPS, windows: int = 21) -> float:
     """Ms per call between CUDA events around `reps` back-to-back calls,
-    the median of `windows` windows (the host's cores are shared, so one
-    window can stall): the host's enqueue of each call is included."""
-    import statistics
-
+    the least of `windows` windows: the host's enqueue of each call is
+    included, and the host's cores are shared, so a stall only ever adds
+    to a window (medians of five windows spread over 2x on one checkout)."""
     import torch
 
     fn()
@@ -213,13 +265,14 @@ def wall_ms(fn, reps: int = REPS, windows: int = 5) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
+    return min(times)
 
 
 def worker(root: str, cases: list[str]) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
+    from keto_tpu_torch.engine import closure_power as tcp
     from keto_tpu_torch.engine import cuda_ops
     from keto_tpu_torch.engine import kernel as tk
 
@@ -232,6 +285,8 @@ def worker(root: str, cases: list[str]) -> dict:
         run = lambda: fn(*args, **kw)  # noqa: E731
         if kernel in UPDATED:
             got, want, run = in_place(kernel, fn, args, kw)
+        elif kernel == "power_poison":
+            got, want = (run(),), (tcp.power_poison_plain(*args),)
         elif kernel == "expand_gather":
             got = run()
             ch, over = tk.expand_gather_plain(*args, **kw)
@@ -250,7 +305,7 @@ def worker(root: str, cases: list[str]) -> dict:
 
 
 def in_place(kernel: str, fn, args, kw):
-    """F1's, P2's, L1's or X1's outputs and updated inputs from its plain
+    """F1's, P1's, P2's, L1's or X1's outputs and updated inputs from its plain
     version and from the kernel, each on its own clones (as flat lists of
     tensors), and the call to time."""
     from keto_tpu_torch.engine import closure_power as tcp
@@ -258,8 +313,9 @@ def in_place(kernel: str, fn, args, kw):
     from keto_tpu_torch.engine import filter_kernel as tfk
     from keto_tpu_torch.engine import reverse_kernel as trk
 
-    plain = {"filter_mark": tfk.filter_mark_plain, "power_account": tcp.power_account_plain,
-             "list_emit": trk.list_emit_plain, "expand_emit": tek.expand_emit_plain}[kernel]
+    plain = {"filter_mark": tfk.filter_mark_plain, "power_step": tcp.power_step_plain,
+             "power_account": tcp.power_account_plain, "list_emit": trk.list_emit_plain,
+             "expand_emit": tek.expand_emit_plain}[kernel]
     updated = UPDATED[kernel]
 
     def clone(x):
