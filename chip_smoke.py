@@ -446,7 +446,8 @@ def max_abs_err(got, want) -> int:
 
 def kernel_cases(rec, snap, tables):
     """(name, kernel fn, plain fn, bytes the function must move, 32-bit
-    operations it does) for each kernel on the captured inputs. Bytes
+    operations it does[, kernel functions]) for each kernel on the
+    captured inputs. Bytes
     count each input read once and each output written once. Probe rows
     and gathers count only what this step's data needs: bucket rows for
     the keys of tasks that are live with depth >= 1 (K1: the task's edge
@@ -473,6 +474,7 @@ def kernel_cases(rec, snap, tables):
         lambda: tk.edge_probe_plain(*args, **kw),
         F * (4 * 4 + 1 + 1) + n_probe * (16 + pb * row_bytes),
         n_probe * (6 * HASH_OPS + pb * kw["spb"] * 6),
+        ("edge_probe_staged_kernel", "Memset"),
     ))
 
     args2, kw2 = rec.args("pair_probe")
@@ -686,6 +688,7 @@ def list_kernel_cases(rec_lo, rec_ls):
         lambda: max_abs_err(cuda_ops.reverse_gather(*args2, **kw2),
                             (lambda c, x: (c.q, c.ctx, c.obj, c.rel, c.depth, c.valid, x))(
                                 *trk.reverse_gather_plain(*args2, **kw2))),
+        ("reverse_tile_kernel", "reverse_scan_kernel", "reverse_merge_kernel", "Memset"),
     ))
 
     args3, kw3 = rec_ls.args("subjects_gather")
@@ -766,9 +769,11 @@ def run_kernels(engine, queries):
         engine.check_batch(queries, MAX_DEPTH)
     rows = []
     state = engine.ensure_state()
-    for name, kernel, plain, nbytes, ops in kernel_cases(rec, state.snapshot, state.tables):
+    for name, kernel, plain, nbytes, ops, *only in kernel_cases(rec, state.snapshot,
+                                                                 state.tables):
         rows.append(time_kernel(name, kernel, plain, nbytes, ops,
-                                lambda k=kernel, p=plain: max_abs_err(k(), p())))
+                                lambda k=kernel, p=plain: max_abs_err(k(), p()),
+                                only=only[0] if only else None))
     log(f"  kernels phase {time.perf_counter() - t0:.1f} s")
     return rows
 

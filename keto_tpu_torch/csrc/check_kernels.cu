@@ -7,7 +7,8 @@
 //
 // K1 keto_edge_probe     replaces keto_tpu/engine/kernel.py
 //                        _bucket_rows + _edge_key_probe as probe_phase
-//                        uses them (dh, and dd when has_delta).
+//                        uses them (dh, and dd when has_delta): three
+//                        dependent trips, every row load in flight at once.
 // K2 keto_pair_probe     replaces _multi_pair_key_probe / _pair_key_probe
 //                        (the rh span probe and the dirty-row probe).
 // K3 keto_expand_gather  replaces expand_phase's counts -> exclusive scan
@@ -42,16 +43,63 @@ constexpr int kKeepUnroll = 4;
 //
 // Bound: bytes. Each live task reads ceil(probes/spb) bucket rows of the
 // [cap, 8] int32 edge table (256 B each under the bucketized layout) at
-// random addresses; the arithmetic is a few hashes. Design: 16 threads
-// per task, each loading one 16-byte half-slot per round, so one round
-// is one fully coalesced 256 B bucket row (eight 32 B sectors); the two
-// halves of a slot are matched by a pair shuffle, and found/value reduce
-// over the group. The overlay probe, the value == 1 liveness test, the
-// overlay override and the live / depth >= 1 gate are fused, so the hit
-// mask is the only output.
+// random addresses; the arithmetic is a few hashes. At Check's shape (F =
+// 8,192) that is ~2.4 MB, so the time is a chain of dependent round
+// trips, not bytes. Design: 16 threads per task, each loading one 16-byte
+// half-slot per round, so one round is one fully coalesced 256 B bucket
+// row (eight 32 B sectors); the two halves of a slot are matched by a pair
+// shuffle, and found/value reduce over the group. Three dependent trips:
+// (1) the task's live, depth, q, obj and rel, all read before any branch;
+// (2) qsub[q]; (3) every bucket-row load of the main table (up to
+// kMaxEdgeRounds rounds, 64 probes under either layout) and of the
+// overlay's first round, all issued before any compare or shuffle. Deeper probe
+// sequences take further groups of rounds after them. Every slot of every
+// probed row is compared, and the value is the max of lane 5 over the
+// matches, as the plain version's. The overlay probe, the value == 1
+// liveness test, the overlay override and the live / depth >= 1 gate are
+// fused, so the hit mask is the only output. This replaced a body that
+// read live and depth, then q, qsub, then the rows one round at a time
+// (each round's shuffles before the next round's loads), then the
+// overlay's rows after the main table's. (probe.cuh probe_edge_table, the
+// serial form, stays C1's.)
 // ---------------------------------------------------------------------------
 
-__global__ void edge_probe_kernel(
+// the most rounds of K1's main-table loads in flight together: 8 rounds
+// of 16 lanes cover 64 probes under either layout (8 bucketized rows of 8
+// slots, or 64 compact rows of one 32 B slot). A launch holds only the
+// rounds its probe depth needs (1, 2, 4 or 8: kEdgeRounds below), so a
+// shallow table costs no registers, and a task's 16 threads stay few
+// enough for Check's frontier to be resident at once.
+constexpr int kMaxEdgeRounds = 8;
+
+// chunk c (16 bytes) of a task's probe sequence over a packed [cap, 8]
+// edge table: row c / per_row of the double-hash sequence; zero past total
+__device__ __forceinline__ int4 edge_chunk(const int4* __restrict__ pack, uint32_t nb,
+                                           int per_row, int total, int c, uint32_t h1,
+                                           uint32_t h2) {
+  if (c >= total) return make_int4(0, 0, 0, 0);
+  const int r = c / per_row;
+  const uint32_t b = (h1 + (uint32_t)r * h2) & (nb - 1u);
+  return __ldg(pack + (size_t)b * per_row + (c - r * per_row));
+}
+
+// folds chunk c (loaded as x) into the group's (found, max value): even
+// lanes hold lanes 0-3 of a slot, odd lanes lanes 4-7; every lane of the
+// group calls it
+__device__ __forceinline__ void edge_match(int4 x, int c, int total, const int key[5],
+                                           int lane, unsigned gmask, bool& f, int& v) {
+  const bool part = (lane & 1) == 0
+      ? (x.x == key[0] && x.y == key[1] && x.z == key[2] && x.w == key[3])
+      : (x.x == key[4]);
+  const bool other = __shfl_xor_sync(gmask, (int)part, 1) != 0;
+  if ((lane & 1) && c < total && part && other) {
+    f = true;
+    v = max(v, x.y);  // lane 5 of the slot
+  }
+}
+
+template <int kEdgeRounds>
+__global__ void __launch_bounds__(kProbeThreads) edge_probe_staged_kernel(
     const int4* __restrict__ dh, uint32_t dh_nb, const int4* __restrict__ dd,
     uint32_t dd_nb, int spb, int dh_pb, int dd_pb, int has_delta,
     const int* __restrict__ obj, const int* __restrict__ rel,
@@ -62,23 +110,61 @@ __global__ void edge_probe_kernel(
   const int task = (int)(gtid / kGroup);
   const int lane = threadIdx.x % kGroup;
   if (task >= F) return;  // the whole group leaves together
-  if (!live[task] || depth[task] < 1) {
+  // trip 1: every column of the task, before any branch
+  const bool lv = __ldg(live + task) != 0;
+  const int d = __ldg(depth + task), qi = __ldg(q + task);
+  const int o = __ldg(obj + task), r = __ldg(rel + task);
+  if (!lv || d < 1) {
     if (lane == 0) hit[task] = 0;
     return;
   }
-  const unsigned gmask = group_mask();
-  const int4 s = qsub[q[task]];
-  const int key[5] = {obj[task], rel[task], s.x, s.y, s.z};
+  // trip 2: the query's subject
+  const int4 s = __ldg(qsub + qi);
+  const int key[5] = {o, r, s.x, s.y, s.z};
   const uint32_t h1 = key_hash(key, 5);
   const uint32_t h2 = stride_hash(h1);
-  bool found;
-  int val;
-  probe_edge_table(dh, dh_nb, spb, dh_pb, key, h1, h2, lane, gmask, found, val);
-  bool out = found && val == 1;
-  if (has_delta) {
-    probe_edge_table(dd, dd_nb, spb, dd_pb, key, h1, h2, lane, gmask, found, val);
-    if (found) out = val == 1;
+  const unsigned gmask = group_mask();
+  const int per_row = 2 * spb;  // int4 chunks per bucket row (8 ints a slot)
+  const int tm = dh_pb * per_row;
+  const int td = has_delta ? dd_pb * per_row : 0;
+  // trip 3: the main table's rounds and the overlay's first round, all in
+  // flight before any is used
+  int4 xm[kEdgeRounds];
+#pragma unroll
+  for (int u = 0; u < kEdgeRounds; ++u) {
+    xm[u] = edge_chunk(dh, dh_nb, per_row, tm, u * kGroup + lane, h1, h2);
   }
+  const int4 xd = edge_chunk(dd, dd_nb, per_row, td, lane, h1, h2);
+  bool fm = false, fd = false;
+  int vm = kEmpty, vd = kEmpty;
+#pragma unroll
+  for (int u = 0; u < kEdgeRounds; ++u) {
+    edge_match(xm[u], u * kGroup + lane, tm, key, lane, gmask, fm, vm);
+  }
+  if (td > 0) edge_match(xd, lane, td, key, lane, gmask, fd, vd);
+  // sequences past kMaxEdgeRounds rounds (main) or one (overlay): further
+  // groups, each issued whole before it is used
+  for (int base = kEdgeRounds * kGroup; base < tm; base += kEdgeRounds * kGroup) {
+#pragma unroll
+    for (int u = 0; u < kEdgeRounds; ++u) {
+      xm[u] = edge_chunk(dh, dh_nb, per_row, tm, base + u * kGroup + lane, h1, h2);
+    }
+#pragma unroll
+    for (int u = 0; u < kEdgeRounds; ++u) {
+      edge_match(xm[u], base + u * kGroup + lane, tm, key, lane, gmask, fm, vm);
+    }
+  }
+  for (int c0 = kGroup; c0 < td; c0 += kGroup) {
+    edge_match(edge_chunk(dd, dd_nb, per_row, td, c0 + lane, h1, h2), c0 + lane, td, key,
+               lane, gmask, fd, vd);
+  }
+  for (int off = kGroup / 2; off >= 1; off >>= 1) {
+    fm = (__shfl_xor_sync(gmask, (int)fm, off) != 0) || fm;
+    vm = max(vm, __shfl_xor_sync(gmask, vm, off));
+    fd = (__shfl_xor_sync(gmask, (int)fd, off) != 0) || fd;
+    vd = max(vd, __shfl_xor_sync(gmask, vd, off));
+  }
+  const bool out = fd ? vd == 1 : (fm && vm == 1);
   if (lane == 0) hit[task] = out;
 }
 
@@ -136,33 +222,6 @@ __global__ void pair_probe_kernel(
 // order as the JAX kernel's.
 // ---------------------------------------------------------------------------
 
-// the 4 ints of a from i0, zeros at or past hi; one 16-byte load where
-// all four lie below hi and the address is aligned
-__device__ __forceinline__ int4 load4(const int* __restrict__ a, int i0, int hi) {
-  if (i0 + 3 < hi && (reinterpret_cast<uintptr_t>(a + i0) & 15) == 0) {
-    return __ldg(reinterpret_cast<const int4*>(a + i0));
-  }
-  int4 v;
-  v.x = i0 < hi ? __ldg(a + i0) : 0;
-  v.y = i0 + 1 < hi ? __ldg(a + i0 + 1) : 0;
-  v.z = i0 + 2 < hi ? __ldg(a + i0 + 2) : 0;
-  v.w = i0 + 3 < hi ? __ldg(a + i0 + 3) : 0;
-  return v;
-}
-
-// Raises query qi's frontier-overflow cause. The read first means a
-// query that many candidates overflow (a filter walk's one query) takes
-// a few atomics, not one each.
-__device__ __forceinline__ void raise_overflow(int* overflow, int qi) {
-  if (overflow[qi] < kCauseFrontierOverflow) atomicMax(&overflow[qi], kCauseFrontierOverflow);
-}
-
-// a[0, n) = 0 over the whole grid: the per-query causes, zeroed by the
-// first pass of K3 and K4 instead of a memset launch of their own
-__device__ __forceinline__ void zero_grid(int* a, int n) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) a[i] = 0;
-}
-
 // zeroes overflow too: the offsets pass, one launch later, raises it
 __global__ void expand_tile_sums_kernel(const int* __restrict__ counts, int n, int tile,
                                         int* __restrict__ tile_sums, int* __restrict__ overflow,
@@ -203,7 +262,7 @@ __global__ void expand_offsets_kernel(
     for (int e = 0; e < 4; ++e) {
       o[e] = (int)off;
       if (i0 + e < hi && c[e] > 0 && (int)(off + (unsigned)c[e]) > F) {
-        raise_overflow(overflow, q[(i0 + e) / S]);
+        raise_cause(overflow, q[(i0 + e) / S], kCauseFrontierOverflow);
       }
       off += (unsigned)c[e];
     }
@@ -381,7 +440,7 @@ __global__ void dedupe_scatter_kernel(
         nt_rel[p] = rel[i];
         nt_depth[p] = depth[i];
       } else {
-        raise_overflow(overflow, q[i]);
+        raise_cause(overflow, q[i], kCauseFrontierOverflow);
       }
       ++p;
     }
@@ -413,12 +472,17 @@ int keto_edge_probe(
     const int* q, const int* qsub, const int* depth, const uint8_t* live,
     uint8_t* hit, int F, void* stream) {
   if (F > 0) {
-    edge_probe_kernel<<<blocks_for((long long)F * kGroup, kProbeThreads),
-                        kProbeThreads, 0, (cudaStream_t)stream>>>(
+    const int dh_pb = (dh_probes + spb - 1) / spb;
+    const int rounds = (dh_pb * 2 * spb + kGroup - 1) / kGroup;  // of the main table
+    auto kernel = rounds <= 1 ? edge_probe_staged_kernel<1>
+                : rounds <= 2 ? edge_probe_staged_kernel<2>
+                : rounds <= 4 ? edge_probe_staged_kernel<4>
+                              : edge_probe_staged_kernel<kMaxEdgeRounds>;
+    kernel<<<blocks_for((long long)F * kGroup, kProbeThreads), kProbeThreads, 0,
+             (cudaStream_t)stream>>>(
         (const int4*)dh, (uint32_t)(dh_cap / spb), (const int4*)dd,
-        (uint32_t)(dd_cap / spb), spb, (dh_probes + spb - 1) / spb,
-        (dd_probes + spb - 1) / spb, has_delta, obj, rel, q, (const int4*)qsub,
-        depth, live, hit, F);
+        (uint32_t)(dd_cap / spb), spb, dh_pb, (dd_probes + spb - 1) / spb, has_delta, obj,
+        rel, q, (const int4*)qsub, depth, live, hit, F);
   }
   return (int)cudaGetLastError();
 }

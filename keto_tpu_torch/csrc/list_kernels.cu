@@ -13,7 +13,8 @@
 // L2 keto_reverse_gather    replaces _list_objects_impl's predecessor
 //                           expansion: inverted-entry counts, POISON,
 //                           scan, truncation, segment map, rv_pack gather
-//                           and the child rules.
+//                           and the child rules (a tile pass, a scan pass
+//                           and a merge-path gather).
 // L3 keto_subjects_gather   replaces _list_subjects_impl's expansion: the
 //                           same over the full-edge CSR and the rewrite
 //                           instructions, with the result mask.
@@ -22,8 +23,8 @@
 //                           list_subjects_kernel_packed.
 //
 // L1 is csrc/keyed_rank.cuh's keyed scan, shared with X1, and its landed
-// count csrc/reduce.cuh's last-block sum; the block scans of L2-L4 come
-// from csrc/scan.cuh.
+// count csrc/reduce.cuh's last-block sum; the block scans of L2-L4, and
+// L2's tile sums and cause zeroing, come from csrc/scan.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -168,11 +169,11 @@ __global__ void list_emit_rank_kernel(const int* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// The slot scan shared by L2 and L3: per-task counts over S slots, a
-// multi-block exclusive scan in task order (block sums from the count
-// pass, one block scanning the block sums, then each block's tasks their
-// offsets), and the truncation cause of every segment the frontier cap
-// cuts off. One thread per task, kThreads tasks per block.
+// L3's slot scan: per-task counts over S slots, a multi-block exclusive
+// scan in task order (block sums from the count pass, one block scanning
+// the block sums, then each block's tasks their offsets), and the
+// truncation cause of every segment the frontier cap cuts off. One thread
+// per task, kThreads tasks per block.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void block_sum_out(unsigned s, unsigned* warp_sums,
@@ -228,102 +229,352 @@ __global__ void slot_offsets_kernel(const int* __restrict__ counts, int F, int S
 // ---------------------------------------------------------------------------
 // L2 reverse_gather
 //
-// Bound: bytes, and latency at these sizes: per task its columns and one
-// inverted-instruction row (RK x 16 B); per candidate the segment search
-// over the F*S offsets, one 16-byte rv_pack row and one objslot_ns entry.
-// Design: the count pass computes every slot's count (and POISON) from
-// the task's columns and its row; the scan above orders the slots; the
-// gather pass gives each of the F candidates a binary search for its
-// segment, recomputes the slot's kind from the task, and fills every
-// candidate column, in range or not, as the plain version does.
+// Bound: bytes: per task its columns and one inverted-instruction row
+// (RK x 16 B, a small table that stays in cache); per candidate that
+// lands one 16-byte rv_pack row and one objslot_ns entry; five [F]
+// columns and the causes written. Task i has S = 1 + RK slots: its
+// reverse-edge row (rlen edges when live, depth >= 1 and the relation is
+// not the wildcard), then one per inverted entry (COMPUTED of the task's
+// namespace 1, TTU rlen when depth >= 1). Candidate j < F belongs to the
+// last flat slot whose offset is <= j.
+//
+// Design: three launches, no memset, no [F, S] array.
+// (1) Tile pass: each thread computes its tasks' S counts in registers
+// (four strided tasks a round: their live flags, then the other columns
+// of the live ones, then their rinstr rows; a dead task counts nothing)
+// and writes only each task's total ([F], coalesced) and its POISON flag
+// (a warp's ballot, one word a warp); each block writes its tile's sum,
+// and the grid zeroes the causes.
+// (2) Scan pass: each block sums the tile sums before its own (scan.cuh),
+// scans its tile in task order (four contiguous tasks a thread a round,
+// one 16-byte load) and writes the exclusive task offsets over the totals
+// in place. It raises POISON, and the frontier overflow of a task exactly
+// when total > 0 and offset + total > F (a task's slot ends only grow, so
+// its last non-empty slot's end is its own end); block 0 writes the
+// total. It also writes where each gather block's share of the merged
+// sequence starts: task i sits at merged position i + min(offset_i, F),
+// so the shares whose start falls in (pos_i, pos_i+1] start after task i
+// (usually none or one; a task with more candidates than a share covers
+// several, written by its warp 32 at a time), and no block searches the
+// offsets in global memory for its start.
+// (3) Gather pass, a merge path: block b owns the items [b P, (b + 1) P)
+// of the merged sequence of task starts and candidate indices (a task
+// start before an equal candidate index), i.e. the tasks [i0, i1) and the
+// candidates [b P - i0, (b + 1) P - i1), at most P (256 or 512), one or
+// two a thread; a block with no candidate (a run of empty tasks) exits at
+// once. It stages the offsets of tasks i0 - 1 .. i1 - 1 in shared memory;
+// each candidate finds its task there (the last one whose offset is <= j,
+// by a search of at most log2(P + 1) steps in shared memory), recomputes
+// the task's slot counts from its row, takes the last slot whose offset
+// is <= j (ties of empty tasks and slots go to the last, as the flat
+// search's), and gathers; a thread's candidates go through each level of
+// dependent loads together. The last flat slot <= j lies in the last task
+// whose offset is <= j, so this is the flat search's answer; a j at or
+// past the total maps to the last slot of the last task, F*S - 1, and
+// carries its columns with valid 0, as the plain version does. Candidates
+// are written in order, coalesced. Scratch: O(F + tiles) ints
+// (keto_reverse_gather_scratch).
+// This replaced a count pass that wrote [F, S] counts, a one-block scan of
+// the block sums, an offsets pass over [F, S] and a binary search over the
+// F*S offsets for each candidate, after a memset of the causes.
 // ---------------------------------------------------------------------------
 
-__global__ void rev_count_kernel(
-    const int* __restrict__ q, const int* __restrict__ rel, const int* __restrict__ depth,
-    const uint8_t* __restrict__ live, const int* __restrict__ ns_t,
-    const int* __restrict__ rlen, const int4* __restrict__ rinstr, int RK, int F,
-    int wildcard_rel, int ncr, int* __restrict__ counts, int* __restrict__ block_sums,
-    int* __restrict__ cause) {
-  __shared__ unsigned warp_sums[32];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int S = RK + 1;
-  unsigned s = 0;
-  if (i < F) {
-    const bool lv = live[i] != 0;
-    const int d = depth[i], r = rel[i], ns = ns_t[i], rl = rlen[i];
-    const bool has_ri = lv && r < ncr;
-    const int c0 = (lv && d >= 1 && r != wildcard_rel) ? rl : 0;
-    counts[(size_t)i * S] = c0;
-    s = (unsigned)c0;
-    bool poison = false;
-    const int4* row = rinstr + (size_t)(has_ri ? r : 0) * RK;
-    for (int k = 0; k < RK; ++k) {
-      const int4 e = row[k];
-      const int rik = has_ri ? e.x : 0;
-      poison |= lv && rik == kRinstrPoison && (e.w == -1 || e.w == ns);
-      const bool is_rc = rik == kRinstrComputed && lv && e.w == ns;
-      const bool is_rt = rik == kRinstrTtu && lv && d >= 1;
-      const int c = is_rc ? 1 : (is_rt ? rl : 0);
-      counts[(size_t)i * S + 1 + k] = c;
-      s += (unsigned)c;
-    }
-    if (poison) atomicMax(&cause[q[i]], kCauseIslandHost);
-  }
-  block_sum_out(s, warp_sums, block_sums);
+// tasks a tile of L2's tile and scan passes (doubled by scan_tile past
+// kMaxTiles tiles); a round of either pass is kRevUnroll tasks a thread
+constexpr int kRevTile = 256;
+constexpr int kRevUnroll = 4;
+// candidates a thread of the gather pass carries through its loads
+// together (kMergeUnroll, 1 or 2), and so the merged items (task starts
+// and candidates) a gather block owns, its share: 256 items below
+// kMergeWideF tasks, where more blocks spread the walk over more SMs, 512
+// from there, where two candidates a thread in flight win (timed against
+// 1 and 4 a thread, PERF.md §6)
+constexpr int kMergeWideF = 1 << 16;
+
+inline int rev_merge_unroll(int F) { return F < kMergeWideF ? 1 : 2; }
+
+// count of the reverse-edge slot 0 of a task
+__device__ __forceinline__ int rev_edge_count(bool lv, int d, int r, int wildcard_rel, int rl) {
+  return (lv && d >= 1 && r != wildcard_rel) ? rl : 0;
 }
 
-__global__ void rev_gather_kernel(
-    const int* __restrict__ offsets, const int* __restrict__ total, int F, int RK,
-    const int* __restrict__ q, const int* __restrict__ obj, const int* __restrict__ rel,
-    const int* __restrict__ depth, const uint8_t* __restrict__ live,
-    const int* __restrict__ ns_t, const int* __restrict__ rstart,
+// kind of an inverted-entry slot: 1 COMPUTED (one candidate), 2 TTU (the
+// task's reverse-edge row), 0 none
+__device__ __forceinline__ int rev_entry_kind(int4 e, bool lv, bool has_ri, int d, int ns) {
+  const int rik = has_ri ? e.x : 0;
+  if (rik == kRinstrComputed && lv && e.w == ns) return 1;
+  if (rik == kRinstrTtu && lv && d >= 1) return 2;
+  return 0;
+}
+
+__device__ __forceinline__ int rev_entry_count(int kind, int rl) {
+  return kind == 1 ? 1 : (kind == 2 ? rl : 0);
+}
+
+struct RevScratch {
+  int* offs;       // [F]: task totals after the tile pass, offsets after the scan pass
+  unsigned* pois;  // [ceil(F / 32)]: a task's POISON flag, one bit
+  int* tile_sums;  // [kMaxTiles]
+  int* splits;     // [n_shares + 1]: the first task of each gather block's share
+  int* total;      // [1]
+};
+
+inline long long round4(long long n) { return (n + 3) & ~3LL; }
+
+inline int rev_shares(int F, int share) { return (int)((2LL * F + share - 1) / share); }
+
+inline RevScratch rev_scratch(int* base, int F) {
+  RevScratch s;
+  s.offs = base;
+  base += round4(F);
+  s.pois = reinterpret_cast<unsigned*>(base);
+  base += round4((F + 31) / 32);
+  s.tile_sums = base;
+  base += kMaxTiles;
+  s.splits = base;
+  base += round4(rev_shares(F, kThreads) + 1);  // the smallest share's count
+  s.total = base;
+  return s;
+}
+
+// zeroes cause too: the scan pass, one launch later, raises it. A round
+// is kRevUnroll strided tasks a thread (coalesced): their live flags, then
+// the other columns of the live ones, then their rows.
+__global__ void reverse_tile_kernel(
+    const int* __restrict__ rel, const int* __restrict__ depth,
+    const uint8_t* __restrict__ live, const int* __restrict__ ns_t,
+    const int* __restrict__ rlen, const int4* __restrict__ rinstr, int RK, int F, int tile,
+    int wildcard_rel, int ncr, int* __restrict__ tot, unsigned* __restrict__ pois,
+    int* __restrict__ tile_sums, int* __restrict__ cause, int n_queries) {
+  __shared__ unsigned warp_sums[64];
+  zero_grid(cause, n_queries);
+  const int lo = blockIdx.x * tile;
+  const int hi = min(F, lo + tile);
+  unsigned s = 0;
+  for (int r0 = lo; r0 < hi; r0 += kRevUnroll * (int)blockDim.x) {
+    bool lv[kRevUnroll], has_ri[kRevUnroll];
+    int d[kRevUnroll], r[kRevUnroll], ns[kRevUnroll], rl[kRevUnroll];
+#pragma unroll
+    for (int u = 0; u < kRevUnroll; ++u) {
+      const int i = r0 + u * (int)blockDim.x + (int)threadIdx.x;
+      lv[u] = i < hi && live[i] != 0;
+    }
+    // a dead task counts nothing: its other columns are not read (the
+    // frontier's padding is most of it on a ListObjects walk)
+#pragma unroll
+    for (int u = 0; u < kRevUnroll; ++u) {
+      const int i = r0 + u * (int)blockDim.x + (int)threadIdx.x;
+      d[u] = lv[u] ? depth[i] : 0;
+      r[u] = lv[u] ? rel[i] : 0;
+      ns[u] = lv[u] ? ns_t[i] : 0;
+      rl[u] = lv[u] ? rlen[i] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kRevUnroll; ++u) {
+      const int i = r0 + u * (int)blockDim.x + (int)threadIdx.x;
+      has_ri[u] = lv[u] && r[u] < ncr;
+      const int4* row = rinstr + (size_t)(has_ri[u] ? r[u] : 0) * RK;
+      unsigned t = (unsigned)rev_edge_count(lv[u], d[u], r[u], wildcard_rel, rl[u]);
+      bool poison = false;
+      for (int k = 0; k < RK; ++k) {
+        const int4 e = row[k];
+        poison |= has_ri[u] && e.x == kRinstrPoison && (e.w == -1 || e.w == ns[u]);
+        t += (unsigned)rev_entry_count(rev_entry_kind(e, lv[u], has_ri[u], d[u], ns[u]), rl[u]);
+      }
+      if (i < hi) tot[i] = (int)t;
+      s += t;
+      // r0 and blockDim are multiples of 32: a warp's 32 tasks are one word
+      const unsigned bits = __ballot_sync(0xFFFFFFFFu, poison);
+      if ((threadIdx.x & 31) == 0 && i < hi) pois[i >> 5] = bits;
+    }
+  }
+  s = block_sum(s, warp_sums);
+  if (threadIdx.x == 0) tile_sums[blockIdx.x] = (int)s;
+}
+
+// A round is kRevUnroll contiguous tasks a thread: one 16-byte load of
+// their totals and one word of their POISON bits, one block scan.
+// offs is 16-byte aligned (the wrapper's scratch), and so is every i0.
+__global__ void reverse_scan_kernel(
+    const int* __restrict__ q, int F, int tile, const int* __restrict__ tile_sums, int n_tiles,
+    const unsigned* __restrict__ pois, int share, int n_shares, int* __restrict__ offs,
+    int* __restrict__ splits, int* __restrict__ total, int* __restrict__ cause) {
+  __shared__ unsigned warp_sums[64];
+  unsigned all;
+  unsigned base = tile_base(tile_sums, n_tiles, warp_sums, &all);
+  const int lo = blockIdx.x * tile;
+  const int hi = min(F, lo + tile);
+  for (int r0 = lo; r0 < hi; r0 += kRevUnroll * (int)blockDim.x) {
+    const int i0 = r0 + kRevUnroll * (int)threadIdx.x;
+    // each task's total, read before its offset overwrites it
+    const int4 c4 = load4(offs, i0, hi);
+    const unsigned bits = i0 < hi ? pois[i0 >> 5] : 0u;
+    const unsigned c[kRevUnroll] = {(unsigned)c4.x, (unsigned)c4.y, (unsigned)c4.z,
+                                    (unsigned)c4.w};
+    unsigned round_total;
+    unsigned off = base + block_exclusive_scan(c[0] + c[1] + c[2] + c[3], warp_sums,
+                                               &round_total);
+    base += round_total;
+    int o[kRevUnroll];
+#pragma unroll
+    for (int e = 0; e < kRevUnroll; ++e) {
+      const int i = i0 + e;
+      o[e] = (int)off;
+      const unsigned end = off + c[e];
+      // the shares b with pos_i < b P <= pos_i+1 start after task i (the
+      // last share ends at 2F, past every task)
+      int b_lo = 1, b_hi = 0;
+      if (i < hi) {
+        const bool poisoned = (bits >> (i & 31)) & 1u;
+        const bool cut = (int)c[e] > 0 && (int)end > F;
+        if (poisoned || cut) {
+          const int qi = q[i];
+          if (poisoned) raise_cause(cause, qi, kCauseIslandHost);
+          if (cut) raise_cause(cause, qi, kCauseFrontierOverflow);
+        }
+        const long long pos = i + (long long)min(off, (unsigned)F);
+        b_lo = (int)(pos / share) + 1;
+        b_hi = i + 1 < F ? (int)((i + 1 + (long long)min(end, (unsigned)F)) / share) : n_shares;
+      }
+      // a task's shares are written by its whole warp, 32 at a time: the
+      // last task alone starts every share past the total
+      unsigned wide = __ballot_sync(0xFFFFFFFFu, b_lo <= b_hi);
+      while (wide) {
+        const int src = __ffs(wide) - 1;
+        wide &= wide - 1;
+        const int lo_s = __shfl_sync(0xFFFFFFFFu, b_lo, src);
+        const int hi_s = __shfl_sync(0xFFFFFFFFu, b_hi, src);
+        const int val = __shfl_sync(0xFFFFFFFFu, i + 1, src);
+        for (int b = lo_s + (int)(threadIdx.x & 31); b <= hi_s; b += 32) splits[b] = val;
+      }
+      off = end;
+    }
+    if (i0 + 3 < hi) {
+      *reinterpret_cast<int4*>(offs + i0) = make_int4(o[0], o[1], o[2], o[3]);
+    } else {
+      for (int e = 0; e < kRevUnroll && i0 + e < hi; ++e) offs[i0 + e] = o[e];
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    splits[0] = 0;
+    *total = (int)all;
+  }
+}
+
+// A block's candidates, at most kMergeUnroll a thread, go through each
+// level of dependent loads together: their tasks (shared memory), the
+// tasks' columns, their rinstr rows, the rv_pack rows, the namespaces.
+template <int kMergeUnroll>
+__global__ void __launch_bounds__(kThreads) reverse_merge_kernel(
+    const int* __restrict__ offs, const int* __restrict__ splits,
+    const int* __restrict__ total, int F, int RK, const int* __restrict__ q,
+    const int* __restrict__ obj, const int* __restrict__ rel, const int* __restrict__ depth,
+    const uint8_t* __restrict__ live, const int* __restrict__ ns_t,
+    const int* __restrict__ rstart, const int* __restrict__ rlen,
     const int4* __restrict__ rinstr, const int4* __restrict__ rv_pack, int n_redges,
-    const int* __restrict__ objslot_ns, int n_objslot, int ncr,
+    const int* __restrict__ objslot_ns, int n_objslot, int wildcard_rel, int ncr,
     int* __restrict__ c_q, int* __restrict__ c_obj, int* __restrict__ c_rel,
     int* __restrict__ c_depth, uint8_t* __restrict__ c_valid) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= F) return;
-  const int S = RK + 1;
-  const int n = F * S;
-  const int seg = last_le(offsets, n, j);
-  const int ti = seg / S;
-  const int slot = seg - ti * S;
-  const int within = j - offsets[seg];
-  const bool in_range = j < min(*total, F);
-  const int o = obj[ti], r = rel[ti], d = depth[ti];
-  int kind = 0, relp = 0, relt = 0, src_ns = -2;
-  if (slot > 0) {
-    const bool lv = live[ti] != 0;
-    const bool has_ri = lv && r < ncr;
-    const int4 e = rinstr[(size_t)(has_ri ? r : 0) * RK + (slot - 1)];
-    const int rik = has_ri ? e.x : 0;
-    if (rik == kRinstrComputed && lv && e.w == ns_t[ti]) {
-      kind = 1;
-    } else if (rik == kRinstrTtu && lv && d >= 1) {
-      kind = 2;
+  constexpr int kShare = kMergeUnroll * kThreads;
+  __shared__ int s_off[kShare + 1];
+  const int b = blockIdx.x;
+  const int i0 = splits[b], i1 = splits[b + 1];
+  const long long d0 = (long long)b * kShare;
+  const long long d1 = min(d0 + kShare, 2LL * F);
+  const int k0 = (int)(d0 - i0), k1 = (int)(d1 - i1);
+  // the offsets of tasks sb .. i1 - 1: task i0 - 1 owns the share's first
+  // candidates when no task starts before them
+  if (k0 >= k1) return;  // a share of task starts only (a run of empty tasks)
+  const int sb = max(i0 - 1, 0);
+  const int n_st = i1 - sb;
+  for (int t = threadIdx.x; t < n_st; t += blockDim.x) s_off[t] = offs[sb + t];
+  const int in_total = min(*total, F);
+  __syncthreads();
+  int ti[kMergeUnroll], a[kMergeUnroll];
+#pragma unroll
+  for (int u = 0; u < kMergeUnroll; ++u) {
+    const int j = k0 + u * (int)blockDim.x + (int)threadIdx.x;
+    // the last staged task whose offset is <= j; task i0 - 1 (or task 0,
+    // at offset 0) qualifies, so the search starts past it
+    int lo = i0 - sb, hi = n_st;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_off[mid] <= j) lo = mid + 1; else hi = mid;
     }
-    relp = e.y;
-    relt = e.z;
-    src_ns = e.w;
+    ti[u] = j < k1 ? sb + lo - 1 : -1;
+    a[u] = s_off[max(lo - 1, 0)];
   }
-  int e_idx = rstart[ti] + within;
-  e_idx = min(max(e_idx, 0), max(n_redges - 1, 0));
-  int p_obj = 0, p_rel = 0, e_sb = 0;
-  if (n_redges > 0) {
-    const int4 p = rv_pack[e_idx];
-    p_obj = p.x;
-    p_rel = p.y;
-    e_sb = p.z;
+  bool lv[kMergeUnroll];
+  int d[kMergeUnroll], r[kMergeUnroll], ns[kMergeUnroll], rl[kMergeUnroll], rs[kMergeUnroll];
+  int tq[kMergeUnroll], to[kMergeUnroll];
+#pragma unroll
+  for (int u = 0; u < kMergeUnroll; ++u) {
+    const int t = max(ti[u], 0);
+    lv[u] = live[t] != 0;
+    d[u] = depth[t];
+    r[u] = rel[t];
+    ns[u] = ns_t[t];
+    rl[u] = rlen[t];
+    rs[u] = rstart[t];
+    tq[u] = q[t];
+    to[u] = obj[t];
   }
-  const int p_ns = objslot_ns[min(max(p_obj, 0), n_objslot - 1)];
-  const bool is_es = kind == 0;
-  const bool is_c = kind == 1;
-  const bool cond = is_es ? e_sb == r : (is_c || (p_rel == relt && p_ns == src_ns));
-  c_q[j] = q[ti];
-  c_obj[j] = is_c ? o : p_obj;
-  c_rel[j] = is_es ? p_rel : relp;
-  c_depth[j] = is_c ? d : d - 1;
-  c_valid[j] = in_range && cond;
+  int kind[kMergeUnroll], e_idx[kMergeUnroll];
+  int4 e_sel[kMergeUnroll];
+#pragma unroll
+  for (int u = 0; u < kMergeUnroll; ++u) {
+    const int j = k0 + u * (int)blockDim.x + (int)threadIdx.x;
+    const bool has_ri = lv[u] && r[u] < ncr;
+    const int4* row = rinstr + (size_t)(has_ri ? r[u] : 0) * RK;
+    // the last slot whose offset is <= j, and its rinstr entry
+    int seg_off = a[u];
+    kind[u] = 0;
+    e_sel[u] = make_int4(0, 0, 0, 0);
+    unsigned end = (unsigned)seg_off + (unsigned)rev_edge_count(lv[u], d[u], r[u],
+                                                                wildcard_rel, rl[u]);
+    for (int k = 0; k < RK; ++k) {
+      const int4 e = row[k];
+      const int kk = rev_entry_kind(e, lv[u], has_ri, d[u], ns[u]);
+      if ((int)end <= j) {
+        seg_off = (int)end;
+        kind[u] = kk;
+        e_sel[u] = e;
+      }
+      end += (unsigned)rev_entry_count(kk, rl[u]);
+    }
+    e_idx[u] = min(max(rs[u] + (j - seg_off), 0), max(n_redges - 1, 0));
+  }
+  int p_obj[kMergeUnroll], p_rel[kMergeUnroll], e_sb[kMergeUnroll];
+#pragma unroll
+  for (int u = 0; u < kMergeUnroll; ++u) {
+    int4 p = make_int4(0, 0, 0, 0);
+    if (n_redges > 0 && ti[u] >= 0) p = rv_pack[e_idx[u]];
+    p_obj[u] = p.x;
+    p_rel[u] = p.y;
+    e_sb[u] = p.z;
+  }
+  int p_ns[kMergeUnroll];
+#pragma unroll
+  for (int u = 0; u < kMergeUnroll; ++u) {
+    p_ns[u] = objslot_ns[min(max(p_obj[u], 0), n_objslot - 1)];
+  }
+#pragma unroll
+  for (int u = 0; u < kMergeUnroll; ++u) {
+    const int j = k0 + u * (int)blockDim.x + (int)threadIdx.x;
+    if (ti[u] < 0) continue;
+    // kind 0 (slot 0, or an empty entry slot past the total) takes the
+    // reverse edge's own relation; e_sel's relp, relt and ns serve the
+    // others
+    const bool is_es = kind[u] == 0;
+    const bool is_c = kind[u] == 1;
+    const bool cond = is_es ? e_sb[u] == r[u]
+                            : (is_c || (p_rel[u] == e_sel[u].z && p_ns[u] == e_sel[u].w));
+    c_q[j] = tq[u];
+    c_obj[j] = is_c ? to[u] : p_obj[u];
+    c_rel[j] = is_es ? p_rel[u] : e_sel[u].y;
+    c_depth[j] = is_c ? d[u] : d[u] - 1;
+    c_valid[j] = j < in_total && cond;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -517,33 +768,44 @@ int keto_list_emit(const int* q, const uint8_t* emit, const int* value, int N, i
   return (int)cudaGetLastError();
 }
 
-// Scratch: counts and offsets F * (RK + 1) ints, block_sums and
-// block_offs blocks_for(F, 256) ints each, total one int.
+// The ints of L2's scratch for a frontier of F tasks: O(F + kMaxTiles).
+long long keto_reverse_gather_scratch(int F) {
+  return F > 0 ? round4(F) + round4((F + 31) / 32) + kMaxTiles +
+                   round4(rev_shares(F, kThreads) + 1) + 1
+               : 0;
+}
+
+// Scratch: keto_reverse_gather_scratch(F) ints; every part is written
+// before it is read.
 int keto_reverse_gather(
     const int* q, const int* obj, const int* rel, const int* depth, const uint8_t* live,
     const int* ns_t, const int* rstart, const int* rlen, const int* rinstr, int RK,
     const int* rv_pack, int n_redges, const int* objslot_ns, int n_objslot, int F, int B,
-    int wildcard_rel, int ncr, int* counts, int* offsets, int* block_sums, int* block_offs,
-    int* total, int* cause, int* c_q, int* c_obj, int* c_rel, int* c_depth,
-    uint8_t* c_valid, void* stream) {
+    int wildcard_rel, int ncr, int* scratch, int* cause, int* c_q, int* c_obj, int* c_rel,
+    int* c_depth, uint8_t* c_valid, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (F <= 0 || RK <= 0 || n_objslot <= 0) return (int)cudaErrorInvalidValue;
-  const int nblk = blocks_for(F, kThreads);
-  cudaMemsetAsync(cause, 0, sizeof(int) * (size_t)B, st);
-  rev_count_kernel<<<nblk, kThreads, 0, st>>>(q, rel, depth, live, ns_t, rlen,
-                                              (const int4*)rinstr, RK, F, wildcard_rel, ncr,
-                                              counts, block_sums, cause);
-  scan_block_sums_kernel<<<1, kScanThreads, 0, st>>>(block_sums, nblk, block_offs);
-  slot_offsets_kernel<<<nblk, kThreads, 0, st>>>(counts, F, RK + 1, q, block_offs, offsets,
-                                                 total, cause);
-  rev_gather_kernel<<<nblk, kThreads, 0, st>>>(
-      offsets, total, F, RK, q, obj, rel, depth, live, ns_t, rstart, (const int4*)rinstr,
-      (const int4*)rv_pack, n_redges, objslot_ns, n_objslot, ncr, c_q, c_obj, c_rel,
-      c_depth, c_valid);
+  const RevScratch sc = rev_scratch(scratch, F);
+  const int tile = scan_tile(F, kRevTile);
+  const int nt = scan_tiles(F, tile);
+  const int unroll = rev_merge_unroll(F);
+  const int share = unroll * kThreads;
+  const int n_shares = rev_shares(F, share);
+  reverse_tile_kernel<<<nt, kThreads, 0, st>>>(rel, depth, live, ns_t, rlen,
+                                               (const int4*)rinstr, RK, F, tile, wildcard_rel,
+                                               ncr, sc.offs, sc.pois, sc.tile_sums, cause, B);
+  reverse_scan_kernel<<<nt, kThreads, 0, st>>>(q, F, tile, sc.tile_sums, nt, sc.pois, share,
+                                               n_shares, sc.offs, sc.splits, sc.total, cause);
+  auto merge = unroll == 1 ? reverse_merge_kernel<1> : reverse_merge_kernel<2>;
+  merge<<<n_shares, kThreads, 0, st>>>(
+      sc.offs, sc.splits, sc.total, F, RK, q, obj, rel, depth, live, ns_t, rstart, rlen,
+      (const int4*)rinstr, (const int4*)rv_pack, n_redges, objslot_ns, n_objslot,
+      wildcard_rel, ncr, c_q, c_obj, c_rel, c_depth, c_valid);
   return (int)cudaGetLastError();
 }
 
-// Scratch as keto_reverse_gather's, with S = K + 1.
+// Scratch: counts and offsets F * (K + 1) ints, block_sums and
+// block_offs blocks_for(F, 256) ints each, total one int.
 int keto_subjects_gather(
     const int* q, const int* obj, const int* depth, const uint8_t* live, const int* spans,
     const int* ik, const int* ir, const int* ir2, int K, const int* fe_pack, int n_edges,

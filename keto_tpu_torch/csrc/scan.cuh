@@ -8,7 +8,8 @@
 //
 // The one copy of the block scans and sums: K3 and K4, X1's task-order
 // offsets (its tiles are the keyed rank's blocks), L2-L4, X2 and M5/M6
-// use them.
+// use them; K3, K4 and L2 also the 4-int load, the grid zeroing and the
+// cause raise below.
 
 #pragma once
 
@@ -103,6 +104,33 @@ __device__ unsigned tile_base(const int* __restrict__ tile_sums, int n_tiles,
   block_sum2(before, every, warp_sums);
   *all = every;
   return before;
+}
+
+// the 4 ints of a from i0, zeros at or past hi; one 16-byte load where
+// all four lie below hi and the address is aligned
+__device__ __forceinline__ int4 load4(const int* __restrict__ a, int i0, int hi) {
+  if (i0 + 3 < hi && (reinterpret_cast<uintptr_t>(a + i0) & 15) == 0) {
+    return __ldg(reinterpret_cast<const int4*>(a + i0));
+  }
+  int4 v;
+  v.x = i0 < hi ? __ldg(a + i0) : 0;
+  v.y = i0 + 1 < hi ? __ldg(a + i0 + 1) : 0;
+  v.z = i0 + 2 < hi ? __ldg(a + i0 + 2) : 0;
+  v.w = i0 + 3 < hi ? __ldg(a + i0 + 3) : 0;
+  return v;
+}
+
+// a[0, n) = 0 over the whole grid: the per-query causes, zeroed by the
+// first pass of K3, K4 and L2 instead of a memset launch of their own
+__device__ __forceinline__ void zero_grid(int* a, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) a[i] = 0;
+}
+
+// Raises query qi's cause to at least c (by max). The read first means a
+// query that many items raise (a filter walk's one query) takes a few
+// atomics, not one each.
+__device__ __forceinline__ void raise_cause(int* cause, int qi, int c) {
+  if (cause[qi] < c) atomicMax(&cause[qi], c);
 }
 
 }  // namespace

@@ -89,6 +89,19 @@ def _next_pow2(n: int, floor: int) -> int:
     return 1 << (cap - 1).bit_length()
 
 
+def _require_index_limit(s: int, e: int, Nq: int, Eq: int, Dq: int, lanes: int) -> None:
+    """Raise PoweringUnsupported when the planned wave of sources [s, e)
+    would break a 32-bit limit of P1-P3's wrappers: N·W and E·W (P1), N·W
+    and the level plane's D·32W (P2), N·W (P3)."""
+    limit = cuda_ops.INDEX_LIMIT
+    W = lanes // 32
+    for what, n in (("N·W", Nq * W), ("E·W", Eq * W), ("D·32W", Dq * lanes)):
+        if n >= limit:
+            raise PoweringUnsupported(
+                f"the wave of sources [{s}, {e}) has {what} = {n} words, past the kernels' "
+                f"32-bit index limit {limit}")
+
+
 def _components(n_nodes: int, e_src: np.ndarray, e_dst: np.ndarray) -> np.ndarray:
     """Weakly-connected component label (the least node index in the
     component) of each node, by min-label propagation with pointer
@@ -286,7 +299,8 @@ def power_closure_device(
     seeds, launches and readbacks) and device_hbm (the widest wave's
     buffers as P1-P3 hold them, device_power_bytes).
     Raises PoweringUnsupported, before any launch, when the int8 level
-    plane or the node cap cannot hold the build."""
+    plane or the node cap cannot hold the build, or a planned wave would
+    break the kernels' 32-bit index limit (cuda_ops.INDEX_LIMIT)."""
     t0 = time.perf_counter()
     if int(max_depth) > _MAX_INT8_DEPTH:
         raise PoweringUnsupported(f"max_depth {max_depth} exceeds the int8 level plane")
@@ -345,12 +359,16 @@ def power_closure_device(
     parts: list[tuple] = []
     hbm_hw, dev_hw = dict(record["hbm"]), dict(record["device_hbm"])
 
-    def run_range(s: int, e: int) -> None:
-        """Power sources [s, e) over the induced subgraph of their weak
-        components, bisecting while the scratch rule exceeds the budget.
-        Ranges stay contiguous in source order, so the waves' entry blocks
-        concatenate into the host builder's p_src-major order."""
-        tp = time.perf_counter()
+    waves: list[tuple] = []
+
+    def plan_range(s: int, e: int) -> None:
+        """Plan the waves of sources [s, e): the induced subgraph of their
+        weak components, bisected while the scratch rule exceeds the
+        budget. The bisection depends on sizes only, so the whole plan,
+        and any wave past the kernels' 32-bit limit, is known before any
+        launch. Ranges stay contiguous in source order, so the waves'
+        entry blocks concatenate into the host builder's p_src-major
+        order."""
         nl = e - s
         lanes = _next_pow2(nl, _MIN_LANES)
         wave_comps = np.unique(comp[src_node[s:e]])
@@ -361,11 +379,18 @@ def power_closure_device(
         Eq = _next_pow2(n_esub, 1)
         Dq = _next_pow2(n_dsub, 1)
         if (Eq + 2 * Nq + Dq) * lanes > budget_bytes and nl > _MIN_LANES:
-            record["prep_s"] += time.perf_counter() - tp
             mid = s + (((nl + 1) // 2 + 31) // 32) * 32
-            run_range(s, mid)
-            run_range(mid, e)
+            plan_range(s, mid)
+            plan_range(mid, e)
             return
+        _require_index_limit(s, e, Nq, Eq, Dq, lanes)
+        waves.append((s, e, lanes, wave_comps, n_sub, n_esub, n_dsub, Nq, Eq, Dq))
+
+    def run_wave(s: int, e: int, lanes: int, wave_comps: np.ndarray, n_sub: int, n_esub: int,
+                 n_dsub: int, Nq: int, Eq: int, Dq: int) -> None:
+        """Power one planned wave of sources [s, e) and keep its entries."""
+        tp = time.perf_counter()
+        nl = e - s
         nodes_sel = _members(*n_by, wave_comps)
         e_sel = _members(*e_by, wave_comps)
         d_sel = _members(*d_by, wave_comps)
@@ -465,8 +490,12 @@ def power_closure_device(
             uncovered[s:e] |= np.bincount(p_src - s, minlength=nl) > max_set_rows
             parts.append((p_src, p_req, p_skind, p_sa, p_sb))
 
+    tp = time.perf_counter()
     for base in range(0, n_src, _MAX_LANES):
-        run_range(base, min(base + _MAX_LANES, n_src))
+        plan_range(base, min(base + _MAX_LANES, n_src))
+    record["prep_s"] += time.perf_counter() - tp
+    for wave in waves:
+        run_wave(*wave)
     record["hbm"], record["device_hbm"] = hbm_hw, dev_hw
 
     if parts:

@@ -65,6 +65,10 @@ MAX_DYNAMIC_SMEM = 232448 - 1024
 # the most tiles K3's and K4's multi-block scans cut their input into
 # (csrc/scan.cuh kMaxTiles): the size of their tile-sum scratch
 SCAN_MAX_TILES = 1024
+# P1-P3 index in 32 bits: N * W, E * W and the level plane's D * 32 W must
+# stay below this. The wrappers refuse a call that reaches it, and the wave
+# plan (closure_power.power_closure_device) a wave that would.
+INDEX_LIMIT = 2**31
 
 _lib = None
 _lock = threading.Lock()
@@ -145,7 +149,8 @@ _SIGNATURES = {
     "keto_pool_compact": [_VP] * 9 + [_I] * 3 + [_VP] * 3,
     "keto_list_emit_scratch": [_I, _I],
     "keto_list_emit": [_VP] * 3 + [_I] * 3 + [_VP] * 7,
-    "keto_reverse_gather": [_VP] * 9 + [_I] + [_VP] + [_I] + [_VP] + [_I] * 5 + [_VP] * 12,
+    "keto_reverse_gather_scratch": [_I],
+    "keto_reverse_gather": [_VP] * 9 + [_I] + [_VP] + [_I] + [_VP] + [_I] * 5 + [_VP] * 8,
     "keto_subjects_gather": [_VP] * 8 + [_I] + [_VP] + [_I] * 4 + [_VP] * 14,
     "keto_list_pool_compact": [_VP] * 4 + [_I] * 3 + [_VP] * 3,
     "keto_closure_probe": [_VP, _LL, _I, _VP, _LL, _I, _I, _I, _VP, _LL, _I, _I, _VP, _I, _VP,
@@ -179,7 +184,7 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             for name in ("keto_expand_emit_scratch", "keto_list_emit_scratch",
-                         "keto_power_step_scratch"):
+                         "keto_reverse_gather_scratch", "keto_power_step_scratch"):
                 getattr(lib, name).restype = ctypes.c_longlong
             lib.keto_error_string.argtypes = [ctypes.c_int]
             lib.keto_error_string.restype = ctypes.c_char_p
@@ -454,6 +459,8 @@ def list_emit(q, emit, value, res, res_count, needs_host, *, result_cap: int):
 
 
 def _slot_scratch(F: int, S: int, dev):
+    """L3's scan scratch: counts and offsets [F * S], block sums and
+    offsets, the total."""
     nblk = -(-F // 256)
     return (torch.empty(F * S, dtype=torch.int32, device=dev),
             torch.empty(F * S, dtype=torch.int32, device=dev),
@@ -485,16 +492,16 @@ def reverse_gather(q, obj, rel, depth, live, ns_t, rstart, rlen, rinstr_pack, rv
         raise ValueError(f"{name}: malformed rinstr_pack or rv_pack")
     RK = rinstr_pack.shape[1] // 4
     dev = q.device
-    scratch = _slot_scratch(F, RK + 1, dev)
+    lib = library()
+    scratch = torch.empty(lib.keto_reverse_gather_scratch(F), dtype=torch.int32, device=dev)
     cause = torch.empty(n_queries, dtype=torch.int32, device=dev)
     cols = [torch.empty(F, dtype=torch.int32, device=dev) for _ in range(4)]
     valid = torch.empty(F, dtype=torch.bool, device=dev)
-    lib = library()
     rc = lib.keto_reverse_gather(
         _p(q), _p(obj), _p(rel), _p(depth), _p(live), _p(ns_t), _p(rstart), _p(rlen),
         _p(rinstr_pack), RK, _p(rv_pack), rv_pack.shape[0], _p(objslot_ns),
-        objslot_ns.shape[0], F, n_queries, wildcard_rel, n_config_rels,
-        *(_p(t) for t in scratch), _p(cause), *(_p(c) for c in cols), _p(valid), _stream(),
+        objslot_ns.shape[0], F, n_queries, wildcard_rel, n_config_rels, _p(scratch),
+        _p(cause), *(_p(c) for c in cols), _p(valid), _stream(),
     )
     _check(lib, rc, name)
     return cols[0], cols[0], cols[1], cols[2], cols[3], valid, cause
@@ -621,7 +628,7 @@ def _require_words(name: str, *mats: torch.Tensor) -> tuple[int, int]:
 
 
 def _require_32bit(name: str, *sizes: int) -> None:
-    if any(n >= 2**31 for n in sizes):
+    if any(n >= INDEX_LIMIT for n in sizes):
         raise ValueError(f"{name}: {max(sizes)} words overflow its 32-bit indices")
 
 

@@ -20,6 +20,11 @@ plain versions.
   like TPUCheckEngine and the oracle, stays device-powered across a write
   and a rebuild; "host" is the default; depth 101 powers on the host,
   counted; a failing wave raises and nothing powers on the host
+- the 32-bit index limit (cuda_ops.INDEX_LIMIT, patched low): a planned
+  wave that reaches it raises PoweringUnsupported naming N·W, E·W or
+  D·32W before any P1-P3 call, and the engine answers from the host
+  builder's arrays with one counted fallback; a limit one word past the
+  widest wave leaves the build, its record and its calls as they were
 
 Tolerance: exact equality; every output is an integer.
 """
@@ -391,3 +396,105 @@ def test_failing_wave_raises_without_host_build(store, monkeypatch):
     assert idx.stats == {"builds": 0, "device_builds": 0, "device_fallbacks": 0,
                          "power_waves": 0, "power_steps": 0}
     assert idx.needs_rebuild()
+
+
+# -- (d) the 32-bit index limit of P1-P3 (cuda_ops.INDEX_LIMIT) ------------------------
+#
+# The wave plan runs before any launch, so a wave past a wrapper's 32-bit
+# limit powers the build on the host, counted, with no P1-P3 call. The
+# limit is patched low enough for the test store's waves to reach it.
+
+
+@pytest.fixture
+def counted(monkeypatch):
+    """Counts the calls of P1-P3's dispatchers, which still run."""
+    calls = {"power_step": 0, "power_account": 0, "power_poison": 0}
+    for name in calls:
+        real = getattr(tcp, name)
+
+        def wrapped(*args, _name=name, _real=real, **kw):
+            calls[_name] += 1
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(tcp, name, wrapped)
+    return calls
+
+
+@pytest.fixture
+def planned(monkeypatch):
+    """The (N·W, E·W, D·32W) of every wave the plan checks."""
+    sizes = []
+    real = tcp._require_index_limit
+
+    def spy(s, e, Nq, Eq, Dq, lanes):
+        sizes.append((Nq * lanes // 32, Eq * lanes // 32, Dq * lanes))
+        return real(s, e, Nq, Eq, Dq, lanes)
+
+    monkeypatch.setattr(tcp, "_require_index_limit", spy)
+    return sizes
+
+
+@pytest.mark.parametrize("what,Nq,Eq,Dq", [
+    ("N·W", 1024, 16, 16), ("E·W", 16, 1024, 16), ("D·32W", 16, 16, 32)])
+def test_index_limit_names_the_size_that_reaches_it(what, Nq, Eq, Dq, monkeypatch):
+    """At 32 lanes (W = 1) each of N·W, E·W and D·32W trips the limit alone."""
+    from keto_tpu_torch.engine import cuda_ops
+
+    monkeypatch.setattr(cuda_ops, "INDEX_LIMIT", 1024)
+    with pytest.raises(tcp.PoweringUnsupported, match=f"{what} = 1024 words.*limit 1024"):
+        tcp._require_index_limit(0, 32, Nq, Eq, Dq, 32)
+    tcp._require_index_limit(0, 32, Nq - 1 if what == "N·W" else Nq,
+                             Eq - 1 if what == "E·W" else Eq, Dq // 2 if what == "D·32W" else Dq,
+                             32)
+
+
+def test_wave_past_index_limit_raises_before_any_launch(counted, monkeypatch):
+    from keto_tpu_torch.engine import cuda_ops
+
+    _jsn, _jg, tsn, tg, depth = operands("combined")
+    monkeypatch.setattr(cuda_ops, "INDEX_LIMIT", 64)
+    with pytest.raises(tcp.PoweringUnsupported, match="32-bit index limit 64"):
+        tcp.power_closure_device(tg, tsn, depth, 64, 0, device="cpu")
+    assert counted == {"power_step": 0, "power_account": 0, "power_poison": 0}
+
+
+def test_engine_past_index_limit_powers_on_host_counted(store, counted, monkeypatch):
+    """closure_ensure_built answers: the host builder's arrays, one counted
+    fallback naming the limit, no P1-P3 call."""
+    from keto_tpu_torch.engine import cuda_ops
+
+    ns, tuples, owners = store
+    monkeypatch.setattr(cuda_ops, "INDEX_LIMIT", 64)
+    p = Pair(ns, tuples, powering="device")
+    assert p.port.closure_ensure_built() and p.jax.closure_ensure_built()
+    idx = p.port.closure_index()
+    assert idx.stats["device_fallbacks"] == 1 and idx.stats["device_builds"] == 0
+    assert "32-bit index limit 64" in idx.last_build["power_fallback"]
+    assert counted == {"power_step": 0, "power_account": 0, "power_poison": 0}
+    host = port_engine(ns, tuples)
+    assert host.closure_ensure_built()
+    assert_builds_equal(idx._build, host.closure_index()._build)
+    p.check(deep_queries(owners, n=16) + OTHER_QUERIES)
+    p.same_closure_stats()
+    assert p.port.stats["closure_hits"] > 0
+
+
+def test_untripped_index_limit_leaves_device_build_as_it_was(counted, planned, monkeypatch):
+    """A limit one word past the widest wave's largest size gives the same
+    build, wave record and P1-P3 calls as the default limit."""
+    from keto_tpu_torch.engine import cuda_ops
+
+    _jsn, _jg, tsn, tg, depth = operands("combined")
+    want, want_record = tcp.power_closure_device(tg, tsn, depth, 64, 0, device="cpu")
+    want_calls, widest = dict(counted), max(max(s) for s in planned)
+    assert want_calls["power_step"] > 0 and want_calls["power_poison"] == want_record["waves"]
+    for k in counted:
+        counted[k] = 0
+    monkeypatch.setattr(cuda_ops, "INDEX_LIMIT", widest + 1)
+    got, record = tcp.power_closure_device(tg, tsn, depth, 64, 0, device="cpu")
+    assert_builds_equal(got, want)
+    assert {k: record[k] for k in RECORD_FIELDS} == {k: want_record[k] for k in RECORD_FIELDS}
+    assert counted == want_calls
+    monkeypatch.setattr(cuda_ops, "INDEX_LIMIT", widest)
+    with pytest.raises(tcp.PoweringUnsupported, match="32-bit index limit"):
+        tcp.power_closure_device(tg, tsn, depth, 64, 0, device="cpu")

@@ -7,7 +7,10 @@ step by step on random waves, on shapes that change call after call, dense
 frontiers, no edges and every poison mask (their persistent scratch read
 back zero after every call), and whole device-powered builds against the
 CPU's; L1's and X1's keyed rank on queries in runs, at random and all on
-one query, past one block's frontier and shared memory; the
+one query, past one block's frontier and shared memory; L2's merge path
+from one task to 2^20 (empty tasks and slots, no candidate at all, one
+task past the frontier, no reverse edges, POISON) and K1's staged loads
+at 1 to 64 probes under both layouts, with the overlay on and off; the
 microbenchmark primitives M1-M10 (keto_tpu_torch/tools) on the TPU tools'
 draws and on edge sizes. Tolerance: exact equality (every
 output is an integer, and M8's float32 add is one rounding either way).
@@ -1405,3 +1408,136 @@ def test_microbench_entry_points_on_card(cuda, capsys):
     assert mf.main([]) == 0
     lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
     assert [line.get("ok") for line in lines[1:]] == [True, True, True]
+
+
+# -- L2 reverse_gather and K1 edge_probe at the shapes their designs stress ---------
+#
+# L2 is a tile pass, a scan pass and a merge-path gather over the [F]
+# task offsets (csrc/list_kernels.cu); K1 issues every bucket-row load of
+# both tables before any compare (csrc/check_kernels.cu). The draws hold
+# the cases the designs must get right against the plain versions.
+
+L2_CASES = ("mixed", "total_zero", "one_big", "no_redges")
+
+
+def l2_inputs(cuda, F, B, case, seed=0):
+    """Drawn L2 inputs: dead tasks and a run of them (zero-count tasks),
+    empty rows and entries (zero-count slots), the wildcard relation, and
+    relations past the config's; rinstr rows holding COMPUTED, TTU and
+    POISON entries, POISON under namespace -1 and under a task's own.
+    "total_zero": no task has a candidate; "one_big": one task whose row
+    alone holds 2F + 3 edges; "no_redges": an empty rv_pack."""
+    rng = np.random.default_rng(seed + F + B)
+    RK, ncr, wildcard, n_obj = 3, 6, 5, 40
+    n_red = 0 if case == "no_redges" else 300
+    q = rng.integers(0, B, F)
+    obj, rel = rng.integers(0, n_obj, F), rng.integers(0, ncr + 2, F)
+    depth, live = rng.integers(-1, 4, F), rng.random(F) < 0.7
+    live[F // 3: F // 3 + F // 5] = False
+    ns_t = rng.integers(0, 3, F)
+    rstart = rng.integers(-1, max(n_red, 1), F)
+    rlen = np.where(rstart < 0, 0, rng.integers(0, 4, F))
+    if case == "one_big":
+        i = F // 2
+        live[i], depth[i], rel[i], rstart[i], rlen[i] = True, 2, 0, 0, 2 * F + 3
+    kinds = rng.choice([0, trk.RINSTR_COMPUTED, trk.RINSTR_TTU], (ncr, RK))
+    rin = rng.integers(0, 3, (ncr, RK))
+    kinds[1, 2], rin[1, 2] = trk.RINSTR_POISON, -1
+    kinds[2, 1], rin[2, 1] = trk.RINSTR_POISON, 1
+    if case == "total_zero":
+        live[:] = False
+    rinstr = np.stack([kinds, rng.integers(0, ncr + 2, (ncr, RK)),
+                       rng.integers(0, ncr + 2, (ncr, RK)), rin], -1).reshape(ncr, 4 * RK)
+    rv_pack = np.stack([rng.integers(0, n_obj, n_red), rng.integers(0, ncr + 2, n_red),
+                        rng.integers(0, ncr + 2, n_red), np.zeros(n_red, np.int64)], -1)
+
+    def t(a, dtype=torch.int32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(cuda)
+
+    args = (t(q), t(obj), t(rel), t(depth), t(live, torch.bool), t(ns_t), t(rstart), t(rlen),
+            t(rinstr), t(rv_pack.reshape(n_red, 4)), t(rng.integers(0, 3, n_obj)))
+    return args, dict(wildcard_rel=wildcard, n_config_rels=ncr, n_queries=B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", L2_CASES)
+@pytest.mark.parametrize("B", [1, 256])
+@pytest.mark.parametrize("F", [1, 255, 257, 16_384, 1 << 20])
+def test_reverse_gather_merge_path_on_card(cuda, F, B, case):
+    args, kw = l2_inputs(cuda, F, B, case)
+    *cols, cause = cuda_ops.reverse_gather(*args, **kw)
+    ch, want_cause = trk.reverse_gather_plain(*args, **kw)
+    for a, b in zip(cols, (ch.q, ch.ctx, ch.obj, ch.rel, ch.depth, ch.valid)):
+        assert torch.equal(a, b)
+    assert torch.equal(cause, want_cause)
+    if case == "total_zero":
+        assert not bool(ch.valid.any()) and int(want_cause.max()) == 0
+    if case == "one_big":
+        assert int(want_cause.max()) >= 2
+    if case == "mixed" and F >= 16_384:
+        assert int(want_cause.max()) == 8 and bool(ch.valid.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh_probes", [1, 8, 9, 64])
+@pytest.mark.parametrize("has_delta", [False, True])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_edge_probe_staged_loads_on_card(cuda, layout, has_delta, dh_probes):
+    """K1 against its plain version at 1 to 64 probes, both layouts, with
+    the overlay on and off, over 1,000 tasks (not a multiple of a block's
+    16): half probe a stored edge's key, the rest random subjects; dead
+    and depth-0 tasks among them."""
+    snap, parsed, _queries, _depth = build("random_monotone", layout)
+    delta, _overlay = delta_for(snap, parsed, random.Random(5))
+    tables = tk.snapshot_tables(snap, cuda, delta)
+    rng = np.random.default_rng(dh_probes)
+    F = 1000
+    rows = np.flatnonzero(snap.dh_val != -1)
+    pick = rows[rng.integers(0, len(rows), F)]
+    sub = np.stack([snap.dh_skind[pick], snap.dh_sa[pick], snap.dh_sb[pick],
+                    np.zeros(F, np.int32)], -1)
+    q = np.where(rng.random(F) < 0.5, np.arange(F), rng.integers(0, F, F))
+
+    def t(a, dtype=torch.int32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(cuda)
+
+    args = (tables["dh_pack"], tables["dd_pack"] if has_delta else None,
+            t(snap.dh_obj[pick]), t(snap.dh_rel[pick]), t(q), t(sub),
+            t(rng.integers(-1, 4, F)), t(rng.random(F) < 0.85, torch.bool))
+    kw = dict(dh_probes=dh_probes, spb=tsnap.slots_per_bucket(5, layout), has_delta=has_delta)
+    got = cuda_ops.edge_probe(*args, **kw)
+    want = tk.edge_probe_plain(*args, **kw)
+    assert torch.equal(got, want)
+    assert bool(want.any()) and not bool(want.all())
+
+
+@pytest.mark.cuda
+def test_reverse_gather_and_edge_probe_launches_on_card(cuda):
+    """A call of L2 launches its three kernels and no memset, and a call of
+    K1 its one kernel: the profiler sees those names and nothing else over
+    20 calls."""
+    args, kw = l2_inputs(cuda, 1 << 16, 256, "mixed")
+    snap, parsed, _queries, _depth = build("random_monotone", "bucketized")
+    delta, _overlay = delta_for(snap, parsed, random.Random(5))
+    tables = tk.snapshot_tables(snap, cuda, delta)
+    F = 4096
+    cols = [torch.from_numpy(a[np.arange(F) % len(a)]).to(cuda)
+            for a in (snap.dh_obj, snap.dh_rel)]
+    qsub = torch.zeros(F, 4, dtype=torch.int32, device=cuda)
+    k1 = (tables["dh_pack"], tables["dd_pack"], *cols,
+          torch.arange(F, dtype=torch.int32, device=cuda), qsub,
+          torch.ones(F, dtype=torch.int32, device=cuda),
+          torch.ones(F, dtype=torch.bool, device=cuda))
+    calls = {
+        ("reverse_tile_kernel", "reverse_scan_kernel", "reverse_merge_kernel"):
+            lambda: cuda_ops.reverse_gather(*args, **kw),
+        ("edge_probe_staged_kernel",): lambda: cuda_ops.edge_probe(
+            *k1, dh_probes=snap.dh_probes, spb=tsnap.slots_per_bucket(5, "bucketized"),
+            has_delta=True),
+    }
+    for kernels, call in calls.items():
+        events = profiled(call)
+        keys = [e.key for e in events]
+        assert len(keys) == len(kernels), keys
+        assert all(any(k in key for key in keys) for k in kernels), keys
+        assert all(0 < e.count <= 20 for e in events), keys

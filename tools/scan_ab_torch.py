@@ -1,11 +1,14 @@
-"""Time K3 `expand_gather`, K4 `dedupe_compact`, F1 `filter_mark`, P1
-`power_step`, P2 `power_account`, P3 `power_poison`, L1 `list_emit` and
-X1 `expand_emit` of one or more checkouts of keto_tpu_torch on one NVIDIA
-card, in turns, on the same inputs.
+"""Time K1 `edge_probe`, K3 `expand_gather`, K4 `dedupe_compact`, F1
+`filter_mark`, P1 `power_step`, P2 `power_account`, P3 `power_poison`, L1
+`list_emit`, L2 `reverse_gather` and X1 `expand_emit` of one or more
+checkouts of keto_tpu_torch on one NVIDIA card, in turns, on the same
+inputs; and the card's dependent round trip (`chase`).
 
     python tools/scan_ab_torch.py --roots _checkout/parent . . _checkout/parent
     python tools/scan_ab_torch.py --cases l1_list_objects x1_expand --roots . _checkout/parent
     python tools/scan_ab_torch.py --cases p1_wave p1_dense p3_wave p3_all --roots . _checkout/parent
+    python tools/scan_ab_torch.py --cases l2_list_objects l2_filter k1_check k1_delta \
+        k1_compact chase --roots _checkout/parent . . _checkout/parent
 
 Each root runs in a process of its own, which imports keto_tpu_torch from
 that root (so its kernels build from the root's csrc/ into the root's
@@ -61,7 +64,18 @@ REPS = 50
 # and a one-subject Expand (TorchCheckEngine.expand): the engine's
 # smallest bucket of 16 queries, one of them live, at expand_batch's
 # default caps (frontier 1,024, edge cap 4,096), so every live task of a
-# round has one query.
+# round has one query. L2: (F tasks, B queries, RK inverted entries a
+# relation): ListObjects' step shape (the 2^20 frontier cap, 256 queries,
+# the videos namespace's one inverted entry a relation) and the filter
+# walk's (16,384 tasks, one query). K1: (F tasks, table slots, probes):
+# Check's frontier of 8,192 on a 2^21-slot table (64 MB, past the 50 MB
+# L2, as the videos-1e6 table is) of one bucket row a probe sequence
+# (bucketized, k1_check), with the overlay (k1_delta), and under the
+# compact layout at 12 probes (two rounds of 16 lanes, k1_compact).
+# chase: one thread following a random cycle of (lines of 128 B, L2
+# lines, steps a call): a dependent round trip to DRAM and to L2, and an empty
+# kernel on K1's grid at k1_check's shape: K1's latency floor is that
+# launch and three trips.
 CASES = {
     "k3_check": ("expand_gather", 8192, 8192, 3),
     "k4_check": ("dedupe_compact", 8192, 8192, 4096),
@@ -80,6 +94,12 @@ CASES = {
     "l1_list_subjects": ("list_emit", 16384, 256, 2048),
     "x1_expand": ("expand_emit", 4096, 1024, 16384),
     "x1_one_subject": ("expand_emit", 1024, 16, 4096),
+    "l2_list_objects": ("reverse_gather", 1 << 20, 256, 1),
+    "l2_filter": ("reverse_gather", 16384, 1, 1),
+    "k1_check": ("edge_probe", 8192, 1 << 21, 8),
+    "k1_delta": ("edge_probe", 8192, 1 << 21, 8),
+    "k1_compact": ("edge_probe", 8192, 1 << 21, 12),
+    "chase": ("chase", 1 << 21, 1 << 12, 4096),
 }
 # the arguments each kernel updates in place, and those a timed call
 # first copies back
@@ -110,7 +130,14 @@ def inputs(name: str, dev):
     few slots deep; X1 half the frontier live,
     grouped by query (all on query 0 in x1_one_subject), at depths 1-6, on
     rows of 0-16 edges, into edge counts a few slots deep (rows land, and
-    the step emits most of its 4F budget)."""
+    the step emits most of its 4F budget); L2 the first 9.7% of the
+    frontier live, grouped by query, each with a reverse-edge row of a
+    geometric length (mean 4, at most 120) at a random start, over the
+    videos namespace's rewrite (COMPUTED into one relation, TTU into
+    another), as on ListObjects' step-1 launch on videos-1e6 (101,538 live
+    tasks of 2^20, 402,600 row edges, the longest 120); K1 random keys on a
+    random table (every probed row is read and compared, hit or not), 90%
+    live."""
     import numpy as np
     import torch
 
@@ -212,6 +239,38 @@ def inputs(name: str, dev):
                 t(rng.integers(0, B, F)), t(rng.integers(0, 1 << 20, F)),
                 t(rng.integers(0, 6, F)), t(e_pack))
         return args, dict(wildcard_rel=5, n_queries=B)
+    if kernel == "reverse_gather":
+        from keto_tpu_torch.engine.reverse_kernel import RINSTR_COMPUTED, RINSTR_TTU
+
+        B, RK, ncr, n_obj, n_red = F, m, 4, 1 << 20, 792_000
+        live = np.arange(n) < int(0.097 * n)
+        q = np.zeros(n, np.int64)
+        q[live] = np.sort(rng.integers(0, B, int(live.sum())))
+        rel = rng.integers(1, ncr, n)
+        rlen = np.where(live, np.minimum(rng.geometric(0.25, n), 120), 0)
+        rstart = np.where(rlen > 0, rng.integers(0, n_red - 120, n), -1)
+        rinstr = np.zeros((ncr, 4 * RK), np.int64)
+        rinstr[1, :4] = (RINSTR_COMPUTED, 3, 0, 0)
+        rinstr[3, :4] = (RINSTR_TTU, 3, 1, 0)
+        rv = np.stack([rng.integers(0, n_obj, n_red), rng.integers(0, ncr, n_red),
+                       rng.integers(0, ncr, n_red), np.zeros(n_red, np.int64)], 1)
+        return (t(q), t(rng.integers(0, n_obj, n)), t(rel), t(rng.integers(1, 6, n)),
+                torch.from_numpy(live).to(dev), t(np.zeros(n)), t(rstart), t(rlen), t(rinstr),
+                t(rv), t(np.zeros(n_obj))), dict(wildcard_rel=0, n_config_rels=ncr,
+                                                 n_queries=B)
+    if kernel == "edge_probe":
+        slots, probes = F, m
+        spb = 1 if name == "k1_compact" else 8
+        has_delta = name == "k1_delta"
+        pack = t(rng.integers(0, 1 << 16, (slots, 8))).reshape(slots, 8)
+        dd = t(rng.integers(0, 1 << 16, (8192, 8))).reshape(8192, 8) if has_delta else None
+        B = 4096
+        qsub = t(np.stack([rng.integers(0, 2, B), rng.integers(0, 1 << 16, B),
+                           rng.integers(0, 8, B), np.zeros(B)], 1)).reshape(B, 4)
+        return (pack, dd, t(rng.integers(0, 1 << 16, n)), t(rng.integers(0, 8, n)),
+                t(rng.integers(0, B, n)), qsub, t(rng.integers(0, 7, n)),
+                torch.from_numpy(rng.random(n) < 0.9).to(dev)), dict(
+                    dh_probes=probes, spb=spb, has_delta=has_delta)
     G, B = n, m
     q = rng.integers(0, B, G)
     cols = (t(q), t(q), t(rng.integers(0, max(G // 64, 40), G)), t(rng.integers(0, 3, G)),
@@ -275,11 +334,15 @@ def worker(root: str, cases: list[str]) -> dict:
     from keto_tpu_torch.engine import closure_power as tcp
     from keto_tpu_torch.engine import cuda_ops
     from keto_tpu_torch.engine import kernel as tk
+    from keto_tpu_torch.engine import reverse_kernel as trk
 
     cuda_ops.library()
     out = {"root": root, "card": torch.cuda.get_device_name(0)}
     for name in cases:
         kernel = CASES[name][0]
+        if kernel == "chase":
+            out.update(chase(cuda_ops))
+            continue
         args, kw = inputs(name, torch.device("cuda"))
         fn = getattr(cuda_ops, kernel)
         run = lambda: fn(*args, **kw)  # noqa: E731
@@ -287,6 +350,12 @@ def worker(root: str, cases: list[str]) -> dict:
             got, want, run = in_place(kernel, fn, args, kw)
         elif kernel == "power_poison":
             got, want = (run(),), (tcp.power_poison_plain(*args),)
+        elif kernel == "reverse_gather":
+            got = run()
+            ch, cause = trk.reverse_gather_plain(*args, **kw)
+            want = (ch.q, ch.ctx, ch.obj, ch.rel, ch.depth, ch.valid, cause)
+        elif kernel == "edge_probe":
+            got, want = (run(),), (tk.edge_probe_plain(*args, **kw),)
         elif kernel == "expand_gather":
             got = run()
             ch, over = tk.expand_gather_plain(*args, **kw)
@@ -302,6 +371,84 @@ def worker(root: str, cases: list[str]) -> dict:
         out[f"{name}_parts"] = parts
         out[f"{name}_wall"] = wall_ms(run)
     return out
+
+
+CHASE_SOURCE = r"""
+#include <cuda_runtime.h>
+
+__global__ void chase_kernel(const unsigned* __restrict__ next, int steps, int cg,
+                             unsigned* __restrict__ out) {
+  unsigned x = *out;  // where the last call stopped: no line is visited twice
+  for (int s = 0; s < steps; ++s) x = cg ? __ldcg(next + x) : next[x];
+  *out = x;
+}
+
+__global__ void empty_kernel() {}
+
+extern "C" int chase(const unsigned* next, int steps, int cg, unsigned* out, void* stream) {
+  chase_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(next, steps, cg, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int empty(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def chase(cuda_ops) -> dict:
+    """The dependent round trips of one thread: a random cycle over
+    `lines` 128-byte lines (DRAM: 256 MB, past L2; each call goes on where
+    the last stopped, so no line is read twice) or `l2_lines` (512 KB,
+    the whole cycle read by the warm-up call, then in L2 and read past
+    L1), `steps` steps a call, device ms a step; and an empty kernel on
+    K1's grid at k1_check's shape (8,192 tasks of 16 threads). The two
+    kernels are built from CHASE_SOURCE into the root's _build/: they
+    probe the card and are no kernels of the port."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    _kernel, lines, l2_lines, steps = CASES["chase"]
+    so = cuda_ops.BUILD_DIR / "chase.so"
+    if not so.exists():
+        src = cuda_ops.BUILD_DIR / "chase.cu"
+        cuda_ops.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src.write_text(CHASE_SOURCE)
+        subprocess.run([cuda_ops._nvcc(), *cuda_ops.NVCC_FLAGS, "-shared", "-o", str(so),
+                        str(src)], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    lib.chase.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p]
+    lib.empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    rng = np.random.default_rng(0)
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    got = {}
+    for label, n, cg in (("dram", lines, 0), ("l2", l2_lines, 1)):
+        out.zero_()
+        perm = rng.permutation(n)
+        nxt = np.zeros(n * 32, np.uint32)
+        nxt[perm * 32] = np.roll(perm, -1) * 32  # one cycle through every line, from 0
+        buf = torch.from_numpy(nxt.view(np.int32)).cuda()
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def run(buf=buf, cg=cg, stream=stream):
+            if lib.chase(buf.data_ptr(), steps, cg, out.data_ptr(), stream):
+                raise RuntimeError("chase launch failed")
+
+        ms, _parts = device_ms(run, reps=5)
+        got[f"chase_{label}_ms"] = ms / steps
+    blocks = -(-8192 * 16 // 256)
+
+    def run_empty():
+        if lib.empty(blocks, 256, torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("empty launch failed")
+
+    got["chase_launch_ms"], _parts = device_ms(run_empty)
+    got["k1_floor_ms"] = got["chase_launch_ms"] + 3 * got["chase_dram_ms"]
+    return got
 
 
 def in_place(kernel: str, fn, args, kw):
