@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero without the final line:
                from the checkout, one compiler per source, in parallel
   3. kernels — K1-K4 against their plain PyTorch versions on the card,
                on inputs captured from one real batch of phase 4's
-               workload over its tables; exact equality, times, bounds
+               workload over its tables; exact equality, times, bounds;
+               K2 at Check's step-2 launch, with its live share and
+               distinct keys (the pair_probe row's shape; phases 7b, 8b
+               and 10c add its other paths' launches under "at")
   4. check   — the main path: ~1e6 tuples (the benchmark's videos
                namespace, view = owner | parent->view, 6,600 folders x
                120 files) into the store, TorchCheckEngine(device="cuda"),
@@ -28,7 +31,8 @@ Phases, in order; any failure exits non-zero without the final line:
   7. expand  — (7a) data, (7b) X1 and X2 against their plain versions
                on inputs captured from one real expand batch, as phase 3,
                and X1 again on the same batch at a frontier cap of 32,768
-               (the expand_emit row's "large" entry);
+               (the expand_emit row's "large" entry), and K2 at the
+               batch's step-1 launch;
                then the Expand path: ~1e6 tuples of bench.py's RBAC shape (role
                member sets nesting earlier roles, docs with owner <
                editor < viewer rewrites; 13,000 roles x 410,000 docs),
@@ -41,7 +45,8 @@ Phases, in order; any failure exits non-zero without the final line:
                their plain versions on inputs captured from one real batch
                of each leg, as phase 3, and K4 on ListObjects' step-1
                launch at G = F = 2^20 (the dedupe_compact row's "large"
-               entry); (8c) ListObjects, bench.py's batch
+               entry), K2 at each of ListObjects' step launches and at
+               ListSubjects' step-2 launch; (8c) ListObjects, bench.py's batch
                of 256 users' `view` at depth 5 with caps scaled to the
                data: zero host replays, L1, L2, L4, K2 and K4 launched, 32
                sampled answers equal to the generator's ownership maps, 4
@@ -78,7 +83,8 @@ Phases, in order; any failure exits non-zero without the final line:
                with zero host replays, 200 sampled verdicts equal to the
                oracle and all equal to check_batch over the same pairs,
                objects/s; (10c) C1 and F1 against their plain versions,
-               and torch.searchsorted on F1's inputs as its yardstick
+               and torch.searchsorted on F1's inputs as its yardstick; K2
+               at the frontier walk's step-1 launch
  11. microbench — the TPU microbenchmarks' primitives (B8, B9): (11a)
                `python -m keto_tpu_torch.tools.microbench` and
                `... .tools.microbench_feasibility` as subprocesses, every
@@ -332,12 +338,15 @@ def normalize(tree):
 class Recorder:
     """Wraps the cuda_ops wrappers during one batch and keeps a clone of
     the arguments of each kernel's call number `step` (or of `steps[name]`
-    for that kernel; its last call, for a shorter walk)."""
+    for that kernel; its last call, for a shorter walk), and of every call
+    of the kernels named in `keep` (calls[name][i] is call i either way)."""
 
-    def __init__(self, cuda_ops, step: int = 1, steps: dict | None = None):
+    def __init__(self, cuda_ops, step: int = 1, steps: dict | None = None,
+                 keep: tuple[str, ...] = ()):
         self.cuda_ops = cuda_ops
         self.step = step
         self.steps = steps or {}
+        self.keep = keep
         self.calls: dict = {}
         self.originals: dict = {}
 
@@ -355,7 +364,7 @@ class Recorder:
 
             def wrapped(*args, _name=name, _orig=orig, **kw):
                 seen = self.calls.setdefault(_name, [])
-                if len(seen) <= self.steps.get(_name, self.step):
+                if _name in self.keep or len(seen) <= self.steps.get(_name, self.step):
                     seen.append(([clone(a) for a in args], dict(kw)))
                 return _orig(*args, **kw)
 
@@ -387,22 +396,28 @@ def wall_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-# profile windows timed, and those that missed some of their launches
+# profile windows timed, and those whose record counts were not a whole
+# number of launches a call
 PROFILE_WINDOWS = {"timed": 0, "short": 0}
+# the last timed window's parts: the profiler's kernel (or memset) key ->
+# (records, launches a call, ms a call)
+LAST_PARTS: dict = {}
 
 
 def device_ms(fn, reps: int = 20, only: tuple[str, ...] | None = None) -> float:
     """Device time per call over `reps` calls: for every kernel the calls
     launched (or those whose name holds one of `only`), the profiler's
     mean self device time a launch times its launches a call. The
-    profiler now and then misses a window's first launches (on the H100,
-    18 or 19 records of a kernel launched once a call, 20 times), so a
-    kernel's launches a call are its count over `reps` rounded up: a few
-    lost records neither lower the time nor drop a kernel. A window with
-    no device time at all is taken again; after three, the time between
-    CUDA events stands in (host enqueue included, so never below the
-    device time), but only without `only`: a filter that matches no
-    kernel the profiler saw (a renamed kernel) raises."""
+    profiler now and then misses some of a window's records (on the H100,
+    18 or 19 of a kernel launched once a call, 20 times) or holds one
+    more, so a kernel's launches a call are its record count over `reps`
+    rounded to the nearest whole number, at least 1: a few lost or extra
+    records neither scale the time nor drop a kernel. A window with no
+    device time at all is taken again (CUPTI on the H100 now and then
+    hands back empty windows, three in a row in one run); after five,
+    the time between CUDA events stands in (host enqueue included, so
+    never below the device time), but only without `only`: a filter that
+    matches no kernel the profiler saw (a renamed kernel) raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -410,7 +425,7 @@ def device_ms(fn, reps: int = 20, only: tuple[str, ...] | None = None) -> float:
     fn()
     torch.cuda.synchronize()
     seen: set[str] = set()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -419,16 +434,30 @@ def device_ms(fn, reps: int = 20, only: tuple[str, ...] | None = None) -> float:
                   if evt.device_type == DeviceType.CUDA and evt.count]
         seen.update(evt.key for evt in events)
         picked = [evt for evt in events if only is None or any(o in evt.key for o in only)]
-        busy_us = sum(evt.self_device_time_total / evt.count * -(-evt.count // reps)
-                      for evt in picked)
-        if busy_us > 0:
+        parts = {}
+        for evt in picked:
+            per_call = max(1, round(evt.count / reps))
+            parts[evt.key] = (evt.count, per_call,
+                              evt.self_device_time_total / evt.count * per_call / 1e3)
+        busy_ms = sum(ms for _, _, ms in parts.values())
+        if busy_ms > 0:
             PROFILE_WINDOWS["timed"] += 1
             PROFILE_WINDOWS["short"] += any(evt.count % reps for evt in picked)
-            return busy_us / 1e3
+            LAST_PARTS.clear()
+            LAST_PARTS.update(parts)
+            return busy_ms
     if only is not None:
         raise AssertionError(f"no device time for {only}; the profiler saw {sorted(seen)}")
-    log("  (the profiler saw no device time three times: CUDA-event time instead)")
+    log("  (the profiler saw no device time five times: CUDA-event time instead)")
     return wall_ms(fn, reps)
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key's function name, without an anonymous namespace,
+    return type and parameters: "void (anonymous namespace)::f<2>(int
+    const*)" gives "f<2>"."""
+    name = key.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.removeprefix("void ").strip() or key
 
 
 def max_abs_err(got, want) -> int:
@@ -444,21 +473,85 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def kernel_cases(rec, snap, tables):
-    """(name, kernel fn, plain fn, bytes the function must move, 32-bit
-    operations it does[, kernel functions]) for each kernel on the
-    captured inputs. Bytes
-    count each input read once and each output written once. Probe rows
-    and gathers count only what this step's data needs: bucket rows for
-    the keys of tasks that are live with depth >= 1 (K1: the task's edge
-    key; K2: slot 0 and its TTU slots; computed slots and dead tasks need
-    no span), and for K3 the segments and sources of the candidates that
-    land in the frontier."""
+def pair_probe_case(args, kw, live, note):
+    """K2's (name, kernel fn, plain fn, bytes, operations, compare fn,
+    kernel functions) on captured inputs, and its launch's shape. K2
+    returns a value for every (task, slot) of the [F, S] relation matrix,
+    dead tasks and slots without an instruction included, so the least
+    work for its function probes each distinct (obj, rel) key once (equal
+    keys give equal answers) and reads each bucket row those keys address
+    once (keys that hash into one bucket share its row): bytes count the
+    [F] objects and [F, S] relations in, the distinct rows of spb 16-byte
+    slots that the distinct keys' ceil(probes / spb) rows reach (at most
+    the table's rows), and the [F, S, n_vals] values out.
+    Operations count each distinct key's hashes and its compares. `live`
+    is the frontier's liveness at that launch, which K2 does not read:
+    the shape's live share."""
     import torch
 
     from keto_tpu_torch.engine import cuda_ops
     from keto_tpu_torch.engine import kernel as tk
-    from keto_tpu_torch.engine.snapshot import INSTR_NONE, INSTR_TTU
+
+    pack, obj, rels = args
+    F, S = rels.shape
+    keys = torch.unique((obj.to(torch.int64)[:, None] << 32) | (rels.to(torch.int64) & 0xFFFFFFFF))
+    n_keys = int(keys.numel())
+    spb = kw["spb"]
+    pb = -(-kw["probes"] // spb)
+    h1 = tk.hash_combine(keys >> 32, keys & 0xFFFFFFFF)
+    h2 = tk.mix32(h1 ^ tk._GOLDEN) | 1
+    nb = pack.shape[0] // spb
+    jb = torch.arange(pb, dtype=torch.int64, device=pack.device)
+    n_rows = int(torch.unique((h1[:, None] + jb * h2[:, None]) & (nb - 1)).numel())
+    shape = {"note": note, "F": F, "S": S, "n_vals": kw["n_vals"], "probes": kw["probes"],
+             "spb": spb, "distinct_keys": n_keys, "distinct_rows": n_rows, "table_rows": nb,
+             "live_share": float(live.float().mean())}
+    case = (
+        "pair_probe",
+        lambda: cuda_ops.pair_probe(*args, **kw),
+        lambda: tk.pair_probe_plain(*args, **kw),
+        F * 4 + F * S * 4 + F * S * kw["n_vals"] * 4 + n_rows * spb * 16,
+        n_keys * (3 * HASH_OPS + pb * spb * 4),
+        lambda: max_abs_err(cuda_ops.pair_probe(*args, **kw), tk.pair_probe_plain(*args, **kw)),
+        ("pair_probe_", "Memset"),
+    )
+    return case, shape
+
+
+def expect_probe(args, kw, pack, probes, what):
+    """Raises unless a captured pair_probe call probed `pack` with
+    `probes`: the launch the caller names it by position."""
+    import torch
+
+    got = args[0]
+    if kw["probes"] != probes or got.shape != pack.shape or not torch.equal(got, pack):
+        raise AssertionError(f"pair_probe's captured call is not {what}")
+    return args, kw
+
+
+def time_pair_probe(args, kw, live, note) -> dict:
+    """K2 timed on one launch's captured inputs: a kernel row's keys and
+    the launch's shape (pair_probe_case)."""
+    case, shape = pair_probe_case(args, kw, live, note)
+    row = time_kernel(*case)
+    log(f"  K2 at {note}: {shape}")
+    return {**{k: row[k] for k in LARGE_KEYS if k != "note"}, **shape}
+
+
+def kernel_cases(rec):
+    """(name, kernel fn, plain fn, bytes the function must move, 32-bit
+    operations it does[, compare fn, kernel functions]) for each kernel on
+    the captured inputs. Bytes
+    count each input read once and each output written once. Probe rows
+    and gathers count only what this step's data needs: bucket rows for
+    the keys of tasks that are live with depth >= 1 (K1: the task's edge
+    key), each distinct key's rows once for K2 (pair_probe_case), and for
+    K3 the segments and sources of the candidates that land in the
+    frontier."""
+    import torch
+
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine import kernel as tk
 
     cases = []
     args, kw = rec.args("edge_probe")
@@ -474,27 +567,15 @@ def kernel_cases(rec, snap, tables):
         lambda: tk.edge_probe_plain(*args, **kw),
         F * (4 * 4 + 1 + 1) + n_probe * (16 + pb * row_bytes),
         n_probe * (6 * HASH_OPS + pb * kw["spb"] * 6),
+        lambda: max_abs_err(cuda_ops.edge_probe(*args, **kw), tk.edge_probe_plain(*args, **kw)),
         ("edge_probe_staged_kernel", "Memset"),
     ))
 
     args2, kw2 = rec.args("pair_probe")
-    pack, pobj, rels = args2
-    Fp, S = rels.shape
-    if not torch.equal(pobj, obj):
+    if not torch.equal(args2[1], obj):
         raise AssertionError("pair_probe's capture is not from edge_probe's step")
-    _ns, has_prog, pid, _flags = tk.program_lookup(
-        tables, obj, rel, live, n_config_rels=max(snap.n_config_rels, 1))
-    ipack = tables["instr_pack"][pid.long()].reshape(F, snap.K, 4)
-    ik = torch.where(has_prog[:, None], ipack[..., 0], INSTR_NONE)
-    n_keys = n_probe + int(((ik == INSTR_TTU) & expand[:, None]).sum())
-    pb2 = -(-kw2["probes"] // kw2["spb"])
-    cases.append((
-        "pair_probe",
-        lambda: cuda_ops.pair_probe(*args2, **kw2),
-        lambda: tk.pair_probe_plain(*args2, **kw2),
-        Fp * 4 + Fp * S * 4 + Fp * S * kw2["n_vals"] * 4 + n_keys * pb2 * kw2["spb"] * 16,
-        n_keys * (3 * HASH_OPS + pb2 * kw2["spb"] * 4),
-    ))
+    case2, shape2 = pair_probe_case(args2, kw2, live, "Check's step-2 launch")
+    cases.append(case2)
 
     args3, kw3 = rec.args("expand_gather")
     counts, is_comp = args3[0], args3[4]
@@ -509,9 +590,12 @@ def kernel_cases(rec, snap, tables):
         ch, over = tk.expand_gather_plain(*args3, **kw3)
         return (ch.q, ch.ctx, ch.obj, ch.rel, ch.depth, ch.valid, over)
 
+    def kernel3():
+        return cuda_ops.expand_gather(*args3, **kw3)
+
     cases.append((
         "expand_gather",
-        lambda: cuda_ops.expand_gather(*args3, **kw3),
+        kernel3,
         plain3,
         # counts scanned whole; starts, slot_ctx, crel, is_comp and the
         # task's q, obj, depth gathered once per landed candidate; one
@@ -519,10 +603,14 @@ def kernel_cases(rec, snap, tables):
         F3 * S3 * 4 + 7 * n_out * 4 + n_edge_out * 8
         + 5 * F3 * 4 + F3 + kw3["n_queries"] * 4,
         F3 * S3 * 3 + n_out * (2 * (F3 * S3).bit_length() + 20),
+        lambda: max_abs_err(kernel3(), plain3()),
+        None,
     ))
 
-    cases.append(dedupe_kernel_case(*rec.args("dedupe_compact")))
-    return cases
+    name4, kernel4, plain4, bytes4, ops4 = dedupe_kernel_case(*rec.args("dedupe_compact"))
+    cases.append((name4, kernel4, plain4, bytes4, ops4,
+                  lambda: max_abs_err(kernel4(), plain4()), None))
+    return cases, shape2
 
 
 def dedupe_kernel_case(args, kw):
@@ -707,6 +795,7 @@ def list_kernel_cases(rec_lo, rec_ls):
                             (lambda c, e, v, x: (c.q, c.ctx, c.obj, c.rel, c.depth, c.valid,
                                                  e, v, x))(
                                 *trk.subjects_gather_plain(*args3, **kw3))),
+        ("subjects_tile_kernel", "subjects_scan_kernel", "subjects_merge_kernel", "Memset"),
     ))
 
     args4, kw4 = rec_lo.args("list_pool_compact")
@@ -741,7 +830,10 @@ def time_kernel(name, kernel, plain, nbytes, ops, compare, only=None,
     also resets inputs it updates. `ops` count at `ops_per_s`, the card's
     rate for their type (32-bit integer by default)."""
     err = compare()
-    ms, plain_ms = device_ms(kernel, only=only), device_ms(plain)
+    ms = device_ms(kernel, only=only)
+    parts = "; ".join(f"{kernel_name(k)} {n} records, {c} a call, {t:.5f} ms"
+                      for k, (n, c, t) in sorted(LAST_PARTS.items()))
+    plain_ms = device_ms(plain)
     k_wall, p_wall = wall_ms(kernel), wall_ms(plain)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / ops_per_s * 1e3
@@ -749,7 +841,7 @@ def time_kernel(name, kernel, plain, nbytes, ops, compare, only=None,
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     log(f"  {name}: max_abs_err {err}, device ms: kernel {ms:.5f}, plain {plain_ms:.5f}; "
         f"wall ms: kernel {k_wall:.5f}, plain {p_wall:.5f}; "
-        f"bound {bound_ms:.6f} ms by {bound_by} ({nbytes} B, {ops} ops)")
+        f"bound {bound_ms:.6f} ms by {bound_by} ({nbytes} B, {ops} ops); parts: {parts}")
     if err != 0:
         raise AssertionError(f"{name} disagrees with its plain version: {err}")
     return {
@@ -767,13 +859,12 @@ def run_kernels(engine, queries):
     t0 = phase("3 kernels: K1-K4 against their plain versions, on a real check batch")
     with Recorder(cuda_ops, step=1) as rec:
         engine.check_batch(queries, MAX_DEPTH)
-    rows = []
-    state = engine.ensure_state()
-    for name, kernel, plain, nbytes, ops, *only in kernel_cases(rec, state.snapshot,
-                                                                 state.tables):
-        rows.append(time_kernel(name, kernel, plain, nbytes, ops,
-                                lambda k=kernel, p=plain: max_abs_err(k(), p()),
-                                only=only[0] if only else None))
+    cases, k2_shape = kernel_cases(rec)
+    rows = [time_kernel(*case) for case in cases]
+    k2 = next(row for row in rows if row["name"] == "pair_probe")
+    k2.update(k2_shape)
+    log(f"  K2 at {k2_shape['note']}: {k2_shape}")
+    k2["at"] = {}
     log(f"  kernels phase {time.perf_counter() - t0:.1f} s")
     return rows
 
@@ -782,10 +873,17 @@ def run_expand_kernels(engine, subjects):
     from keto_tpu_torch.engine import cuda_ops
 
     t0 = phase("7b kernels: X1 and X2 against their plain versions, on a real expand batch; "
-                f"X1 also at F = {EXPAND_LARGE_FRONTIER}")
-    with Recorder(cuda_ops, step=1) as rec:
+                f"X1 also at F = {EXPAND_LARGE_FRONTIER}; K2 at the step-1 launch")
+    with Recorder(cuda_ops, step=1, keep=("pair_probe",)) as rec:
         engine.expand_batch(subjects, EXPAND_DEPTH, **EXPAND_CAPS)
     rows = [time_kernel(*case) for case in expand_kernel_cases(rec)]
+    # pair_probe calls 0 and 1 probe the roots (fh, dirty); call 2 is step
+    # 1's fh probe, on the frontier expand_emit's call 0 reads
+    state = engine.ensure_expand_state()
+    args2, kw2 = expect_probe(*rec.calls["pair_probe"][2], state.expand_tables["fh_pack"],
+                              state.expand_np["fh_probes"], "Expand's step-1 fh probe")
+    k2 = time_pair_probe(args2, kw2, rec.calls["expand_emit"][0][0][4],
+                         "Expand's step-1 launch")
     with Recorder(cuda_ops, step=1) as rec_large:
         engine.expand_batch(subjects, EXPAND_DEPTH,
                             **{**EXPAND_CAPS, "frontier_cap": EXPAND_LARGE_FRONTIER})
@@ -795,7 +893,7 @@ def run_expand_kernels(engine, subjects):
                      f"F = {args[0].shape[0]}, B = {args[12].shape[0]}, E = {kw['edge_cap']}")
     rows[0]["large"] = {k: large[k] for k in LARGE_KEYS}
     log(f"  kernels phase {time.perf_counter() - t0:.1f} s")
-    return rows
+    return rows, {"expand_step1": k2}
 
 
 def run_check(engine, queries, manager, config):
@@ -1127,24 +1225,43 @@ def setup_list(engine):
 
 
 def run_list_kernels(engine, lo_queries, ls_queries):
-    """L1-L4's rows, and K4 on ListObjects' step-1 launch (G = F = 2^20)
-    as the dedupe_compact row's "large" entry."""
+    """L1-L4's rows, K4 on ListObjects' step-1 launch (G = F = 2^20) as
+    the dedupe_compact row's "large" entry, and K2 at ListObjects' three
+    step launches and at ListSubjects' step-2 launch."""
     from keto_tpu_torch.engine import cuda_ops
 
     t0 = phase("8b kernels: L1-L4 and K4 at G = 2^20 against their plain versions, "
-               "on real list batches")
-    with Recorder(cuda_ops, step=1, steps={"list_emit": 2}) as rec_lo:
+               "on real list batches; K2 at every ListObjects step and a ListSubjects step")
+    with Recorder(cuda_ops, step=1, steps={"list_emit": 2},
+                  keep=("pair_probe", "reverse_gather")) as rec_lo:
         engine.list_objects_batch(lo_queries, LIST_DEPTH, **LO_CAPS)
     with Recorder(cuda_ops, step=1) as rec_ls:
         engine.list_subjects_batch(ls_queries, LIST_DEPTH, **LS_CAPS)
     rows = [time_kernel(*case) for case in list_kernel_cases(rec_lo, rec_ls)]
+    # ListObjects' pair_probe call 0 is the seed probe; call k the rvh span
+    # probe of step k, on the frontier reverse_gather's call k - 1 reads
+    rstate = engine.ensure_reverse_state()
+    k2_at = {}
+    for k in range(1, len(rec_lo.calls["pair_probe"])):
+        args2, kw2 = expect_probe(*rec_lo.calls["pair_probe"][k],
+                                  rstate.reverse_tables["rvh_pack"],
+                                  rstate.reverse_np["rvh_probes"],
+                                  f"ListObjects' step-{k} rvh span probe")
+        k2_at[f"list_objects_step{k}"] = time_pair_probe(
+            args2, kw2, rec_lo.calls["reverse_gather"][k - 1][0][4],
+            f"ListObjects' step-{k} launch")
+    sstate = engine.ensure_subjects_state()
+    args2, kw2 = expect_probe(*rec_ls.args("pair_probe"), sstate.subjects_tables["fsh_pack"],
+                              sstate.expand_np["fh_probes"], "ListSubjects' step-2 span probe")
+    k2_at["list_subjects_step2"] = time_pair_probe(
+        args2, kw2, rec_ls.args("subjects_gather")[0][3], "ListSubjects' step-2 launch")
     args4, kw4 = rec_lo.args("dedupe_compact")
     name, kernel, plain, nbytes, ops = dedupe_kernel_case(args4, kw4)
     large = time_kernel(name, kernel, plain, nbytes, ops,
                         lambda: max_abs_err(kernel(), plain()))
     large["note"] = f"ListObjects' step-1 launch, G = {args4[0].shape[0]}, F = {kw4['F']}"
     log(f"  kernels phase {time.perf_counter() - t0:.1f} s")
-    return rows, {k: large[k] for k in LARGE_KEYS}
+    return rows, {k: large[k] for k in LARGE_KEYS}, k2_at
 
 
 def run_list_leg(engine, leg, queries, caps, want_kernels, check):
@@ -2102,13 +2219,16 @@ def main() -> int:
     # so a full collection does not land inside a timed batch
     gc.collect()
     gc.freeze()
-    rows += run_expand_kernels(x_engine, subjects)
+    x_rows, k2_at = run_expand_kernels(x_engine, subjects)
+    rows += x_rows
+    next(row for row in rows if row["name"] == "pair_probe")["at"].update(k2_at)
     x_launches, expand = run_expand(x_engine, x_manager, x_config, subjects, x_info)
     # the list phases run on phase 4's store and engine
     lo_queries, ls_queries = list_queries()
     l_info = setup_list(engine)
-    list_rows, dedupe_large = run_list_kernels(engine, lo_queries, ls_queries)
+    list_rows, dedupe_large, k2_at = run_list_kernels(engine, lo_queries, ls_queries)
     next(row for row in rows if row["name"] == "dedupe_compact")["large"] = dedupe_large
+    next(row for row in rows if row["name"] == "pair_probe")["at"].update(k2_at)
     rows += list_rows
     lo_launches, list_objects = run_list_objects(engine, manager, config, lo_queries, owners)
     ls_launches, list_subjects = run_list_subjects(engine, manager, config, ls_queries)
@@ -2132,11 +2252,20 @@ def main() -> int:
     f_launches, rec_f, filt = run_filter(engine, manager, config, v_subject, d_engine,
                                          d_manager, d_config, d_owners[0])
     cases, searchsorted = closure_filter_kernel_cases(rec_c, rec_f)
-    phase("10c kernels: C1 and F1 against their plain versions")
+    phase("10c kernels: C1 and F1 against their plain versions; K2 at the filter walk's "
+          "step-1 launch")
     for case in cases:
         rows.append(time_kernel(*case))
     rows[-1]["library_ms"] = device_ms(searchsorted)
     log(f"  torch.searchsorted on F1's (cand, obj): {rows[-1]['library_ms']:.5f} ms")
+    # the walk's pair_probe call 0 is the seed probe, call 1 step 1's rvh
+    # span probe, on the frontier reverse_gather's call 0 reads
+    rstate = engine.ensure_reverse_state()
+    args2, kw2 = expect_probe(*rec_f.args("pair_probe"), rstate.reverse_tables["rvh_pack"],
+                              rstate.reverse_np["rvh_probes"], "the filter walk's step-1 span probe")
+    next(row for row in rows if row["name"] == "pair_probe")["at"]["filter_step1"] = \
+        time_pair_probe(args2, kw2, rec_f.calls["reverse_gather"][0][0][4],
+                        "the filter walk's step-1 launch")
     m_launches, m_rows, tools = run_microbench()
     rows += m_rows
     by_path = {"check": launches, "expand": x_launches, "list_objects": lo_launches,
@@ -2168,7 +2297,7 @@ def main() -> int:
     log(json.dumps({"closure": {**d_info, **closure, "powering": powering, "card": smi}}))
     log(json.dumps({"filter": {**filt, "card": smi}}))
     log(json.dumps({"microbench": {**tools, "card": smi}}))
-    log(f"profile windows that missed launches: {PROFILE_WINDOWS['short']} of "
+    log(f"profile windows whose records were not whole launches: {PROFILE_WINDOWS['short']} of "
         f"{PROFILE_WINDOWS['timed']}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

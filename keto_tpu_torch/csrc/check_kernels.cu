@@ -10,7 +10,8 @@
 //                        uses them (dh, and dd when has_delta): three
 //                        dependent trips, every row load in flight at once.
 // K2 keto_pair_probe     replaces _multi_pair_key_probe / _pair_key_probe
-//                        (the rh span probe and the dirty-row probe).
+//                        (every span, dirty-row and reverse probe): equal
+//                        keys of a warp share one probe.
 // K3 keto_expand_gather  replaces expand_phase's counts -> exclusive scan
 //                        -> covering-segment map -> source gather ->
 //                        e_pack child gather: tile sums, then a scan of
@@ -171,28 +172,195 @@ __global__ void __launch_bounds__(kProbeThreads) edge_probe_staged_kernel(
 // ---------------------------------------------------------------------------
 // K2 pair_probe
 //
-// Bound: bytes. Each (task, slot) reads ceil(probes/spb) bucket rows of a
-// [cap, 4] int32 table (256 B each under the bucketized layout). Design:
-// 16 threads per (task, slot), one 16-byte slot per thread per round, so
-// a round is one coalesced bucket row; both value lanes reduce over the
-// group, so the rh span probe returns (row_start, row_end) from the same
-// reads.
+// Bound: bytes. The function returns a value for every (task, slot) of
+// the [F, S] relation matrix, dead tasks and slots without an instruction
+// included, and equal keys give equal answers, so the least work reads
+// each distinct (obj, rel) key's ceil(probes/spb) bucket rows of the
+// [cap, 4] int32 table once (256 B under the bucketized layout, 16 B a
+// row under the compact one), the [F] objects and [F, S] relations, and
+// writes the [F, S, n_vals] values. On ListObjects' step launches (2^20
+// tasks, a live head of 10-40% and the zero-filled tail K4 leaves) most
+// keys are one key, (0, 0); on the other paths' launches (4,096-49,152
+// items) the time is a launch and a few dependent trips.
+// Design: a warp takes W consecutive (task, slot) items (W = 32 where
+// that leaves kMinWarps warps or more, else halved down to 2, so a small
+// launch still spreads over the SMs) and reads their objects and
+// relations in one trip. __match_any_sync on the 64-bit key makes the
+// lowest lane of each set of equal keys its leader (lanes past W repeat
+// an item, so they never lead); the leaders write their keys and hashes
+// to shared memory in rank order. The warp's two halves then probe two
+// leaders at a time, 16 lanes a bucket row (one coalesced 256-byte row a
+// round), kPairLoads rounds a lane issued before any compare. A round's
+// matches are one ballot, and every lane whose leader owns a matching
+// slot takes its values by shuffle from the matching lane (each lane the
+// max over the matches, as the plain version), so a repeated key costs
+// neither a probe nor a reduction of its own. Every slot of every probed
+// row is compared. One store a (task, slot): an int2 when n_vals = 2.
+// At W = 2 (pair_probe_two_kernel) no election is needed: the two halves
+// compare their keys by one shuffle, and the second probes only when its
+// key differs. This replaced 16 lanes for every (task, slot) whatever its
+// key, each group reducing both values over its lanes, and two 4-byte
+// stores a slot.
 // ---------------------------------------------------------------------------
 
-__global__ void pair_probe_kernel(
-    const int4* __restrict__ pack, uint32_t nb, int spb, int pb,
-    const int* __restrict__ obj, const int* __restrict__ rels, int F, int S,
+constexpr int kPairThreads = 256;
+// bucket-row loads a lane keeps in flight: kPairLoads / kRounds leader
+// pairs of kRounds rounds each (4 timed against 8 and 16: 48 registers
+// against 80, so more warps resident on ListObjects' launch)
+constexpr int kPairLoads = 4;
+// the fewest warps a launch gets before a warp's items are halved (about
+// 16 a Hopper SM)
+constexpr int kMinWarps = 2048;
+
+// W = 2 (a launch of under 4 kMinWarps items): a half-warp an item, with
+// no leader election; the second half probes only when its key differs
+// from the first's, and otherwise takes the first half's matches.
+template <int kRounds>
+__global__ void __launch_bounds__(kPairThreads) pair_probe_two_kernel(
+    const int4* __restrict__ pack, uint32_t nb, int spb_log2, int total,
+    const int* __restrict__ obj, const int* __restrict__ rels, int n, int S, int n_vals,
+    int* __restrict__ out) {
+  constexpr unsigned kAll = 0xFFFFFFFFu;
+  const int lane = threadIdx.x & 31;
+  const int base = ((blockIdx.x * blockDim.x + threadIdx.x) >> 5) << 1;
+  if (base >= n) return;  // the whole warp leaves together
+  const int half = lane >> 4;
+  const int l16 = lane & (kGroup - 1);
+  const int item = min(base + half, n - 1);  // past the last item, repeat it
+  const int o = __ldg(obj + (S == 1 ? item : item / S));
+  const int r = __ldg(rels + item);
+  const uint32_t h1 = mix32(mix32(kGolden ^ (uint32_t)o) ^ (uint32_t)r);
+  const uint32_t h2 = stride_hash(h1);
+  const bool same = __shfl_xor_sync(kAll, o, 16) == o && __shfl_xor_sync(kAll, r, 16) == r;
+  const bool probe = half == 0 || !same;
+  const int from = same ? 0 : 16 * half;  // the half whose matches are this item's
+  const int spb_mask = (1 << spb_log2) - 1;
+  int a0 = kEmpty, a1 = kEmpty;
+  for (int r0 = 0; r0 * kGroup < total; r0 += kRounds) {
+    int4 x[kRounds];
+#pragma unroll
+    for (int rr = 0; rr < kRounds; ++rr) {
+      const int c = (r0 + rr) * kGroup + l16;
+      x[rr] = make_int4(0, 0, 0, 0);
+      if (probe && c < total) {
+        const uint32_t b = (h1 + (uint32_t)(c >> spb_log2) * h2) & (nb - 1u);
+        x[rr] = __ldg(pack + ((size_t)b << spb_log2) + (c & spb_mask));
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < kRounds; ++rr) {
+      const int c = (r0 + rr) * kGroup + l16;
+      const int4 v = x[rr];
+      unsigned hits = __ballot_sync(kAll, probe && c < total && v.x == o && v.y == r);
+      while (hits) {
+        const int src = __ffs(hits) - 1;
+        hits &= hits - 1;
+        const int v0 = __shfl_sync(kAll, v.z, src);
+        const int v1 = n_vals == 2 ? __shfl_sync(kAll, v.w, src) : kEmpty;
+        if ((src & 16) == from) {
+          a0 = max(a0, v0);
+          a1 = max(a1, v1);
+        }
+      }
+    }
+  }
+  if (l16 == 0 && base + half < n) {
+    if (n_vals == 2) {
+      reinterpret_cast<int2*>(out)[base + half] = make_int2(a0, a1);
+    } else {
+      out[base + half] = a0;
+    }
+  }
+}
+
+template <int kRounds>
+__global__ void __launch_bounds__(kPairThreads) pair_probe_shared_kernel(
+    const int4* __restrict__ pack, uint32_t nb, int spb_log2, int total,
+    const int* __restrict__ obj, const int* __restrict__ rels, int n, int S, int w_log2,
     int n_vals, int* __restrict__ out) {
-  const long long gtid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long task = gtid / kGroup;
-  const int lane = threadIdx.x % kGroup;
-  if (task >= (long long)F * S) return;
-  const unsigned gmask = group_mask();
-  int v0, v1;
-  probe_pair_table(pack, nb, spb, pb, obj[task / S], rels[task], lane, gmask, v0, v1);
-  if (lane == 0) {
-    out[task * n_vals] = v0;
-    if (n_vals == 2) out[task * 2 + 1] = v1;
+  constexpr int kPairs = kPairLoads / kRounds;
+  constexpr unsigned kAll = 0xFFFFFFFFu;
+  __shared__ int4 s_key[kPairThreads];
+  const int lane = threadIdx.x & 31;
+  const int base = ((blockIdx.x * blockDim.x + threadIdx.x) >> 5) << w_log2;
+  if (base >= n) return;  // the whole warp leaves together
+  const int w = 1 << w_log2;
+  // lanes past W, and past the last item, repeat an item of the warp
+  const int item = min(base + (lane & (w - 1)), n - 1);
+  const int o = __ldg(obj + (S == 1 ? item : item / S));
+  const int r = __ldg(rels + item);
+  const unsigned long long key = ((unsigned long long)(uint32_t)o << 32) | (uint32_t)r;
+  const uint32_t h1 = mix32(mix32(kGolden ^ (uint32_t)o) ^ (uint32_t)r);
+  const unsigned peers = __match_any_sync(kAll, key);
+  const int leader = __ffs(peers) - 1;
+  const unsigned leaders = __ballot_sync(kAll, leader == lane);
+  const int n_lead = __popc(leaders);
+  const int my_rank = __popc(leaders & ((1u << leader) - 1u));  // my leader's rank
+  int4* keys = s_key + (threadIdx.x - lane);
+  if (leader == lane) keys[my_rank] = make_int4(o, r, (int)h1, (int)stride_hash(h1));
+  __syncwarp();
+  const int half = lane >> 4;
+  const int l16 = lane & (kGroup - 1);
+  const int rounds = (total + kGroup - 1) / kGroup;  // of 16 slots a key
+  const int n_pairs = (n_lead + 1) >> 1;
+  const int spb_mask = (1 << spb_log2) - 1;
+  int a0 = kEmpty, a1 = kEmpty;
+  for (int p0 = 0; p0 < n_pairs; p0 += kPairs) {
+    // one pass over the rounds unless a key's sequence is longer than
+    // kRounds rounds (past 64 probes)
+    for (int r0 = 0; r0 < rounds; r0 += kRounds) {
+      int ko[kPairs], kr[kPairs];
+      int4 x[kPairs][kRounds];
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) {
+        // the pairs past the warp's leaders cost no instruction (a small
+        // launch has many warps of one or two leaders)
+        if (p0 + i >= n_pairs) break;  // the same for the whole warp
+        const int k = 2 * (p0 + i) + half;
+        const int4 kv = keys[min(k, 31)];
+        ko[i] = kv.x;
+        kr[i] = kv.y;
+#pragma unroll
+        for (int rr = 0; rr < kRounds; ++rr) {
+          const int c = (r0 + rr) * kGroup + l16;
+          x[i][rr] = make_int4(0, 0, 0, 0);
+          if (k < n_lead && c < total) {
+            const uint32_t b = ((uint32_t)kv.z + (uint32_t)(c >> spb_log2) * (uint32_t)kv.w) &
+                               (nb - 1u);
+            x[i][rr] = __ldg(pack + ((size_t)b << spb_log2) + (c & spb_mask));
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) {
+        if (p0 + i >= n_pairs) break;  // the same for the whole warp
+        const int k = 2 * (p0 + i) + half;
+#pragma unroll
+        for (int rr = 0; rr < kRounds; ++rr) {
+          const int c = (r0 + rr) * kGroup + l16;
+          const int4 v = x[i][rr];
+          unsigned hits = __ballot_sync(kAll, k < n_lead && c < total && v.x == ko[i] &&
+                                                  v.y == kr[i]);
+          while (hits) {
+            const int src = __ffs(hits) - 1;
+            hits &= hits - 1;
+            const int v0 = __shfl_sync(kAll, v.z, src);
+            const int v1 = n_vals == 2 ? __shfl_sync(kAll, v.w, src) : kEmpty;
+            if (my_rank == 2 * (p0 + i) + (src >> 4)) {
+              a0 = max(a0, v0);
+              a1 = max(a1, v1);
+            }
+          }
+        }
+      }
+    }
+  }
+  if (lane < w && base + lane < n) {
+    if (n_vals == 2) {
+      reinterpret_cast<int2*>(out)[base + lane] = make_int2(a0, a1);
+    } else {
+      out[base + lane] = a0;
+    }
   }
 }
 
@@ -490,12 +658,32 @@ int keto_edge_probe(
 int keto_pair_probe(
     const int* pack, long long cap, int spb, int probes, const int* obj,
     const int* rels, int F, int S, int n_vals, int* out, void* stream) {
-  const long long tasks = (long long)F * S;
-  if (tasks > 0) {
-    pair_probe_kernel<<<blocks_for(tasks * kGroup, kProbeThreads), kProbeThreads, 0,
-                        (cudaStream_t)stream>>>(
-        (const int4*)pack, (uint32_t)(cap / spb), spb, (probes + spb - 1) / spb, obj,
-        rels, F, S, n_vals, out);
+  const long long n = (long long)F * S;
+  if (n <= 0) return (int)cudaGetLastError();
+  // one index of 32 bits a slot; spb a power of two (16 or 1)
+  if (n >= (1LL << 31) || spb <= 0 || (spb & (spb - 1)) || (n_vals != 1 && n_vals != 2)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int spb_log2 = __builtin_ctz((unsigned)spb);
+  const int total = (probes + spb - 1) / spb * spb;  // slots of the probed rows
+  const int rounds = (total + kGroup - 1) / kGroup;
+  int w_log2 = 5;  // items a warp: 32, halved down to 2 below kMinWarps warps
+  while (w_log2 > 1 && (n >> w_log2) < kMinWarps) --w_log2;
+  const long long warps = (n + (1 << w_log2) - 1) >> w_log2;
+  const int blocks = blocks_for(warps * 32, kPairThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (w_log2 == 1) {
+    auto kernel = rounds <= 1 ? pair_probe_two_kernel<1>
+                : rounds <= 2 ? pair_probe_two_kernel<2>
+                              : pair_probe_two_kernel<4>;
+    kernel<<<blocks, kPairThreads, 0, st>>>((const int4*)pack, (uint32_t)(cap / spb), spb_log2,
+                                            total, obj, rels, (int)n, S, n_vals, out);
+  } else {
+    auto kernel = rounds <= 1 ? pair_probe_shared_kernel<1>
+                : rounds <= 2 ? pair_probe_shared_kernel<2>
+                              : pair_probe_shared_kernel<4>;
+    kernel<<<blocks, kPairThreads, 0, st>>>((const int4*)pack, (uint32_t)(cap / spb), spb_log2,
+                                            total, obj, rels, (int)n, S, w_log2, n_vals, out);
   }
   return (int)cudaGetLastError();
 }

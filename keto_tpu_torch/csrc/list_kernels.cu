@@ -17,14 +17,15 @@
 //                           and a merge-path gather).
 // L3 keto_subjects_gather   replaces _list_subjects_impl's expansion: the
 //                           same over the full-edge CSR and the rewrite
-//                           instructions, with the result mask.
+//                           instructions, with the result mask (L2's tile,
+//                           scan and merge-path passes).
 // L4 keto_list_pool_compact replaces the packed tail of
 //                           list_objects_kernel_packed and
 //                           list_subjects_kernel_packed.
 //
 // L1 is csrc/keyed_rank.cuh's keyed scan, shared with X1, and its landed
 // count csrc/reduce.cuh's last-block sum; the block scans of L2-L4, and
-// L2's tile sums and cause zeroing, come from csrc/scan.cuh.
+// L2's and L3's tile sums and cause zeroing, come from csrc/scan.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,17 +46,6 @@ constexpr int kRinstrTtu = 2;
 constexpr int kRinstrPoison = 3;
 constexpr int kThreads = 256;
 constexpr int kScanThreads = 1024;
-
-// Index of the last entry of the nondecreasing a[0:n] that is <= j
-// (searchsorted side=right, minus one), clamped into [0, n).
-__device__ __forceinline__ int last_le(const int* a, int n, int j) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] <= j) lo = mid + 1; else hi = mid;
-  }
-  return min(max(lo - 1, 0), n - 1);
-}
 
 int blocks_for(long long threads, int per_block) {
   return (int)((threads + per_block - 1) / per_block);
@@ -169,64 +159,6 @@ __global__ void list_emit_rank_kernel(const int* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// L3's slot scan: per-task counts over S slots, a multi-block exclusive
-// scan in task order (block sums from the count pass, one block scanning
-// the block sums, then each block's tasks their offsets), and the
-// truncation cause of every segment the frontier cap cuts off. One thread
-// per task, kThreads tasks per block.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void block_sum_out(unsigned s, unsigned* warp_sums,
-                                              int* __restrict__ block_sums) {
-  unsigned total;
-  block_exclusive_scan(s, warp_sums, &total);
-  if (threadIdx.x == 0) block_sums[blockIdx.x] = (int)total;
-}
-
-__global__ void scan_block_sums_kernel(const int* __restrict__ sums, int n,
-                                       int* __restrict__ offs) {
-  __shared__ unsigned warp_sums[32];
-  const int t = threadIdx.x;
-  const int chunk = (n + blockDim.x - 1) / blockDim.x;
-  const int lo = min(n, t * chunk);
-  const int hi = min(n, lo + chunk);
-  unsigned s = 0;
-  for (int i = lo; i < hi; ++i) s += (unsigned)sums[i];
-  unsigned all;
-  unsigned run = block_exclusive_scan(s, warp_sums, &all);
-  for (int i = lo; i < hi; ++i) {
-    offs[i] = (int)run;
-    run += (unsigned)sums[i];
-  }
-}
-
-__global__ void slot_offsets_kernel(const int* __restrict__ counts, int F, int S,
-                                    const int* __restrict__ q,
-                                    const int* __restrict__ block_offs,
-                                    int* __restrict__ offsets, int* __restrict__ total,
-                                    int* __restrict__ cause) {
-  __shared__ unsigned warp_sums[32];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = i < F;
-  unsigned s = 0;
-  if (in) {
-    for (int k = 0; k < S; ++k) s += (unsigned)counts[(size_t)i * S + k];
-  }
-  unsigned all;
-  unsigned off = (unsigned)block_offs[blockIdx.x] + block_exclusive_scan(s, warp_sums, &all);
-  if (!in) return;
-  bool cut = false;
-  for (int k = 0; k < S; ++k) {
-    const int c = counts[(size_t)i * S + k];
-    offsets[(size_t)i * S + k] = (int)off;
-    cut |= c > 0 && (long long)off + c > F;
-    off += (unsigned)c;
-  }
-  if (cut) atomicMax(&cause[q[i]], kCauseFrontierOverflow);
-  if (i == F - 1) *total = (int)off;
-}
-
-// ---------------------------------------------------------------------------
 // L2 reverse_gather
 //
 // Bound: bytes: per task its columns and one inverted-instruction row
@@ -273,7 +205,7 @@ __global__ void slot_offsets_kernel(const int* __restrict__ counts, int F, int S
 // past the total maps to the last slot of the last task, F*S - 1, and
 // carries its columns with valid 0, as the plain version does. Candidates
 // are written in order, coalesced. Scratch: O(F + tiles) ints
-// (keto_reverse_gather_scratch).
+// (keto_gather_scratch).
 // This replaced a count pass that wrote [F, S] counts, a one-block scan of
 // the block sums, an offsets pass over [F, S] and a binary search over the
 // F*S offsets for each candidate, after a memset of the causes.
@@ -392,10 +324,12 @@ __global__ void reverse_tile_kernel(
   if (threadIdx.x == 0) tile_sums[blockIdx.x] = (int)s;
 }
 
-// A round is kRevUnroll contiguous tasks a thread: one 16-byte load of
-// their totals and one word of their POISON bits, one block scan.
-// offs is 16-byte aligned (the wrapper's scratch), and so is every i0.
-__global__ void reverse_scan_kernel(
+// The scan pass of L2 and L3. A round is kRevUnroll contiguous tasks a
+// thread: one 16-byte load of their totals and (kPoison, L2 only) one word
+// of their POISON bits, one block scan. offs is 16-byte aligned (the
+// wrapper's scratch), and so is every i0.
+template <bool kPoison>
+__device__ __forceinline__ void task_scan(
     const int* __restrict__ q, int F, int tile, const int* __restrict__ tile_sums, int n_tiles,
     const unsigned* __restrict__ pois, int share, int n_shares, int* __restrict__ offs,
     int* __restrict__ splits, int* __restrict__ total, int* __restrict__ cause) {
@@ -408,7 +342,7 @@ __global__ void reverse_scan_kernel(
     const int i0 = r0 + kRevUnroll * (int)threadIdx.x;
     // each task's total, read before its offset overwrites it
     const int4 c4 = load4(offs, i0, hi);
-    const unsigned bits = i0 < hi ? pois[i0 >> 5] : 0u;
+    const unsigned bits = kPoison && i0 < hi ? pois[i0 >> 5] : 0u;
     const unsigned c[kRevUnroll] = {(unsigned)c4.x, (unsigned)c4.y, (unsigned)c4.z,
                                     (unsigned)c4.w};
     unsigned round_total;
@@ -425,7 +359,7 @@ __global__ void reverse_scan_kernel(
       // last share ends at 2F, past every task)
       int b_lo = 1, b_hi = 0;
       if (i < hi) {
-        const bool poisoned = (bits >> (i & 31)) & 1u;
+        const bool poisoned = kPoison && ((bits >> (i & 31)) & 1u);
         const bool cut = (int)c[e] > 0 && (int)end > F;
         if (poisoned || cut) {
           const int qi = q[i];
@@ -459,6 +393,14 @@ __global__ void reverse_scan_kernel(
     splits[0] = 0;
     *total = (int)all;
   }
+}
+
+__global__ void reverse_scan_kernel(
+    const int* __restrict__ q, int F, int tile, const int* __restrict__ tile_sums, int n_tiles,
+    const unsigned* __restrict__ pois, int share, int n_shares, int* __restrict__ offs,
+    int* __restrict__ splits, int* __restrict__ total, int* __restrict__ cause) {
+  task_scan<true>(q, F, tile, tile_sums, n_tiles, pois, share, n_shares, offs, splits, total,
+                  cause);
 }
 
 // A block's candidates, at most kMergeUnroll a thread, go through each
@@ -580,92 +522,199 @@ __global__ void __launch_bounds__(kThreads) reverse_merge_kernel(
 // ---------------------------------------------------------------------------
 // L3 subjects_gather
 //
-// Bound: bytes, and latency at these sizes: per task its columns, its
-// S spans (8 B each) and K instruction lanes; per candidate the segment
-// search, one 16-byte fe_pack row. Design: L2's, over the full-edge CSR:
-// the count pass reads the K2 spans and the instruction kinds, the scan
-// orders the slots, and the gather pass fills the candidate columns, the
-// result mask (a plain-subject edge of the task's own row) and its value.
+// Bound: bytes: per task q, obj, depth and live, and for a task that can
+// expand (live, depth >= 1) its S spans (8 B each) and K instruction
+// lanes; per candidate one 16-byte fe_pack row and one ir or ir2 lane;
+// seven [F] columns and the causes written. Task i has S = K + 1 slots:
+// its own full-CSR row (the span's length), then one per instruction lane
+// (COMPUTED 1, TTU the lane's span length), all empty unless the task is
+// live with depth >= 1. Candidate j < F belongs to the last flat slot
+// whose offset is <= j.
+//
+// Design: L2's three launches, no memset, no [F, S] array, over the
+// spans and the instruction lanes. (1) Tile pass: each thread computes its
+// tasks' slot counts in registers (a task that cannot expand reads no
+// span or lane) and writes only each task's total; each block writes its
+// tile's sum, and the grid zeroes the causes. (2) L2's scan pass without
+// POISON (task_scan<false>): the exclusive task offsets over the totals in
+// place, the frontier overflow of a task exactly when total > 0 and
+// offset + total > F, the total, and each gather block's first task. (3)
+// Merge-path gather, as L2's: each candidate finds its task among the
+// staged offsets, recomputes the task's slot counts from its span row and
+// lanes, takes the last slot whose offset is <= j, and reads that slot's
+// fe_pack row and its ir or ir2 lane; a j at or past the total maps to
+// slot F*S - 1 with valid and emit 0, as the plain version does. Scratch:
+// L2's, O(F + tiles) ints (keto_gather_scratch). This replaced a count
+// pass that wrote [F, S] counts, a one-block scan of the block sums, an
+// offsets pass over [F, S] and a binary search over the F*S offsets for
+// each candidate, after a memset of the causes.
 // ---------------------------------------------------------------------------
 
-__global__ void sub_count_kernel(
-    const int* __restrict__ depth, const uint8_t* __restrict__ live,
-    const int2* __restrict__ spans, const int* __restrict__ ik, int K, int F,
-    int* __restrict__ counts, int* __restrict__ block_sums) {
-  __shared__ unsigned warp_sums[32];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int S = K + 1;
-  unsigned s = 0;
-  if (i < F) {
-    const bool can_row = live[i] != 0 && depth[i] >= 1;
-    for (int k = 0; k < S; ++k) {
-      const int2 sp = spans[(size_t)i * S + k];
-      const int len = sp.x < 0 ? 0 : sp.y - sp.x;
-      int c;
-      if (k == 0) {
-        c = can_row ? len : 0;
-      } else {
-        const int kk = ik[(size_t)i * K + k - 1];
-        c = (kk == kInstrComputed && can_row) ? 1 : ((kk == kInstrTtu && can_row) ? len : 0);
-      }
-      counts[(size_t)i * S + k] = c;
-      s += (unsigned)c;
-    }
-  }
-  block_sum_out(s, warp_sums, block_sums);
+// count of slot k (0: the task's own row; kk the lane's instruction kind)
+// of a task that can expand
+__device__ __forceinline__ int sub_slot_count(int k, int kk, int2 sp) {
+  const int len = sp.x < 0 ? 0 : sp.y - sp.x;
+  if (k == 0) return len;
+  return kk == kInstrComputed ? 1 : (kk == kInstrTtu ? len : 0);
 }
 
-__global__ void sub_gather_kernel(
-    const int* __restrict__ offsets, const int* __restrict__ total, int F, int K,
-    const int* __restrict__ q, const int* __restrict__ obj, const int* __restrict__ depth,
+// zeroes cause too: the scan pass, one launch later, raises it. A round
+// is kRevUnroll strided tasks a thread (coalesced): their live flags and
+// depths, then the span rows and lanes of those that can expand.
+__global__ void subjects_tile_kernel(
+    const int* __restrict__ depth, const uint8_t* __restrict__ live,
+    const int2* __restrict__ spans, const int* __restrict__ ik, int K, int F, int tile,
+    int* __restrict__ tot, int* __restrict__ tile_sums, int* __restrict__ cause,
+    int n_queries) {
+  __shared__ unsigned warp_sums[64];
+  zero_grid(cause, n_queries);
+  const int S = K + 1;
+  const int lo = blockIdx.x * tile;
+  const int hi = min(F, lo + tile);
+  unsigned s = 0;
+  for (int r0 = lo; r0 < hi; r0 += kRevUnroll * (int)blockDim.x) {
+    bool can[kRevUnroll];
+#pragma unroll
+    for (int u = 0; u < kRevUnroll; ++u) {
+      const int i = r0 + u * (int)blockDim.x + (int)threadIdx.x;
+      can[u] = i < hi && live[i] != 0 && depth[i] >= 1;
+    }
+#pragma unroll
+    for (int u = 0; u < kRevUnroll; ++u) {
+      const int i = r0 + u * (int)blockDim.x + (int)threadIdx.x;
+      unsigned t = 0;
+      if (can[u]) {
+        const int2* sp = spans + (size_t)i * S;
+        const int* kk = ik + (size_t)i * K;
+        t = (unsigned)sub_slot_count(0, 0, sp[0]);
+        for (int k = 1; k < S; ++k) t += (unsigned)sub_slot_count(k, kk[k - 1], sp[k]);
+      }
+      if (i < hi) tot[i] = (int)t;
+      s += t;
+    }
+  }
+  s = block_sum(s, warp_sums);
+  if (threadIdx.x == 0) tile_sums[blockIdx.x] = (int)s;
+}
+
+__global__ void subjects_scan_kernel(
+    const int* __restrict__ q, int F, int tile, const int* __restrict__ tile_sums, int n_tiles,
+    int share, int n_shares, int* __restrict__ offs, int* __restrict__ splits,
+    int* __restrict__ total, int* __restrict__ cause) {
+  task_scan<false>(q, F, tile, tile_sums, n_tiles, nullptr, share, n_shares, offs, splits,
+                   total, cause);
+}
+
+// A block's candidates, at most kMergeUnroll a thread, go through each
+// level of dependent loads together: their tasks (shared memory), the
+// tasks' columns, their span rows and lanes, the fe_pack rows and lanes.
+template <int kMergeUnroll>
+__global__ void __launch_bounds__(kThreads) subjects_merge_kernel(
+    const int* __restrict__ offs, const int* __restrict__ splits,
+    const int* __restrict__ total, int F, int K, const int* __restrict__ q,
+    const int* __restrict__ obj, const int* __restrict__ depth,
     const uint8_t* __restrict__ live, const int2* __restrict__ spans,
     const int* __restrict__ ik, const int* __restrict__ ir, const int* __restrict__ ir2,
-    const int4* __restrict__ fe_pack, int n_edges, int wildcard_rel,
-    int* __restrict__ c_q, int* __restrict__ c_obj, int* __restrict__ c_rel,
-    int* __restrict__ c_depth, uint8_t* __restrict__ c_valid, uint8_t* __restrict__ c_emit,
-    int* __restrict__ c_value) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= F) return;
+    const int4* __restrict__ fe_pack, int n_edges, int wildcard_rel, int* __restrict__ c_q,
+    int* __restrict__ c_obj, int* __restrict__ c_rel, int* __restrict__ c_depth,
+    uint8_t* __restrict__ c_valid, uint8_t* __restrict__ c_emit, int* __restrict__ c_value) {
+  constexpr int kShare = kMergeUnroll * kThreads;
+  __shared__ int s_off[kShare + 1];
   const int S = K + 1;
-  const int n = F * S;
-  const int seg = last_le(offsets, n, j);
-  const int ti = seg / S;
-  const int slot = seg - ti * S;
-  const int within = j - offsets[seg];
-  const bool in_range = j < min(*total, F);
-  const int d = depth[ti];
-  int kind = 0, crel = 0;
-  if (slot > 0) {
-    const bool can_row = live[ti] != 0 && d >= 1;
-    const size_t k = (size_t)ti * K + slot - 1;
-    const int kk = ik[k];
-    if (kk == kInstrComputed && can_row) {
-      kind = 1;
-    } else if (kk == kInstrTtu && can_row) {
-      kind = 2;
+  const int b = blockIdx.x;
+  const int i0 = splits[b], i1 = splits[b + 1];
+  const long long d0 = (long long)b * kShare;
+  const long long d1 = min(d0 + kShare, 2LL * F);
+  const int k0 = (int)(d0 - i0), k1 = (int)(d1 - i1);
+  if (k0 >= k1) return;  // a share of task starts only (a run of empty tasks)
+  const int sb = max(i0 - 1, 0);
+  const int n_st = i1 - sb;
+  for (int t = threadIdx.x; t < n_st; t += blockDim.x) s_off[t] = offs[sb + t];
+  const int in_total = min(*total, F);
+  __syncthreads();
+  int ti[kMergeUnroll], a[kMergeUnroll];
+#pragma unroll
+  for (int u = 0; u < kMergeUnroll; ++u) {
+    const int j = k0 + u * (int)blockDim.x + (int)threadIdx.x;
+    // the last staged task whose offset is <= j (task i0 - 1, or task 0 at
+    // offset 0, qualifies, so the search starts past it)
+    int lo = i0 - sb, hi = n_st;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_off[mid] <= j) lo = mid + 1; else hi = mid;
     }
-    crel = kk == kInstrComputed ? ir[k] : ir2[k];
+    ti[u] = j < k1 ? sb + lo - 1 : -1;
+    a[u] = s_off[max(lo - 1, 0)];
   }
-  int e_idx = spans[seg].x + within;
-  e_idx = min(max(e_idx, 0), max(n_edges - 1, 0));
-  int e_skind = 0, e_sa = 0, e_sb = 0;
-  if (n_edges > 0) {
-    const int4 e = fe_pack[e_idx];
-    e_skind = e.x;
-    e_sa = e.y;
-    e_sb = e.z;
+  bool can[kMergeUnroll];
+  int d[kMergeUnroll], tq[kMergeUnroll], to[kMergeUnroll];
+#pragma unroll
+  for (int u = 0; u < kMergeUnroll; ++u) {
+    const int t = max(ti[u], 0);
+    d[u] = depth[t];
+    can[u] = live[t] != 0 && d[u] >= 1;
+    tq[u] = q[t];
+    to[u] = obj[t];
   }
-  const bool is_row = kind == 0;
-  const bool is_c = kind == 1;
-  const int cd = is_c ? d : d - 1;
-  const bool cond = is_row ? (e_skind == 1 && e_sb != wildcard_rel) : (is_c || e_skind == 1);
-  c_q[j] = q[ti];
-  c_obj[j] = is_c ? obj[ti] : e_sa;
-  c_rel[j] = is_row ? e_sb : crel;
-  c_depth[j] = cd;
-  c_valid[j] = in_range && cond && cd >= 1;
-  c_emit[j] = in_range && is_row && e_skind == 0;
-  c_value[j] = e_sa;
+  // the last slot whose offset is <= j: its index, start and lane kind
+  int sel[kMergeUnroll], sel_kk[kMergeUnroll], e_idx[kMergeUnroll];
+#pragma unroll
+  for (int u = 0; u < kMergeUnroll; ++u) {
+    const int j = k0 + u * (int)blockDim.x + (int)threadIdx.x;
+    const int t = max(ti[u], 0);
+    const int2* sp = spans + (size_t)t * S;
+    const int* kk = ik + (size_t)t * K;
+    const int2 sp0 = sp[0];
+    int seg_off = a[u], start = sp0.x;
+    sel[u] = 0;
+    sel_kk[u] = 0;
+    unsigned end = (unsigned)seg_off + (unsigned)(can[u] ? sub_slot_count(0, 0, sp0) : 0);
+    for (int k = 1; k < S; ++k) {
+      const int2 spk = sp[k];
+      const int kkk = kk[k - 1];
+      if ((int)end <= j) {
+        seg_off = (int)end;
+        sel[u] = k;
+        sel_kk[u] = kkk;
+        start = spk.x;
+      }
+      end += (unsigned)(can[u] ? sub_slot_count(k, kkk, spk) : 0);
+    }
+    e_idx[u] = min(max(start + (j - seg_off), 0), max(n_edges - 1, 0));
+  }
+  int4 e[kMergeUnroll];
+  int crel[kMergeUnroll];
+#pragma unroll
+  for (int u = 0; u < kMergeUnroll; ++u) {
+    const int t = max(ti[u], 0);
+    e[u] = n_edges > 0 && ti[u] >= 0 ? fe_pack[e_idx[u]] : make_int4(0, 0, 0, 0);
+    crel[u] = 0;
+    if (sel[u] > 0 && ti[u] >= 0) {
+      const int* lane = sel_kk[u] == kInstrComputed ? ir : ir2;
+      crel[u] = lane[(size_t)t * K + sel[u] - 1];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kMergeUnroll; ++u) {
+    const int j = k0 + u * (int)blockDim.x + (int)threadIdx.x;
+    if (ti[u] < 0) continue;
+    // slot 0 is the task's own row; a lane slot is COMPUTED (one candidate,
+    // the task's object) or TTU only when the task can expand
+    const int kind = sel[u] == 0 || !can[u] ? 0
+                   : (sel_kk[u] == kInstrComputed ? 1 : (sel_kk[u] == kInstrTtu ? 2 : 0));
+    const bool is_row = kind == 0;
+    const bool is_c = kind == 1;
+    const int cd = is_c ? d[u] : d[u] - 1;
+    const bool cond = is_row ? (e[u].x == 1 && e[u].z != wildcard_rel) : (is_c || e[u].x == 1);
+    const bool in_range = j < in_total;
+    c_q[j] = tq[u];
+    c_obj[j] = is_c ? to[u] : e[u].y;
+    c_rel[j] = is_row ? e[u].z : crel[u];
+    c_depth[j] = cd;
+    c_valid[j] = in_range && cond && cd >= 1;
+    c_emit[j] = in_range && is_row && e[u].x == 0;
+    c_value[j] = e[u].y;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -768,15 +817,16 @@ int keto_list_emit(const int* q, const uint8_t* emit, const int* value, int N, i
   return (int)cudaGetLastError();
 }
 
-// The ints of L2's scratch for a frontier of F tasks: O(F + kMaxTiles).
-long long keto_reverse_gather_scratch(int F) {
+// The ints of L2's and L3's scratch for a frontier of F tasks:
+// O(F + kMaxTiles).
+long long keto_gather_scratch(int F) {
   return F > 0 ? round4(F) + round4((F + 31) / 32) + kMaxTiles +
                    round4(rev_shares(F, kThreads) + 1) + 1
                : 0;
 }
 
-// Scratch: keto_reverse_gather_scratch(F) ints; every part is written
-// before it is read.
+// Scratch: keto_gather_scratch(F) ints; every part is written before it
+// is read.
 int keto_reverse_gather(
     const int* q, const int* obj, const int* rel, const int* depth, const uint8_t* live,
     const int* ns_t, const int* rstart, const int* rlen, const int* rinstr, int RK,
@@ -804,27 +854,30 @@ int keto_reverse_gather(
   return (int)cudaGetLastError();
 }
 
-// Scratch: counts and offsets F * (K + 1) ints, block_sums and
-// block_offs blocks_for(F, 256) ints each, total one int.
+// Scratch: keto_gather_scratch(F) ints; every part is written before it
+// is read (the POISON words are not used).
 int keto_subjects_gather(
     const int* q, const int* obj, const int* depth, const uint8_t* live, const int* spans,
     const int* ik, const int* ir, const int* ir2, int K, const int* fe_pack, int n_edges,
-    int F, int B, int wildcard_rel, int* counts, int* offsets, int* block_sums,
-    int* block_offs, int* total, int* cause, int* c_q, int* c_obj, int* c_rel,
-    int* c_depth, uint8_t* c_valid, uint8_t* c_emit, int* c_value, void* stream) {
+    int F, int B, int wildcard_rel, int* scratch, int* cause, int* c_q, int* c_obj,
+    int* c_rel, int* c_depth, uint8_t* c_valid, uint8_t* c_emit, int* c_value, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (F <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  const int nblk = blocks_for(F, kThreads);
-  cudaMemsetAsync(cause, 0, sizeof(int) * (size_t)B, st);
-  sub_count_kernel<<<nblk, kThreads, 0, st>>>(depth, live, (const int2*)spans, ik, K, F,
-                                              counts, block_sums);
-  scan_block_sums_kernel<<<1, kScanThreads, 0, st>>>(block_sums, nblk, block_offs);
-  slot_offsets_kernel<<<nblk, kThreads, 0, st>>>(counts, F, K + 1, q, block_offs, offsets,
-                                                 total, cause);
-  sub_gather_kernel<<<nblk, kThreads, 0, st>>>(
-      offsets, total, F, K, q, obj, depth, live, (const int2*)spans, ik, ir, ir2,
-      (const int4*)fe_pack, n_edges, wildcard_rel, c_q, c_obj, c_rel, c_depth, c_valid,
-      c_emit, c_value);
+  const RevScratch sc = rev_scratch(scratch, F);
+  const int tile = scan_tile(F, kRevTile);
+  const int nt = scan_tiles(F, tile);
+  const int unroll = rev_merge_unroll(F);
+  const int share = unroll * kThreads;
+  const int n_shares = rev_shares(F, share);
+  subjects_tile_kernel<<<nt, kThreads, 0, st>>>(depth, live, (const int2*)spans, ik, K, F,
+                                                tile, sc.offs, sc.tile_sums, cause, B);
+  subjects_scan_kernel<<<nt, kThreads, 0, st>>>(q, F, tile, sc.tile_sums, nt, share, n_shares,
+                                                sc.offs, sc.splits, sc.total, cause);
+  auto merge = unroll == 1 ? subjects_merge_kernel<1> : subjects_merge_kernel<2>;
+  merge<<<n_shares, kThreads, 0, st>>>(
+      sc.offs, sc.splits, sc.total, F, K, q, obj, depth, live, (const int2*)spans, ik, ir, ir2,
+      (const int4*)fe_pack, n_edges, wildcard_rel, c_q, c_obj, c_rel, c_depth, c_valid, c_emit,
+      c_value);
   return (int)cudaGetLastError();
 }
 

@@ -83,6 +83,7 @@ __device__ __forceinline__ void probe_edge_table(
 // (obj, rel) match in a packed [cap, 4] pair table (lanes obj, rel, v0,
 // v1): the largest v0 and v1 of a matching slot (kEmpty when none), one
 // 16-byte slot per lane per round. Every lane gets the group's result.
+// C1's probe; K2 shares probes among equal keys (check_kernels.cu).
 __device__ __forceinline__ void probe_pair_table(
     const int4* __restrict__ pack, uint32_t nb, int spb, int pb, int o, int r,
     int lane, unsigned gmask, int& v0, int& v1) {

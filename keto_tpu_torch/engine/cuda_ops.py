@@ -66,8 +66,9 @@ MAX_DYNAMIC_SMEM = 232448 - 1024
 # (csrc/scan.cuh kMaxTiles): the size of their tile-sum scratch
 SCAN_MAX_TILES = 1024
 # P1-P3 index in 32 bits: N * W, E * W and the level plane's D * 32 W must
-# stay below this. The wrappers refuse a call that reaches it, and the wave
-# plan (closure_power.power_closure_device) a wave that would.
+# stay below this, as must K2's F * S. The wrappers refuse a call that
+# reaches it, and the wave plan (closure_power.power_closure_device) a
+# wave that would.
 INDEX_LIMIT = 2**31
 
 _lib = None
@@ -149,9 +150,9 @@ _SIGNATURES = {
     "keto_pool_compact": [_VP] * 9 + [_I] * 3 + [_VP] * 3,
     "keto_list_emit_scratch": [_I, _I],
     "keto_list_emit": [_VP] * 3 + [_I] * 3 + [_VP] * 7,
-    "keto_reverse_gather_scratch": [_I],
+    "keto_gather_scratch": [_I],
     "keto_reverse_gather": [_VP] * 9 + [_I] + [_VP] + [_I] + [_VP] + [_I] * 5 + [_VP] * 8,
-    "keto_subjects_gather": [_VP] * 8 + [_I] + [_VP] + [_I] * 4 + [_VP] * 14,
+    "keto_subjects_gather": [_VP] * 8 + [_I] + [_VP] + [_I] * 4 + [_VP] * 10,
     "keto_list_pool_compact": [_VP] * 4 + [_I] * 3 + [_VP] * 3,
     "keto_closure_probe": [_VP, _LL, _I, _VP, _LL, _I, _I, _I, _VP, _LL, _I, _I, _VP, _I, _VP,
                            _VP],
@@ -184,7 +185,7 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             for name in ("keto_expand_emit_scratch", "keto_list_emit_scratch",
-                         "keto_reverse_gather_scratch", "keto_power_step_scratch"):
+                         "keto_gather_scratch", "keto_power_step_scratch"):
                 getattr(lib, name).restype = ctypes.c_longlong
             lib.keto_error_string.argtypes = [ctypes.c_int]
             lib.keto_error_string.restype = ctypes.c_char_p
@@ -291,13 +292,18 @@ def edge_probe(dh_pack, dd_pack, obj, rel, q, qsub, depth, live, *,
 
 
 def pair_probe(pack, obj, rels, *, probes: int, spb: int, n_vals: int) -> torch.Tensor:
-    """K2: [F, S, n_vals] value lanes of the (obj, rel) probe."""
+    """K2: [F, S, n_vals] value lanes of the (obj, rel) probe, for every
+    (task, slot); equal keys of a warp share one probe."""
     name = "pair_probe"
     _require_pack(name, pack, 4, spb)
     _require(name, torch.int32, obj, rels)
     if n_vals not in (1, 2):
         raise ValueError(f"{name}: n_vals must be 1 or 2")
+    if spb & (spb - 1):
+        raise ValueError(f"{name}: slots per bucket must be a power of two, got {spb}")
     F, S = rels.shape
+    if F * S >= INDEX_LIMIT:
+        raise ValueError(f"{name}: F * S must stay below 2^31, got {F * S}")
     out = torch.empty(F, S, n_vals, dtype=torch.int32, device=obj.device)
     lib = library()
     rc = lib.keto_pair_probe(
@@ -458,17 +464,6 @@ def list_emit(q, emit, value, res, res_count, needs_host, *, result_cap: int):
     return landed.reshape(())
 
 
-def _slot_scratch(F: int, S: int, dev):
-    """L3's scan scratch: counts and offsets [F * S], block sums and
-    offsets, the total."""
-    nblk = -(-F // 256)
-    return (torch.empty(F * S, dtype=torch.int32, device=dev),
-            torch.empty(F * S, dtype=torch.int32, device=dev),
-            torch.empty(nblk, dtype=torch.int32, device=dev),
-            torch.empty(nblk, dtype=torch.int32, device=dev),
-            torch.empty(1, dtype=torch.int32, device=dev))
-
-
 def _aligned(name: str, t: torch.Tensor, width: int) -> None:
     if t.dim() != 2 or t.shape[1] % width or t.data_ptr() % (4 * width):
         raise ValueError(f"{name}: a table of {width}-int rows must be aligned to them")
@@ -493,7 +488,7 @@ def reverse_gather(q, obj, rel, depth, live, ns_t, rstart, rlen, rinstr_pack, rv
     RK = rinstr_pack.shape[1] // 4
     dev = q.device
     lib = library()
-    scratch = torch.empty(lib.keto_reverse_gather_scratch(F), dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.keto_gather_scratch(F), dtype=torch.int32, device=dev)
     cause = torch.empty(n_queries, dtype=torch.int32, device=dev)
     cols = [torch.empty(F, dtype=torch.int32, device=dev) for _ in range(4)]
     valid = torch.empty(F, dtype=torch.bool, device=dev)
@@ -523,17 +518,16 @@ def subjects_gather(q, obj, depth, live, spans, ik, ir, ir2, fe_pack, *, wildcar
         raise ValueError(f"{name}: spans must be 8-byte aligned")
     _aligned(name, fe_pack, 4)
     dev = q.device
-    scratch = _slot_scratch(F, K + 1, dev)
+    lib = library()
+    scratch = torch.empty(lib.keto_gather_scratch(F), dtype=torch.int32, device=dev)
     cause = torch.empty(n_queries, dtype=torch.int32, device=dev)
     cols = [torch.empty(F, dtype=torch.int32, device=dev) for _ in range(4)]
     valid, emit = (torch.empty(F, dtype=torch.bool, device=dev) for _ in range(2))
     value = torch.empty(F, dtype=torch.int32, device=dev)
-    lib = library()
     rc = lib.keto_subjects_gather(
         _p(q), _p(obj), _p(depth), _p(live), _p(spans), _p(ik), _p(ir), _p(ir2), K,
-        _p(fe_pack), fe_pack.shape[0], F, n_queries, wildcard_rel,
-        *(_p(t) for t in scratch), _p(cause), *(_p(c) for c in cols), _p(valid), _p(emit),
-        _p(value), _stream(),
+        _p(fe_pack), fe_pack.shape[0], F, n_queries, wildcard_rel, _p(scratch), _p(cause),
+        *(_p(c) for c in cols), _p(valid), _p(emit), _p(value), _stream(),
     )
     _check(lib, rc, name)
     return cols[0], cols[0], cols[1], cols[2], cols[3], valid, emit, value, cause

@@ -9,8 +9,12 @@ back zero after every call), and whole device-powered builds against the
 CPU's; L1's and X1's keyed rank on queries in runs, at random and all on
 one query, past one block's frontier and shared memory; L2's merge path
 from one task to 2^20 (empty tasks and slots, no candidate at all, one
-task past the frontier, no reverse edges, POISON) and K1's staged loads
-at 1 to 64 probes under both layouts, with the overlay on and off; the
+task past the frontier, no reverse edges, POISON), L3's the same way
+(no fe_pack edges, COMPUTED and TTU lanes, depths 0 and 1), K1's staged
+loads at 1 to 64 probes under both layouts, with the overlay on and off,
+and K2's shared probes at 1 to 64 probes, one or two value lanes, one or
+three slots, on frontiers of one key, all distinct keys, a zero-filled
+tail and keys scattered across warps, up to 2^20 tasks; the
 microbenchmark primitives M1-M10 (keto_tpu_torch/tools) on the TPU tools'
 draws and on edge sizes. Tolerance: exact equality (every
 output is an integer, and M8's float32 add is one rounding either way).
@@ -1534,6 +1538,175 @@ def test_reverse_gather_and_edge_probe_launches_on_card(cuda):
         ("edge_probe_staged_kernel",): lambda: cuda_ops.edge_probe(
             *k1, dh_probes=snap.dh_probes, spb=tsnap.slots_per_bucket(5, "bucketized"),
             has_delta=True),
+    }
+    for kernels, call in calls.items():
+        events = profiled(call)
+        keys = [e.key for e in events]
+        assert len(keys) == len(kernels), keys
+        assert all(any(k in key for key in keys) for k in kernels), keys
+        assert all(0 < e.count <= 20 for e in events), keys
+
+
+# L3 is L2's tile pass, scan pass and merge-path gather over the full-edge
+# spans and the instruction lanes (csrc/list_kernels.cu); K2 shares one
+# probe among the equal (obj, rel) keys of a warp (csrc/check_kernels.cu).
+# The draws hold the cases the designs must get right against the plain
+# versions.
+
+L3_CASES = ("mixed", "total_zero", "one_big", "no_edges")
+
+
+def l3_inputs(cuda, F, B, case, seed=0):
+    """Drawn L3 inputs: dead tasks and a run of them (zero-count tasks),
+    depths -1 to 3 (0 and 1 among them), spans with negative starts and
+    rows of 0-3 edges (zero-count slots), lanes COMPUTED, TTU and none,
+    fe_pack edges of both subject kinds with the wildcard relation among
+    their relations. "total_zero": no task live, so no candidate at all;
+    "one_big": one task whose own row alone holds 2F + 3 edges; "no_edges":
+    an empty fe_pack."""
+    rng = np.random.default_rng(seed + F + B)
+    K, wildcard, n_rel = 2, 5, 7
+    n_edges = 0 if case == "no_edges" else 300
+    q = rng.integers(0, B, F)
+    obj = rng.integers(0, 40, F)
+    depth, live = rng.integers(-1, 4, F), rng.random(F) < 0.7
+    live[F // 3: F // 3 + F // 5] = False
+    start = rng.integers(-1, max(n_edges, 1), (F, K + 1))
+    end = np.where(start < 0, rng.integers(-2, 3, (F, K + 1)),
+                   start + rng.integers(0, 4, (F, K + 1)))
+    ik = rng.choice([0, tsnap.INSTR_COMPUTED, tsnap.INSTR_TTU], (F, K))
+    if case == "one_big":
+        i = F // 2
+        live[i], depth[i], start[i, 0], end[i, 0] = True, 2, 0, 2 * F + 3
+    if case == "total_zero":
+        live[:] = False
+    fe = np.stack([rng.integers(0, 2, n_edges), rng.integers(0, 50, n_edges),
+                   rng.integers(0, n_rel, n_edges), np.zeros(n_edges, np.int64)], -1)
+
+    def t(a, dtype=torch.int32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(cuda)
+
+    args = (t(q), t(obj), t(depth), t(live, torch.bool), t(np.stack([start, end], -1)), t(ik),
+            t(rng.integers(0, n_rel, (F, K))), t(rng.integers(0, n_rel, (F, K))),
+            t(fe.reshape(n_edges, 4)))
+    return args, dict(wildcard_rel=wildcard, n_queries=B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", L3_CASES)
+@pytest.mark.parametrize("B", [1, 256])
+@pytest.mark.parametrize("F", [1, 255, 257, 16_384, 1 << 20])
+def test_subjects_gather_merge_path_on_card(cuda, F, B, case):
+    args, kw = l3_inputs(cuda, F, B, case)
+    *cols, emit, value, cause = cuda_ops.subjects_gather(*args, **kw)
+    ch, want_emit, want_value, want_cause = trk.subjects_gather_plain(*args, **kw)
+    for a, b in zip((*cols, emit, value, cause), (ch.q, ch.ctx, ch.obj, ch.rel, ch.depth,
+                                                  ch.valid, want_emit, want_value, want_cause)):
+        assert torch.equal(a, b)
+    if case == "total_zero":
+        assert not bool(ch.valid.any() | want_emit.any()) and int(want_cause.max()) == 0
+    if case == "one_big":
+        assert int(want_cause.max()) == 2
+    if case == "mixed" and F >= 16_384:
+        assert bool(ch.valid.any()) and bool(want_emit.any())
+
+
+K2_FRONTIERS = ("equal", "distinct", "zero_tail", "scattered")
+
+
+def k2_inputs(cuda, F, S, kind, spb, probes, seed=0):
+    """A [cap, 4] pair table and an [F] x [F, S] frontier of one of four
+    kinds: every key equal; every (task, slot) key distinct; a live head of
+    keys drawn from 64 and the zero-filled tail K4 leaves; eight keys
+    scattered over the whole frontier, so equal keys meet within a warp and
+    across warps. A third of the frontier's distinct keys are planted in
+    the first row of their probe sequence, and a fifth of those again in
+    another slot of their first two rows with other values (a key two slots
+    match takes each lane's max). The rest of the table is random: every
+    probed slot is read and compared, hit or not."""
+    rng = np.random.default_rng(seed + F + S + probes)
+    if kind == "equal":
+        obj, rels = np.full(F, 7), np.full((F, S), 3)
+    elif kind == "distinct":
+        obj = rng.permutation(1 << 20)[:F]
+        rels = np.broadcast_to(np.arange(1, S + 1), (F, S))
+    else:
+        pool = np.stack([rng.integers(1, 1 << 20, 64), rng.integers(0, 6, 64)], -1)
+        pick = pool[rng.integers(0, 8 if kind == "scattered" else 64, (F, S))]
+        obj, rels = pick[:, 0, 0], pick[..., 1]
+        if kind == "zero_tail":
+            obj[F // 3:], rels[F // 3:] = 0, 0
+    cap = 8192
+    pack = np.stack([rng.integers(1, 1 << 20, cap), rng.integers(0, 6, cap),
+                     rng.integers(0, 1 << 24, cap), rng.integers(0, 1 << 24, cap)], -1)
+    keys = np.unique(np.stack([np.broadcast_to(obj[:, None], rels.shape).ravel(),
+                               rels.ravel()], -1), axis=0)
+    planted = keys[rng.random(len(keys)) < 1 / 3]
+    h1 = tk.hash_combine(torch.from_numpy(planted[:, 0]), torch.from_numpy(planted[:, 1]))
+    h2 = tk.mix32(h1 ^ 0x9E3779B9) | 1
+    nb = cap // spb
+    again = rng.random(len(planted)) < 0.2
+    for row, sel in ((0, np.ones(len(planted), bool)), (1 if spb == 1 else 0, again)):
+        b = ((h1 + row * h2).numpy() & (nb - 1))[sel]
+        slot = b * spb + rng.integers(0, spb, len(b))
+        pack[slot, :2] = planted[sel]
+        pack[slot, 2:] = rng.integers(0, 1 << 24, (len(b), 2))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(torch.int32).to(cuda)
+
+    return t(pack), t(obj), t(rels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [1000, 10_000, 40_000])
+@pytest.mark.parametrize("kind", K2_FRONTIERS)
+@pytest.mark.parametrize("probes", [1, 12, 16, 17, 64])
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("n_vals", [1, 2])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_pair_probe_shared_keys_on_card(cuda, layout, n_vals, S, probes, kind, F):
+    """K2 against its plain version, every slot of every task, dead and
+    equal keys included, on frontiers that are no multiple of a block or
+    a warp: 1,000 tasks (two items a warp, pair_probe_two_kernel), 10,000
+    (4 or 8 a warp) and 40,000 (16 or 32 a warp)."""
+    spb = tsnap.slots_per_bucket(2, layout)
+    pack, obj, rels = k2_inputs(cuda, F, S, kind, spb, probes)
+    kw = dict(probes=probes, spb=spb, n_vals=n_vals)
+    got = cuda_ops.pair_probe(pack, obj, rels, **kw)
+    want = tk.pair_probe_plain(pack, obj, rels, **kw)
+    assert torch.equal(got, want)
+    if kind != "equal":
+        assert bool((want >= 0).any()) and bool((want < 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["zero_tail", "distinct"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_pair_probe_frontier_2_20_on_card(cuda, layout, kind):
+    """K2 at ListObjects' frontier of 2^20 tasks, one slot, both lanes."""
+    spb = tsnap.slots_per_bucket(2, layout)
+    pack, obj, rels = k2_inputs(cuda, 1 << 20, 1, kind, spb, 16)
+    kw = dict(probes=16, spb=spb, n_vals=2)
+    assert torch.equal(cuda_ops.pair_probe(pack, obj, rels, **kw),
+                       tk.pair_probe_plain(pack, obj, rels, **kw))
+
+
+@pytest.mark.cuda
+def test_subjects_gather_and_pair_probe_launches_on_card(cuda):
+    """A call of L3 launches its three kernels and no memset, and a call of
+    K2 its one kernel: the profiler sees those names and nothing else over
+    20 calls."""
+    args, kw = l3_inputs(cuda, 1 << 16, 256, "mixed")
+    pack, obj, rels = k2_inputs(cuda, 8192, 3, "zero_tail", 16, 16)
+    small = k2_inputs(cuda, 1000, 1, "zero_tail", 16, 16)
+    calls = {
+        ("subjects_tile_kernel", "subjects_scan_kernel", "subjects_merge_kernel"):
+            lambda: cuda_ops.subjects_gather(*args, **kw),
+        ("pair_probe_shared_kernel",): lambda: cuda_ops.pair_probe(pack, obj, rels, probes=16,
+                                                                   spb=16, n_vals=2),
+        ("pair_probe_two_kernel",): lambda: cuda_ops.pair_probe(*small, probes=16, spb=16,
+                                                                n_vals=2),
     }
     for kernels, call in calls.items():
         events = profiled(call)

@@ -418,6 +418,38 @@ def test_pair_probe_plain_matches_multi_pair_key_probe(layout, n_vals):
     assert (want >= 0).any()
 
 
+@pytest.mark.parametrize("n_vals", [1, 2])
+def test_pair_probe_plain_matches_on_zero_tail_with_duplicate_keys(layout, n_vals):
+    """A frontier as K4 leaves it: a live head whose (obj, rel) keys repeat
+    (tasks of many queries on a dozen stored rows, slots without an
+    instruction probing (obj, 0)) and a zero-filled tail that probes
+    (0, 0) at every slot."""
+    rng = np.random.default_rng(9)
+    jsn, _ = build_both("random_monotone", layout)
+    packed = jax_packed(jsn)
+    F, S, n_live = 256, 3, 90
+    pick = rng.choice(np.flatnonzero(jsn.rh_row != -1), size=12)
+    src = pick[rng.integers(0, len(pick), n_live)]
+    obj = np.zeros(F, np.int32)
+    rels = np.zeros((F, S), np.int32)
+    obj[:n_live] = jsn.rh_obj[src]
+    rels[:n_live, 0] = jsn.rh_rel[src]
+    lanes = jsn.rh_rel[pick[rng.integers(0, len(pick), (n_live, S - 1))]]
+    rels[:n_live, 1:] = np.where(rng.random((n_live, S - 1)) < 0.5, 0, lanes)
+    want = jk._multi_pair_key_probe(
+        {k: _jnp(v) for k, v in packed.items()}, "rh", _jnp(obj), _jnp(rels),
+        jsn.rh_probes, n_vals=n_vals,
+    )
+    got = tk.pair_probe(
+        torch.from_numpy(packed["rh_pack"].copy()), torch.from_numpy(obj), torch.from_numpy(rels),
+        probes=jsn.rh_probes, spb=tsnap.slots_per_bucket(2, layout), n_vals=n_vals,
+    )
+    want = np.asarray(want).reshape(F, S, n_vals)
+    np.testing.assert_array_equal(got.numpy(), want)
+    keys = np.unique(np.stack([np.repeat(obj, S), rels.ravel()], -1), axis=0)
+    assert len(keys) < F * S // 8 and (want[:n_live, 0] >= 0).any()
+
+
 def expand_both(jsn, layout, packed, cols, *, B, n_island_cap=0, has_delta=False):
     """The port's expand phase (glue + pair_probe + expand_gather) and the
     JAX expand_phase on the same task columns (q, ctx, obj, rel, depth,

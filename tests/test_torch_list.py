@@ -467,6 +467,24 @@ def test_packed_vector_dirty_tables(leg):
     assert 4 in needs and (needs == 0).sum() > 20  # CAUSE_DIRTY, and not everywhere
 
 
+@pytest.mark.parametrize("leg", ["objects", "subjects"])
+def test_packed_vector_duplicate_keys(layout, leg):
+    """Eight queries, each repeated twelve times in the batch: every step's
+    frontier holds runs of tasks on the same (obj, rel) keys (K4 keeps one
+    task per query), which K2 probes and L3 expands once per task, and a
+    frontier cap far past the walk leaves a zero-filled tail at every
+    step."""
+    namespaces, tuples, queries = all_scenarios()
+    lo = [q for name in SCENARIOS for q in queries[name][0]]
+    ls = [q for name in SCENARIOS for q in queries[name][1]]
+    fx = Fixture(namespaces, tuples, lo[::5][:8] * 12, ls[::5][:8] * 12)
+    got, want = fx.run(leg)
+    np.testing.assert_array_equal(got, want)
+    offs, needs, _pool, stats = _unpack(got)
+    counts = np.diff(offs)[:96].reshape(12, 8)
+    assert (counts == counts[0]).all() and counts[0].sum() > 0 and stats[0] > 2
+
+
 def _list_emit_against_bump_emit(q, emit, value, rc, needs, R) -> int:
     """The plain L1 against keto_tpu's _bump_emit and the result write
     around it, on the same numpy inputs; returns the landed count."""

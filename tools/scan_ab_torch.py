@@ -1,14 +1,17 @@
-"""Time K1 `edge_probe`, K3 `expand_gather`, K4 `dedupe_compact`, F1
-`filter_mark`, P1 `power_step`, P2 `power_account`, P3 `power_poison`, L1
-`list_emit`, L2 `reverse_gather` and X1 `expand_emit` of one or more
-checkouts of keto_tpu_torch on one NVIDIA card, in turns, on the same
-inputs; and the card's dependent round trip (`chase`).
+"""Time K1 `edge_probe`, K2 `pair_probe`, K3 `expand_gather`, K4
+`dedupe_compact`, F1 `filter_mark`, P1 `power_step`, P2 `power_account`,
+P3 `power_poison`, L1 `list_emit`, L2 `reverse_gather`, L3
+`subjects_gather` and X1 `expand_emit` of one or more checkouts of
+keto_tpu_torch on one NVIDIA card, in turns, on the same inputs; and the
+card's dependent round trip (`chase`).
 
     python tools/scan_ab_torch.py --roots _checkout/parent . . _checkout/parent
     python tools/scan_ab_torch.py --cases l1_list_objects x1_expand --roots . _checkout/parent
     python tools/scan_ab_torch.py --cases p1_wave p1_dense p3_wave p3_all --roots . _checkout/parent
     python tools/scan_ab_torch.py --cases l2_list_objects l2_filter k1_check k1_delta \
         k1_compact chase --roots _checkout/parent . . _checkout/parent
+    python tools/scan_ab_torch.py --cases l3_list_subjects k2_check k2_expand \
+        k2_list_objects k2_distinct k2_compact chase --roots _checkout/parent . . _checkout/parent
 
 Each root runs in a process of its own, which imports keto_tpu_torch from
 that root (so its kernels build from the root's csrc/ into the root's
@@ -72,10 +75,20 @@ REPS = 50
 # L2, as the videos-1e6 table is) of one bucket row a probe sequence
 # (bucketized, k1_check), with the overlay (k1_delta), and under the
 # compact layout at 12 probes (two rounds of 16 lanes, k1_compact).
+# L3: (F tasks, B queries, K instruction lanes): ListSubjects' step shape
+# (its frontier of 16,384, 256 queries, the videos namespace's two lanes).
+# K2: (F tasks, S slots a task, probes): Check's step-2 launch (8,192
+# tasks, S = K + 1 = 3, both value lanes, k2_check), every key distinct at
+# that shape (k2_distinct), and under the compact layout at 12 probes
+# (k2_compact); Expand's step launch (4,096 tasks, one slot, one value
+# lane, k2_expand); ListObjects' step launch (the 2^20 frontier cap, one
+# slot of relation 0, both lanes, k2_list_objects); all on a 2^22-slot
+# table (64 MB, past the 50 MB L2) of one bucket row a probe sequence
+# under the bucketized layout.
 # chase: one thread following a random cycle of (lines of 128 B, L2
 # lines, steps a call): a dependent round trip to DRAM and to L2, and an empty
 # kernel on K1's grid at k1_check's shape: K1's latency floor is that
-# launch and three trips.
+# launch and three trips, K2's that launch and two.
 CASES = {
     "k3_check": ("expand_gather", 8192, 8192, 3),
     "k4_check": ("dedupe_compact", 8192, 8192, 4096),
@@ -99,6 +112,12 @@ CASES = {
     "k1_check": ("edge_probe", 8192, 1 << 21, 8),
     "k1_delta": ("edge_probe", 8192, 1 << 21, 8),
     "k1_compact": ("edge_probe", 8192, 1 << 21, 12),
+    "l3_list_subjects": ("subjects_gather", 16384, 256, 2),
+    "k2_check": ("pair_probe", 8192, 3, 16),
+    "k2_distinct": ("pair_probe", 8192, 3, 16),
+    "k2_compact": ("pair_probe", 8192, 3, 12),
+    "k2_expand": ("pair_probe", 4096, 1, 16),
+    "k2_list_objects": ("pair_probe", 1 << 20, 1, 16),
     "chase": ("chase", 1 << 21, 1 << 12, 4096),
 }
 # the arguments each kernel updates in place, and those a timed call
@@ -135,9 +154,13 @@ def inputs(name: str, dev):
     geometric length (mean 4, at most 120) at a random start, over the
     videos namespace's rewrite (COMPUTED into one relation, TTU into
     another), as on ListObjects' step-1 launch on videos-1e6 (101,538 live
-    tasks of 2^20, 402,600 row edges, the longest 120); K1 random keys on a
-    random table (every probed row is read and compared, hit or not), 90%
-    live."""
+    tasks of 2^20, 402,600 row edges, the longest 120); L3 the first 6%
+    of the frontier live (a ListSubjects step's few hundred tasks), grouped
+    by query, at depths 1-5, with spans of 0-3 edges and the videos
+    namespace's lanes (COMPUTED, then TTU) on the tasks of the rewritten
+    relation; K1 random keys on a random table (every probed row is read
+    and compared, hit or not), 90% live; K2 a live head and a zero-filled
+    tail (k2_inputs)."""
     import numpy as np
     import torch
 
@@ -258,6 +281,26 @@ def inputs(name: str, dev):
                 torch.from_numpy(live).to(dev), t(np.zeros(n)), t(rstart), t(rlen), t(rinstr),
                 t(rv), t(np.zeros(n_obj))), dict(wildcard_rel=0, n_config_rels=ncr,
                                                  n_queries=B)
+    if kernel == "pair_probe":
+        return k2_inputs(name, dev)
+    if kernel == "subjects_gather":
+        from keto_tpu_torch.engine.snapshot import INSTR_COMPUTED, INSTR_TTU
+
+        F, B, K, n_edges = n, F, m, 1 << 20
+        live = np.arange(F) < int(0.06 * F)
+        q = np.zeros(F, np.int64)
+        q[live] = np.sort(rng.integers(0, B, int(live.sum())))
+        rel = np.where(live, rng.integers(1, 4, F), 0)
+        lanes = np.where(rel[:, None] == 3, [[INSTR_COMPUTED, INSTR_TTU]], 0)
+        start = np.where(live[:, None], rng.integers(-1, n_edges - 4, (F, K + 1)), -1)
+        spans = np.stack([start, np.where(start < 0, -1, start + rng.integers(0, 4, (F, K + 1)))],
+                         -1)
+        fe = np.stack([rng.integers(0, 2, n_edges), rng.integers(0, 1 << 20, n_edges),
+                       rng.integers(0, 4, n_edges), np.zeros(n_edges, np.int64)], 1)
+        return (t(q), t(np.where(live, rng.integers(0, 1 << 20, F), 0)),
+                t(np.where(live, rng.integers(1, 6, F), 0)), torch.from_numpy(live).to(dev),
+                t(spans), t(lanes), t(np.where(lanes > 0, 2, 0)), t(np.where(lanes > 0, 3, 0)),
+                t(fe)), dict(wildcard_rel=0, n_queries=B)
     if kernel == "edge_probe":
         slots, probes = F, m
         spb = 1 if name == "k1_compact" else 8
@@ -277,6 +320,56 @@ def inputs(name: str, dev):
             t(rng.integers(-1, 6, G)))
     valid = torch.from_numpy(rng.random(G) < 0.8).to(dev)
     return (*cols, valid), dict(F=F, n_queries=B)
+
+
+def k2_inputs(name: str, dev):
+    """K2's drawn (args, kwargs): a table of random entries in which half
+    the live keys are planted in the first row of their probe sequence
+    (hits and misses, every probed row read and compared either way), and
+    a frontier whose live head is followed by the tail K4 leaves, zeros.
+    k2_check and k2_compact: 60% of the tasks live, a task's slots its
+    relation (one of three) and two instruction lanes, zero where the
+    relation has no program (so a task repeats the key (obj, 0)); objects
+    from 2^20, so a warp's keys are nearly all distinct; k2_distinct: every
+    task live and every (task, slot) key distinct; k2_expand: half the
+    tasks live, one slot, one value lane; k2_list_objects: the measured
+    9.7% live (see inputs' L2), one slot of relation 0."""
+    import numpy as np
+    import torch
+
+    from keto_tpu_torch.engine import kernel as tk
+
+    _kernel, F, S, probes = CASES[name]
+    rng = np.random.default_rng(1)
+    spb = 1 if name == "k2_compact" else 16
+    cap = 1 << 22
+    n_live = {"k2_distinct": F, "k2_expand": F // 2,
+              "k2_list_objects": int(0.097 * F)}.get(name, int(0.6 * F))
+    obj = np.zeros(F, np.int64)
+    rels = np.zeros((F, S), np.int64)
+    if name == "k2_distinct":
+        obj[:] = rng.permutation(1 << 20)[:F]
+        rels[:] = np.arange(1, S + 1)
+    else:
+        obj[:n_live] = rng.integers(1, 1 << 20, n_live)
+        if name != "k2_list_objects":
+            rel = rng.integers(1, 4, n_live)
+            rels[:n_live, 0] = rel
+            if S > 1:
+                rels[:n_live, 1:] = np.where(rel[:, None] == 3, [[1, 2]], 0)[:, : S - 1]
+    pack = np.stack([rng.integers(1, 1 << 20, cap), rng.integers(1, 8, cap),
+                     rng.integers(0, 1 << 24, cap), rng.integers(0, 1 << 24, cap)], 1)
+    ko, kr = np.broadcast_to(obj[:, None], rels.shape)[:n_live], rels[:n_live]
+    plant = rng.random(ko.shape) < 0.5
+    h1 = tk.hash_combine(torch.from_numpy(ko[plant]), torch.from_numpy(kr[plant])).numpy()
+    slot = (h1 & (cap // spb - 1)) * spb + rng.integers(0, spb, h1.shape[0])
+    pack[slot, 0], pack[slot, 1] = ko[plant], kr[plant]
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+
+    n_vals = 1 if name == "k2_expand" else 2
+    return (t(pack), t(obj), t(rels)), dict(probes=probes, spb=spb, n_vals=n_vals)
 
 
 def device_ms(fn, reps: int = REPS) -> tuple[float, dict]:
@@ -356,6 +449,12 @@ def worker(root: str, cases: list[str]) -> dict:
             want = (ch.q, ch.ctx, ch.obj, ch.rel, ch.depth, ch.valid, cause)
         elif kernel == "edge_probe":
             got, want = (run(),), (tk.edge_probe_plain(*args, **kw),)
+        elif kernel == "pair_probe":
+            got, want = (run(),), (tk.pair_probe_plain(*args, **kw),)
+        elif kernel == "subjects_gather":
+            got = run()
+            ch, emit, value, cause = trk.subjects_gather_plain(*args, **kw)
+            want = (ch.q, ch.ctx, ch.obj, ch.rel, ch.depth, ch.valid, emit, value, cause)
         elif kernel == "expand_gather":
             got = run()
             ch, over = tk.expand_gather_plain(*args, **kw)
@@ -448,6 +547,7 @@ def chase(cuda_ops) -> dict:
 
     got["chase_launch_ms"], _parts = device_ms(run_empty)
     got["k1_floor_ms"] = got["chase_launch_ms"] + 3 * got["chase_dram_ms"]
+    got["k2_floor_ms"] = got["chase_launch_ms"] + 2 * got["chase_dram_ms"]
     return got
 
 
