@@ -46,16 +46,18 @@ Phases, in order; any failure exits non-zero without the final line:
                of each leg, as phase 3, and K4 on ListObjects' step-1
                launch at G = F = 2^20 (the dedupe_compact row's "large"
                entry), K2 at each of ListObjects' step launches and at
-               ListSubjects' step-2 launch; (8c) ListObjects, bench.py's batch
-               of 256 users' `view` at depth 5 with caps scaled to the
-               data: zero host replays, L1, L2, L4, K2 and K4 launched, 32
-               sampled answers equal to the generator's ownership maps, 4
-               of them held object by object against the host oracle's
-               check; (8d) ListSubjects of 256 random files' `view`, the
-               bench's caps: zero host replays, L1, L3, L4, K2 and K4
-               launched, 64 sampled answers equal to the host oracle's
-               list_subjects; lists/s, p50 batch ms, mean results per query
-               and the launch + readback against host decode split
+               ListSubjects' step-2 launch, and L4 at ListSubjects' launch
+               (the list_pool_compact row's "at" entry); (8c) ListObjects,
+               bench.py's batch of 256 users' `view` at depth 5 with caps
+               scaled to the data: zero host replays, L1, L2, L4, K2 and
+               K4 launched, 32 sampled answers equal to the generator's
+               ownership maps, 4 of them held object by object against the
+               host oracle's check; (8d) ListSubjects of 256 random files'
+               `view`, the bench's caps: zero host replays, L1, L3, L4, K2
+               and K4 launched, 64 sampled answers equal to the host
+               oracle's list_subjects; lists/s, p50 batch ms, mean results
+               per query and the launch + readback against host decode
+               split
   9. closure — (9a) bench.py:1162's deep-1e6 topology (22,857 chains of
                20 parent hops, a tail owner each, 520,003 direct viewer
                grants; max read depth 24) into a second store, and the
@@ -693,7 +695,9 @@ def expand_kernel_cases(rec):
     """(name, kernel fn, plain fn, bytes, operations, compare fn[, kernel
     functions]) of X1 (step 1 of a real expand batch, expand_emit_case)
     and X2 (its one call): X2 reads B counts and flags and the used buffer
-    rows and writes the whole packed vector."""
+    rows and writes the whole packed vector; its operations are a query's
+    clamp, scan and flags and a used row's source index (the EMPTY tail
+    needs none)."""
     from keto_tpu_torch.engine import cuda_ops
     from keto_tpu_torch.engine import expand_kernel as tek
 
@@ -707,9 +711,10 @@ def expand_kernel_cases(rec):
         lambda: cuda_ops.pool_compact(*args2, **kw2),
         lambda: tek.pool_compact_plain(*args2, **kw2),
         B2 * (4 + 2) + 32 + used * 5 * 4 + (3 * B2 + 1 + tek.N_LAUNCH_STATS + 5 * P) * 4,
-        B2 * 6 + P * (2 * max(B2, 2).bit_length() + 15),
+        B2 * 6 + used * 4,
         lambda: max_abs_err(cuda_ops.pool_compact(*args2, **kw2),
                             tek.pool_compact_plain(*args2, **kw2)),
+        ("pool_compact_kernel", "Memset"),
     ))
     return cases
 
@@ -798,20 +803,31 @@ def list_kernel_cases(rec_lo, rec_ls):
         ("subjects_tile_kernel", "subjects_scan_kernel", "subjects_merge_kernel", "Memset"),
     ))
 
-    args4, kw4 = rec_lo.args("list_pool_compact")
-    res_count = args4[1]
-    B4, P = res_count.shape[0], kw4["pool_cap"]
-    used = int(res_count.clamp(0, kw4["result_cap"]).sum().clamp(max=P))
-    cases.append((
-        "list_pool_compact",
-        lambda: cuda_ops.list_pool_compact(*args4, **kw4),
-        lambda: trk.list_pool_compact_plain(*args4, **kw4),
-        B4 * 8 + 32 + used * 4 + (2 * B4 + 1 + 8 + P) * 4,
-        B4 * 6 + P * (2 * max(B4, 2).bit_length() + 10),
-        lambda: max_abs_err(cuda_ops.list_pool_compact(*args4, **kw4),
-                            trk.list_pool_compact_plain(*args4, **kw4)),
-    ))
+    cases.append(list_pool_case(*rec_lo.args("list_pool_compact")))
     return cases
+
+
+def list_pool_case(args, kw):
+    """L4's (name, kernel fn, plain fn, bytes, operations, compare fn,
+    kernel functions) on one list leg's captured call: it reads B counts
+    and causes and the used result rows and writes the whole packed
+    vector; its operations are counted as X2's."""
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine import reverse_kernel as trk
+
+    res_count = args[1]
+    B, P = res_count.shape[0], kw["pool_cap"]
+    used = int(res_count.clamp(0, kw["result_cap"]).sum().clamp(max=P))
+    return (
+        "list_pool_compact",
+        lambda: cuda_ops.list_pool_compact(*args, **kw),
+        lambda: trk.list_pool_compact_plain(*args, **kw),
+        B * 8 + 32 + used * 4 + (2 * B + 1 + 8 + P) * 4,
+        B * 6 + used * 4,
+        lambda: max_abs_err(cuda_ops.list_pool_compact(*args, **kw),
+                            trk.list_pool_compact_plain(*args, **kw)),
+        ("pool_compact_kernel", "Memset"),
+    )
 
 
 # -- phases ------------------------------------------------------------------------
@@ -1226,12 +1242,14 @@ def setup_list(engine):
 
 def run_list_kernels(engine, lo_queries, ls_queries):
     """L1-L4's rows, K4 on ListObjects' step-1 launch (G = F = 2^20) as
-    the dedupe_compact row's "large" entry, and K2 at ListObjects' three
-    step launches and at ListSubjects' step-2 launch."""
+    the dedupe_compact row's "large" entry, K2 at ListObjects' three
+    step launches and at ListSubjects' step-2 launch, and L4 at
+    ListSubjects' launch (its row's "at" entry)."""
     from keto_tpu_torch.engine import cuda_ops
 
     t0 = phase("8b kernels: L1-L4 and K4 at G = 2^20 against their plain versions, "
-               "on real list batches; K2 at every ListObjects step and a ListSubjects step")
+               "on real list batches; K2 at every ListObjects step and a ListSubjects step; "
+               "L4 at ListSubjects' launch")
     with Recorder(cuda_ops, step=1, steps={"list_emit": 2},
                   keep=("pair_probe", "reverse_gather")) as rec_lo:
         engine.list_objects_batch(lo_queries, LIST_DEPTH, **LO_CAPS)
@@ -1260,6 +1278,13 @@ def run_list_kernels(engine, lo_queries, ls_queries):
     large = time_kernel(name, kernel, plain, nbytes, ops,
                         lambda: max_abs_err(kernel(), plain()))
     large["note"] = f"ListObjects' step-1 launch, G = {args4[0].shape[0]}, F = {kw4['F']}"
+    # L4's row is ListObjects' launch; its "at" entry ListSubjects' one
+    args4, kw4 = rec_ls.args("list_pool_compact")
+    l4_ls = time_kernel(*list_pool_case(args4, kw4))
+    l4_ls["note"] = (f"ListSubjects' launch, B = {args4[1].shape[0]}, "
+                     f"R = {kw4['result_cap']}, P = {kw4['pool_cap']}")
+    next(row for row in rows if row["name"] == "list_pool_compact")["at"] = {
+        "list_subjects": {k: l4_ls[k] for k in LARGE_KEYS}}
     log(f"  kernels phase {time.perf_counter() - t0:.1f} s")
     return rows, {k: large[k] for k in LARGE_KEYS}, k2_at
 

@@ -13,15 +13,18 @@
 //                       emission map, the edge-buffer scatter and the
 //                       child candidates.
 // X2 keto_pool_compact  replaces expand_kernel_packed's tail: the pool
-//                       scan, the pool gather and the packed result.
+//                       scan, the pool gather and the packed result, in
+//                       one launch.
 //
 // X1's bump allocation is csrc/keyed_rank.cuh's keyed scan, shared with
-// L1; the block scans come from csrc/scan.cuh.
+// L1; X2 is csrc/pool.cuh's compaction, shared with L4; the block scans
+// come from csrc/scan.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "keyed_rank.cuh"
+#include "pool.cuh"
 #include "scan.cuh"
 
 namespace {
@@ -29,7 +32,6 @@ namespace {
 constexpr int kEmpty = -1;
 constexpr int kDirtyForExpand = 1;
 constexpr int kEmitPerTask = 4;
-constexpr int kScanThreads = 1024;
 constexpr int kThreads = 256;
 
 constexpr int kGatherSample = 1024;  // offsets X1's gather stages a block
@@ -300,72 +302,21 @@ __global__ void expand_emit_gather_kernel(
 // ---------------------------------------------------------------------------
 // X2 pool_compact
 //
-// Bound: bytes: B counts and the used buffer rows read, the whole packed
-// vector written (pool_cap rows of 5 ints, EMPTY past the used ones).
-// Design: pass 1 is one block that scans the clamped counts in
-// thread-contiguous chunks and writes the offsets (clamped to the pool),
-// the root and needs_host flags (with the pool-overflow flag) and the
-// stats; pass 2 gives each pool row a binary search for its query over
-// the unclamped offsets and gathers its five columns.
+// csrc/pool.cuh's compaction with five columns (L4's body); the header
+// holds each query's root flag and its needs_host flag ORed with the
+// pool's overflow, as int32.
 // ---------------------------------------------------------------------------
 
-__global__ void pool_scan_kernel(
-    const int* __restrict__ eb_count, const uint8_t* __restrict__ root,
-    const uint8_t* __restrict__ needs_host, const int* __restrict__ stats, int B, int E,
-    int P, int* __restrict__ offs, int* __restrict__ out) {
-  __shared__ unsigned warp_sums[32];
-  const int t = threadIdx.x;
-  const int chunk = (B + blockDim.x - 1) / blockDim.x;
-  const int lo = min(B, t * chunk);
-  const int hi = min(B, lo + chunk);
-  unsigned s = 0;
-  for (int b = lo; b < hi; ++b) s += (unsigned)min(max(eb_count[b], 0), E);
-  unsigned all;
-  unsigned run = block_exclusive_scan(s, warp_sums, &all);
-  int* out_offs = out;
-  int* out_root = out + B + 1;
-  int* out_needs = out + 2 * B + 1;
-  for (int b = lo; b < hi; ++b) {
-    const int c = min(max(eb_count[b], 0), E);
-    const int end = (int)(run + (unsigned)c);
-    offs[b + 1] = end;
-    out_offs[b + 1] = min(end, P);
-    out_root[b] = root[b];
-    out_needs[b] = needs_host[b] || (end > P && c > 0);
-    run += (unsigned)c;
+struct ExpandPoolFlags {
+  static constexpr int kRows = 2;
+  const uint8_t* root;
+  const uint8_t* needs_host;
+  __device__ int load(int b) const { return __ldg(root + b) | __ldg(needs_host + b) << 1; }
+  __device__ void write(int* flags, int B, int b, int pre, bool over) const {
+    flags[b] = pre & 1;
+    flags[B + b] = (pre >> 1) | over;
   }
-  if (t == 0) {
-    offs[0] = 0;
-    out_offs[0] = 0;
-  }
-  if (t < 8) out[3 * B + 1 + t] = stats[t];
-}
-
-__global__ void pool_gather_kernel(
-    const int* __restrict__ offs, int B, int E, int P, const int* __restrict__ pobj,
-    const int* __restrict__ prel, const int* __restrict__ skind, const int* __restrict__ sa,
-    const int* __restrict__ sb, int* __restrict__ pool) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= P) return;
-  // seg = #{b : offs[b + 1] <= j} (searchsorted side=right over offs[1:])
-  int lo = 0, hi = B;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (offs[mid + 1] <= j) lo = mid + 1; else hi = mid;
-  }
-  const int seg = lo;
-  const int seg_c = min(seg, B - 1);
-  const int within = j - offs[seg_c];
-  const bool valid = j < offs[B] && seg < B;
-  long long src = (long long)seg_c * E + within;
-  src = min(max(src, 0LL), (long long)B * E - 1);
-  int* row = pool + (size_t)j * 5;
-  row[0] = valid ? pobj[src] : kEmpty;
-  row[1] = valid ? prel[src] : kEmpty;
-  row[2] = valid ? skind[src] : kEmpty;
-  row[3] = valid ? sa[src] : kEmpty;
-  row[4] = valid ? sb[src] : kEmpty;
-}
+};
 
 int blocks_for(long long threads, int per_block) {
   return (int)((threads + per_block - 1) / per_block);
@@ -424,8 +375,8 @@ int keto_expand_emit(
   const size_t smem = rank_smem(s, B);
   const int threads = 32 * s.warps;
   if (s.shared) {
-    int rc = rank_allow_smem((const void*)expand_emit_count_kernel<true>, smem);
-    if (rc == 0) rc = rank_allow_smem((const void*)expand_emit_rank_kernel<true>, smem);
+    int rc = allow_smem((const void*)expand_emit_count_kernel<true>, smem);
+    if (rc == 0) rc = allow_smem((const void*)expand_emit_rank_kernel<true>, smem);
     if (rc != 0) return rc;
     expand_emit_count_kernel<true><<<s.blocks, threads, smem, st>>>(
         t_q, t_depth, live, row, dirty, row_ptr, n_rows, F, B, s.rounds, x.table, needs_host,
@@ -455,19 +406,18 @@ int keto_expand_emit(
   return (int)cudaGetLastError();
 }
 
+// The int32 scratch of L4 and X2 for B queries: the tile sums of a batch
+// whose counts one block's shared memory cannot hold, else none.
+long long keto_pool_scratch(int B) { return B > 0 && !pool_scans_in_block(B) ? kMaxTiles : 0; }
+
+// Scratch: keto_pool_scratch(B) ints (none on the engines' batches).
 int keto_pool_compact(
     const int* eb_pobj, const int* eb_prel, const int* eb_skind, const int* eb_sa,
     const int* eb_sb, const int* eb_count, const uint8_t* root, const uint8_t* needs_host,
-    const int* stats, int B, int E, int P, int* offs, int* out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (B <= 0) return (int)cudaErrorInvalidValue;
-  pool_scan_kernel<<<1, kScanThreads, 0, st>>>(eb_count, root, needs_host, stats, B, E, P,
-                                                offs, out);
-  if (P > 0) {
-    pool_gather_kernel<<<blocks_for(P, kThreads), kThreads, 0, st>>>(
-        offs, B, E, P, eb_pobj, eb_prel, eb_skind, eb_sa, eb_sb, out + 3 * B + 1 + 8);
-  }
-  return (int)cudaGetLastError();
+    const int* stats, int B, int E, int P, int* scratch, int* out, void* stream) {
+  return pool_compact(PoolCols<5>{{eb_pobj, eb_prel, eb_skind, eb_sa, eb_sb}}, eb_count,
+                      ExpandPoolFlags{root, needs_host}, stats, B, E, P, scratch, out,
+                      (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -324,12 +324,4 @@ __device__ unsigned rank_scan_key(int* __restrict__ table, int k, int B, int chu
   return group > 1 ? total : run - start;
 }
 
-// Sets a kernel's dynamic shared memory limit where it needs more than
-// the default 48 KB; returns the CUDA error, or 0.
-inline int rank_allow_smem(const void* fn, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-}
-
 }  // namespace

@@ -21,22 +21,23 @@
 //                           scan and merge-path passes).
 // L4 keto_list_pool_compact replaces the packed tail of
 //                           list_objects_kernel_packed and
-//                           list_subjects_kernel_packed.
+//                           list_subjects_kernel_packed (one launch).
 //
 // L1 is csrc/keyed_rank.cuh's keyed scan, shared with X1, and its landed
-// count csrc/reduce.cuh's last-block sum; the block scans of L2-L4, and
-// L2's and L3's tile sums and cause zeroing, come from csrc/scan.cuh.
+// count csrc/reduce.cuh's last-block sum; L4 is csrc/pool.cuh's
+// compaction, shared with X2; the block scans of L2-L4, and L2's and
+// L3's tile sums and cause zeroing, come from csrc/scan.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "keyed_rank.cuh"
+#include "pool.cuh"
 #include "reduce.cuh"
 #include "scan.cuh"
 
 namespace {
 
-constexpr int kEmpty = -1;
 constexpr int kCauseFrontierOverflow = 2;
 constexpr int kCauseIslandHost = 8;
 constexpr int kInstrComputed = 1;
@@ -45,11 +46,6 @@ constexpr int kRinstrComputed = 1;
 constexpr int kRinstrTtu = 2;
 constexpr int kRinstrPoison = 3;
 constexpr int kThreads = 256;
-constexpr int kScanThreads = 1024;
-
-int blocks_for(long long threads, int per_block) {
-  return (int)((threads + per_block - 1) / per_block);
-}
 
 // ---------------------------------------------------------------------------
 // L1 list_emit
@@ -720,60 +716,19 @@ __global__ void __launch_bounds__(kThreads) subjects_merge_kernel(
 // ---------------------------------------------------------------------------
 // L4 list_pool_compact
 //
-// Bound: bytes: B counts and flags and the used result rows read, the
-// whole packed vector written (pool_cap ints, EMPTY past the used ones).
-// Design: X2's, with one column: pass 1 is one block that scans the
-// clamped counts in thread-contiguous chunks and writes the offsets
-// (clamped to the pool), the causes (with the pool overflow by max) and
-// the stats; pass 2 gives each pool entry a binary search for its query
-// over the unclamped offsets and gathers it.
+// csrc/pool.cuh's compaction with one column (X2's body); a query's cause
+// is raised by max to CAUSE_FRONTIER_OVERFLOW where its span crosses the
+// pool's end.
 // ---------------------------------------------------------------------------
 
-__global__ void list_pool_scan_kernel(
-    const int* __restrict__ res_count, const int* __restrict__ needs_host,
-    const int* __restrict__ stats, int B, int R, int P, int* __restrict__ offs,
-    int* __restrict__ out) {
-  __shared__ unsigned warp_sums[32];
-  const int t = threadIdx.x;
-  const int chunk = (B + blockDim.x - 1) / blockDim.x;
-  const int lo = min(B, t * chunk);
-  const int hi = min(B, lo + chunk);
-  unsigned s = 0;
-  for (int b = lo; b < hi; ++b) s += (unsigned)min(max(res_count[b], 0), R);
-  unsigned all;
-  unsigned run = block_exclusive_scan(s, warp_sums, &all);
-  int* out_needs = out + B + 1;
-  for (int b = lo; b < hi; ++b) {
-    const int c = min(max(res_count[b], 0), R);
-    const int end = (int)(run + (unsigned)c);
-    offs[b + 1] = end;
-    out[b + 1] = min(end, P);
-    out_needs[b] = max(needs_host[b], (end > P && c > 0) ? kCauseFrontierOverflow : 0);
-    run += (unsigned)c;
+struct ListPoolFlags {
+  static constexpr int kRows = 1;
+  const int* needs_host;
+  __device__ int load(int b) const { return __ldg(needs_host + b); }
+  __device__ void write(int* flags, int B, int b, int cause, bool over) const {
+    flags[b] = max(cause, over ? kCauseFrontierOverflow : 0);
   }
-  if (t == 0) {
-    offs[0] = 0;
-    out[0] = 0;
-  }
-  if (t < 8) out[2 * B + 1 + t] = stats[t];
-}
-
-__global__ void list_pool_gather_kernel(const int* __restrict__ offs, int B, int R, int P,
-                                        const int* __restrict__ res, int* __restrict__ pool) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= P) return;
-  // seg = #{b : offs[b + 1] <= j} (searchsorted side=right over offs[1:])
-  int lo = 0, hi = B;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (offs[mid + 1] <= j) lo = mid + 1; else hi = mid;
-  }
-  const int seg_c = min(lo, B - 1);
-  const bool valid = j < offs[B] && lo < B;
-  long long src = (long long)seg_c * R + (j - offs[seg_c]);
-  src = min(max(src, 0LL), (long long)B * R - 1);
-  pool[j] = valid ? res[src] : kEmpty;
-}
+};
 
 }  // namespace
 
@@ -796,8 +751,8 @@ int keto_list_emit(const int* q, const uint8_t* emit, const int* value, int N, i
   const size_t smem = rank_smem(s, B);
   const int threads = 32 * s.warps;
   if (s.shared) {
-    int rc = rank_allow_smem((const void*)list_emit_count_kernel<true>, smem);
-    if (rc == 0) rc = rank_allow_smem((const void*)list_emit_rank_kernel<true>, smem);
+    int rc = allow_smem((const void*)list_emit_count_kernel<true>, smem);
+    if (rc == 0) rc = allow_smem((const void*)list_emit_rank_kernel<true>, smem);
     if (rc != 0) return rc;
     list_emit_count_kernel<true><<<s.blocks, threads, smem, st>>>(q, emit, N, B, s.rounds,
                                                                    table);
@@ -881,18 +836,12 @@ int keto_subjects_gather(
   return (int)cudaGetLastError();
 }
 
+// Scratch: keto_pool_scratch(B) ints (none on the engines' batches).
 int keto_list_pool_compact(const int* res, const int* res_count, const int* needs_host,
-                           const int* stats, int B, int R, int P, int* offs, int* out,
+                           const int* stats, int B, int R, int P, int* scratch, int* out,
                            void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (B <= 0) return (int)cudaErrorInvalidValue;
-  list_pool_scan_kernel<<<1, kScanThreads, 0, st>>>(res_count, needs_host, stats, B, R, P,
-                                                     offs, out);
-  if (P > 0) {
-    list_pool_gather_kernel<<<blocks_for(P, kThreads), kThreads, 0, st>>>(
-        offs, B, R, P, res, out + 2 * B + 1 + 8);
-  }
-  return (int)cudaGetLastError();
+  return pool_compact(PoolCols<1>{{res}}, res_count, ListPoolFlags{needs_host}, stats, B, R, P,
+                      scratch, out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -7,9 +7,11 @@
 // lands where a serial scan would put it.
 //
 // The one copy of the block scans and sums: K3 and K4, X1's task-order
-// offsets (its tiles are the keyed rank's blocks), L2-L4, X2 and M5/M6
-// use them; K3, K4 and L2 also the 4-int load, the grid zeroing and the
-// cause raise below.
+// offsets (its tiles are the keyed rank's blocks), L2, L3, L4 and X2
+// (csrc/pool.cuh: every block's count scan, and the tile sums of a batch
+// too wide for shared memory) and M5/M6 use them; K3, K4, L2, L4 and X2
+// also the 4-int load; K3, K4 and L2 the grid zeroing and the cause
+// raise; L1, X1, L4 and X2 the shared memory opt-in below.
 
 #pragma once
 
@@ -131,6 +133,14 @@ __device__ __forceinline__ void zero_grid(int* a, int n) {
 // atomics, not one each.
 __device__ __forceinline__ void raise_cause(int* cause, int qi, int c) {
   if (cause[qi] < c) atomicMax(&cause[qi], c);
+}
+
+// Sets a kernel's dynamic shared memory limit where it needs more than
+// the default 48 KB; returns the CUDA error, or 0.
+inline int allow_smem(const void* fn, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
 }
 
 }  // namespace

@@ -40,7 +40,8 @@ SOURCES = tuple(
 )
 # headers the sources include: part of the library's content hash
 HEADERS = tuple(_PKG / "csrc" / name
-                for name in ("probe.cuh", "scan.cuh", "reduce.cuh", "keyed_rank.cuh"))
+                for name in ("probe.cuh", "scan.cuh", "reduce.cuh", "keyed_rank.cuh",
+                             "pool.cuh"))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -147,6 +148,7 @@ _SIGNATURES = {
     "keto_dedupe_compact": [_VP] * 6 + [_I] * 5 + [_VP] * 11,
     "keto_expand_emit_scratch": [_I, _I],
     "keto_expand_emit": [_VP] * 8 + [_I] + [_VP] * 3 + [_I] * 4 + [_VP] * 15,
+    "keto_pool_scratch": [_I],
     "keto_pool_compact": [_VP] * 9 + [_I] * 3 + [_VP] * 3,
     "keto_list_emit_scratch": [_I, _I],
     "keto_list_emit": [_VP] * 3 + [_I] * 3 + [_VP] * 7,
@@ -185,7 +187,8 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             for name in ("keto_expand_emit_scratch", "keto_list_emit_scratch",
-                         "keto_gather_scratch", "keto_power_step_scratch"):
+                         "keto_gather_scratch", "keto_power_step_scratch",
+                         "keto_pool_scratch"):
                 getattr(lib, name).restype = ctypes.c_longlong
             lib.keto_error_string.argtypes = [ctypes.c_int]
             lib.keto_error_string.restype = ctypes.c_char_p
@@ -409,6 +412,13 @@ def expand_emit(t_q, t_obj, t_rel, t_depth, live, row, dirty, f_row_ptr, f_skind
     return c_q, c_q, c_obj, c_rel, c_depth, c_valid, emitted.reshape(())
 
 
+def _pool_scratch(lib, B: int, dev) -> torch.Tensor | None:
+    """L4's and X2's scratch: tile sums for a batch of more queries than
+    one block's shared memory holds, else none."""
+    n = lib.keto_pool_scratch(B)
+    return torch.empty(n, dtype=torch.int32, device=dev) if n else None
+
+
 def pool_compact(eb, eb_count, root, needs_host, stats, *, edge_cap: int, pool_cap: int):
     """X2: the packed expand result [offsets(B+1) | root(B) | needs_host(B)
     | stats | pool(pool_cap * 5)] from the edge buffers."""
@@ -425,12 +435,11 @@ def pool_compact(eb, eb_count, root, needs_host, stats, *, edge_cap: int, pool_c
     if stats.shape != (N_LAUNCH_STATS,):
         raise ValueError(f"{name}: expects [{N_LAUNCH_STATS}] stats")
     dev = eb_count.device
-    offs = torch.empty(B + 1, dtype=torch.int32, device=dev)
     out = torch.empty(3 * B + 1 + N_LAUNCH_STATS + 5 * pool_cap, dtype=torch.int32, device=dev)
     lib = library()
     rc = lib.keto_pool_compact(
         *(_p(c) for c in eb), _p(eb_count), _p(root), _p(needs_host), _p(stats), B, E,
-        pool_cap, _p(offs), _p(out), _stream(),
+        pool_cap, _p(_pool_scratch(lib, B, dev)), _p(out), _stream(),
     )
     _check(lib, rc, name)
     return out
@@ -546,12 +555,11 @@ def list_pool_compact(res, res_count, needs_host, stats, *, result_cap: int, poo
     if stats.shape != (N_LAUNCH_STATS,):
         raise ValueError(f"{name}: expects [{N_LAUNCH_STATS}] stats")
     dev = res.device
-    offs = torch.empty(B + 1, dtype=torch.int32, device=dev)
     out = torch.empty(2 * B + 1 + N_LAUNCH_STATS + pool_cap, dtype=torch.int32, device=dev)
     lib = library()
     rc = lib.keto_list_pool_compact(
-        _p(res), _p(res_count), _p(needs_host), _p(stats), B, R, pool_cap, _p(offs), _p(out),
-        _stream(),
+        _p(res), _p(res_count), _p(needs_host), _p(stats), B, R, pool_cap,
+        _p(_pool_scratch(lib, B, dev)), _p(out), _stream(),
     )
     _check(lib, rc, name)
     return out

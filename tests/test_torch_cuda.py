@@ -14,7 +14,9 @@ task past the frontier, no reverse edges, POISON), L3's the same way
 loads at 1 to 64 probes under both layouts, with the overlay on and off,
 and K2's shared probes at 1 to 64 probes, one or two value lanes, one or
 three slots, on frontiers of one key, all distinct keys, a zero-filled
-tail and keys scattered across warps, up to 2^20 tasks; the
+tail and keys scattered across warps, up to 2^20 tasks; L4's and X2's
+one pool body at every alignment of the pool's start, pool caps from 0
+past the used rows and batches past one block's shared memory; the
 microbenchmark primitives M1-M10 (keto_tpu_torch/tools) on the TPU tools'
 draws and on edge sizes. Tolerance: exact equality (every
 output is an integer, and M8's float32 add is one rounding either way).
@@ -481,7 +483,7 @@ def test_expand_kernels_match_plain_on_card(cuda, layout):
             assert torch.equal(a, b)
         root = ri(0, 2, B) > 0
         stats = ri(0, 100, tek.N_LAUNCH_STATS)
-        for pool_cap in (16, 4 * B):
+        for pool_cap in (0, 7, 16, 4 * B):
             args = (eb, eb_count, root, needs_host, stats)
             kw = dict(edge_cap=E, pool_cap=pool_cap)
             assert torch.equal(cuda_ops.pool_compact(*args, **kw),
@@ -839,7 +841,7 @@ def test_list_gathers_match_plain_on_card(cuda, layout):
         res_count = ri(0, R + 1, B)
         needs = ri(0, 9, B)
         stats = ri(0, 100, tk.N_LAUNCH_STATS)
-        for pool_cap in (7, B * R // 2, 2 * B * R):
+        for pool_cap in (0, 7, B * R // 2, B * R // 2 + 3, 2 * B * R):
             args4 = (res, res_count, needs, stats)
             kw4 = dict(result_cap=R, pool_cap=pool_cap)
             assert torch.equal(cuda_ops.list_pool_compact(*args4, **kw4),
@@ -1714,3 +1716,81 @@ def test_subjects_gather_and_pair_probe_launches_on_card(cuda):
         assert len(keys) == len(kernels), keys
         assert all(any(k in key for key in keys) for k in kernels), keys
         assert all(0 < e.count <= 20 for e in events), keys
+
+
+# L4 and X2 are one body, csrc/pool.cuh: one launch in which every block
+# scans the counts into shared memory, writes its slice of the header and
+# its run of the pool's 16-byte words (cut on absolute addresses, so the
+# pool's start, 2B + 9 or 3B + 9 ints into the vector, sets the scalar
+# head and tail); past 57,856 queries the counts no longer fit and two
+# tile-sum launches come first. The whole packed vector must equal the
+# plain version's.
+
+POOL_BATCHES = (1, 3, 256, 257, 258, 259, 16_384, 57_857)
+
+
+def pool_inputs(cuda, kernel, B, counts, seed=0):
+    """A list or expand pool's inputs at B queries, buffer cap `cap`, and
+    the pool caps each is compacted into: 0, 7, one below the first
+    query's count, an odd cut through the used rows, and past them. Counts
+    "mixed": the first four at, past, below and to the cap, the rest
+    drawn from -3 to cap + 3 (negative, zero, at and past the cap);
+    "zero": every query empty; "sparse": nine queries in ten empty, so
+    runs of empty queries lie between used rows; "long": the same as
+    "mixed" at a cap of 4,096, so a warp's 128 pool ints are most often
+    one query's rows (as on ListObjects' launch)."""
+    rng = np.random.default_rng(seed + B)
+    cap = 4096 if counts == "long" else 8 if B > 1000 else 16
+    if counts == "zero":
+        c = np.zeros(B, np.int64)
+    elif counts == "sparse":
+        c = np.where(rng.random(B) < 0.9, 0, rng.integers(1, cap + 1, B))
+    else:
+        c = rng.integers(-3, cap + 4, B)
+        c[:4] = np.array([cap, cap + 2, -1, 5])[: min(B, 4)]
+    total = int(np.clip(c, 0, cap).sum())
+    caps = sorted({0, 7, max(int(np.clip(c[0], 0, cap)) - 1, 0), total // 2 | 1, total + 5})
+    stats = on_card(cuda, rng.integers(0, 100, tk.N_LAUNCH_STATS))
+    if kernel == "list_pool_compact":
+        args = (on_card(cuda, rng.integers(-1, 1000, B * cap)), on_card(cuda, c),
+                on_card(cuda, np.where(rng.random(B) < 0.3, rng.integers(0, 9, B), 0)), stats)
+        return args, [dict(result_cap=cap, pool_cap=p) for p in caps]
+    eb = tuple(on_card(cuda, rng.integers(-1, 1000, B * cap)) for _ in range(5))
+    flags = [on_card(cuda, rng.random(B) < 0.3, torch.bool) for _ in range(2)]
+    return (eb, on_card(cuda, c), *flags, stats), [dict(edge_cap=cap, pool_cap=p) for p in caps]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts,B", [(c, B) for c in ("mixed", "zero", "sparse")
+                                      for B in POOL_BATCHES]
+                         + [("long", B) for B in POOL_BATCHES[:6]])
+@pytest.mark.parametrize("kernel", ["list_pool_compact", "pool_compact"])
+def test_pool_compactions_on_card(cuda, kernel, B, counts):
+    """L4 and X2 against their plain versions, the whole packed vector, at
+    one to 57,857 queries (every alignment of the pool's start), pool caps
+    from 0 up past the used rows, queries of up to 16 rows and of
+    thousands."""
+    args, kws = pool_inputs(cuda, kernel, B, counts)
+    x2 = kernel == "pool_compact"
+    plain = tek.pool_compact_plain if x2 else trk.list_pool_compact_plain
+    first = int(args[1][0].clamp(0, kws[0]["edge_cap" if x2 else "result_cap"]))
+    for kw in kws:
+        got = getattr(cuda_ops, kernel)(*args, **kw)
+        want = plain(*args, **kw)
+        assert torch.equal(got, want), kw
+        if kw["pool_cap"] < first:  # the first query's span crosses the pool's end
+            assert int(want[(2 * B if x2 else B) + 1]) >= (1 if x2 else 2)
+
+
+@pytest.mark.cuda
+def test_pool_compactions_launch_one_kernel_on_card(cuda):
+    """A call of L4 or X2 launches the one pool_compact_kernel and no
+    memset: the profiler sees that name and nothing else over 20 calls."""
+    l4, l4_kws = pool_inputs(cuda, "list_pool_compact", 256, "mixed")
+    x2, x2_kws = pool_inputs(cuda, "pool_compact", 1024, "mixed")
+    for call in (lambda: cuda_ops.list_pool_compact(*l4, **l4_kws[-1]),
+                 lambda: cuda_ops.pool_compact(*x2, **x2_kws[-1])):
+        events = profiled(call)
+        keys = [e.key for e in events]
+        assert len(keys) == 1 and "pool_compact_kernel" in keys[0], keys
+        assert 0 < events[0].count <= 20, keys

@@ -226,3 +226,23 @@ def test_no_jax_in_port_sources():
                     mod = s.split()[1]
                     assert not mod.startswith(("jax", "keto_tpu.")), (path, s)
                     assert mod not in ("keto_tpu",), (path, s)
+
+
+CSRC = os.path.join(REPO, "keto_tpu_torch", "csrc")
+CUDA_FILES = sorted(n for n in os.listdir(CSRC) if n.endswith((".cu", ".cuh")))
+
+
+@pytest.mark.parametrize("source", CUDA_FILES)
+def test_kernel_sources_and_includes_are_hashed(source):
+    """Every CUDA source is built and hashed, and every header it includes
+    is in cuda_ops.HEADERS, so an edit to any of them names a new library
+    (cuda_ops.library_path) and rebuilds it."""
+    import re
+
+    from keto_tpu_torch.engine import cuda_ops
+
+    hashed = {p.name for p in cuda_ops.SOURCES + cuda_ops.HEADERS}
+    assert source in hashed
+    with open(os.path.join(CSRC, source), encoding="utf-8") as f:
+        includes = re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read(), re.M)
+    assert set(includes) <= {p.name for p in cuda_ops.HEADERS}, includes

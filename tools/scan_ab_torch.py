@@ -1,7 +1,8 @@
 """Time K1 `edge_probe`, K2 `pair_probe`, K3 `expand_gather`, K4
 `dedupe_compact`, F1 `filter_mark`, P1 `power_step`, P2 `power_account`,
 P3 `power_poison`, L1 `list_emit`, L2 `reverse_gather`, L3
-`subjects_gather` and X1 `expand_emit` of one or more checkouts of
+`subjects_gather`, L4 `list_pool_compact`, X1 `expand_emit` and X2
+`pool_compact` of one or more checkouts of
 keto_tpu_torch on one NVIDIA card, in turns, on the same inputs; and the
 card's dependent round trip (`chase`).
 
@@ -12,6 +13,8 @@ card's dependent round trip (`chase`).
         k1_compact chase --roots _checkout/parent . . _checkout/parent
     python tools/scan_ab_torch.py --cases l3_list_subjects k2_check k2_expand \
         k2_list_objects k2_distinct k2_compact chase --roots _checkout/parent . . _checkout/parent
+    python tools/scan_ab_torch.py --cases l4_list_objects l4_list_subjects l4_overflow \
+        l4_wide x2_expand chase --roots _checkout/parent . . _checkout/parent
 
 Each root runs in a process of its own, which imports keto_tpu_torch from
 that root (so its kernels build from the root's csrc/ into the root's
@@ -85,6 +88,12 @@ REPS = 50
 # slot of relation 0, both lanes, k2_list_objects); all on a 2^22-slot
 # table (64 MB, past the 50 MB L2) of one bucket row a probe sequence
 # under the bucketized layout.
+# L4: (B queries, R result cap, P pool cap): ListObjects' launch (256
+# queries, 4,096 results a query, a pool of 2^20), ListSubjects' (256,
+# 2,048, 16,384), ListObjects' counts into a pool of 2^18, below their
+# total (l4_overflow), and the engine's largest batch, 16,384 queries, at
+# ListSubjects' pool of 64 a query (l4_wide). X2: (B queries, E edge cap,
+# P pool rows): Expand's launch (1,024, 16,384, 32,768).
 # chase: one thread following a random cycle of (lines of 128 B, L2
 # lines, steps a call): a dependent round trip to DRAM and to L2, and an empty
 # kernel on K1's grid at k1_check's shape: K1's latency floor is that
@@ -118,6 +127,11 @@ CASES = {
     "k2_compact": ("pair_probe", 8192, 3, 12),
     "k2_expand": ("pair_probe", 4096, 1, 16),
     "k2_list_objects": ("pair_probe", 1 << 20, 1, 16),
+    "l4_list_objects": ("list_pool_compact", 256, 4096, 1 << 20),
+    "l4_list_subjects": ("list_pool_compact", 256, 2048, 16384),
+    "l4_overflow": ("list_pool_compact", 256, 4096, 1 << 18),
+    "l4_wide": ("list_pool_compact", 16384, 64, 64 * 16384),
+    "x2_expand": ("pool_compact", 1024, 16384, 32768),
     "chase": ("chase", 1 << 21, 1 << 12, 4096),
 }
 # the arguments each kernel updates in place, and those a timed call
@@ -160,7 +174,11 @@ def inputs(name: str, dev):
     namespace's lanes (COMPUTED, then TTU) on the tasks of the rewritten
     relation; K1 random keys on a random table (every probed row is read
     and compared, hit or not), 90% live; K2 a live head and a zero-filled
-    tail (k2_inputs)."""
+    tail (k2_inputs); L4 counts drawn around ListObjects' ~1,950 used
+    results a query (one in 16 at R, one in 32 past it, one in 32
+    negative), 0-3 a query at ListSubjects' shape, 0-40 at l4_wide's,
+    causes mostly 0; X2 counts of 0-30 a query (about half Expand's pool
+    used), one root and one host flag in ten."""
     import numpy as np
     import torch
 
@@ -283,6 +301,26 @@ def inputs(name: str, dev):
                                                  n_queries=B)
     if kernel == "pair_probe":
         return k2_inputs(name, dev)
+    if kernel == "list_pool_compact":
+        B, R, P = n, F, m
+        if name in ("l4_list_objects", "l4_overflow"):
+            counts = rng.normal(1950, 600, B).astype(np.int64)
+            pick = rng.random(B)
+            counts = np.where(pick < 1 / 16, R, counts)
+            counts = np.where((pick >= 1 / 16) & (pick < 3 / 32), R + rng.integers(1, 99, B),
+                              counts)
+            counts = np.where((pick >= 3 / 32) & (pick < 1 / 8), -rng.integers(1, 9, B), counts)
+        else:
+            counts = rng.integers(0, 4 if name == "l4_list_subjects" else 41, B)
+        needs = np.where(rng.random(B) < 0.05, rng.integers(1, 9, B), 0)
+        return (t(rng.integers(-1, 1 << 20, B * R)), t(counts), t(needs),
+                t(rng.integers(0, 1000, 8))), dict(result_cap=R, pool_cap=P)
+    if kernel == "pool_compact":
+        B, E, P = n, F, m
+        eb = tuple(t(rng.integers(-1, 1 << 20, B * E)) for _ in range(5))
+        flags = [torch.from_numpy(rng.random(B) < 0.1).to(dev) for _ in range(2)]
+        return (eb, t(rng.integers(0, 31, B)), *flags, t(rng.integers(0, 1000, 8))), dict(
+            edge_cap=E, pool_cap=P)
     if kernel == "subjects_gather":
         from keto_tpu_torch.engine.snapshot import INSTR_COMPUTED, INSTR_TTU
 
@@ -426,6 +464,7 @@ def worker(root: str, cases: list[str]) -> dict:
 
     from keto_tpu_torch.engine import closure_power as tcp
     from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine import expand_kernel as tek
     from keto_tpu_torch.engine import kernel as tk
     from keto_tpu_torch.engine import reverse_kernel as trk
 
@@ -455,6 +494,10 @@ def worker(root: str, cases: list[str]) -> dict:
             got = run()
             ch, emit, value, cause = trk.subjects_gather_plain(*args, **kw)
             want = (ch.q, ch.ctx, ch.obj, ch.rel, ch.depth, ch.valid, emit, value, cause)
+        elif kernel == "list_pool_compact":
+            got, want = (run(),), (trk.list_pool_compact_plain(*args, **kw),)
+        elif kernel == "pool_compact":
+            got, want = (run(),), (tek.pool_compact_plain(*args, **kw),)
         elif kernel == "expand_gather":
             got = run()
             ch, over = tk.expand_gather_plain(*args, **kw)
