@@ -85,8 +85,12 @@ Phases, in order; any failure exits non-zero without the final line:
                with zero host replays, 200 sampled verdicts equal to the
                oracle and all equal to check_batch over the same pairs,
                objects/s; (10c) C1 and F1 against their plain versions,
-               and torch.searchsorted on F1's inputs as its yardstick; K2
-               at the frontier walk's step-1 launch
+               C1 also at the closure-tier filter's launch (the
+               closure_probe row's "at" entry), each C1 launch with its
+               valid and covered shares and the ch bytes it reads for
+               queries its verdict leaves unresolved; torch.searchsorted
+               on F1's inputs as its yardstick; K2 at the frontier walk's
+               step-1 launch
  11. microbench — the TPU microbenchmarks' primitives (B8, B9): (11a)
                `python -m keto_tpu_torch.tools.microbench` and
                `... .tools.microbench_feasibility` as subprocesses, every
@@ -189,7 +193,7 @@ KERNEL_SOURCES = {
     "power_account": "keto_tpu_torch/csrc/closure_power_kernels.cu",
     "power_poison": "keto_tpu_torch/csrc/closure_power_kernels.cu",
     **{name: "keto_tpu_torch/csrc/microbench_kernels.cu" for name in (
-        "mb_probe", "mb_probe_smem", "mb_scatmax", "mb_scatmax_smem", "mb_pack_block",
+        "mb_probe", "mb_probe_smem", "mb_scatmax", "mb_scatmax_smem", "mb_pack_onepass",
         "mb_pack", "mb_hashprobe", "mb_add", "mb_row_gather", "mb_block_gather")},
 }
 REPLACES = {
@@ -212,7 +216,7 @@ REPLACES = {
     "mb_probe_smem": "tools/microbench_pallas.py:51",
     "mb_scatmax": "tools/microbench_pallas.py:94",
     "mb_scatmax_smem": "tools/microbench_pallas.py:94",
-    "mb_pack_block": "tools/microbench_pallas.py:137",
+    "mb_pack_onepass": "tools/microbench_pallas.py:137",
     "mb_pack": "tools/microbench_pallas.py:137",
     "mb_hashprobe": "tools/microbench_pallas.py:181",
     "mb_add": "tools/microbench_pallas_feasibility.py:41",
@@ -1809,23 +1813,18 @@ def run_closure(engine, manager, config, queries):
     return launches, out
 
 
-def closure_filter_kernel_cases(rec_c, rec_f):
-    """(name, kernel fn, plain fn, bytes, operations, compare fn, kernel
-    functions) of C1 (one closure batch) and F1 (step 1 of the videos
-    filter walk). Bytes count the query pack, the bucket rows the probes
-    this data needs read (cc for valid queries, ch for covered ones) and
-    the output; F1's the task columns, the candidate column once, the hit
-    slots it sets, the status and the count. F1 updates hit and status in
-    place, so every call works on its own clones."""
-    import torch
-
+def closure_case(args, kw, note):
+    """C1's (name, kernel fn, plain fn, bytes, operations, compare fn,
+    kernel functions) on one launch's captured inputs, and the launch's
+    shape. Bytes count the query pack, the bucket rows the verdicts need
+    (cc for valid queries, ch for covered and clean ones) and the output.
+    The kernel also reads the ch rows of valid queries that are not
+    covered and clean, as the JAX body probes every table and masks after:
+    the shape gives their share and bytes, which the bound leaves out."""
     from keto_tpu_torch.engine import closure_kernel as tck
     from keto_tpu_torch.engine import cuda_ops
-    from keto_tpu_torch.engine import filter_kernel as tfk
     from keto_tpu_torch.engine.snapshot import slots_per_bucket
 
-    cases = []
-    args, kw = rec_c.args("closure_probe")
     qpack = args[3]
     B = qpack.shape[1]
     out = tck.closure_probe_plain(*args, **kw)
@@ -1833,7 +1832,11 @@ def closure_filter_kernel_cases(rec_c, rec_f):
     n_cov = int((out[B : 2 * B] == 0).sum())
     s2, s5 = slots_per_bucket(2, kw["layout"]), slots_per_bucket(5, kw["layout"])
     pb2, pb5 = -(-kw["cc_probes"] // s2), -(-kw["ch_probes"] // s5)
-    cases.append((
+    shape = {"note": note, "B": B, "has_dirty": kw["has_dirty"], "cc_probes": kw["cc_probes"],
+             "ch_probes": kw["ch_probes"], "valid_share": n_valid / max(B, 1),
+             "covered_share": n_cov / max(B, 1),
+             "speculative_ch_bytes": (n_valid - n_cov) * pb5 * s5 * 32}
+    case = (
         "closure_probe",
         lambda: cuda_ops.closure_probe(*args, **kw),
         lambda: tck.closure_probe_plain(*args, **kw),
@@ -1841,7 +1844,30 @@ def closure_filter_kernel_cases(rec_c, rec_f):
         n_valid * (3 * HASH_OPS + pb2 * s2 * 4) + n_cov * (6 * HASH_OPS + pb5 * s5 * 6),
         lambda: max_abs_err(cuda_ops.closure_probe(*args, **kw), tck.closure_probe_plain(*args, **kw)),
         None,
-    ))
+    )
+    return case, shape
+
+
+def time_closure_probe(args, kw, note) -> dict:
+    """C1 timed on one launch's captured inputs: a kernel row's keys and
+    the launch's shape (closure_case)."""
+    case, shape = closure_case(args, kw, note)
+    row = time_kernel(*case)
+    log(f"  C1 at {note}: {shape}")
+    return {**{k: row[k] for k in LARGE_KEYS if k != "note"}, **shape}
+
+
+def filter_mark_case(rec_f):
+    """(name, kernel fn, plain fn, bytes, operations, compare fn, kernel
+    functions) of F1 on step 1 of the videos filter walk, and
+    torch.searchsorted on its inputs: bytes count the task columns, the
+    candidate column once, the hit slots it sets, the status and the
+    count. F1 updates hit and status in place, so every call works on its
+    own clones."""
+    import torch
+
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine import filter_kernel as tfk
 
     args2, _kw2 = rec_f.args("filter_mark")
     obj, rel, depth, live, cand, head = args2[:6]
@@ -1857,7 +1883,7 @@ def closure_filter_kernel_cases(rec_c, rec_f):
         return (fn(*a).to(torch.int32), a[6], a[7])
 
     timed = [x.clone() for x in args2]
-    cases.append((
+    case = (
         "filter_mark",
         lambda: cuda_ops.filter_mark(*timed),
         lambda: tfk.filter_mark_plain(*timed),
@@ -1865,8 +1891,8 @@ def closure_filter_kernel_cases(rec_c, rec_f):
         F * 4 + n_match * (3 * (C.bit_length() + 1) + 4),
         lambda: max_abs_err(run(cuda_ops.filter_mark), run(tfk.filter_mark_plain)),
         ("filter_mark_staged_kernel", "Memset"),
-    ))
-    return cases, (lambda: torch.searchsorted(cand, obj))
+    )
+    return case, (lambda: torch.searchsorted(cand, obj))
 
 
 def run_closure_kernels(engine, queries):
@@ -1971,6 +1997,8 @@ def run_filter(v_engine, v_manager, v_config, v_subject, d_engine, d_manager, d_
     chain_rng = random.Random(79)
     heads = [f"c{chain_rng.randrange(DEEP_CHAINS)}f0" for _ in range(FILTER_OBJECTS)]
     d_engine.closure_enabled = True
+    with Recorder(cuda_ops, step=0) as rec_fc:
+        d_engine.filter_batch("deep", "viewer", d_subject, heads, chunk_size=FILTER_CHUNK)
     c_launches, closure = run_filter_leg(
         d_engine, d_manager, d_config, d_subject, heads, "deep", "viewer", "filter_closure",
         ("closure_probe",))
@@ -1982,7 +2010,7 @@ def run_filter(v_engine, v_manager, v_config, v_subject, d_engine, d_manager, d_
         f"{closure['check_batch_us_per_object']:.3f} us/object); candidate encoding "
         f"{closure['encode_ms']:.2f} ms; idle share {closure['profile']['idle_share']}")
     log(f"  filter phase {time.perf_counter() - t0:.1f} s")
-    return f_launches, rec_f, {"frontier": frontier, "closure": closure}
+    return f_launches, rec_f, rec_fc, {"frontier": frontier, "closure": closure}
 
 
 def run_serve():
@@ -2114,8 +2142,9 @@ def run_microbench():
     t0 = phase("11a microbench: both tools as subprocesses")
     repo = os.path.dirname(os.path.abspath(__file__))
     card = torch.cuda.get_device_name(0)
-    ops_names = ["probe", "probe_smem", "scatmax", "scatmax_smem", "pack_block", "pack",
-                 "hashprobe"] + [f"{op}_F{mb.F_LARGE}" for op in ("scatmax", "pack_block", "pack")]
+    ops_names = ["probe", "probe_smem", "scatmax", "scatmax_smem", "pack_onepass", "pack",
+                 "hashprobe"] + [f"{op}_F{mb.F_LARGE}" for op in ("scatmax", "pack_onepass",
+                                                                 "pack")]
     ops_names += ["torch_gather", "torch_scatter_max", "torch_masked_select",
                   f"torch_scatter_max_F{mb.F_LARGE}", f"torch_masked_select_F{mb.F_LARGE}",
                   "device"]
@@ -2274,13 +2303,17 @@ def main() -> int:
     c_launches, closure = run_closure(d_engine, d_manager, d_config, d_queries)
     folders_of = owners[0]
     v_subject = next(u for u, ds in folders_of.items() if "/d0" in ds)
-    f_launches, rec_f, filt = run_filter(engine, manager, config, v_subject, d_engine,
-                                         d_manager, d_config, d_owners[0])
-    cases, searchsorted = closure_filter_kernel_cases(rec_c, rec_f)
-    phase("10c kernels: C1 and F1 against their plain versions; K2 at the filter walk's "
-          "step-1 launch")
-    for case in cases:
-        rows.append(time_kernel(*case))
+    f_launches, rec_f, rec_fc, filt = run_filter(engine, manager, config, v_subject, d_engine,
+                                                 d_manager, d_config, d_owners[0])
+    f1_case, searchsorted = filter_mark_case(rec_f)
+    phase("10c kernels: C1 and F1 against their plain versions; C1 at the closure-tier "
+          "filter's launch, K2 at the filter walk's step-1 launch")
+    case, shape = closure_case(*rec_c.args("closure_probe"), "a closure batch of deep-1e6")
+    rows.append({**time_kernel(*case), **{k: v for k, v in shape.items() if k != "note"}})
+    log(f"  C1 at a closure batch: {shape}")
+    rows[-1]["at"] = {"filter_closure": time_closure_probe(
+        *rec_fc.args("closure_probe"), "the closure-tier filter's launch")}
+    rows.append(time_kernel(*f1_case))
     rows[-1]["library_ms"] = device_ms(searchsorted)
     log(f"  torch.searchsorted on F1's (cand, obj): {rows[-1]['library_ms']:.5f} ms")
     # the walk's pair_probe call 0 is the seed probe, call 1 step 1's rvh

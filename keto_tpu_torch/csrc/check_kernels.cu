@@ -61,8 +61,8 @@ constexpr int kKeepUnroll = 4;
 // fused, so the hit mask is the only output. This replaced a body that
 // read live and depth, then q, qsub, then the rows one round at a time
 // (each round's shuffles before the next round's loads), then the
-// overlay's rows after the main table's. (probe.cuh probe_edge_table, the
-// serial form, stays C1's.)
+// overlay's rows after the main table's. (The chunk and match helpers
+// are probe.cuh's, shared with C1.)
 // ---------------------------------------------------------------------------
 
 // the most rounds of K1's main-table loads in flight together: 8 rounds
@@ -72,32 +72,6 @@ constexpr int kKeepUnroll = 4;
 // shallow table costs no registers, and a task's 16 threads stay few
 // enough for Check's frontier to be resident at once.
 constexpr int kMaxEdgeRounds = 8;
-
-// chunk c (16 bytes) of a task's probe sequence over a packed [cap, 8]
-// edge table: row c / per_row of the double-hash sequence; zero past total
-__device__ __forceinline__ int4 edge_chunk(const int4* __restrict__ pack, uint32_t nb,
-                                           int per_row, int total, int c, uint32_t h1,
-                                           uint32_t h2) {
-  if (c >= total) return make_int4(0, 0, 0, 0);
-  const int r = c / per_row;
-  const uint32_t b = (h1 + (uint32_t)r * h2) & (nb - 1u);
-  return __ldg(pack + (size_t)b * per_row + (c - r * per_row));
-}
-
-// folds chunk c (loaded as x) into the group's (found, max value): even
-// lanes hold lanes 0-3 of a slot, odd lanes lanes 4-7; every lane of the
-// group calls it
-__device__ __forceinline__ void edge_match(int4 x, int c, int total, const int key[5],
-                                           int lane, unsigned gmask, bool& f, int& v) {
-  const bool part = (lane & 1) == 0
-      ? (x.x == key[0] && x.y == key[1] && x.z == key[2] && x.w == key[3])
-      : (x.x == key[4]);
-  const bool other = __shfl_xor_sync(gmask, (int)part, 1) != 0;
-  if ((lane & 1) && c < total && part && other) {
-    f = true;
-    v = max(v, x.y);  // lane 5 of the slot
-  }
-}
 
 template <int kEdgeRounds>
 __global__ void __launch_bounds__(kProbeThreads) edge_probe_staged_kernel(

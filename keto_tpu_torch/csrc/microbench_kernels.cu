@@ -19,8 +19,8 @@
 // M2  keto_mb_probe_smem     the same body with SMEM (:74)
 // M3  keto_mb_scatmax        scatmax_kernel (:94, call :107), VMEM
 // M4  keto_mb_scatmax_smem   scatmax_kernel, SMEM (the same call, :107)
-// M5  keto_mb_pack_block     pack_kernel (:137, call :153), one block
-// M6  keto_mb_pack           pack_kernel, many blocks
+// M5  keto_mb_pack_onepass   pack_kernel (:137, call :153), one pass
+// M6  keto_mb_pack           pack_kernel, a count pass and a scatter pass
 // M7  keto_mb_hashprobe      hashprobe_kernel (:181, call :204)
 // M8  keto_mb_add            tools/microbench_pallas_feasibility.py
 //                            add_kernel (:41, call :47)
@@ -30,12 +30,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
 #include "scan.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBigBlock = 1024;
+// M5: a block compacts one tile of kRounds rounds of 4 inputs a thread,
+// all loaded before any is scanned: 8 rounds (tiles of 8,192) from
+// kOnepassLarge inputs on, so a 2^20 launch is 128 tiles, about one an
+// SM; 4 below it, where more tiles spread a small launch over more blocks
+// (PERF.md §6: 2 rounds lost at both sizes, 8 at F = 16,384)
+constexpr int kOnepassLarge = 1 << 18;
+
+inline int onepass_rounds(int F) { return F >= kOnepassLarge ? 8 : 4; }
 // M6: a block compacts kPackTile inputs, in rounds of 4 per thread
 constexpr int kPackTile = 2048;
 
@@ -125,8 +134,8 @@ __global__ void scatmax_smem_kernel(const int* __restrict__ b, const int* __rest
 }
 
 // ---------------------------------------------------------------------------
-// M5 and M6 compact through csrc/scan.cuh's block scans and sums (all
-// threads of the block must call them)
+// M5 and M6 compact in input order; M6 through csrc/scan.cuh's block
+// scans and sums (all threads of the block must call them)
 // ---------------------------------------------------------------------------
 
 // keep flags and values of the 4 inputs from i0 (16-byte loads when all
@@ -149,8 +158,8 @@ __device__ __forceinline__ void load4(const int* __restrict__ keep, const int* _
 
 // Compacts vals[i] for keep[i] != 0, i in [lo, hi), into out from `base`
 // in input order: rounds of 4 inputs a thread, one block scan a round, a
-// running offset across rounds. Returns base plus the kept count.
-__device__ unsigned tile_compact(const int* __restrict__ keep, const int* __restrict__ vals,
+// running offset across rounds.
+__device__ void tile_compact(const int* __restrict__ keep, const int* __restrict__ vals,
                                  int lo, int hi, unsigned base, int* __restrict__ out,
                                  unsigned* warp_sums) {
   for (int r = lo; r < hi; r += 4 * (int)blockDim.x) {
@@ -164,28 +173,123 @@ __device__ unsigned tile_compact(const int* __restrict__ keep, const int* __rest
     }
     base += round_total;
   }
-  return base;
 }
 
 // ---------------------------------------------------------------------------
-// M5 pack_block: out[:n] = vals[keep != 0] in input order, out[n:] = 0,
-// n_out[0] = n; ONE block
+// M5 pack_onepass: out[:n] = vals[keep != 0] in input order, out[n:] = 0,
+// n_out[0] = n; one launch
 //
 // Bound: bytes: keep and vals read once, the [F] output and the count
-// written once. Design: K4's compaction pass as it stands: one block of
-// 1024 threads walks the input in tiles of 4096 (16-byte loads of keep
-// and vals, 4 inputs a thread), scans the tile's keep counts through
-// shared memory and writes the survivors at a running offset, then
-// zeroes the tail. One SM does all the work, so its own load rate and
-// the three barriers of every tile, not the card's memory, set its time.
+// written once (12 bytes an input). Design: one pass over many blocks,
+// chained by a decoupled look-back (lookback.cuh). A block takes tile t
+// of kRounds x 1,024 inputs by an atomic ticket (blocks start in no
+// order, and the look-back must only wait on tiles already running),
+// reads its keep and vals once with 16-byte loads (kRounds rounds of 4
+// inputs a thread, all issued before any is used), and scans its keep
+// counts in input order: a shuffle scan a warp and round, then one warp
+// scans the kRounds x 8 warp totals. It publishes its aggregate,
+// looks back for its exclusive prefix e, publishes e plus its aggregate
+// (its inclusive prefix i), and writes its survivors from e. The zero
+// tail needs no global count: tile t's inputs [lo, hi) drop hi - lo -
+// (i - e) of them, and it zeroes out[i + F - hi, e + F - lo), that many
+// positions; the ranges of the tiles are disjoint, lie at or past n, and
+// together cover [n, F). The tile holding the last input writes n. The
+// ticket counter and the status words live in a scratch the wrapper
+// zeroes once per (device, stream); the block that takes the last ticket
+// returns the counter to 0, and each call's epoch tells its status words
+// from an earlier call's, so no call needs a memset. The TPU body's
+// one-core loop maps to one block, which one SM's load rate holds to 1%
+// of the bound at F = 2^20: the tiles spread the work over the card.
 // ---------------------------------------------------------------------------
 
-__global__ void pack_block_kernel(const int* __restrict__ keep, const int* __restrict__ vals,
-                                  int F, int* __restrict__ out, int* __restrict__ n_out) {
-  __shared__ unsigned warp_sums[32];
-  const unsigned n = tile_compact(keep, vals, 0, F, 0u, out, warp_sums);
-  for (int c = (int)n + threadIdx.x; c < F; c += blockDim.x) out[c] = 0;
-  if (threadIdx.x == 0) *n_out = (int)n;
+template <int kRounds>
+__global__ void __launch_bounds__(kThreads) pack_onepass_kernel(
+    const int* __restrict__ keep, const int* __restrict__ vals, int F, int n_tiles,
+    int* __restrict__ out, int* __restrict__ n_out, unsigned* __restrict__ ticket,
+    unsigned long long* __restrict__ status, unsigned long long epoch) {
+  constexpr int kTile = kRounds * 4 * kThreads;
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kSums = kRounds * kWarps;  // warp totals, in input order
+  constexpr int kPer = (kSums + 31) / 32;         // of them a lane of the scanning warp
+  __shared__ unsigned s_sums[kSums];
+  __shared__ int s_tile;
+  __shared__ unsigned s_excl, s_agg;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    const int t = (int)atomicAdd(ticket, 1u);
+    if (t == n_tiles - 1) *ticket = 0u;  // every ticket is taken: the next call starts at 0
+    s_tile = t;
+  }
+  __syncthreads();
+  const int t = s_tile;
+  const int lo = t * kTile;
+  const int hi = min(F, lo + kTile);
+  int k[kRounds][4], v[kRounds][4];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    load4(keep, vals, lo + (r * kThreads + threadIdx.x) * 4, hi, k[r], v[r]);
+  }
+  unsigned c[kRounds], x[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    c[r] = (k[r][0] != 0) + (k[r][1] != 0) + (k[r][2] != 0) + (k[r][3] != 0);
+    x[r] = c[r];
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(0xFFFFFFFFu, x[r], o);
+      if (lane >= o) x[r] += y;
+    }
+    if (lane == 31) s_sums[r * kWarps + wid] = x[r];
+  }
+  __syncthreads();
+  if (wid == 0) {
+    unsigned part[kPer], run = 0;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int idx = lane * kPer + j;
+      part[j] = idx < kSums ? s_sums[idx] : 0u;
+      run += part[j];
+    }
+    unsigned incl = run;
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    unsigned before = incl - run;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int idx = lane * kPer + j;
+      if (idx < kSums) s_sums[idx] = before;
+      before += part[j];
+    }
+    const unsigned agg = __shfl_sync(0xFFFFFFFFu, incl, 31);
+    unsigned excl = 0;
+    if (t == 0) {
+      if (lane == 0) publish(status, epoch, kPrefix, agg);
+    } else {
+      if (lane == 0) publish(status + t, epoch, kAggregate, agg);
+      excl = look_back(status, t, epoch);
+      if (lane == 0) publish(status + t, epoch, kPrefix, excl + agg);
+    }
+    if (lane == 0) {
+      s_excl = excl;
+      s_agg = agg;
+    }
+  }
+  __syncthreads();
+  const unsigned e = s_excl, i = s_excl + s_agg;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    unsigned pos = e + s_sums[r * kWarps + wid] + x[r] - c[r];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (k[r][q] != 0) out[pos++] = v[r][q];
+    }
+  }
+  for (long long p = (long long)i + F - hi + threadIdx.x; p < (long long)e + F - lo;
+       p += kThreads) {
+    out[p] = 0;
+  }
+  if (t == n_tiles - 1 && threadIdx.x == 0) *n_out = (int)i;
 }
 
 // ---------------------------------------------------------------------------
@@ -195,9 +299,10 @@ __global__ void pack_block_kernel(const int* __restrict__ keep, const int* __res
 // block of 256 threads a tile of 2048 inputs and writes its keep count;
 // pass 2 has every block sum the counts of the tiles before its own (a
 // few hundred ints from L2, read by the whole block) and the total, then
-// compact its tile from that offset as M5 does, and zero the positions
-// of its tile at or past the total. keep is read twice, so the kernel
-// moves 16 bytes an input against the bound's 12.
+// compact its tile from that offset (tile_compact: a block scan a round),
+// and zero the positions of its tile at or past the total. keep is read
+// twice, so the kernel moves 16 bytes an input against the bound's 12,
+// in two launches against M5's one.
 // ---------------------------------------------------------------------------
 
 __global__ void pack_count_kernel(const int* __restrict__ keep, int F, int* __restrict__ counts) {
@@ -350,9 +455,19 @@ int keto_mb_scatmax_smem(const int* b, const int* p, int F, int* out, int n_out,
   return (int)cudaGetLastError();
 }
 
-int keto_mb_pack_block(const int* keep, const int* vals, int F, int* out, int* n_out,
-                       void* stream) {
-  pack_block_kernel<<<1, kBigBlock, 0, (cudaStream_t)stream>>>(keep, vals, F, out, n_out);
+int keto_mb_pack_onepass_tiles(int F) {
+  return F > 0 ? blocks_for(F, onepass_rounds(F) * 4 * kThreads) : 1;
+}
+
+// scratch: a ticket counter word, then a status word a tile; epoch in
+// [1, 2^30)
+int keto_mb_pack_onepass(const int* keep, const int* vals, int F, int* out, int* n_out,
+                         void* scratch, int epoch, void* stream) {
+  const int tiles = keto_mb_pack_onepass_tiles(F);
+  unsigned long long* s = (unsigned long long*)scratch;
+  auto kernel = onepass_rounds(F) == 8 ? pack_onepass_kernel<8> : pack_onepass_kernel<4>;
+  kernel<<<tiles, kThreads, 0, (cudaStream_t)stream>>>(
+      keep, vals, F, tiles, out, n_out, (unsigned*)s, s + 1, (unsigned long long)epoch);
   return (int)cudaGetLastError();
 }
 

@@ -2,13 +2,14 @@
 // (closure_filter_kernels.cu), P2 power_account
 // (closure_power_kernels.cu) and L1 list_emit's landed count
 // (list_kernels.cu); and, with nothing to sum, the last block of P3
-// power_poison. The scratch is one 64-bit word: the sum in
-// its low 40 bits, the tickets taken in its high 24. Every block adds its
+// power_poison. The scratch's first 64-bit word holds the sum in its low
+// 40 bits and the tickets taken in its high 24. Every block adds its
 // value and one ticket in a single atomic, so the block that takes the
 // last ticket sees every other block's value in what the atomic returns
 // (no fence, no second round trip); it stores the sum and returns the
-// scratch to zero. The scratch is zeroed once, when the wrapper allocates
-// it (engine/cuda_ops.py grid_scratch, one per device and stream):
+// scratch to zero. C1 closure_probe's two counts take two words
+// (grid_counts_last_block). The scratch is zeroed once, when the wrapper
+// allocates it (engine/cuda_ops.py grid_scratch, one per device and stream):
 // launches on one stream run one after the other, so each finds it at
 // zero, and no two launches in flight share it.
 
@@ -41,6 +42,31 @@ __device__ __forceinline__ void grid_sum_last_block(long long v, unsigned long l
                                                     int* out) {
   unsigned long long sum;
   if (last_block(v, scratch, &sum)) *out = (int)(uint32_t)sum;
+}
+
+// Two grid counts in one launch (C1's live count and probe hits), each
+// on a scratch word of its own: the count in the low kCountBits bits (a
+// count below 2^31 queries), the tickets in the high 28 (any grid of
+// fewer than 2^28 blocks). Thread 0 of every block issues both atomics
+// before it reads either; as in last_block, the block that takes a
+// word's last ticket finds that word's count in what its atomic returns,
+// stores it and returns the word to zero, so no fence orders the two.
+constexpr int kCountBits = 36;
+
+__device__ __forceinline__ void grid_counts_last_block(unsigned a, unsigned b,
+                                                       unsigned long long* scratch, int* out_a,
+                                                       int* out_b) {
+  const unsigned long long ta = atomicAdd(scratch, (1ull << kCountBits) | a);
+  const unsigned long long tb = atomicAdd(scratch + 1, (1ull << kCountBits) | b);
+  const unsigned long long last = gridDim.x - 1ull;
+  if ((ta >> kCountBits) == last) {
+    *out_a = (int)(uint32_t)(ta + a);
+    scratch[0] = 0ull;
+  }
+  if ((tb >> kCountBits) == last) {
+    *out_b = (int)(uint32_t)(tb + b);
+    scratch[1] = 0ull;
+  }
 }
 
 }  // namespace

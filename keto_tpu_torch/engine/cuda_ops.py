@@ -41,7 +41,7 @@ SOURCES = tuple(
 # headers the sources include: part of the library's content hash
 HEADERS = tuple(_PKG / "csrc" / name
                 for name in ("probe.cuh", "scan.cuh", "reduce.cuh", "keyed_rank.cuh",
-                             "pool.cuh"))
+                             "pool.cuh", "lookback.cuh"))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -55,7 +55,7 @@ FILTER_KERNELS = ("filter_mark",)
 POWER_KERNELS = ("power_step", "power_account", "power_poison")
 # M1-M10: the primitives of the TPU microbenchmarks (tools/microbench.py)
 MICROBENCH_KERNELS = ("mb_probe", "mb_probe_smem", "mb_scatmax", "mb_scatmax_smem",
-                      "mb_pack_block", "mb_pack", "mb_hashprobe", "mb_add", "mb_row_gather",
+                      "mb_pack_onepass", "mb_pack", "mb_hashprobe", "mb_add", "mb_row_gather",
                       "mb_block_gather")
 KERNELS = (CHECK_KERNELS + EXPAND_KERNELS + LIST_KERNELS + CLOSURE_KERNELS + FILTER_KERNELS
            + POWER_KERNELS + MICROBENCH_KERNELS)
@@ -75,12 +75,18 @@ INDEX_LIMIT = 2**31
 _lib = None
 _lock = threading.Lock()
 build_info: dict = {}
-# the scratch word of csrc/reduce.cuh's last-block sum, one per (device,
-# stream): see grid_scratch
+# the scratch words of csrc/reduce.cuh's last-block sums, one pair per
+# (device, stream): see grid_scratch
 _grid_scratch: dict = {}
 # P1's and P3's accumulator and P1's lists, one pair per (device,
 # stream): see power_scratch
 _power_scratch: dict = {}
+# M5's look-back scratch and the epoch of its last call, one pair per
+# (device, stream): see onepass_scratch
+_onepass_scratch: dict = {}
+# the epochs a look-back status word carries (csrc/lookback.cuh): after
+# the last, the next call zeroes the words and starts again at 1
+ONEPASS_EPOCHS = (1 << 30) - 1
 
 
 def reset_launch_counts() -> None:
@@ -157,7 +163,7 @@ _SIGNATURES = {
     "keto_subjects_gather": [_VP] * 8 + [_I] + [_VP] + [_I] * 4 + [_VP] * 10,
     "keto_list_pool_compact": [_VP] * 4 + [_I] * 3 + [_VP] * 3,
     "keto_closure_probe": [_VP, _LL, _I, _VP, _LL, _I, _I, _I, _VP, _LL, _I, _I, _VP, _I, _VP,
-                           _VP],
+                           _VP, _VP],
     "keto_filter_mark": [_VP] * 4 + [_I, _VP, _I] + [_VP] * 6,
     "keto_power_step_scratch": [_I] * 3,
     "keto_power_step": [_VP] * 4 + [_I] * 3 + [_VP] * 7,
@@ -167,7 +173,8 @@ _SIGNATURES = {
     "keto_mb_probe_smem": [_VP, _I, _VP, _I, _VP, _VP],
     "keto_mb_scatmax": [_VP, _VP, _I, _VP, _I, _VP],
     "keto_mb_scatmax_smem": [_VP, _VP, _I, _VP, _I, _VP],
-    "keto_mb_pack_block": [_VP, _VP, _I, _VP, _VP, _VP],
+    "keto_mb_pack_onepass_tiles": [_I],
+    "keto_mb_pack_onepass": [_VP, _VP, _I, _VP, _VP, _VP, _I, _VP],
     "keto_mb_pack_blocks": [_I],
     "keto_mb_pack": [_VP, _VP, _I, _VP, _VP, _VP, _VP],
     "keto_mb_hashprobe": [_VP, _VP, _I, _VP, _I, _VP, _VP],
@@ -211,19 +218,20 @@ def _stream():
 
 
 def grid_scratch(device: torch.device, stream: int) -> torch.Tensor:
-    """The 64-bit scratch word of F1's, P2's and L1's grid sums and of P3's
-    last-block ticket (csrc/reduce.cuh) on `device` for launches on `stream` (a
-    cuda_stream handle): zeroed once here, and left at zero by every
-    launch that uses it. Launches on one stream run one after the other,
-    so they may share it; another stream gets its own, so no two launches
-    in flight do."""
+    """The two 64-bit scratch words of csrc/reduce.cuh's last-block sums
+    (F1's, P2's and L1's grid sums and P3's ticket in the first, C1's two
+    counts one in each) on `device` for launches on `stream`
+    (a cuda_stream handle): zeroed once here, and left at zero by every
+    launch that uses them. Launches on one stream run one after the
+    other, so they may share them; another stream gets its own, so no two
+    launches in flight do."""
     key = (device.index, stream)
     t = _grid_scratch.get(key)
     if t is None:
         with _lock:
             t = _grid_scratch.get(key)
             if t is None:
-                t = _grid_scratch[key] = torch.zeros(1, dtype=torch.int64, device=device)
+                t = _grid_scratch[key] = torch.zeros(2, dtype=torch.int64, device=device)
     return t
 
 
@@ -568,7 +576,8 @@ def list_pool_compact(res, res_count, needs_host, stats, *, result_cap: int, poo
 def closure_probe(cc_pack, ch_pack, cd_pack, qpack, *, cc_probes: int, ch_probes: int,
                   has_dirty: bool, layout: str) -> torch.Tensor:
     """C1: the closure verdicts of a [7, B] query pack, [member(B) |
-    cause(B) | stats(8)] int32. cd_pack is read only when has_dirty."""
+    cause(B) | stats(8)] int32, in one launch that writes every slot of
+    the result. cd_pack is read only when has_dirty."""
     from .delta import DELTA_PROBES
     from .kernel import N_LAUNCH_STATS
     from .snapshot import slots_per_bucket
@@ -585,10 +594,12 @@ def closure_probe(cc_pack, ch_pack, cd_pack, qpack, *, cc_probes: int, ch_probes
     B = qpack.shape[1]
     out = torch.empty(2 * B + N_LAUNCH_STATS, dtype=torch.int32, device=qpack.device)
     lib = library()
+    stream = _stream()
     rc = lib.keto_closure_probe(
         _p(cc_pack), cc_pack.shape[0], cc_probes, _p(cd_pack) if has_dirty else None,
         cd_pack.shape[0] if has_dirty else 0, DELTA_PROBES, int(has_dirty), spb_pair,
-        _p(ch_pack), ch_pack.shape[0], ch_probes, spb_edge, _p(qpack), B, _p(out), _stream(),
+        _p(ch_pack), ch_pack.shape[0], ch_probes, spb_edge, _p(qpack), B, _p(out),
+        _p(grid_scratch(qpack.device, stream)), stream,
     )
     _check(lib, rc, name)
     return out
@@ -802,19 +813,45 @@ def _pack_args(name: str, keep: torch.Tensor, vals: torch.Tensor):
     return out, n
 
 
-def mb_pack_block(keep: torch.Tensor, vals: torch.Tensor):
+def onepass_scratch(device: torch.device, stream: int, tiles: int) -> tuple[torch.Tensor, int]:
+    """M5's scratch on `device` for launches on `stream`, and the epoch of
+    this call: an int64 ticket counter, then a status word for each of at
+    least `tiles` tiles, zeroed when allocated. Every launch leaves the
+    counter at 0; the status words keep what each call wrote, tagged with
+    its epoch (1 to ONEPASS_EPOCHS, one more each call), so a later call
+    never reads them as its own; when the epoch wraps to 1 the words are
+    zeroed again. It grows to the largest call it has served. As for
+    grid_scratch, launches on one stream may share it and another stream
+    gets its own."""
+    key = (device.index, stream)
+    with _lock:
+        buf, epoch = _onepass_scratch.get(key, (None, 0))
+        if buf is None or buf.numel() < 1 + tiles:
+            buf = torch.zeros(1 + tiles, dtype=torch.int64, device=device)
+        elif epoch == ONEPASS_EPOCHS:
+            buf[1:].zero_()
+        epoch = epoch % ONEPASS_EPOCHS + 1
+        _onepass_scratch[key] = (buf, epoch)
+    return buf, epoch
+
+
+def mb_pack_onepass(keep: torch.Tensor, vals: torch.Tensor):
     """M5: (out, n): vals[keep != 0] in input order, zeros past the count
-    n ([1, 1]); one block."""
-    name = "mb_pack_block"
+    n ([1, 1]); one launch, its tiles chained by a decoupled look-back."""
+    name = "mb_pack_onepass"
     out, n = _pack_args(name, keep, vals)
     lib = library()
-    rc = lib.keto_mb_pack_block(_p(keep), _p(vals), vals.numel(), _p(out), _p(n), _stream())
+    F = vals.numel()
+    stream = _stream()
+    scratch, epoch = onepass_scratch(vals.device, stream, lib.keto_mb_pack_onepass_tiles(F))
+    rc = lib.keto_mb_pack_onepass(_p(keep), _p(vals), F, _p(out), _p(n), _p(scratch), epoch,
+                                  stream)
     _check(lib, rc, name)
     return out, n
 
 
 def mb_pack(keep: torch.Tensor, vals: torch.Tensor):
-    """M6: M5's function on many blocks (per-block counts, then a scan
+    """M6: M5's function in two launches (per-block counts, then a scan
     and a scatter)."""
     name = "mb_pack"
     out, n = _pack_args(name, keep, vals)

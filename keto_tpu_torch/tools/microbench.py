@@ -8,7 +8,7 @@ also at F = 2^20:
 
   probe       out[i] = tab[idx[i]]                     M1 global, M2 shared
   scatmax     out = 0; out[b[i]] = max(out[b[i]], p[i])  M3 global, M4 shared
-  pack        out[:n] = vals[keep != 0] in order, 0 past n  M5 one block, M6 many
+  pack        out[:n] = vals[keep != 0] in order, 0 past n  M5 one pass, M6 two
   hashprobe   two-probe double-hash lookup             M7
 
     python -m keto_tpu_torch.tools.microbench [--device cpu] [--n 50]
@@ -149,10 +149,10 @@ def scatmax_smem(b, p, *, n_out: int):
     return cuda_ops.mb_scatmax_smem(b, p, n_out=n_out)
 
 
-def pack_block(keep, vals):
+def pack_onepass(keep, vals):
     if vals.device.type == "cpu":
         return pack_plain(keep, vals)
-    return cuda_ops.mb_pack_block(keep, vals)
+    return cuda_ops.mb_pack_onepass(keep, vals)
 
 
 def pack(keep, vals):
@@ -262,9 +262,9 @@ def _scatmax_pack_ops(t: dict, suffix: str, size: str) -> list[Op]:
         Op("scatmax_smem" + suffix, "mb_scatmax_smem", lambda: scatmax_smem(b, p, n_out=n_out),
            lambda: scatmax_plain(b, p, n_out=n_out), library_scatmax, scat_bytes, F,
            f"M4 one block, shared-memory atomicMax, {size}"),
-        Op("pack_block" + suffix, "mb_pack_block", lambda: pack_block(keep, vals),
+        Op("pack_onepass" + suffix, "mb_pack_onepass", lambda: pack_onepass(keep, vals),
            lambda: pack_plain(keep, vals), library_pack, pack_bytes, 2 * F,
-           f"M5 one block, running offset, {size}"),
+           f"M5 one pass, decoupled look-back, {size}"),
         Op("pack" + suffix, "mb_pack", lambda: pack(keep, vals),
            lambda: pack_plain(keep, vals), library_pack, pack_bytes, 2 * F,
            f"M6 per-block counts, scan, scatter, {size}"),

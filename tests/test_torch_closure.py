@@ -9,7 +9,9 @@ identical inputs, on the CPU.
   small enough to uncover the chains and the 32-subject hub
 - vectors: closure_kernel_packed (the plain version of C1) returns the
   vector keto_tpu's returns, under both layouts, with and without a dirty
-  table, over covered, uncovered, dirty, invalid and depth-gated queries
+  table, over covered, uncovered, dirty, invalid and depth-gated queries,
+  and on batches all invalid, all uncovered or all dirty and of 0 and 1
+  queries
 - engines: TorchCheckEngine(device="cpu") with the closure on answers
   like the oracle and TPUCheckEngine at every depth, with the same hit and
   fallback counts; a mixed batch merges in order, unknown vocabulary
@@ -206,10 +208,24 @@ def _qpack(jsn, queries, depths):
     return q
 
 
-@pytest.mark.parametrize("has_dirty", [False, True])
-def test_closure_vector_identical(store, layout, has_dirty):
+def _same_vector(jt, jcd, tt, q, jc, jh, has_dirty, layout):
+    """keto_tpu's closure vector and the port's on the query pack q (the
+    port's tables tt carrying its cd_pack); asserts them equal and
+    returns the port's."""
     import jax.numpy as jnp
 
+    want = np.asarray(jck.closure_kernel_packed(
+        {**{k: jnp.asarray(v) for k, v in jt.items()}, "cd_pack": jnp.asarray(jcd)},
+        jnp.asarray(q), cc_probes=jc, ch_probes=jh, has_dirty=has_dirty))
+    got = tck.closure_kernel_packed(tck.closure_tables_from_numpy(tt, "cpu"),
+                                    torch.from_numpy(q), cc_probes=jc, ch_probes=jh,
+                                    has_dirty=has_dirty, layout=layout).numpy()
+    np.testing.assert_array_equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("has_dirty", [False, True])
+def test_closure_vector_identical(store, layout, has_dirty):
     jsn, jg, jb, tsn, tg, tb = _both_builds(store, layout, 4096)
     jt, jc, jh = jcl.pack_closure_tables(jb, jg.R)
     tt, _tc, _th = tcl.pack_closure_tables(tb, tg.R, layout)
@@ -228,18 +244,50 @@ def test_closure_vector_identical(store, layout, has_dirty):
     rng = random.Random(5)
     depths = [rng.choice([1, 2, 3, 5, DEPTH + 2]) for _ in queries]
     q = _qpack(jsn, queries, depths)
-    want = np.asarray(jck.closure_kernel_packed(
-        {**{k: jnp.asarray(v) for k, v in jt.items()}, "cd_pack": jnp.asarray(jcd)},
-        jnp.asarray(q), cc_probes=jc, ch_probes=jh, has_dirty=has_dirty))
-    got = tck.closure_kernel_packed(tck.closure_tables_from_numpy(tt, "cpu"),
-                                    torch.from_numpy(q), cc_probes=jc, ch_probes=jh,
-                                    has_dirty=has_dirty, layout=layout).numpy()
-    np.testing.assert_array_equal(got, want)
+    got = _same_vector(jt, jcd, tt, q, jc, jh, has_dirty, layout)
     member, cause, stats = tck.unpack_closure_results(got, B)
     # every cause occurred: resolved, uncovered, invalid, and dirty when on
     want_causes = {0, 1, 3} | ({2} if has_dirty else set())
     assert want_causes <= set(cause.tolist())
     assert member.sum() > 4 and stats[0] == 1 and stats[1] == B
+
+
+@pytest.mark.parametrize("case", ["all_invalid", "all_uncovered", "all_dirty", "B0", "B1"])
+def test_closure_vector_edge_batches_identical(store, layout, case):
+    """The batches the kernel's stats tail and its loads must hold: every
+    query invalid, every query valid but uncovered (objects no node has),
+    every query covered but dirty, and batches of 0 and 1 queries; each
+    vector equal to keto_tpu's."""
+    jsn, jg, jb, _tsn, tg, tb = _both_builds(store, layout, 4096)
+    jt, jc, jh = jcl.pack_closure_tables(jb, jg.R)
+    tt, _tc, _th = tcl.pack_closure_tables(tb, tg.R, layout)
+    _ns, _tuples, owners = store
+    queries = (deep_queries(owners, n=40) + OTHER_QUERIES)[:B]
+    q = _qpack(jsn, queries, [DEPTH + 2] * len(queries))
+    jcd = jcl.empty_dirty_table()
+    tt["cd_pack"] = tcl.empty_dirty_table()
+    base = _same_vector(jt, jcd, tt, q, jc, jh, False, layout)
+    cause = base[B : 2 * B]
+    has_dirty = case == "all_dirty"
+    if case == "all_invalid":
+        q[6] = 0
+    elif case == "all_uncovered":
+        q[0] += 1 << 20
+        q[6] = 1
+    elif case == "all_dirty":
+        q = np.ascontiguousarray(q[:, np.resize(np.flatnonzero(cause == 0), B)])
+        keys = np.unique(q[0].astype(np.int64) * jg.R + q[1])
+        jcd = jcl.build_dirty_table(keys, jg.R)
+        tt["cd_pack"] = tcl.build_dirty_table(keys, tg.R, layout)
+    else:
+        q = np.ascontiguousarray(q[:, (cause == 0) & (base[:B] == 1)][:, : int(case[1])])
+    n = q.shape[1]
+    got = _same_vector(jt, jcd, tt, q, jc, jh, has_dirty, layout)
+    member, got_cause, stats = tck.unpack_closure_results(got, n)
+    want_cause = {"all_invalid": 3, "all_uncovered": 1, "all_dirty": 2}.get(case, 0)
+    assert n == int(case[1:]) if case[0] == "B" else n == B
+    assert (got_cause == want_cause).all() and member.sum() == (n if case == "B1" else 0)
+    assert stats.tolist() == [1, n, n, 0 if case == "all_invalid" else n, member.sum(), 0, 0, 0]
 
 
 # -- (c) the engines -----------------------------------------------------------------

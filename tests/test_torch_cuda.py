@@ -16,9 +16,13 @@ and K2's shared probes at 1 to 64 probes, one or two value lanes, one or
 three slots, on frontiers of one key, all distinct keys, a zero-filled
 tail and keys scattered across warps, up to 2^20 tasks; L4's and X2's
 one pool body at every alignment of the pool's start, pool caps from 0
-past the used rows and batches past one block's shared memory; the
-microbenchmark primitives M1-M10 (keto_tpu_torch/tools) on the TPU tools'
-draws and on edge sizes. Tolerance: exact equality (every
+past the used rows and batches past one block's shared memory; C1 from
+0 to 16,387 queries, on batches all invalid, all uncovered or all dirty,
+into memory full of garbage and in calls back to back, one kernel a
+call; the microbenchmark primitives M1-M10 (keto_tpu_torch/tools) on the
+TPU tools' draws and on edge sizes, and M5's one pass with F falling and
+rising on one and two streams and across its epoch's wrap, one kernel a
+call. Tolerance: exact equality (every
 output is an integer, and M8's float32 add is one rounding either way).
 
 These tests need an NVIDIA card and skip elsewhere; this file imports
@@ -852,10 +856,10 @@ def test_list_gathers_match_plain_on_card(cuda, layout):
 # -- the closure probe and the filter walk ------------------------------------------
 
 
-def closure_inputs(scenario, layout, has_dirty, B=64):
-    """The closure tables of a scenario (a dirty table over every other
-    covered node when has_dirty) and the [7, B] pack of its queries at
-    mixed depths."""
+def closure_inputs(scenario, layout, has_dirty, B=64, dirty_every=2):
+    """The closure tables of a scenario (a dirty table over every
+    `dirty_every`-th covered node when has_dirty) and the [7, B] pack of
+    its queries at mixed depths."""
     from keto_tpu_torch.engine import closure as tcl
     from keto_tpu_torch.engine import closure_kernel as tck
 
@@ -863,8 +867,9 @@ def closure_inputs(scenario, layout, has_dirty, B=64):
     graph = tcl.extract_graph(snap)
     built = tcl.power_closure(graph, snap, depth, 4096, 0)
     tables, cc_probes, ch_probes = tcl.pack_closure_tables(built, graph.R, layout)
-    tables["cd_pack"] = (tcl.build_dirty_table(built.covered_keys[::2][:1000], graph.R, layout)
-                         if has_dirty else tcl.empty_dirty_table())
+    tables["cd_pack"] = (
+        tcl.build_dirty_table(built.covered_keys[::dirty_every][:1000], graph.R, layout)
+        if has_dirty else tcl.empty_dirty_table())
     qpack = qpack_for(snap, queries[:B], B, depth)
     qpack[2] = torch.from_numpy(np.random.default_rng(0).integers(0, depth + 2, B)).to(torch.int32)
     kw = dict(cc_probes=cc_probes, ch_probes=ch_probes, has_dirty=has_dirty, layout=layout)
@@ -892,6 +897,115 @@ def test_closure_launch_matches_plain(cuda, scenario, layout, has_dirty):
     b = tck.closure_probe_plain(dev["cc_pack"], dev["ch_pack"], dev["cd_pack"], big.to(cuda),
                                 **kw)
     assert torch.equal(a, b)
+
+
+def closure_on_card(cuda, tables, tck):
+    """The tables on the card, and a function of a query pack that runs C1
+    and its plain version on the same CUDA tensors."""
+    dev = tck.closure_tables_from_numpy(tables, cuda)
+
+    def both(q, **kw):
+        args = (dev["cc_pack"], dev["ch_pack"], dev["cd_pack"], q.to(cuda))
+        return cuda_ops.closure_probe(*args, **kw), tck.closure_probe_plain(*args, **kw)
+
+    return dev, both
+
+
+def sampled(qpack, B, seed):
+    g = torch.Generator().manual_seed(seed)
+    return qpack[:, torch.randint(0, qpack.shape[1], (B,), generator=g)].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_dirty", [False, True])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("B", [0, 1, 4097, 16387])
+def test_closure_probe_batch_sizes_on_card(cuda, B, layout, has_dirty):
+    """C1 from an empty batch to past the engine's largest bucket, one
+    query in seven invalid: every slot of the result, the stats tail's
+    grid sums included."""
+    tables, qpack, kw, tck = closure_inputs("videos", layout, has_dirty)
+    q = sampled(qpack, B, B)
+    q[6, ::7] = 0
+    got, want = closure_on_card(cuda, tables, tck)[1](q, **kw)
+    assert torch.equal(got, want)
+    assert got[2 * B : 2 * B + 3].tolist() == [1, B, B]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("kind", ["invalid", "uncovered", "dirty"])
+def test_closure_probe_one_cause_batches_on_card(cuda, kind, layout):
+    """Batches whose every query is invalid (nothing loaded), uncovered
+    (objects no node has: every ch row read for nothing) or dirty (the
+    dirty table over every covered node, the covered queries alone)."""
+    tables, qpack, kw, tck = closure_inputs("videos", layout, kind == "dirty", dirty_every=1)
+    q = sampled(qpack, 4097, 5)
+    if kind == "invalid":
+        q[6] = 0
+    elif kind == "uncovered":
+        q[0] += 1 << 24
+        q[6] = 1
+    _dev, both = closure_on_card(cuda, tables, tck)
+    if kind == "dirty":
+        _got, first = both(q, **kw)
+        B = q.shape[1]
+        q = q[:, first[B : 2 * B].cpu() == 2].contiguous()
+    got, want = both(q, **kw)
+    B = q.shape[1]
+    cause = {"invalid": 3, "uncovered": 1, "dirty": 2}[kind]
+    assert B > 100 and bool((want[B : 2 * B] == cause).all())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_closure_probe_writes_every_stats_slot_on_card(cuda):
+    """C1's result lands on memory full of garbage (a freed block of -7s
+    the caching allocator hands out again): every slot, the eight of the
+    stats tail among them, is written by the one launch."""
+    tables, qpack, kw, tck = closure_inputs("videos", "bucketized", True)
+    _dev, both = closure_on_card(cuda, tables, tck)
+    q = sampled(qpack, 4097, 9).to(cuda)
+    both(q, **kw)  # builds the library and the stream's grid scratch
+    junk = torch.empty(2 * 4097 + tk.N_LAUNCH_STATS, dtype=torch.int32, device=cuda).fill_(-7)
+    ptr = junk.data_ptr()
+    del junk
+    got, want = both(q, **kw)
+    assert got.data_ptr() == ptr
+    assert torch.equal(got, want)
+    assert (got[-tk.N_LAUNCH_STATS:] != -7).all()
+
+
+@pytest.mark.cuda
+def test_closure_probe_calls_in_a_row_on_card(cuda):
+    """Three calls of different B back to back on one stream, read only
+    after the last: each call's grid sum finds the scratch at zero and
+    leaves it so."""
+    tables, qpack, kw, tck = closure_inputs("videos", "bucketized", True)
+    dev, both = closure_on_card(cuda, tables, tck)
+    qs = [sampled(qpack, B, B) for B in (4097, 1, 16387)]
+    for q in qs:
+        q[6, ::5] = 0
+    got = [cuda_ops.closure_probe(dev["cc_pack"], dev["ch_pack"], dev["cd_pack"], q.to(cuda),
+                                  **kw) for q in qs]
+    torch.cuda.synchronize()
+    for q, g in zip(qs, got):
+        assert torch.equal(g, both(q, **kw)[1])
+    assert not cuda_ops.grid_scratch(cuda, torch.cuda.current_stream().cuda_stream).any()
+
+
+@pytest.mark.cuda
+def test_closure_probe_launches_one_kernel_on_card(cuda):
+    """A call of C1 launches its one kernel and no memset: the profiler
+    sees nothing else over 20 calls (it may lose a few records, never add
+    one)."""
+    tables, qpack, kw, tck = closure_inputs("videos", "bucketized", True)
+    dev, _both = closure_on_card(cuda, tables, tck)
+    q = sampled(qpack, 4096, 1).to(cuda)
+    events = profiled(lambda: cuda_ops.closure_probe(dev["cc_pack"], dev["ch_pack"],
+                                                     dev["cd_pack"], q, **kw))
+    assert len(events) == 1 and "closure_probe_kernel" in events[0].key, [e.key for e in events]
+    assert 0 < events[0].count <= 20
 
 
 def filter_inputs(scenario, layout, has_delta):
@@ -1359,9 +1473,77 @@ def test_pack_kernels_edge_counts_on_card(cuda, n, density):
     keep = (torch.rand(n, 1, generator=g) < density).to(torch.int32)
     vals = torch.randint(1, 1 << 20, (n, 1), generator=g, dtype=torch.int32)
     want = mb.pack_plain(keep, vals)
-    for fn in (cuda_ops.mb_pack_block, cuda_ops.mb_pack):
+    for fn in (cuda_ops.mb_pack_onepass, cuda_ops.mb_pack):
         out, cnt = fn(keep.to(cuda), vals.to(cuda))
         assert torch.equal(out.cpu(), want[0]) and torch.equal(cnt.cpu(), want[1]), fn
+
+
+def pack_column(cuda, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    keep = (torch.rand(n, 1, generator=g) < 0.5).to(torch.int32)
+    vals = torch.randint(1, 1 << 20, (n, 1), generator=g, dtype=torch.int32)
+    return keep.to(cuda), vals.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_streams", [1, 2])
+def test_pack_onepass_calls_in_a_row_on_card(cuda, n_streams):
+    """M5 called back to back with F falling and rising, read only after
+    the last call, on one stream or alternating between two (each with
+    its own look-back scratch): every call exact, every ticket counter
+    back at 0."""
+    from keto_tpu_torch.tools import microbench as mb
+
+    cols = [pack_column(cuda, n, i) for i, n in enumerate([(1 << 20) + 3, 5, 4097] * 2)]
+    streams = [torch.cuda.Stream() for _ in range(n_streams)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = []
+    for i, (keep, vals) in enumerate(cols):
+        with torch.cuda.stream(streams[i % n_streams]):
+            got.append(cuda_ops.mb_pack_onepass(keep, vals))
+    torch.cuda.synchronize()
+    for (keep, vals), g in zip(cols, got):
+        assert _same(g, mb.pack_plain(keep, vals))
+    for st in streams:
+        buf, _epoch = cuda_ops._onepass_scratch[(cols[0][0].device.index, st.cuda_stream)]
+        assert int(buf[0]) == 0
+
+
+@pytest.mark.cuda
+def test_pack_onepass_epoch_wraps_on_card(cuda):
+    """A call at epoch 1 leaves its status words behind; the counter is
+    then set to the last epoch, so the next call stamps ONEPASS_EPOCHS and
+    the one after wraps to 1, which must zero the words first or read the
+    first call's prefixes as its own. Each call on other data, exact."""
+    from keto_tpu_torch.tools import microbench as mb
+
+    st = torch.cuda.Stream()
+    st.wait_stream(torch.cuda.current_stream())
+    cols = [pack_column(cuda, (1 << 20) + 3, seed) for seed in (1, 2, 3)]
+    key = (cols[0][0].device.index, st.cuda_stream)
+    epochs = []
+    with torch.cuda.stream(st):
+        for i, (keep, vals) in enumerate(cols):
+            if i == 1:
+                buf, _epoch = cuda_ops._onepass_scratch[key]
+                cuda_ops._onepass_scratch[key] = (buf, cuda_ops.ONEPASS_EPOCHS - 1)
+            got = cuda_ops.mb_pack_onepass(keep, vals)
+            epochs.append(cuda_ops._onepass_scratch[key][1])
+            st.synchronize()
+            assert _same(got, mb.pack_plain(keep, vals)), i
+    assert epochs == [1, cuda_ops.ONEPASS_EPOCHS, 1]
+
+
+@pytest.mark.cuda
+def test_pack_onepass_launches_one_kernel_on_card(cuda):
+    """A call of M5 launches its one kernel and no memset (its scratch is
+    zeroed when allocated, and its counter returned to 0 by the launch):
+    the profiler sees nothing else over 20 calls."""
+    keep, vals = pack_column(cuda, 1 << 20, 0)
+    events = profiled(lambda: cuda_ops.mb_pack_onepass(keep, vals))
+    assert len(events) == 1 and "pack_onepass_kernel" in events[0].key, [e.key for e in events]
+    assert 0 < events[0].count <= 20
 
 
 @pytest.mark.cuda

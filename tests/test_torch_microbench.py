@@ -109,7 +109,7 @@ def test_scatmax_matches_pallas(bodies, inputs, space, dispatch):
 
 
 @pytest.mark.parametrize("space", sorted(SPACES))
-@pytest.mark.parametrize("dispatch", [mb.pack_block, mb.pack], ids=["M5", "M6"])
+@pytest.mark.parametrize("dispatch", [mb.pack_onepass, mb.pack], ids=["M5", "M6"])
 def test_pack_matches_pallas(bodies, inputs, space, dispatch):
     out_shape = (jax.ShapeDtypeStruct((F, 1), jnp.int32), jax.ShapeDtypeStruct((1, 1), jnp.int32))
     spec = pl.BlockSpec(memory_space=SPACES[space])
@@ -224,8 +224,8 @@ def test_microbench_main_on_cpu():
     lines = _lines(mb.main, ["--device", "cpu", "--n", "1"])
     assert cuda_ops.launches == before  # the plain versions ran
     big = f"_F{mb.F_LARGE}"
-    ops = ["probe", "probe_smem", "scatmax", "scatmax_smem", "pack_block", "pack", "hashprobe",
-           "scatmax" + big, "pack_block" + big, "pack" + big,
+    ops = ["probe", "probe_smem", "scatmax", "scatmax_smem", "pack_onepass", "pack", "hashprobe",
+           "scatmax" + big, "pack_onepass" + big, "pack" + big,
            "torch_gather", "torch_scatter_max", "torch_masked_select",
            "torch_scatter_max" + big, "torch_masked_select" + big, "device"]
     assert [line["op"] for line in lines] == ops
@@ -279,7 +279,7 @@ WRAPPER_CALLS = {
     "mb_probe_smem": lambda t: cuda_ops.mb_probe_smem(t, t),
     "mb_scatmax": lambda t: cuda_ops.mb_scatmax(t, t, n_out=8),
     "mb_scatmax_smem": lambda t: cuda_ops.mb_scatmax_smem(t, t, n_out=8),
-    "mb_pack_block": lambda t: cuda_ops.mb_pack_block(t, t),
+    "mb_pack_onepass": lambda t: cuda_ops.mb_pack_onepass(t, t),
     "mb_pack": lambda t: cuda_ops.mb_pack(t, t),
     "mb_hashprobe": lambda t: cuda_ops.mb_hashprobe(t, t, t),
     "mb_add": lambda t: cuda_ops.mb_add(t.float(), t.float()),

@@ -1,8 +1,9 @@
 """Time K1 `edge_probe`, K2 `pair_probe`, K3 `expand_gather`, K4
 `dedupe_compact`, F1 `filter_mark`, P1 `power_step`, P2 `power_account`,
 P3 `power_poison`, L1 `list_emit`, L2 `reverse_gather`, L3
-`subjects_gather`, L4 `list_pool_compact`, X1 `expand_emit` and X2
-`pool_compact` of one or more checkouts of
+`subjects_gather`, L4 `list_pool_compact`, X1 `expand_emit`, X2
+`pool_compact`, C1 `closure_probe` and M5 `mb_pack_onepass` of one or
+more checkouts of
 keto_tpu_torch on one NVIDIA card, in turns, on the same inputs; and the
 card's dependent round trip (`chase`).
 
@@ -15,6 +16,8 @@ card's dependent round trip (`chase`).
         k2_list_objects k2_distinct k2_compact chase --roots _checkout/parent . . _checkout/parent
     python tools/scan_ab_torch.py --cases l4_list_objects l4_list_subjects l4_overflow \
         l4_wide x2_expand chase --roots _checkout/parent . . _checkout/parent
+    python tools/scan_ab_torch.py --cases c1_closure c1_dirty c1_small m5_tool m5_large \
+        chase --roots _checkout/parent . . _checkout/parent
 
 Each root runs in a process of its own, which imports keto_tpu_torch from
 that root (so its kernels build from the root's csrc/ into the root's
@@ -94,6 +97,15 @@ REPS = 50
 # total (l4_overflow), and the engine's largest batch, 16,384 queries, at
 # ListSubjects' pool of 64 a query (l4_wide). X2: (B queries, E edge cap,
 # P pool rows): Expand's launch (1,024, 16,384, 32,768).
+# C1: (B queries, cc slots, ch slots): deep-1e6's closure batch (4,096
+# chain heads against its 2^23-slot cc table, 134 MB, and 2^26-slot ch
+# table, 2.1 GB, one bucket row a probe sequence each), with the dirty
+# table on (c1_dirty), and against tables of 2^16 slots (1 and 2 MB,
+# held in L2: c1_small, the same work without a DRAM row). M5: (F
+# inputs): the TPU tool's F = 16,384 and
+# ListObjects' frontier of 2^20 (microbench.py's draws); M6 and one
+# torch.masked_select on the same inputs beside them (`<case>_m6`,
+# `<case>_masked_select`).
 # chase: one thread following a random cycle of (lines of 128 B, L2
 # lines, steps a call): a dependent round trip to DRAM and to L2, and an empty
 # kernel on K1's grid at k1_check's shape: K1's latency floor is that
@@ -132,6 +144,11 @@ CASES = {
     "l4_overflow": ("list_pool_compact", 256, 4096, 1 << 18),
     "l4_wide": ("list_pool_compact", 16384, 64, 64 * 16384),
     "x2_expand": ("pool_compact", 1024, 16384, 32768),
+    "c1_closure": ("closure_probe", 4096, 1 << 23, 1 << 26),
+    "c1_dirty": ("closure_probe", 4096, 1 << 23, 1 << 26),
+    "c1_small": ("closure_probe", 4096, 1 << 16, 1 << 16),
+    "m5_tool": ("mb_pack_onepass", 16384),
+    "m5_large": ("mb_pack_onepass", 1 << 20),
     "chase": ("chase", 1 << 21, 1 << 12, 4096),
 }
 # the arguments each kernel updates in place, and those a timed call
@@ -182,6 +199,11 @@ def inputs(name: str, dev):
     import numpy as np
     import torch
 
+    if CASES[name][0] == "mb_pack_onepass":
+        from keto_tpu_torch.tools import microbench as mb
+
+        inp = mb.make_inputs(CASES[name][1], mb.CAP_TOOL)
+        return (torch.from_numpy(inp["keep"]).to(dev), torch.from_numpy(inp["vals"]).to(dev)), {}
     kernel, n, F, m = CASES[name]
     rng = np.random.default_rng(0)
 
@@ -301,6 +323,9 @@ def inputs(name: str, dev):
                                                  n_queries=B)
     if kernel == "pair_probe":
         return k2_inputs(name, dev)
+    if kernel == "closure_probe":
+        return c1_inputs(name, dev)
+
     if kernel == "list_pool_compact":
         B, R, P = n, F, m
         if name in ("l4_list_objects", "l4_overflow"):
@@ -410,6 +435,55 @@ def k2_inputs(name: str, dev):
     return (t(pack), t(obj), t(rels)), dict(probes=probes, spb=spb, n_vals=n_vals)
 
 
+def c1_inputs(name: str, dev):
+    """C1's drawn (args, kwargs): B valid queries (random objects,
+    relations and subjects, depth 24) against random bucketized tables
+    made on the card, each query's (obj, rel) planted in its first cc row
+    with value 1 (covered), half of the queries' 5-int keys planted in
+    their first ch row with a required depth of 1-30 (members when at
+    most 24); c1_dirty also probes a 2^16-slot dirty table in which one
+    query in eight is planted dirty."""
+    import numpy as np
+    import torch
+
+    from keto_tpu_torch.engine import kernel as tk
+    from keto_tpu_torch.engine.delta import DELTA_PROBES
+
+    _kernel, B, cc_slots, ch_slots = CASES[name]
+    rng = np.random.default_rng(2)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cols = [rng.integers(1, 1 << 20, B), rng.integers(1, 4, B), np.full(B, 24),
+            rng.integers(0, 3, B), rng.integers(0, 1 << 20, B), rng.integers(0, 4, B),
+            np.ones(B)]
+    qpack = torch.from_numpy(np.stack(cols).astype(np.int32)).to(dev)
+
+    def table(slots, width):
+        return torch.randint(0, 1 << 20, (slots, width), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def plant(pack, spb, keys, rows):
+        h1 = tk.hash_combine(*(torch.from_numpy(k) for k in keys)).numpy()
+        slot = (h1 & (pack.shape[0] // spb - 1)) * spb + rng.integers(0, spb, h1.shape[0])
+        pack[torch.from_numpy(slot).to(dev)] = torch.from_numpy(
+            np.stack(rows, 1).astype(np.int32)).to(dev)
+
+    o, r = cols[0], cols[1]
+    zero, one = np.zeros(B, np.int64), np.ones(B, np.int64)
+    cc = table(cc_slots, 4)
+    plant(cc, 16, (o, r), (o, r, one, zero))
+    ch = table(ch_slots, 8)
+    m = rng.random(B) < 0.5
+    key = [cols[i][m] for i in (0, 1, 3, 4, 5)]
+    plant(ch, 8, key, (*key, rng.integers(1, 31, int(m.sum())), zero[m], zero[m]))
+    cd = None
+    if name == "c1_dirty":
+        cd = table(1 << 16, 4)
+        d = np.arange(B) % 8 == 0
+        plant(cd, 16, (o[d], r[d]), (o[d], r[d], one[d], zero[d]))
+    return (cc, ch, cd, qpack), dict(cc_probes=16, ch_probes=8, has_dirty=cd is not None,
+                                     layout="bucketized")
+
+
 def device_ms(fn, reps: int = REPS) -> tuple[float, dict]:
     """Device ms per call, and its parts by kernel (or memset) name."""
     import re
@@ -467,6 +541,8 @@ def worker(root: str, cases: list[str]) -> dict:
     from keto_tpu_torch.engine import expand_kernel as tek
     from keto_tpu_torch.engine import kernel as tk
     from keto_tpu_torch.engine import reverse_kernel as trk
+    from keto_tpu_torch.engine import closure_kernel as tck
+    from keto_tpu_torch.tools import microbench as mb
 
     cuda_ops.library()
     out = {"root": root, "card": torch.cuda.get_device_name(0)}
@@ -476,7 +552,9 @@ def worker(root: str, cases: list[str]) -> dict:
             out.update(chase(cuda_ops))
             continue
         args, kw = inputs(name, torch.device("cuda"))
-        fn = getattr(cuda_ops, kernel)
+        # a checkout before the one-pass M5 names its one-block body
+        # mb_pack_block
+        fn = getattr(cuda_ops, kernel, None) or cuda_ops.mb_pack_block
         run = lambda: fn(*args, **kw)  # noqa: E731
         if kernel in UPDATED:
             got, want, run = in_place(kernel, fn, args, kw)
@@ -498,6 +576,14 @@ def worker(root: str, cases: list[str]) -> dict:
             got, want = (run(),), (trk.list_pool_compact_plain(*args, **kw),)
         elif kernel == "pool_compact":
             got, want = (run(),), (tek.pool_compact_plain(*args, **kw),)
+        elif kernel == "closure_probe":
+            got, want = (run(),), (tck.closure_probe_plain(*args, **kw),)
+        elif kernel == "mb_pack_onepass":
+            got, want = run(), mb.pack_plain(*args)
+            for label, other in (("m6", lambda: cuda_ops.mb_pack(*args)),
+                                 ("masked_select", lambda: torch.masked_select(args[1],
+                                                                               args[0] != 0))):
+                out[f"{name}_{label}"], out[f"{name}_{label}_parts"] = device_ms(other)
         elif kernel == "expand_gather":
             got = run()
             ch, over = tk.expand_gather_plain(*args, **kw)
