@@ -99,7 +99,8 @@ Phases, in order; any failure exits non-zero without the final line:
                against their plain versions on the tools' draws (the hash
                probe with planted keys, so both probe arms hit), exact,
                timed with bounds and PyTorch yardsticks; M3, M5 and M6
-               also at F = 2^20 (the row's "large" entry)
+               also at F = 2^20 (the row's "large" entry), where M3's
+               bin and own passes are logged as its parts
 
 Before the last line it prints the kernel table as one JSON object
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.

@@ -17,8 +17,11 @@
 // M1  keto_mb_probe          replaces tools/microbench_pallas.py probe_kernel
 //                            (:51) through pallas_call with VMEM (:59)
 // M2  keto_mb_probe_smem     the same body with SMEM (:74)
-// M3  keto_mb_scatmax        scatmax_kernel (:94, call :107), VMEM
-// M4  keto_mb_scatmax_smem   scatmax_kernel, SMEM (the same call, :107)
+// M3  keto_mb_scatmax        scatmax_kernel (:94, call :107), VMEM: from
+//                            kScatBinned updates a bin pass and an own
+//                            pass, below it global atomics
+// M4  keto_mb_scatmax_smem   scatmax_kernel, SMEM (the same call, :107):
+//                            one cluster over distributed shared memory
 // M5  keto_mb_pack_onepass   pack_kernel (:137, call :153), one pass
 // M6  keto_mb_pack           pack_kernel, a count pass and a scatter pass
 // M7  keto_mb_hashprobe      hashprobe_kernel (:181, call :204)
@@ -27,8 +30,11 @@
 // M9  keto_mb_row_gather     vgather_kernel (:58, call :65)
 // M10 keto_mb_block_gather   gkern / gather_blocks (:80, :83, call :90)
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "lookback.cuh"
 #include "scan.cuh"
@@ -48,8 +54,79 @@ inline int onepass_rounds(int F) { return F >= kOnepassLarge ? 8 : 4; }
 // M6: a block compacts kPackTile inputs, in rounds of 4 per thread
 constexpr int kPackTile = 2048;
 
+// M3: from kScatBinned updates on, a bin pass over tiles of kBinTile
+// updates (kBinPer a thread) and an own pass, one block a range of
+// 2^shift buckets: shift is kRangeShift, or larger where more than
+// 2^kMaxRangesLog2 ranges would cover the output, and an owner then walks
+// its range in parts of kRange buckets, its shared memory. A warp loads
+// kOwnPerRun pairs a lane from each of kOwnRuns runs before it applies
+// any; the rest of a longer run goes on a queue of up to kQueue runs,
+// read kOwnPer pairs a thread at a time. Below kScatBinned, a memset and one global atomic an update,
+// which were faster up to 786,432 updates and slower at 2^20 (PERF.md
+// §6).
+constexpr int kScatBinned = 1 << 20;
+constexpr int kBinThreads = 256;
+constexpr int kBinPer = 16;
+constexpr int kBinTile = kBinThreads * kBinPer;
+constexpr int kRangeShift = 14;
+constexpr int kRange = 1 << kRangeShift;
+constexpr int kMaxRangesLog2 = 10;
+constexpr int kOwnThreads = 1024;
+constexpr int kOwnRuns = 4;
+constexpr int kOwnPerRun = 2;
+constexpr int kOwnPer = 8;
+constexpr int kQueue = 1024;
+// M4: one cluster of kCluster blocks of kClusterThreads, each holding a
+// slice of at most kSliceMax buckets (231,424 bytes: a block's most,
+// less the 1 KB cuda_ops.MAX_DYNAMIC_SMEM leaves for static shared
+// memory); kClusterPer updates a thread loaded before any is applied.
+// 16 blocks is past the portable 8, allowed by a function attribute.
+constexpr int kCluster = 16;
+constexpr int kClusterThreads = 256;
+constexpr int kClusterPer = 4;
+constexpr int kSliceMax = 57856;
+
 int blocks_for(long long threads, int per_block) {
   return (int)((threads + per_block - 1) / per_block);
+}
+
+// Runs set() on the caller's current device until it succeeds there once:
+// function attributes belong to a device, and setting them on every call
+// costs a runtime call each.
+template <class Set>
+cudaError_t once_per_device(std::atomic<unsigned long long>& done, Set set) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  e = set();
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return e;
+}
+
+// Exclusive prefix in place of s[0, n) in index order, n <= kPer *
+// blockDim.x (kPer consecutive entries a thread); returns the sum. All
+// threads of the block call it; it ends with a barrier.
+template <int kPer>
+__device__ int block_scan_shared(int* s, int n, unsigned* warp_sums) {
+  const int i0 = threadIdx.x * kPer;
+  int v[kPer];
+  unsigned sum = 0;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    v[j] = i0 + j < n ? s[i0 + j] : 0;
+    sum += (unsigned)v[j];
+  }
+  unsigned total;
+  int run = (int)block_exclusive_scan(sum, warp_sums, &total);
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    if (i0 + j < n) s[i0 + j] = run;
+    run += v[j];
+  }
+  __syncthreads();
+  return (int)total;
 }
 
 // ---------------------------------------------------------------------------
@@ -95,11 +172,36 @@ __global__ void probe_smem_kernel(const int4* __restrict__ tab4, int cap4,
 // ---------------------------------------------------------------------------
 // M3 scatmax: out = zeros(n_out); out[b[i]] = max(out[b[i]], p[i])
 //
-// Bound: bytes: b and p read once, the whole [n_out] output written. The
-// atomics land in L2 (8 MB of output at F = 2^20 fits its 50 MB), so the
-// output is one memset and one write-back. Design: a memset, then one
-// thread per update with a global signed atomicMax, as K4's claim pass
-// does. The max commutes, so the order of the updates does not show.
+// Bound: bytes: b and p read once, the whole [n_out] output written once
+// (16 bytes an update at the tool's n_out = 2F). The max commutes, so the
+// order of the updates does not show, and a priority of at most 0 never
+// beats the zero the output starts at: the bin pass drops those updates.
+//
+// Below kScatBinned updates: a memset, then one thread an update with a
+// global atomicMax. From kScatBinned on: bin, then own; no memset and no
+// global atomic. The memset and atomics wrote the output twice and made
+// every update its own read-modify-write of a sector in L2, at the L2
+// atomic units' rate: 0.0134 ms at F = 2^20 on an output already in L2,
+// half that with the updates sorted by bucket (PERF.md §6).
+// Bin pass: a block takes a tile of kBinTile updates (16 a thread, all
+// loaded before any is used), counts them by range (bucket >> shift) in
+// shared memory (one atomic for a warp wholly in one range, else one an
+// update), scans the counts, writes its range offsets to `offsets`
+// ([n_ranges + 1] rows of n_tiles, the last row the tile's total), places
+// each update in its range's run of a sorted copy of the tile in shared
+// memory as (bucket within its range, priority), and writes the copy to
+// its own segment of the pairs with 16-byte stores. No tile reads
+// another's output, so no look-back. Own pass: one block a range zeroes
+// its buckets in shared memory, reads every tile's run of its range (a
+// warp kOwnRuns runs at a time, every load in flight before any
+// shared atomicMax; the rest of a run past kOwnPerRun pairs a lane read
+// by the whole block, so updates sorted by bucket, few long runs a
+// range, spread over its warps), and writes each bucket once with
+// 16-byte stores.
+// Each pass moves 16 bytes an update, as much as one memory-bound pass
+// over them, so the two take about twice the bound. Under skew (every
+// update in one range) one owner block reads all the pairs at one SM's
+// load rate; every answer is still exact (PERF.md §6, m3_skew).
 // ---------------------------------------------------------------------------
 
 __global__ void scatmax_kernel(const int* __restrict__ b, const int* __restrict__ p, int F,
@@ -108,29 +210,237 @@ __global__ void scatmax_kernel(const int* __restrict__ b, const int* __restrict_
   if (i < F) atomicMax(out + __ldg(b + i), __ldg(p + i));
 }
 
+__global__ void __launch_bounds__(kBinThreads) scatmax_bin_kernel(
+    const int* __restrict__ b, const int* __restrict__ p, int F, int n_out, int shift,
+    int n_ranges, int n_tiles, int2* __restrict__ pairs, int* __restrict__ offsets) {
+  constexpr int kScanPer = (1 << kMaxRangesLog2) / kBinThreads;
+  extern __shared__ int4 smem4[];
+  int2* s_pairs = reinterpret_cast<int2*>(smem4);
+  int* s_cnt = reinterpret_cast<int*>(s_pairs + kBinTile);
+  __shared__ unsigned warp_sums[32];
+  const int t = blockIdx.x;
+  const long long lo = (long long)t * kBinTile;
+  const int n = (int)min((long long)kBinTile, F - lo);
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x; r < n_ranges; r += kBinThreads) s_cnt[r] = 0;
+  int k[kBinPer], v[kBinPer], rank[kBinPer];
+#pragma unroll
+  for (int j = 0; j < kBinPer; ++j) {
+    const int i = j * kBinThreads + threadIdx.x;
+    k[j] = i < n ? __ldg(b + lo + i) : 0;
+    v[j] = i < n ? __ldg(p + lo + i) : 0;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kBinPer; ++j) {
+    const int r = v[j] > 0 && (unsigned)k[j] < (unsigned)n_out ? k[j] >> shift : -1;
+    const int r0 = __shfl_sync(0xFFFFFFFFu, r, 0);
+    if (__all_sync(0xFFFFFFFFu, r == r0)) {  // the warp in one range: one atomic
+      int base = 0;
+      if (lane == 0 && r0 >= 0) base = atomicAdd(s_cnt + r0, 32);
+      rank[j] = r0 >= 0 ? __shfl_sync(0xFFFFFFFFu, base, 0) + lane : -1;
+    } else {
+      rank[j] = r >= 0 ? atomicAdd(s_cnt + r, 1) : -1;
+    }
+  }
+  __syncthreads();
+  const int total = block_scan_shared<kScanPer>(s_cnt, n_ranges, warp_sums);
+  for (int r = threadIdx.x; r <= n_ranges; r += kBinThreads) {
+    offsets[(long long)r * n_tiles + t] = r < n_ranges ? s_cnt[r] : total;
+  }
+  const int mask = (1 << shift) - 1;
+#pragma unroll
+  for (int j = 0; j < kBinPer; ++j) {
+    if (rank[j] >= 0) s_pairs[s_cnt[k[j] >> shift] + rank[j]] = make_int2(k[j] & mask, v[j]);
+  }
+  __syncthreads();
+  int4* dst = reinterpret_cast<int4*>(pairs + lo);
+  for (int c = threadIdx.x; c < total / 2; c += kBinThreads) dst[c] = smem4[c];
+  if ((total & 1) && threadIdx.x == 0) pairs[lo + total - 1] = s_pairs[total - 1];
+}
+
+__device__ __forceinline__ void own_apply(int* s_out, int2 pr, int c_off, int len) {
+  const int x = pr.x - c_off;
+  if ((unsigned)x < (unsigned)len) atomicMax(s_out + x, pr.y);
+}
+
+// Applies pairs first, first + stride, ... below n of `run`, kOwnPer a
+// thread loaded before any is applied
+__device__ __forceinline__ void own_stream(int* s_out, const int2* __restrict__ run, int n,
+                                           int first, int stride, int c_off, int len) {
+  for (int x0 = first; x0 < n; x0 += stride * kOwnPer) {
+    int2 pr[kOwnPer];
+#pragma unroll
+    for (int u = 0; u < kOwnPer; ++u) {
+      const int x = x0 + stride * u;
+      pr[u] = x < n ? __ldg(run + x) : make_int2(-1, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kOwnPer; ++u) own_apply(s_out, pr[u], c_off, len);
+  }
+}
+
+__global__ void __launch_bounds__(kOwnThreads, 1) scatmax_own_kernel(
+    const int2* __restrict__ pairs, const int* __restrict__ offsets, int n_tiles, int shift,
+    int n_out, int* __restrict__ out) {
+  constexpr int kWarps = kOwnThreads / 32;
+  constexpr int kHead = 32 * kOwnPerRun;  // pairs of a run its warp reads
+  extern __shared__ int4 smem4[];
+  int* s_out = reinterpret_cast<int*>(smem4);
+  __shared__ int2 s_queue[kQueue];  // a long run's rest: (tile, its first pair in the tile)
+  __shared__ int s_qlen[kQueue];    // and its length
+  __shared__ int s_nq;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* lo_off = offsets + (long long)blockIdx.x * n_tiles;
+  const int* hi_off = lo_off + n_tiles;
+  const long long range_lo = (long long)blockIdx.x << shift;
+  const long long range_hi = min(range_lo + (1ll << shift), (long long)n_out);
+  const int2 none = make_int2(-1, 0);
+  for (long long c_lo = range_lo; c_lo < range_hi; c_lo += kRange) {
+    const int len = (int)min((long long)kRange, range_hi - c_lo);
+    const int c_off = (int)(c_lo - range_lo);
+    for (int c = threadIdx.x; c < (len + 3) / 4; c += kOwnThreads) smem4[c] = make_int4(0, 0, 0, 0);
+    if (threadIdx.x == 0) s_nq = 0;
+    __syncthreads();
+    for (int t0 = warp; t0 < n_tiles; t0 += kWarps * kOwnRuns) {
+      int st[kOwnRuns], ln[kOwnRuns];
+#pragma unroll
+      for (int q = 0; q < kOwnRuns; ++q) {
+        const int t = t0 + q * kWarps;
+        st[q] = t < n_tiles ? __ldg(lo_off + t) : 0;
+        ln[q] = t < n_tiles ? __ldg(hi_off + t) - st[q] : 0;
+      }
+      int2 pr[kOwnRuns][kOwnPerRun];
+#pragma unroll
+      for (int q = 0; q < kOwnRuns; ++q) {
+        const int2* run = pairs + (long long)(t0 + q * kWarps) * kBinTile + st[q];
+#pragma unroll
+        for (int i = 0; i < kOwnPerRun; ++i) {
+          const int x = lane + 32 * i;
+          pr[q][i] = x < ln[q] ? __ldg(run + x) : none;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kOwnRuns; ++q) {
+#pragma unroll
+        for (int i = 0; i < kOwnPerRun; ++i) own_apply(s_out, pr[q][i], c_off, len);
+      }
+#pragma unroll
+      for (int q = 0; q < kOwnRuns; ++q) {
+        if (ln[q] <= kHead) continue;
+        int e = 0;
+        if (lane == 0) e = atomicAdd(&s_nq, 1);
+        e = __shfl_sync(0xFFFFFFFFu, e, 0);
+        if (e < kQueue) {
+          if (lane == 0) {
+            s_queue[e] = make_int2(t0 + q * kWarps, st[q] + kHead);
+            s_qlen[e] = ln[q] - kHead;
+          }
+          continue;
+        }
+        // the queue is full: the warp reads the rest itself
+        own_stream(s_out, pairs + (long long)(t0 + q * kWarps) * kBinTile + st[q], ln[q],
+                   kHead + lane, 32, c_off, len);
+      }
+    }
+    __syncthreads();
+    // the queued rests: a warp each, round robin, when there are enough
+    // to keep every warp busy (skew: all of a range's runs long); else
+    // each read by the whole block in turn (a few long runs, as when the
+    // updates come sorted by bucket)
+    const int nq = min(s_nq, kQueue);
+    const bool by_warp = nq >= kWarps;
+    for (int e = by_warp ? warp : 0; e < nq; e += by_warp ? kWarps : 1) {
+      const int2 at = s_queue[e];
+      own_stream(s_out, pairs + (long long)at.x * kBinTile + at.y, s_qlen[e],
+                 by_warp ? lane : (int)threadIdx.x, by_warp ? 32 : kOwnThreads, c_off, len);
+    }
+    __syncthreads();
+    int4* o4 = reinterpret_cast<int4*>(out + c_lo);
+    for (int c = threadIdx.x; c < len / 4; c += kOwnThreads) o4[c] = smem4[c];
+    for (int c = (len & ~3) + threadIdx.x; c < len; c += kOwnThreads) out[c_lo + c] = s_out[c];
+    __syncthreads();
+  }
+}
+
 // ---------------------------------------------------------------------------
 // M4 scatmax_smem: the same function, the output held in shared memory
 //
 // Bound: as M3. Design: the TPU's SMEM variant keeps the output in the
-// scalar core's memory; here ONE block of 1024 threads zeroes an [n_out]
-// copy in dynamic shared memory (128 KB at the tool's size: 2F ints),
-// applies every update with a shared-memory atomicMax, and writes the
-// copy out once, coalesced. One block, because the output alone fills
-// the block's shared memory: block-private copies would each be 128 KB
-// and their merge would read and atomically combine n_out words per
-// block, and blocks owning ranges of the output would each re-read every
-// update. One SM moves the 256 KB this needs in a few microseconds,
-// which at the tool's size is of the order of a launch.
+// scalar core's memory; here one thread-block cluster of kCluster blocks
+// holds it in their shared memory, a slice of n_out / kCluster buckets
+// (padded to 4) a block. Each block zeroes its slice and arrives at the
+// cluster barrier (releasing the zeroes), loads its first updates, waits
+// there, then applies each of its contiguous 1 / kCluster of the updates
+// to the owning block's slice by a red.shared::cluster max through
+// distributed shared memory; the cluster syncs again, and each block
+// writes its slice once with 16-byte stores. One launch and no memset.
+// One block held the output on one SM before, whose serial updates set
+// its time. Remote updates cost about 5x a local shared atomic here, and
+// a cluster barrier ~0.0006 ms: binning the updates by owner and pulling
+// them over distributed shared memory instead lost, as did 8 blocks, or
+// 128, 512 and 1,024 threads a block (PERF.md §6). Capacity:
+// kCluster x kSliceMax buckets (the wrapper refuses more).
 // ---------------------------------------------------------------------------
 
-__global__ void scatmax_smem_kernel(const int* __restrict__ b, const int* __restrict__ p, int F,
-                                    int n_out, int* __restrict__ out) {
-  extern __shared__ int s_out[];
-  for (int c = threadIdx.x; c < n_out; c += blockDim.x) s_out[c] = 0;
-  __syncthreads();
-  for (int i = threadIdx.x; i < F; i += blockDim.x) atomicMax(s_out + __ldg(b + i), __ldg(p + i));
-  __syncthreads();
-  for (int c = threadIdx.x; c < n_out; c += blockDim.x) out[c] = s_out[c];
+// *at = max(*at, v) at the same shared-memory offset in the cluster's
+// block `rank`, with no result back: one red.shared::cluster a call
+__device__ __forceinline__ void cluster_max(int* at, int rank, int v) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"((unsigned)__cvta_generic_to_shared(at)), "r"(rank));
+  asm volatile("red.relaxed.cluster.shared::cluster.max.s32 [%0], %1;" ::"r"(remote), "r"(v)
+               : "memory");
+}
+
+__global__ void __launch_bounds__(kClusterThreads) scatmax_cluster_kernel(
+    const int* __restrict__ b, const int* __restrict__ p, int F, int n_out, int slice,
+    int* __restrict__ out) {
+  namespace cg = cooperative_groups;
+  extern __shared__ int4 s_slice4[];
+  int* s_slice = reinterpret_cast<int*>(s_slice4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  for (int c = threadIdx.x; c < slice / 4; c += kClusterThreads) s_slice4[c] = make_int4(0, 0, 0, 0);
+  // arrive (releasing this block's zeroes), load the first updates, then
+  // wait for every block's: the barrier's latency hides behind the loads
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  const long long per = (F + kCluster - 1) / kCluster;
+  const int lo = (int)min(rank * per, (long long)F);
+  const int hi = (int)min(lo + per, (long long)F);
+  int k[kClusterPer], v[kClusterPer];
+  int i0 = lo + threadIdx.x;
+#pragma unroll
+  for (int u = 0; u < kClusterPer; ++u) {
+    const int i = i0 + u * kClusterThreads;
+    k[u] = i < hi ? __ldg(b + i) : 0;
+    v[u] = i < hi ? __ldg(p + i) : 0;
+  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  while (true) {
+#pragma unroll
+    for (int u = 0; u < kClusterPer; ++u) {
+      if (v[u] > 0 && (unsigned)k[u] < (unsigned)n_out) {
+        const int owner = k[u] / slice;
+        cluster_max(s_slice + (k[u] - owner * slice), owner, v[u]);
+      }
+    }
+    i0 += kClusterPer * kClusterThreads;
+    if (i0 >= hi) break;
+#pragma unroll
+    for (int u = 0; u < kClusterPer; ++u) {
+      const int i = i0 + u * kClusterThreads;
+      k[u] = i < hi ? __ldg(b + i) : 0;
+      v[u] = i < hi ? __ldg(p + i) : 0;
+    }
+  }
+  cluster.sync();  // every update applied, and no block gone while updated
+  const long long base = rank * (long long)slice;
+  const int len = (int)max(0ll, min((long long)slice, n_out - base));
+  int4* o4 = reinterpret_cast<int4*>(out + base);
+  for (int c = threadIdx.x; c < len / 4; c += kClusterThreads) o4[c] = s_slice4[c];
+  for (int c = (len & ~3) + threadIdx.x; c < len; c += kClusterThreads) out[base + c] = s_slice[c];
 }
 
 // ---------------------------------------------------------------------------
@@ -415,6 +725,20 @@ __global__ void block_gather_kernel(const int* __restrict__ bidx, const int4* __
   for (int c = threadIdx.x; c < chunks; c += blockDim.x) out4[dst + c] = __ldg(tab4 + src + c);
 }
 
+// M3's bin shape: (shift, ranges, tiles) for F updates into n_out buckets
+struct ScatShape {
+  int shift, n_ranges, n_tiles;
+};
+
+ScatShape scat_shape(int F, int n_out) {
+  int lg = 0;
+  while ((1ll << lg) < n_out) ++lg;
+  const int shift = lg - kMaxRangesLog2 > kRangeShift ? lg - kMaxRangesLog2 : kRangeShift;
+  return {shift, (int)(((long long)n_out + (1ll << shift) - 1) >> shift), blocks_for(F, kBinTile)};
+}
+
+bool scat_binned(int F, int n_out) { return F >= kScatBinned && n_out > 0; }
+
 }  // namespace
 
 extern "C" {
@@ -439,20 +763,90 @@ int keto_mb_probe_smem(const int* tab, int cap, const int* idx, int F, int* out,
   return (int)cudaGetLastError();
 }
 
-int keto_mb_scatmax(const int* b, const int* p, int F, int* out, int n_out, void* stream) {
+long long keto_mb_scatmax_scratch(int F, int n_out) {
+  if (!scat_binned(F, n_out)) return 0;
+  const ScatShape s = scat_shape(F, n_out);
+  return 2ll * F + (long long)(s.n_ranges + 1) * s.n_tiles;
+}
+
+// scratch: keto_mb_scatmax_scratch(F, n_out) ints (the pairs, then the
+// range offsets), none below kScatBinned
+int keto_mb_scatmax(const int* b, const int* p, int F, int* out, int n_out, void* scratch,
+                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaMemsetAsync(out, 0, sizeof(int) * (size_t)n_out, st);
-  if (F > 0) scatmax_kernel<<<blocks_for(F, kThreads), kThreads, 0, st>>>(b, p, F, out);
+  if (!scat_binned(F, n_out)) {
+    cudaMemsetAsync(out, 0, sizeof(int) * (size_t)n_out, st);
+    if (F > 0) scatmax_kernel<<<blocks_for(F, kThreads), kThreads, 0, st>>>(b, p, F, out);
+    return (int)cudaGetLastError();
+  }
+  constexpr int kBinSmem = kBinTile * (int)sizeof(int2) + (1 << kMaxRangesLog2) * (int)sizeof(int);
+  constexpr int kOwnSmem = kRange * (int)sizeof(int);
+  static std::atomic<unsigned long long> attrs{0};
+  const cudaError_t e = once_per_device(attrs, [] {
+    const cudaError_t a = cudaFuncSetAttribute(
+        scatmax_bin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBinSmem);
+    return a != cudaSuccess ? a
+                            : cudaFuncSetAttribute(scatmax_own_kernel,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   kOwnSmem);
+  });
+  if (e != cudaSuccess) return (int)e;
+  const ScatShape s = scat_shape(F, n_out);
+  int2* pairs = (int2*)scratch;
+  int* offsets = (int*)scratch + 2ll * F;
+  scatmax_bin_kernel<<<s.n_tiles, kBinThreads, kBinTile * sizeof(int2) + s.n_ranges * sizeof(int),
+                       st>>>(b, p, F, n_out, s.shift, s.n_ranges, s.n_tiles, pairs, offsets);
+  scatmax_own_kernel<<<s.n_ranges, kOwnThreads, kOwnSmem, st>>>(pairs, offsets, s.n_tiles, s.shift,
+                                                                n_out, out);
   return (int)cudaGetLastError();
 }
 
+int keto_mb_scatmax_smem_capacity() { return kCluster * kSliceMax; }
+
+// n_out at most keto_mb_scatmax_smem_capacity(); cudaErrorLaunchOutOfResources
+// where the card cannot schedule the cluster at this slice
 int keto_mb_scatmax_smem(const int* b, const int* p, int F, int* out, int n_out, void* stream) {
-  const int smem = n_out * (int)sizeof(int);
-  const cudaError_t e = cudaFuncSetAttribute(
-      scatmax_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int slice = ((n_out + kCluster - 1) / kCluster + 3) & ~3;
+  if (n_out < 0 || slice > kSliceMax) return (int)cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> attrs{0};
+  cudaError_t e = once_per_device(attrs, [] {
+    const cudaError_t a = cudaFuncSetAttribute(scatmax_cluster_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               kSliceMax * (int)sizeof(int));
+    return a != cudaSuccess ? a
+                            : cudaFuncSetAttribute(scatmax_cluster_kernel,
+                                                   cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                                   1);
+  });
   if (e != cudaSuccess) return (int)e;
-  scatmax_smem_kernel<<<1, kBigBlock, smem, (cudaStream_t)stream>>>(b, p, F, n_out, out);
-  return (int)cudaGetLastError();
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = kCluster;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = (size_t)slice * sizeof(int);
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  // the largest slice (in bytes, plus one) a cluster is known to fit with
+  // on each device: asked once for each larger one
+  static std::atomic<int> fits[64];
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  std::atomic<int>& fit = fits[dev & 63];
+  if ((int)cfg.dynamicSmemBytes >= fit.load(std::memory_order_relaxed)) {
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, (void*)scatmax_cluster_kernel, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+    fit.store((int)cfg.dynamicSmemBytes + 1, std::memory_order_relaxed);
+  }
+  e = cudaLaunchKernelEx(&cfg, scatmax_cluster_kernel, b, p, F, n_out, slice, out);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 int keto_mb_pack_onepass_tiles(int F) {

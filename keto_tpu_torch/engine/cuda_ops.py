@@ -171,7 +171,9 @@ _SIGNATURES = {
     "keto_power_poison": [_VP] * 4 + [_I] * 2 + [_VP] * 4,
     "keto_mb_probe": [_VP, _VP, _I, _VP, _VP],
     "keto_mb_probe_smem": [_VP, _I, _VP, _I, _VP, _VP],
-    "keto_mb_scatmax": [_VP, _VP, _I, _VP, _I, _VP],
+    "keto_mb_scatmax_scratch": [_I, _I],
+    "keto_mb_scatmax": [_VP, _VP, _I, _VP, _I, _VP, _VP],
+    "keto_mb_scatmax_smem_capacity": [],
     "keto_mb_scatmax_smem": [_VP, _VP, _I, _VP, _I, _VP],
     "keto_mb_pack_onepass_tiles": [_I],
     "keto_mb_pack_onepass": [_VP, _VP, _I, _VP, _VP, _VP, _I, _VP],
@@ -195,7 +197,7 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             for name in ("keto_expand_emit_scratch", "keto_list_emit_scratch",
                          "keto_gather_scratch", "keto_power_step_scratch",
-                         "keto_pool_scratch"):
+                         "keto_pool_scratch", "keto_mb_scatmax_scratch"):
                 getattr(lib, name).restype = ctypes.c_longlong
             lib.keto_error_string.argtypes = [ctypes.c_int]
             lib.keto_error_string.restype = ctypes.c_char_p
@@ -778,26 +780,37 @@ def _scatmax_out(b: torch.Tensor, n_out: int) -> torch.Tensor:
 
 def mb_scatmax(b: torch.Tensor, p: torch.Tensor, *, n_out: int) -> torch.Tensor:
     """M3: zeros(n_out) then out[b[i]] = max(out[b[i]], p[i]); out is
-    [n_out, *b.shape[1:]]. Buckets must lie in [0, n_out)."""
+    [n_out, *b.shape[1:]]. Buckets must lie in [0, n_out). From the
+    library's binned size on, a bin pass into scratch and an own pass, no
+    memset; below it, a memset and global atomics."""
     name = "mb_scatmax"
     _require(name, torch.int32, b, p)
     if p.shape != b.shape:
         raise ValueError(f"{name}: buckets and priorities must have one shape")
     out = _scatmax_out(b, n_out)
     lib = library()
-    _check(lib, lib.keto_mb_scatmax(_p(b), _p(p), b.numel(), _p(out), n_out, _stream()), name)
+    F = b.numel()
+    n = lib.keto_mb_scatmax_scratch(F, n_out)
+    scratch = torch.empty(n, dtype=torch.int32, device=b.device) if n else None
+    rc = lib.keto_mb_scatmax(_p(b), _p(p), F, _p(out), n_out, _p(scratch), _stream())
+    _check(lib, rc, name)
     return out
 
 
 def mb_scatmax_smem(b: torch.Tensor, p: torch.Tensor, *, n_out: int) -> torch.Tensor:
-    """M4: M3 on one block, the output held in its shared memory."""
+    """M4: M3 on one thread-block cluster, the output spread over its
+    blocks' shared memory; at most keto_mb_scatmax_smem_capacity() buckets
+    (ValueError past it, before any launch)."""
     name = "mb_scatmax_smem"
     _require(name, torch.int32, b, p)
     if p.shape != b.shape:
         raise ValueError(f"{name}: buckets and priorities must have one shape")
-    _require_smem(name, 4 * n_out)
-    out = _scatmax_out(b, n_out)
     lib = library()
+    cap = lib.keto_mb_scatmax_smem_capacity()
+    if n_out > cap:
+        raise ValueError(f"{name}: {n_out} buckets do not fit one cluster's shared memory "
+                         f"({cap} buckets)")
+    out = _scatmax_out(b, n_out)
     rc = lib.keto_mb_scatmax_smem(_p(b), _p(p), b.numel(), _p(out), n_out, _stream())
     _check(lib, rc, name)
     return out

@@ -7,7 +7,7 @@ CAP = 32768 table slots) and, for the scatter-max and the compactions,
 also at F = 2^20:
 
   probe       out[i] = tab[idx[i]]                     M1 global, M2 shared
-  scatmax     out = 0; out[b[i]] = max(out[b[i]], p[i])  M3 global, M4 shared
+  scatmax     out = 0; out[b[i]] = max(out[b[i]], p[i])  M3 binned, M4 one cluster
   pack        out[:n] = vals[keep != 0] in order, 0 past n  M5 one pass, M6 two
   hashprobe   two-probe double-hash lookup             M7
 
@@ -258,10 +258,11 @@ def _scatmax_pack_ops(t: dict, suffix: str, size: str) -> list[Op]:
     return [
         Op("scatmax" + suffix, "mb_scatmax", lambda: scatmax(b, p, n_out=n_out),
            lambda: scatmax_plain(b, p, n_out=n_out), library_scatmax, scat_bytes, F,
-           f"M3 global atomicMax, {size}"),
+           f"M3 a memset and global atomicMax below 2^20 updates, bin then own from there, "
+           f"{size}"),
         Op("scatmax_smem" + suffix, "mb_scatmax_smem", lambda: scatmax_smem(b, p, n_out=n_out),
            lambda: scatmax_plain(b, p, n_out=n_out), library_scatmax, scat_bytes, F,
-           f"M4 one block, shared-memory atomicMax, {size}"),
+           f"M4 one cluster, the output in its blocks' shared memory, {size}"),
         Op("pack_onepass" + suffix, "mb_pack_onepass", lambda: pack_onepass(keep, vals),
            lambda: pack_plain(keep, vals), library_pack, pack_bytes, 2 * F,
            f"M5 one pass, decoupled look-back, {size}"),

@@ -20,7 +20,8 @@ past the used rows and batches past one block's shared memory; C1 from
 0 to 16,387 queries, on batches all invalid, all uncovered or all dirty,
 into memory full of garbage and in calls back to back, one kernel a
 call; the microbenchmark primitives M1-M10 (keto_tpu_torch/tools) on the
-TPU tools' draws and on edge sizes, and M5's one pass with F falling and
+TPU tools' draws and on edge sizes, M3's bins and M4's cluster on skewed
+draws, ragged sizes and M4's capacity, no memset in either, M5's one pass with F falling and
 rising on one and two streams and across its epoch's wrap, one kernel a
 call. Tolerance: exact equality (every
 output is an integer, and M8's float32 add is one rounding either way).
@@ -1559,6 +1560,117 @@ def test_scatmax_kernels_under_contention_on_card(cuda, n_out):
     want = mb.scatmax_plain(b, p, n_out=n_out)
     for fn in (cuda_ops.mb_scatmax, cuda_ops.mb_scatmax_smem):
         assert torch.equal(fn(b.to(cuda), p.to(cuda), n_out=n_out).cpu(), want), fn
+
+
+def scatmax_case(cuda, case: str, F: int, n_out: int):
+    """(b, p) [F, 1] on the card: buckets uniform in [0, n_out), or all in
+    one bucket, or all in one range of M3's bins (2^14 buckets) or one
+    slice of M4's cluster, or sorted; priorities positive, of both signs,
+    or half of them 0."""
+    g = torch.Generator().manual_seed(F + n_out)
+    b = torch.randint(0, max(n_out, 1), (F, 1), generator=g, dtype=torch.int32)
+    p = torch.randint(1, 1 << 30, (F, 1), generator=g, dtype=torch.int32)
+    if case == "one_bucket":
+        b[:] = n_out // 3
+    elif case == "one_range":
+        lo = (n_out // 2) & ~((1 << 14) - 1)
+        b = lo + torch.randint(0, min(1 << 14, n_out - lo), (F, 1), generator=g, dtype=torch.int32)
+    elif case == "one_slice":
+        b = torch.randint(0, max(n_out // 8, 1), (F, 1), generator=g, dtype=torch.int32)
+    elif case == "negative":
+        p = torch.randint(-(1 << 30), 1 << 30, (F, 1), generator=g, dtype=torch.int32)
+    elif case == "zero":
+        p[torch.rand(F, 1, generator=g) < 0.5] = 0
+    elif case == "sorted":
+        b = b.sort(dim=0).values
+    return b.to(cuda), p.to(cuda)
+
+
+SCATMAX_SIZES = (0, 1, 4097, (1 << 20) - 1, 1 << 20, (1 << 20) + 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", SCATMAX_SIZES)
+@pytest.mark.parametrize("case", ["uniform", "one_bucket", "one_range", "sorted", "negative",
+                                  "zero"])
+def test_scatmax_bins_on_card(cuda, case, F):
+    """M3 against its plain version, on both sides of the size where it
+    starts to bin (2^20), with an uneven last tile at 2^20 + 3, every update in
+    one bucket or one range, the updates sorted by bucket (a few long runs
+    a range), priorities that never win, into 2F buckets and into a count
+    that is no multiple of a range (2F + 5)."""
+    from keto_tpu_torch.tools import microbench as mb
+
+    for n_out in (max(2 * F, 1), 2 * F + 5):
+        b, p = scatmax_case(cuda, case, F, n_out)
+        got = cuda_ops.mb_scatmax(b, p, n_out=n_out)
+        assert _same(got, mb.scatmax_plain(b, p, n_out=n_out)), n_out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out", [1, 1 << 14, (1 << 26) + (1 << 14) + 7])
+def test_scatmax_wide_outputs_on_card(cuda, n_out):
+    """M3 binned into one range, into exactly one range, and into more
+    buckets than 2^10 ranges of 2^14 cover (each owner then walks its
+    range in parts of 2^14), every bucket written."""
+    from keto_tpu_torch.tools import microbench as mb
+
+    b, p = scatmax_case(cuda, "uniform", (1 << 20) + 9, n_out)
+    got = cuda_ops.mb_scatmax(b, p, n_out=n_out)
+    assert _same(got, mb.scatmax_plain(b, p, n_out=n_out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [0, 1, 16384, (1 << 20) + 3])
+@pytest.mark.parametrize("case", ["uniform", "one_bucket", "one_slice", "negative", "zero"])
+def test_scatmax_cluster_on_card(cuda, case, F):
+    """M4 against its plain version on every update in one bucket or one
+    block's slice, priorities that never win, into 2F buckets (at most
+    the cluster's capacity) and into a count that is no multiple of the
+    slices (8 x 1,001 + 3)."""
+    from keto_tpu_torch.tools import microbench as mb
+
+    cap = cuda_ops.library().keto_mb_scatmax_smem_capacity()
+    for n_out in (min(max(2 * F, 1), cap), 8 * 1001 + 3):
+        b, p = scatmax_case(cuda, case, F, n_out)
+        got = cuda_ops.mb_scatmax_smem(b, p, n_out=n_out)
+        assert _same(got, mb.scatmax_plain(b, p, n_out=n_out)), n_out
+
+
+@pytest.mark.cuda
+def test_scatmax_cluster_capacity_on_card(cuda):
+    """M4 at exactly its cluster's capacity, every slice full, and one
+    bucket past it refused before any launch."""
+    from keto_tpu_torch.tools import microbench as mb
+
+    cap = cuda_ops.library().keto_mb_scatmax_smem_capacity()
+    assert cap >= 8 * (cuda_ops.MAX_DYNAMIC_SMEM // 4)  # a cluster of 8 blocks or more
+    b, p = scatmax_case(cuda, "uniform", 1 << 20, cap)
+    assert _same(cuda_ops.mb_scatmax_smem(b, p, n_out=cap), mb.scatmax_plain(b, p, n_out=cap))
+    before = cuda_ops.launches["mb_scatmax_smem"]
+    with pytest.raises(ValueError, match="cluster"):
+        cuda_ops.mb_scatmax_smem(b, p, n_out=cap + 1)
+    assert cuda_ops.launches["mb_scatmax_smem"] == before
+
+
+@pytest.mark.cuda
+def test_scatmax_kernels_launch_no_memset_on_card(cuda):
+    """At F = 2^20, a call of M3 launches its bin and own kernels and no
+    memset, and a call of M4 its one cluster kernel: the profiler sees
+    those names and nothing else over 20 calls."""
+    from keto_tpu_torch.tools import microbench as mb
+
+    inp = mb.make_inputs(1 << 20, mb.CAP_TOOL)
+    b, p = (torch.from_numpy(inp[k]).to(cuda) for k in ("buck", "prio"))
+    keys = [e.key for e in profiled(lambda: cuda_ops.mb_scatmax(b, p, n_out=2 << 20))]
+    assert len(keys) == 2 and not any("emset" in k for k in keys), keys
+    assert any("scatmax_bin_kernel" in k for k in keys), keys
+    assert any("scatmax_own_kernel" in k for k in keys), keys
+    small = b[:16384] % 32768, p[:16384]
+    events = profiled(lambda: cuda_ops.mb_scatmax_smem(*small, n_out=32768))
+    assert len(events) == 1 and "scatmax_cluster_kernel" in events[0].key, [
+        e.key for e in events]
+    assert 0 < events[0].count <= 20
 
 
 @pytest.mark.cuda

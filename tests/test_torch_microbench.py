@@ -108,6 +108,42 @@ def test_scatmax_matches_pallas(bodies, inputs, space, dispatch):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _scatmax_draw(draw: str, seed: int = 5):
+    """(buck, prio) [F, 1] int32 on the cases M3's bins and M4's slices
+    are sensitive to: every update in one bucket, every update in one
+    small range of buckets, priorities of both signs, priorities of 0
+    beside positive ones."""
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, 2 * F, (F, 1), dtype=np.int32)
+    p = rng.integers(1, 1 << 30, (F, 1), dtype=np.int32)
+    if draw == "one_bucket":
+        b[:] = 77
+    elif draw == "one_range":
+        b = rng.integers(64, 80, (F, 1), dtype=np.int32)
+    elif draw == "negative":
+        p = rng.integers(-(1 << 30), 1 << 30, (F, 1), dtype=np.int32)
+    elif draw == "zero":
+        p = np.where(rng.random((F, 1)) < 0.5, 0, p).astype(np.int32)
+    return b, p
+
+
+@pytest.mark.parametrize("draw", ["one_bucket", "one_range", "negative", "zero"])
+@pytest.mark.parametrize("space", sorted(SPACES))
+@pytest.mark.parametrize("dispatch", [mb.scatmax, mb.scatmax_smem], ids=["M3", "M4"])
+def test_scatmax_matches_pallas_on_skewed_draws(bodies, space, dispatch, draw):
+    """The plain version the card tests hold M3 and M4 to, against the
+    Pallas body, on draws that pile updates onto one bucket or range or
+    hold priorities that never beat the zero."""
+    b, p = _scatmax_draw(draw)
+    want = _call(bodies["scatmax_kernel"], jax.ShapeDtypeStruct((2 * F, 1), jnp.int32),
+                 space, 2)(b, p)
+    got = dispatch(_t(b), _t(p), n_out=2 * F)
+    assert got.dtype == torch.int32 and got.shape == (2 * F, 1)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if draw == "negative":
+        assert (np.asarray(want) == 0).sum() > F  # negatives left their buckets at zero
+
+
 @pytest.mark.parametrize("space", sorted(SPACES))
 @pytest.mark.parametrize("dispatch", [mb.pack_onepass, mb.pack], ids=["M5", "M6"])
 def test_pack_matches_pallas(bodies, inputs, space, dispatch):

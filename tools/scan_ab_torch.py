@@ -2,8 +2,8 @@
 `dedupe_compact`, F1 `filter_mark`, P1 `power_step`, P2 `power_account`,
 P3 `power_poison`, L1 `list_emit`, L2 `reverse_gather`, L3
 `subjects_gather`, L4 `list_pool_compact`, X1 `expand_emit`, X2
-`pool_compact`, C1 `closure_probe` and M5 `mb_pack_onepass` of one or
-more checkouts of
+`pool_compact`, C1 `closure_probe`, M3 `mb_scatmax`, M4
+`mb_scatmax_smem` and M5 `mb_pack_onepass` of one or more checkouts of
 keto_tpu_torch on one NVIDIA card, in turns, on the same inputs; and the
 card's dependent round trip (`chase`).
 
@@ -18,6 +18,8 @@ card's dependent round trip (`chase`).
         l4_wide x2_expand chase --roots _checkout/parent . . _checkout/parent
     python tools/scan_ab_torch.py --cases c1_closure c1_dirty c1_small m5_tool m5_large \
         chase --roots _checkout/parent . . _checkout/parent
+    python tools/scan_ab_torch.py --cases m3_tool m3_large m3_skew m3_sorted m4_tool \
+        --roots _checkout/parent . . _checkout/parent
 
 Each root runs in a process of its own, which imports keto_tpu_torch from
 that root (so its kernels build from the root's csrc/ into the root's
@@ -28,7 +30,10 @@ of the call (a P3 call of an older checkout is two kernels and a
 memset), its mean time a launch times its launches a call, and those
 parts by name; and wall ms per call (`<case>_wall`), between CUDA events
 around back-to-back calls (the least of 21 windows), the wrapper's
-host work and any copies back included. F1, P1, P2, L1 and X1 update
+host work and any copies back included; for M3 and M4 also device ms
+per call between CUDA events around the replay of a CUDA graph of
+back-to-back calls (`<case>_graph`, the least of 21 replays), which no
+lost profiler record and no host enqueue can move. F1, P1, P2, L1 and X1 update
 inputs in place: each side of the comparison works on its own clones, F1
 is timed on one set of clones call after call (as chip_smoke.py times
 it), and each timed P1, P2, L1 or X1 call first copies back what the next
@@ -105,7 +110,12 @@ REPS = 50
 # inputs): the TPU tool's F = 16,384 and
 # ListObjects' frontier of 2^20 (microbench.py's draws); M6 and one
 # torch.masked_select on the same inputs beside them (`<case>_m6`,
-# `<case>_masked_select`).
+# `<case>_masked_select`). M3: (F updates): the TPU tool's F = 16,384
+# (m3_tool) and 2^20 (m3_large) on microbench.py's draws, into 2F
+# buckets; m3_skew the same 2^20 priorities with every bucket drawn in
+# one range of 2^14 buckets; m3_sorted m3_large's updates sorted by
+# bucket. M4: the tool's F = 16,384 (m4_tool). One torch.scatter_reduce_
+# on the same inputs beside each (`<case>_scatter_reduce`).
 # chase: one thread following a random cycle of (lines of 128 B, L2
 # lines, steps a call): a dependent round trip to DRAM and to L2, and an empty
 # kernel on K1's grid at k1_check's shape: K1's latency floor is that
@@ -147,6 +157,11 @@ CASES = {
     "c1_closure": ("closure_probe", 4096, 1 << 23, 1 << 26),
     "c1_dirty": ("closure_probe", 4096, 1 << 23, 1 << 26),
     "c1_small": ("closure_probe", 4096, 1 << 16, 1 << 16),
+    "m3_tool": ("mb_scatmax", 16384),
+    "m3_large": ("mb_scatmax", 1 << 20),
+    "m3_skew": ("mb_scatmax", 1 << 20),
+    "m3_sorted": ("mb_scatmax", 1 << 20),
+    "m4_tool": ("mb_scatmax_smem", 16384),
     "m5_tool": ("mb_pack_onepass", 16384),
     "m5_large": ("mb_pack_onepass", 1 << 20),
     "chase": ("chase", 1 << 21, 1 << 12, 4096),
@@ -199,6 +214,8 @@ def inputs(name: str, dev):
     import numpy as np
     import torch
 
+    if CASES[name][0] in ("mb_scatmax", "mb_scatmax_smem"):
+        return scatmax_inputs(name, dev)
     if CASES[name][0] == "mb_pack_onepass":
         from keto_tpu_torch.tools import microbench as mb
 
@@ -385,6 +402,32 @@ def inputs(name: str, dev):
     return (*cols, valid), dict(F=F, n_queries=B)
 
 
+# m3_skew's one range of 2^14 buckets: the fifth of 2F = 2^21
+SKEW_RANGE = 5
+
+
+def scatmax_inputs(name: str, dev):
+    """M3's and M4's (args, kwargs): microbench.py's draws at F into 2F
+    buckets; m3_skew every bucket in range SKEW_RANGE of 2^14 buckets
+    (drawn from seed 3), m3_sorted the updates sorted by bucket."""
+    import numpy as np
+    import torch
+
+    from keto_tpu_torch.tools import microbench as mb
+
+    F = CASES[name][1]
+    inp = mb.make_inputs(F, mb.CAP_TOOL)
+    b, p = inp["buck"], inp["prio"]
+    if name == "m3_skew":
+        rng = np.random.default_rng(3)
+        b = (SKEW_RANGE << 14) + rng.integers(0, 1 << 14, b.shape, dtype=np.int32)
+    elif name == "m3_sorted":
+        order = np.argsort(b[:, 0], kind="stable")
+        b, p = b[order], p[order]
+    return (torch.from_numpy(np.ascontiguousarray(b)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(p)).to(dev)), dict(n_out=2 * F)
+
+
 def k2_inputs(name: str, dev):
     """K2's drawn (args, kwargs): a table of random entries in which half
     the live keys are planted in the first row of their probe sequence
@@ -511,6 +554,35 @@ def device_ms(fn, reps: int = REPS) -> tuple[float, dict]:
     raise RuntimeError("the profiler saw no device time")
 
 
+def graph_ms(fn, reps: int = REPS, windows: int = 21) -> float:
+    """Device ms per call between CUDA events around the replay of one
+    CUDA graph of `reps` back-to-back calls, the least of `windows`
+    replays: no host enqueue and no profiler record in it. Only for calls
+    that keep no state on the host between calls (M5's epoch does)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # the capture stream's first call: scratch and attributes set outside the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(windows):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return min(times)
+
+
 def wall_ms(fn, reps: int = REPS, windows: int = 21) -> float:
     """Ms per call between CUDA events around `reps` back-to-back calls,
     the least of `windows` windows: the host's enqueue of each call is
@@ -584,6 +656,20 @@ def worker(root: str, cases: list[str]) -> dict:
                                  ("masked_select", lambda: torch.masked_select(args[1],
                                                                                args[0] != 0))):
                 out[f"{name}_{label}"], out[f"{name}_{label}_parts"] = device_ms(other)
+        elif kernel in ("mb_scatmax", "mb_scatmax_smem"):
+            got, want = (run(),), (mb.scatmax_plain(*args, **kw),)
+            b, p = args
+
+            def scatter_reduce(b=b, p=p, n_out=kw["n_out"]):
+                return torch.zeros(n_out, dtype=torch.int32, device=b.device).scatter_reduce_(
+                    0, b.reshape(-1).long(), p.reshape(-1), "amax")
+
+            out[f"{name}_scatter_reduce"], out[f"{name}_scatter_reduce_parts"] = device_ms(
+                scatter_reduce)
+            try:
+                out[f"{name}_graph"] = graph_ms(run)
+            except RuntimeError as e:  # a body that cannot be captured
+                out[f"{name}_graph"] = f"not captured: {str(e)[:200]}"
         elif kernel == "expand_gather":
             got = run()
             ch, over = tk.expand_gather_plain(*args, **kw)
