@@ -23,7 +23,7 @@
 // M4  keto_mb_scatmax_smem   scatmax_kernel, SMEM (the same call, :107):
 //                            one cluster over distributed shared memory
 // M5  keto_mb_pack_onepass   pack_kernel (:137, call :153), one pass
-// M6  keto_mb_pack           pack_kernel, a count pass and a scatter pass
+// M6  keto_mb_pack           pack_kernel, one cooperative launch
 // M7  keto_mb_hashprobe      hashprobe_kernel (:181, call :204)
 // M8  keto_mb_add            tools/microbench_pallas_feasibility.py
 //                            add_kernel (:41, call :47)
@@ -43,16 +43,18 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBigBlock = 1024;
-// M5: a block compacts one tile of kRounds rounds of 4 inputs a thread,
-// all loaded before any is scanned: 8 rounds (tiles of 8,192) from
-// kOnepassLarge inputs on, so a 2^20 launch is 128 tiles, about one an
-// SM; 4 below it, where more tiles spread a small launch over more blocks
-// (PERF.md §6: 2 rounds lost at both sizes, 8 at F = 16,384)
+// the most dynamic shared memory a block takes here: Hopper's 227 KB less
+// 1 KB for static shared memory (cuda_ops.MAX_DYNAMIC_SMEM); M2's table
+// and M4's slices
+constexpr int kSmemMax = 232448 - 1024;
+// M5 and M6: a block compacts one tile of kRounds rounds of 4 inputs a
+// thread, all loaded before any is scanned: 8 rounds (tiles of 8,192)
+// from kOnepassLarge inputs on, so a 2^20 launch is 128 tiles, about one
+// an SM; 4 below it, where more tiles spread a small launch over more
+// blocks (PERF.md §6: 2 rounds lost at 2^20, 8 at F = 16,384)
 constexpr int kOnepassLarge = 1 << 18;
 
 inline int onepass_rounds(int F) { return F >= kOnepassLarge ? 8 : 4; }
-// M6: a block compacts kPackTile inputs, in rounds of 4 per thread
-constexpr int kPackTile = 2048;
 
 // M3: from kScatBinned updates on, a bin pass over tiles of kBinTile
 // updates (kBinPer a thread) and an own pass, one block a range of
@@ -77,14 +79,13 @@ constexpr int kOwnPerRun = 2;
 constexpr int kOwnPer = 8;
 constexpr int kQueue = 1024;
 // M4: one cluster of kCluster blocks of kClusterThreads, each holding a
-// slice of at most kSliceMax buckets (231,424 bytes: a block's most,
-// less the 1 KB cuda_ops.MAX_DYNAMIC_SMEM leaves for static shared
-// memory); kClusterPer updates a thread loaded before any is applied.
+// slice of at most kSliceMax buckets (kSmemMax bytes); kClusterPer
+// updates a thread loaded before any is applied.
 // 16 blocks is past the portable 8, allowed by a function attribute.
 constexpr int kCluster = 16;
 constexpr int kClusterThreads = 256;
 constexpr int kClusterPer = 4;
-constexpr int kSliceMax = 57856;
+constexpr int kSliceMax = kSmemMax / 4;
 
 int blocks_for(long long threads, int per_block) {
   return (int)((threads + per_block - 1) / per_block);
@@ -150,23 +151,96 @@ __global__ void probe_kernel(const int* __restrict__ tab, const int* __restrict_
 // M2 probe_smem: the same gather from a copy of the table in shared memory
 //
 // Bound: as M1. Design: the TPU's SMEM variant keeps the whole table in
-// the core's scalar memory; here each block of 1024 threads first stages
-// the whole table in dynamic shared memory (16-byte loads, 128 KB at the
-// tool's size, which needs cudaFuncSetAttribute above 48 KB), then
-// gathers its 1024 indices from it. Every block re-reads the table, so
-// at F = 16384 sixteen blocks read 2 MB from L2 for a gather whose
-// random reads M1 serves from L2 directly: the variant pays only where
-// each block gathers many times its table's size.
+// the core's scalar memory; here each block of 1024 threads gathers its
+// 1024 indices from a copy of the whole table in its dynamic shared
+// memory (128 KB at the tool's size). Staging the table into each SM is
+// the kernel's time, so both of the SM's ways in carry it at once: one
+// thread asks the Tensor Memory Accelerator for the first half (one
+// cp.async.bulk, completed on an mbarrier in shared memory), while every
+// thread loads its index and its share of the second half with 16-byte
+// loads, all in flight before any is stored; the block then waits on
+// the barrier and gathers. The bulk copy takes no registers, so the
+// largest table a block holds needs at most kStageLoads loads a thread,
+// one batch under the 64 registers a thread of 1024 may have. Measured
+// (PERF.md §6): the parent's loop of loads 0.00292 ms, the whole table
+// by one bulk copy 0.00295, by loads alone 0.00238, half and half
+// 0.00241-0.00245; one SM takes in ~107 GB/s by loads, ~75 by one bulk
+// copy; clusters sharing the table by multicast or spreading it over
+// distributed shared memory lost (0.0036, 0.0043).
 // ---------------------------------------------------------------------------
 
-__global__ void probe_smem_kernel(const int4* __restrict__ tab4, int cap4,
-                                  const int* __restrict__ idx, int F, int* __restrict__ out) {
+// 16-byte loads a thread for the threads' half of the largest table
+constexpr int kStageLoads = (kSmemMax / 32 + kBigBlock - 1) / kBigBlock;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// One thread: initialises the mbarrier at `bar` for one arrival, makes
+// that visible to the async proxy, and arrives expecting `bytes`
+__device__ __forceinline__ void bar_init_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Waits until the mbarrier's first phase completes
+__device__ __forceinline__ void bar_wait0(unsigned bar) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar)
+        : "memory");
+  }
+}
+
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global
+// memory to this block's shared memory in one bulk copy, completed on
+// `bar`: a block's shared memory is below the barrier's transaction
+// limit, so one copy always fits one phase
+static_assert(kSmemMax < (1 << 20), "an mbarrier phase counts fewer than 2^20 bytes");
+static_assert(kStageLoads * kBigBlock >= kSmemMax / 32, "the threads' half fits one batch");
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes,
+                                          unsigned bar) {
+  if (bytes == 0) return;
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__global__ void __launch_bounds__(kBigBlock) probe_smem_kernel(const int* __restrict__ tab,
+                                                               int cap, const int* __restrict__ idx,
+                                                               int F, int* __restrict__ out) {
   extern __shared__ int4 s_tab4[];
-  for (int c = threadIdx.x; c < cap4; c += blockDim.x) s_tab4[c] = __ldg(tab4 + c);
-  __syncthreads();
-  const int* s_tab = reinterpret_cast<const int*>(s_tab4);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < F) out[i] = s_tab[__ldg(idx + i)];
+  __shared__ unsigned long long s_bar;
+  const unsigned bar = smem_u32(&s_bar);
+  const int cap4 = cap / 4, bulk4 = cap4 / 2;
+  if (threadIdx.x == 0) {
+    bar_init_expect(bar, 16u * bulk4);
+    bulk_load(smem_u32(s_tab4), tab, 16u * bulk4, bar);
+  }
+  const int i = blockIdx.x * kBigBlock + threadIdx.x;
+  const int k = i < F ? __ldg(idx + i) : 0;
+  const int4* tab4 = reinterpret_cast<const int4*>(tab);
+  int4 r[kStageLoads];
+#pragma unroll
+  for (int j = 0; j < kStageLoads; ++j) {
+    const int c = bulk4 + threadIdx.x + j * kBigBlock;
+    if (c < cap4) r[j] = __ldg(tab4 + c);
+  }
+#pragma unroll
+  for (int j = 0; j < kStageLoads; ++j) {
+    const int c = bulk4 + threadIdx.x + j * kBigBlock;
+    if (c < cap4) s_tab4[c] = r[j];
+  }
+  __syncthreads();  // the loaded half stored, the barrier initialised
+  bar_wait0(bar);
+  if (i < F) out[i] = reinterpret_cast<const int*>(s_tab4)[k];
 }
 
 // ---------------------------------------------------------------------------
@@ -444,8 +518,18 @@ __global__ void __launch_bounds__(kClusterThreads) scatmax_cluster_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// M5 and M6 compact in input order; M6 through csrc/scan.cuh's block
-// scans and sums (all threads of the block must call them)
+// M5 and M6 compact in input order, out[:n] = vals[keep != 0], out[n:] =
+// 0, n_out[0] = n, on one tiling: a block takes a tile of kRounds x 1,024
+// inputs (kRounds = onepass_rounds(F)) and scans it in registers
+// (pack_tile_scan); given the count e of the kept inputs before its tile,
+// it writes its survivors and its share of the zero tail
+// (pack_tile_write). M5 finds e by a decoupled look-back, M6 after a
+// grid-wide barrier.
+//
+// Bound: bytes: keep and vals read once, the [F] output and the count
+// written once (12 bytes an input). The TPU body's one-core loop maps to
+// one block, which one SM's load rate holds to 1% of the bound at F =
+// 2^20: the tiles spread the work over the card.
 // ---------------------------------------------------------------------------
 
 // keep flags and values of the 4 inputs from i0 (16-byte loads when all
@@ -466,50 +550,104 @@ __device__ __forceinline__ void load4(const int* __restrict__ keep, const int* _
   }
 }
 
-// Compacts vals[i] for keep[i] != 0, i in [lo, hi), into out from `base`
-// in input order: rounds of 4 inputs a thread, one block scan a round, a
-// running offset across rounds.
-__device__ void tile_compact(const int* __restrict__ keep, const int* __restrict__ vals,
-                                 int lo, int hi, unsigned base, int* __restrict__ out,
-                                 unsigned* warp_sums) {
-  for (int r = lo; r < hi; r += 4 * (int)blockDim.x) {
-    int k[4], v[4];
-    load4(keep, vals, r + 4 * (int)threadIdx.x, hi, k, v);
-    const unsigned c = (k[0] != 0) + (k[1] != 0) + (k[2] != 0) + (k[3] != 0);
-    unsigned round_total;
-    unsigned pos = base + block_exclusive_scan(c, warp_sums, &round_total);
-    for (int e = 0; e < 4; ++e) {
-      if (k[e] != 0) out[pos++] = v[e];
+constexpr int kPackWarps = kThreads / 32;
+
+// Loads the tile [lo, hi) into k and v (round r, thread j: the 4 inputs
+// from lo + 4 (r kThreads + j)), every load issued before any is used,
+// and scans its keep counts in input order: c[r] is the thread's count
+// in round r, x[r] its inclusive count within its warp's round, and
+// s_sums[r kPackWarps + w] becomes the count of the tile before warp w's
+// round r. Returns the tile's count in warp 0 (0 in the other warps);
+// warp 0 writes s_sums after the block barrier, so the caller syncs the
+// block before any other warp reads them.
+template <int kRounds>
+__device__ __forceinline__ unsigned pack_tile_scan(const int* __restrict__ keep,
+                                                   const int* __restrict__ vals, int lo, int hi,
+                                                   int (&k)[kRounds][4], int (&v)[kRounds][4],
+                                                   unsigned (&c)[kRounds], unsigned (&x)[kRounds],
+                                                   unsigned* s_sums) {
+  constexpr int kSums = kRounds * kPackWarps;  // warp totals, in input order
+  constexpr int kPer = (kSums + 31) / 32;      // of them a lane of the scanning warp
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    load4(keep, vals, lo + (r * kThreads + threadIdx.x) * 4, hi, k[r], v[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    c[r] = (k[r][0] != 0) + (k[r][1] != 0) + (k[r][2] != 0) + (k[r][3] != 0);
+    x[r] = c[r];
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(0xFFFFFFFFu, x[r], o);
+      if (lane >= o) x[r] += y;
     }
-    base += round_total;
+    if (lane == 31) s_sums[r * kPackWarps + wid] = x[r];
+  }
+  __syncthreads();
+  if (wid != 0) return 0u;
+  unsigned part[kPer], run = 0;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int idx = lane * kPer + j;
+    part[j] = idx < kSums ? s_sums[idx] : 0u;
+    run += part[j];
+  }
+  unsigned incl = run;
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  unsigned before = incl - run;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int idx = lane * kPer + j;
+    if (idx < kSums) s_sums[idx] = before;
+    before += part[j];
+  }
+  return __shfl_sync(0xFFFFFFFFu, incl, 31);
+}
+
+// Writes the tile's survivors from e, the count before the tile, in
+// input order, and its share of the zero tail: with i = e + the tile's
+// count, the tile drops hi - lo - (i - e) inputs and zeroes out[i + F -
+// hi, e + F - lo), that many positions; the shares of the tiles are
+// disjoint, lie at or past the total n, and together cover [n, F). So
+// no tile needs n.
+template <int kRounds>
+__device__ __forceinline__ void pack_tile_write(const int (&k)[kRounds][4],
+                                                const int (&v)[kRounds][4],
+                                                const unsigned (&c)[kRounds],
+                                                const unsigned (&x)[kRounds],
+                                                const unsigned* s_sums, unsigned e, unsigned i,
+                                                int F, int lo, int hi, int* __restrict__ out) {
+  const int wid = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    unsigned pos = e + s_sums[r * kPackWarps + wid] + x[r] - c[r];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (k[r][q] != 0) out[pos++] = v[r][q];
+    }
+  }
+  for (long long p = (long long)i + F - hi + threadIdx.x; p < (long long)e + F - lo;
+       p += kThreads) {
+    out[p] = 0;
   }
 }
 
 // ---------------------------------------------------------------------------
-// M5 pack_onepass: out[:n] = vals[keep != 0] in input order, out[n:] = 0,
-// n_out[0] = n; one launch
+// M5 pack_onepass: one launch; tile t's count before it by a decoupled
+// look-back (lookback.cuh)
 //
-// Bound: bytes: keep and vals read once, the [F] output and the count
-// written once (12 bytes an input). Design: one pass over many blocks,
-// chained by a decoupled look-back (lookback.cuh). A block takes tile t
-// of kRounds x 1,024 inputs by an atomic ticket (blocks start in no
+// Design: a block takes tile t by an atomic ticket (blocks start in no
 // order, and the look-back must only wait on tiles already running),
-// reads its keep and vals once with 16-byte loads (kRounds rounds of 4
-// inputs a thread, all issued before any is used), and scans its keep
-// counts in input order: a shuffle scan a warp and round, then one warp
-// scans the kRounds x 8 warp totals. It publishes its aggregate,
-// looks back for its exclusive prefix e, publishes e plus its aggregate
-// (its inclusive prefix i), and writes its survivors from e. The zero
-// tail needs no global count: tile t's inputs [lo, hi) drop hi - lo -
-// (i - e) of them, and it zeroes out[i + F - hi, e + F - lo), that many
-// positions; the ranges of the tiles are disjoint, lie at or past n, and
-// together cover [n, F). The tile holding the last input writes n. The
-// ticket counter and the status words live in a scratch the wrapper
-// zeroes once per (device, stream); the block that takes the last ticket
-// returns the counter to 0, and each call's epoch tells its status words
-// from an earlier call's, so no call needs a memset. The TPU body's
-// one-core loop maps to one block, which one SM's load rate holds to 1%
-// of the bound at F = 2^20: the tiles spread the work over the card.
+// publishes its aggregate, looks back for its exclusive prefix e,
+// publishes e plus its aggregate (its inclusive prefix i), and writes
+// from e. The tile holding the last input writes n. The ticket counter
+// and the status words live in a scratch the wrapper zeroes once per
+// (device, stream); the block that takes the last ticket returns the
+// counter to 0, and each call's epoch tells its status words from an
+// earlier call's, so no call needs a memset.
 // ---------------------------------------------------------------------------
 
 template <int kRounds>
@@ -518,13 +656,10 @@ __global__ void __launch_bounds__(kThreads) pack_onepass_kernel(
     int* __restrict__ out, int* __restrict__ n_out, unsigned* __restrict__ ticket,
     unsigned long long* __restrict__ status, unsigned long long epoch) {
   constexpr int kTile = kRounds * 4 * kThreads;
-  constexpr int kWarps = kThreads / 32;
-  constexpr int kSums = kRounds * kWarps;  // warp totals, in input order
-  constexpr int kPer = (kSums + 31) / 32;         // of them a lane of the scanning warp
-  __shared__ unsigned s_sums[kSums];
+  __shared__ unsigned s_sums[kRounds * kPackWarps];
   __shared__ int s_tile;
   __shared__ unsigned s_excl, s_agg;
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
     const int t = (int)atomicAdd(ticket, 1u);
     if (t == n_tiles - 1) *ticket = 0u;  // every ticket is taken: the next call starts at 0
@@ -535,43 +670,9 @@ __global__ void __launch_bounds__(kThreads) pack_onepass_kernel(
   const int lo = t * kTile;
   const int hi = min(F, lo + kTile);
   int k[kRounds][4], v[kRounds][4];
-#pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
-    load4(keep, vals, lo + (r * kThreads + threadIdx.x) * 4, hi, k[r], v[r]);
-  }
   unsigned c[kRounds], x[kRounds];
-#pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
-    c[r] = (k[r][0] != 0) + (k[r][1] != 0) + (k[r][2] != 0) + (k[r][3] != 0);
-    x[r] = c[r];
-    for (int o = 1; o < 32; o <<= 1) {
-      const unsigned y = __shfl_up_sync(0xFFFFFFFFu, x[r], o);
-      if (lane >= o) x[r] += y;
-    }
-    if (lane == 31) s_sums[r * kWarps + wid] = x[r];
-  }
-  __syncthreads();
-  if (wid == 0) {
-    unsigned part[kPer], run = 0;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int idx = lane * kPer + j;
-      part[j] = idx < kSums ? s_sums[idx] : 0u;
-      run += part[j];
-    }
-    unsigned incl = run;
-    for (int o = 1; o < 32; o <<= 1) {
-      const unsigned y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
-      if (lane >= o) incl += y;
-    }
-    unsigned before = incl - run;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int idx = lane * kPer + j;
-      if (idx < kSums) s_sums[idx] = before;
-      before += part[j];
-    }
-    const unsigned agg = __shfl_sync(0xFFFFFFFFu, incl, 31);
+  const unsigned agg = pack_tile_scan<kRounds>(keep, vals, lo, hi, k, v, c, x, s_sums);
+  if (threadIdx.x < 32) {
     unsigned excl = 0;
     if (t == 0) {
       if (lane == 0) publish(status, epoch, kPrefix, agg);
@@ -587,62 +688,69 @@ __global__ void __launch_bounds__(kThreads) pack_onepass_kernel(
   }
   __syncthreads();
   const unsigned e = s_excl, i = s_excl + s_agg;
-#pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
-    unsigned pos = e + s_sums[r * kWarps + wid] + x[r] - c[r];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if (k[r][q] != 0) out[pos++] = v[r][q];
-    }
-  }
-  for (long long p = (long long)i + F - hi + threadIdx.x; p < (long long)e + F - lo;
-       p += kThreads) {
-    out[p] = 0;
-  }
+  pack_tile_write<kRounds>(k, v, c, x, s_sums, e, i, F, lo, hi, out);
   if (t == n_tiles - 1 && threadIdx.x == 0) *n_out = (int)i;
 }
 
 // ---------------------------------------------------------------------------
-// M6 pack: the same function on many blocks
+// M6 pack: one cooperative launch that keeps nothing between calls
 //
-// Bound: as M5. Design: reduce, then scan-and-scatter. Pass 1 gives each
-// block of 256 threads a tile of 2048 inputs and writes its keep count;
-// pass 2 has every block sum the counts of the tiles before its own (a
-// few hundred ints from L2, read by the whole block) and the total, then
-// compact its tile from that offset (tile_compact: a block scan a round),
-// and zero the positions of its tile at or past the total. keep is read
-// twice, so the kernel moves 16 bytes an input against the bound's 12,
-// in two launches against M5's one.
+// Design: one block a tile, every block resident (a cooperative launch,
+// refused past the resident grid: keto_mb_pack_capacity). A block scans
+// its tile in registers, writes its count to its word of `counts` (a
+// scratch the wrapper allocates each call), and waits at a grid-wide
+// barrier; then it sums the counts before its tile from L2 and writes
+// from there. keep and vals are read once (12 bytes an input). Unlike
+// M5 it keeps no ticket, status words or epoch from one call to the
+// next, so two streams may run it at once and a CUDA graph may replay
+// it. The barrier costs ~0.001 ms at 4 tiles, where M5's look-back is
+// cheaper; at 2^20 M6 matches M5. Lost (PERF.md §6): the count and a
+// programmatic dependent scatter launch (keep read twice), the
+// survivors staged in shared memory for coalesced stores, tiles of
+// 2,048 or 4,096 at 2^20.
 // ---------------------------------------------------------------------------
 
-__global__ void pack_count_kernel(const int* __restrict__ keep, int F, int* __restrict__ counts) {
-  __shared__ unsigned warp_sums[64];
-  const int lo = blockIdx.x * kPackTile;
-  const int hi = min(F, lo + kPackTile);
-  unsigned c = 0;
-  for (int i0 = lo + 4 * (int)threadIdx.x; i0 < hi; i0 += 4 * (int)blockDim.x) {
-    if (i0 + 3 < hi) {
-      const int4 kk = __ldg(reinterpret_cast<const int4*>(keep + i0));
-      c += (kk.x != 0) + (kk.y != 0) + (kk.z != 0) + (kk.w != 0);
-    } else {
-      for (int e = i0; e < hi; ++e) c += __ldg(keep + e) != 0;
+template <int kRounds>
+__global__ void __launch_bounds__(kThreads) pack_kernel(const int* __restrict__ keep,
+                                                        const int* __restrict__ vals, int F,
+                                                        int n_tiles, int* __restrict__ counts,
+                                                        int* __restrict__ out,
+                                                        int* __restrict__ n_out) {
+  constexpr int kTile = kRounds * 4 * kThreads;
+  __shared__ unsigned s_sums[kRounds * kPackWarps];
+  const int t = blockIdx.x, lane = threadIdx.x & 31;
+  const int lo = t * kTile;
+  const int hi = min(F, lo + kTile);
+  int k[kRounds][4], v[kRounds][4];
+  unsigned c[kRounds], x[kRounds];
+  const unsigned agg = pack_tile_scan<kRounds>(keep, vals, lo, hi, k, v, c, x, s_sums);
+  if (threadIdx.x == 0) counts[t] = (int)agg;
+  cooperative_groups::this_grid().sync();  // every count written; s_sums too
+  // the counts before the tile (e) and through it (i), from L2: below
+  // kOnepassLarge inputs (at most 64 tiles) every warp sums them itself;
+  // from there warp 0 sums them for the block, as the 8 warps' requests
+  // for the same lines queue at L2 (0.0003 ms at F = 2^20, where the
+  // barrier after warp 0 costs 0.0002 at 16,384: PERF.md §6)
+  constexpr bool kOneWarp = kRounds == 8;
+  __shared__ unsigned s_ei[2];
+  unsigned e = 0, i = 0;
+  if (!kOneWarp || threadIdx.x < 32) {
+#pragma unroll 4
+    for (int j = lane; j < t; j += 32) e += (unsigned)__ldcg(counts + j);
+    for (int o = 16; o > 0; o >>= 1) e += __shfl_xor_sync(0xFFFFFFFFu, e, o);
+    i = e + (unsigned)__ldcg(counts + t);
+    if (kOneWarp && lane == 0) {
+      s_ei[0] = e;
+      s_ei[1] = i;
     }
   }
-  const unsigned total = block_sum(c, warp_sums);
-  if (threadIdx.x == 0) counts[blockIdx.x] = (int)total;
-}
-
-__global__ void pack_scatter_kernel(const int* __restrict__ keep, const int* __restrict__ vals,
-                                    int F, const int* __restrict__ counts, int n_blocks,
-                                    int* __restrict__ out, int* __restrict__ n_out) {
-  __shared__ unsigned warp_sums[64];
-  unsigned all;
-  const unsigned before = tile_base(counts, n_blocks, warp_sums, &all);
-  const int lo = blockIdx.x * kPackTile;
-  const int hi = min(F, lo + kPackTile);
-  tile_compact(keep, vals, lo, hi, before, out, warp_sums);
-  for (int c = max(lo, (int)all) + threadIdx.x; c < hi; c += blockDim.x) out[c] = 0;
-  if (blockIdx.x == 0 && threadIdx.x == 0) *n_out = (int)all;
+  if (kOneWarp) {
+    __syncthreads();
+    e = s_ei[0];
+    i = s_ei[1];
+  }
+  pack_tile_write<kRounds>(k, v, c, x, s_sums, e, i, F, lo, hi, out);
+  if (t == n_tiles - 1 && threadIdx.x == 0) *n_out = (int)i;
 }
 
 // ---------------------------------------------------------------------------
@@ -751,14 +859,18 @@ int keto_mb_probe(const int* tab, const int* idx, int F, int* out, void* stream)
   return (int)cudaGetLastError();
 }
 
+// cap a multiple of 4 ints, at most kSmemMax bytes; tab 16-byte aligned
 int keto_mb_probe_smem(const int* tab, int cap, const int* idx, int F, int* out, void* stream) {
-  const int smem = cap * (int)sizeof(int);
-  const cudaError_t e = cudaFuncSetAttribute(
-      probe_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (cap < 0 || cap % 4 || cap > kSmemMax / 4) return (int)cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> attrs{0};
+  const cudaError_t e = once_per_device(attrs, [] {
+    return cudaFuncSetAttribute(probe_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kSmemMax);
+  });
   if (e != cudaSuccess) return (int)e;
   if (F > 0) {
-    probe_smem_kernel<<<blocks_for(F, kBigBlock), kBigBlock, smem, (cudaStream_t)stream>>>(
-        (const int4*)tab, cap / 4, idx, F, out);
+    probe_smem_kernel<<<blocks_for(F, kBigBlock), kBigBlock, 4 * cap, (cudaStream_t)stream>>>(
+        tab, cap, idx, F, out);
   }
   return (int)cudaGetLastError();
 }
@@ -849,7 +961,8 @@ int keto_mb_scatmax_smem(const int* b, const int* p, int F, int* out, int n_out,
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-int keto_mb_pack_onepass_tiles(int F) {
+// M5's and M6's tiles for F inputs
+int keto_mb_pack_tiles(int F) {
   return F > 0 ? blocks_for(F, onepass_rounds(F) * 4 * kThreads) : 1;
 }
 
@@ -857,7 +970,7 @@ int keto_mb_pack_onepass_tiles(int F) {
 // [1, 2^30)
 int keto_mb_pack_onepass(const int* keep, const int* vals, int F, int* out, int* n_out,
                          void* scratch, int epoch, void* stream) {
-  const int tiles = keto_mb_pack_onepass_tiles(F);
+  const int tiles = keto_mb_pack_tiles(F);
   unsigned long long* s = (unsigned long long*)scratch;
   auto kernel = onepass_rounds(F) == 8 ? pack_onepass_kernel<8> : pack_onepass_kernel<4>;
   kernel<<<tiles, kThreads, 0, (cudaStream_t)stream>>>(
@@ -865,15 +978,33 @@ int keto_mb_pack_onepass(const int* keep, const int* vals, int F, int* out, int*
   return (int)cudaGetLastError();
 }
 
-int keto_mb_pack_blocks(int F) { return F > 0 ? blocks_for(F, kPackTile) : 1; }
+// The most inputs one M6 launch takes on the caller's device: as many
+// tiles of 8,192 as blocks can be resident at once; minus the CUDA error
+// where a query fails.
+long long keto_mb_pack_capacity() {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pack_kernel<8>, kThreads, 0);
+  }
+  if (e != cudaSuccess) return -(long long)e;
+  return (long long)per_sm * sms * (8 * 4 * kThreads);
+}
 
+// counts: keto_mb_pack_tiles(F) ints, written before they are read; F at
+// most keto_mb_pack_capacity() (past it the launch is refused with
+// cudaErrorCooperativeLaunchTooLarge)
 int keto_mb_pack(const int* keep, const int* vals, int F, int* counts, int* out, int* n_out,
                  void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int nb = keto_mb_pack_blocks(F);
-  pack_count_kernel<<<nb, kThreads, 0, st>>>(keep, F, counts);
-  pack_scatter_kernel<<<nb, kThreads, 0, st>>>(keep, vals, F, counts, nb, out, n_out);
-  return (int)cudaGetLastError();
+  int tiles = keto_mb_pack_tiles(F);
+  void* args[] = {(void*)&keep, (void*)&vals, (void*)&F, (void*)&tiles, (void*)&counts,
+                  (void*)&out, (void*)&n_out};
+  const void* kernel =
+      onepass_rounds(F) == 8 ? (const void*)pack_kernel<8> : (const void*)pack_kernel<4>;
+  const cudaError_t e =
+      cudaLaunchCooperativeKernel(kernel, tiles, kThreads, args, 0, (cudaStream_t)stream);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 int keto_mb_hashprobe(const int* keys, const int* kvals, int cap, const int* q, int F, int* out,

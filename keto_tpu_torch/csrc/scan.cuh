@@ -9,7 +9,7 @@
 // The one copy of the block scans and sums: K3 and K4, X1's task-order
 // offsets (its tiles are the keyed rank's blocks), L2, L3, L4 and X2
 // (csrc/pool.cuh: every block's count scan, and the tile sums of a batch
-// too wide for shared memory) and M5/M6 use them; K3, K4, L2, L4 and X2
+// too wide for shared memory) and M3's bin pass use them; K3, K4, L2, L4 and X2
 // also the 4-int load; K3, K4 and L2 the grid zeroing and the cause
 // raise; L1, X1, L4 and X2 the shared memory opt-in below.
 

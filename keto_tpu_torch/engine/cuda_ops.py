@@ -84,6 +84,8 @@ _power_scratch: dict = {}
 # M5's look-back scratch and the epoch of its last call, one pair per
 # (device, stream): see onepass_scratch
 _onepass_scratch: dict = {}
+# M6's capacity in inputs, per device index: see pack_capacity
+_pack_capacity: dict = {}
 # the epochs a look-back status word carries (csrc/lookback.cuh): after
 # the last, the next call zeroes the words and starts again at 1
 ONEPASS_EPOCHS = (1 << 30) - 1
@@ -175,9 +177,9 @@ _SIGNATURES = {
     "keto_mb_scatmax": [_VP, _VP, _I, _VP, _I, _VP, _VP],
     "keto_mb_scatmax_smem_capacity": [],
     "keto_mb_scatmax_smem": [_VP, _VP, _I, _VP, _I, _VP],
-    "keto_mb_pack_onepass_tiles": [_I],
+    "keto_mb_pack_tiles": [_I],
     "keto_mb_pack_onepass": [_VP, _VP, _I, _VP, _VP, _VP, _I, _VP],
-    "keto_mb_pack_blocks": [_I],
+    "keto_mb_pack_capacity": [],
     "keto_mb_pack": [_VP, _VP, _I, _VP, _VP, _VP, _VP],
     "keto_mb_hashprobe": [_VP, _VP, _I, _VP, _I, _VP, _VP],
     "keto_mb_add": [_VP, _VP, _I, _VP, _VP],
@@ -197,7 +199,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             for name in ("keto_expand_emit_scratch", "keto_list_emit_scratch",
                          "keto_gather_scratch", "keto_power_step_scratch",
-                         "keto_pool_scratch", "keto_mb_scatmax_scratch"):
+                         "keto_pool_scratch", "keto_mb_scatmax_scratch",
+                         "keto_mb_pack_capacity"):
                 getattr(lib, name).restype = ctypes.c_longlong
             lib.keto_error_string.argtypes = [ctypes.c_int]
             lib.keto_error_string.restype = ctypes.c_char_p
@@ -759,7 +762,10 @@ def mb_probe(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def mb_probe_smem(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """M2: M1 with the table staged in each block's shared memory."""
+    """M2: M1 from a copy of the table in each block's shared memory,
+    half staged by one TMA bulk copy, half by the threads' loads. The
+    table must be 16-byte aligned, a multiple of 4 ints and fit one
+    block's shared memory (ValueError otherwise, before any launch)."""
     name = "mb_probe_smem"
     _require(name, torch.int32, tab, idx)
     _require_aligned(name, tab)
@@ -856,21 +862,42 @@ def mb_pack_onepass(keep: torch.Tensor, vals: torch.Tensor):
     lib = library()
     F = vals.numel()
     stream = _stream()
-    scratch, epoch = onepass_scratch(vals.device, stream, lib.keto_mb_pack_onepass_tiles(F))
+    scratch, epoch = onepass_scratch(vals.device, stream, lib.keto_mb_pack_tiles(F))
     rc = lib.keto_mb_pack_onepass(_p(keep), _p(vals), F, _p(out), _p(n), _p(scratch), epoch,
                                   stream)
     _check(lib, rc, name)
     return out, n
 
 
+def pack_capacity(device: torch.device) -> int:
+    """The most inputs one M6 launch takes on `device`: every tile's block
+    resident at once (its grid-wide barrier needs them all running).
+    Asked of the card once per device."""
+    cap = _pack_capacity.get(device.index)
+    if cap is None:
+        lib = library()
+        with torch.cuda.device(device):
+            cap = lib.keto_mb_pack_capacity()
+        if cap < 0:
+            raise RuntimeError(f"mb_pack: CUDA error {-cap}: "
+                               f"{lib.keto_error_string(-cap).decode()}")
+        _pack_capacity[device.index] = cap
+    return cap
+
+
 def mb_pack(keep: torch.Tensor, vals: torch.Tensor):
-    """M6: M5's function in two launches (per-block counts, then a scan
-    and a scatter)."""
+    """M6: M5's function in one cooperative launch that keeps nothing from
+    one call to the next: each tile's count, a grid-wide barrier, then
+    each tile's survivors from the counts before it. At most
+    pack_capacity() inputs (ValueError past it, before any launch)."""
     name = "mb_pack"
     out, n = _pack_args(name, keep, vals)
-    lib = library()
     F = vals.numel()
-    counts = torch.empty(lib.keto_mb_pack_blocks(F), dtype=torch.int32, device=vals.device)
+    cap = pack_capacity(vals.device)
+    if F > cap:
+        raise ValueError(f"{name}: {F} inputs are more than one cooperative launch holds ({cap})")
+    lib = library()
+    counts = torch.empty(lib.keto_mb_pack_tiles(F), dtype=torch.int32, device=vals.device)
     rc = lib.keto_mb_pack(_p(keep), _p(vals), F, _p(counts), _p(out), _p(n), _stream())
     _check(lib, rc, name)
     return out, n

@@ -8,7 +8,7 @@ also at F = 2^20:
 
   probe       out[i] = tab[idx[i]]                     M1 global, M2 shared
   scatmax     out = 0; out[b[i]] = max(out[b[i]], p[i])  M3 binned, M4 one cluster
-  pack        out[:n] = vals[keep != 0] in order, 0 past n  M5 one pass, M6 two
+  pack        out[:n] = vals[keep != 0] in order, 0 past n  M5 look-back, M6 grid barrier
   hashprobe   two-probe double-hash lookup             M7
 
     python -m keto_tpu_torch.tools.microbench [--device cpu] [--n 50]
@@ -222,7 +222,8 @@ def ops(inp: dict, device, *, large: dict | None = None) -> list[Op]:
         Op("probe_smem", "mb_probe_smem", lambda: probe_smem(t["tab"], t["idx"]),
            lambda: probe_plain(t["tab"], t["idx"]),
            lambda: t["tab"].reshape(-1)[t["idx"].reshape(-1)], probe_bytes, F,
-           f"M2 table staged in each block's shared memory, {size}"),
+           f"M2 table staged in each block's shared memory, half by a TMA bulk copy, "
+           f"{size}"),
     ]
     out += _scatmax_pack_ops(t, "", size)
     keys, q = torch.from_numpy(inp["keys"]), torch.from_numpy(inp["qk"])
@@ -268,7 +269,7 @@ def _scatmax_pack_ops(t: dict, suffix: str, size: str) -> list[Op]:
            f"M5 one pass, decoupled look-back, {size}"),
         Op("pack" + suffix, "mb_pack", lambda: pack(keep, vals),
            lambda: pack_plain(keep, vals), library_pack, pack_bytes, 2 * F,
-           f"M6 per-block counts, scan, scatter, {size}"),
+           f"M6 one cooperative launch, tile counts, a grid barrier, {size}"),
     ]
 
 

@@ -20,10 +20,12 @@ past the used rows and batches past one block's shared memory; C1 from
 0 to 16,387 queries, on batches all invalid, all uncovered or all dirty,
 into memory full of garbage and in calls back to back, one kernel a
 call; the microbenchmark primitives M1-M10 (keto_tpu_torch/tools) on the
-TPU tools' draws and on edge sizes, M3's bins and M4's cluster on skewed
-draws, ragged sizes and M4's capacity, no memset in either, M5's one pass with F falling and
-rising on one and two streams and across its epoch's wrap, one kernel a
-call. Tolerance: exact equality (every
+TPU tools' draws and on edge sizes, M2's bulk-copied table at edge sizes
+and indices, M3's bins and M4's cluster on skewed draws, ragged sizes
+and M4's capacity, no memset in either, M5's one pass with F falling and
+rising on one and two streams and across its epoch's wrap, M6's one
+cooperative launch at its capacity, on two streams at once and replayed
+from a CUDA graph, one kernel a call. Tolerance: exact equality (every
 output is an integer, and M8's float32 add is one rounding either way).
 
 These tests need an NVIDIA card and skip elsewhere; this file imports
@@ -1544,6 +1546,144 @@ def test_pack_onepass_launches_one_kernel_on_card(cuda):
     keep, vals = pack_column(cuda, 1 << 20, 0)
     events = profiled(lambda: cuda_ops.mb_pack_onepass(keep, vals))
     assert len(events) == 1 and "pack_onepass_kernel" in events[0].key, [e.key for e in events]
+    assert 0 < events[0].count <= 20
+
+
+@pytest.mark.cuda
+def test_pack_capacity_on_card(cuda):
+    """M6 at exactly its capacity, every tile's block resident at once,
+    and one input past it refused before any launch."""
+    from keto_tpu_torch.tools import microbench as mb
+
+    cap = cuda_ops.pack_capacity(cuda)
+    assert cap >= 132 * 8192  # at least a block of 8,192 inputs on every SM
+    keep, vals = pack_column(cuda, cap, 7)
+    assert _same(cuda_ops.mb_pack(keep, vals), mb.pack_plain(keep, vals))
+    keep, vals = pack_column(cuda, cap + 1, 8)
+    before = cuda_ops.launches["mb_pack"]
+    with pytest.raises(ValueError, match="cooperative"):
+        cuda_ops.mb_pack(keep, vals)
+    assert cuda_ops.launches["mb_pack"] == before
+
+
+@pytest.mark.cuda
+def test_pack_two_streams_at_once_on_card(cuda):
+    """M6 on two streams at once, neither waiting for the other, on
+    columns of both tile sizes, each call's counts its own: every call
+    exact."""
+    from keto_tpu_torch.tools import microbench as mb
+
+    cols = [pack_column(cuda, n, 20 + i)
+            for i, n in enumerate([(1 << 20) + 3, 16385, 1 << 20, 4097, (1 << 19) + 5, 1])]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = []
+    for i, (keep, vals) in enumerate(cols):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(cuda_ops.mb_pack(keep, vals))
+    torch.cuda.synchronize()
+    for (keep, vals), g in zip(cols, got):
+        assert _same(g, mb.pack_plain(keep, vals))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16384, (1 << 20) + 3])
+def test_pack_graph_replays_on_card(cuda, n):
+    """A CUDA graph of one M6 call, replayed three times on inputs
+    changed in place between replays: each replay equals pack_plain on
+    the inputs it saw (nothing of an earlier call carries over)."""
+    from keto_tpu_torch.tools import microbench as mb
+
+    keep, vals = pack_column(cuda, n, 30)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_ops.mb_pack(keep, vals)  # the library, the capacity: outside the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, cnt = cuda_ops.mb_pack(keep, vals)
+    for seed in (31, 32, 33):
+        k2, v2 = pack_column(cuda, n, seed)
+        if seed == 32:
+            k2.fill_(1)
+        keep.copy_(k2)
+        vals.copy_(v2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same((out, cnt), mb.pack_plain(keep, vals)), seed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16384, 1 << 20])
+def test_pack_launches_one_kernel_on_card(cuda, n):
+    """A call of M6 launches its one kernel and no memset: the profiler
+    sees nothing else over 20 calls."""
+    keep, vals = pack_column(cuda, n, 0)
+    events = profiled(lambda: cuda_ops.mb_pack(keep, vals))
+    assert len(events) == 1 and "pack_kernel" in events[0].key, [e.key for e in events]
+    assert 0 < events[0].count <= 20
+
+
+def probe_case(cuda, case: str):
+    """(tab, idx) on the card for M2: the tool's draw at F = 16,384 into
+    CAP = 32,768, at F = 0, 1 and 16,385, into CAP = 4, into the largest
+    table a block's shared memory holds, with every index 0 or CAP - 1,
+    and from a table that is a 16-byte-aligned view at a nonzero offset."""
+    from keto_tpu_torch.tools import microbench as mb
+
+    F, cap = {"F0": (0, 32768), "F1": (1, 32768), "F16385": (16385, 32768),
+              "cap4": (16384, 4), "cap_max": (16384, cuda_ops.MAX_DYNAMIC_SMEM // 16 * 4)}.get(
+                  case, (16384, 32768))
+    inp = mb.make_inputs(max(F, 1), cap, seed=F + cap)
+    tab, idx = torch.from_numpy(inp["tab"]), torch.from_numpy(inp["idx"])[:F]
+    if case == "first":
+        idx.zero_()
+    elif case == "last":
+        idx.fill_(cap - 1)
+    tab = tab.to(cuda)
+    if case == "offset":
+        tab = torch.cat([torch.full((8, 1), -1, dtype=torch.int32, device=cuda), tab])[8:]
+    return tab, idx.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tool", "F0", "F1", "F16385", "cap4", "cap_max", "first",
+                                  "last", "offset"])
+def test_probe_smem_shapes_on_card(cuda, case):
+    """M2 against its plain version on the edge sizes and indices of
+    probe_case, the table staged by its bulk copy."""
+    from keto_tpu_torch.tools import microbench as mb
+
+    tab, idx = probe_case(cuda, case)
+    if case == "offset":
+        assert tab.storage_offset() == 8 and tab.data_ptr() % 16 == 0
+    before = cuda_ops.launches["mb_probe_smem"]
+    got = cuda_ops.mb_probe_smem(tab, idx)
+    assert cuda_ops.launches["mb_probe_smem"] == before + 1
+    assert _same(got, mb.probe_plain(tab, idx))
+
+
+@pytest.mark.cuda
+def test_probe_smem_refuses_past_shared_memory_on_card(cuda):
+    """A table 4 words past one block's shared memory is refused before
+    any launch."""
+    tab, idx = probe_case(cuda, "cap_max")
+    big = torch.zeros(tab.numel() + 4, 1, dtype=torch.int32, device=cuda)
+    before = cuda_ops.launches["mb_probe_smem"]
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_ops.mb_probe_smem(big, idx)
+    assert cuda_ops.launches["mb_probe_smem"] == before
+
+
+@pytest.mark.cuda
+def test_probe_smem_launches_one_kernel_on_card(cuda):
+    """A call of M2 launches its one kernel (no copy, no memset, no
+    attribute call on the stream): the profiler sees nothing else."""
+    tab, idx = probe_case(cuda, "tool")
+    events = profiled(lambda: cuda_ops.mb_probe_smem(tab, idx))
+    assert len(events) == 1 and "probe_smem_kernel" in events[0].key, [e.key for e in events]
     assert 0 < events[0].count <= 20
 
 

@@ -98,6 +98,33 @@ def test_probe_matches_pallas(bodies, inputs, space, dispatch):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _probe_draw(draw: str, seed: int = 6):
+    """(tab, idx) [CAP, 1], [F, 1] int32 with the indices at the table's
+    two ends (each 0 or CAP - 1), all 0, or all CAP - 1."""
+    rng = np.random.default_rng(seed)
+    tab = rng.integers(0, 1 << 20, (CAP, 1), dtype=np.int32)
+    if draw == "ends":
+        idx = np.where(rng.random((F, 1)) < 0.5, 0, CAP - 1)
+    else:
+        idx = np.full((F, 1), 0 if draw == "all_first" else CAP - 1)
+    return tab, idx.astype(np.int32)
+
+
+@pytest.mark.parametrize("draw", ["ends", "all_first", "all_last"])
+@pytest.mark.parametrize("space", sorted(SPACES))
+@pytest.mark.parametrize("dispatch", [mb.probe, mb.probe_smem], ids=["M1", "M2"])
+def test_probe_matches_pallas_on_edge_draws(bodies, space, dispatch, draw):
+    """The plain version the card tests hold M1 and M2 to, against the
+    Pallas body, on indices at both ends of the table and all equal."""
+    tab, idx = _probe_draw(draw)
+    want = _call(bodies["probe_kernel"], jax.ShapeDtypeStruct((F, 1), jnp.int32), space, 2)(
+        tab, idx)
+    got = dispatch(_t(tab), _t(idx))
+    assert got.dtype == torch.int32 and got.shape == (F, 1)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert set(np.unique(np.asarray(want))) <= {int(tab[0, 0]), int(tab[-1, 0])}
+
+
 @pytest.mark.parametrize("space", sorted(SPACES))
 @pytest.mark.parametrize("dispatch", [mb.scatmax, mb.scatmax_smem], ids=["M3", "M4"])
 def test_scatmax_matches_pallas(bodies, inputs, space, dispatch):
@@ -158,6 +185,26 @@ def test_pack_matches_pallas(bodies, inputs, space, dispatch):
     np.testing.assert_array_equal(got_n.numpy(), np.asarray(want_n))
     n = int(want_n[0, 0])
     assert 0 < n < F and not got_out[n:].any()  # zeros past the count
+
+
+@pytest.mark.parametrize("kept", [0, 1], ids=["none", "all"])
+@pytest.mark.parametrize("space", sorted(SPACES))
+@pytest.mark.parametrize("dispatch", [mb.pack_onepass, mb.pack], ids=["M5", "M6"])
+def test_pack_matches_pallas_on_edge_draws(bodies, inputs, space, dispatch, kept):
+    """The plain version the card tests hold M5 and M6 to, against the
+    Pallas body, with keep all 0 (every output 0, the count 0) and all 1
+    (the values as they are, the count F)."""
+    keep = np.full((F, 1), kept, np.int32)
+    out_shape = (jax.ShapeDtypeStruct((F, 1), jnp.int32), jax.ShapeDtypeStruct((1, 1), jnp.int32))
+    spec = pl.BlockSpec(memory_space=SPACES[space])
+    call = _call(bodies["pack_kernel"], out_shape, space, 2,
+                 out_specs=(spec, pl.BlockSpec(memory_space=pltpu.SMEM)))
+    want_out, want_n = call(keep, inputs["vals"])
+    got_out, got_n = dispatch(_t(keep), _t(inputs["vals"]))
+    np.testing.assert_array_equal(got_out.numpy(), np.asarray(want_out))
+    np.testing.assert_array_equal(got_n.numpy(), np.asarray(want_n))
+    assert int(want_n[0, 0]) == kept * F
+    np.testing.assert_array_equal(np.asarray(want_out), inputs["vals"] * kept)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

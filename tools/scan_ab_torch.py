@@ -2,10 +2,11 @@
 `dedupe_compact`, F1 `filter_mark`, P1 `power_step`, P2 `power_account`,
 P3 `power_poison`, L1 `list_emit`, L2 `reverse_gather`, L3
 `subjects_gather`, L4 `list_pool_compact`, X1 `expand_emit`, X2
-`pool_compact`, C1 `closure_probe`, M3 `mb_scatmax`, M4
-`mb_scatmax_smem` and M5 `mb_pack_onepass` of one or more checkouts of
-keto_tpu_torch on one NVIDIA card, in turns, on the same inputs; and the
-card's dependent round trip (`chase`).
+`pool_compact`, C1 `closure_probe`, M2 `mb_probe_smem`, M3
+`mb_scatmax`, M4 `mb_scatmax_smem`, M5 `mb_pack_onepass` and M6
+`mb_pack` of one or more checkouts of keto_tpu_torch on one NVIDIA card,
+in turns, on the same inputs; and the card's dependent round trip
+(`chase`).
 
     python tools/scan_ab_torch.py --roots _checkout/parent . . _checkout/parent
     python tools/scan_ab_torch.py --cases l1_list_objects x1_expand --roots . _checkout/parent
@@ -20,6 +21,8 @@ card's dependent round trip (`chase`).
         chase --roots _checkout/parent . . _checkout/parent
     python tools/scan_ab_torch.py --cases m3_tool m3_large m3_skew m3_sorted m4_tool \
         --roots _checkout/parent . . _checkout/parent
+    python tools/scan_ab_torch.py --cases m2_tool m6_tool m6_large chase \
+        --roots _checkout/parent . . _checkout/parent
 
 Each root runs in a process of its own, which imports keto_tpu_torch from
 that root (so its kernels build from the root's csrc/ into the root's
@@ -30,10 +33,14 @@ of the call (a P3 call of an older checkout is two kernels and a
 memset), its mean time a launch times its launches a call, and those
 parts by name; and wall ms per call (`<case>_wall`), between CUDA events
 around back-to-back calls (the least of 21 windows), the wrapper's
-host work and any copies back included; for M3 and M4 also device ms
-per call between CUDA events around the replay of a CUDA graph of
-back-to-back calls (`<case>_graph`, the least of 21 replays), which no
-lost profiler record and no host enqueue can move. F1, P1, P2, L1 and X1 update
+host work and any copies back included; for M2, M3, M4 and M6 also
+device ms per call between CUDA events around the replay of a CUDA
+graph of back-to-back calls (`<case>_graph`, the least of 21 replays),
+which no lost profiler record and no host enqueue can move (M5 keeps an
+epoch on the host from call to call, so a replay would reuse it); for
+M2-M6 the one PyTorch call computing the same function
+(`<case>_gather`, `<case>_scatter_reduce`, `<case>_masked_select`); for
+M2 its parts (`m2_parts`). F1, P1, P2, L1 and X1 update
 inputs in place: each side of the comparison works on its own clones, F1
 is timed on one set of clones call after call (as chip_smoke.py times
 it), and each timed P1, P2, L1 or X1 call first copies back what the next
@@ -108,9 +115,10 @@ REPS = 50
 # table on (c1_dirty), and against tables of 2^16 slots (1 and 2 MB,
 # held in L2: c1_small, the same work without a DRAM row). M5: (F
 # inputs): the TPU tool's F = 16,384 and
-# ListObjects' frontier of 2^20 (microbench.py's draws); M6 and one
-# torch.masked_select on the same inputs beside them (`<case>_m6`,
-# `<case>_masked_select`). M3: (F updates): the TPU tool's F = 16,384
+# ListObjects' frontier of 2^20 (microbench.py's draws); M6 on the same
+# draws (m6_tool, m6_large). M2: (F indices): the TPU tool's F = 16,384
+# into its CAP = 32,768-slot table (m2_tool). M3: (F updates): the TPU
+# tool's F = 16,384
 # (m3_tool) and 2^20 (m3_large) on microbench.py's draws, into 2F
 # buckets; m3_skew the same 2^20 priorities with every bucket drawn in
 # one range of 2^14 buckets; m3_sorted m3_large's updates sorted by
@@ -119,7 +127,8 @@ REPS = 50
 # chase: one thread following a random cycle of (lines of 128 B, L2
 # lines, steps a call): a dependent round trip to DRAM and to L2, and an empty
 # kernel on K1's grid at k1_check's shape: K1's latency floor is that
-# launch and three trips, K2's that launch and two.
+# launch and three trips, K2's and M7's that launch and two, M1's that
+# launch and one.
 CASES = {
     "k3_check": ("expand_gather", 8192, 8192, 3),
     "k4_check": ("dedupe_compact", 8192, 8192, 4096),
@@ -164,6 +173,9 @@ CASES = {
     "m4_tool": ("mb_scatmax_smem", 16384),
     "m5_tool": ("mb_pack_onepass", 16384),
     "m5_large": ("mb_pack_onepass", 1 << 20),
+    "m6_tool": ("mb_pack", 16384),
+    "m6_large": ("mb_pack", 1 << 20),
+    "m2_tool": ("mb_probe_smem", 16384),
     "chase": ("chase", 1 << 21, 1 << 12, 4096),
 }
 # the arguments each kernel updates in place, and those a timed call
@@ -216,11 +228,12 @@ def inputs(name: str, dev):
 
     if CASES[name][0] in ("mb_scatmax", "mb_scatmax_smem"):
         return scatmax_inputs(name, dev)
-    if CASES[name][0] == "mb_pack_onepass":
+    if CASES[name][0] in MB_PLAIN:
         from keto_tpu_torch.tools import microbench as mb
 
         inp = mb.make_inputs(CASES[name][1], mb.CAP_TOOL)
-        return (torch.from_numpy(inp["keep"]).to(dev), torch.from_numpy(inp["vals"]).to(dev)), {}
+        cols = ("tab", "idx") if CASES[name][0] == "mb_probe_smem" else ("keep", "vals")
+        return tuple(torch.from_numpy(inp[c]).to(dev) for c in cols), {}
     kernel, n, F, m = CASES[name]
     rng = np.random.default_rng(0)
 
@@ -404,6 +417,28 @@ def inputs(name: str, dev):
 
 # m3_skew's one range of 2^14 buckets: the fifth of 2F = 2^21
 SKEW_RANGE = 5
+# the microbenchmark kernels' plain versions (tools/microbench.py)
+MB_PLAIN = {"mb_probe_smem": "probe_plain", "mb_scatmax": "scatmax_plain",
+            "mb_scatmax_smem": "scatmax_plain", "mb_pack_onepass": "pack_plain",
+            "mb_pack": "pack_plain"}
+
+
+def mb_library(kernel: str, args, kw):
+    """(label, call): one PyTorch call computing a microbenchmark
+    kernel's function on its inputs."""
+    import torch
+
+    if kernel == "mb_probe_smem":
+        tab, idx = args
+        return "gather", lambda: tab.reshape(-1)[idx.reshape(-1)]
+    if kernel in ("mb_pack_onepass", "mb_pack"):
+        keep, vals = args
+        return "masked_select", lambda: torch.masked_select(vals, keep != 0)
+    b, p = args
+    n_out = kw["n_out"]
+    return "scatter_reduce", lambda: torch.zeros(
+        n_out, dtype=torch.int32, device=b.device).scatter_reduce_(
+            0, b.reshape(-1).long(), p.reshape(-1), "amax")
 
 
 def scatmax_inputs(name: str, dev):
@@ -624,9 +659,7 @@ def worker(root: str, cases: list[str]) -> dict:
             out.update(chase(cuda_ops))
             continue
         args, kw = inputs(name, torch.device("cuda"))
-        # a checkout before the one-pass M5 names its one-block body
-        # mb_pack_block
-        fn = getattr(cuda_ops, kernel, None) or cuda_ops.mb_pack_block
+        fn = getattr(cuda_ops, kernel)
         run = lambda: fn(*args, **kw)  # noqa: E731
         if kernel in UPDATED:
             got, want, run = in_place(kernel, fn, args, kw)
@@ -650,26 +683,19 @@ def worker(root: str, cases: list[str]) -> dict:
             got, want = (run(),), (tek.pool_compact_plain(*args, **kw),)
         elif kernel == "closure_probe":
             got, want = (run(),), (tck.closure_probe_plain(*args, **kw),)
-        elif kernel == "mb_pack_onepass":
-            got, want = run(), mb.pack_plain(*args)
-            for label, other in (("m6", lambda: cuda_ops.mb_pack(*args)),
-                                 ("masked_select", lambda: torch.masked_select(args[1],
-                                                                               args[0] != 0))):
-                out[f"{name}_{label}"], out[f"{name}_{label}_parts"] = device_ms(other)
-        elif kernel in ("mb_scatmax", "mb_scatmax_smem"):
-            got, want = (run(),), (mb.scatmax_plain(*args, **kw),)
-            b, p = args
-
-            def scatter_reduce(b=b, p=p, n_out=kw["n_out"]):
-                return torch.zeros(n_out, dtype=torch.int32, device=b.device).scatter_reduce_(
-                    0, b.reshape(-1).long(), p.reshape(-1), "amax")
-
-            out[f"{name}_scatter_reduce"], out[f"{name}_scatter_reduce_parts"] = device_ms(
-                scatter_reduce)
-            try:
-                out[f"{name}_graph"] = graph_ms(run)
-            except RuntimeError as e:  # a body that cannot be captured
-                out[f"{name}_graph"] = f"not captured: {str(e)[:200]}"
+        elif kernel in MB_PLAIN:
+            got, want = run(), getattr(mb, MB_PLAIN[kernel])(*args, **kw)
+            if not isinstance(got, tuple):
+                got, want = (got,), (want,)
+            label, library = mb_library(kernel, args, kw)
+            out[f"{name}_{label}"], out[f"{name}_{label}_parts"] = device_ms(library)
+            if kernel != "mb_pack_onepass":  # M5's epoch: host state between calls
+                try:
+                    out[f"{name}_graph"] = graph_ms(run)
+                except RuntimeError as e:  # a body that cannot be captured
+                    out[f"{name}_graph"] = f"not captured: {str(e)[:200]}"
+            if kernel == "mb_probe_smem":
+                out["m2_parts"] = m2_parts(cuda_ops, *args)
         elif kernel == "expand_gather":
             got = run()
             ch, over = tk.expand_gather_plain(*args, **kw)
@@ -726,14 +752,7 @@ def chase(cuda_ops) -> dict:
     import torch
 
     _kernel, lines, l2_lines, steps = CASES["chase"]
-    so = cuda_ops.BUILD_DIR / "chase.so"
-    if not so.exists():
-        src = cuda_ops.BUILD_DIR / "chase.cu"
-        cuda_ops.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        src.write_text(CHASE_SOURCE)
-        subprocess.run([cuda_ops._nvcc(), *cuda_ops.NVCC_FLAGS, "-shared", "-o", str(so),
-                        str(src)], check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(so))
+    lib = build_probe(cuda_ops, "chase", CHASE_SOURCE)
     lib.chase.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                           ctypes.c_void_p]
     lib.empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -763,6 +782,122 @@ def chase(cuda_ops) -> dict:
     got["chase_launch_ms"], _parts = device_ms(run_empty)
     got["k1_floor_ms"] = got["chase_launch_ms"] + 3 * got["chase_dram_ms"]
     got["k2_floor_ms"] = got["chase_launch_ms"] + 2 * got["chase_dram_ms"]
+    # M1's gather and M7's probe: one and two dependent trips after the
+    # launch
+    got["m1_floor_ms"] = got["chase_launch_ms"] + got["chase_dram_ms"]
+    got["m7_floor_ms"] = got["k2_floor_ms"]
+    return got
+
+
+M2_PARTS_SOURCE = r"""
+#include <cuda_runtime.h>
+
+// the parent's M2 with its gather removed: every block stages the whole
+// table with a loop of 16-byte loads, then stores one staged word a thread
+__global__ void stage_loop_kernel(const int4* __restrict__ tab4, int cap4, int F,
+                                  int* __restrict__ out) {
+  extern __shared__ int4 s_tab4[];
+  for (int c = threadIdx.x; c < cap4; c += blockDim.x) s_tab4[c] = __ldg(tab4 + c);
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < F) out[i] = reinterpret_cast<const int*>(s_tab4)[threadIdx.x];
+}
+
+// the parent's M2 with a stage of one 16-byte load a thread: the launch,
+// the index trip and the gather (from the staged 4,096 words)
+__global__ void stage_one_kernel(const int4* __restrict__ tab4, int cap4,
+                                 const int* __restrict__ idx, int F, int* __restrict__ out) {
+  extern __shared__ int4 s_tab4[];
+  if ((int)threadIdx.x < cap4) s_tab4[threadIdx.x] = __ldg(tab4 + threadIdx.x);
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < F) out[i] = reinterpret_cast<const int*>(s_tab4)[__ldg(idx + i) & (4 * blockDim.x - 1)];
+}
+
+// M2's stage by one bulk copy on an mbarrier with its gather removed
+__global__ void stage_bulk_kernel(const int* __restrict__ tab, int cap, int F,
+                                  int* __restrict__ out) {
+  extern __shared__ int4 s_tab4[];
+  __shared__ unsigned long long s_bar;
+  const unsigned bar = (unsigned)__cvta_generic_to_shared(&s_bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+                 "r"(4 * cap) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+        ::"r"((unsigned)__cvta_generic_to_shared(s_tab4)), "l"(tab), "r"(4 * cap), "r"(bar)
+        : "memory");
+  }
+  __syncthreads();
+  unsigned done = 0;
+  while (!done) {
+    asm volatile("{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+                 " selp.u32 %0, 1, 0, p;\n}" : "=r"(done) : "r"(bar) : "memory");
+  }
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < F) out[i] = reinterpret_cast<const int*>(s_tab4)[threadIdx.x];
+}
+
+extern "C" int m2_part(int part, const int* tab, int cap, const int* idx, int F, int* out,
+                       void* stream) {
+  const int smem = 4 * cap, blocks = (F + 1023) / 1024;
+  const void* fn = part == 0 ? (const void*)stage_loop_kernel
+                   : part == 1 ? (const void*)stage_one_kernel : (const void*)stage_bulk_kernel;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (part == 0) {
+    stage_loop_kernel<<<blocks, 1024, smem, st>>>((const int4*)tab, cap / 4, F, out);
+  } else if (part == 1) {
+    stage_one_kernel<<<blocks, 1024, 16 * 1024, st>>>((const int4*)tab, cap / 4, idx, F, out);
+  } else {
+    stage_bulk_kernel<<<blocks, 1024, smem, st>>>(tab, cap, F, out);
+  }
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def build_probe(cuda_ops, stem: str, source: str):
+    """A ctypes library of `source` built into the root's _build/ as
+    <stem>.so: kernels that probe the card or a kernel's parts, no
+    kernels of the port."""
+    import ctypes
+
+    so = cuda_ops.BUILD_DIR / f"{stem}.so"
+    if not so.exists():
+        src = cuda_ops.BUILD_DIR / f"{stem}.cu"
+        cuda_ops.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src.write_text(source)
+        subprocess.run([cuda_ops._nvcc(), *cuda_ops.NVCC_FLAGS, "-shared", "-o", str(so),
+                        str(src)], check=True, capture_output=True, text=True)
+    return ctypes.CDLL(str(so))
+
+
+def m2_parts(cuda_ops, tab, idx) -> dict:
+    """Device ms of M2's parts on its inputs, from M2_PARTS_SOURCE: the
+    parent's stage alone (`stage_loop`: its gather removed), its launch,
+    index trip and gather (`stage_one`: a stage of one 16-byte load a
+    thread), and the bulk-copy stage alone (`stage_bulk`). They are the
+    same kernels for every root."""
+    import ctypes
+
+    import torch
+
+    lib = build_probe(cuda_ops, "m2_parts", M2_PARTS_SOURCE)
+    lib.m2_part.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    out = torch.empty_like(idx)
+    got = {}
+    for part, label in enumerate(("stage_loop", "stage_one", "stage_bulk")):
+        def run(part=part):
+            if lib.m2_part(part, tab.data_ptr(), tab.numel(), idx.data_ptr(), idx.numel(),
+                           out.data_ptr(), torch.cuda.current_stream().cuda_stream):
+                raise RuntimeError(f"m2 part {part} failed")
+
+        got[label], _parts = device_ms(run)
     return got
 
 
