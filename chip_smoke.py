@@ -22,12 +22,29 @@ Phases, in order; any failure exits non-zero without the final line:
                batches of 4096 checks; zero host replays, every kernel's
                launch count advanced, 512 sampled verdicts equal the host
                oracle's; checks/s and p50 batch ms
+ 4w. write   — (run after phase 10, with 8w, 10w and 9w, so that every
+               phase before measures the stores as loaded) the write path
+               on phase 4's engine: (a) one write of 64
+               inserts and 64 deletes folds into the delta overlay (timed);
+               the next batch of 4096 checks runs every launch with
+               has_delta (the "check_write" launch path: K1-K4 launched),
+               its only host replays are dirty_row replays (counted), 512
+               sampled verdicts equal the oracle's, and K1-K4 are held to
+               their plain versions on inputs captured from it (the
+               edge_probe and pair_probe rows' "write" entries, and
+               pair_probe's "write_dirty" at the step-1 dirty-row probe);
+               (b) one write of 4,096 ops overflows the overlay and
+               compacts the mirror (incremental_merges + 1, no snapshot
+               build), timed against phase 4a's full build, and the next
+               batch runs on the new base with zero host replays
   5. islands — an AND/NOT namespace batch against the host oracle
-  6. serve   — `python -m keto_tpu_torch serve` on a free port: a 200, a
+  6. serve   — `python -m keto_tpu_torch serve` on free ports: a 200, a
                403, a batch check, an expand tree, an expand 404, a
                list-objects and a list-subjects 200 and a list-objects 400,
                a check with a snaptoken ahead of the store (409) and a
-               list-objects with a satisfied one
+               list-objects with a satisfied one; then a PUT, a PATCH and a
+               DELETE on the write listener, each seen by a check that
+               carries the token it returned
   7. expand  — (7a) data, (7b) X1 and X2 against their plain versions
                on inputs captured from one real expand batch, as phase 3,
                and X1 again on the same batch at a frontier cap of 32,768
@@ -39,7 +56,9 @@ Phases, in order; any failure exits non-zero without the final line:
                TorchCheckEngine.expand_batch over batches of 1024 role
                member sets; zero host expands, X1, X2, K2 and K4 launched,
                256 sampled trees equal the host oracle's; trees/s and p50
-               batch ms
+               batch ms; (7w) after a small write one batch on the overlay:
+               the written roles' roots replay on the host, their trees
+               and 64 sampled ones equal the oracle's
   8. list    — on phase 4's store and engine: (8a) the reverse and subjects
                states' build seconds and table bytes; (8b) L1-L4 against
                their plain versions on inputs captured from one real batch
@@ -57,7 +76,11 @@ Phases, in order; any failure exits non-zero without the final line:
                and K4 launched, 64 sampled answers equal to the host
                oracle's list_subjects; lists/s, p50 batch ms, mean results
                per query and the launch + readback against host decode
-               split
+               split; (8w, run after 4w) after a small write one
+               batch of each leg on the overlay: ListObjects with zero
+               host replays, equal to the store's ownership maps, and
+               ListSubjects with the written file's query replayed on the
+               host, it and 16 sampled answers equal to the oracle's
   9. closure — (9a) bench.py:1162's deep-1e6 topology (22,857 chains of
                20 parent hops, a tail owner each, 520,003 direct viewer
                grants; max read depth 24) into a second store, and the
@@ -75,9 +98,12 @@ Phases, in order; any failure exits non-zero without the final line:
                batch captured for C1; (9) batches of 4096 chain-head checks
                with the closure on (one C1 launch, every query a hit) and
                off (the BFS) in alternating rounds, equal verdicts, 512
-               sampled equal to the oracle; then one write: every check
-               falls back (stale_snapshot), still correct, until the index
-               is powered on the card again and the hits resume
+               sampled equal to the oracle; (9w, last) one small write:
+               the index lags behind the overlay, every check falls back
+               (lag), still correct, and closure_ensure_built() is not
+               ready and launches no P1-P3; then a write of 4,096 grants
+               compacts the mirror, the index is powered on the card again
+               over the new base (timed) and the hits resume
  10. filter  — (10a) the frontier tier on phase 4's engine: 10,000
                candidates (bench.py:547's draws) for the owner of /d0, one
                shared walk; (10b) the closure tier on phase 9's engine:
@@ -90,7 +116,9 @@ Phases, in order; any failure exits non-zero without the final line:
                valid and covered shares and the ch bytes it reads for
                queries its verdict leaves unresolved; torch.searchsorted
                on F1's inputs as its yardstick; K2 at the frontier walk's
-               step-1 launch
+               step-1 launch; (10w, after 8w) after a small write one
+               frontier-tier filter on the overlay, 200 sampled verdicts
+               equal to the oracle and all equal to check_batch
  11. microbench — the TPU microbenchmarks' primitives (B8, B9): (11a)
                `python -m keto_tpu_torch.tools.microbench` and
                `... .tools.microbench_feasibility` as subprocesses, every
@@ -128,6 +156,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # 64 INT32 lanes per SM (Hopper whitepaper) x the 1.98 GHz boost clock
 OPS_INT32_PER_S = 132 * 64 * 1.98e9
 HASH_OPS = 9  # one fmix32 round: 3 shifts, 3 xors, 2 multiplies, 1 combine xor
+DELTA_PROBES = 8  # the overlay tables' probe depth (engine/delta.py)
 N_FOLDERS = 6600
 FILES_PER_FOLDER = 120
 N_USERS = 512
@@ -177,6 +206,10 @@ DEEP_CLOSURE_CAPPED = (543_981, 645_912)
 FILTER_OBJECTS = 10_000
 FILTER_ROUNDS = 5
 FILTER_CHUNK = 16384
+# write phase: one write into the delta overlay (inserts and as many
+# deletes), then one past its 2,048 ops, which compacts the mirror
+WRITE_SMALL = 64
+WRITE_LARGE = 4096
 KERNEL_SOURCES = {
     "edge_probe": "keto_tpu_torch/csrc/check_kernels.cu",
     "pair_probe": "keto_tpu_torch/csrc/check_kernels.cu",
@@ -480,6 +513,20 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def distinct_rows(pack, h1, probes: int, spb: int) -> int:
+    """The distinct bucket rows of `pack` that probe chains of `probes`
+    slots from the hashes `h1` reach (kernel._bucket_rows' addressing):
+    at most the table's rows, so their bytes are at most the table's."""
+    import torch
+
+    from keto_tpu_torch.engine import kernel as tk
+
+    h2 = tk.mix32(h1 ^ tk._GOLDEN) | 1
+    nb = pack.shape[0] // spb
+    jb = torch.arange(-(-probes // spb), dtype=torch.int64, device=pack.device)
+    return int(torch.unique((h1[:, None] + jb * h2[:, None]) & (nb - 1)).numel())
+
+
 def pair_probe_case(args, kw, live, note):
     """K2's (name, kernel fn, plain fn, bytes, operations, compare fn,
     kernel functions) on captured inputs, and its launch's shape. K2
@@ -505,11 +552,8 @@ def pair_probe_case(args, kw, live, note):
     n_keys = int(keys.numel())
     spb = kw["spb"]
     pb = -(-kw["probes"] // spb)
-    h1 = tk.hash_combine(keys >> 32, keys & 0xFFFFFFFF)
-    h2 = tk.mix32(h1 ^ tk._GOLDEN) | 1
     nb = pack.shape[0] // spb
-    jb = torch.arange(pb, dtype=torch.int64, device=pack.device)
-    n_rows = int(torch.unique((h1[:, None] + jb * h2[:, None]) & (nb - 1)).numel())
+    n_rows = distinct_rows(pack, tk.hash_combine(keys >> 32, keys & 0xFFFFFFFF), kw["probes"], spb)
     shape = {"note": note, "F": F, "S": S, "n_vals": kw["n_vals"], "probes": kw["probes"],
              "spb": spb, "distinct_keys": n_keys, "distinct_rows": n_rows, "table_rows": nb,
              "live_share": float(live.float().mean())}
@@ -550,9 +594,10 @@ def kernel_cases(rec):
     operations it does[, compare fn, kernel functions]) for each kernel on
     the captured inputs. Bytes
     count each input read once and each output written once. Probe rows
-    and gathers count only what this step's data needs: bucket rows for
-    the keys of tasks that are live with depth >= 1 (K1: the task's edge
-    key), each distinct key's rows once for K2 (pair_probe_case), and for
+    and gathers count only what this step's data needs: each distinct
+    bucket row once that the keys of tasks live with depth >= 1 reach (K1:
+    the task's edge key, in dh_pack and, with the overlay, in dd_pack),
+    each distinct key's rows once for K2 (pair_probe_case), and for
     K3 the segments and sources of the candidates that land in the
     frontier."""
     import torch
@@ -564,16 +609,25 @@ def kernel_cases(rec):
     args, kw = rec.args("edge_probe")
     dh_pack, dd_pack, obj, rel, q, qsub, depth, live = args
     F = obj.shape[0]
+    spb = kw["spb"]
     expand = live & (depth >= 1)
     n_probe = int(expand.sum())
-    pb = -(-kw["dh_probes"] // kw["spb"])
-    row_bytes = kw["spb"] * 32
+    sub = qsub[q[expand].long()]
+    h1 = tk.hash_combine(obj[expand], rel[expand], sub[:, 0], sub[:, 1], sub[:, 2])
+    # each distinct bucket row the probing tasks' keys reach, once
+    n_rows = distinct_rows(dh_pack, h1, kw["dh_probes"], spb)
+    pb = -(-kw["dh_probes"] // spb)
+    if kw["has_delta"]:
+        # the overlay round: DELTA_PROBES deep into dd_pack from the same
+        # hashes; its distinct rows are at most dd_pack's
+        n_rows += distinct_rows(dd_pack, h1, DELTA_PROBES, spb)
+        pb += -(-DELTA_PROBES // spb)
     cases.append((
         "edge_probe",
         lambda: cuda_ops.edge_probe(*args, **kw),
         lambda: tk.edge_probe_plain(*args, **kw),
-        F * (4 * 4 + 1 + 1) + n_probe * (16 + pb * row_bytes),
-        n_probe * (6 * HASH_OPS + pb * kw["spb"] * 6),
+        F * (4 * 4 + 1 + 1) + n_probe * 16 + n_rows * spb * 32,
+        n_probe * (6 * HASH_OPS + pb * spb * 6),
         lambda: max_abs_err(cuda_ops.edge_probe(*args, **kw), tk.edge_probe_plain(*args, **kw)),
         ("edge_probe_staged_kernel", "Memset"),
     ))
@@ -970,6 +1024,155 @@ def run_check(engine, queries, manager, config):
                       "batch_ms": lat, "allowed": allowed}
 
 
+def run_write(engine, manager, config, queries, t_full_build):
+    """Phase 4w on phase 4's engine: (a) one write of WRITE_SMALL inserts
+    and as many deletes folds into the delta overlay; the next batch runs
+    every launch with has_delta, its host replays are dirty_row replays
+    alone, 512 sampled verdicts equal the oracle's, and K1-K4 are held to
+    their plain versions on inputs captured from it; (b) one write of
+    WRITE_LARGE ops overflows the overlay and compacts the mirror into a
+    new base, timed against phase 4a's full build."""
+    import torch
+
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+    from keto_tpu_torch.ketoapi import RelationQuery, RelationTuple, SubjectSet
+
+    t0 = phase(f"4w write: {WRITE_SMALL} inserts + {WRITE_SMALL} deletes into the overlay, "
+               f"then {WRITE_LARGE} ops into a compacted base")
+    rng = random.Random(21)
+    files = sorted({q.object for q in queries})
+    folders = sorted({f.rsplit("/", 1)[0] for f in files})
+    hit = rng.sample(files, WRITE_SMALL // 2)
+    # deletes: the parent links of queried files (their rows turn dirty:
+    # host replays) and the owners of queried folders (tombstones in the
+    # overlay, answered by K1's overlay round)
+    deletes = [RelationTuple("videos", f, "parent",
+                             subject_set=SubjectSet("videos", f.rsplit("/", 1)[0], "..."))
+               for f in hit]
+    for d in rng.sample(folders, WRITE_SMALL // 2):
+        rows, _ = manager.get_relation_tuples(
+            RelationQuery(namespace="videos", object=d, relation="owner"))
+        deletes += rows[:1]
+    deletes = deletes[:WRITE_SMALL]
+    # inserts: owners of queried files (overlay inserts) and new files
+    # under existing folders (new vocabulary)
+    inserts = [RelationTuple("videos", f, "owner", subject_id=f"user{rng.randrange(N_USERS)}")
+               for f in rng.sample(files, WRITE_SMALL // 2)]
+    inserts += [RelationTuple("videos", f"{d}/vw{i}.mp4", "parent",
+                              subject_set=SubjectSet("videos", d, "..."))
+                for i, d in enumerate(rng.sample(folders, WRITE_SMALL - len(inserts)))]
+    before = dict(engine.stats)
+    causes = dict(engine.stats["host_cause"])
+    manager.transact_relation_tuples(inserts, deletes)
+    t = time.perf_counter()
+    state = engine.ensure_state()
+    torch.cuda.synchronize()
+    t_refresh = time.perf_counter() - t
+    n_ops = len(manager.changes_since(state.base_version))
+    if not state.has_delta or engine.stats["snapshot_builds"] != before["snapshot_builds"]:
+        raise AssertionError("the write did not fold into the overlay")
+    cuda_ops.reset_launch_counts()
+    t = time.perf_counter()
+    results = engine.check_batch(queries, MAX_DEPTH)  # the write path's batch, once
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t
+    launches = dict(cuda_ops.launches)
+    missing = [k for k in cuda_ops.CHECK_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the write path: {missing}")
+    replays = {k: v - causes.get(k, 0) for k, v in engine.stats["host_cause"].items()
+               if v != causes.get(k, 0)}
+    n_host = engine.stats["host_checks"] - before["host_checks"]
+    if set(replays) - {"dirty_row"} or n_host != replays.get("dirty_row", 0):
+        raise AssertionError(f"host replays after the write other than dirty_row: {replays}")
+    oracle = ReferenceEngine(manager, config)
+    sample = random.Random(8).sample(range(len(queries)), min(512, len(queries)))
+    bad = [i for i in sample
+           if oracle.check_relation_tuple(queries[i], MAX_DEPTH).allowed != results[i].allowed]
+    if bad:
+        raise AssertionError(f"{len(bad)} of 512 sampled verdicts after the write differ")
+    lat = []
+    for _ in range(5):
+        s = time.perf_counter()
+        engine.check_batch(queries, MAX_DEPTH)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - s) * 1e3)
+    log(f"  {len(inserts)} inserts + {len(deletes)} deletes ({n_ops} ops in the overlay): "
+        f"delta refresh {t_refresh * 1e3:.1f} ms; next batch {t_batch * 1e3:.1f} ms, then p50 "
+        f"{statistics.median(lat):.2f} ms; {n_host} dirty_row replays; launches {launches}; "
+        f"512 sampled equal the oracle")
+
+    # K1-K4 on the post-write batch: pair_probe calls 2 and 3 are step 1's
+    # span probe (rh) and dirty-row probe, on the frontier edge_probe's
+    # call 1 reads
+    with Recorder(cuda_ops, step=1, steps={"pair_probe": 2}, keep=("pair_probe",)) as rec:
+        engine.check_batch(queries, MAX_DEPTH)
+    cases, _k2_shape = kernel_cases(rec)
+    at = {}
+    for case in cases:
+        name = case[0]
+        if name in ("edge_probe", "pair_probe"):
+            row = time_kernel(*case)
+            at[name] = {**{k: row[k] for k in LARGE_KEYS if k != "note"},
+                        "note": "the first batch after a write, has_delta"}
+        else:
+            err = case[5]()
+            log(f"  {name} at write: max_abs_err {err}")
+            if err:
+                raise AssertionError(f"{name} disagrees with its plain version after a write")
+    args2, kw2 = expect_probe(*rec.calls["pair_probe"][3], state.tables["dirty_pack"], DELTA_PROBES,
+                              "the step-1 dirty-row probe")
+    at["pair_probe_dirty"] = time_pair_probe(args2, kw2, rec.args("edge_probe")[0][7],
+                                             "the step-1 dirty-row probe after a write")
+    kw1 = rec.args("edge_probe")[1]
+    log(f"  K1 at write: {kw1}; K2 at write: {at['pair_probe']}")
+
+    # (b) a write past the overlay's capacity compacts the mirror
+    merges = engine.stats["incremental_merges"]
+    builds = engine.stats["snapshot_builds"]
+    big = []
+    for i in range(WRITE_LARGE // 2):
+        d = f"/d{rng.randrange(N_FOLDERS)}"
+        obj = f"{d}/vx{i}.mp4"
+        big.append(RelationTuple("videos", obj, "parent", subject_set=SubjectSet("videos", d, "...")))
+        big.append(RelationTuple("videos", obj, "owner",
+                                 subject_id=f"user{rng.randrange(N_USERS)}"))
+    manager.write_relation_tuples(big)
+    t = time.perf_counter()
+    merged = engine.ensure_state()
+    torch.cuda.synchronize()
+    t_compact = time.perf_counter() - t
+    if engine.stats["incremental_merges"] != merges + 1 or \
+            engine.stats["snapshot_builds"] != builds or merged.has_delta:
+        raise AssertionError(f"the large write did not compact: {engine.stats}")
+    before = dict(engine.stats)
+    t = time.perf_counter()
+    results = engine.check_batch(queries, MAX_DEPTH)
+    torch.cuda.synchronize()
+    t_after = time.perf_counter() - t
+    if engine.stats["host_checks"] != before["host_checks"]:
+        raise AssertionError("host replays on the compacted base")
+    bad = [i for i in sample
+           if oracle.check_relation_tuple(queries[i], MAX_DEPTH).allowed != results[i].allowed]
+    if bad:
+        raise AssertionError(f"{len(bad)} of 512 sampled verdicts after the compaction differ")
+    snap = merged.snapshot
+    log(f"  {len(big)} ops: compaction {t_compact:.2f} s against the full build's "
+        f"{t_full_build:.2f} s (phase 4a); next batch {t_after * 1e3:.1f} ms, zero host "
+        f"replays, 512 sampled equal the oracle; dh_probes {snap.dh_probes}, rh_probes "
+        f"{snap.rh_probes}, merge_garbage {snap.merge_garbage}")
+    log(f"  write phase {time.perf_counter() - t0:.1f} s")
+    out = {"small_ops": n_ops, "delta_refresh_ms": t_refresh * 1e3,
+           "next_batch_ms": t_batch * 1e3, "batch_ms_after_write": lat,
+           "dirty_row_replays": n_host, "large_ops": len(big),
+           "compaction_s": t_compact, "full_build_s": t_full_build,
+           "next_batch_after_compaction_ms": t_after * 1e3,
+           "merged": {"dh_probes": snap.dh_probes, "rh_probes": snap.rh_probes,
+                      "merge_garbage": snap.merge_garbage, "n_tuples": snap.n_tuples}}
+    return launches, at, out
+
+
 def device_profile(fn, label: str) -> dict:
     """Device busy time by kernel over two calls of `fn` from the
     profiler, and the idle share against the median unprofiled wall time
@@ -1200,6 +1403,52 @@ def run_expand(engine, manager, config, subjects, info):
     return launches, out
 
 
+def run_expand_write(engine, manager, config, subjects):
+    """Phase 7w: one expand batch after a small write, on the overlay: a
+    written role's root is dirty and its tree comes from the oracle, the
+    rest from the device; every written role's tree and 64 sampled trees
+    equal the oracle's."""
+    import torch
+
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+    from keto_tpu_torch.ketoapi import RelationQuery, RelationTuple
+
+    t0 = phase("7w expand after a write: one batch on the overlay")
+    touched = subjects[:4]
+    inserts = [RelationTuple("role", s.object, "member", subject_id=f"writer{i}")
+               for i, s in enumerate(touched)]
+    deletes = []
+    for s in touched[:2]:
+        rows, _ = manager.get_relation_tuples(
+            RelationQuery(namespace="role", object=s.object, relation="member"))
+        deletes += rows[:1]
+    manager.transact_relation_tuples(inserts, deletes)
+    before = dict(engine.stats)
+    cuda_ops.reset_launch_counts()
+    t = time.perf_counter()
+    trees = engine.expand_batch(subjects, EXPAND_DEPTH, **EXPAND_CAPS)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t
+    launches = dict(cuda_ops.launches)
+    if not engine.ensure_state().has_delta:
+        raise AssertionError("the expand write did not fold into the overlay")
+    missing = [k for k in cuda_ops.EXPAND_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the expand write path: {missing}")
+    oracle = ReferenceEngine(manager, config)
+    sample = sorted(set(range(len(touched))) | set(random.Random(12).sample(range(len(subjects)), 64)))
+    bad = [i for i in sample
+           if normalize(trees[i]) != normalize(oracle.expand(subjects[i], EXPAND_DEPTH))]
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(sample)} trees after a write differ")
+    n_host = engine.stats["host_expands"] - before["host_expands"]
+    log(f"  {len(inserts)} inserts + {len(deletes)} deletes; next batch {t_batch * 1e3:.1f} ms, "
+        f"{n_host} host expands (dirty roots), launches {launches}; {len(sample)} trees "
+        f"(every written role's) equal the oracle; phase {time.perf_counter() - t0:.1f} s")
+    return {"batch_ms": t_batch * 1e3, "host_expands": n_host}
+
+
 def ownership(tuples):
     """The generator's ownership maps: user -> owned folders, user ->
     directly owned files, and the files of each folder."""
@@ -1362,11 +1611,13 @@ def run_list_leg(engine, leg, queries, caps, want_kernels, check):
     return launches, out
 
 
-def run_list_objects(engine, manager, config, queries, owners):
+def list_objects_check(manager, config, queries, owners):
+    """check(results): 32 sampled ListObjects answers against the
+    ownership maps, and 4 x 32 of their objects against the oracle's
+    check."""
     from keto_tpu_torch.engine.reference import ReferenceEngine
     from keto_tpu_torch.ketoapi import RelationTuple
 
-    t0 = phase(f"8c list objects: batches of {len(queries)} users' view on the main path")
     folders_of, files_of, files_in = owners
 
     def expected(user):
@@ -1402,6 +1653,12 @@ def run_list_objects(engine, manager, config, queries, owners):
         log("  32 sampled answers equal the ownership maps; 4 x 32 objects equal the oracle's "
             "check")
 
+    return check
+
+
+def run_list_objects(engine, manager, config, queries, owners):
+    t0 = phase(f"8c list objects: batches of {len(queries)} users' view on the main path")
+    check = list_objects_check(manager, config, queries, owners)
     launches, out = run_list_leg(
         engine, "objects", queries, LO_CAPS,
         ("pair_probe", "dedupe_compact", "list_emit", "reverse_gather", "list_pool_compact"),
@@ -1430,6 +1687,70 @@ def run_list_subjects(engine, manager, config, queries):
         check)
     log(f"  list subjects phase {time.perf_counter() - t0:.1f} s")
     return launches, out
+
+
+def run_list_write(engine, manager, config, lo_queries, ls_queries, owners):
+    """Phase 8w: one ListObjects and one ListSubjects batch after a small
+    write, on the overlay. The write adds a file under a folder that no
+    user of the ListObjects batch owns, a second owner of a listed file
+    and takes a file owner away from a user outside the batch: the
+    ListObjects walks probe the reverse-dirty table with no hit (zero host
+    replays), their answers equal the store's ownership maps; the listed
+    file's row is dirty, so its ListSubjects query replays on the host,
+    and it and 16 sampled answers equal the oracle's."""
+    import torch
+
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+    from keto_tpu_torch.ketoapi import RelationTuple, SubjectSet
+
+    t0 = phase("8w list after a write: one batch of each leg on the overlay")
+    folders_of, files_of, files_in = owners
+    users = {q[2] for q in lo_queries}
+    folder = next(d for u, ds in sorted(folders_of.items()) if u not in users for d in ds)
+    outsider = next(u for u in sorted(files_of) if u not in users)
+    listed = ls_queries[0][1]
+    new_file = f"{folder}/v-listed-after-write.mp4"
+    inserts = [RelationTuple("videos", new_file, "parent",
+                             subject_set=SubjectSet("videos", folder, "...")),
+               RelationTuple("videos", listed, "owner", subject_id="lister")]
+    deletes = [RelationTuple("videos", files_of[outsider][0], "owner", subject_id=outsider)]
+    manager.transact_relation_tuples(inserts, deletes)
+    files_in[folder].append(new_file)
+    files_of.setdefault("lister", []).append(listed)
+    files_of[outsider] = files_of[outsider][1:]
+
+    out = {}
+    for leg, queries, caps in (("objects", lo_queries, LO_CAPS),
+                               ("subjects", ls_queries, LS_CAPS)):
+        before = engine.stats[f"host_list_{leg}"]
+        cuda_ops.reset_launch_counts()
+        t = time.perf_counter()
+        results = getattr(engine, f"list_{leg}_batch")(queries, LIST_DEPTH, **caps)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = {k: v for k, v in cuda_ops.launches.items() if v}
+        n_host = engine.stats[f"host_list_{leg}"] - before
+        if not engine.ensure_state().has_delta:
+            raise AssertionError("the list write did not fold into the overlay")
+        if leg == "objects":
+            if n_host:
+                raise AssertionError(f"{n_host} host replays on ListObjects after the write")
+            list_objects_check(manager, config, queries, owners)(results)
+        else:
+            oracle = ReferenceEngine(manager, config)
+            dirty = [i for i, q in enumerate(queries) if q[1] == listed]
+            # 16 sampled: the oracle's list_subjects takes ~1.8 s a query here
+            sample = sorted(set(dirty) | set(random.Random(18).sample(range(len(queries)), 16)))
+            bad = [i for i in sample
+                   if results[i] != oracle.list_subjects(*queries[i], LIST_DEPTH)]
+            if bad or n_host < 1 or "lister" not in results[dirty[0]]:
+                raise AssertionError(f"ListSubjects after a write: {len(bad)} differ, "
+                                     f"{n_host} host replays")
+        log(f"  list_{leg}: {ms:.1f} ms, {n_host} host replays, launches {launches}")
+        out[f"list_{leg}"] = {"batch_ms": ms, "host_replays": n_host, "launches": launches}
+    log(f"  list write phase {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def deep_namespace():
@@ -1706,13 +2027,12 @@ def power_kernel_cases(wave_args, max_set_rows):
 
 def run_closure(engine, manager, config, queries):
     """Closure on and off (the BFS) on the same batch in alternating
-    rounds, the main path's launches, the oracle, and a write that turns
-    the index stale until it is built again."""
+    rounds, the main path's launches, the oracle. Returns the launches,
+    the figures and the verdicts (phase 9w's reference)."""
     import torch
 
     from keto_tpu_torch.engine import cuda_ops
     from keto_tpu_torch.engine.reference import ReferenceEngine
-    from keto_tpu_torch.ketoapi import RelationTuple
 
     t0 = phase(f"9 closure: batches of {BATCH} chain-head checks, closure on and off")
     engine.closure_enabled = False
@@ -1761,24 +2081,82 @@ def run_closure(engine, manager, config, queries):
     engine.closure_enabled = True
     profile_on = device_profile(lambda: engine.check_batch(queries), "batches")
 
-    # one write: the mirror rebuilds, the index no longer serves it, and
-    # every check falls back to the BFS, still correct
+    out = {
+        "on_checks_per_s": BATCH / (statistics.median(lat["on"]) / 1e3),
+        "off_checks_per_s": BATCH / (statistics.median(lat["off"]) / 1e3),
+        "on_p50_batch_ms": statistics.median(lat["on"]),
+        "off_p50_batch_ms": statistics.median(lat["off"]),
+        "batch_ms": lat, "off_steps_per_batch": bfs_steps,
+        "allowed": sum(expected), "launches": {k: v for k, v in launches.items() if v},
+        "profile_off": profile, "profile_on": profile_on,
+    }
+    log(f"  launches on the closure path: {launches}; {len(queries)} closure hits, 0 fallbacks")
+    log(f"  closure on {out['on_checks_per_s']:.1f} checks/s, p50 {out['on_p50_batch_ms']:.2f} ms "
+        f"(idle share {profile_on['idle_share']}); off (BFS, {bfs_steps} steps) "
+        f"{out['off_checks_per_s']:.1f} checks/s, p50 {out['off_p50_batch_ms']:.2f} ms "
+        f"(idle share {profile['idle_share']}); {DEEP_ROUNDS} rounds each, alternating; "
+        f"0 mismatches; 512 sampled equal the oracle; {sum(expected)} allowed")
+    log(f"  closure phase {time.perf_counter() - t0:.1f} s")
+    return launches, out, expected
+
+
+def run_closure_write(engine, manager, queries, expected):
+    """Phase 9w on phase 9's engine: a small write the index lags behind
+    until a large one compacts the mirror and the index is powered again
+    on the card over the new base. `expected` are phase 9's verdicts on
+    `queries` before any write."""
+    import torch
+
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.ketoapi import RelationTuple
+
+    t0 = phase(f"9w closure after a write: lag over the overlay, then {WRITE_LARGE} grants "
+               f"compacted and the index powered again")
+    engine.closure_enabled = True
+    # one small write rides the overlay: the index lags behind it, every
+    # check falls back to the BFS (lag), still correct, and the index is
+    # not powered again over the same base
     c = int(queries[0].object[1:].split("f")[0])
     fresh = RelationTuple("deep", f"c{c}f0", "viewer", subject_id="newbie")
     stale_batch = list(queries[:-1]) + [fresh]
     manager.write_relation_tuples([RelationTuple("deep", f"c{c}f{DEEP_DEPTH}", "owner",
                                                  subject_id="newbie")])
     t_w = time.perf_counter()
-    stale = engine.stats["closure_fallback"].get("stale_snapshot", 0)
+    lag = engine.stats["closure_fallback"].get("lag", 0)
     got = engine.check_batch(stale_batch)
-    t_stale = time.perf_counter() - t_w
-    n_stale = engine.stats["closure_fallback"].get("stale_snapshot", 0) - stale
+    torch.cuda.synchronize()
+    t_lag = time.perf_counter() - t_w
+    n_lag = engine.stats["closure_fallback"].get("lag", 0) - lag
     want = expected[:-1] + [True]
-    if n_stale != len(stale_batch) or [r.allowed for r in got] != want:
-        raise AssertionError(f"after a write: {n_stale} stale fallbacks, verdicts "
+    if n_lag != len(stale_batch) or [r.allowed for r in got] != want:
+        raise AssertionError(f"after a write: {n_lag} lag fallbacks, verdicts "
                              f"{'equal' if [r.allowed for r in got] == want else 'differ'}")
+    if not engine.ensure_state().has_delta:
+        raise AssertionError("the small write did not fold into the overlay")
+    cuda_ops.reset_launch_counts()
+    ready = engine.closure_ensure_built()
+    torch.cuda.synchronize()
+    if ready or any(cuda_ops.launches[k] for k in cuda_ops.POWER_KERNELS):
+        raise AssertionError(f"the index over the same base: ready {ready}, launches "
+                             f"{dict(cuda_ops.launches)}")
+    # a write past the overlay's capacity compacts the mirror into a new
+    # base, which the index powers on the card again
+    grng = random.Random(31)
+    grants = [RelationTuple("deep", f"c{grng.randrange(DEEP_CHAINS)}f{grng.randrange(DEEP_DEPTH + 1)}",
+                            "viewer", subject_id=f"w{i}") for i in range(WRITE_LARGE)]
+    merges = engine.stats["incremental_merges"]
+    builds = engine.stats["snapshot_builds"]
+    manager.write_relation_tuples(grants)
     t_w = time.perf_counter()
-    engine.closure_ensure_built()
+    engine.ensure_state()
+    torch.cuda.synchronize()
+    t_compact = time.perf_counter() - t_w
+    if engine.stats["incremental_merges"] != merges + 1 or engine.stats["snapshot_builds"] != builds:
+        raise AssertionError(f"the large write did not compact: {engine.stats}")
+    t_w = time.perf_counter()
+    if not engine.closure_ensure_built():
+        raise AssertionError("the index did not build over the compacted base")
+    torch.cuda.synchronize()
     t_rebuild = time.perf_counter() - t_w
     rebuilt = engine.closure_index().describe()
     if rebuilt["device_builds"] != 2 or rebuilt["device_fallbacks"]:
@@ -1789,29 +2167,18 @@ def run_closure(engine, manager, config, queries):
     if engine.stats["closure_hits"] - hits != len(stale_batch) or \
             [r.allowed for r in got] != want:
         raise AssertionError("the rebuilt index did not resume the hits")
+    fresh_grants = [RelationTuple("deep", g.object, "viewer", subject_id=g.subject_id)
+                    for g in grants[:64]]
+    if not all(r.allowed for r in engine.check_batch(fresh_grants)):
+        raise AssertionError("the compacted base lost a written grant")
 
-    out = {
-        "on_checks_per_s": BATCH / (statistics.median(lat["on"]) / 1e3),
-        "off_checks_per_s": BATCH / (statistics.median(lat["off"]) / 1e3),
-        "on_p50_batch_ms": statistics.median(lat["on"]),
-        "off_p50_batch_ms": statistics.median(lat["off"]),
-        "batch_ms": lat, "off_steps_per_batch": bfs_steps,
-        "allowed": sum(expected), "launches": {k: v for k, v in launches.items() if v},
-        "stale_batch_s_incl_mirror_rebuild": t_stale, "closure_rebuild_s": t_rebuild,
-        "rebuild_power": {k: rebuilt[k] for k in ("power_s", "power_prep_s", "power_wave_s")},
-        "profile_off": profile, "profile_on": profile_on,
-    }
-    log(f"  launches on the closure path: {launches}; {len(queries)} closure hits, 0 fallbacks")
-    log(f"  closure on {out['on_checks_per_s']:.1f} checks/s, p50 {out['on_p50_batch_ms']:.2f} ms "
-        f"(idle share {profile_on['idle_share']}); off (BFS, {bfs_steps} steps) "
-        f"{out['off_checks_per_s']:.1f} checks/s, p50 {out['off_p50_batch_ms']:.2f} ms "
-        f"(idle share {profile['idle_share']}); {DEEP_ROUNDS} rounds each, alternating; "
-        f"0 mismatches; 512 sampled equal the oracle; {sum(expected)} allowed")
-    log(f"  a write: {n_stale} stale_snapshot fallbacks, verdicts correct ({t_stale:.1f} s with "
-        f"the mirror rebuild); closure rebuilt in {t_rebuild:.1f} s (power on the card "
-        f"{rebuilt['power_s']:.2f} s), hits resumed")
-    log(f"  closure phase {time.perf_counter() - t0:.1f} s")
-    return launches, out
+    log(f"  a write: {n_lag} lag fallbacks, verdicts correct ({t_lag:.2f} s with the delta "
+        f"refresh); closure_ensure_built not ready, no P1-P3 launch; {WRITE_LARGE} grants "
+        f"compacted in {t_compact:.2f} s; closure powered again in {t_rebuild:.1f} s (on the "
+        f"card {rebuilt['power_s']:.2f} s), hits resumed; phase {time.perf_counter() - t0:.1f} s")
+    return {"lag_batch_s_incl_delta_refresh": t_lag, "compaction_s": t_compact,
+            "closure_rebuild_s": t_rebuild,
+            "rebuild_power": {k: rebuilt[k] for k in ("power_s", "power_prep_s", "power_wave_s")}}
 
 
 def closure_case(args, kw, note):
@@ -2014,6 +2381,48 @@ def run_filter(v_engine, v_manager, v_config, v_subject, d_engine, d_manager, d_
     return f_launches, rec_f, rec_fc, {"frontier": frontier, "closure": closure}
 
 
+def run_filter_write(engine, manager, config, subject):
+    """Phase 10w: one frontier-tier filter batch on phase 4's engine after
+    a small write that does not touch the subject's walk: the walk runs
+    with the reverse-dirty probes on and finds no dirty key, so every
+    valid candidate stays on the frontier tier; 200 sampled verdicts
+    equal the oracle's and all equal check_batch over the same pairs."""
+    import torch
+
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+    from keto_tpu_torch.ketoapi import RelationTuple
+
+    t0 = phase("10w filter after a write: one frontier-tier batch on the overlay")
+    objects = filter_candidates()
+    manager.write_relation_tuples([
+        RelationTuple("videos", f"/d{d}/v0.mp4", "owner", subject_id="filter-writer")
+        for d in range(8)])
+    engine.closure_enabled = False
+    before = {k: engine.stats[k] for k in ("filter_frontier", "filter_host", "filter_vocab")}
+    cuda_ops.reset_launch_counts()
+    t = time.perf_counter()
+    verdicts = engine.filter_batch("videos", "view", subject, objects, chunk_size=FILTER_CHUNK)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = {k: v for k, v in cuda_ops.launches.items() if v}
+    tiers = {k: engine.stats[k] - v for k, v in before.items()}
+    if not engine.ensure_state().has_delta or "filter_mark" not in launches:
+        raise AssertionError(f"the filter after a write did not walk the overlay: {launches}")
+    if tiers["filter_host"] or tiers["filter_frontier"] + tiers["filter_vocab"] != len(objects):
+        raise AssertionError(f"filter tiers after a write {tiers}")
+    oracle = ReferenceEngine(manager, config)
+    sample = random.Random(80).sample(range(len(objects)), 200)
+    want = oracle.filter_objects("videos", "view", subject, [objects[i] for i in sample])
+    checks = engine.check_batch([RelationTuple("videos", o, "view", subject_id=subject)
+                                 for o in objects])
+    if [verdicts[i] for i in sample] != want or [r.allowed for r in checks] != verdicts:
+        raise AssertionError("filter verdicts after a write differ from the oracle or check")
+    log(f"  {ms:.1f} ms, tiers {tiers}, launches {launches}; 200 sampled equal the oracle, "
+        f"all equal check_batch; phase {time.perf_counter() - t0:.1f} s")
+    return {"batch_ms": ms, "tiers": tiers, "launches": launches}
+
+
 def run_serve():
     import urllib.error
     import urllib.parse
@@ -2030,7 +2439,8 @@ def run_serve():
                 {"type": "computed_subject_set", "relation": "owner"},
                 {"type": "tuple_to_subject_set", "relation": "parent",
                  "computed_subject_set_relation": "view"}]}}]}
-        cfg = {"namespaces": [ns], "serve": {"read": {"host": "127.0.0.1", "port": 0}}}
+        cfg = {"namespaces": [ns], "serve": {"read": {"host": "127.0.0.1", "port": 0},
+                                             "write": {"host": "127.0.0.1", "port": 0}}}
         with open(os.path.join(tmp, "cfg.json"), "w") as f:
             json.dump(cfg, f)
         with open(os.path.join(tmp, "tuples.txt"), "w") as f:
@@ -2048,6 +2458,10 @@ def run_serve():
             if not line.startswith("serving read="):
                 raise AssertionError(f"serve did not start: {line!r} {proc.stderr.read()}")
             base = "http://" + line.split("=", 1)[1].strip()
+            line = proc.stdout.readline()
+            if not line.startswith("serving write="):
+                raise AssertionError(f"serve has no write listener: {line!r}")
+            write_base = "http://" + line.split("=", 1)[1].strip()
 
             def get(params, route="/relation-tuples/check"):
                 url = base + route + "?" + urllib.parse.urlencode(params)
@@ -2115,6 +2529,42 @@ def run_serve():
                 raise AssertionError(f"a token ahead of the store answered {ahead}")
             if pinned != objects:
                 raise AssertionError(f"list-objects at a satisfied token answered {pinned}")
+
+            def send(method, body=None, params=None):
+                url = write_base + "/admin/relation-tuples"
+                if params:
+                    url += "?" + urllib.parse.urlencode(params)
+                req = urllib.request.Request(
+                    url, method=method, headers={"Content-Type": "application/json"},
+                    data=None if body is None else json.dumps(body).encode())
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    return r.status, r.headers.get("X-Keto-Snaptoken"), r.read()
+
+            # each write's answer, then a check carrying its token
+            john = {"namespace": "videos", "object": "/cats/1.mp4", "relation": "owner",
+                    "subject_id": "john"}
+            put = send("PUT", john)
+            seen_put = get({**q, "subject_id": "john", "snaptoken": put[1]})
+            patch = send("PATCH", [
+                {"action": "delete", "relation_tuple": john},
+                {"action": "insert", "relation_tuple": {**john, "subject_id": "ann"}}])
+            seen_patch = (get({**q, "subject_id": "john", "snaptoken": patch[1]}),
+                          get({**q, "subject_id": "ann", "snaptoken": patch[1]}))
+            delete = send("DELETE", params={**john, "subject_id": "ann"})
+            seen_delete = get({**q, "subject_id": "ann",
+                               "snaptoken": encode_snaptoken(4, "default")})
+            log(f"  PUT -> {put[:2]}, a check at its token -> {seen_put}; PATCH -> "
+                f"{patch[:2]}, checks at its token -> {seen_patch}; DELETE -> {delete[0]}, "
+                f"a check at version 4 -> {seen_delete}")
+            if put[0] != 201 or json.loads(put[2]) != john or \
+                    put[1] != encode_snaptoken(2, "default") or \
+                    seen_put != (200, {"allowed": True}):
+                raise AssertionError("the PUT was not seen at its token")
+            if patch[0] != 204 or seen_patch != ((403, {"allowed": False}),
+                                                 (200, {"allowed": True})):
+                raise AssertionError("the PATCH was not seen at its token")
+            if delete[0] != 204 or seen_delete != (403, {"allowed": False}):
+                raise AssertionError("the DELETE was not seen")
         finally:
             proc.terminate()
             try:
@@ -2258,12 +2708,12 @@ def main() -> int:
         f"({snap.layout}, dh_probes {snap.dh_probes}, rh_probes {snap.rh_probes}, K {snap.K})")
     log(f"  device tables {sum(nbytes.values()) / 1e6:.1f} MB: "
         + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in sorted(nbytes.items())))
-    owners = ownership(tuples)
     del tuples
 
     rows = run_kernels(engine, queries)
     launches, check = run_check(engine, queries, manager, config)
     profile = run_profile(engine, queries)
+    owners = ownership(manager.all_relation_tuples())
     run_islands()
     run_serve()
     # the expand phase's store joins only now, so the check phases run in
@@ -2278,6 +2728,7 @@ def main() -> int:
     rows += x_rows
     next(row for row in rows if row["name"] == "pair_probe")["at"].update(k2_at)
     x_launches, expand = run_expand(x_engine, x_manager, x_config, subjects, x_info)
+    expand["after_write"] = run_expand_write(x_engine, x_manager, x_config, subjects)
     # the list phases run on phase 4's store and engine
     lo_queries, ls_queries = list_queries()
     l_info = setup_list(engine)
@@ -2301,7 +2752,7 @@ def main() -> int:
     log(f"  scatter_reduce amax over P1's unpacked planes: {rows[-3]['library_ms']:.5f} ms")
     del wave_args, p_cases, segment_max
     rec_c = run_closure_kernels(d_engine, d_queries)
-    c_launches, closure = run_closure(d_engine, d_manager, d_config, d_queries)
+    c_launches, closure, d_expected = run_closure(d_engine, d_manager, d_config, d_queries)
     folders_of = owners[0]
     v_subject = next(u for u, ds in folders_of.items() if "/d0" in ds)
     f_launches, rec_f, rec_fc, filt = run_filter(engine, manager, config, v_subject, d_engine,
@@ -2325,9 +2776,23 @@ def main() -> int:
     next(row for row in rows if row["name"] == "pair_probe")["at"]["filter_step1"] = \
         time_pair_probe(args2, kw2, rec_f.calls["reverse_gather"][0][0][4],
                         "the filter walk's step-1 launch")
+    # the write phases run last, so that every phase above measures the
+    # stores as loaded: 4w, 8w and 10w on phase 4's engine (4w's large
+    # write compacts it first), 9w on phase 9's
+    w_launches, write_at, write = run_write(engine, manager, config, queries, t_mirror)
+    next(row for row in rows if row["name"] == "edge_probe")["at"] = {
+        "write": write_at["edge_probe"]}
+    next(row for row in rows if row["name"] == "pair_probe")["at"].update(
+        write=write_at["pair_probe"], write_dirty=write_at["pair_probe_dirty"])
+    # the writes moved ownership: 8w holds its answers to the store's maps
+    owners = ownership(manager.all_relation_tuples())
+    list_write = run_list_write(engine, manager, config, lo_queries, ls_queries, owners)
+    filt["after_write"] = run_filter_write(engine, manager, config, v_subject)
+    closure["after_write"] = run_closure_write(d_engine, d_manager, d_queries, d_expected)
     m_launches, m_rows, tools = run_microbench()
     rows += m_rows
-    by_path = {"check": launches, "expand": x_launches, "list_objects": lo_launches,
+    by_path = {"check": launches, "check_write": w_launches, "expand": x_launches,
+               "list_objects": lo_launches,
                "list_subjects": ls_launches, "closure_build": b_launches, "closure": c_launches,
                "filter": f_launches, "microbench": m_launches}
     # each kernel's count on its own path: check for K1-K4, expand for X1
@@ -2349,9 +2814,10 @@ def main() -> int:
     log(json.dumps({"check": {**check, "card": smi, "tuples": snap.n_tuples,
                               "device_table_bytes": sum(nbytes.values()),
                               "profile": profile}}))
+    log(json.dumps({"write": {**write, "card": smi}}))
     log(json.dumps({"expand": {**expand, "card": smi}}))
     log(json.dumps({"list": {**l_info, "card": smi, "list_objects": list_objects,
-                             "list_subjects": list_subjects,
+                             "list_subjects": list_subjects, "after_write": list_write,
                              "caps": {"list_objects": LO_CAPS, "list_subjects": LS_CAPS}}}))
     log(json.dumps({"closure": {**d_info, **closure, "powering": powering, "card": smi}}))
     log(json.dumps({"filter": {**filt, "card": smi}}))

@@ -1,5 +1,8 @@
-"""REST Check, Expand, List and Filter routes on a stdlib threaded HTTP
-server, in front of a TorchCheckEngine.
+"""REST Check, Expand, List and Filter routes and the write routes on
+stdlib threaded HTTP servers, in front of a TorchCheckEngine and its
+store.
+
+The read listener (make_server):
 
   GET  /relation-tuples/check          -> 200 {"allowed": true} / 403 {"allowed": false}
   POST /relation-tuples/check          -> the same, tuple as a JSON body
@@ -29,6 +32,18 @@ server, in front of a TorchCheckEngine.
                                           max_depth and snaptoken)
   GET  /health/alive, /health/ready    -> 200 {"status": "ok"}
 
+The write listener (make_write_server), Keto's admin routes:
+
+  PUT    /admin/relation-tuples        -> 201, the tuple echoed, a Location
+                                          of its read query and the
+                                          X-Keto-Snaptoken of the write
+  DELETE /admin/relation-tuples        -> 204; every tuple the URL query
+                                          matches is deleted
+  PATCH  /admin/relation-tuples        -> 204 and X-Keto-Snaptoken; a body
+                                          [{"action": "insert" | "delete",
+                                          "relation_tuple": {...}}] applied
+                                          as one commit
+
 Keto's semantics: an unknown namespace on a single check answers
 {"allowed": false} rather than an error; the batch route reports it per
 item; Expand and the list routes answer it with 404. A missing parameter
@@ -43,7 +58,10 @@ another network, is a 400, one ahead of the store a 409. The answer
 carries the store version read at enforcement, in the X-Keto-Snaptoken
 header (check and list routes) or a "snaptoken" body field (batch and
 filter). The engine is not thread-safe, so requests take one lock around
-it.
+it. The write routes go to the store, which has its own lock; a write
+names only configured namespaces (else 404), and the engine folds it
+into its mirror at its next read or, wired to the store's write
+listener, on its refresh thread.
 """
 
 from __future__ import annotations
@@ -62,7 +80,14 @@ from ..errors import (
     NotFoundError,
 )
 from ..engine.snaptoken import encode_snaptoken, enforce_snaptoken
-from ..ketoapi import RelationTuple, SubjectSet, _subject_fields_from_dict
+from ..ketoapi import (
+    PatchAction,
+    PatchDelta,
+    RelationQuery,
+    RelationTuple,
+    SubjectSet,
+    _subject_fields_from_dict,
+)
 
 CHECK_ROUTE = "/relation-tuples/check"
 CHECK_OPENAPI_ROUTE = "/relation-tuples/check/openapi"
@@ -72,6 +97,8 @@ LIST_OBJECTS_ROUTE = "/relation-tuples/list-objects"
 LIST_SUBJECTS_ROUTE = "/relation-tuples/list-subjects"
 FILTER_ROUTE = "/relation-tuples/filter"
 HEALTH_ROUTES = ("/health/alive", "/health/ready")
+READ_ROUTE_BASE = "/relation-tuples"
+WRITE_ROUTE = "/admin/relation-tuples"
 
 
 def _max_depth(params: dict) -> int:
@@ -116,11 +143,19 @@ class CheckService:
         self.engine = engine
         self._mu = threading.Lock()
 
-    def validate_namespaces(self, t: RelationTuple) -> None:
+    def validate_namespaces(self, *objs) -> None:
+        """Every namespace a tuple or query names must be configured."""
         nm = self.engine.config.namespace_manager()
-        nm.get_namespace_by_name(t.namespace)
-        if t.subject_set is not None:
-            nm.get_namespace_by_name(t.subject_set.namespace)
+        for o in objs:
+            if o.namespace is not None:
+                nm.get_namespace_by_name(o.namespace)
+            if o.subject_set is not None:
+                nm.get_namespace_by_name(o.subject_set.namespace)
+
+    def write_token(self) -> str:
+        """The token of the store version a write left."""
+        nid = self.engine.nid
+        return encode_snaptoken(self.engine.manager.version(nid=nid), nid)
 
     def snaptoken(self, token: str) -> str:
         """Enforce a request's token; the response token, at the store
@@ -149,35 +184,121 @@ class CheckService:
             return self.engine.filter_objects(*args, **kw)
 
 
-def make_handler(service: CheckService):
-    class Handler(BaseHTTPRequestHandler):
-        protocol_version = "HTTP/1.1"
-        server_version = "keto_tpu_torch"
+class _JSONHandler(BaseHTTPRequestHandler):
+    """What the read and the write listeners' handlers share: JSON bodies
+    in and out."""
 
-        def log_message(self, fmt, *args):  # quiet by default
-            pass
+    protocol_version = "HTTP/1.1"
+    server_version = "keto_tpu_torch"
 
-        def _json(self, code: int, body, headers=()) -> None:
-            data = json.dumps(body).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(data)))
-            for k, v in headers:
-                self.send_header(k, v)
-            self.end_headers()
-            self.wfile.write(data)
+    def log_message(self, fmt, *args):  # quiet by default
+        pass
 
-        def _params(self) -> tuple[str, dict]:
-            url = urllib.parse.urlsplit(self.path)
-            return url.path, dict(urllib.parse.parse_qsl(url.query, keep_blank_values=True))
+    def _json(self, code: int, body, headers=()) -> None:
+        data = json.dumps(body).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        for k, v in headers:
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(data)
 
-        def _body(self):
-            n = int(self.headers.get("Content-Length") or 0)
+    def _empty(self, code: int, headers=()) -> None:
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", "0")
+        for k, v in headers:
+            self.send_header(k, v)
+        self.end_headers()
+
+    def _params(self) -> tuple[str, dict]:
+        url = urllib.parse.urlsplit(self.path)
+        return url.path, dict(urllib.parse.parse_qsl(url.query, keep_blank_values=True))
+
+    def _body(self):
+        n = int(self.headers.get("Content-Length") or 0)
+        try:
+            return json.loads(self.rfile.read(n) or b"null")
+        except json.JSONDecodeError as e:
+            raise MalformedInputError(f"could not unmarshal json: {e}")
+
+
+def make_write_handler(service: CheckService):
+    """The write listener's request handler: Keto's admin tuple routes on
+    the engine's store."""
+
+    class WriteHandler(_JSONHandler):
+        def _route(self, method: str) -> None:
+            path = urllib.parse.urlsplit(self.path).path.rstrip("/") or "/"
             try:
-                return json.loads(self.rfile.read(n) or b"null")
-            except json.JSONDecodeError as e:
-                raise MalformedInputError(f"could not unmarshal json: {e}")
+                if path == WRITE_ROUTE and method == "PUT":
+                    self._create_relation()
+                elif path == WRITE_ROUTE and method == "DELETE":
+                    self._delete_relations()
+                elif path == WRITE_ROUTE and method == "PATCH":
+                    self._patch_relations()
+                else:
+                    raise NotFoundError("route not found")
+            except KetoError as e:
+                self._json(e.status, e.to_dict())
+            except Exception as e:  # noqa: BLE001 - the HTTP boundary answers 500
+                self._json(500, KetoError(str(e)).to_dict())
 
+        def do_GET(self):
+            self._route("GET")
+
+        def do_POST(self):
+            self._route("POST")
+
+        def do_PUT(self):
+            self._route("PUT")
+
+        def do_DELETE(self):
+            self._route("DELETE")
+
+        def do_PATCH(self):
+            self._route("PATCH")
+
+        def _create_relation(self) -> None:
+            body = self._body()
+            if not isinstance(body, dict):
+                raise MalformedInputError("could not unmarshal json: expected object")
+            t = RelationTuple.from_dict(body)
+            service.validate_namespaces(t)
+            service.engine.manager.write_relation_tuples([t], nid=service.engine.nid)
+            location = READ_ROUTE_BASE + "?" + urllib.parse.urlencode(t.to_url_query())
+            self._json(201, t.to_dict(), [("Location", location),
+                                          ("X-Keto-Snaptoken", service.write_token())])
+
+        def _delete_relations(self) -> None:
+            # blank values drop out, as in Keto's query decoding
+            qs = urllib.parse.parse_qs(urllib.parse.urlsplit(self.path).query)
+            query = RelationQuery.from_url_query({k: v[0] for k, v in qs.items()})
+            service.validate_namespaces(query)
+            service.engine.manager.delete_all_relation_tuples(query, nid=service.engine.nid)
+            self._empty(204)
+
+        def _patch_relations(self) -> None:
+            body = self._body()
+            if not isinstance(body, list):
+                raise MalformedInputError("could not unmarshal json: expected array")
+            deltas = [PatchDelta.from_dict(d) for d in body]
+            inserts = [d.relation_tuple for d in deltas if d.action == PatchAction.INSERT]
+            deletes = [d.relation_tuple for d in deltas if d.action == PatchAction.DELETE]
+            service.validate_namespaces(*inserts, *deletes)
+            service.engine.manager.transact_relation_tuples(inserts, deletes,
+                                                            nid=service.engine.nid)
+            self._empty(204, [("X-Keto-Snaptoken", service.write_token())])
+
+    return WriteHandler
+
+
+def make_handler(service: CheckService):
+    """The read listener's request handler: check, expand, list, filter
+    and health."""
+
+    class Handler(_JSONHandler):
         def _route(self, method: str) -> None:
             path, params = self._params()
             try:
@@ -376,5 +497,13 @@ def make_server(engine, host: str, port: int) -> ThreadingHTTPServer:
     """A threaded HTTP server serving the Check, Expand, List and Filter
     routes over `engine`."""
     server = ThreadingHTTPServer((host, port), make_handler(CheckService(engine)))
+    server.daemon_threads = True
+    return server
+
+
+def make_write_server(engine, host: str, port: int) -> ThreadingHTTPServer:
+    """A threaded HTTP server serving the write routes on `engine`'s
+    store."""
+    server = ThreadingHTTPServer((host, port), make_write_handler(CheckService(engine)))
     server.daemon_threads = True
     return server

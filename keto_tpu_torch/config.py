@@ -1,10 +1,11 @@
 """Configuration of the Check path: a dotted-key view over a JSON config.
 
 Reads the keys the JAX package's serve entry point reads for the read
-routes: `namespaces` (an inline list of namespace dicts),
+and write routes: `namespaces` (an inline list of namespace dicts),
 `limit.max_read_depth` (default 5, as Keto's embedx/config.schema.json),
 `limit.page_size` (the list routes' default page, 100),
-`serve.read.host` / `serve.read.port`, `closure.enabled` (the Leopard
+`serve.read.host` / `serve.read.port`, `serve.write.host` /
+`serve.write.port` (the write routes' listener), `closure.enabled` (the Leopard
 index routes checks and filters, default false), `closure.max_set_rows`
 (the largest closure set a covered node may hold, 4096),
 `closure.powering` ("host", the default, powers the index with numpy;
@@ -30,6 +31,7 @@ from .storage.definitions import DEFAULT_PAGE_SIZE
 
 DEFAULT_MAX_READ_DEPTH = 5
 DEFAULT_READ_PORT = 4466
+DEFAULT_WRITE_PORT = 4467
 DEFAULT_FILTER_CHUNK_SIZE = 4096
 DEFAULT_FILTER_MAX_OBJECTS = 65536
 
@@ -77,6 +79,12 @@ class Config:
         return (
             str(self.get("serve.read.host", "0.0.0.0")),
             int(self.get("serve.read.port", DEFAULT_READ_PORT)),
+        )
+
+    def write_address(self) -> tuple[str, int]:
+        return (
+            str(self.get("serve.write.host", "0.0.0.0")),
+            int(self.get("serve.write.port", DEFAULT_WRITE_PORT)),
         )
 
     def namespace_manager(self) -> MemoryNamespaceManager:

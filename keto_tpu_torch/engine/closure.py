@@ -22,11 +22,12 @@ The contract:
     fits `closure.max_set_rows`; a covered node answers positives and
     negatives, with the exact least depth (`req`) of each entry.
 
-This engine rebuilds its snapshot on every store-version change, so the
-index goes stale on a write and is powered again by `ensure_for` (never
-on the check submit path); it has no overlay, so no dirty marks and no
-lag. The dirty-node table (`build_dirty_table`) is kept so the kernel's
-dirty branch has real inputs in the tests.
+A write keeps the engine's base snapshot and puts the ops in its delta
+overlay, which the index has not seen: the index then declines every
+query with `lag` until a compaction or a rebuild makes a new base, which
+`ensure_for` powers (never on the check submit path). It marks no dirty
+nodes and catches up no ops; the dirty-node table (`build_dirty_table`)
+is kept so the kernel's dirty branch has real inputs in the tests.
 
 `powering="device"` powers the closure on the index's device instead of
 with numpy (engine/closure_power.py), array for array the same build.
@@ -68,8 +69,8 @@ DEFAULT_MAX_SET_ROWS = 4096
 # are in engine/closure_kernel.py. A disabled engine counts nothing.
 CAUSE_UNBUILT = "unbuilt"
 CAUSE_STALE_SNAPSHOT = "stale_snapshot"
-# an index behind the overlay's version; no reader until the overlay
-# refresh is ported, since a rebuild-on-write engine cannot lag
+# an index behind the state's covered version: the state wraps the
+# index's base snapshot and an overlay of writes the index has not seen
 CAUSE_LAG = "lag"
 
 
@@ -570,7 +571,6 @@ class ClosureIndex:
         self._build: Optional[ClosureBuild] = None
         self._view: Optional[ClosureView] = None
         self._snapshot: Optional[GraphSnapshot] = None
-        self._stale = False
         self._synced_version = -1
         # seconds of the last build's stages
         self.last_build: dict = {}
@@ -578,16 +578,19 @@ class ClosureIndex:
                       "power_waves": 0, "power_steps": 0}
 
     def ensure_for(self, state, max_depth: int) -> bool:
-        """Build the index for `state`'s snapshot unless it is built for
-        that very snapshot object. Returns readiness. Never called on the
-        check submit path: a powering there would stall a batch."""
+        """Build the index for `state`'s base snapshot unless it is built
+        for that very snapshot object; returns whether it serves `state`.
+        Over an unchanged base the index is not powered again, whatever
+        the overlay holds: a powering would read the same pre-write base.
+        It serves again once a compaction or a rebuild makes a new base.
+        Never called on the check submit path: a powering there would
+        stall a batch."""
         snap = state.snapshot
         with self._mu:
-            current = self._build is not None and self._snapshot is snap and not self._stale
-        if not current:
-            self._rebuild(snap, state.covered_version, max_depth)
-        with self._mu:
-            return self._view is not None and self._snapshot is snap and not self._stale
+            same_snapshot = self._build is not None and self._snapshot is snap
+        if not same_snapshot:
+            self._rebuild(snap, state.base_version, max_depth)
+        return self.view_for(state)[0] is not None
 
     def _rebuild(self, snap: GraphSnapshot, base_version: int, max_depth: int) -> None:
         from .closure_kernel import closure_tables_from_numpy
@@ -602,7 +605,8 @@ class ClosureIndex:
         t2 = time.perf_counter()
         view = None
         if build is not None:
-            # no cd_pack: without an overlay no node turns dirty
+            # no cd_pack: the index serves no overlay (CAUSE_LAG), so no
+            # node turns dirty
             tables, cc_probes, ch_probes = pack_closure_tables(build, graph.R, snap.layout)
             t3 = time.perf_counter()
             dev = closure_tables_from_numpy(tables, self.device)
@@ -615,7 +619,6 @@ class ClosureIndex:
             self._graph = graph
             self._build = build
             self._snapshot = snap
-            self._stale = build is None
             self._synced_version = base_version if build is not None else -1
             self._view = view
 
@@ -649,24 +652,28 @@ class ClosureIndex:
         """The device view for one submit, or (None, cause). Never touches
         the store."""
         with self._mu:
-            view, stale, build, snap_ref = self._view, self._stale, self._build, self._snapshot
+            view, build, snap_ref = self._view, self._build, self._snapshot
+            synced = self._synced_version
         if build is None:
             return None, CAUSE_UNBUILT
-        if stale or view is None or snap_ref is not state.snapshot:
+        if view is None or snap_ref is not state.snapshot:
             # object identity: entries live in the build snapshot's ids
             return None, CAUSE_STALE_SNAPSHOT
+        if synced < state.covered_version:
+            # the state's overlay holds writes the index never saw: a
+            # deleted grant would still read as allowed
+            return None, CAUSE_LAG
         return view, None
 
     def needs_rebuild(self) -> bool:
         with self._mu:
-            return self._stale or self._build is None
+            return self._build is None
 
     def describe(self) -> dict:
         with self._mu:
             build = self._build
             return {
                 "built": build is not None,
-                "stale": self._stale,
                 "synced_version": self._synced_version,
                 "covered_nodes": len(build.covered_keys) if build is not None else 0,
                 "entries": build.n_entries if build is not None else 0,

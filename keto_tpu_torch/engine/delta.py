@@ -13,10 +13,10 @@ probes beside the compacted ones.
     subject slot whose reverse-edge row changed: a ListObjects walk that
     seeds from or visits such a key sends its query to host replay
 
-This slice's engine rebuilds the whole snapshot on a store-version
-change, so it always runs with the empty overlay and `has_delta=False`;
-`build_delta_tables` exists so the kernel's overlay branch has real
-inputs in the tests.
+The engine (torch_engine.py `_delta_refresh`) builds the overlay from
+the store's change feed since its base snapshot, under every table
+layout, bit for bit as the JAX package's; past DELTA_COMPACT_THRESHOLD
+ops it merges them into a new base (engine/compact.py) instead.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ DIRTY_FOR_CHECK = 2
 
 
 class DeltaOverflow(Exception):
-    """Pending deltas exceed the fixed overlay capacity: rebuild."""
+    """Pending deltas exceed the fixed overlay capacity: compact."""
 
 
 @dataclass

@@ -341,19 +341,50 @@ def unpack_expand_results(flat: np.ndarray, B: int, pool_cap: int):
 # -- host assembly -------------------------------------------------------------
 
 
+class _ChainLookup:
+    """id -> name: the overlay's few entries first, then the base's, so a
+    delta refresh extends a decoder without copying the base dicts."""
+
+    __slots__ = ("base", "extra")
+
+    def __init__(self, base, extra: dict):
+        self.base = base
+        self.extra = extra
+
+    def __getitem__(self, key):
+        v = self.extra.get(key)
+        if v is None:
+            return self.base[key]
+        return v
+
+
 class ExpandDecoder:
     """Reverse vocabularies that decode device ids back to names, with
     memos of the decoded subject sets (tree assembly resolves the same hot
     (slot, relation) pairs across every tree of a batch) and subject
     names (ListSubjects' results)."""
 
-    def __init__(self, snapshot: GraphSnapshot):
-        self.ns_names = {v: k for k, v in snapshot.ns_ids.items()}
-        self.rel_names = {v: k for k, v in snapshot.rel_ids.items()}
-        self.slot_to_obj = {v: k for k, v in snapshot.obj_slots.items()}
-        self.subj_names = {v: k for k, v in snapshot.subj_ids.items()}
+    def __init__(self, snapshot: Optional[GraphSnapshot]):
         self._ss_memo: dict = {}
         self._subj_memo: dict = {}
+        if snapshot is not None:
+            self.ns_names = {v: k for k, v in snapshot.ns_ids.items()}
+            self.rel_names = {v: k for k, v in snapshot.rel_ids.items()}
+            self.slot_to_obj = {v: k for k, v in snapshot.obj_slots.items()}
+            self.subj_names = {v: k for k, v in snapshot.subj_ids.items()}
+
+    def extended(self, overlay) -> "ExpandDecoder":
+        """This decoder with a VocabOverlay's names added, in O(overlay):
+        the base's reverse dicts are shared, the memos start empty."""
+        if overlay is None:
+            return self
+        d = ExpandDecoder(None)
+        d.ns_names = _ChainLookup(self.ns_names, {v: k for k, v in overlay.ns_ids.items()})
+        d.rel_names = _ChainLookup(self.rel_names, {v: k for k, v in overlay.rel_ids.items()})
+        d.slot_to_obj = _ChainLookup(self.slot_to_obj,
+                                     {v: k for k, v in overlay.obj_slots.items()})
+        d.subj_names = _ChainLookup(self.subj_names, {v: k for k, v in overlay.subj_ids.items()})
+        return d
 
     def subject_set(self, obj_slot: int, rel: int) -> SubjectSet:
         key = (obj_slot, rel)

@@ -701,11 +701,20 @@ def pack_raw_tables(raw: dict) -> dict:
     out["rh_pack"] = pack_rh_span_table(raw["rh_obj"], raw["rh_rel"], raw["rh_row"], raw["row_ptr"])
     out["e_pack"] = np.stack([raw["e_obj"], raw["e_rel"]], axis=-1).astype(np.int32)
     out["instr_pack"] = pack_instr_table(raw["instr_kind"], raw["instr_rel"], raw["instr_rel2"])
-    out["dd_pack"] = _pack_columns(
-        [raw[f"dd_{c}"] for c in ("obj", "rel", "skind", "sa", "sb", "val")], 8
-    )
-    out["dirty_pack"] = pack_pair_table(raw["dirty_obj"], raw["dirty_rel"], raw["dirty_val"])
+    out.update(pack_delta_tables(raw))
     return out
+
+
+def pack_delta_tables(delta: dict) -> dict:
+    """The overlay's packed tables: [cap, 8] dd rows (obj, rel, skind, sa,
+    sb, val, 0, 0) and [cap, 4] dirty rows (obj, rel, val, 0)."""
+    return {
+        "dd_pack": _pack_columns(
+            [delta[f"dd_{c}"] for c in ("obj", "rel", "skind", "sa", "sb", "val")], 8
+        ),
+        "dirty_pack": pack_pair_table(delta["dirty_obj"], delta["dirty_rel"],
+                                      delta["dirty_val"]),
+    }
 
 
 def tables_from_numpy(packed: dict, device, keys=TABLE_KEYS) -> dict:
@@ -725,6 +734,18 @@ def snapshot_tables(snapshot: GraphSnapshot, device, delta: dict | None = None) 
     raw = dict(snapshot.device_arrays())
     raw.update(delta or empty_delta_tables())
     return tables_from_numpy(pack_raw_tables(raw), device)
+
+
+def refresh_delta_tables(tables: dict, delta: dict, vocab_arrays: dict, device) -> dict:
+    """A new table dict with only the overlay packs (dd_pack, dirty_pack)
+    and the vocab-dependent arrays (objslot_ns, ns_has_config, which
+    grow with the overlay's vocabulary) uploaded; the compacted tables
+    are the same tensors."""
+    out = dict(tables)
+    raw = {k: np.asarray(v, dtype=np.int32) for k, v in vocab_arrays.items()}
+    raw.update(pack_delta_tables(delta))
+    out.update(tables_from_numpy(raw, device, tuple(raw)))
+    return out
 
 
 def kernel_static_config(

@@ -119,8 +119,9 @@ def _reverse_state_from_encoded(t_obj, t_rel, t_skind, t_sa, t_sb,
     kind, relp, relt, ns, RK, host_all = build_reverse_programs(
         namespaces, snapshot.ns_ids, snapshot.rel_ids, snapshot.n_config_rels
     )
+    # garbage: edges a compaction's row rewrites left in the CSRs
     state.update(rinstr_kind=kind, rinstr_relp=relp, rinstr_relt=relt, rinstr_ns=ns,
-                 RK=RK, host_all=host_all)
+                 RK=RK, host_all=host_all, garbage=0)
     return state
 
 

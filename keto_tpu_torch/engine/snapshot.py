@@ -308,6 +308,9 @@ class GraphSnapshot:
 
     version: int = 0
     n_tuples: int = 0
+    # CSR edges an incremental compaction left behind when it rewrote
+    # their rows at the tail (engine/compact.py)
+    merge_garbage: int = 0
 
     def device_arrays(self) -> dict[str, np.ndarray]:
         """The columnar arrays the kernel's packed tables are made from."""

@@ -29,13 +29,24 @@ monotone config are definitive non-members, the closure launch over the
 candidate column, one shared-frontier walk (engine/filter_kernel.py) over
 the leftovers, and the host oracle for whatever is still unresolved.
 
-The mirror is rebuilt in full when the store version or the namespace
-config changes; incremental overlay refresh is not part of this engine.
+The mirror follows the store's change feed. A namespace-config change
+rebuilds it in full. Otherwise the writes since its base snapshot fold
+into the fixed-shape delta overlay (engine/delta.py): only the overlay
+packs are uploaded, and every launch runs its overlay branch
+(has_delta), where K1 takes the overlay's answer for an edge and a task
+on a dirty row sends its query to the host oracle. Past the overlay's
+capacity the writes merge into a new base (engine/compact.py), and the
+retained expand and reverse mirrors are patched with the same ops; a
+truncated change log or a failed merge gate rebuilds in full. Over an
+overlay the closure index declines with `lag` until a new base exists.
+`notify_write`, wired to the store's write listener, folds writes in on
+a background thread, off the request path.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import threading
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -55,7 +66,21 @@ from .definitions import (
 )
 from .closure import DEFAULT_MAX_SET_ROWS, ClosureIndex
 from .closure_kernel import CL_CAUSE_NAMES, closure_kernel_packed, unpack_closure_results
-from .delta import SnapshotView
+from .compact import (
+    GARBAGE_FLOOR,
+    GARBAGE_FRACTION,
+    MergeFallback,
+    _per_row,
+    merge_ops_into_snapshot,
+    patch_csr,
+)
+from .delta import (
+    DeltaOverflow,
+    SnapshotView,
+    build_delta_tables,
+    build_vocab_overlay,
+    empty_delta_tables,
+)
 from .expand_kernel import (
     ExpandDecoder,
     assemble_tree,
@@ -74,8 +99,11 @@ from .kernel import (
     CAUSE_NAMES,
     check_kernel_packed,
     kernel_static_config,
+    pack_pair_table,
     pack_queries,
+    refresh_delta_tables,
     snapshot_tables,
+    tables_from_numpy,
     unpack_results,
 )
 from .reference import ReferenceEngine
@@ -124,16 +152,27 @@ def resolve_device(device) -> torch.device:
 
 @dataclass
 class _EngineState:
+    """One consistent mirror generation: a base snapshot, the overlay of
+    the writes since its base version and their device tables. A write
+    makes a new state; the lazily built path fields only go from None to
+    a value, under the engine lock."""
+
     snapshot: GraphSnapshot
     view: SnapshotView
     tables: dict
-    covered_version: int
+    delta_np: dict  # the overlay's host tables (empty_delta_tables when clean)
+    base_version: int  # the store version the base snapshot holds
+    covered_version: int  # the store version base + overlay hold
     config_fp: str
+    # False for a clean mirror: the launches skip the overlay's probes
+    has_delta: bool = False
     # full-edge CSR of the expand path (host arrays and device tables),
-    # built at the first expand or ListSubjects
+    # built at the first expand or ListSubjects; the host arrays are kept
+    # so that a compaction patches them
     expand_np: Optional[dict] = None
     expand_tables: Optional[dict] = None
-    decoder: Optional[ExpandDecoder] = None
+    base_decoder: Optional[ExpandDecoder] = None  # the base snapshot's names
+    decoder: Optional[ExpandDecoder] = None  # base_decoder with the overlay's
     # the transposed mirror of ListObjects and the tables of ListSubjects
     reverse_np: Optional[dict] = None
     reverse_tables: Optional[dict] = None
@@ -166,6 +205,8 @@ class TorchCheckEngine:
             "device_checks": 0,
             "host_checks": 0,
             "snapshot_builds": 0,
+            "incremental_merges": 0,
+            "push_refreshes": 0,
             "host_cause": {},
             "device_expands": 0,
             "host_expands": 0,
@@ -190,38 +231,237 @@ class TorchCheckEngine:
             max_set_rows=int(config.get("closure.max_set_rows", DEFAULT_MAX_SET_ROWS)),
             powering=str(config.get("closure.powering", "host")),
         )
+        # push refresh: a write listener sets the event, a thread folds
+        # the writes in (notify_write)
+        self._refresh_mu = threading.Lock()
+        self._refresh_event: Optional[threading.Event] = None
+        self._refresh_stopped = False
 
     # -- mirror lifecycle ------------------------------------------------------
 
     def ensure_state(self) -> _EngineState:
         """The mirror of the store's current version under the current
-        namespace config; rebuilt in full when either moved."""
+        namespace config: rebuilt in full on a config change; otherwise
+        the writes since its base fold into the overlay, or into a
+        compacted base past the overlay's capacity; rebuilt in full where
+        neither applies (a truncated change log, a failed merge gate)."""
         namespaces = self.config.namespace_manager().namespaces()
         config_fp = json.dumps([ns.to_dict() for ns in namespaces], sort_keys=True)
         with self._lock:
             version = self.manager.version(nid=self.nid)
             state = self._state
-            if (
-                state is None
-                or state.covered_version != version
-                or state.config_fp != config_fp
-            ):
-                tuples = self.manager.all_relation_tuples(nid=self.nid)
-                snap = build_snapshot(
-                    tuples, namespaces, layout=self.layout,
-                    K=REWRITE_INSTR_CAP, version=version,
-                )
-                self._state = None  # release the old tables before uploading
-                state = _EngineState(
-                    snapshot=snap,
-                    view=SnapshotView(snap),
-                    tables=snapshot_tables(snap, self.device),
-                    covered_version=version,
-                    config_fp=config_fp,
-                )
-                self._state = state
-                self.stats["snapshot_builds"] += 1
+            rebuild = state is None or state.config_fp != config_fp
+            if not rebuild and state.covered_version != version:
+                state = self._delta_refresh(state, version)
+                rebuild = state is None
+            if rebuild:
+                state = self._rebuild(version, config_fp, namespaces)
+            self._state = state
             return state
+
+    def _rebuild(self, version: int, config_fp: str, namespaces) -> _EngineState:
+        tuples = self.manager.all_relation_tuples(nid=self.nid)
+        snap = build_snapshot(
+            tuples, namespaces, layout=self.layout, K=REWRITE_INSTR_CAP, version=version,
+        )
+        self._state = None  # release the old tables before uploading
+        state = _EngineState(
+            snapshot=snap,
+            view=SnapshotView(snap),
+            tables=snapshot_tables(snap, self.device),
+            delta_np=empty_delta_tables(),
+            base_version=version,
+            covered_version=version,
+            config_fp=config_fp,
+        )
+        self.stats["snapshot_builds"] += 1
+        return state
+
+    def _delta_refresh(self, state: _EngineState, version: int) -> Optional[_EngineState]:
+        """A new state with the writes since the base in its overlay, or a
+        compacted one when they overflow it; None to rebuild in full."""
+        ops = self.manager.changes_since(state.base_version, nid=self.nid)
+        if ops is None:
+            return None
+        try:
+            overlay = build_vocab_overlay(state.snapshot, ops)
+            view = SnapshotView(state.snapshot, overlay)
+            delta = build_delta_tables(view, ops)
+        except DeltaOverflow:
+            return self._incremental_compact(state, version, ops)
+        # objslot_ns and ns_has_config are uploaded only when the overlay
+        # grew them; within one base their growth only goes on
+        grown = {k: getattr(overlay, k) for k in ("objslot_ns", "ns_has_config")
+                 if getattr(overlay, k) is not getattr(state.snapshot, k)}
+        tables = refresh_delta_tables(state.tables, delta, grown, self.device)
+        new = _EngineState(
+            snapshot=state.snapshot, view=view, tables=tables, delta_np=delta,
+            base_version=state.base_version, covered_version=version,
+            config_fp=state.config_fp, has_delta=True,
+        )
+        # the base's path tables ride along; only their dirty packs follow
+        # the fresh overlay (one dirty_pack tensor serves every path)
+        if state.expand_tables is not None:
+            new.expand_np = state.expand_np
+            new.expand_tables = {**state.expand_tables, "dirty_pack": tables["dirty_pack"]}
+        if state.reverse_tables is not None:
+            new.reverse_np = state.reverse_np
+            new.reverse_tables = {**state.reverse_tables, "rd_pack": self._rd_pack(delta)}
+        if state.subjects_tables is not None:
+            new.subjects_tables = {**state.subjects_tables, "dirty_pack": tables["dirty_pack"]}
+        if state.base_decoder is not None:
+            new.base_decoder = state.base_decoder
+            new.decoder = state.base_decoder.extended(overlay)
+        return new
+
+    def _rd_pack(self, delta: dict) -> torch.Tensor:
+        packed = {"rd_pack": pack_pair_table(delta["rd_obj"], delta["rd_tag"], delta["rd_val"])}
+        return tables_from_numpy(packed, self.device, ("rd_pack",))["rd_pack"]
+
+    def _incremental_compact(self, state: _EngineState, version: int,
+                             ops) -> Optional[_EngineState]:
+        """The overlay overflowed: merge `ops` into a new base, touching
+        only the slots and rows they affect (engine/compact.py), and patch
+        the retained expand and reverse mirrors with the same ops; a
+        mirror that cannot be patched is built again at its next use.
+        None to rebuild in full."""
+        merged, enc_u, ins_u = merge_ops_into_snapshot(state.snapshot, ops, version)
+        if merged is None:
+            return None
+        delta = empty_delta_tables()
+        new = _EngineState(
+            snapshot=merged, view=SnapshotView(merged),
+            tables=snapshot_tables(merged, self.device), delta_np=delta,
+            base_version=version, covered_version=version, config_fp=state.config_fp,
+        )
+        expand_np = self._patched_expand_state(state, enc_u, ins_u)
+        if expand_np is not None:
+            new.expand_np = expand_np
+            new.expand_tables = expand_tables_from_numpy(
+                pack_expand_tables(expand_np, delta), self.device
+            )
+        reverse_np = self._patched_reverse_state(state, enc_u, ins_u)
+        if reverse_np is not None:
+            new.reverse_np = reverse_np
+            new.reverse_tables = reverse_tables_from_numpy(
+                pack_reverse_tables(reverse_np, merged, delta), self.device
+            )
+        if new.expand_np is not None or new.reverse_np is not None:
+            new.base_decoder = new.decoder = ExpandDecoder(merged)
+        # the ListSubjects tables are packed again from the patched full
+        # CSR at their next use: a pack, not a build
+        self.stats["incremental_merges"] += 1
+        return new
+
+    @staticmethod
+    def _patched_expand_state(state: _EngineState, enc_u, ins_u) -> Optional[dict]:
+        """The retained full-edge CSR with the merged ops' rows rewritten,
+        or None (no mirror retained, or garbage past its limit)."""
+        src = state.expand_np
+        if src is None:
+            return None
+        per_row = _per_row(enc_u, ins_u, lambda r: (r[0], r[1]), lambda r: (r[2], r[3], r[4]))
+        (fh_obj, fh_rel, fh_row), fh_probes, f_row_ptr, payloads, garbage = patch_csr(
+            (src["fh_obj"], src["fh_rel"], src["fh_row"]), src["fh_probes"], src["f_row_ptr"],
+            (src["f_skind"], src["f_sa"], src["f_sb"]), per_row, state.snapshot.layout,
+        )
+        total_garbage = src["garbage"] + garbage
+        if total_garbage > max(GARBAGE_FLOOR, GARBAGE_FRACTION * len(payloads[0])):
+            return None
+        return {
+            "fh_obj": fh_obj, "fh_rel": fh_rel, "fh_row": fh_row, "fh_probes": fh_probes,
+            "f_row_ptr": f_row_ptr, "f_skind": payloads[0], "f_sa": payloads[1],
+            "f_sb": payloads[2], "garbage": total_garbage,
+        }
+
+    @staticmethod
+    def _patched_reverse_state(state: _EngineState, enc_u, ins_u) -> Optional[dict]:
+        """The retained transposed mirror patched with the merged ops: the
+        reverse-edge rows (subject-set edges by subject slot) and the
+        reverse-seed rows (every edge by its full subject key), by the
+        same patch_csr; None (no mirror retained, or garbage past its
+        limit) to build it again at its next use."""
+        src = state.reverse_np
+        if src is None:
+            return None
+        layout = state.snapshot.layout
+        tags = reverse_subject_tag(enc_u[:, 2], enc_u[:, 4])
+        rows = np.column_stack([enc_u, tags]).astype(np.int64)
+        is_set = enc_u[:, 2] == 1
+        per_rev = _per_row(rows[is_set], ins_u[is_set], lambda r: (r[3], 0),
+                           lambda r: (r[0], r[1], r[4]))
+        per_seed = _per_row(rows, ins_u, lambda r: (r[3], r[5]), lambda r: (r[0], r[1]))
+        try:
+            (rvh_obj, rvh_rel, rvh_row), rvh_probes, rv_row_ptr, (rv_pobj, rv_prel, rv_sb), \
+                g_rev = patch_csr(
+                    (src["rvh_obj"], src["rvh_rel"], src["rvh_row"]), src["rvh_probes"],
+                    src["rv_row_ptr"], (src["rv_pobj"], src["rv_prel"], src["rv_sb"]),
+                    per_rev, layout,
+                )
+            (rsh_obj, rsh_tag, rsh_row), rsh_probes, rs_row_ptr, (rs_obj, rs_rel), g_seed = \
+                patch_csr(
+                    (src["rsh_obj"], src["rsh_tag"], src["rsh_row"]), src["rsh_probes"],
+                    src["rs_row_ptr"], (src["rs_obj"], src["rs_rel"]), per_seed, layout,
+                )
+        except MergeFallback:
+            return None
+        total_garbage = src["garbage"] + g_rev + g_seed
+        if total_garbage > max(GARBAGE_FLOOR, GARBAGE_FRACTION * (len(rv_pobj) + len(rs_obj))):
+            return None
+        return {
+            **src,
+            "rvh_obj": rvh_obj, "rvh_rel": rvh_rel, "rvh_row": rvh_row,
+            "rvh_probes": rvh_probes, "rv_row_ptr": rv_row_ptr,
+            "rv_pobj": rv_pobj, "rv_prel": rv_prel, "rv_sb": rv_sb,
+            "rsh_obj": rsh_obj, "rsh_tag": rsh_tag, "rsh_row": rsh_row,
+            "rsh_probes": rsh_probes, "rs_row_ptr": rs_row_ptr,
+            "rs_obj": rs_obj, "rs_rel": rs_rel,
+            "garbage": total_garbage,
+        }
+
+    # -- push refresh ------------------------------------------------------------
+
+    def notify_write(self) -> None:
+        """A store write listener: wakes the refresh thread (started at
+        the first call), which folds the writes into the mirror off the
+        request path; a burst of writes coalesces into one refresh.
+        ensure_state's own version check stays the backstop."""
+        if self._refresh_stopped:
+            return
+        ev = self._refresh_event
+        if ev is None:
+            with self._refresh_mu:
+                ev = self._refresh_event
+                if ev is None:
+                    ev = threading.Event()
+                    thread = threading.Thread(target=self._push_refresh_loop, args=(ev,),
+                                              name=f"keto-torch-push-refresh-{self.nid}",
+                                              daemon=True)
+                    self._refresh_event = ev
+                    thread.start()
+        ev.set()
+
+    def stop_push_refresh(self) -> None:
+        """End the refresh thread."""
+        self._refresh_stopped = True
+        ev = self._refresh_event
+        if ev is not None:
+            ev.set()
+
+    def _push_refresh_loop(self, ev: threading.Event) -> None:
+        while True:
+            ev.wait()
+            if self._refresh_stopped:
+                return
+            ev.clear()
+            try:
+                self.ensure_state()
+                self.stats["push_refreshes"] += 1
+            except Exception:  # noqa: BLE001 - the refresh thread never dies;
+                # the request path's ensure_state raises to its caller
+                logging.getLogger("keto_tpu_torch").debug(
+                    "push refresh of the mirror failed", exc_info=True
+                )
 
     def ensure_expand_state(self) -> _EngineState:
         """The mirror with its full-edge CSR, built from the store at the
@@ -235,11 +475,11 @@ class TorchCheckEngine:
                 if self.manager.version(nid=self.nid) != state.covered_version:
                     continue
                 csr = build_full_csr(tuples, state.snapshot, view=state.view)
-                state.expand_np = csr
-                state.decoder = state.decoder or ExpandDecoder(state.snapshot)
+                state.expand_np = {**csr, "garbage": 0}
+                self._ensure_decoder(state)
                 # expand_tables is the readiness signal: set it last
                 state.expand_tables = expand_tables_from_numpy(
-                    pack_expand_tables(csr), self.device
+                    pack_expand_tables(csr, state.delta_np), self.device
                 )
                 return state
 
@@ -258,10 +498,10 @@ class TorchCheckEngine:
                     continue
                 rnp = build_reverse_state(tuples, state.snapshot, namespaces, view=state.view)
                 state.reverse_np = rnp
-                state.decoder = state.decoder or ExpandDecoder(state.snapshot)
+                self._ensure_decoder(state)
                 # reverse_tables is the readiness signal: set it last
                 state.reverse_tables = reverse_tables_from_numpy(
-                    pack_reverse_tables(rnp, state.snapshot), self.device
+                    pack_reverse_tables(rnp, state.snapshot, state.delta_np), self.device
                 )
                 return state
 
@@ -272,9 +512,16 @@ class TorchCheckEngine:
         with self._lock:
             if state.subjects_tables is None:
                 state.subjects_tables = subjects_tables_from_numpy(
-                    pack_subjects_tables(state.expand_np, state.snapshot), self.device
+                    pack_subjects_tables(state.expand_np, state.snapshot, state.delta_np),
+                    self.device,
                 )
         return state
+
+    @staticmethod
+    def _ensure_decoder(state: _EngineState) -> None:
+        if state.base_decoder is None:
+            state.base_decoder = ExpandDecoder(state.snapshot)
+            state.decoder = state.base_decoder.extended(state.view.overlay)
 
     def tables_nbytes(self, path: str = "check") -> dict[str, int]:
         """Bytes of each device table of the current mirror on one path:
@@ -317,7 +564,8 @@ class TorchCheckEngine:
 
     @staticmethod
     def _closure_launch(view, qpack: torch.Tensor) -> torch.Tensor:
-        # the port has no overlay, so no node is dirty: cd is never probed
+        # the index serves no state with an overlay (CAUSE_LAG), so no
+        # node is dirty: cd is never probed
         return closure_kernel_packed(view.tables, qpack, cc_probes=view.cc_probes,
                                      ch_probes=view.ch_probes, has_dirty=False,
                                      layout=view.layout)
@@ -396,7 +644,7 @@ class TorchCheckEngine:
         island_cap = 2 * B if state.snapshot.island_circuits else 0
         cfg = kernel_static_config(
             state.snapshot, global_max, launch_cap, n_island_cap=island_cap,
-            has_delta=False,
+            has_delta=state.has_delta,
         )
         outputs = check_kernel_packed(state.tables, qpack, **cfg)
         meta["island_cap"] = cfg["n_island_cap"]
@@ -595,8 +843,8 @@ class TorchCheckEngine:
             rvh_probes=rnp["rvh_probes"], rsh_probes=rnp["rsh_probes"],
             max_steps=int(global_max + snap.n_config_rels + 4), wildcard_rel=snap.wildcard_rel,
             n_config_rels=max(snap.n_config_rels, 1), frontier_cap=max(frontier_cap, B),
-            result_cap=result_cap, pool_cap=pool_cap or max(8 * B, 4096), has_delta=False,
-            layout=snap.layout,
+            result_cap=result_cap, pool_cap=pool_cap or max(8 * B, 4096),
+            has_delta=state.has_delta, layout=snap.layout,
         )
         # the batch's one device->host readback
         offs, needs, pool, _stats = unpack_list_results(flat.cpu().numpy(), B)
@@ -639,7 +887,8 @@ class TorchCheckEngine:
             fsh_probes=state.expand_np["fh_probes"], max_steps=int(global_max + snap.n_config_rels + 4),
             wildcard_rel=snap.wildcard_rel, n_config_rels=max(snap.n_config_rels, 1),
             frontier_cap=max(frontier_cap, B), result_cap=result_cap,
-            pool_cap=pool_cap or max(8 * B, 4096), has_delta=False, layout=snap.layout,
+            pool_cap=pool_cap or max(8 * B, 4096), has_delta=state.has_delta,
+            layout=snap.layout,
         )
         # the batch's one device->host readback
         offs, needs, pool, _stats = unpack_list_results(flat.cpu().numpy(), B)
@@ -806,8 +1055,8 @@ class TorchCheckEngine:
             rstate = self.ensure_reverse_state()
             rnp = rstate.reverse_np
             if rstate.snapshot is not snap:
-                # a write rebuilt the mirror since the encode: the slots no
-                # longer address these tables
+                # a write compacted or rebuilt the mirror since the encode:
+                # the slots no longer address these tables
                 causes[CAUSE_NAME_UNINDEXED] = causes.get(CAUSE_NAME_UNINDEXED, 0) + len(vp)
             elif rnp["host_all"]:
                 # a NOT in the config: its members exist where no path
@@ -823,7 +1072,8 @@ class TorchCheckEngine:
                     rvh_probes=rnp["rvh_probes"], rsh_probes=rnp["rsh_probes"],
                     max_steps=int(global_max + snap.n_config_rels + 4),
                     wildcard_rel=snap.wildcard_rel, n_config_rels=max(snap.n_config_rels, 1),
-                    frontier_cap=max(frontier_cap, 1024), has_delta=False, layout=snap.layout,
+                    frontier_cap=max(frontier_cap, 1024), has_delta=rstate.has_delta,
+                    layout=snap.layout,
                 )
                 # the walk's one result readback
                 hit, wcause, _stats = unpack_filter_results(flat.cpu().numpy(), C)

@@ -1,7 +1,7 @@
 """Public (string-based) API types of the Check path.
 
 Parity with Keto's `ketoapi` package: RelationTuple, SubjectSet,
-RelationQuery, the canonical string form "ns:obj#rel@sub" /
+RelationQuery, PatchDelta, the canonical string form "ns:obj#rel@sub" /
 "ns:obj#rel@(ns:obj#rel)", the URL-query form, the JSON form, and the
 proof Tree the host oracle builds.
 
@@ -180,6 +180,17 @@ class RelationTuple:
             subject_set=subject_set,
         )
 
+    def to_url_query(self) -> dict[str, str]:
+        """The URL-query form, keys in Keto's order."""
+        v = {"namespace": self.namespace, "relation": self.relation, "object": self.object}
+        if self.subject_id is not None:
+            v[SUBJECT_ID_KEY] = self.subject_id
+        elif self.subject_set is not None:
+            v[SUBJECT_SET_NAMESPACE_KEY] = self.subject_set.namespace
+            v[SUBJECT_SET_OBJECT_KEY] = self.subject_set.object
+            v[SUBJECT_SET_RELATION_KEY] = self.subject_set.relation
+        return v
+
     @classmethod
     def from_url_query(cls, query: Mapping[str, str]) -> "RelationTuple":
         q = RelationQuery.from_url_query(query)
@@ -241,7 +252,8 @@ class RelationQuery:
         if has_sid and has_ss:
             raise DuplicateSubjectError(
                 debug=f"please provide either {SUBJECT_ID_KEY} or all of "
-                + ", ".join(ss_keys)
+                f"{SUBJECT_SET_NAMESPACE_KEY}, {SUBJECT_SET_OBJECT_KEY}, "
+                f"and {SUBJECT_SET_RELATION_KEY}"
             )
         if has_sid:
             q.subject_id = query[SUBJECT_ID_KEY]
@@ -271,6 +283,33 @@ class RelationQuery:
         if self.subject_set is not None and t.subject_set != self.subject_set:
             return False
         return True
+
+
+class PatchAction(str, Enum):
+    INSERT = "insert"
+    DELETE = "delete"
+
+
+@dataclass
+class PatchDelta:
+    """One item of a PATCH /admin/relation-tuples body."""
+
+    action: PatchAction
+    relation_tuple: RelationTuple
+
+    def to_dict(self) -> dict:
+        return {"action": self.action.value, "relation_tuple": self.relation_tuple.to_dict()}
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "PatchDelta":
+        try:
+            action = PatchAction(d["action"])
+        except (KeyError, ValueError):
+            raise MalformedInputError(debug="unknown patch action")
+        raw_tuple = d.get("relation_tuple")
+        if not isinstance(raw_tuple, Mapping):
+            raise MalformedInputError(debug='missing "relation_tuple"')
+        return cls(action=action, relation_tuple=RelationTuple.from_dict(raw_tuple))
 
 
 class TreeNodeType(str, Enum):

@@ -41,3 +41,23 @@ def validate_page_token(token: str) -> str:
         return str(uuid.UUID(token))
     except ValueError:
         raise InvalidPageTokenError(debug=f"invalid pagination token {token!r}")
+
+
+class WriteHookMixin:
+    """Post-commit write notification. A store initializes
+    ``self._write_listeners = []`` and calls ``self._notify_write(nid,
+    changed)`` after it releases its lock: a listener that takes its own
+    locks (an engine refreshing its mirror, which reads the store) would
+    otherwise deadlock against the store."""
+
+    _write_listeners: list
+
+    def add_write_listener(self, fn) -> None:
+        """`fn(nid)` runs after every write call that changed the store
+        (idempotent no-ops do not fire), outside the store's lock."""
+        self._write_listeners.append(fn)
+
+    def _notify_write(self, nid: str, changed: bool) -> None:
+        if changed:
+            for fn in tuple(self._write_listeners):
+                fn(nid)

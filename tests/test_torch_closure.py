@@ -15,8 +15,8 @@ identical inputs, on the CPU.
 - engines: TorchCheckEngine(device="cpu") with the closure on answers
   like the oracle and TPUCheckEngine at every depth, with the same hit and
   fallback counts; a mixed batch merges in order, unknown vocabulary
-  falls back, and a write turns the index stale (correct fallbacks) until
-  it is built again
+  falls back, and a write makes the index lag behind the overlay
+  (correct fallbacks) until a compaction gives it a new base to power
 
 Tolerance: exact equality; every output is an integer or a verdict.
 """
@@ -374,10 +374,18 @@ def test_engine_tables_nbytes_reports_closure(pair):
     assert set(nbytes) == {"cc_pack", "ch_pack"}
 
 
+def compacting_writes(n=2100):
+    """More ops than the delta overlay holds (DELTA_COMPACT_THRESHOLD):
+    the next refresh merges them into a new base."""
+    return [f"big:filler{i}#member@f{i}" for i in range(n)]
+
+
 def test_stale_after_write_then_rebuild(store):
-    """A write rebuilds the mirror: the index no longer serves it, so
-    checks fall back (stale_snapshot) and stay correct; a rebuild brings
-    the hits back."""
+    """A write rides the overlay over the index's base snapshot: the index
+    declines every check (lag) and the answers stay correct, and
+    closure_ensure_built() does not power it again over the same base.
+    A write of more ops than the overlay holds compacts the mirror into a
+    new base: the index powers again and the hits resume."""
     ns, tuples, owners = store
     cfg = TConfig({"limit": {"max_read_depth": DEPTH + 4}, "closure": {"enabled": True}})
     cfg.set_namespaces(port_namespaces(ns))
@@ -395,14 +403,20 @@ def test_stale_after_write_then_rebuild(store):
 
     m.write_relation_tuples([TTuple.from_string(f"deep:c2f{DEPTH}#owner@newbie")])
     got = engine.check_batch(queries)
-    assert engine.stats["closure_fallback"].get("stale_snapshot") == len(queries)
+    assert engine.stats["closure_fallback"] == {tcl.CAUSE_LAG: len(queries)}
     assert engine.stats["closure_hits"] == hits
     assert got[-1].membership == Membership.IS_MEMBER
     for q, g in zip(queries, got):
         assert g.membership == oracle.check_relation_tuple(q).membership, str(q)
-    assert engine.closure_index().needs_rebuild() is False  # built, for the old mirror
+    assert engine.closure_index().needs_rebuild() is False  # built, for the base
+    builds = engine.closure_index().stats["builds"]
+    assert not engine.closure_ensure_built()  # the same base: no powering
+    assert engine.closure_index().stats["builds"] == builds
 
+    m.write_relation_tuples([TTuple.from_string(s) for s in compacting_writes()])
     assert engine.closure_ensure_built()
+    assert engine.stats["incremental_merges"] == 1 and engine.stats["snapshot_builds"] == 1
+    assert engine.closure_index().stats["builds"] == builds + 1
     again = engine.check_batch(queries)
     assert engine.stats["closure_hits"] == hits + len(queries)
     assert [r.membership for r in again] == [r.membership for r in got]

@@ -59,6 +59,7 @@ from test_torch_closure import (
     DEPTH,
     OTHER_QUERIES,
     Pair,
+    compacting_writes,
     deep_queries,
     namespaces,
     tuples_and_owners,
@@ -337,6 +338,10 @@ def test_engine_device_powering_equals_host_and_jax(store):
 
 
 def test_engine_rebuild_after_write_stays_on_device(store):
+    """After a write the index lags behind the overlay: checks fall back
+    (lag) and stay correct, and no powering runs over the same base. A
+    write that compacts the mirror gives a new base, which the index
+    powers on the device again; the hits resume."""
     ns, tuples, owners = store
     p = Pair(ns, tuples, powering="device")
     assert p.port.closure_ensure_built()
@@ -344,15 +349,23 @@ def test_engine_rebuild_after_write_stays_on_device(store):
     queries = deep_queries(owners, n=16) + ["deep:c2f0#viewer@newbie"]
     p.tm.write_relation_tuples([TTuple.from_string(f"deep:c2f{DEPTH}#owner@newbie")])
     p.jm.write_relation_tuples([JTuple.from_string(f"deep:c2f{DEPTH}#owner@newbie")])
-    stale = p.port.stats["closure_fallback"].get("stale_snapshot", 0)
+    lag = p.port.stats["closure_fallback"].get(tcl.CAUSE_LAG, 0)
     got = p.check(queries)
-    assert p.port.stats["closure_fallback"]["stale_snapshot"] == stale + len(queries)
+    assert p.port.stats["closure_fallback"][tcl.CAUSE_LAG] == lag + len(queries)
+    assert "stale_snapshot" not in p.port.stats["closure_fallback"]
     assert got[-1].allowed
+    assert not p.port.closure_ensure_built()
+    assert idx.stats["device_builds"] == 1
+    filler = compacting_writes()
+    p.tm.write_relation_tuples([TTuple.from_string(s) for s in filler])
+    p.jm.write_relation_tuples([JTuple.from_string(s) for s in filler])
     assert p.port.closure_ensure_built()
     assert idx.stats["device_builds"] == 2 and idx.stats["device_fallbacks"] == 0
     hits = p.port.stats["closure_hits"]
     p.check(queries)
     assert p.port.stats["closure_hits"] == hits + len(queries)
+    # the JAX engine compacts the same ops at its next check
+    assert p.port.stats["incremental_merges"] == p.jax.stats.get("incremental_merges", 0) == 1
 
 
 def test_default_powering_is_host(store):

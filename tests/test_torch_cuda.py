@@ -2228,3 +2228,83 @@ def test_pool_compactions_launch_one_kernel_on_card(cuda):
         keys = [e.key for e in events]
         assert len(keys) == 1 and "pool_compact_kernel" in keys[0], keys
         assert 0 < events[0].count <= 20, keys
+
+
+# -- the write path: an engine on the card after writes --------------------------------
+
+
+def _write_ops(n_folders=12):
+    """A small write (under the overlay's capacity), then one past it."""
+    small = (["videos:/d0#owner@fresh", "videos:/d99#owner@user1",
+              "videos:/d99/v0.mp4#parent@(videos:/d99#...)", "extra:x#rel@user1"],
+             ["videos:/d1/v2.mp4#parent@(videos:/d1#...)", "videos:/d2#owner@user2"])
+    large = [f"videos:/d{i % n_folders}/w{i}.mp4#parent@(videos:/d{i % n_folders}#...)"
+             if i % 2 else f"videos:/d{i % n_folders}/w{i - 1}.mp4#owner@writer{i % 17}"
+             for i in range(2100)]
+    return small, large
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_engine_after_writes_matches_cpu_on_card(cuda, layout, monkeypatch):
+    """The same writes on two stores, one engine on the card and one on
+    the CPU: after a delta write (has_delta) and after a compaction, every
+    packed check, expand, list and filter vector of the card equals the
+    CPU's, and so do the answers and the counts."""
+    from keto_tpu_torch.config import Config
+    from keto_tpu_torch.engine import torch_engine as te
+    from keto_tpu_torch.storage import MemoryManager
+
+    ns, tuples, queries, depth = videos()
+    small, large = _write_ops()
+    outs = {"cpu": [], "cuda": []}
+    current = []
+
+    def recording(fn):
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            outs[current[-1]].append(out.cpu())
+            return out
+        return run
+
+    for name in ("check_kernel_packed", "expand_kernel_packed", "list_objects_kernel_packed",
+                 "list_subjects_kernel_packed", "filter_kernel_packed"):
+        monkeypatch.setattr(te, name, recording(getattr(te, name)))
+    answers, stats = {}, {}
+    for dev in ("cpu", "cuda"):
+        current.append(dev)
+        config = Config({"limit": {"max_read_depth": depth}})
+        config.set_namespaces([Namespace.from_dict(d) for d in ns])
+        m = MemoryManager()
+        m.write_relation_tuples([RelationTuple.from_string(s) for s in tuples])
+        engine = te.TorchCheckEngine(m, config, device=dev, layout=layout)
+        for path in ("expand", "reverse", "subjects"):
+            getattr(engine, f"ensure_{path}_state")()
+        got = []
+        for step in ("delta", "compact"):
+            if step == "delta":
+                m.transact_relation_tuples([RelationTuple.from_string(s) for s in small[0]],
+                                           [RelationTuple.from_string(s) for s in small[1]])
+            else:
+                m.write_relation_tuples([RelationTuple.from_string(s) for s in large])
+            got.append([r.allowed for r in engine.check_batch(
+                [RelationTuple.from_string(q) for q in queries])])
+            assert engine.ensure_state().has_delta == (step == "delta")
+            from keto_tpu_torch.ketoapi import SubjectSet
+            trees = engine.expand_batch([SubjectSet("videos", f"/d{d}", "view")
+                                         for d in range(4)], 3)
+            got.append([t and t.to_dict() for t in trees])
+            got.append(engine.list_objects_batch([("videos", "view", f"user{u}")
+                                                  for u in range(6)]))
+            got.append(engine.list_subjects_batch([("videos", f"/d{d}/v1.mp4", "view")
+                                                   for d in range(6)]))
+            got.append(engine.filter_batch("videos", "view", "user1",
+                                           [f"/d{d}/v{v}.mp4" for d in range(12)
+                                            for v in range(10)]))
+        answers[dev], stats[dev] = got, dict(engine.stats)
+        assert engine.stats["incremental_merges"] == 1 and engine.stats["snapshot_builds"] == 1
+    assert answers["cuda"] == answers["cpu"]
+    assert stats["cuda"] == stats["cpu"]
+    assert len(outs["cuda"]) == len(outs["cpu"]) > 0
+    for i, (g, w) in enumerate(zip(outs["cuda"], outs["cpu"])):
+        assert torch.equal(g, w), i

@@ -95,9 +95,15 @@ def test_writes_then_recheck():
     pair.write(["videos:/cats/2.mp4#view@john", "videos:/dogs#owner@john"])
     pair.delete(["videos:/cats#owner@cat lady"])
     pair.compare(queries + ["videos:/dogs#owner@john", "videos:/dogs#view@john"])
-    assert pair.port.stats["snapshot_builds"] == 2
+    # the writes fold into the overlay: one build, as in the JAX engine
+    assert pair.port.stats["snapshot_builds"] == pair.jax.stats["snapshot_builds"] == 1
+    assert pair.port._state.has_delta
     pair.compare(queries)
-    assert pair.port.stats["snapshot_builds"] == 2  # store unchanged: no rebuild
+    # store unchanged: no rebuild, no compaction
+    assert pair.port.stats["snapshot_builds"] == pair.jax.stats["snapshot_builds"] == 1
+    assert pair.port.stats["incremental_merges"] == \
+        pair.jax.stats.get("incremental_merges", 0) == 0
+    _assert_same_routing(pair)
 
 
 def test_namespace_config_change_rebuilds():
@@ -137,9 +143,11 @@ def test_random_writes_stay_in_step():
         pair.write(tuples[80 + 20 * round_: 100 + 20 * round_])
         pair.delete(rng.sample(tuples[:80], 5))
         pair.compare(queries[:24], max_depth, pruning=False)
-    # every write moves the store version: the port rebuilds its mirror,
-    # where the JAX engine refreshes an overlay and replays dirty rows
-    assert pair.port.stats["snapshot_builds"] == 3
+    # every write moves the store version: both engines refresh their
+    # overlay and replay dirty rows on the host, with one build
+    assert pair.port.stats["snapshot_builds"] == pair.jax.stats["snapshot_builds"] == 1
+    assert pair.port.stats["incremental_merges"] == pair.jax.stats.get("incremental_merges", 0)
+    _assert_same_routing(pair)
 
 
 def test_unknown_vocabulary_and_subject_sets():

@@ -686,13 +686,17 @@ def test_engine_not_config_routes_every_query_to_host():
 def test_engine_rebuilds_list_state_on_write():
     namespaces, tuples, _lo, _ls = cat_videos("")
     p = ListPair(namespaces, tuples, max_depth=8)
-    assert p.port.list_objects_batch([("videos", "view", "bob")]) == [["/d2", "/d2/v1"]]
+    assert p.objects([("videos", "view", "bob")]) == [["/d2", "/d2/v1"]]
     p.tm.write_relation_tuples([TTuple.from_string("videos:/d1#owner@bob")])
-    assert p.port.list_objects_batch([("videos", "view", "bob")]) == \
+    p.jm.write_relation_tuples([JTuple.from_string("videos:/d1#owner@bob")])
+    assert p.objects([("videos", "view", "bob")]) == \
         [["/d1", "/d1/v1", "/d1/v2", "/d2", "/d2/v1"]]
-    assert p.port.list_subjects_batch([("videos", "/d1/v2", "view")]) == \
+    assert p.subjects([("videos", "/d1/v2", "view")]) == \
         [["alice", "bob", "carol", "dana"]]
-    assert p.port.stats["snapshot_builds"] == 2
+    # the write rides the overlay: one build, as in the JAX engine, and
+    # the same device and host counts
+    assert p.port.stats["snapshot_builds"] == p.jax.stats["snapshot_builds"] == 1
+    p.same_stats()
 
 
 # -- (d) the REST list routes ------------------------------------------------------------

@@ -277,12 +277,14 @@ def test_filter_route_errors(filter_server, body, status):
 
 def test_serve_entry_point(tmp_path):
     """`python -m keto_tpu_torch serve` on the CPU with the closure on: a
-    200, a 403, a batch, an expand and a filter over a small store, then a
+    200, a 403, a batch, an expand and a filter over a small store, a PUT
+    on the write listener that a check carrying its snaptoken sees, then a
     clean stop on SIGTERM."""
     namespaces, tuples, _queries, _depth = SCENARIOS["cat_videos"]()
     cfg = {
         "namespaces": [ns.to_dict() for ns in namespaces],
-        "serve": {"read": {"host": "127.0.0.1", "port": 0}},
+        "serve": {"read": {"host": "127.0.0.1", "port": 0},
+                  "write": {"host": "127.0.0.1", "port": 0}},
         "closure": {"enabled": True},
     }
     (tmp_path / "cfg.json").write_text(json.dumps(cfg))
@@ -297,6 +299,9 @@ def test_serve_entry_point(tmp_path):
         line = proc.stdout.readline()
         assert line.startswith("serving read="), line + proc.stderr.read()
         base = "http://" + line.split("=", 1)[1].strip()
+        line = proc.stdout.readline()
+        assert line.startswith("serving write="), line + proc.stderr.read()
+        write_base = "http://" + line.split("=", 1)[1].strip()
         code, body, _ = _get(base, "/relation-tuples/check",
                              _params("videos:/cats/1.mp4#view@cat lady"))
         assert (code, body) == (200, {"allowed": True})
@@ -316,6 +321,18 @@ def test_serve_entry_point(tmp_path):
             "objects": ["/cats/2.mp4", "/cats/9.mp4", "/cats/1.mp4"]})
         assert (code, body) == (200, {"allowed_objects": ["/cats/2.mp4", "/cats/1.mp4"],
                                       "snaptoken": encode_snaptoken(1, "default")})
+        grant = RelationTuple.from_string("videos:/cats/2.mp4#view@john")
+        req = urllib.request.Request(
+            write_base + "/admin/relation-tuples", data=json.dumps(grant.to_dict()).encode(),
+            method="PUT", headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(req, timeout=30) as r:
+            assert r.status == 201 and json.loads(r.read()) == grant.to_dict()
+            token = r.headers["X-Keto-Snaptoken"]
+        assert token == encode_snaptoken(2, "default")
+        code, body, _ = _get(base, "/relation-tuples/check",
+                             {**_params("videos:/cats/2.mp4#view@john"), "snaptoken": token})
+        assert (code, body) == (200, {"allowed": True})
     finally:
         proc.terminate()
         assert proc.wait(timeout=30) == 0
