@@ -98,12 +98,22 @@ Phases, in order; any failure exits non-zero without the final line:
                batch captured for C1; (9) batches of 4096 chain-head checks
                with the closure on (one C1 launch, every query a hit) and
                off (the BFS) in alternating rounds, equal verdicts, 512
-               sampled equal to the oracle; (9w, last) one small write:
-               the index lags behind the overlay, every check falls back
-               (lag), still correct, and closure_ensure_built() is not
-               ready and launches no P1-P3; then a write of 4,096 grants
+               sampled equal to the oracle; (9w, last) (a) one small
+               write: the next batch's inline catch-up marks the written
+               chain's 22 ancestors dirty, C1 runs once with has_dirty
+               (the "closure_write" launch path), the chain's queries fall
+               back as dirty and the rest hit, verdicts as expected, and C1
+               is held to its plain version on that launch (the
+               closure_probe row's "dirty_batch" entry); (b)
+               closure_ensure_built() powers the dirty sources again on the
+               card (the "closure_refresh" path: P1-P3 only, no host
+               fallback), equal to the host powering over the same graph and
+               sources, with its stage split; (c) the next batch all hits,
+               the written grant included; (d) a write of 4,096 grants
                compacts the mirror, the index is powered on the card again
-               over the new base (timed) and the hits resume
+               over the new base (timed) and the hits resume; (e) a
+               ClosureMaintainer brings a further write's lag and dirty
+               nodes to 0 (timed, under a printed deadline), then all hits
  10. filter  — (10a) the frontier tier on phase 4's engine: 10,000
                candidates (bench.py:547's draws) for the owner of /d0, one
                shared walk; (10b) the closure tier on phase 9's engine:
@@ -210,6 +220,8 @@ FILTER_CHUNK = 16384
 # deletes), then one past its 2,048 ops, which compacts the mirror
 WRITE_SMALL = 64
 WRITE_LARGE = 4096
+# phase 9w(e): how long the closure maintainer may take to refresh a write
+MAINTAINER_DEADLINE_S = 240
 KERNEL_SOURCES = {
     "edge_probe": "keto_tpu_torch/csrc/check_kernels.cu",
     "pair_probe": "keto_tpu_torch/csrc/check_kernels.cu",
@@ -2101,46 +2113,134 @@ def run_closure(engine, manager, config, queries):
 
 
 def run_closure_write(engine, manager, queries, expected):
-    """Phase 9w on phase 9's engine: a small write the index lags behind
-    until a large one compacts the mirror and the index is powered again
-    on the card over the new base. `expected` are phase 9's verdicts on
-    `queries` before any write."""
+    """Phase 9w on phase 9's engine: (a) one small write, which the next
+    batch's inline catch-up marks dirty (the written chain's ancestors
+    only): C1 runs with has_dirty, the chain's queries fall back as dirty
+    and the rest hit; (b) closure_ensure_built() powers the dirty sources
+    again on the card (a refresh), equal to the host powering over the same
+    graph and sources; (c) the next batch is all hits; (d) a write of
+    4,096 grants compacts the mirror and the index is powered again in
+    full over the new base; (e) a ClosureMaintainer brings a further
+    write's lag and dirty nodes to 0. `expected` are phase 9's verdicts
+    on `queries` before any write. Returns the figures, the launches of
+    the dirty batch and of the refresh, and the dirty batch's C1 inputs."""
+    import numpy as np
     import torch
 
+    from keto_tpu_torch.closure import ClosureMaintainer, EngineRegistry
+    from keto_tpu_torch.engine import closure as tcl
+    from keto_tpu_torch.engine import closure_power as tcp
     from keto_tpu_torch.engine import cuda_ops
     from keto_tpu_torch.ketoapi import RelationTuple
 
-    t0 = phase(f"9w closure after a write: lag over the overlay, then {WRITE_LARGE} grants "
-               f"compacted and the index powered again")
+    t0 = phase(f"9w closure after a write: dirty marks and C1's cd table, a refresh on the "
+               f"card, {WRITE_LARGE} grants compacted and powered again, the maintainer")
     engine.closure_enabled = True
-    # one small write rides the overlay: the index lags behind it, every
-    # check falls back to the BFS (lag), still correct, and the index is
-    # not powered again over the same base
-    c = int(queries[0].object[1:].split("f")[0])
+    idx = engine.closure_index()
+
+    def chain(q):
+        return int(q.object[1:].split("f")[0])
+
+    # (a) one small write: the batch's inline catch-up marks the chain's
+    # ancestors, and only they fall back
+    c = chain(queries[0])
     fresh = RelationTuple("deep", f"c{c}f0", "viewer", subject_id="newbie")
-    stale_batch = list(queries[:-1]) + [fresh]
+    batch = list(queries[:-1]) + [fresh]
+    want = expected[:-1] + [True]
+    on_chain = sum(chain(q) == c for q in batch)
     manager.write_relation_tuples([RelationTuple("deep", f"c{c}f{DEEP_DEPTH}", "owner",
                                                  subject_id="newbie")])
-    t_w = time.perf_counter()
-    lag = engine.stats["closure_fallback"].get("lag", 0)
-    got = engine.check_batch(stale_batch)
-    torch.cuda.synchronize()
-    t_lag = time.perf_counter() - t_w
-    n_lag = engine.stats["closure_fallback"].get("lag", 0) - lag
-    want = expected[:-1] + [True]
-    if n_lag != len(stale_batch) or [r.allowed for r in got] != want:
-        raise AssertionError(f"after a write: {n_lag} lag fallbacks, verdicts "
-                             f"{'equal' if [r.allowed for r in got] == want else 'differ'}")
+    before = {k: engine.stats[k] for k in ("closure_hits", "host_checks")}
+    fallback = dict(engine.stats["closure_fallback"])
+    cuda_ops.reset_launch_counts()
+    with Recorder(cuda_ops, step=-1, steps={"closure_probe": 0}) as rec:
+        t_w = time.perf_counter()
+        got = engine.check_batch(batch)
+        torch.cuda.synchronize()
+        t_dirty = time.perf_counter() - t_w
+    dirty_launches = dict(cuda_ops.launches)
+    c1_args = rec.args("closure_probe")
+    n_hits = engine.stats["closure_hits"] - before["closure_hits"]
+    n_dirty = engine.stats["closure_fallback"].get("dirty", 0) - fallback.get("dirty", 0)
+    n_host = engine.stats["host_checks"] - before["host_checks"]
+    desc = idx.describe()
+    log(f"  a write of 1 owner: the next batch {t_dirty * 1e3:.1f} ms (delta refresh, inline "
+        f"catch-up, C1 with has_dirty, the BFS for the dirty leftovers): {n_hits} closure hits, "
+        f"{n_dirty} dirty fallbacks ({on_chain} queries on the written chain), {n_host} host "
+        f"replays; {desc['dirty_nodes']} dirty nodes, applied ops {desc['applied_ops']}; "
+        f"launches {({k: v for k, v in dirty_launches.items() if v})}")
+    if not c1_args[1]["has_dirty"] or dirty_launches["closure_probe"] != 1:
+        raise AssertionError(f"C1 did not run once with has_dirty: {c1_args[1]}, "
+                             f"{dirty_launches['closure_probe']} launches")
+    if desc["dirty_nodes"] != DEEP_DEPTH + 2 or n_dirty != on_chain \
+            or n_hits != len(batch) - on_chain:
+        raise AssertionError(f"the catch-up marked {desc['dirty_nodes']} nodes; {n_dirty} dirty "
+                             f"fallbacks, {n_hits} hits of {len(batch)}")
+    if [r.allowed for r in got] != want:
+        raise AssertionError("the verdicts after the write differ from the expected ones")
     if not engine.ensure_state().has_delta:
         raise AssertionError("the small write did not fold into the overlay")
+
+    # (b) the refresh: the dirty sources powered again on the card
+    captured: dict = {}
+    power = tcp.power_closure_device
+
+    def capture(*args, **kw):
+        out = power(*args, **kw)
+        captured.update(args=args, kw=kw, build=out[0], record=out[1])
+        return out
+
     cuda_ops.reset_launch_counts()
-    ready = engine.closure_ensure_built()
+    tcp.power_closure_device = capture
+    try:
+        t_w = time.perf_counter()
+        ready = engine.closure_ensure_built()
+        torch.cuda.synchronize()
+        t_refresh = time.perf_counter() - t_w
+    finally:
+        tcp.power_closure_device = power
+    refresh_launches = dict(cuda_ops.launches)
+    desc = idx.describe()
+    split = dict(idx.last_refresh)
+    stray = [k for k in cuda_ops.KERNELS if k not in cuda_ops.POWER_KERNELS
+             and refresh_launches[k]]
+    missing = [k for k in cuda_ops.POWER_KERNELS if refresh_launches[k] == 0]
+    if not ready or missing or stray or desc["device_fallbacks"] or desc["refreshes"] != 1 \
+            or desc["device_builds"] != 2 or desc["builds"] != 1 or desc["dirty_nodes"]:
+        raise AssertionError(f"the refresh: ready {ready}, launches {refresh_launches}, "
+                             f"{desc}")
+    graph, snap, mdepth, rows, base = captured["args"][:5]
+    sources = captured["kw"]["sources"]
+    host = tcl.power_closure(graph, snap, mdepth, rows, base, sources=sources)
+    fields = ("covered_keys", "ent_obj", "ent_rel", "ent_skind", "ent_sa", "ent_sb", "ent_req")
+    dev_build = captured["build"]
+    differ = [k for k in fields if getattr(host, k).dtype != getattr(dev_build, k).dtype
+              or not np.array_equal(getattr(host, k), getattr(dev_build, k))]
+    if differ or host.n_entries != dev_build.n_entries:
+        raise AssertionError(f"the refresh's device build differs from the host's: {differ}")
+    log(f"  closure_ensure_built (a refresh): {t_refresh:.2f} s: catch-up "
+        f"{split['catch_up_s'] * 1e3:.1f} ms, content read {split['content_s']:.2f} s "
+        f"({split['rows']} rows, {'scoped' if split['scoped'] else 'the whole store'}), "
+        f"extract {split['extract_s'] * 1e3:.1f} ms, power {split['power_s'] * 1e3:.1f} ms on "
+        f"the card ({split['sources']} sources, {split['power_waves']} waves, "
+        f"{split['power_steps']} steps; prep {split['power_prep_s'] * 1e3:.1f} ms, waves "
+        f"{split['power_wave_s'] * 1e3:.1f} ms), merge {split['merge_s']:.2f} s, pack "
+        f"{split['pack_s']:.2f} s, upload {split['upload_s']:.2f} s; equal to the host powering "
+        f"over the same {len(sources)} sources ({host.n_entries} entries); launches "
+        f"{({k: v for k, v in refresh_launches.items() if v})}")
+
+    # (c) the next batch: every query a hit, the written grant included
+    hits = engine.stats["closure_hits"]
+    t_w = time.perf_counter()
+    got = engine.check_batch(batch)
     torch.cuda.synchronize()
-    if ready or any(cuda_ops.launches[k] for k in cuda_ops.POWER_KERNELS):
-        raise AssertionError(f"the index over the same base: ready {ready}, launches "
-                             f"{dict(cuda_ops.launches)}")
-    # a write past the overlay's capacity compacts the mirror into a new
-    # base, which the index powers on the card again
+    t_clean = time.perf_counter() - t_w
+    if engine.stats["closure_hits"] - hits != len(batch) or [r.allowed for r in got] != want:
+        raise AssertionError("the refreshed index did not resume the hits")
+    log(f"  the next batch: {len(batch)} closure hits in {t_clean * 1e3:.1f} ms, newbie allowed")
+
+    # (d) a write past the overlay's capacity compacts the mirror into a
+    # new base, which the index powers on the card in full
     grng = random.Random(31)
     grants = [RelationTuple("deep", f"c{grng.randrange(DEEP_CHAINS)}f{grng.randrange(DEEP_DEPTH + 1)}",
                             "viewer", subject_id=f"w{i}") for i in range(WRITE_LARGE)]
@@ -2158,58 +2258,115 @@ def run_closure_write(engine, manager, queries, expected):
         raise AssertionError("the index did not build over the compacted base")
     torch.cuda.synchronize()
     t_rebuild = time.perf_counter() - t_w
-    rebuilt = engine.closure_index().describe()
-    if rebuilt["device_builds"] != 2 or rebuilt["device_fallbacks"]:
+    rebuilt = idx.describe()
+    if rebuilt["device_builds"] != 3 or rebuilt["builds"] != 2 or rebuilt["device_fallbacks"]:
         raise AssertionError(f"the rebuild was not powered on the card: {rebuilt['device_builds']} "
                              f"device builds, {rebuilt['device_fallbacks']} fallbacks")
     hits = engine.stats["closure_hits"]
-    got = engine.check_batch(stale_batch)
-    if engine.stats["closure_hits"] - hits != len(stale_batch) or \
-            [r.allowed for r in got] != want:
+    got = engine.check_batch(batch)
+    if engine.stats["closure_hits"] - hits != len(batch) or [r.allowed for r in got] != want:
         raise AssertionError("the rebuilt index did not resume the hits")
     fresh_grants = [RelationTuple("deep", g.object, "viewer", subject_id=g.subject_id)
                     for g in grants[:64]]
     if not all(r.allowed for r in engine.check_batch(fresh_grants)):
         raise AssertionError("the compacted base lost a written grant")
+    log(f"  {WRITE_LARGE} grants compacted in {t_compact:.2f} s; closure powered again in "
+        f"{t_rebuild:.1f} s (on the card {rebuilt['power_s']:.2f} s), hits resumed")
 
-    log(f"  a write: {n_lag} lag fallbacks, verdicts correct ({t_lag:.2f} s with the delta "
-        f"refresh); closure_ensure_built not ready, no P1-P3 launch; {WRITE_LARGE} grants "
-        f"compacted in {t_compact:.2f} s; closure powered again in {t_rebuild:.1f} s (on the "
-        f"card {rebuilt['power_s']:.2f} s), hits resumed; phase {time.perf_counter() - t0:.1f} s")
-    return {"lag_batch_s_incl_delta_refresh": t_lag, "compaction_s": t_compact,
-            "closure_rebuild_s": t_rebuild,
-            "rebuild_power": {k: rebuilt[k] for k in ("power_s", "power_prep_s", "power_wave_s")}}
+    # (e) the maintainer: a further write, brought to lag 0 and no dirty
+    # node off the request path
+    c2 = chain(queries[1])
+    maintainer = ClosureMaintainer(EngineRegistry(manager, {engine.nid: engine}))
+    maintainer.start()
+    try:
+        refreshes = idx.stats["refreshes"]
+        manager.write_relation_tuples([RelationTuple("deep", f"c{c2}f{DEEP_DEPTH}", "owner",
+                                                     subject_id="maintained")])
+        t_w = time.perf_counter()
+        deadline = t_w + MAINTAINER_DEADLINE_S
+        log(f"  maintainer started; waiting up to {MAINTAINER_DEADLINE_S} s for lag 0 and no "
+            f"dirty node")
+        while time.perf_counter() < deadline and (
+                idx.lag_versions(manager.version()) or idx.describe()["dirty_nodes"]
+                or idx.stats["refreshes"] == refreshes):
+            time.sleep(0.05)
+        t_maint = time.perf_counter() - t_w
+        m_desc = idx.describe()
+        if idx.lag_versions(manager.version()) or m_desc["dirty_nodes"] \
+                or idx.stats["refreshes"] != refreshes + 1:
+            raise AssertionError(f"the maintainer did not catch up in {MAINTAINER_DEADLINE_S} s: "
+                                 f"{m_desc}")
+        m_split = dict(idx.last_refresh)
+        m_batch = batch + [RelationTuple("deep", f"c{c2}f0", "viewer", subject_id="maintained")]
+        hits = engine.stats["closure_hits"]
+        got = engine.check_batch(m_batch)
+        if engine.stats["closure_hits"] - hits != len(m_batch) or \
+                [r.allowed for r in got] != want + [True]:
+            raise AssertionError("the maintained index did not answer every query")
+    finally:
+        maintainer.stop()
+    log(f"  the maintainer: lag 0 and no dirty node {t_maint:.2f} s after the write "
+        f"({maintainer.stats['passes']} passes; its refresh: content "
+        f"{m_split['content_s']:.2f} s, power {m_split['power_s'] * 1e3:.1f} ms, pack "
+        f"{m_split['pack_s']:.2f} s), then {len(m_batch)} closure hits; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {"dirty_batch_s": t_dirty, "dirty_batch": {"hits": n_hits, "dirty": n_dirty,
+                                                     "host_replays": n_host,
+                                                     "dirty_nodes": DEEP_DEPTH + 2},
+           "refresh_s": t_refresh, "refresh": split, "next_batch_s": t_clean,
+           "compaction_s": t_compact, "closure_rebuild_s": t_rebuild,
+           "rebuild_power": {k: rebuilt[k] for k in ("power_s", "power_prep_s", "power_wave_s")},
+           "maintainer_lag0_s": t_maint, "maintainer_passes": maintainer.stats["passes"],
+           "maintainer_refresh": m_split}
+    return out, dirty_launches, refresh_launches, c1_args
 
 
 def closure_case(args, kw, note):
     """C1's (name, kernel fn, plain fn, bytes, operations, compare fn,
     kernel functions) on one launch's captured inputs, and the launch's
-    shape. Bytes count the query pack, the bucket rows the verdicts need
-    (cc for valid queries, ch for covered and clean ones) and the output.
+    shape. Bytes count the query pack, the distinct bucket rows the
+    verdicts need, each once (cc for valid queries, with has_dirty cd for
+    covered ones, ch for covered and clean ones; at most each table's
+    rows, distinct_rows) and the output.
     The kernel also reads the ch rows of valid queries that are not
     covered and clean, as the JAX body probes every table and masks after:
     the shape gives their share and bytes, which the bound leaves out."""
     from keto_tpu_torch.engine import closure_kernel as tck
     from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine import kernel as tk
     from keto_tpu_torch.engine.snapshot import slots_per_bucket
 
-    qpack = args[3]
+    cc_pack, ch_pack, cd_pack, qpack = args
     B = qpack.shape[1]
     out = tck.closure_probe_plain(*args, **kw)
-    n_valid = int((qpack[6] != 0).sum())
-    n_cov = int((out[B : 2 * B] == 0).sum())
+    cause = out[B : 2 * B]
+    valid = qpack[6] != 0
+    n_valid = int(valid.sum())
+    n_cov = int((cause == 0).sum())
     s2, s5 = slots_per_bucket(2, kw["layout"]), slots_per_bucket(5, kw["layout"])
     pb2, pb5 = -(-kw["cc_probes"] // s2), -(-kw["ch_probes"] // s5)
+    h2 = tk.hash_combine(qpack[0], qpack[1])
+    rows_cc = distinct_rows(cc_pack, h2[valid], kw["cc_probes"], s2)
+    # the cd rows of covered queries (resolved or dirty), DELTA_PROBES deep
+    cd_q = (cause == 0) | (cause == 2)
+    n_cd = int(cd_q.sum()) if kw["has_dirty"] else 0
+    rows_cd = distinct_rows(cd_pack, h2[cd_q], DELTA_PROBES, s2) if kw["has_dirty"] else 0
+    pbd = -(-DELTA_PROBES // s2)
+    ok = cause == 0
+    rows_ch = distinct_rows(ch_pack, tk.hash_combine(*(qpack[i][ok] for i in (0, 1, 3, 4, 5))),
+                            kw["ch_probes"], s5)
     shape = {"note": note, "B": B, "has_dirty": kw["has_dirty"], "cc_probes": kw["cc_probes"],
              "ch_probes": kw["ch_probes"], "valid_share": n_valid / max(B, 1),
-             "covered_share": n_cov / max(B, 1),
+             "covered_share": n_cov / max(B, 1), "dirty_share": max(n_cd - n_cov, 0) / max(B, 1),
+             "distinct_rows": {"cc": rows_cc, "cd": rows_cd, "ch": rows_ch},
              "speculative_ch_bytes": (n_valid - n_cov) * pb5 * s5 * 32}
     case = (
         "closure_probe",
         lambda: cuda_ops.closure_probe(*args, **kw),
         lambda: tck.closure_probe_plain(*args, **kw),
-        7 * B * 4 + n_valid * pb2 * s2 * 16 + n_cov * pb5 * s5 * 32 + (2 * B + 8) * 4,
-        n_valid * (3 * HASH_OPS + pb2 * s2 * 4) + n_cov * (6 * HASH_OPS + pb5 * s5 * 6),
+        7 * B * 4 + rows_cc * s2 * 16 + rows_cd * s2 * 16 + rows_ch * s5 * 32 + (2 * B + 8) * 4,
+        n_valid * (3 * HASH_OPS + pb2 * s2 * 4) + n_cd * pbd * s2 * 4
+        + n_cov * (6 * HASH_OPS + pb5 * s5 * 6),
         lambda: max_abs_err(cuda_ops.closure_probe(*args, **kw), tck.closure_probe_plain(*args, **kw)),
         None,
     )
@@ -2788,12 +2945,18 @@ def main() -> int:
     owners = ownership(manager.all_relation_tuples())
     list_write = run_list_write(engine, manager, config, lo_queries, ls_queries, owners)
     filt["after_write"] = run_filter_write(engine, manager, config, v_subject)
-    closure["after_write"] = run_closure_write(d_engine, d_manager, d_queries, d_expected)
+    closure["after_write"], cw_launches, cr_launches, c1_dirty = run_closure_write(
+        d_engine, d_manager, d_queries, d_expected)
+    phase("9w kernels: C1 at the dirty batch, against its plain version")
+    next(row for row in rows if row["name"] == "closure_probe")["at"]["dirty_batch"] = \
+        time_closure_probe(*c1_dirty, "the first batch after a write, has_dirty")
+    del c1_dirty
     m_launches, m_rows, tools = run_microbench()
     rows += m_rows
     by_path = {"check": launches, "check_write": w_launches, "expand": x_launches,
                "list_objects": lo_launches,
                "list_subjects": ls_launches, "closure_build": b_launches, "closure": c_launches,
+               "closure_write": cw_launches, "closure_refresh": cr_launches,
                "filter": f_launches, "microbench": m_launches}
     # each kernel's count on its own path: check for K1-K4, expand for X1
     # and X2, ListObjects for L1, L2 and L4, ListSubjects for L3, closure

@@ -16,7 +16,8 @@ decodes. With the Leopard closure index on, a check batch is one probe
 launch over the powered closure sets whatever the chain depth, and
 BatchFilter answers a column of candidates for one subject through that
 probe or one shared reverse walk that marks them
-(csrc/closure_filter_kernels.cu).
+(csrc/closure_filter_kernels.cu). A write marks the closure nodes it may
+change dirty, and the closure maintainer powers them again.
 
 Layout:
   ketoapi     — relation tuples, subject sets, string and JSON forms
@@ -25,6 +26,7 @@ Layout:
   storage     — in-memory versioned tuple store
   engine      — snapshot compiler, host oracle, check, expand, list,
                 closure and filter kernels, the closure index, the engine
+  closure     — the closure maintainer: keeps each engine's index fresh
   api         — REST server (Check, batch Check, Expand, List and Filter)
 
 Entry points run on the card (device="cuda") unless the caller passes

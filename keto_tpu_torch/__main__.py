@@ -8,12 +8,15 @@ routes (`namespaces`, `limit.max_read_depth`, `limit.page_size`,
 `serve.write.port`, `closure.*`, `filter.*`), loads the tuples of
 `--tuples` (one "ns:obj#rel@subject" per line) into an in-memory store,
 builds the device mirror (and, with `closure.enabled`, the closure
-index), and serves the REST Check, Expand, ListObjects, ListSubjects and
-Filter routes on the read listener and PUT, DELETE and PATCH
-/admin/relation-tuples on the write listener until SIGINT or SIGTERM.
-The store's write listener wakes the engine's refresh thread, which folds
-each write into the mirror. It prints `serving read=<host>:<port>` and
-then `serving write=<host>:<port>` once it accepts requests.
+index, then starts the closure maintainer, closure/maintainer.py), and
+serves the REST Check, Expand, ListObjects, ListSubjects and Filter
+routes on the read listener and PUT, DELETE and PATCH
+/admin/relation-tuples on the write listener until SIGINT or SIGTERM,
+which stop the maintainer, then the listeners. The store's write
+listener wakes the engine's refresh thread, which folds each write into
+the mirror, and the maintainer, which marks the closure nodes it changes
+and powers them again. It prints `serving read=<host>:<port>` and then
+`serving write=<host>:<port>` once it accepts requests.
 """
 
 from __future__ import annotations
@@ -24,10 +27,48 @@ import sys
 import threading
 
 
+class Services:
+    """What `serve` runs: the engine, its closure maintainer (None unless
+    `closure.enabled`) and the read and write listeners, each serving on
+    a thread of its own."""
+
+    def __init__(self, config, manager, device):
+        from .api.rest_server import make_server, make_write_server
+        from .closure import ClosureMaintainer, EngineRegistry
+        from .engine.torch_engine import TorchCheckEngine
+
+        engine = TorchCheckEngine(manager, config, device=device)
+        engine.ensure_state()  # build and upload the mirror before serving
+        self.engine = engine
+        self.maintainer = None
+        if config.closure_enabled():
+            engine.closure_ensure_built()
+            self.maintainer = ClosureMaintainer(EngineRegistry(manager, {engine.nid: engine}))
+            self.maintainer.start()
+        manager.add_write_listener(
+            lambda nid: engine.notify_write() if nid == engine.nid else None)
+        self.servers = [make_server(engine, *config.read_address()),
+                        make_write_server(engine, *config.write_address())]
+        for srv in self.servers:
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+
+    def addresses(self) -> list[tuple[str, int]]:
+        """(host, port) of the read and the write listener."""
+        return [srv.server_address[:2] for srv in self.servers]
+
+    def stop(self) -> None:
+        """The maintainer first, so that no pass runs against a closing
+        server, then the listeners and the refresh thread."""
+        if self.maintainer is not None:
+            self.maintainer.stop()
+        for srv in self.servers:
+            srv.shutdown()
+            srv.server_close()
+        self.engine.stop_push_refresh()
+
+
 def _serve(args) -> int:
-    from .api.rest_server import make_server, make_write_server
     from .config import Config
-    from .engine.torch_engine import TorchCheckEngine
     from .ketoapi import RelationTuple
     from .storage import MemoryManager
 
@@ -39,15 +80,7 @@ def _serve(args) -> int:
         manager.write_relation_tuples(
             [RelationTuple.from_string(s) for s in lines if s and not s.startswith("#")]
         )
-    engine = TorchCheckEngine(manager, config, device=args.device)
-    engine.ensure_state()  # build and upload the mirror before serving
-    if config.closure_enabled():
-        engine.closure_ensure_built()
-    manager.add_write_listener(lambda nid: engine.notify_write() if nid == engine.nid else None)
-    host, port = config.read_address()
-    server = make_server(engine, host, port)
-    w_host, w_port = config.write_address()
-    write_server = make_write_server(engine, w_host, w_port)
+    services = Services(config, manager, args.device)
     stop = threading.Event()
 
     def _stop(*_):
@@ -55,15 +88,12 @@ def _serve(args) -> int:
 
     signal.signal(signal.SIGTERM, _stop)
     signal.signal(signal.SIGINT, _stop)
-    for srv in (server, write_server):
-        threading.Thread(target=srv.serve_forever, daemon=True).start()
-    print(f"serving read={host}:{server.server_address[1]}", flush=True)
-    print(f"serving write={w_host}:{write_server.server_address[1]}", flush=True)
+    (host, _), (w_host, _) = config.read_address(), config.write_address()
+    (_, port), (_, w_port) = services.addresses()
+    print(f"serving read={host}:{port}", flush=True)
+    print(f"serving write={w_host}:{w_port}", flush=True)
     stop.wait()
-    for srv in (server, write_server):
-        srv.shutdown()
-        srv.server_close()
-    engine.stop_push_refresh()
+    services.stop()
     return 0
 
 

@@ -1,0 +1,137 @@
+"""ClosureMaintainer: the Leopard index's freshness loop.
+
+One background thread keeps every built engine's closure index
+(engine/closure.py) current. Each pass calls the engine's
+`closure_ensure_built()`: it powers the index when it needs it (first
+use, a base snapshot swapped by a compaction or a rebuild, a dirty
+overflow, a truncated change log), folds every write since into the
+dirty marks by the store's change log, and powers the dirty nodes again
+(`refresh_dirty`), off the request path. The store's write listener wakes
+the loop at once; otherwise it polls every `poll_interval` seconds.
+
+Correctness never depends on this thread: every closure answer is gated
+at submit on the index's synced version reaching the serving state's
+covered version (engine/torch_engine.py `_closure_gate`), so a paused,
+slow or dead maintainer costs deep checks their latency and nothing
+else. `hold()` and `release()` force that lagging regime in tests.
+
+Not here yet: the Watch hub's event drain (a subscription a network id
+whose events mark dirty nodes between passes, and whose reset marks the
+index stale) waits for the Watch hub; `ensure_for`'s change-log
+catch-up folds every op without it. The registry is a stand-in,
+EngineRegistry, with the two registry calls the loop makes.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+from typing import Optional
+
+logger = logging.getLogger("keto_tpu_torch")
+
+DEFAULT_POLL_INTERVAL = 0.25
+
+
+class EngineRegistry:
+    """The registry calls the maintainer makes, over a fixed set of
+    engines: `built_engines()` (the engines by network id) and
+    `relation_tuple_manager()` (the store whose write listener wakes the
+    loop)."""
+
+    def __init__(self, manager, engines: dict):
+        self._manager = manager
+        self._engines = dict(engines)
+
+    def built_engines(self) -> dict:
+        return dict(self._engines)
+
+    def relation_tuple_manager(self):
+        return self._manager
+
+
+class ClosureMaintainer:
+    def __init__(self, registry, poll_interval: float = DEFAULT_POLL_INTERVAL):
+        self.registry = registry
+        self.poll_interval = max(float(poll_interval), 0.01)
+        self._wake = threading.Event()
+        self._stopped = threading.Event()
+        self._held = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._mu = threading.Lock()
+        self._listener_registered = False
+        # events and resets stay 0 until the Watch hub's drain exists
+        self.stats = {"passes": 0, "events": 0, "rebuilds": 0, "resets": 0}
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def start(self) -> None:
+        with self._mu:
+            if self._thread is not None:
+                return
+            self._stopped.clear()
+            # a write wakes the loop at once (a flag set on the writer's
+            # thread). Registered once: the store has no way to remove a
+            # listener, and start/stop/start must not add a second
+            if not self._listener_registered:
+                self.registry.relation_tuple_manager().add_write_listener(self._on_commit)
+                self._listener_registered = True
+            self._thread = threading.Thread(target=self._loop, name="keto-torch-closure-maintainer",
+                                            daemon=True)
+            self._thread.start()
+
+    def stop(self) -> None:
+        with self._mu:
+            thread, self._thread = self._thread, None
+        self._stopped.set()
+        self._wake.set()
+        if thread is not None:
+            thread.join(timeout=5)
+
+    def hold(self) -> None:
+        """Freeze maintenance: the index lags, and the fallbacks must stay
+        correct meanwhile."""
+        self._held.set()
+
+    def release(self) -> None:
+        self._held.clear()
+        self._wake.set()
+
+    def _on_commit(self, nid: str) -> None:
+        self._wake.set()
+
+    # -- the loop ---------------------------------------------------------------
+
+    def _loop(self) -> None:
+        while not self._stopped.is_set():
+            self._wake.wait(self.poll_interval)
+            self._wake.clear()
+            if self._stopped.is_set():
+                return
+            if self._held.is_set():
+                continue
+            try:
+                self.step()
+            except Exception:  # noqa: BLE001 - the loop never dies; the
+                # version gate keeps answers correct and the next pass retries
+                logger.debug("closure maintenance pass failed", exc_info=True)
+
+    def step(self) -> int:
+        """One pass over every built engine whose closure is enabled.
+        Returns the number of watch events applied (0 until the Watch
+        hub's drain exists); tests call it directly."""
+        self.stats["passes"] += 1
+        for nid, engine in self.registry.built_engines().items():
+            if not getattr(engine, "closure_enabled", False):
+                continue
+            idx = engine.closure_index()
+            before = idx.stats["builds"]
+            try:
+                engine.closure_ensure_built()
+            except Exception:  # noqa: BLE001 - one engine's failing
+                # powering must not stop the others' maintenance
+                logger.warning("closure build failed for nid=%s", nid, exc_info=True)
+                continue
+            if idx.stats["builds"] != before:
+                self.stats["rebuilds"] += 1
+        return 0

@@ -8,7 +8,11 @@ and write routes: `namespaces` (an inline list of namespace dicts),
 `serve.write.port` (the write routes' listener), `closure.enabled` (the Leopard
 index routes checks and filters, default false), `closure.max_set_rows`
 (the largest closure set a covered node may hold, 4096),
-`closure.powering` ("host", the default, powers the index with numpy;
+`closure.lag_budget_versions` (a check catches an index that lags the
+mirror by at most this many store versions up inline, marking the
+written nodes dirty, 64; past it the batch falls back to the BFS until
+the maintainer catches up), `closure.powering` ("host", the default,
+powers the index with numpy;
 "device" on the engine's device, engine/closure_power.py; on the
 1e6-tuple deep hierarchy of chip_smoke.py phase 9p "device" is no clear
 gain, 11.3-15.4 s of powering against 12.2-14.4 s for "host" in the

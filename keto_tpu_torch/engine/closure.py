@@ -13,31 +13,36 @@ layout as every other device table; engine/closure_kernel.py probes it.
 The contract:
   - an answer comes from the index only when it was built from the very
     snapshot object the engine's state wraps (vocabulary ids never alias
-    across rebuilds) and the query's node is covered and not dirty;
-    anything else falls back to the BFS kernel under a cause-coded
-    counter. A stale index costs latency, never a wrong answer.
+    across rebuilds), its synced version has reached the state's covered
+    version (every write since the base is folded into its dirty marks),
+    and the query's node is covered and not dirty; anything else falls
+    back to the BFS kernel under a cause-coded counter. A lagging index
+    costs latency, never a wrong answer.
   - "covered" means the powering proved the node's whole reachable
     region monotone (no AND/NOT islands, no host-only rewrites, no
     missing-config or relation-not-found semantics) and its closure set
     fits `closure.max_set_rows`; a covered node answers positives and
     negatives, with the exact least depth (`req`) of each entry.
-
-A write keeps the engine's base snapshot and puts the ops in its delta
-overlay, which the index has not seen: the index then declines every
-query with `lag` until a compaction or a rebuild makes a new base, which
-`ensure_for` powers (never on the check submit path). It marks no dirty
-nodes and catches up no ops; the dirty-node table (`build_dirty_table`)
-is kept so the kernel's dirty branch has real inputs in the tests.
+  - a write marks nodes dirty instead of powering again: an op's change
+    sites are its object's consulting relations (the per-namespace
+    `consult` map), and every transitive ancestor over the transposed
+    dependency CSR is marked (`catch_up`, `apply_changes`); the marks go
+    to the device as the `cd` table, which C1 probes. `refresh_dirty`
+    then powers only the dirty nodes again from the store's current
+    content, read region by region, and merges their rows back. Past
+    DIRTY_COMPACT_THRESHOLD marks, or a truncated change log, the index
+    turns stale until a new base is powered.
 
 `powering="device"` powers the closure on the index's device instead of
-with numpy (engine/closure_power.py), array for array the same build.
-Only `PoweringUnsupported`, raised before any launch, sends a build back
-to the host builder, counted; a kernel that fails to build or launch
-raises.
+with numpy (engine/closure_power.py), array for array the same build, a
+refresh's dirty sources included. Only `PoweringUnsupported`, raised
+before any launch, sends a build back to the host powering, counted; a
+kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import threading
 import time
@@ -46,7 +51,7 @@ from typing import Optional
 
 import numpy as np
 
-from .delta import DeltaOverflow, _fixed_capacity_table
+from .delta import DeltaOverflow, SnapshotView, _fixed_capacity_table
 from .kernel import _pack_columns, pack_pair_table
 from .snapshot import (
     EMPTY,
@@ -61,16 +66,21 @@ from .snapshot import (
 
 # fixed-shape dirty-node table; probed DELTA_PROBES deep
 CDIRTY_CAPACITY = 16384
+# past this many dirty nodes the index turns stale instead of adding
+# fallbacks (the dirty table is a quarter full at this count)
+DIRTY_COMPACT_THRESHOLD = CDIRTY_CAPACITY // 4
 # a graph whose node universe exceeds this serves without an index
 MAX_CLOSURE_NODES = 1 << 20
 DEFAULT_MAX_SET_ROWS = 4096
+# versions a check may catch a lagging index up inline
+DEFAULT_LAG_BUDGET = 64
 
 # host-side fallback causes (no launch happened); the kernel-side causes
 # are in engine/closure_kernel.py. A disabled engine counts nothing.
 CAUSE_UNBUILT = "unbuilt"
 CAUSE_STALE_SNAPSHOT = "stale_snapshot"
-# an index behind the state's covered version: the state wraps the
-# index's base snapshot and an overlay of writes the index has not seen
+# an index behind the state's covered version: the state's overlay holds
+# writes the index has not folded into its dirty marks
 CAUSE_LAG = "lag"
 
 
@@ -89,8 +99,9 @@ def _expand_spans(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
 class ClosureGraph:
     """The powering operands of one snapshot, keyed by int64 node keys
     obj * R + rel: the cost-1 edge CSR (computed rewrites folded away),
-    the folded direct-subject incidence, per-(ns, rel) poison, and the
-    candidate sources."""
+    the folded direct-subject incidence, per-(ns, rel) poison, the
+    candidate sources, and for dirty marking the transposed dependency
+    CSR and the per-namespace consult map."""
 
     R: int  # rel-id stride of the node key
     n_obj: int
@@ -103,7 +114,14 @@ class ClosureGraph:
     d_sa: np.ndarray
     d_sb: np.ndarray
     fpoison: np.ndarray  # [n_ns, R] bool, folded through the 0-cost closure
+    t_dst_keys: np.ndarray  # unique edge destinations, sorted
+    t_ptr: np.ndarray
+    t_src: np.ndarray  # their predecessors' node keys
+    # consult[ns][x]: the sorted relations r whose node (o, r) an op at
+    # row (o, x) changes
+    consult: list
     universe: np.ndarray  # sorted unique node keys
+    # slot -> ns under the vocabulary the graph was encoded with
     objslot_ns: np.ndarray
 
 
@@ -163,11 +181,23 @@ def snapshot_vocab_fp(snapshot: GraphSnapshot) -> int:
     return int.from_bytes(h.digest()[:8], "big") >> 1
 
 
-def extract_graph(snapshot: GraphSnapshot) -> Optional[ClosureGraph]:
+def extract_graph(
+    snapshot: GraphSnapshot,
+    content: Optional[tuple] = None,
+    objslot_ns: Optional[np.ndarray] = None,
+) -> Optional[ClosureGraph]:
     """The powering operands of a snapshot's host mirrors, or None when
     the graph exceeds the closure's limits (node-key overflow, universe
-    cap): the engine then serves without an index."""
-    slot_ns = snapshot.objslot_ns
+    cap): the engine then serves without an index.
+
+    `content` replaces the snapshot's edge tables by encoded edge arrays
+    (t_obj, t_rel, t_skind, t_sa, t_sb), the dirty refresh's store read;
+    `objslot_ns` replaces the slot -> namespace array for content encoded
+    under an overlay view, whose slots lie past the base array."""
+    slot_ns = objslot_ns if objslot_ns is not None else snapshot.objslot_ns
+    # the node-key stride is the base's relation count, for every build
+    # and refresh of one index (merged entries mix): rows with overlay-era
+    # relations never reach here (_store_content skips them)
     R = max(len(snapshot.rel_ids), 1)
     n_obj = max(len(snapshot.obj_slots), 1)
     if max(n_obj, len(slot_ns)) * R >= (1 << 31):
@@ -221,25 +251,66 @@ def extract_graph(snapshot: GraphSnapshot) -> Optional[ClosureGraph]:
             fpoison[ns, r] = any(poison0[ns, m] for m in closure0[ns][r])
 
     # raw content: direct edges and CSR rows
-    dmask = snapshot.dh_val == 1
-    d_obj, d_rel = snapshot.dh_obj[dmask], snapshot.dh_rel[dmask]
-    d_skind, d_sa, d_sb = snapshot.dh_skind[dmask], snapshot.dh_sa[dmask], snapshot.dh_sb[dmask]
-    rmask = snapshot.rh_row != EMPTY
-    r_obj, r_rel, r_row = snapshot.rh_obj[rmask], snapshot.rh_rel[rmask], snapshot.rh_row[rmask]
-    r_start = snapshot.row_ptr[r_row]
-    r_count = snapshot.row_ptr[r_row + 1] - r_start
-    e_payload_obj, e_payload_rel = snapshot.e_obj, snapshot.e_rel
+    if content is not None:
+        t_obj, t_rel, t_skind, t_sa, t_sb = (np.asarray(a, dtype=np.int32) for a in content)
+        d_obj, d_rel, d_skind, d_sa, d_sb = t_obj, t_rel, t_skind, t_sa, t_sb
+        # the subject-set rows grouped into a local CSR, by (obj, rel)
+        is_set = t_skind == 1
+        s_obj, s_rel = t_obj[is_set], t_rel[is_set]
+        e_payload_obj, e_payload_rel = t_sa[is_set], t_sb[is_set]
+        if len(s_obj):
+            order = np.lexsort((np.arange(len(s_obj)), s_rel, s_obj))
+            s_obj, s_rel = s_obj[order], s_rel[order]
+            e_payload_obj, e_payload_rel = e_payload_obj[order], e_payload_rel[order]
+            change = np.empty(len(s_obj), dtype=bool)
+            change[0] = True
+            change[1:] = (s_obj[1:] != s_obj[:-1]) | (s_rel[1:] != s_rel[:-1])
+            starts = np.flatnonzero(change)
+            r_obj, r_rel = s_obj[starts], s_rel[starts]
+            r_start = starts.astype(np.int64)
+            r_count = np.append(starts[1:], len(s_obj)) - starts
+        else:
+            r_obj = r_rel = np.zeros(0, np.int32)
+            r_start = r_count = np.zeros(0, np.int64)
+    else:
+        dmask = snapshot.dh_val == 1
+        d_obj, d_rel = snapshot.dh_obj[dmask], snapshot.dh_rel[dmask]
+        d_skind, d_sa, d_sb = snapshot.dh_skind[dmask], snapshot.dh_sa[dmask], snapshot.dh_sb[dmask]
+        rmask = snapshot.rh_row != EMPTY
+        r_obj, r_rel, r_row = snapshot.rh_obj[rmask], snapshot.rh_rel[rmask], snapshot.rh_row[rmask]
+        r_start = snapshot.row_ptr[r_row]
+        r_count = snapshot.row_ptr[r_row + 1] - r_start
+        e_payload_obj, e_payload_rel = snapshot.e_obj, snapshot.e_rel
     r_ns = slot_ns[np.clip(r_obj, 0, len(slot_ns) - 1)]
     d_ns = slot_ns[np.clip(d_obj, 0, len(slot_ns) - 1)]
 
-    # fold content to parent relations: P0(ns, x) = {r : x in closure0(r)}
+    # namespaces first seen in an overlay have no config: a trivial
+    # closure0, no rewrites, no poison; their rows stay in the fold
+    n_ns_total = max([n_ns] + [int(a.max()) + 1 for a in (r_ns, d_ns) if len(a)])
+    if n_ns_total > n_ns:
+        trivial_c0 = [{r} for r in range(R)]
+        trivial_ttu: list[list[tuple[int, int]]] = [[] for _ in range(R)]
+        closure0 += [trivial_c0] * (n_ns_total - n_ns)
+        ttu_by_rel += [trivial_ttu] * (n_ns_total - n_ns)
+        fpoison = np.pad(fpoison, ((0, n_ns_total - n_ns), (0, 0)))
+        n_ns = n_ns_total
+
+    # fold content to parent relations: P0(ns, x) = {r : x in closure0(r)};
+    # the consult map adds the TTUs: an op at row (o, x) changes the
+    # nodes (o, r) for r in consult[ns][x]
     p0: list[dict[int, np.ndarray]] = []
+    consult: list[dict[int, np.ndarray]] = []
     for ns in range(n_ns):
         inv: dict[int, list[int]] = {}
+        cons: dict[int, set[int]] = {}
         for r in range(R):
             for m in closure0[ns][r]:
                 inv.setdefault(m, []).append(r)
+                cons.setdefault(m, set()).add(r)
+            for trel, _crel in ttu_by_rel[ns][r]:
+                cons.setdefault(trel, set()).add(r)
         p0.append({x: np.array(sorted(v), dtype=np.int64) for x, v in inv.items()})
+        consult.append({x: np.array(sorted(v), dtype=np.int64) for x, v in cons.items()})
 
     def fold_sources(objs, rels, nss, fold_map):
         """(obj, x) content rows -> (row index, parent rel) per parent."""
@@ -313,7 +384,9 @@ def extract_graph(snapshot: GraphSnapshot) -> Optional[ClosureGraph]:
         uniq, starts = np.unique(k, return_index=True)
         return uniq, np.append(starts, len(k)).astype(np.int64), v
 
+    # the edges by source (powering) and by destination (dirty marking)
     e_src_keys, e_ptr, e_dst = group(e1_src, e1_dst)
+    t_dst_keys, t_ptr, t_src = group(e1_dst, e1_src)
     dk_keys, d_ptr, d_order = group(fd_key, np.arange(len(fd_key), dtype=np.int64))
     if len(d_order):
         fd_skind, fd_sa, fd_sb = fd_skind[d_order], fd_sa[d_order], fd_sb[d_order]
@@ -325,7 +398,8 @@ def extract_graph(snapshot: GraphSnapshot) -> Optional[ClosureGraph]:
     return ClosureGraph(
         R=R, n_obj=n_obj, e_src_keys=e_src_keys, e_ptr=e_ptr, e_dst=e_dst,
         d_node_keys=dk_keys, d_ptr=d_ptr, d_skind=fd_skind, d_sa=fd_sa, d_sb=fd_sb,
-        fpoison=fpoison, universe=universe, objslot_ns=slot_ns,
+        fpoison=fpoison, t_dst_keys=t_dst_keys, t_ptr=t_ptr, t_src=t_src, consult=consult,
+        universe=universe, objslot_ns=slot_ns,
     )
 
 
@@ -535,34 +609,66 @@ def build_dirty_table(dirty_keys: np.ndarray, R: int, layout: str) -> Optional[n
 
 
 class ClosureView:
-    """One consistent handle the submit path captures: device tables and
-    static probe depths of one build."""
+    """One consistent handle the submit path captures: the device tables
+    and static probe depths of one build, its dirty marks (`has_dirty`:
+    the launch probes the cd table) and the version they are synced to."""
 
-    __slots__ = ("tables", "cc_probes", "ch_probes", "layout")
+    __slots__ = ("tables", "cc_probes", "ch_probes", "layout", "has_dirty",
+                 "snapshot_version", "synced_version", "R")
 
-    def __init__(self, tables, cc_probes, ch_probes, layout):
+    def __init__(self, tables, cc_probes, ch_probes, layout, has_dirty, snapshot_version,
+                 synced_version, R):
         self.tables = tables
         self.cc_probes = cc_probes
         self.ch_probes = ch_probes
         self.layout = layout
+        self.has_dirty = has_dirty
+        self.snapshot_version = snapshot_version
+        self.synced_version = synced_version
+        self.R = R
 
 
 POWERINGS = ("host", "device")
 
 
+def _node_row(encoder, t, R: int):
+    """(node, row) of one stored tuple under `encoder`: `row` is its
+    (obj, rel, skind, sa, sb) content row, or None when the tuple cannot
+    be keyed; `node` is the tuple's (obj, rel) when its node encodes but
+    its subject does not (its region must stay dirty), else None."""
+    node = encoder.encode_node(t.namespace, t.object, t.relation)
+    if node is not None and node[1] >= R:
+        # an overlay-era relation on the node: a predecessor reaches it
+        # only through an edge row reported (or included) under its key
+        return None, None
+    subj = encoder.encode_subject(t)
+    if node is None or subj is None or (subj[0] == 1 and subj[2] >= R):
+        # a row whose node does not encode is reachable only through an
+        # edge whose own row is present or itself reported
+        return node, None
+    return None, (node[0], node[1], subj[0], subj[1], subj[2])
+
+
+def _content_arrays(rows: list) -> tuple:
+    cols = np.array(rows, dtype=np.int32).reshape(-1, 5)
+    return tuple(np.ascontiguousarray(cols[:, i]) for i in range(5))
+
+
 class ClosureIndex:
-    """Per-engine Leopard index: one build, its tables on `device`, powered
-    on the host or (`powering="device"`) on `device`. Thread-safe;
-    powering runs outside the lock."""
+    """Per-engine Leopard index: one build, its tables on `device`,
+    powered on the host or (`powering="device"`) on `device`, and the
+    dirty marks of the writes since its base. Thread-safe; powering and
+    every store read run outside the lock."""
 
     def __init__(self, nid: str, device, max_set_rows: int = DEFAULT_MAX_SET_ROWS,
-                 powering: str = "host"):
+                 powering: str = "host", lag_budget_versions: int = DEFAULT_LAG_BUDGET):
         if powering not in POWERINGS:
             raise ValueError(f"closure.powering must be one of {POWERINGS}, not {powering!r}")
         self.nid = nid
         self.device = device
         self.max_set_rows = int(max_set_rows)
         self.powering = powering
+        self.lag_budget_versions = int(lag_budget_versions)
         # the device buffers of the last device build's widest wave, as
         # P1-P3 hold them (closure_power.device_power_bytes)
         self._power_hbm: dict = {}
@@ -572,25 +678,55 @@ class ClosureIndex:
         self._view: Optional[ClosureView] = None
         self._snapshot: Optional[GraphSnapshot] = None
         self._synced_version = -1
-        # seconds of the last build's stages
+        self._dirty: set[int] = set()
+        # a dirty overflow or a truncated change log: powering required
+        self._stale = False
+        # what ops encode through for dirty marking: the base snapshot's
+        # view, then the overlay view the engine serves (ensure_for) or
+        # the last refresh read its content under. It must cover every
+        # object the graph's edges reach, or a write there marks nothing.
+        self._encoder: Optional[SnapshotView] = None
+        # bumped by every apply_changes: a refresh whose re-mark read
+        # predates a mark aborts its install (the marks would be cleared
+        # while the synced version moved past them)
+        self._marks_gen = 0
+        # seconds of the last build's and the last refresh's stages
         self.last_build: dict = {}
-        self.stats = {"builds": 0, "device_builds": 0, "device_fallbacks": 0,
+        self.last_refresh: dict = {}
+        self.stats = {"builds": 0, "applied_ops": 0, "dirty_nodes": 0, "rebuild_pending": 0,
+                      "refreshes": 0, "scoped_refreshes": 0, "refresh_rows_read": 0,
+                      "full_refresh_reads": 0, "device_builds": 0, "device_fallbacks": 0,
                       "power_waves": 0, "power_steps": 0}
 
-    def ensure_for(self, state, max_depth: int) -> bool:
+    # -- build -----------------------------------------------------------------
+
+    def ensure_for(self, state, manager, max_depth: int) -> bool:
         """Build the index for `state`'s base snapshot unless it is built
-        for that very snapshot object; returns whether it serves `state`.
-        Over an unchanged base the index is not powered again, whatever
-        the overlay holds: a powering would read the same pre-write base.
-        It serves again once a compaction or a rebuild makes a new base.
-        Never called on the check submit path: a powering there would
-        stall a batch."""
+        for that very snapshot object, then fold every write between the
+        base version and the state's covered version into the dirty
+        marks. Returns whether it serves `state`. Never called on the
+        check submit path: a powering there would stall a batch."""
         snap = state.snapshot
         with self._mu:
             same_snapshot = self._build is not None and self._snapshot is snap
-        if not same_snapshot:
+            current = same_snapshot and not self._stale
+            # a stale index over an unchanged base is not powered again:
+            # the powering would read the same base, and the catch-up
+            # would re-mark the same oversized set (or meet the same
+            # truncated log). The engine's compaction makes a new base.
+            stuck = same_snapshot and self._stale
+            # a base whose universe extract_graph refused is refused again
+            # over the same snapshot: skip the re-extraction that the
+            # maintainer's every pass would otherwise repeat
+            refused = self._graph is None and self._snapshot is snap
+            if current:
+                # the ops at objects first seen after the base mark their
+                # own sites under the served overlay, and the dirty
+                # refresh powers them into coverage
+                self._encoder = state.view
+        if not current and not stuck and not refused:
             self._rebuild(snap, state.base_version, max_depth)
-        return self.view_for(state)[0] is not None
+        return self.catch_up(manager, state.covered_version)
 
     def _rebuild(self, snap: GraphSnapshot, base_version: int, max_depth: int) -> None:
         from .closure_kernel import closure_tables_from_numpy
@@ -605,12 +741,12 @@ class ClosureIndex:
         t2 = time.perf_counter()
         view = None
         if build is not None:
-            # no cd_pack: the index serves no overlay (CAUSE_LAG), so no
-            # node turns dirty
             tables, cc_probes, ch_probes = pack_closure_tables(build, graph.R, snap.layout)
+            tables["cd_pack"] = empty_dirty_table()
             t3 = time.perf_counter()
             dev = closure_tables_from_numpy(tables, self.device)
-            view = ClosureView(dev, cc_probes, ch_probes, snap.layout)
+            view = ClosureView(dev, cc_probes, ch_probes, snap.layout, False,
+                               build.snapshot_version, base_version, graph.R)
         t4 = time.perf_counter()
         self.last_build = {"extract_s": t1 - t0, "power_s": t2 - t1, **split}
         if build is not None:
@@ -619,22 +755,26 @@ class ClosureIndex:
             self._graph = graph
             self._build = build
             self._snapshot = snap
+            self._encoder = SnapshotView(snap)
+            self._dirty = set()
+            self._stale = build is None
             self._synced_version = base_version if build is not None else -1
             self._view = view
 
     def _power(self, graph: ClosureGraph, snap: GraphSnapshot, max_depth: int,
-               base_version: int) -> tuple[ClosureBuild, dict]:
-        """Power one build with the configured builder: (build, the part of
-        last_build it adds). On the device, the build's seconds split into
-        host subgraph preparation and waves; a PoweringUnsupported shape
-        is powered on the host, counted, with its reason kept."""
+               base_version: int, sources=None) -> tuple[ClosureBuild, dict]:
+        """Power one build, or the `sources` of a refresh, with the
+        configured powering: (build, the part of last_build it adds). On
+        the device, the build's seconds split into host subgraph
+        preparation and waves; a PoweringUnsupported shape is powered on
+        the host, counted, with its reason kept."""
         fallback = {}
         if self.powering == "device":
             from .closure_power import PoweringUnsupported, power_closure_device
 
             try:
                 build, record = power_closure_device(
-                    graph, snap, max_depth, self.max_set_rows, base_version,
+                    graph, snap, max_depth, self.max_set_rows, base_version, sources=sources,
                     device=self.device)
             except PoweringUnsupported as exc:
                 self.stats["device_fallbacks"] += 1
@@ -646,34 +786,406 @@ class ClosureIndex:
                 self._power_hbm = dict(record["device_hbm"])
                 return build, {"power_prep_s": record["prep_s"],
                                "power_wave_s": record["wave_s"]}
-        return power_closure(graph, snap, max_depth, self.max_set_rows, base_version), fallback
+        return power_closure(graph, snap, max_depth, self.max_set_rows, base_version,
+                             sources=sources), fallback
+
+    # -- dirty marks -------------------------------------------------------------
+
+    def catch_up(self, manager, through_version: int) -> bool:
+        """Fold the ops committed in (synced, through_version] into the
+        dirty marks, read from the store's change log outside the lock.
+        Returns whether the index serves through_version."""
+        with self._mu:
+            if self._build is None or self._stale:
+                return False
+            synced = self._synced_version
+        if synced >= through_version:
+            return True
+        ops = manager.changes_since(synced, nid=self.nid)
+        if ops is None:
+            # a truncated change log: the gap cannot be marked
+            self.mark_stale()
+            return False
+        return self.apply_changes(ops, through_version)
+
+    def _sites(self, graph: ClosureGraph, nodes) -> list[int]:
+        """The change sites of (obj, rel) nodes: each node and its
+        object's consulting relations."""
+        sites: list[int] = []
+        slot_ns = graph.objslot_ns
+        for obj, rel in nodes:
+            ns = int(slot_ns[obj]) if obj < len(slot_ns) else 0
+            cons = graph.consult[ns].get(rel) if ns < len(graph.consult) else None
+            rels = set(cons.tolist()) if cons is not None else set()
+            rels.add(rel)
+            sites += [int(obj) * graph.R + int(r) for r in rels]
+        return sites
+
+    def apply_changes(self, changes, through_version: int) -> bool:
+        """Mark the transitive ancestors of every change's sites dirty,
+        then advance the synced version; `changes` are (op,
+        RelationTuple) pairs. Ops at or below the synced version are
+        already marked or refreshed."""
+        from .closure_kernel import closure_tables_from_numpy
+
+        with self._mu:
+            build, graph, encoder = self._build, self._graph, self._encoder
+            if build is None or graph is None or self._stale:
+                return False
+            if through_version <= self._synced_version:
+                # a replay must not mark again nodes a refresh cleared
+                return True
+        nodes = []
+        for _op, t in changes:
+            # the graph's own encoder: a write at an object a refresh
+            # brought in must mark, which the base snapshot cannot encode
+            node = encoder.encode_node(t.namespace, t.object, t.relation)
+            if node is None or node[1] >= graph.R:
+                # names the encoder lacks: their influence on a covered
+                # node flows through an edge whose own op marks
+                continue
+            nodes.append(node)
+        new_dirty = self._ancestors(graph, self._sites(graph, nodes))
+        with self._mu:
+            if self._build is not build or self._stale:
+                return False
+            self._marks_gen += 1
+            self._dirty |= new_dirty
+            self.stats["applied_ops"] += len(changes)
+            self.stats["dirty_nodes"] = len(self._dirty)
+            cd = None
+            if len(self._dirty) <= DIRTY_COMPACT_THRESHOLD:
+                cd = build_dirty_table(
+                    np.fromiter(self._dirty, dtype=np.int64, count=len(self._dirty)),
+                    graph.R, self._snapshot.layout)
+            if cd is None:
+                self._stale = True
+                self.stats["rebuild_pending"] += 1
+                return False
+            old = self._view
+            tables = {**old.tables, **closure_tables_from_numpy({"cd_pack": cd}, self.device)}
+            self._synced_version = max(self._synced_version, through_version)
+            self._view = ClosureView(tables, old.cc_probes, old.ch_probes, old.layout,
+                                     bool(self._dirty), old.snapshot_version,
+                                     self._synced_version, old.R)
+            return True
+
+    @staticmethod
+    def _ancestors(graph: ClosureGraph, sites: list[int]) -> set[int]:
+        """Reverse BFS over the transposed dependency CSR from every
+        change site (a site is its own ancestor)."""
+        out: set[int] = set(sites)
+        frontier = np.array(sorted(out), dtype=np.int64)
+        while len(frontier):
+            starts, counts = _lookup_spans(graph.t_dst_keys, graph.t_ptr, frontier)
+            pos = _expand_spans(starts, counts)
+            preds = graph.t_src[pos] if len(pos) else np.zeros(0, np.int64)
+            fresh = [p for p in np.unique(preds).tolist() if p not in out]
+            out.update(fresh)
+            frontier = np.array(fresh, dtype=np.int64)
+        return out
+
+    def mark_stale(self) -> None:
+        """The change log lost the thread: the index declines every query
+        until it is powered again."""
+        with self._mu:
+            self._stale = True
+
+    # -- the dirty refresh ---------------------------------------------------------
+
+    def refresh_dirty(self, manager, max_depth: int, view=None) -> bool:
+        """Power only the dirty nodes again from the store's current
+        content and merge their rows into the build: the hits resume
+        without a powering of the whole universe or a compaction.
+
+        Writes may land meanwhile. The refresh catches up through the
+        store version v1, reads the content (which may hold ops past v1),
+        reads the version again (v2) and marks (v1, v2]; only the nodes
+        those marks did not reach are refreshed. Such a node has the same
+        closure at v1, at v2 and when the content was read, so installing
+        its rows and advancing the synced version to v2 never answers
+        ahead of the serving state. Every store read runs outside the
+        lock.
+
+        `view` is the engine's current SnapshotView: the content encodes
+        through its overlay, so that names first seen after the base
+        refresh under the ids queries encode to. Rows that still fail to
+        encode keep their region dirty (`skipped` sites): a refresh
+        narrows the dirty set, it never covers over missing rows."""
+        from .closure_kernel import closure_tables_from_numpy
+
+        with self._mu:
+            build, graph, snap = self._build, self._graph, self._snapshot
+            if build is None or graph is None or self._stale or not self._dirty:
+                return False
+        t0 = time.perf_counter()
+        v1 = manager.version(nid=self.nid)
+        if not self.catch_up(manager, v1):
+            return False
+        with self._mu:
+            if self._build is not build or self._stale:
+                return False
+            dirty_before = set(self._dirty)
+        encoder = view if view is not None else SnapshotView(snap)
+        t1 = time.perf_counter()
+        content, skipped, scoped, rows = self._refresh_content(manager, encoder, dirty_before)
+        t2 = time.perf_counter()
+        v2 = manager.version(nid=self.nid)
+        if v2 != v1:
+            ops2 = manager.changes_since(v1, nid=self.nid)
+            if ops2 is None:
+                self.mark_stale()
+                return False
+            self.apply_changes(ops2, v2)
+        with self._mu:
+            if self._build is not build or self._stale:
+                return False
+            remarked = self._dirty - dirty_before
+            marks_gen = self._marks_gen
+        # regions whose rows did not encode stay dirty, marked like a live
+        # op's sites under the graph's overlay-extended namespaces
+        if skipped:
+            remarked |= self._ancestors(graph, self._sites(graph, sorted(skipped)))
+        refresh = dirty_before - remarked
+        if not refresh:
+            return False
+        slot_ns = view.overlay.objslot_ns if view is not None and view.overlay is not None \
+            else None
+        t3 = time.perf_counter()
+        g2 = extract_graph(snap, content, objslot_ns=slot_ns)
+        if g2 is None:
+            self.mark_stale()
+            return False
+        keys = np.array(sorted(refresh), dtype=np.int64)
+        waves, steps = self.stats["power_waves"], self.stats["power_steps"]
+        t4 = time.perf_counter()
+        fresh, split = self._power(g2, snap, max_depth, build.base_version, sources=keys)
+        t5 = time.perf_counter()
+        split.update(power_waves=self.stats["power_waves"] - waves,
+                     power_steps=self.stats["power_steps"] - steps)
+        merged = self._merge_refresh(build, graph, keys, fresh)
+        t6 = time.perf_counter()
+        tables, cc_probes, ch_probes = pack_closure_tables(merged, graph.R, snap.layout)
+        t7 = time.perf_counter()
+        dev = closure_tables_from_numpy(tables, self.device)
+        t8 = time.perf_counter()
+        with self._mu:
+            if self._build is not build or self._stale:
+                return False
+            if self._marks_gen != marks_gen:
+                # a catch-up marked nodes after the re-mark read: the
+                # install would clear them with the synced version past
+                # them. The next pass retries over the fresh marks.
+                return False
+            self._build = merged
+            # the refresh content informs the dependency graph, and its
+            # view becomes the op encoder: a later write at an object the
+            # refreshed rows reach must mark its ancestors. A full read
+            # replaces the graph; a region read covers only the walked
+            # neighbourhood, so its edges join the old CSR (marking too
+            # much costs a refresh, too little a stale answer)
+            self._graph = self._merge_dependency(graph, g2) if scoped else g2
+            self._encoder = encoder
+            self._dirty -= refresh
+            self._synced_version = max(self._synced_version, v2)
+            cd = build_dirty_table(np.fromiter(self._dirty, dtype=np.int64,
+                                               count=len(self._dirty)), graph.R, snap.layout)
+            if cd is None:
+                self._stale = True
+                return False
+            dev.update(closure_tables_from_numpy({"cd_pack": cd}, self.device))
+            self._view = ClosureView(dev, cc_probes, ch_probes, snap.layout, bool(self._dirty),
+                                     merged.snapshot_version, self._synced_version, graph.R)
+            self.stats["dirty_nodes"] = len(self._dirty)
+            self.stats["refreshes"] += 1
+        self.last_refresh = {
+            "catch_up_s": t1 - t0, "content_s": t2 - t1, "rows": rows, "scoped": scoped,
+            "sources": len(keys), "extract_s": t4 - t3, "power_s": t5 - t4, **split,
+            "merge_s": t6 - t5, "pack_s": t7 - t6, "upload_s": t8 - t7,
+        }
+        return True
+
+    def _refresh_content(self, manager, encoder, dirty_keys):
+        """(content, skipped sites, scoped, rows read) for one refresh:
+        the dirty nodes' regions, read object by object, when the dirty
+        set decodes and its regions fit the walk budget (a cost that
+        follows the dirty set, not the store), else the whole store.
+        `scoped` tells the caller to merge the dependency graph, not
+        replace it."""
+        R = max(len(encoder.snapshot.rel_ids), 1)
+        slots = sorted({int(k) // R for k in dirty_keys})
+        budget = max(4096, 4 * self.max_set_rows)
+        decoded = self._decode_slots(encoder, slots)
+        if decoded is not None:
+            region = self._region_content(manager, encoder, decoded, budget)
+            if region is not None:
+                content, skipped, rows = region
+                self.stats["refresh_rows_read"] += rows
+                self.stats["scoped_refreshes"] += 1
+                return content, skipped, True, rows
+        content, skipped = self._store_content(manager, encoder)
+        self.stats["refresh_rows_read"] += len(content[0])
+        self.stats["full_refresh_reads"] += 1
+        return content, skipped, False, len(content[0])
+
+    def _store_content(self, manager, encoder):
+        """Encoded (obj, rel, skind, sa, sb) arrays of the whole store
+        under `encoder`'s vocabulary, and the (obj, rel) sites of the rows
+        whose node encodes but whose subject does not: the caller keeps
+        their regions dirty."""
+        R = max(len(encoder.snapshot.rel_ids), 1)
+        rows: list = []
+        skipped: set[tuple[int, int]] = set()
+        for t in manager.all_relation_tuples(nid=self.nid):
+            node, row = _node_row(encoder, t, R)
+            if row is not None:
+                rows.append(row)
+            elif node is not None:
+                skipped.add((int(node[0]), int(node[1])))
+        return _content_arrays(rows), skipped
+
+    @staticmethod
+    def _decode_slots(encoder, slots) -> Optional[dict]:
+        """slot -> (namespace, object) for exactly the requested slots, or
+        None when one does not decode (the full read then)."""
+        base, overlay = encoder.snapshot, encoder.overlay
+        ns_names = {v: k for k, v in base.ns_ids.items()}
+        if overlay is not None:
+            ns_names.update({v: k for k, v in overlay.ns_ids.items()})
+        want = set(int(s) for s in slots)
+        out: dict[int, tuple[str, str]] = {}
+        maps = [base.obj_slots] + ([overlay.obj_slots] if overlay is not None else [])
+        for obj_slots in maps:
+            for (ns_id, obj_name), slot in obj_slots.items():
+                if slot in want and ns_names.get(int(ns_id)) is not None:
+                    out[int(slot)] = (ns_names[int(ns_id)], obj_name)
+        return out if len(out) == len(want) else None
+
+    def _region_content(self, manager, encoder, dirty_objs: dict, budget_objs: int):
+        """The dirty nodes' regions by per-object store queries, following
+        subject-set children: every node a refresh source reaches lies at
+        an object the walk visits (a folded edge targets a row's
+        subject-set object). Returns (content, skipped sites, rows read),
+        or None past `budget_objs` distinct objects (the full read then).
+        Rows encode as in _store_content."""
+        from ..ketoapi import RelationQuery
+
+        R = max(len(encoder.snapshot.rel_ids), 1)
+        rows: list = []
+        skipped: set[tuple[int, int]] = set()
+        n_read = 0
+        visited: set[tuple[str, str]] = set(dirty_objs.values())
+        frontier = set(visited)
+        while frontier:
+            nxt: set[tuple[str, str]] = set()
+            for ns_name, obj_name in frontier:
+                page = ""
+                while True:
+                    tuples, page = manager.get_relation_tuples(
+                        RelationQuery(namespace=ns_name, object=obj_name),
+                        page_token=page, page_size=2048, nid=self.nid)
+                    for t in tuples:
+                        n_read += 1
+                        if t.subject_set is not None:
+                            nxt.add((t.subject_set.namespace, t.subject_set.object))
+                        node, row = _node_row(encoder, t, R)
+                        if row is not None:
+                            rows.append(row)
+                        elif node is not None:
+                            skipped.add((int(node[0]), int(node[1])))
+                    if not page:
+                        break
+            frontier = nxt - visited
+            visited |= frontier
+            if len(visited) > budget_objs:
+                return None
+        return _content_arrays(rows), skipped, n_read
+
+    @staticmethod
+    def _merge_dependency(old: ClosureGraph, region: ClosureGraph) -> ClosureGraph:
+        """The dependency graph after a region refresh: the union of the
+        old transposed CSR and the region's (the refreshed rows may reach
+        objects the base cannot express; edges the region no longer holds
+        stay, as marking too much is safe). The per-namespace program
+        structure (consult, poison, slot namespaces) is the same in both
+        up to overlay-era extensions, so the longer is kept."""
+        def pairs(g: ClosureGraph) -> np.ndarray:
+            if len(g.t_src) == 0:
+                return np.zeros((0, 2), dtype=np.int64)
+            return np.stack([np.repeat(g.t_dst_keys, np.diff(g.t_ptr)), g.t_src], axis=1)
+
+        allp = np.concatenate([pairs(old), pairs(region)], axis=0)
+        if len(allp):
+            allp = np.unique(allp, axis=0)
+            src = allp[:, 1]
+            uniq, starts = np.unique(allp[:, 0], return_index=True)
+            ptr = np.append(starts, len(allp)).astype(np.int64)
+        else:
+            uniq, ptr, src = np.zeros(0, np.int64), np.zeros(1, np.int64), np.zeros(0, np.int64)
+        return dataclasses.replace(
+            old, t_dst_keys=uniq, t_ptr=ptr, t_src=src,
+            objslot_ns=old.objslot_ns if len(old.objslot_ns) >= len(region.objslot_ns)
+            else region.objslot_ns,
+            consult=region.consult if len(region.consult) >= len(old.consult) else old.consult,
+            fpoison=region.fpoison if region.fpoison.shape[0] >= old.fpoison.shape[0]
+            else old.fpoison,
+        )
+
+    @staticmethod
+    def _merge_refresh(build: ClosureBuild, graph: ClosureGraph, keys: np.ndarray,
+                       fresh: ClosureBuild) -> ClosureBuild:
+        """`build` with every row of the nodes `keys` replaced by
+        `fresh`'s, coverage and entries both (a refreshed node may gain or
+        lose coverage: its caps and poison were judged again)."""
+        keep = ~np.isin(build.ent_obj.astype(np.int64) * graph.R + build.ent_rel, keys)
+        covered = np.union1d(np.setdiff1d(build.covered_keys, keys), fresh.covered_keys)
+
+        def cat(name):
+            return np.concatenate([getattr(build, name)[keep], getattr(fresh, name)])
+
+        return ClosureBuild(
+            snapshot_version=build.snapshot_version, base_version=build.base_version,
+            covered_keys=covered, ent_obj=cat("ent_obj"), ent_rel=cat("ent_rel"),
+            ent_skind=cat("ent_skind"), ent_sa=cat("ent_sa"), ent_sb=cat("ent_sb"),
+            ent_req=cat("ent_req"), n_nodes=build.n_nodes,
+            n_entries=int(keep.sum()) + fresh.n_entries, vocab_fp=build.vocab_fp,
+            max_depth=build.max_depth, max_set_rows=build.max_set_rows,
+        )
+
+    # -- the submit path's view ------------------------------------------------------
 
     def view_for(self, state) -> tuple[Optional[ClosureView], Optional[str]]:
         """The device view for one submit, or (None, cause). Never touches
-        the store."""
+        the store: the catch-up is the maintainer's, or the engine's
+        bounded inline one."""
         with self._mu:
-            view, build, snap_ref = self._view, self._build, self._snapshot
-            synced = self._synced_version
+            view, build, snap_ref, stale = self._view, self._build, self._snapshot, self._stale
         if build is None:
             return None, CAUSE_UNBUILT
-        if view is None or snap_ref is not state.snapshot:
+        if stale or view is None or snap_ref is not state.snapshot:
             # object identity: entries live in the build snapshot's ids
             return None, CAUSE_STALE_SNAPSHOT
-        if synced < state.covered_version:
-            # the state's overlay holds writes the index never saw: a
-            # deleted grant would still read as allowed
+        if view.synced_version < state.covered_version:
+            # the overlay holds writes not yet marked: a deleted grant
+            # would still read as allowed
             return None, CAUSE_LAG
         return view, None
 
+    def lag_versions(self, store_version: int) -> int:
+        with self._mu:
+            synced = self._synced_version
+        return 0 if synced < 0 else max(0, store_version - synced)
+
     def needs_rebuild(self) -> bool:
         with self._mu:
-            return self._build is None
+            return self._stale or self._build is None
 
     def describe(self) -> dict:
         with self._mu:
             build = self._build
             return {
                 "built": build is not None,
+                "stale": self._stale,
                 "synced_version": self._synced_version,
                 "covered_nodes": len(build.covered_keys) if build is not None else 0,
                 "entries": build.n_entries if build is not None else 0,
@@ -682,4 +1194,5 @@ class ClosureIndex:
                 "power_hbm": dict(self._power_hbm),
                 **self.last_build,
                 **self.stats,
+                "dirty_nodes": len(self._dirty),
             }

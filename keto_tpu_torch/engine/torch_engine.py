@@ -37,8 +37,10 @@ packs are uploaded, and every launch runs its overlay branch
 on a dirty row sends its query to the host oracle. Past the overlay's
 capacity the writes merge into a new base (engine/compact.py), and the
 retained expand and reverse mirrors are patched with the same ops; a
-truncated change log or a failed merge gate rebuilds in full. Over an
-overlay the closure index declines with `lag` until a new base exists.
+truncated change log or a failed merge gate rebuilds in full. A write
+marks the closure nodes it may change dirty (a check catches a lagging
+index up inline, within `closure.lag_budget_versions`), so only those
+fall back; closure_ensure_built powers them again over the same base.
 `notify_write`, wired to the store's write listener, folds writes in on
 a background thread, off the request path.
 """
@@ -64,7 +66,7 @@ from .definitions import (
     Membership,
     paginate_names,
 )
-from .closure import DEFAULT_MAX_SET_ROWS, ClosureIndex
+from .closure import CAUSE_LAG, DEFAULT_LAG_BUDGET, DEFAULT_MAX_SET_ROWS, ClosureIndex
 from .closure_kernel import CL_CAUSE_NAMES, closure_kernel_packed, unpack_closure_results
 from .compact import (
     GARBAGE_FLOOR,
@@ -230,6 +232,8 @@ class TorchCheckEngine:
             self.nid, self.device,
             max_set_rows=int(config.get("closure.max_set_rows", DEFAULT_MAX_SET_ROWS)),
             powering=str(config.get("closure.powering", "host")),
+            lag_budget_versions=int(config.get("closure.lag_budget_versions",
+                                               DEFAULT_LAG_BUDGET)),
         )
         # push refresh: a write listener sets the event, a thread folds
         # the writes in (notify_write)
@@ -548,15 +552,30 @@ class TorchCheckEngine:
 
     def closure_ensure_built(self) -> bool:
         """Power the index for the current mirror unless it is built for
-        it; returns readiness. Never called on the submit path: powering
-        there would stall a batch."""
+        its base, fold every write since into the dirty marks, then power
+        the dirty nodes again (refresh_dirty, encoded through the mirror's
+        overlay view). Returns readiness. The maintainer's per-pass entry
+        point; never called on the submit path: powering there would
+        stall a batch."""
         state = self.ensure_state()
-        return self.closure_index().ensure_for(state, self.config.max_read_depth())
+        idx = self.closure_index()
+        max_depth = self.config.max_read_depth()
+        ready = idx.ensure_for(state, self.manager, max_depth)
+        idx.refresh_dirty(self.manager, max_depth, view=state.view)
+        return ready
 
     def _closure_gate(self, state):
         """(view, None) when the index serves this state, else (None,
-        cause): the host-side cause every query of the batch counts under."""
-        return self.closure_index().view_for(state)
+        cause): the host-side cause every query of the batch counts under.
+        A lagging index gets one inline catch-up (a change-log read and
+        the ancestor marking) when its lag fits lag_budget_versions; past
+        it the batch falls back and the maintainer catches up."""
+        idx = self.closure_index()
+        view, cause = idx.view_for(state)
+        if cause == CAUSE_LAG and idx.lag_versions(state.covered_version) <= \
+                idx.lag_budget_versions and idx.catch_up(self.manager, state.covered_version):
+            view, cause = idx.view_for(state)
+        return view, cause
 
     def _count_closure_fallback(self, cause: str, n: int) -> None:
         per = self.stats["closure_fallback"]
@@ -564,10 +583,8 @@ class TorchCheckEngine:
 
     @staticmethod
     def _closure_launch(view, qpack: torch.Tensor) -> torch.Tensor:
-        # the index serves no state with an overlay (CAUSE_LAG), so no
-        # node is dirty: cd is never probed
         return closure_kernel_packed(view.tables, qpack, cc_probes=view.cc_probes,
-                                     ch_probes=view.ch_probes, has_dirty=False,
+                                     ch_probes=view.ch_probes, has_dirty=view.has_dirty,
                                      layout=view.layout)
 
     def _closure_read(self, outputs: torch.Tensor, B: int, n: int, counted=None):

@@ -15,8 +15,10 @@ identical inputs, on the CPU.
 - engines: TorchCheckEngine(device="cpu") with the closure on answers
   like the oracle and TPUCheckEngine at every depth, with the same hit and
   fallback counts; a mixed batch merges in order, unknown vocabulary
-  falls back, and a write makes the index lag behind the overlay
-  (correct fallbacks) until a compaction gives it a new base to power
+  falls back, and a write marks the written chain dirty (dirty
+  fallbacks, the rest hits), a refresh powers it again and a compaction
+  gives the index a new base to power, each step equal to keto_tpu's
+  index (same_index, the helpers tests/test_torch_closure_maint.py uses)
 
 Tolerance: exact equality; every output is an integer or a verdict.
 """
@@ -293,11 +295,74 @@ def test_closure_vector_edge_batches_identical(store, layout, case):
 # -- (c) the engines -----------------------------------------------------------------
 
 
+INDEX_STATS = ("builds", "applied_ops", "dirty_nodes", "rebuild_pending", "refreshes",
+               "scoped_refreshes", "refresh_rows_read", "full_refresh_reads", "device_builds",
+               "device_fallbacks", "power_waves", "power_steps")
+
+
+def same_index(tidx, jidx):
+    """The port's closure index equal to keto_tpu's: the counters, the
+    stale flag and synced version, the dirty key set, the (merged) build's
+    arrays, and the installed view's flags and tables, cd_pack included."""
+    for k in INDEX_STATS:
+        assert tidx.stats[k] == jidx.stats.get(k, 0), k
+    assert (tidx._stale, tidx._synced_version) == (jidx._stale, jidx._synced_version)
+    assert tidx._dirty == jidx._dirty
+    tb, jb = tidx._build, jidx._build
+    assert (tb is None) == (jb is None)
+    if tb is not None:
+        for k in BUILD_FIELDS:
+            assert getattr(tb, k).dtype == getattr(jb, k).dtype, k
+            np.testing.assert_array_equal(getattr(tb, k), getattr(jb, k), err_msg=k)
+        assert tb.n_entries == jb.n_entries
+    tv, jv = tidx._view, jidx._view
+    assert (tv is None) == (jv is None)
+    if tv is not None:
+        assert (tv.has_dirty, tv.synced_version, tv.cc_probes, tv.ch_probes, tv.R) == (
+            jv.has_dirty, jv.synced_version, jv.cc_probes, jv.ch_probes, jv.R)
+        assert set(tv.tables) == set(jv.tables) == {"cc_pack", "ch_pack", "cd_pack"}
+        for k in tv.tables:
+            np.testing.assert_array_equal(tv.tables[k].numpy(), np.asarray(jv.tables[k]),
+                                          err_msg=k)
+
+
+def same_closure_vector(port, jax_engine, queries, depth=0):
+    """C1's packed result vector on both engines' current views, for one
+    query pack encoded under the port's mirror: bit for bit, whatever
+    has_dirty the views carry. Returns the port's vector (None when
+    neither view serves)."""
+    import jax.numpy as jnp
+
+    from keto_tpu_torch.engine.kernel import pack_queries
+    from keto_tpu_torch.engine.snapshot import encode_query_batch
+
+    state = port.ensure_state()
+    tview, cause = port.closure_index().view_for(state)
+    jview, jcause = jax_engine.closure_index().view_for(jax_engine._ensure_state())
+    assert cause == jcause
+    if tview is None:
+        return None
+    tuples = [TTuple.from_string(s) for s in queries]
+    n = max(len(tuples), 1)
+    Bq = 1 << (n - 1).bit_length()
+    q_obj, q_rel, q_skind, q_sa, q_sb, q_valid = encode_query_batch(state.view, tuples, Bq)
+    depth = depth or port.config.max_read_depth()
+    q = pack_queries(q_obj, q_rel, np.full(Bq, depth, np.int32), q_skind, q_sa, q_sb, q_valid)
+    got = tck.closure_kernel_packed(tview.tables, torch.from_numpy(q), cc_probes=tview.cc_probes,
+                                    ch_probes=tview.ch_probes, has_dirty=tview.has_dirty,
+                                    layout=tview.layout).numpy()
+    want = np.asarray(jck.closure_kernel_packed(
+        jview.tables, jnp.asarray(q), cc_probes=jview.cc_probes, ch_probes=jview.ch_probes,
+        has_dirty=jview.has_dirty))
+    np.testing.assert_array_equal(got, want)
+    return got
+
+
 class Pair:
     """One store and config behind both engines (closure on) and both
     oracles."""
 
-    def __init__(self, ns, tuples, max_depth=DEPTH + 4, **closure):
+    def __init__(self, ns, tuples, max_depth=DEPTH + 4, layout="bucketized", **closure):
         cfg = {"limit": {"max_read_depth": max_depth}, "closure": {"enabled": True, **closure}}
         self.jcfg, self.tcfg = JConfig(cfg), TConfig(cfg)
         self.jcfg.set_namespaces(ns)
@@ -306,9 +371,18 @@ class Pair:
         self.jm.write_relation_tuples([JTuple.from_string(s) for s in tuples])
         self.tm.write_relation_tuples([TTuple.from_string(s) for s in tuples])
         self.jax = TPUCheckEngine(self.jm, self.jcfg, frontier_cap=4096)
-        self.port = TorchCheckEngine(self.tm, self.tcfg, device="cpu", frontier_cap=4096)
+        self.port = TorchCheckEngine(self.tm, self.tcfg, device="cpu", frontier_cap=4096,
+                                     layout=layout)
         self.toracle = TReference(self.tm, self.tcfg)
         self.joracle = JReference(self.jm, self.jcfg)
+
+    def write(self, ss):
+        self.jm.write_relation_tuples([JTuple.from_string(s) for s in ss])
+        self.tm.write_relation_tuples([TTuple.from_string(s) for s in ss])
+
+    def delete(self, ss):
+        self.jm.delete_relation_tuples([JTuple.from_string(s) for s in ss])
+        self.tm.delete_relation_tuples([TTuple.from_string(s) for s in ss])
 
     def check(self, queries, depth=0):
         got = self.port.check_batch([TTuple.from_string(s) for s in queries], depth)
@@ -364,14 +438,17 @@ def test_engine_mixed_batch_merges_in_order(pair):
 
 
 def test_engine_tables_nbytes_reports_closure(pair):
-    """cc and ch only: with no overlay no node turns dirty, so no cd
-    table is uploaded."""
+    """cc and ch, and the empty dirty table every build uploads, as
+    keto_tpu's engine holds them (its closure and closure_delta
+    families)."""
     p, _owners = pair
     nbytes = p.port.tables_nbytes("closure")
     idx = p.port.closure_index()
     packed, _cc, _ch = tcl.pack_closure_tables(idx._build, idx._graph.R, p.port.layout)
+    packed["cd_pack"] = tcl.empty_dirty_table()
     assert nbytes == {k: v.nbytes for k, v in packed.items()}
-    assert set(nbytes) == {"cc_pack", "ch_pack"}
+    assert nbytes == {k: v.nbytes for k, v in p.jax.closure_device_tables().items()}
+    assert set(nbytes) == {"cc_pack", "ch_pack", "cd_pack"}
 
 
 def compacting_writes(n=2100):
@@ -380,46 +457,54 @@ def compacting_writes(n=2100):
     return [f"big:filler{i}#member@f{i}" for i in range(n)]
 
 
-def test_stale_after_write_then_rebuild(store):
-    """A write rides the overlay over the index's base snapshot: the index
-    declines every check (lag) and the answers stay correct, and
-    closure_ensure_built() does not power it again over the same base.
-    A write of more ops than the overlay holds compacts the mirror into a
-    new base: the index powers again and the hits resume."""
+def test_write_marks_dirty_refreshes_then_rebuilds(store, layout):
+    """A write rides the overlay over the index's base snapshot: the
+    check's inline catch-up marks the written chain's ancestors, whose
+    queries fall back as dirty while the rest hit, all as keto_tpu;
+    closure_ensure_built() powers the dirty nodes again over the same base
+    (a refresh, not a build) and every query hits, the written grant
+    included. A delete never reads as allowed. A write of more ops than
+    the overlay holds compacts the mirror into a new base, which the index
+    powers in full."""
     ns, tuples, owners = store
-    cfg = TConfig({"limit": {"max_read_depth": DEPTH + 4}, "closure": {"enabled": True}})
-    cfg.set_namespaces(port_namespaces(ns))
-    m = TMemory()
-    m.write_relation_tuples([TTuple.from_string(s) for s in tuples])
-    engine = TorchCheckEngine(m, cfg, device="cpu")
-    oracle = TReference(m, cfg)
-    queries = [TTuple.from_string(s) for s in deep_queries(owners, n=16)]
-    queries.append(TTuple.from_string("deep:c2f0#viewer@newbie"))
-    assert engine.closure_index().view_for(engine.ensure_state())[1] == tcl.CAUSE_UNBUILT
-    assert engine.closure_ensure_built()
-    engine.check_batch(queries)
-    hits = engine.stats["closure_hits"]
+    p = Pair(ns, tuples, layout=layout)
+    queries = deep_queries(owners, n=16) + ["deep:c2f0#viewer@newbie"]
+    on_c2 = sum(q.startswith("deep:c2f") for q in queries)
+    assert p.port.closure_index().view_for(p.port.ensure_state())[1] == tcl.CAUSE_UNBUILT
+    assert p.port.closure_ensure_built() and p.jax.closure_ensure_built()
+    p.check(queries)
+    hits = p.port.stats["closure_hits"]
     assert hits == len(queries)
 
-    m.write_relation_tuples([TTuple.from_string(f"deep:c2f{DEPTH}#owner@newbie")])
-    got = engine.check_batch(queries)
-    assert engine.stats["closure_fallback"] == {tcl.CAUSE_LAG: len(queries)}
-    assert engine.stats["closure_hits"] == hits
+    p.write([f"deep:c2f{DEPTH}#owner@newbie"])
+    got = p.check(queries)
+    assert p.port.stats["closure_fallback"] == {"dirty": on_c2}
+    assert p.port.stats["closure_hits"] == hits + len(queries) - on_c2
     assert got[-1].membership == Membership.IS_MEMBER
-    for q, g in zip(queries, got):
-        assert g.membership == oracle.check_relation_tuple(q).membership, str(q)
-    assert engine.closure_index().needs_rebuild() is False  # built, for the base
-    builds = engine.closure_index().stats["builds"]
-    assert not engine.closure_ensure_built()  # the same base: no powering
-    assert engine.closure_index().stats["builds"] == builds
+    idx = p.port.closure_index()
+    assert idx.describe()["dirty_nodes"] == DEPTH + 2  # the chain's viewers and its owner
+    same_index(idx, p.jax.closure_index())
+    same_closure_vector(p.port, p.jax, queries)
+    builds = idx.stats["builds"]
+    assert p.port.closure_ensure_built() and p.jax.closure_ensure_built()
+    assert idx.stats["builds"] == builds and idx.stats["refreshes"] == 1
+    same_index(idx, p.jax.closure_index())
+    hits = p.port.stats["closure_hits"]
+    assert all(r.membership == g.membership for r, g in zip(p.check(queries), got))
+    assert p.port.stats["closure_hits"] == hits + len(queries)
 
-    m.write_relation_tuples([TTuple.from_string(s) for s in compacting_writes()])
-    assert engine.closure_ensure_built()
-    assert engine.stats["incremental_merges"] == 1 and engine.stats["snapshot_builds"] == 1
-    assert engine.closure_index().stats["builds"] == builds + 1
-    again = engine.check_batch(queries)
-    assert engine.stats["closure_hits"] == hits + len(queries)
-    assert [r.membership for r in again] == [r.membership for r in got]
+    p.delete([f"deep:c2f{DEPTH}#owner@newbie"])
+    assert p.check(queries[-1:])[0].membership == Membership.NOT_MEMBER
+    p.write(compacting_writes())
+    assert p.port.closure_ensure_built() and p.jax.closure_ensure_built()
+    assert p.port.stats["incremental_merges"] == 1 and p.port.stats["snapshot_builds"] == 1
+    assert idx.stats["builds"] == builds + 1
+    same_index(idx, p.jax.closure_index())
+    hits = p.port.stats["closure_hits"]
+    again = p.check(queries)
+    assert p.port.stats["closure_hits"] == hits + len(queries)
+    assert again[-1].membership == Membership.NOT_MEMBER
+    p.same_closure_stats()
 
 
 def test_row_cap_and_universe_cap_fall_back(store, monkeypatch):

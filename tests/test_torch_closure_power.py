@@ -17,8 +17,9 @@ plain versions.
   with poisoned nodes
 - engines: TorchCheckEngine(device="cpu") with closure.powering = "device"
   builds through the device path, equal to the host-powered build, answers
-  like TPUCheckEngine and the oracle, stays device-powered across a write
-  and a rebuild; "host" is the default; depth 101 powers on the host,
+  like TPUCheckEngine and the oracle, powers a write's dirty sources
+  again on the device (a refresh) and a compacted base in full, each
+  index equal to keto_tpu's; "host" is the default; depth 101 powers on the host,
   counted; a failing wave raises and nothing powers on the host
 - the 32-bit index limit (cuda_ops.INDEX_LIMIT, patched low): a planned
   wave that reaches it raises PoweringUnsupported naming N·W, E·W or
@@ -62,9 +63,10 @@ from test_torch_closure import (
     compacting_writes,
     deep_queries,
     namespaces,
+    same_index,
     tuples_and_owners,
 )
-from test_torch_kernel import port_namespaces
+from test_torch_kernel import layout, port_namespaces  # noqa: F401  (layout is a fixture)
 
 RECORD_FIELDS = ("waves", "steps", "lanes", "nodes", "edges", "hbm")
 
@@ -337,34 +339,38 @@ def test_engine_device_powering_equals_host_and_jax(store):
     assert p.port.stats["closure_hits"] > 0
 
 
-def test_engine_rebuild_after_write_stays_on_device(store):
-    """After a write the index lags behind the overlay: checks fall back
-    (lag) and stay correct, and no powering runs over the same base. A
-    write that compacts the mirror gives a new base, which the index
-    powers on the device again; the hits resume."""
+def test_engine_refresh_and_rebuild_after_write_stay_on_device(store, layout):
+    """After a write the written chain's nodes are dirty: their checks fall
+    back (dirty), the rest hit, all correct. closure_ensure_built() powers
+    the dirty sources again on the device (a device build over a source
+    subset, no host fallback), as keto_tpu's index does; the hits resume,
+    the written grant included. A write that compacts the mirror gives a
+    new base, which the index powers on the device again."""
     ns, tuples, owners = store
-    p = Pair(ns, tuples, powering="device")
-    assert p.port.closure_ensure_built()
+    p = Pair(ns, tuples, powering="device", layout=layout)
+    assert p.port.closure_ensure_built() and p.jax.closure_ensure_built()
     idx = p.port.closure_index()
     queries = deep_queries(owners, n=16) + ["deep:c2f0#viewer@newbie"]
-    p.tm.write_relation_tuples([TTuple.from_string(f"deep:c2f{DEPTH}#owner@newbie")])
-    p.jm.write_relation_tuples([JTuple.from_string(f"deep:c2f{DEPTH}#owner@newbie")])
-    lag = p.port.stats["closure_fallback"].get(tcl.CAUSE_LAG, 0)
+    p.write([f"deep:c2f{DEPTH}#owner@newbie"])
     got = p.check(queries)
-    assert p.port.stats["closure_fallback"][tcl.CAUSE_LAG] == lag + len(queries)
-    assert "stale_snapshot" not in p.port.stats["closure_fallback"]
+    fallback = p.port.stats["closure_fallback"]
+    assert fallback == {"dirty": sum(q.startswith("deep:c2f") for q in queries)}
     assert got[-1].allowed
-    assert not p.port.closure_ensure_built()
-    assert idx.stats["device_builds"] == 1
-    filler = compacting_writes()
-    p.tm.write_relation_tuples([TTuple.from_string(s) for s in filler])
-    p.jm.write_relation_tuples([JTuple.from_string(s) for s in filler])
-    assert p.port.closure_ensure_built()
+    assert p.port.closure_ensure_built() and p.jax.closure_ensure_built()
     assert idx.stats["device_builds"] == 2 and idx.stats["device_fallbacks"] == 0
+    assert idx.stats["builds"] == 1 and idx.stats["refreshes"] == 1
+    assert idx.last_refresh["power_waves"] == 1 and idx.last_refresh["sources"] == DEPTH + 2
+    same_index(idx, p.jax.closure_index())
     hits = p.port.stats["closure_hits"]
     p.check(queries)
     assert p.port.stats["closure_hits"] == hits + len(queries)
-    # the JAX engine compacts the same ops at its next check
+    p.write(compacting_writes())
+    assert p.port.closure_ensure_built() and p.jax.closure_ensure_built()
+    assert idx.stats["device_builds"] == 3 and idx.stats["device_fallbacks"] == 0
+    same_index(idx, p.jax.closure_index())
+    hits = p.port.stats["closure_hits"]
+    p.check(queries)
+    assert p.port.stats["closure_hits"] == hits + len(queries)
     assert p.port.stats["incremental_merges"] == p.jax.stats.get("incremental_merges", 0) == 1
 
 
@@ -406,8 +412,9 @@ def test_failing_wave_raises_without_host_build(store, monkeypatch):
     with pytest.raises(RuntimeError, match="injected wave failure"):
         p.port.closure_ensure_built()
     idx = p.port.closure_index()
-    assert idx.stats == {"builds": 0, "device_builds": 0, "device_fallbacks": 0,
-                         "power_waves": 0, "power_steps": 0}
+    assert idx.stats == dict.fromkeys(idx.stats, 0)
+    assert set(idx.stats) >= {"builds", "device_builds", "device_fallbacks", "power_waves",
+                              "power_steps"}
     assert idx.needs_rebuild()
 
 

@@ -5,8 +5,10 @@ the CPU run of the plain versions, under both table layouts and with the
 delta overlay (or the dirty table) on and off; the closure powering's P1-P3
 step by step on random waves, on shapes that change call after call, dense
 frontiers, no edges and every poison mask (their persistent scratch read
-back zero after every call), and whole device-powered builds against the
-CPU's; L1's and X1's keyed rank on queries in runs, at random and all on
+back zero after every call), whole device-powered builds against the
+CPU's, and over a dirty refresh's 1, 2, 33 and 600 sources against the
+plain versions and the host powering; C1 on the cd table a real write's
+catch-up marks; L1's and X1's keyed rank on queries in runs, at random and all on
 one query, past one block's frontier and shared memory; L2's merge path
 from one task to 2^20 (empty tasks and slots, no candidate at all, one
 task past the frontier, no reverse edges, POISON), L3's the same way
@@ -1436,6 +1438,84 @@ def test_power_closure_device_on_card_equals_cpu(cuda, max_set_rows, budget):
     assert np.array_equal(got.covered_keys, host.covered_keys)
     assert np.array_equal(got.ent_req, host.ent_req)
     assert 0 < len(got.covered_keys) < len(graph.universe)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sources", [1, 2, 33, 600])
+def test_power_closure_device_sources_on_card_equals_cpu(cuda, n_sources):
+    """P1-P3 over a dirty refresh's subset of sources (one source is a
+    wave of 32 lanes, one word): the card's build equal to the plain
+    versions' and to the host powering's over the same sources."""
+    from keto_tpu_torch.engine import closure as tcl
+    from keto_tpu_torch.engine import closure_power as tcp
+
+    ns, tuples, depth = deep_chains()
+    snap = tsnap.build_snapshot([RelationTuple.from_string(s) for s in tuples],
+                                [Namespace.from_dict(d) for d in ns], layout="bucketized")
+    graph = tcl.extract_graph(snap)
+    assert len(graph.universe) >= 600
+    rng = np.random.default_rng(n_sources)
+    sources = np.sort(rng.choice(graph.universe, n_sources, replace=False))
+    want, wrec = tcp.power_closure_device(graph, snap, depth, 4096, 0, sources=sources,
+                                          device="cpu")
+    before = dict(cuda_ops.launches)
+    got, rec = tcp.power_closure_device(graph, snap, depth, 4096, 0, sources=sources,
+                                        device=cuda)
+    host = tcl.power_closure(graph, snap, depth, 4096, 0, sources=sources)
+    for k in ("covered_keys", "ent_obj", "ent_rel", "ent_skind", "ent_sa", "ent_sb", "ent_req"):
+        for other in (want, host):
+            a, b = getattr(got, k), getattr(other, k)
+            assert a.dtype == b.dtype and np.array_equal(a, b), k
+    assert got.n_entries == want.n_entries == host.n_entries
+    assert {k: rec[k] for k in ("waves", "steps", "lanes")} == {
+        k: wrec[k] for k in ("waves", "steps", "lanes")}
+    assert cuda_ops.launches["power_step"] - before["power_step"] == rec["steps"]
+    assert cuda_ops.launches["power_poison"] - before["power_poison"] == rec["waves"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_closure_launch_after_a_write_matches_plain(cuda, layout):
+    """C1 with has_dirty on the cd table a real write's catch-up marks:
+    the card's vector equal to the plain version's, with dirty, covered
+    and invalid queries in one batch."""
+    from keto_tpu_torch.config import Config
+    from keto_tpu_torch.engine import closure_kernel as tck
+    from keto_tpu_torch.engine.torch_engine import TorchCheckEngine
+    from keto_tpu_torch.storage import MemoryManager
+
+    ns, tuples, depth = deep_chains()
+    cfg = Config({"limit": {"max_read_depth": depth}, "closure": {"enabled": True},
+                  "namespaces": ns})
+    m = MemoryManager()
+    m.write_relation_tuples([RelationTuple.from_string(s) for s in tuples])
+    engine = TorchCheckEngine(m, cfg, device="cpu", layout=layout)
+    assert engine.closure_ensure_built()
+    m.write_relation_tuples([RelationTuple.from_string("deep:c5f9#owner@written")])
+    idx = engine.closure_index()
+    state = engine.ensure_state()
+    assert idx.catch_up(m, state.covered_version)
+    view, cause = idx.view_for(state)
+    assert cause is None and view.has_dirty and idx.describe()["dirty_nodes"] == 11
+    queries = [RelationTuple.from_string(s) for s in
+               [f"deep:c{c}f{f}#viewer@u{(c + f) % 16}" for c in range(8) for f in range(8)]
+               + ["deep:c5f0#viewer@written", "deep:nowhere#viewer@u1"]]
+    B = 128
+    cols = tsnap.encode_query_batch(state.view, queries, B)
+    q_obj, q_rel, q_skind, q_sa, q_sb, q_valid = cols
+    q = torch.from_numpy(tk.pack_queries(q_obj, q_rel, np.full(B, depth, np.int32), q_skind,
+                                         q_sa, q_sb, q_valid))
+    kw = dict(cc_probes=view.cc_probes, ch_probes=view.ch_probes, has_dirty=True, layout=layout)
+    want = tck.closure_kernel_packed(view.tables, q, **kw)
+    dev = {k: v.to(cuda) for k, v in view.tables.items()}
+    before = cuda_ops.launches["closure_probe"]
+    got = tck.closure_kernel_packed(dev, q.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert cuda_ops.launches["closure_probe"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    _member, causes, _stats = tck.unpack_closure_results(want.numpy(), B)
+    assert {0, tck.CL_CAUSE_DIRTY, tck.CL_CAUSE_INVALID} <= set(causes[: len(queries)].tolist())
+    assert (causes[[8 * 5 + f for f in range(8)]] == tck.CL_CAUSE_DIRTY).all()
 
 
 def _same(got, want) -> bool:

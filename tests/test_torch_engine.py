@@ -204,7 +204,7 @@ def test_import_boundary():
         "import keto_tpu_torch.engine.closure, keto_tpu_torch.engine.closure_kernel\n"
         "import keto_tpu_torch.engine.filter_kernel, keto_tpu_torch.engine.closure_power\n"
         "import keto_tpu_torch.engine.snaptoken, keto_tpu_torch.tools.microbench\n"
-        "import keto_tpu_torch.tools.microbench_feasibility\n"
+        "import keto_tpu_torch.tools.microbench_feasibility, keto_tpu_torch.closure\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'keto_tpu' or m.startswith('keto_tpu.'))\n"
         "print(bad)\n"

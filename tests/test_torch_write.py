@@ -5,8 +5,8 @@ overlay arrays, host replays and counts), incremental compaction (the
 merged snapshot array for array, the patched expand and reverse mirrors,
 the fallbacks to a full rebuild), Expand, the list legs and the filter
 after a write, interleaved churn against the host oracle, the push
-refresh, the closure index over an overlay, and the REST write routes
-against a keto_tpu daemon.
+refresh, the closure index's dirty marks and refresh after a delete,
+and the REST write routes against a keto_tpu daemon.
 
 Tolerance: exact equality; every output is an integer, a name or a
 verdict.
@@ -56,6 +56,7 @@ from keto_tpu_torch.ketoapi import RelationTuple as TTuple
 from keto_tpu_torch.ketoapi import SubjectSet as TSubjectSet
 from keto_tpu_torch.storage import MemoryManager as TMemory
 
+from test_torch_closure import same_index
 from test_torch_kernel import layout, port_namespaces  # noqa: F401  (layout is a fixture)
 
 MAX_DEPTH = 6
@@ -636,33 +637,57 @@ def test_push_refresh_under_concurrent_writes_and_checks():
 # -- (g) the closure index over an overlay -------------------------------------------------
 
 
-def test_closure_declines_with_lag_until_a_new_base(layout):
+def test_closure_marks_a_delete_dirty_then_refreshes(layout):
+    """A deleted grant: the check's inline catch-up marks the folder's
+    ancestors dirty, so those queries fall back (dirty) and never read
+    the pre-write index's answer, as keto_tpu's; closure_ensure_built()
+    powers the dirty nodes again over the same base (a refresh) and the
+    queries hit with the delete applied; a compaction powers a new base."""
     p = Pair(layout=layout, closure=True)
     engine = p.port
     grant = "videos:/f3#owner@user3"
     qs = [f"videos:/f3/v{v}#view@user3" for v in range(FILES)] + [grant.replace("owner", "view")]
-    assert engine.closure_ensure_built()
-    assert all(r.allowed for r in engine.check_batch([TTuple.from_string(q) for q in qs]))
+    other = [f"videos:/f{f}#view@user{f % 5}" for f in (0, 1, 2)]
+
+    def both(queries):
+        got = engine.check_batch([TTuple.from_string(q) for q in queries])
+        want = p.jax.check_batch([JTuple.from_string(q) for q in queries])
+        for q, g, w in zip(queries, got, want):
+            assert g.membership.value == w.membership.value, q
+            assert g.membership == p.oracle.check_relation_tuple(TTuple.from_string(q)).membership
+        assert engine.stats["closure_hits"] == p.jax.stats.get("closure_hits", 0)
+        assert engine.stats["closure_fallback"] == p.jax.stats.get("closure_fallback", {})
+        same_index(engine.closure_index(), p.jax.closure_index())
+        return got
+
+    assert engine.closure_ensure_built() and p.jax.closure_ensure_built()
+    assert all(r.allowed for r in both(qs + other))
     hits, builds = engine.stats["closure_hits"], engine.closure_index().stats["builds"]
-    assert hits == len(qs)
+    assert hits == len(qs) + len(other)
 
-    p.tm.delete_relation_tuples([TTuple.from_string(grant)])
-    got = engine.check_batch([TTuple.from_string(q) for q in qs])
-    assert not any(r.allowed for r in got)  # never the pre-write index's answer
-    for q, g in zip(qs, got):
-        assert g.membership == p.oracle.check_relation_tuple(TTuple.from_string(q)).membership
-    assert engine.stats["closure_fallback"] == {tcl.CAUSE_LAG: len(qs)}
-    assert engine.stats["closure_hits"] == hits
-    assert not engine.closure_ensure_built()
-    assert engine.closure_index().stats["builds"] == builds  # no powering
-
-    p.tm.write_relation_tuples([TTuple.from_string(s) for s in compacting_writes()])
-    assert engine.closure_ensure_built()
-    assert engine.stats["incremental_merges"] == 1 and engine.stats["snapshot_builds"] == 1
-    assert engine.closure_index().stats["builds"] == builds + 1
-    again = engine.check_batch([TTuple.from_string(q) for q in qs])
+    p.delete([grant])
+    got = both(qs + other)
+    assert not any(r.allowed for r in got[:len(qs)])  # never the pre-write index's answer
+    assert all(r.allowed for r in got[len(qs):])
+    assert engine.stats["closure_fallback"] == {"dirty": len(qs)}
+    assert engine.stats["closure_hits"] == hits + len(other)
+    assert engine.closure_index().describe()["dirty_nodes"] > 0
+    assert engine.closure_ensure_built() and p.jax.closure_ensure_built()
+    idx = engine.closure_index()
+    assert idx.stats["builds"] == builds and idx.stats["refreshes"] == 1
+    assert idx.describe()["dirty_nodes"] == 0
+    hits = engine.stats["closure_hits"]
+    again = both(qs)
     assert engine.stats["closure_hits"] == hits + len(qs)
-    assert [r.allowed for r in again] == [r.allowed for r in got]
+    assert not any(r.allowed for r in again)
+
+    p.write(compacting_writes())
+    assert engine.closure_ensure_built() and p.jax.closure_ensure_built()
+    assert engine.stats["incremental_merges"] == 1 and engine.stats["snapshot_builds"] == 1
+    assert idx.stats["builds"] == builds + 1
+    hits = engine.stats["closure_hits"]
+    assert [r.allowed for r in both(qs)] == [r.allowed for r in again]
+    assert engine.stats["closure_hits"] == hits + len(qs)
 
 
 # -- (h) the REST write routes -----------------------------------------------------------
