@@ -38,13 +38,32 @@ Phases, in order; any failure exits non-zero without the final line:
                build), timed against phase 4a's full build, and the next
                batch runs on the new base with zero host replays
   5. islands — an AND/NOT namespace batch against the host oracle
-  6. serve   — `python -m keto_tpu_torch serve` on free ports: a 200, a
+  6. serve   — `python -m keto_tpu_torch serve` (a Registry and a Daemon)
+               on free ports: a 200, a
                403, a batch check, an expand tree, an expand 404, a
                list-objects and a list-subjects 200 and a list-objects 400,
                a check with a snaptoken ahead of the store (409) and a
                list-objects with a satisfied one; then a PUT, a PATCH and a
                DELETE on the write listener, each seen by a check that
-               carries the token it returned
+               carries the token it returned; GET /version and GET
+               /relation-tuples a tuple a page, all on the default serve
+               keys, and serve exits 0 on SIGTERM; then a second serve
+               with a 500 ms batch window and SIGTERM while a check waits
+               in that window: /health/ready answers 503, a new check 429
+               (draining), the admitted check 200, and serve exits 0
+ 6b. serve under load — a Registry over phase 4's store (dsn memory) and a
+               Daemon with the default serve keys on free ports; 32
+               closed-loop REST clients (bench.py:72-73's SERVE_THREADS and
+               SERVE_SECONDS) in a process of their own for 8 s, single
+               checks drawn by phase 4's law without repeat (cache misses),
+               then 2 s over 256 hot checks (cache hits, singleflight):
+               checks/s, per-request p50/p95/p99 ms, batches and mean batch
+               size, coalesced riders, cache hits and misses, device and
+               host checks; zero errors, host checks, failed batches,
+               sheds and breaker transitions, 512 sampled verdicts of the
+               miss leg and every verdict of the hot leg (cache hits and
+               coalesced riders included) equal to the oracle, K1-K4
+               launched on the "serve" launch path
   7. expand  — (7a) data, (7b) X1 and X2 against their plain versions
                on inputs captured from one real expand batch, as phase 3,
                and X1 again on the same batch at a frontier cap of 32,768
@@ -222,6 +241,16 @@ WRITE_SMALL = 64
 WRITE_LARGE = 4096
 # phase 9w(e): how long the closure maintainer may take to refresh a write
 MAINTAINER_DEADLINE_S = 240
+# phase 6: the serve subprocess's batch window, which holds a check while
+# the drain starts
+SERVE_DRAIN_WINDOW_MS = 500
+# phase 6b: bench.py:72-73's SERVE_THREADS and SERVE_SECONDS, closed-loop
+# REST clients in a process of their own, then a leg over a hot set
+LOAD_THREADS = 32
+LOAD_SECONDS = 8.0
+LOAD_DRAWS_PER_THREAD = 12_000
+HOT_SECONDS = 2.0
+HOT_QUERIES = 256
 KERNEL_SOURCES = {
     "edge_probe": "keto_tpu_torch/csrc/check_kernels.cu",
     "pair_probe": "keto_tpu_torch/csrc/check_kernels.cu",
@@ -2127,7 +2156,8 @@ def run_closure_write(engine, manager, queries, expected):
     import numpy as np
     import torch
 
-    from keto_tpu_torch.closure import ClosureMaintainer, EngineRegistry
+    from keto_tpu_torch.closure import ClosureMaintainer
+    from keto_tpu_torch.registry import Registry
     from keto_tpu_torch.engine import closure as tcl
     from keto_tpu_torch.engine import closure_power as tcp
     from keto_tpu_torch.engine import cuda_ops
@@ -2276,7 +2306,7 @@ def run_closure_write(engine, manager, queries, expected):
     # (e) the maintainer: a further write, brought to lag 0 and no dirty
     # node off the request path
     c2 = chain(queries[1])
-    maintainer = ClosureMaintainer(EngineRegistry(manager, {engine.nid: engine}))
+    maintainer = ClosureMaintainer(Registry(engine.config, device="cuda", engine=engine))
     maintainer.start()
     try:
         refreshes = idx.stats["refreshes"]
@@ -2581,11 +2611,14 @@ def run_filter_write(engine, manager, config, subject):
 
 
 def run_serve():
+    import signal
+    import threading
     import urllib.error
     import urllib.parse
     import urllib.request
 
     from keto_tpu_torch.engine.snaptoken import encode_snaptoken
+    from keto_tpu_torch.ketoapi import RelationTuple
 
     t0 = phase("6 serve: python -m keto_tpu_torch serve on a free port")
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -2596,32 +2629,51 @@ def run_serve():
                 {"type": "computed_subject_set", "relation": "owner"},
                 {"type": "tuple_to_subject_set", "relation": "parent",
                  "computed_subject_set_relation": "view"}]}}]}
+        # the routes run on the default serve keys; the drain step (the end
+        # of this phase) runs in a serve process of its own, whose long
+        # batch window holds a check in the batcher while the drain starts
         cfg = {"namespaces": [ns], "serve": {"read": {"host": "127.0.0.1", "port": 0},
                                              "write": {"host": "127.0.0.1", "port": 0}}}
-        with open(os.path.join(tmp, "cfg.json"), "w") as f:
-            json.dump(cfg, f)
+        drain_cfg = {**cfg, "check": {"batch_window_ms": SERVE_DRAIN_WINDOW_MS}}
+        for name, c in (("cfg.json", cfg), ("drain.json", drain_cfg)):
+            with open(os.path.join(tmp, name), "w") as f:
+                json.dump(c, f)
         with open(os.path.join(tmp, "tuples.txt"), "w") as f:
             f.write("videos:/cats#owner@cat lady\n"
                     "videos:/cats/1.mp4#parent@(videos:/cats#...)\n"
                     "videos:/cats/2.mp4#owner@john\n")
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "keto_tpu_torch", "serve", "--config",
-             os.path.join(tmp, "cfg.json"), "--tuples", os.path.join(tmp, "tuples.txt")],
-            cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            env={**os.environ, "PYTHONPATH": repo},
-        )
-        try:
+        procs = []
+
+        def launch(cfg_name):
+            """One `serve` process over the tuples."""
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "keto_tpu_torch", "serve", "--config",
+                 os.path.join(tmp, cfg_name), "--tuples", os.path.join(tmp, "tuples.txt")],
+                cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env={**os.environ, "PYTHONPATH": repo},
+            )
+            procs.append(proc)
+            return proc
+
+        def ready(proc):
+            """A launched serve's read and write URLs, once it listens."""
             line = proc.stdout.readline()
             if not line.startswith("serving read="):
                 raise AssertionError(f"serve did not start: {line!r} {proc.stderr.read()}")
-            base = "http://" + line.split("=", 1)[1].strip()
+            read_base = "http://" + line.split("=", 1)[1].strip()
             line = proc.stdout.readline()
             if not line.startswith("serving write="):
                 raise AssertionError(f"serve has no write listener: {line!r}")
-            write_base = "http://" + line.split("=", 1)[1].strip()
+            return read_base, "http://" + line.split("=", 1)[1].strip()
 
-            def get(params, route="/relation-tuples/check"):
-                url = base + route + "?" + urllib.parse.urlencode(params)
+        try:
+            # the drain's serve starts beside the first, so that its start
+            # overlaps the routes' checks
+            proc, drain_proc = launch("cfg.json"), launch("drain.json")
+            base, write_base = ready(proc)
+
+            def get(params, route="/relation-tuples/check", at=None):
+                url = (at or base) + route + "?" + urllib.parse.urlencode(params)
                 try:
                     with urllib.request.urlopen(url, timeout=60) as r:
                         return r.status, json.loads(r.read())
@@ -2722,16 +2774,323 @@ def run_serve():
                 raise AssertionError("the PATCH was not seen at its token")
             if delete[0] != 204 or seen_delete != (403, {"allowed": False}):
                 raise AssertionError("the DELETE was not seen")
+
+            version = get({}, "/version")
+            pages, page = [], {"namespace": "videos", "page_size": "1"}
+            while True:
+                listed = get(page, "/relation-tuples")
+                if listed[0] != 200:
+                    raise AssertionError(f"GET /relation-tuples answered {listed}")
+                pages.append(listed[1]["relation_tuples"])
+                if not listed[1]["next_page_token"]:
+                    break
+                page = {**page, "page_token": listed[1]["next_page_token"]}
+            log(f"  /version -> {version}; GET /relation-tuples a tuple a page -> {pages}")
+            if version != (200, {"version": "0.1.0"}):
+                raise AssertionError(f"/version answered {version}")
+            want_tuples = sorted(["videos:/cats#owner@cat lady",
+                                  "videos:/cats/1.mp4#parent@(videos:/cats#...)",
+                                  "videos:/cats/2.mp4#owner@john"])
+            got_tuples = sorted(str(RelationTuple.from_dict(t)) for p in pages for t in p)
+            if [len(p) for p in pages] != [1, 1, 1] or got_tuples != want_tuples:
+                raise AssertionError(f"GET /relation-tuples paged {pages}")
+
+            proc.send_signal(signal.SIGTERM)
+            if proc.wait(timeout=60) != 0:
+                raise AssertionError(f"serve exited {proc.returncode} after SIGTERM")
+
+            # SIGTERM while a check is in the batcher's window: readiness
+            # turns to 503 and a new check is shed while that one answers
+            proc = drain_proc
+            drain_base, _ = ready(proc)
+            admitted = {}
+            rider = threading.Thread(target=lambda: admitted.update(
+                r=get({**q, "subject_id": "cat lady"}, at=drain_base)), daemon=True)
+            rider.start()
+            time.sleep(SERVE_DRAIN_WINDOW_MS / 5e3)
+            proc.send_signal(signal.SIGTERM)
+            ready = get({}, "/health/ready", at=drain_base)
+            end = time.monotonic() + SERVE_DRAIN_WINDOW_MS / 2e3
+            while ready[0] == 200 and time.monotonic() < end:
+                ready = get({}, "/health/ready", at=drain_base)
+            shed = get({**q, "subject_id": "john"}, at=drain_base)
+            rider.join(timeout=60)
+            log(f"  after SIGTERM: /health/ready -> {ready}, a new check -> {shed}, the "
+                f"check admitted before it -> {admitted.get('r')}")
+            if ready != (503, {"status": "unavailable"}):
+                raise AssertionError(f"/health/ready during the drain answered {ready}")
+            if shed[0] != 429 or shed[1]["error"]["message"] != "server is draining":
+                raise AssertionError(f"a check during the drain answered {shed}")
+            if admitted.get("r") != (200, {"allowed": True}):
+                raise AssertionError(f"the admitted check answered {admitted.get('r')}")
+            if proc.wait(timeout=60) != 0:
+                raise AssertionError(f"serve exited {proc.returncode} after SIGTERM")
         finally:
-            proc.terminate()
-            try:
-                proc.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
-            proc.stdout.close()
-            proc.stderr.close()
+            for proc in procs:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+                proc.stdout.close()
+                proc.stderr.close()
     log(f"  serve phase {time.perf_counter() - t0:.1f} s")
+
+
+# -- phase 6b: the serving plane under load ------------------------------------------
+
+
+def load_clients(spec_path: str) -> int:
+    """The closed-loop REST clients of phase 6b, in a process of their own
+    (`chip_smoke.py --load-clients SPEC`, started by run_serve_load): one
+    thread and one keep-alive connection a client, each sending the single
+    checks of its slice of the spec's draws in order (or, with "cycle",
+    round and round) until the leg's seconds are up. Prints one JSON
+    object: each client's latencies, answers and errors. Imports nothing
+    of torch or the port."""
+    import http.client
+    import threading
+    import urllib.parse
+
+    with open(spec_path, encoding="utf-8") as f:
+        spec = json.load(f)
+    host, port, seconds = spec["host"], spec["port"], spec["seconds"]
+    out = [None] * len(spec["slices"])
+    start = threading.Barrier(len(spec["slices"]))
+
+    def client(i):
+        draws = spec["slices"][i]
+        lat, answers, errors = [], [], []
+        conn = http.client.HTTPConnection(host, port, timeout=60)
+        start.wait(timeout=60)
+        end = time.perf_counter() + seconds
+        k = 0
+        while time.perf_counter() < end and (spec["cycle"] or k < len(draws)):
+            idx, obj, sub = draws[k % len(draws)]
+            path = "/relation-tuples/check?" + urllib.parse.urlencode(
+                {"namespace": "videos", "object": obj, "relation": "view", "subject_id": sub})
+            t = time.perf_counter()
+            try:
+                conn.request("GET", path)
+                r = conn.getresponse()
+                body = r.read()
+                lat.append(time.perf_counter() - t)
+                if r.status in (200, 403):
+                    answers.append((idx, r.status == 200))
+                else:
+                    errors.append((idx, r.status, body.decode(errors="replace")[:200]))
+            except (OSError, http.client.HTTPException) as e:
+                errors.append((idx, None, repr(e)))
+                conn.close()
+                conn = http.client.HTTPConnection(host, port, timeout=60)
+            k += 1
+        conn.close()
+        out[i] = {"lat": lat, "answers": answers,
+                  "errors": errors, "exhausted": not spec["cycle"] and k >= len(draws)}
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(out))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    print(json.dumps(out))
+    return 0
+
+
+def load_draws(owner_of: dict, n: int, seed: int) -> list:
+    """n distinct (object, subject) checks drawn by phase 4's law: half a
+    folder's owner viewing one of its files (hits), half a random user."""
+    rng = random.Random(seed)
+    seen, draws = set(), []
+    while len(draws) < n:
+        d = rng.randrange(N_FOLDERS)
+        obj = f"/d{d}/v{rng.randrange(FILES_PER_FOLDER)}.mp4"
+        sub = owner_of[f"/d{d}"] if len(draws) % 2 == 0 else f"user{rng.randrange(N_USERS)}"
+        if (obj, sub) not in seen:
+            seen.add((obj, sub))
+            draws.append((obj, sub))
+    return draws
+
+
+def run_load_leg(host: str, port: int, slices: list, seconds: float, cycle: bool) -> list:
+    """One leg of closed-loop clients in a child process; their results."""
+    with tempfile.NamedTemporaryFile("w", suffix=".json", delete=False) as f:
+        json.dump({"host": host, "port": port, "seconds": seconds, "cycle": cycle,
+                   "slices": slices}, f)
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--load-clients", f.name],
+            capture_output=True, text=True, timeout=seconds + 120,
+        )
+    finally:
+        os.unlink(f.name)
+    if proc.returncode != 0:
+        raise AssertionError(f"load clients exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout)
+
+
+def leg_figures(name: str, results: list, seconds: float, smi: str) -> dict:
+    lat = sorted(x for r in results for x in r["lat"])
+    n = len(lat)
+    errors = [e for r in results for e in r["errors"]]
+
+    def pct(p):
+        return lat[min(n - 1, int(p / 100 * n))] * 1e3 if n else None
+
+    fig = {"leg": name, "clients": len(results), "seconds": seconds, "requests": n,
+           "checks_per_s": n / seconds, "p50_ms": pct(50), "p95_ms": pct(95), "p99_ms": pct(99),
+           "max_ms": lat[-1] * 1e3 if n else None, "errors": len(errors),
+           "exhausted_clients": sum(bool(r["exhausted"]) for r in results), "card": smi}
+    log(f"  {name}: {n} checks in {seconds:.1f} s by {len(results)} clients = "
+        f"{fig['checks_per_s']:.1f} checks/s; p50 {fig['p50_ms']:.3f} ms, p95 "
+        f"{fig['p95_ms']:.3f} ms, p99 {fig['p99_ms']:.3f} ms, max {fig['max_ms']:.3f} ms; "
+        f"{len(errors)} errors ({smi})")
+    if errors:
+        log(f"  first errors: {errors[:5]}")
+    return fig
+
+
+def run_serve_load(manager, owners, smi: str):
+    """Phase 6b: a Registry over phase 4's store (dsn memory) and a Daemon
+    with the default serve keys on free ports, driven by 32 closed-loop
+    REST clients in a process of their own for 8 s with single checks
+    drawn without repeat (cache misses), then 2 s over 256 hot checks
+    (cache hits, singleflight). Every check goes admission -> check cache
+    -> CheckBatcher -> check_batch_submit / check_batch_resolve_v on the
+    card: the "serve" launch path. Returns (launches, figures)."""
+    import torch
+    from keto_tpu_torch.api.daemon import Daemon
+    from keto_tpu_torch.config import Config
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+    from keto_tpu_torch.ketoapi import RelationTuple
+    from keto_tpu_torch.registry import Registry
+
+    t0 = phase(f"6b serve under load: {LOAD_THREADS} closed-loop REST clients for "
+               f"{LOAD_SECONDS:.0f} s, then {HOT_SECONDS:.0f} s over {HOT_QUERIES} hot checks")
+    config = Config({"dsn": "memory", "limit": {"max_read_depth": MAX_DEPTH},
+                     "namespaces": [videos_namespace().to_dict()],
+                     "serve": {"read": {"host": "127.0.0.1", "port": 0},
+                               "write": {"host": "127.0.0.1", "port": 0}}})
+    registry = Registry(config, device="cuda", manager=manager)
+    t = time.perf_counter()
+    engine = registry.check_engine()
+    engine.ensure_state()
+    torch.cuda.synchronize()
+    log(f"  registry engine: snapshot + upload {time.perf_counter() - t:.1f} s")
+    daemon = Daemon(registry)
+    daemon.start()
+    owner_of = {f: u for u, folders in owners[0].items() for f in folders}
+    draws = load_draws(owner_of, LOAD_THREADS * LOAD_DRAWS_PER_THREAD + HOT_QUERIES + 41 * 64,
+                       seed=66)
+    solo_draws = [RelationTuple("videos", o, "view", subject_id=u) for o, u in draws[-41 * 64:]]
+    draws = draws[:-41 * 64]
+    miss_slices = [[(i * LOAD_DRAWS_PER_THREAD + k, *draws[i * LOAD_DRAWS_PER_THREAD + k])
+                    for k in range(LOAD_DRAWS_PER_THREAD)] for i in range(LOAD_THREADS)]
+    hot = [(len(draws) - HOT_QUERIES + k, *d) for k, d in enumerate(draws[-HOT_QUERIES:])]
+    hot_slices = [random.Random(i).sample(hot, len(hot)) for i in range(LOAD_THREADS)]
+    breaker = registry.circuit_breaker()
+    cache = registry.check_cache()
+    # what one batch costs with nothing else running, at the sizes the
+    # load makes: the engine's submit and resolve alone, no HTTP, no cache
+    solo = {}
+    for size in (1, 8, 32):
+        batches = [solo_draws[i * 64:i * 64 + size] for i in range(41)]
+        engine.check_batch(batches[0])
+        times = []
+        for batch in batches[1:]:
+            t = time.perf_counter()
+            engine.check_batch(batch)
+            times.append((time.perf_counter() - t) * 1e3)
+        solo[size] = statistics.median(times)
+    log(f"  one batch alone, submit + resolve, median of 40: "
+        + ", ".join(f"{k} checks {v:.3f} ms" for k, v in solo.items()) + f" ({smi})")
+    try:
+        cuda_ops.reset_launch_counts()
+        engine_before, batcher_before = dict(engine.stats), daemon.batcher.stats
+        cache_before = dict(cache.counts)
+        miss = run_load_leg("127.0.0.1", daemon.read_port, miss_slices, LOAD_SECONDS,
+                            cycle=False)
+        cache_mid, batcher_mid = dict(cache.counts), daemon.batcher.stats
+        hot_res = run_load_leg("127.0.0.1", daemon.read_port, hot_slices, HOT_SECONDS,
+                               cycle=True)
+        torch.cuda.synchronize()
+        launches = dict(cuda_ops.launches)
+        batcher_after, cache_after = daemon.batcher.stats, dict(cache.counts)
+        engine_after = dict(engine.stats)
+    finally:
+        daemon.stop()
+    figs = {"miss": leg_figures("miss leg", miss, LOAD_SECONDS, smi),
+            "hot": leg_figures("hot leg", hot_res, HOT_SECONDS, smi)}
+
+    def delta(a, b, key):
+        return b[key] - a[key]
+
+    for name, (b0, b1, c0, c1) in (("miss", (batcher_before, batcher_mid, cache_before,
+                                             cache_mid)),
+                                   ("hot", (batcher_mid, batcher_after, cache_mid,
+                                            cache_after))):
+        batches = delta(b0, b1, "batches")
+        figs[name].update({
+            "batches": batches, "batched_checks": delta(b0, b1, "batched_checks"),
+            "mean_batch": delta(b0, b1, "batched_checks") / batches if batches else 0.0,
+            "coalesced": delta(b0, b1, "coalesced"),
+            "cache_hits": delta(c0, c1, "hit"), "cache_misses": delta(c0, c1, "miss"),
+            "cache_stale": delta(c0, c1, "stale"),
+        })
+        log(f"  {name} leg: {batches} batches, mean {figs[name]['mean_batch']:.2f} checks a "
+            f"batch; {figs[name]['coalesced']} coalesced riders; cache {figs[name]['cache_hits']} "
+            f"hits, {figs[name]['cache_misses']} misses ({smi})")
+    device = delta(engine_before, engine_after, "device_checks")
+    host = delta(engine_before, engine_after, "host_checks")
+    failed = batcher_after["check_batch_failed"]
+    shed = registry.counters().snapshot()["shed"]
+    log(f"  engine: {device} device checks, {host} host checks; idle share not measured "
+        f"({smi}); failed batches {failed}, shed {shed}, deadline drops "
+        f"{batcher_after['deadline_exceeded']}, breaker {breaker.state} (transitions "
+        f"{list(breaker.transitions)})")
+    log(f"  launches on the serve path: {launches}")
+    if figs["miss"]["errors"] or figs["hot"]["errors"]:
+        raise AssertionError("load clients met errors")
+    if sum(failed.values()) or sum(shed.values()) \
+            or sum(batcher_after["deadline_exceeded"].values()):
+        raise AssertionError("the load met a failed batch, a shed or a deadline drop")
+    if list(breaker.transitions) or breaker.state != "closed":
+        raise AssertionError(f"the breaker moved: {list(breaker.transitions)}")
+    if host:
+        raise AssertionError(f"{host} host checks under load")
+    if figs["miss"]["cache_hits"]:
+        raise AssertionError("draws without repeat hit the cache")
+    missing = [k for k in cuda_ops.CHECK_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the serve path: {missing}")
+    answered = [a for r in miss for a in r["answers"]]
+    oracle = ReferenceEngine(manager, config)
+    sample = random.Random(8).sample(answered, min(512, len(answered)))
+    bad = [(i, allowed) for i, allowed in sample if oracle.check_relation_tuple(
+        RelationTuple("videos", draws[i][0], "view", subject_id=draws[i][1])).allowed != allowed]
+    if len(sample) < 512 or bad:
+        raise AssertionError(f"{len(bad)} of {len(sample)} sampled verdicts differ from the "
+                             "oracle")
+    log(f"  512 sampled verdicts equal the oracle; {sum(a for _i, a in answered)} allowed of "
+        f"{len(answered)}")
+    # the hot leg whole: every answer, from a cache hit, a coalesced rider
+    # or a batch slot, against the oracle's verdict on its query
+    hot_want = {i: oracle.check_relation_tuple(
+        RelationTuple("videos", obj, "view", subject_id=sub)).allowed for i, obj, sub in hot}
+    hot_answered = [a for r in hot_res for a in r["answers"]]
+    bad = [(i, allowed) for i, allowed in hot_answered if hot_want[i] != allowed]
+    if not figs["hot"]["cache_hits"] or len(hot_answered) != figs["hot"]["requests"] or bad:
+        raise AssertionError(f"hot leg: {len(bad)} of {len(hot_answered)} verdicts differ "
+                             f"from the oracle ({figs['hot']['cache_hits']} cache hits)")
+    log(f"  hot leg: all {len(hot_answered)} verdicts ({figs['hot']['cache_hits']} cache hits, "
+        f"{figs['hot']['coalesced']} coalesced riders) equal the oracle, over "
+        f"{len({i for i, _a in hot_answered})} of its {HOT_QUERIES} queries")
+    log(f"  serve-load phase {time.perf_counter() - t0:.1f} s")
+    return launches, {**figs, "device_checks": device, "host_checks": host,
+                      "solo_batch_ms": solo, "idle_share": "not measured", "window_ms": 2.0,
+                      "pipeline_depth": 2, "card": smi}
 
 
 def run_microbench():
@@ -2873,6 +3232,7 @@ def main() -> int:
     owners = ownership(manager.all_relation_tuples())
     run_islands()
     run_serve()
+    s_launches, serve_load = run_serve_load(manager, owners, smi)
     # the expand phase's store joins only now, so the check phases run in
     # the same process state as before the expand slice existed
     x_engine, x_manager, x_config, subjects, x_info = setup_expand()
@@ -2953,7 +3313,8 @@ def main() -> int:
     del c1_dirty
     m_launches, m_rows, tools = run_microbench()
     rows += m_rows
-    by_path = {"check": launches, "check_write": w_launches, "expand": x_launches,
+    by_path = {"check": launches, "check_write": w_launches, "serve": s_launches,
+               "expand": x_launches,
                "list_objects": lo_launches,
                "list_subjects": ls_launches, "closure_build": b_launches, "closure": c_launches,
                "closure_write": cw_launches, "closure_refresh": cr_launches,
@@ -2978,6 +3339,7 @@ def main() -> int:
                               "device_table_bytes": sum(nbytes.values()),
                               "profile": profile}}))
     log(json.dumps({"write": {**write, "card": smi}}))
+    log(json.dumps({"serve_load": serve_load}))
     log(json.dumps({"expand": {**expand, "card": smi}}))
     log(json.dumps({"list": {**l_info, "card": smi, "list_objects": list_objects,
                              "list_subjects": list_subjects, "after_write": list_write,
@@ -2997,6 +3359,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--load-clients":
+        sys.exit(load_clients(sys.argv[2]))
     try:
         code = main()
     except Exception:

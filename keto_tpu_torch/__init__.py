@@ -27,7 +27,12 @@ Layout:
   engine      — snapshot compiler, host oracle, check, expand, list,
                 closure and filter kernels, the closure index, the engine
   closure     — the closure maintainer: keeps each engine's index fresh
-  api         — REST server (Check, batch Check, Expand, List and Filter)
+  resilience  — deadlines, admission, the device-path circuit breaker
+  registry    — the serving plane's composition root (store, engine,
+                check cache, breaker, readiness)
+  api         — the REST routes (Check, batch Check, Expand, List, Filter,
+                the tuple list and the writes), the check batcher, the
+                check cache and the daemon
 
 Entry points run on the card (device="cuda") unless the caller passes
 device="cpu", where every kernel runs its plain PyTorch version.

@@ -3,19 +3,20 @@
     python -m keto_tpu_torch serve --config cfg.json [--tuples tuples.txt] [--device cuda]
 
 `serve` reads the JAX package's JSON config keys for the read and write
-routes (`namespaces`, `limit.max_read_depth`, `limit.page_size`,
+routes (`namespaces`, `dsn`, `limit.max_read_depth`, `limit.page_size`,
 `serve.read.host` / `serve.read.port`, `serve.write.host` /
-`serve.write.port`, `closure.*`, `filter.*`), loads the tuples of
-`--tuples` (one "ns:obj#rel@subject" per line) into an in-memory store,
-builds the device mirror (and, with `closure.enabled`, the closure
-index, then starts the closure maintainer, closure/maintainer.py), and
-serves the REST Check, Expand, ListObjects, ListSubjects and Filter
-routes on the read listener and PUT, DELETE and PATCH
-/admin/relation-tuples on the write listener until SIGINT or SIGTERM,
-which stop the maintainer, then the listeners. The store's write
-listener wakes the engine's refresh thread, which folds each write into
-the mirror, and the maintainer, which marks the closure nodes it changes
-and powers them again. It prints `serving read=<host>:<port>` and then
+`serve.write.port`, `check.*`, `serve.check.*`, `closure.*`, `filter.*`;
+config.py lists them), builds a Registry, loads the tuples of `--tuples`
+(one "ns:obj#rel@subject" per line) into its store, builds the device
+mirror (and, with `closure.enabled`, the closure index), and runs a
+Daemon (api/daemon.py): the REST Check, Expand, ListObjects,
+ListSubjects and Filter routes on the read listener, single checks
+coalesced by the check batcher behind the check cache, PUT, DELETE and
+PATCH /admin/relation-tuples on the write listener, and with
+`closure.enabled` the closure maintainer (closure/maintainer.py). SIGINT
+or SIGTERM drains the daemon: readiness turns to 503 and new checks are
+shed with a 429 while admitted ones are answered, then everything stops.
+It prints `serving read=<host>:<port>` and then
 `serving write=<host>:<port>` once it accepts requests.
 """
 
@@ -27,60 +28,26 @@ import sys
 import threading
 
 
-class Services:
-    """What `serve` runs: the engine, its closure maintainer (None unless
-    `closure.enabled`) and the read and write listeners, each serving on
-    a thread of its own."""
-
-    def __init__(self, config, manager, device):
-        from .api.rest_server import make_server, make_write_server
-        from .closure import ClosureMaintainer, EngineRegistry
-        from .engine.torch_engine import TorchCheckEngine
-
-        engine = TorchCheckEngine(manager, config, device=device)
-        engine.ensure_state()  # build and upload the mirror before serving
-        self.engine = engine
-        self.maintainer = None
-        if config.closure_enabled():
-            engine.closure_ensure_built()
-            self.maintainer = ClosureMaintainer(EngineRegistry(manager, {engine.nid: engine}))
-            self.maintainer.start()
-        manager.add_write_listener(
-            lambda nid: engine.notify_write() if nid == engine.nid else None)
-        self.servers = [make_server(engine, *config.read_address()),
-                        make_write_server(engine, *config.write_address())]
-        for srv in self.servers:
-            threading.Thread(target=srv.serve_forever, daemon=True).start()
-
-    def addresses(self) -> list[tuple[str, int]]:
-        """(host, port) of the read and the write listener."""
-        return [srv.server_address[:2] for srv in self.servers]
-
-    def stop(self) -> None:
-        """The maintainer first, so that no pass runs against a closing
-        server, then the listeners and the refresh thread."""
-        if self.maintainer is not None:
-            self.maintainer.stop()
-        for srv in self.servers:
-            srv.shutdown()
-            srv.server_close()
-        self.engine.stop_push_refresh()
-
-
 def _serve(args) -> int:
+    from .api.daemon import Daemon
     from .config import Config
     from .ketoapi import RelationTuple
-    from .storage import MemoryManager
+    from .registry import Registry
 
     config = Config.from_file(args.config)
-    manager = MemoryManager()
+    registry = Registry(config, device=args.device)
     if args.tuples:
         with open(args.tuples, encoding="utf-8") as f:
             lines = [line.strip() for line in f]
-        manager.write_relation_tuples(
+        registry.relation_tuple_manager().write_relation_tuples(
             [RelationTuple.from_string(s) for s in lines if s and not s.startswith("#")]
         )
-    services = Services(config, manager, args.device)
+    engine = registry.check_engine()
+    if hasattr(engine, "ensure_state"):  # not the host engine
+        engine.ensure_state()  # build and upload the mirror before serving
+        if config.closure_enabled():
+            engine.closure_ensure_built()
+    daemon = Daemon(registry)
     stop = threading.Event()
 
     def _stop(*_):
@@ -88,12 +55,11 @@ def _serve(args) -> int:
 
     signal.signal(signal.SIGTERM, _stop)
     signal.signal(signal.SIGINT, _stop)
-    (host, _), (w_host, _) = config.read_address(), config.write_address()
-    (_, port), (_, w_port) = services.addresses()
-    print(f"serving read={host}:{port}", flush=True)
-    print(f"serving write={w_host}:{w_port}", flush=True)
+    daemon.start()
+    print(f"serving read={daemon.read_addr[0]}:{daemon.read_port}", flush=True)
+    print(f"serving write={daemon.write_addr[0]}:{daemon.write_port}", flush=True)
     stop.wait()
-    services.stop()
+    daemon.stop()
     return 0
 
 

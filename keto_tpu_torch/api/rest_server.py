@@ -1,9 +1,14 @@
 """REST Check, Expand, List and Filter routes and the write routes on
-stdlib threaded HTTP servers, in front of a TorchCheckEngine and its
-store.
+stdlib threaded HTTP servers, in front of a Registry (its store, engine
+and check cache) and the daemon's CheckBatcher.
 
 The read listener (make_server):
 
+  GET  /relation-tuples                -> {"relation_tuples": [...],
+                                          "next_page_token": str}, the
+                                          tuples a URL query matches, a
+                                          page at a time (page_size,
+                                          page_token)
   GET  /relation-tuples/check          -> 200 {"allowed": true} / 403 {"allowed": false}
   POST /relation-tuples/check          -> the same, tuple as a JSON body
   GET  /relation-tuples/check/openapi  -> always 200 {"allowed": ...}
@@ -30,7 +35,6 @@ The read listener (make_server):
                                           namespace, relation, subject_id or
                                           subject_set, objects, optional
                                           max_depth and snaptoken)
-  GET  /health/alive, /health/ready    -> 200 {"status": "ok"}
 
 The write listener (make_write_server), Keto's admin routes:
 
@@ -44,43 +48,54 @@ The write listener (make_write_server), Keto's admin routes:
                                           "relation_tuple": {...}}] applied
                                           as one commit
 
+Both listeners: GET /health/alive (200), /health/ready (200, or 503
+{"status": "unavailable"} while the daemon is not ready, e.g. draining)
+and /version ({"version": str}).
+
+A single check runs the admission gate (resilience.admit_check: a 429
+while draining or at serve.check.max_queue, a 504 for an expired
+deadline), then the check cache, and on a miss rides the batcher
+(api/check_cache.py cached_check), which coalesces concurrent checks
+into device batches. The `x-request-timeout-ms` header (or
+serve.check.default_deadline_ms) sets the deadline of a check, a batch
+check or a filter. An error that carries a retry hint answers with a
+Retry-After header.
+
 Keto's semantics: an unknown namespace on a single check answers
 {"allowed": false} rather than an error; the batch route reports it per
 item; Expand and the list routes answer it with 404. A missing parameter
 or a malformed page token is a 400; an unknown object, relation or
 subject lists nothing. A filter body whose objects are not a list of
 strings, that lacks a namespace, a relation or a subject, or that carries
-more objects than `filter.max_objects` is a 400. Errors use the herodot shape {"error": {code,
-status, message}}.
-Every route but Expand takes a `snaptoken` (engine/snaptoken.py) and
+more objects than `filter.max_objects` is a 400. Errors use the herodot
+shape {"error": {code, status, message}}. Every route but Expand and
+GET /relation-tuples takes a `snaptoken` (engine/snaptoken.py) and
 enforces it before it validates names: a malformed token, or one of
 another network, is a 400, one ahead of the store a 409. The answer
 carries the store version read at enforcement, in the X-Keto-Snaptoken
 header (check and list routes) or a "snaptoken" body field (batch and
-filter). The engine is not thread-safe, so requests take one lock around
-it. The write routes go to the store, which has its own lock; a write
-names only configured namespaces (else 404), and the engine folds it
-into its mirror at its next read or, wired to the store's write
-listener, on its refresh thread.
+filter). The engine serves request threads concurrently; no lock is held
+around it here. A write names only configured namespaces (else 404), and
+the engine folds it into its mirror at its next read or, through the
+registry's store listener, on its refresh thread.
 """
 
 from __future__ import annotations
 
 import json
-import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ..engine.snaptoken import encode_snaptoken, enforce_snaptoken
 from ..errors import (
-    FilterTooLargeError,
     KetoError,
     MalformedInputError,
     NamespaceNotFoundError,
     NilSubjectError,
     NotFoundError,
 )
-from ..engine.snaptoken import encode_snaptoken, enforce_snaptoken
 from ..ketoapi import (
+    GetResponse,
     PatchAction,
     PatchDelta,
     RelationQuery,
@@ -88,7 +103,17 @@ from ..ketoapi import (
     SubjectSet,
     _subject_fields_from_dict,
 )
+from ..resilience import (
+    RequestTrace,
+    admit_check,
+    admit_filter,
+    ingest_deadline,
+    parse_timeout_ms,
+    retry_after_header_value,
+)
+from .check_cache import cached_check
 
+READ_ROUTE_BASE = "/relation-tuples"
 CHECK_ROUTE = "/relation-tuples/check"
 CHECK_OPENAPI_ROUTE = "/relation-tuples/check/openapi"
 CHECK_BATCH_ROUTE = "/relation-tuples/check/batch"
@@ -96,8 +121,9 @@ EXPAND_ROUTE = "/relation-tuples/expand"
 LIST_OBJECTS_ROUTE = "/relation-tuples/list-objects"
 LIST_SUBJECTS_ROUTE = "/relation-tuples/list-subjects"
 FILTER_ROUTE = "/relation-tuples/filter"
-HEALTH_ROUTES = ("/health/alive", "/health/ready")
-READ_ROUTE_BASE = "/relation-tuples"
+ALIVE_ROUTE = "/health/alive"
+READY_ROUTE = "/health/ready"
+VERSION_ROUTE = "/version"
 WRITE_ROUTE = "/admin/relation-tuples"
 
 
@@ -109,6 +135,16 @@ def _max_depth(params: dict) -> int:
         return int(raw, 0)
     except ValueError:
         raise MalformedInputError(debug=f"invalid max-depth {raw!r}")
+
+
+def _body_max_depth(body, params: dict) -> int:
+    """A body's max_depth (its absence, not a 0, defers to ?max-depth)."""
+    if not isinstance(body, dict) or body.get("max_depth") is None:
+        return _max_depth(params)
+    try:
+        return int(body["max_depth"])
+    except (TypeError, ValueError):
+        raise MalformedInputError("max_depth must be an integer")
 
 
 def _page_size(params: dict, default: int) -> int:
@@ -134,62 +170,13 @@ def _subject(params: dict):
         raise MalformedInputError(debug="a subject_id or subject_set.* subject is required")
 
 
-class CheckService:
-    """The Check, Expand, List and Filter surface over one engine:
-    snaptoken enforcement, namespace validation and one lock around the
-    engine."""
-
-    def __init__(self, engine):
-        self.engine = engine
-        self._mu = threading.Lock()
-
-    def validate_namespaces(self, *objs) -> None:
-        """Every namespace a tuple or query names must be configured."""
-        nm = self.engine.config.namespace_manager()
-        for o in objs:
-            if o.namespace is not None:
-                nm.get_namespace_by_name(o.namespace)
-            if o.subject_set is not None:
-                nm.get_namespace_by_name(o.subject_set.namespace)
-
-    def write_token(self) -> str:
-        """The token of the store version a write left."""
-        nid = self.engine.nid
-        return encode_snaptoken(self.engine.manager.version(nid=nid), nid)
-
-    def snaptoken(self, token: str) -> str:
-        """Enforce a request's token; the response token, at the store
-        version read here."""
-        nid = self.engine.nid
-        return encode_snaptoken(enforce_snaptoken(self.engine.manager, token, nid), nid)
-
-    def check_batch(self, tuples, max_depth: int):
-        with self._mu:
-            return self.engine.check_batch(tuples, max_depth)
-
-    def expand(self, subject_set: SubjectSet, max_depth: int):
-        with self._mu:
-            return self.engine.expand(subject_set, max_depth)
-
-    def list_objects(self, *args, **kw):
-        with self._mu:
-            return self.engine.list_objects(*args, **kw)
-
-    def list_subjects(self, *args, **kw):
-        with self._mu:
-            return self.engine.list_subjects(*args, **kw)
-
-    def filter_objects(self, *args, **kw):
-        with self._mu:
-            return self.engine.filter_objects(*args, **kw)
-
-
-class _JSONHandler(BaseHTTPRequestHandler):
-    """What the read and the write listeners' handlers share: JSON bodies
-    in and out."""
+class _Handler(BaseHTTPRequestHandler):
+    """What both listeners share: JSON in and out, typed errors, the
+    health and version routes. Subclasses set `registry` and `_routes`."""
 
     protocol_version = "HTTP/1.1"
     server_version = "keto_tpu_torch"
+    registry = None
 
     def log_message(self, fmt, *args):  # quiet by default
         pass
@@ -212,9 +199,20 @@ class _JSONHandler(BaseHTTPRequestHandler):
             self.send_header(k, v)
         self.end_headers()
 
+    def _error(self, err: KetoError) -> None:
+        ra = getattr(err, "retry_after_s", None)
+        headers = [("Retry-After", retry_after_header_value(ra))] if ra is not None else ()
+        self._json(err.status, err.to_dict(), headers)
+
     def _params(self) -> tuple[str, dict]:
         url = urllib.parse.urlsplit(self.path)
         return url.path, dict(urllib.parse.parse_qsl(url.query, keep_blank_values=True))
+
+    def _query(self) -> dict:
+        """The URL query with blank values dropped, as Keto decodes a
+        tuple query."""
+        qs = urllib.parse.parse_qs(urllib.parse.urlsplit(self.path).query)
+        return {k: v[0] for k, v in qs.items()}
 
     def _body(self):
         n = int(self.headers.get("Content-Length") or 0)
@@ -223,287 +221,313 @@ class _JSONHandler(BaseHTTPRequestHandler):
         except json.JSONDecodeError as e:
             raise MalformedInputError(f"could not unmarshal json: {e}")
 
-
-def make_write_handler(service: CheckService):
-    """The write listener's request handler: Keto's admin tuple routes on
-    the engine's store."""
-
-    class WriteHandler(_JSONHandler):
-        def _route(self, method: str) -> None:
-            path = urllib.parse.urlsplit(self.path).path.rstrip("/") or "/"
-            try:
-                if path == WRITE_ROUTE and method == "PUT":
-                    self._create_relation()
-                elif path == WRITE_ROUTE and method == "DELETE":
-                    self._delete_relations()
-                elif path == WRITE_ROUTE and method == "PATCH":
-                    self._patch_relations()
-                else:
+    def _route(self, method: str) -> None:
+        path, params = self._params()
+        path = path.rstrip("/") or "/"
+        try:
+            if method == "GET" and path == ALIVE_ROUTE:
+                self._json(200, {"status": "ok"})
+            elif method == "GET" and path == READY_ROUTE:
+                ok = self.registry.ready.is_set()
+                self._json(200 if ok else 503, {"status": "ok" if ok else "unavailable"})
+            elif method == "GET" and path == VERSION_ROUTE:
+                self._json(200, {"version": self.registry.version})
+            else:
+                handler = self._routes.get((method, path))
+                if handler is None:
                     raise NotFoundError("route not found")
-            except KetoError as e:
-                self._json(e.status, e.to_dict())
-            except Exception as e:  # noqa: BLE001 - the HTTP boundary answers 500
-                self._json(500, KetoError(str(e)).to_dict())
+                handler(self, params)
+        except KetoError as e:
+            self._error(e)
+        except (BrokenPipeError, ConnectionResetError):
+            raise
+        except Exception as e:  # noqa: BLE001 - the HTTP boundary answers 500
+            self._json(500, KetoError(str(e)).to_dict())
 
-        def do_GET(self):
-            self._route("GET")
+    def do_GET(self):
+        self._route("GET")
 
-        def do_POST(self):
-            self._route("POST")
+    def do_POST(self):
+        self._route("POST")
 
-        def do_PUT(self):
-            self._route("PUT")
+    def do_PUT(self):
+        self._route("PUT")
 
-        def do_DELETE(self):
-            self._route("DELETE")
+    def do_DELETE(self):
+        self._route("DELETE")
 
-        def do_PATCH(self):
-            self._route("PATCH")
+    def do_PATCH(self):
+        self._route("PATCH")
 
-        def _create_relation(self) -> None:
+    # -- what the read routes share ---------------------------------------------
+
+    def _snaptoken(self, token: str) -> str:
+        """Enforce a request's token; the response token, at the store
+        version read here."""
+        reg = self.registry
+        return encode_snaptoken(
+            enforce_snaptoken(reg.relation_tuple_manager(), token, reg.nid), reg.nid)
+
+    def _request_trace(self) -> RequestTrace:
+        """The request's deadline, from x-request-timeout-ms or
+        serve.check.default_deadline_ms (a malformed header is a 400)."""
+        return RequestTrace(ingest_deadline(
+            self.registry.config,
+            request_ms=parse_timeout_ms(self.headers.get("x-request-timeout-ms"))))
+
+
+class ReadHandler(_Handler):
+    """The read listener's routes; `batcher` coalesces single checks."""
+
+    batcher = None
+
+    def _get_relations(self, params: dict) -> None:
+        params = self._query()
+        reg = self.registry
+        query = RelationQuery.from_url_query(params)
+        reg.validate_namespaces(query)
+        page_size = int(params.get("page_size") or 0) or reg.config.page_size()
+        tuples, next_token = reg.relation_tuple_manager().get_relation_tuples(
+            query, page_token=params.get("page_token", ""), page_size=page_size, nid=reg.nid)
+        self._json(200, GetResponse(tuples, next_token).to_dict())
+
+    def _check(self, params: dict, method: str, mirror_status: bool) -> None:
+        reg = self.registry
+        # deadline and admission before any work, body parsing included
+        rt = self._request_trace()
+        admit_check(reg, self.batcher, rt)
+        if method != "GET":
             body = self._body()
             if not isinstance(body, dict):
                 raise MalformedInputError("could not unmarshal json: expected object")
-            t = RelationTuple.from_dict(body)
-            service.validate_namespaces(t)
-            service.engine.manager.write_relation_tuples([t], nid=service.engine.nid)
-            location = READ_ROUTE_BASE + "?" + urllib.parse.urlencode(t.to_url_query())
-            self._json(201, t.to_dict(), [("Location", location),
-                                          ("X-Keto-Snaptoken", service.write_token())])
+        max_depth = _max_depth(params)
+        t = RelationTuple.from_url_query(params) if method == "GET" else \
+            RelationTuple.from_dict(body)
+        nid = reg.nid
+        version = enforce_snaptoken(reg.relation_tuple_manager(), params.get("snaptoken", ""),
+                                    nid)
+        token = [("X-Keto-Snaptoken", encode_snaptoken(version, nid))]
+        try:
+            reg.validate_namespaces(t)
+        except NamespaceNotFoundError:
+            self._json(403 if mirror_status else 200, {"allowed": False}, token)
+            return
+        res = cached_check(reg, self.batcher, nid, t, max_depth, version, rt)
+        if res.error is not None:
+            err = res.error
+            raise err if isinstance(err, KetoError) else KetoError(str(err))
+        self._json(403 if (mirror_status and not res.allowed) else 200,
+                   {"allowed": res.allowed}, token)
 
-        def _delete_relations(self) -> None:
-            # blank values drop out, as in Keto's query decoding
-            qs = urllib.parse.parse_qs(urllib.parse.urlsplit(self.path).query)
-            query = RelationQuery.from_url_query({k: v[0] for k, v in qs.items()})
-            service.validate_namespaces(query)
-            service.engine.manager.delete_all_relation_tuples(query, nid=service.engine.nid)
-            self._empty(204)
+    def _check_get(self, params: dict) -> None:
+        self._check(params, "GET", mirror_status=True)
 
-        def _patch_relations(self) -> None:
-            body = self._body()
-            if not isinstance(body, list):
-                raise MalformedInputError("could not unmarshal json: expected array")
-            deltas = [PatchDelta.from_dict(d) for d in body]
-            inserts = [d.relation_tuple for d in deltas if d.action == PatchAction.INSERT]
-            deletes = [d.relation_tuple for d in deltas if d.action == PatchAction.DELETE]
-            service.validate_namespaces(*inserts, *deletes)
-            service.engine.manager.transact_relation_tuples(inserts, deletes,
-                                                            nid=service.engine.nid)
-            self._empty(204, [("X-Keto-Snaptoken", service.write_token())])
+    def _check_post(self, params: dict) -> None:
+        self._check(params, "POST", mirror_status=True)
 
-    return WriteHandler
+    def _check_openapi_get(self, params: dict) -> None:
+        self._check(params, "GET", mirror_status=False)
 
+    def _check_openapi_post(self, params: dict) -> None:
+        self._check(params, "POST", mirror_status=False)
 
-def make_handler(service: CheckService):
-    """The read listener's request handler: check, expand, list, filter
-    and health."""
-
-    class Handler(_JSONHandler):
-        def _route(self, method: str) -> None:
-            path, params = self._params()
+    def _check_batch(self, params: dict) -> None:
+        """The whole batch rides one engine.check_batch, not the batcher's
+        queue: the gate checks draining and the deadline only."""
+        reg = self.registry
+        admit_check(reg, None, self._request_trace())
+        body = self._body()
+        raw = body.get("tuples") if isinstance(body, dict) else body
+        max_depth = _body_max_depth(body, params)
+        if not isinstance(raw, list):
+            raise MalformedInputError(
+                "could not unmarshal json: expected array of relation tuples")
+        req_token = params.get("snaptoken", "")
+        if isinstance(body, dict):
+            req_token = body.get("snaptoken") or req_token
+        token = self._snaptoken(req_token)
+        out: list = [None] * len(raw)
+        idx, tuples = [], []
+        for i, d in enumerate(raw):
             try:
-                if path in HEALTH_ROUTES and method == "GET":
-                    self._json(200, {"status": "ok"})
-                elif path == CHECK_BATCH_ROUTE and method == "POST":
-                    self._check_batch(params)
-                elif path == EXPAND_ROUTE and method == "GET":
-                    self._expand(params)
-                elif path == LIST_OBJECTS_ROUTE and method == "GET":
-                    self._list_objects(params)
-                elif path == LIST_SUBJECTS_ROUTE and method == "GET":
-                    self._list_subjects(params)
-                elif path == FILTER_ROUTE and method == "POST":
-                    self._filter(params)
-                elif path in (CHECK_ROUTE, CHECK_OPENAPI_ROUTE):
-                    self._check(method, params, mirror_status=path == CHECK_ROUTE)
-                else:
-                    raise NotFoundError(f"no route {method} {path}")
-            except KetoError as e:
-                self._json(e.status, e.to_dict())
-
-        def do_GET(self):
-            self._route("GET")
-
-        def do_POST(self):
-            self._route("POST")
-
-        def _check(self, method: str, params: dict, mirror_status: bool) -> None:
-            if method != "GET":
-                body = self._body()
-                if not isinstance(body, dict):
+                if not isinstance(d, dict):
                     raise MalformedInputError("could not unmarshal json: expected object")
-            max_depth = _max_depth(params)
-            t = RelationTuple.from_url_query(params) if method == "GET" else \
-                RelationTuple.from_dict(body)
-            token = [("X-Keto-Snaptoken", service.snaptoken(params.get("snaptoken", "")))]
-            try:
-                service.validate_namespaces(t)
-            except NamespaceNotFoundError:
-                self._json(403 if mirror_status else 200, {"allowed": False}, token)
-                return
-            (res,) = service.check_batch([t], max_depth)
+                t = RelationTuple.from_dict(d)
+                reg.validate_namespaces(t)
+            except KetoError as e:
+                out[i] = {"allowed": False, "error": e.message}
+                continue
+            idx.append(i)
+            tuples.append(t)
+        results = reg.check_engine().check_batch(tuples, max_depth)
+        for i, res in zip(idx, results):
             if res.error is not None:
-                err = res.error
-                if isinstance(err, KetoError):
-                    raise err
-                raise KetoError(str(err))
-            code = 403 if (mirror_status and not res.allowed) else 200
-            self._json(code, {"allowed": res.allowed}, token)
-
-        def _expand(self, params: dict) -> None:
-            max_depth = _max_depth(params)
-            try:
-                subject_set = SubjectSet(
-                    namespace=params["namespace"], object=params["object"],
-                    relation=params["relation"],
-                )
-            except KeyError:
-                raise MalformedInputError(
-                    debug="expand requires namespace, object, and relation"
-                )
-            service.engine.config.namespace_manager().get_namespace_by_name(
-                subject_set.namespace
-            )
-            tree = service.expand(subject_set, max_depth)
-            if tree is None:
-                self._json(404, NotFoundError("no relation tuples found").to_dict())
-                return
-            self._json(200, tree.to_dict())
-
-        def _list_objects(self, params: dict) -> None:
-            max_depth = _max_depth(params)
-            namespace, relation = params.get("namespace"), params.get("relation")
-            if not namespace or not relation:
-                raise MalformedInputError(debug="list-objects requires namespace and relation")
-            subject = _subject(params)
-            token = service.snaptoken(params.get("snaptoken", ""))
-            nm = service.engine.config.namespace_manager()
-            nm.get_namespace_by_name(namespace)
-            if isinstance(subject, SubjectSet):
-                nm.get_namespace_by_name(subject.namespace)
-            objects, next_page = service.list_objects(
-                namespace, relation, subject, max_depth,
-                page_size=_page_size(params, service.engine.config.page_size()),
-                page_token=params.get("page_token", ""),
-            )
-            self._json(200, {"objects": objects, "next_page_token": next_page},
-                       [("X-Keto-Snaptoken", token)])
-
-        def _list_subjects(self, params: dict) -> None:
-            max_depth = _max_depth(params)
-            try:
-                namespace, obj = params["namespace"], params["object"]
-                relation = params["relation"]
-            except KeyError:
-                raise MalformedInputError(
-                    debug="list-subjects requires namespace, object, and relation"
-                )
-            token = service.snaptoken(params.get("snaptoken", ""))
-            service.engine.config.namespace_manager().get_namespace_by_name(namespace)
-            subjects, next_page = service.list_subjects(
-                namespace, obj, relation, max_depth,
-                page_size=_page_size(params, service.engine.config.page_size()),
-                page_token=params.get("page_token", ""),
-            )
-            self._json(200, {"subject_ids": subjects, "next_page_token": next_page},
-                       [("X-Keto-Snaptoken", token)])
-
-        def _filter(self, params: dict) -> None:
-            """The subset of the candidate column the subject can see, in
-            request order."""
-            body = self._body()
-            if not isinstance(body, dict):
-                raise MalformedInputError("could not unmarshal json: expected object")
-            objects = body.get("objects")
-            if not isinstance(objects, list) or not all(isinstance(o, str) for o in objects):
-                raise MalformedInputError('filter requires "objects": an array of object names')
-            max_objects = service.engine.config.filter_max_objects()
-            if len(objects) > max_objects:
-                raise FilterTooLargeError(
-                    f"filter candidate list has {len(objects)} objects; filter.max_objects "
-                    f"allows {max_objects}: split the list"
-                )
-            namespace, relation = body.get("namespace"), body.get("relation")
-            if not namespace or not relation:
-                raise MalformedInputError(debug="filter requires namespace and relation")
-            subject_id, subject_set = _subject_fields_from_dict(body)
-            if subject_id is None and subject_set is None:
-                raise NilSubjectError()
-            if body.get("max_depth") is None:
-                max_depth = _max_depth(params)
+                out[i] = {"allowed": False, "error": str(res.error)}
             else:
-                try:
-                    max_depth = int(body["max_depth"])
-                except (TypeError, ValueError):
-                    raise MalformedInputError("max_depth must be an integer")
-            token = service.snaptoken(body.get("snaptoken") or params.get("snaptoken", ""))
-            nm = service.engine.config.namespace_manager()
-            nm.get_namespace_by_name(namespace)
-            if subject_set is not None:
-                nm.get_namespace_by_name(subject_set.namespace)
-            allowed = service.filter_objects(
-                namespace, relation, subject_set if subject_set is not None else subject_id,
-                objects, max_depth,
+                out[i] = {"allowed": res.allowed}
+        self._json(200, {"results": out, "snaptoken": token})
+
+    def _expand(self, params: dict) -> None:
+        max_depth = _max_depth(params)
+        try:
+            subject_set = SubjectSet(
+                namespace=params["namespace"], object=params["object"],
+                relation=params["relation"],
             )
-            self._json(200, {"allowed_objects": allowed, "snaptoken": token})
+        except KeyError:
+            raise MalformedInputError(debug="expand requires namespace, object, and relation")
+        self.registry.validate_namespaces(subject_set)
+        tree = self.registry.expand_engine().expand(subject_set, max_depth)
+        if tree is None:
+            self._json(404, NotFoundError("no relation tuples found").to_dict())
+            return
+        self._json(200, tree.to_dict())
 
-        def _check_batch(self, params: dict) -> None:
-            body = self._body()
-            if isinstance(body, dict):
-                raw = body.get("tuples")
-                if body.get("max_depth") is None:
-                    max_depth = _max_depth(params)
-                else:
-                    try:
-                        max_depth = int(body["max_depth"])
-                    except (TypeError, ValueError):
-                        raise MalformedInputError("max_depth must be an integer")
-            else:
-                raw = body
-                max_depth = _max_depth(params)
-            if not isinstance(raw, list):
-                raise MalformedInputError(
-                    "could not unmarshal json: expected array of relation tuples"
-                )
-            req_token = params.get("snaptoken", "")
-            if isinstance(body, dict):
-                req_token = body.get("snaptoken") or req_token
-            token = service.snaptoken(req_token)
-            out: list = [None] * len(raw)
-            idx, tuples = [], []
-            for i, d in enumerate(raw):
-                try:
-                    if not isinstance(d, dict):
-                        raise MalformedInputError("could not unmarshal json: expected object")
-                    t = RelationTuple.from_dict(d)
-                    service.validate_namespaces(t)
-                except KetoError as e:
-                    out[i] = {"allowed": False, "error": e.message}
-                    continue
-                idx.append(i)
-                tuples.append(t)
-            results = service.check_batch(tuples, max_depth)
-            for i, res in zip(idx, results):
-                if res.error is not None:
-                    out[i] = {"allowed": False, "error": str(res.error)}
-                else:
-                    out[i] = {"allowed": res.allowed}
-            self._json(200, {"results": out, "snaptoken": token})
+    def _list_objects(self, params: dict) -> None:
+        reg = self.registry
+        max_depth = _max_depth(params)
+        namespace, relation = params.get("namespace"), params.get("relation")
+        if not namespace or not relation:
+            raise MalformedInputError(debug="list-objects requires namespace and relation")
+        subject = _subject(params)
+        token = self._snaptoken(params.get("snaptoken", ""))
+        reg.validate_namespaces(RelationQuery(namespace=namespace),
+                                subject if isinstance(subject, SubjectSet) else None)
+        objects, next_page = reg.check_engine().list_objects(
+            namespace, relation, subject, max_depth,
+            page_size=_page_size(params, reg.config.page_size()),
+            page_token=params.get("page_token", ""),
+        )
+        self._json(200, {"objects": objects, "next_page_token": next_page},
+                   [("X-Keto-Snaptoken", token)])
 
-    return Handler
+    def _list_subjects(self, params: dict) -> None:
+        reg = self.registry
+        max_depth = _max_depth(params)
+        try:
+            namespace, obj = params["namespace"], params["object"]
+            relation = params["relation"]
+        except KeyError:
+            raise MalformedInputError(
+                debug="list-subjects requires namespace, object, and relation")
+        token = self._snaptoken(params.get("snaptoken", ""))
+        reg.validate_namespaces(RelationQuery(namespace=namespace))
+        subjects, next_page = reg.check_engine().list_subjects(
+            namespace, obj, relation, max_depth,
+            page_size=_page_size(params, reg.config.page_size()),
+            page_token=params.get("page_token", ""),
+        )
+        self._json(200, {"subject_ids": subjects, "next_page_token": next_page},
+                   [("X-Keto-Snaptoken", token)])
+
+    def _filter(self, params: dict) -> None:
+        """The subset of the candidate column the subject can see, in
+        request order."""
+        reg = self.registry
+        rt = self._request_trace()
+        body = self._body()
+        if not isinstance(body, dict):
+            raise MalformedInputError("could not unmarshal json: expected object")
+        objects = body.get("objects")
+        if not isinstance(objects, list) or not all(isinstance(o, str) for o in objects):
+            raise MalformedInputError('filter requires "objects": an array of object names')
+        admit_filter(reg, len(objects), rt)
+        namespace, relation = body.get("namespace"), body.get("relation")
+        if not namespace or not relation:
+            raise MalformedInputError(debug="filter requires namespace and relation")
+        subject_id, subject_set = _subject_fields_from_dict(body)
+        if subject_id is None and subject_set is None:
+            raise NilSubjectError()
+        max_depth = _body_max_depth(body, params)
+        token = self._snaptoken(body.get("snaptoken") or params.get("snaptoken", ""))
+        reg.validate_namespaces(RelationQuery(namespace=namespace), subject_set)
+        allowed = reg.check_engine().filter_objects(
+            namespace, relation, subject_set if subject_set is not None else subject_id,
+            objects, max_depth, deadline=rt.deadline,
+        )
+        self._json(200, {"allowed_objects": allowed, "snaptoken": token})
+
+    _routes = {
+        ("GET", READ_ROUTE_BASE): _get_relations,
+        ("GET", CHECK_ROUTE): _check_get,
+        ("POST", CHECK_ROUTE): _check_post,
+        ("GET", CHECK_OPENAPI_ROUTE): _check_openapi_get,
+        ("POST", CHECK_OPENAPI_ROUTE): _check_openapi_post,
+        ("POST", CHECK_BATCH_ROUTE): _check_batch,
+        ("GET", EXPAND_ROUTE): _expand,
+        ("GET", LIST_OBJECTS_ROUTE): _list_objects,
+        ("GET", LIST_SUBJECTS_ROUTE): _list_subjects,
+        ("POST", FILTER_ROUTE): _filter,
+    }
 
 
-def make_server(engine, host: str, port: int) -> ThreadingHTTPServer:
-    """A threaded HTTP server serving the Check, Expand, List and Filter
-    routes over `engine`."""
-    server = ThreadingHTTPServer((host, port), make_handler(CheckService(engine)))
-    server.daemon_threads = True
-    return server
+class WriteHandler(_Handler):
+    """The write listener's routes: Keto's admin tuple routes on the
+    registry's store."""
+
+    def _write_token(self) -> str:
+        """The token of the store version a write left."""
+        reg = self.registry
+        return encode_snaptoken(reg.relation_tuple_manager().version(nid=reg.nid), reg.nid)
+
+    def _create_relation(self, params: dict) -> None:
+        reg = self.registry
+        body = self._body()
+        if not isinstance(body, dict):
+            raise MalformedInputError("could not unmarshal json: expected object")
+        t = RelationTuple.from_dict(body)
+        reg.validate_namespaces(t)
+        reg.relation_tuple_manager().write_relation_tuples([t], nid=reg.nid)
+        location = READ_ROUTE_BASE + "?" + urllib.parse.urlencode(t.to_url_query())
+        self._json(201, t.to_dict(), [("Location", location),
+                                      ("X-Keto-Snaptoken", self._write_token())])
+
+    def _delete_relations(self, params: dict) -> None:
+        reg = self.registry
+        query = RelationQuery.from_url_query(self._query())
+        reg.validate_namespaces(query)
+        reg.relation_tuple_manager().delete_all_relation_tuples(query, nid=reg.nid)
+        self._empty(204)
+
+    def _patch_relations(self, params: dict) -> None:
+        reg = self.registry
+        body = self._body()
+        if not isinstance(body, list):
+            raise MalformedInputError("could not unmarshal json: expected array")
+        deltas = [PatchDelta.from_dict(d) for d in body]
+        inserts = [d.relation_tuple for d in deltas if d.action == PatchAction.INSERT]
+        deletes = [d.relation_tuple for d in deltas if d.action == PatchAction.DELETE]
+        reg.validate_namespaces(*inserts, *deletes)
+        reg.relation_tuple_manager().transact_relation_tuples(inserts, deletes, nid=reg.nid)
+        self._empty(204, [("X-Keto-Snaptoken", self._write_token())])
+
+    _routes = {
+        ("PUT", WRITE_ROUTE): _create_relation,
+        ("DELETE", WRITE_ROUTE): _delete_relations,
+        ("PATCH", WRITE_ROUTE): _patch_relations,
+    }
 
 
-def make_write_server(engine, host: str, port: int) -> ThreadingHTTPServer:
-    """A threaded HTTP server serving the write routes on `engine`'s
-    store."""
-    server = ThreadingHTTPServer((host, port), make_write_handler(CheckService(engine)))
-    server.daemon_threads = True
-    return server
+class _Server(ThreadingHTTPServer):
+    # the JAX package's listener backlog (its mux listens with 128):
+    # socketserver's default of 5 drops the SYNs of a burst of new
+    # connections, which then wait out TCP's retransmit timer (1 s, 3 s, ...)
+    request_queue_size = 128
+    daemon_threads = True
+
+
+def _server(handler: type, registry, host: str, port: int, **members) -> ThreadingHTTPServer:
+    cls = type(handler.__name__, (handler,), {"registry": registry, **members})
+    return _Server((host, port), cls)
+
+
+def make_server(registry, host: str, port: int, batcher) -> ThreadingHTTPServer:
+    """A threaded HTTP server of the read routes over `registry`; single
+    checks ride `batcher` (api/daemon.py make_batcher builds one from the
+    registry's config)."""
+    return _server(ReadHandler, registry, host, port, batcher=batcher)
+
+
+def make_write_server(registry, host: str, port: int) -> ThreadingHTTPServer:
+    """A threaded HTTP server of the write routes on `registry`'s store."""
+    return _server(WriteHandler, registry, host, port)

@@ -15,11 +15,12 @@ covered version (engine/torch_engine.py `_closure_gate`), so a paused,
 slow or dead maintainer costs deep checks their latency and nothing
 else. `hold()` and `release()` force that lagging regime in tests.
 
-Not here yet: the Watch hub's event drain (a subscription a network id
-whose events mark dirty nodes between passes, and whose reset marks the
-index stale) waits for the Watch hub; `ensure_for`'s change-log
-catch-up folds every op without it. The registry is a stand-in,
-EngineRegistry, with the two registry calls the loop makes.
+The loop makes two registry calls (registry.py): `built_engines()`, the
+engines by network id, and `relation_tuple_manager()`, the store whose
+write listener wakes it. Not here yet: the Watch hub's event drain (a
+subscription a network id whose events mark dirty nodes between passes,
+and whose reset marks the index stale) waits for the Watch hub;
+`ensure_for`'s change-log catch-up folds every op without it.
 """
 
 from __future__ import annotations
@@ -31,23 +32,6 @@ from typing import Optional
 logger = logging.getLogger("keto_tpu_torch")
 
 DEFAULT_POLL_INTERVAL = 0.25
-
-
-class EngineRegistry:
-    """The registry calls the maintainer makes, over a fixed set of
-    engines: `built_engines()` (the engines by network id) and
-    `relation_tuple_manager()` (the store whose write listener wakes the
-    loop)."""
-
-    def __init__(self, manager, engines: dict):
-        self._manager = manager
-        self._engines = dict(engines)
-
-    def built_engines(self) -> dict:
-        return dict(self._engines)
-
-    def relation_tuple_manager(self):
-        return self._manager
 
 
 class ClosureMaintainer:

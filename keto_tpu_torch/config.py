@@ -20,8 +20,23 @@ same runs on an NVIDIA H100 80GB HBM3 at 700 W, since its host
 preparation and R·D product outweigh the waves),
 `filter.chunk_size` (candidates per filter evaluation, 4096) and
 `filter.max_objects` (the largest candidate list a filter request may
-carry, 65536). Schema validation, namespace files and OPL stay with the
-JAX package.
+carry, 65536).
+
+The serving plane's keys, with the JAX package's defaults: `dsn` (the
+store; "memory", the only one so far), `check.engine` ("torch", the
+device engine, or "host", the exact host oracle alone),
+`check.pipeline_depth` (the batcher's resolve threads, 2),
+`check.batch_window_ms` (how long the collector tops a batch up, 2.0),
+`check.cache.enabled` (true), `check.cache.max_entries` (65536) and
+`check.cache.ttl_s` (0: no expiry), and under `serve.check`:
+`max_queue` (admitted checks past which a new one is refused with a
+429; unset: no bound), `max_inflight` (launched but unresolved batches;
+unset: twice the pipeline depth, at least 4), `device_timeout_ms` (the
+launch watchdog; unset: off), `default_deadline_ms` and
+`max_deadline_ms` (a request's deadline when it names none, and the cap
+of any; unset: none), `breaker.threshold` (5) and `breaker.cooldown_s`
+(5.0). Schema validation, namespace files and OPL stay with the JAX
+package.
 """
 
 from __future__ import annotations
@@ -50,6 +65,10 @@ class Config:
     def __init__(self, values: Optional[Mapping[str, Any]] = None):
         self._values: dict[str, Any] = dict(values or {})
         self._namespace_manager: Optional[MemoryNamespaceManager] = None
+
+    @property
+    def dsn(self) -> str:
+        return str(self.get("dsn", "memory"))
 
     @classmethod
     def from_file(cls, path: str) -> "Config":

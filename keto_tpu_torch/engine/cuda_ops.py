@@ -74,6 +74,7 @@ INDEX_LIMIT = 2**31
 
 _lib = None
 _lock = threading.Lock()
+_launches_mu = threading.Lock()
 build_info: dict = {}
 # the scratch words of csrc/reduce.cuh's last-block sums, one pair per
 # (device, stream): see grid_scratch
@@ -211,7 +212,9 @@ def library() -> ctypes.CDLL:
 def _check(lib, rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}: {lib.keto_error_string(rc).decode()}")
-    launches[name] += 1
+    # the serving plane launches from several threads at once
+    with _launches_mu:
+        launches[name] += 1
 
 
 def _p(t: torch.Tensor | None):

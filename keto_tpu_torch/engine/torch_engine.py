@@ -43,6 +43,16 @@ index up inline, within `closure.lag_budget_versions`), so only those
 fall back; closure_ensure_built powers them again over the same base.
 `notify_write`, wired to the store's write listener, folds writes in on
 a background thread, off the request path.
+
+The engine is shared by the serving plane's threads: the batcher submits
+on its launch thread and resolves on its pool threads (a closure batch's
+resolve submits its leftovers from there), while Expand, the list routes
+and Filter run on request threads. `_lock` guards the state swap and the
+lazily built path tables, the closure index guards its own view, and
+`_stats_mu` the counters. Every thread launches on PyTorch's current
+stream, which is the device's default stream unless a caller sets
+another, so the kernels' per-(device, stream) scratch (engine/cuda_ops.py)
+sees one launch after another.
 """
 
 from __future__ import annotations
@@ -57,6 +67,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_FILTER_CHUNK_SIZE, Config
+from ..errors import DeadlineExceededError
 from ..ketoapi import RelationTuple, Subject, SubjectSet, Tree
 from ..storage.definitions import DEFAULT_NETWORK
 from .definitions import (
@@ -203,6 +214,7 @@ class TorchCheckEngine:
         self.reference = ReferenceEngine(manager, config)
         self._lock = threading.Lock()
         self._state: _EngineState | None = None
+        self._stats_mu = threading.Lock()
         self.stats = {
             "device_checks": 0,
             "host_checks": 0,
@@ -278,7 +290,7 @@ class TorchCheckEngine:
             covered_version=version,
             config_fp=config_fp,
         )
-        self.stats["snapshot_builds"] += 1
+        self._count(snapshot_builds=1)
         return state
 
     def _delta_refresh(self, state: _EngineState, version: int) -> Optional[_EngineState]:
@@ -354,7 +366,7 @@ class TorchCheckEngine:
             new.base_decoder = new.decoder = ExpandDecoder(merged)
         # the ListSubjects tables are packed again from the patched full
         # CSR at their next use: a pack, not a build
-        self.stats["incremental_merges"] += 1
+        self._count(incremental_merges=1)
         return new
 
     @staticmethod
@@ -460,7 +472,7 @@ class TorchCheckEngine:
             ev.clear()
             try:
                 self.ensure_state()
-                self.stats["push_refreshes"] += 1
+                self._count(push_refreshes=1)
             except Exception:  # noqa: BLE001 - the refresh thread never dies;
                 # the request path's ensure_state raises to its caller
                 logging.getLogger("keto_tpu_torch").debug(
@@ -578,8 +590,7 @@ class TorchCheckEngine:
         return view, cause
 
     def _count_closure_fallback(self, cause: str, n: int) -> None:
-        per = self.stats["closure_fallback"]
-        per[cause] = per.get(cause, 0) + n
+        self._count(closure_fallback={cause: n})
 
     @staticmethod
     def _closure_launch(view, qpack: torch.Tensor) -> torch.Tensor:
@@ -598,6 +609,19 @@ class TorchCheckEngine:
         for code, count in zip(*np.unique(cause[declined], return_counts=True)):
             self._count_closure_fallback(CL_CAUSE_NAMES.get(int(code), "uncovered"), int(count))
         return member, resolved
+
+    def _count(self, host_cause: Optional[dict] = None, closure_fallback: Optional[dict] = None,
+               **counts: int) -> None:
+        """Add to the counters in `stats` (and to its per-cause dicts), under
+        one lock: the launch, resolve and request threads all count."""
+        with self._stats_mu:
+            for key, n in counts.items():
+                self.stats[key] += n
+            for name, per in (("host_cause", host_cause), ("closure_fallback", closure_fallback)):
+                if per:
+                    into = self.stats[name]
+                    for cause, n in per.items():
+                        into[cause] = into.get(cause, 0) + n
 
     # -- check API --------------------------------------------------------------
 
@@ -668,14 +692,25 @@ class TorchCheckEngine:
         return ("batch", outputs, meta)
 
     def check_batch_resolve(self, handle) -> list[CheckResult]:
+        return self.check_batch_resolve_v(handle)[0]
+
+    def check_batch_resolve_v(self, handle) -> tuple[list[CheckResult], list]:
+        """(results, versions) of one submitted batch: versions[i] is the
+        store version answer i is authoritative at, the evaluated state's
+        covered_version for device answers and closure hits, None for a
+        query replayed on the host oracle (it reads the live store). The
+        check cache (api/check_cache.py) stores verdicts at these versions."""
         kind, outputs, meta = handle
         if kind == "empty":
-            return []
+            return [], []
         if kind == "multi":
             results: list[CheckResult] = []
+            versions: list = []
             for h in outputs:
-                results.extend(self.check_batch_resolve(h))
-            return results
+                r, v = self.check_batch_resolve_v(h)
+                results.extend(r)
+                versions.extend(v)
+            return results, versions
         if kind == "closure":
             return self._resolve_closure(outputs, meta)
         return self._resolve(outputs, meta)
@@ -683,20 +718,23 @@ class TorchCheckEngine:
     def _resolve_closure(self, outputs, meta):
         """Answer the queries one closure launch resolved, at the mirror's
         covered version; the rest ride the BFS kernel once
-        (allow_closure=False) and merge back in request order."""
+        (allow_closure=False), with that sub-batch's versions, and merge
+        back in request order."""
         tuples, n, B = meta["tuples"], meta["n"], meta["B"]
         member, resolved = self._closure_read(outputs, B, n)
         results = [RESULT_IS_MEMBER if m else RESULT_NOT_MEMBER for m in member.tolist()]
+        versions: list = [meta["state"].covered_version] * n
         leftover = np.flatnonzero(~resolved).tolist()
         n_hits = n - len(leftover)
-        self.stats["closure_hits"] += n_hits
-        self.stats["device_checks"] += n_hits
+        self._count(closure_hits=n_hits, device_checks=n_hits)
         if leftover:
             sub = self.check_batch_submit([tuples[i] for i in leftover], meta["max_depth"],
                                           allow_closure=False)
-            for i, res in zip(leftover, self.check_batch_resolve(sub)):
-                results[i] = res
-        return results
+            sub_res, sub_ver = self.check_batch_resolve_v(sub)
+            for j, i in enumerate(leftover):
+                results[i] = sub_res[j]
+                versions[i] = sub_ver[j]
+        return results, versions
 
     def _resolve(self, outputs, meta):
         state = meta["state"]
@@ -717,19 +755,23 @@ class TorchCheckEngine:
         else:
             member = ctx_hit[:B]
 
+        covered = state.covered_version
         if bool(q_valid[:n].all()) and not bool((needs_host[:n] > 0).any()):
             # every query answered on the device: the steady serving state
-            self.stats["device_checks"] += n
-            return [RESULT_IS_MEMBER if m else RESULT_NOT_MEMBER for m in member[:n].tolist()]
+            self._count(device_checks=n)
+            return ([RESULT_IS_MEMBER if m else RESULT_NOT_MEMBER for m in member[:n].tolist()],
+                    [covered] * n)
 
         results: list[CheckResult] = []
+        versions: list = []
         n_host = 0
-        host_causes = self.stats["host_cause"]
+        host_causes: dict[str, int] = {}
         # identical replayed queries within one batch evaluate once
         replay_memo: dict[tuple, CheckResult] = {}
         for i, t in enumerate(tuples):
             if q_valid[i] and not needs_host[i]:
                 results.append(RESULT_IS_MEMBER if member[i] else RESULT_NOT_MEMBER)
+                versions.append(covered)
                 continue
             n_host += 1
             cause = (
@@ -744,9 +786,9 @@ class TorchCheckEngine:
                 res = self.reference.check_relation_tuple(t, max_depth, self.nid)
                 replay_memo[key] = res
             results.append(res)
-        self.stats["device_checks"] += n - n_host
-        self.stats["host_checks"] += n_host
-        return results
+            versions.append(None)
+        self._count(host_cause=host_causes, device_checks=n - n_host, host_checks=n_host)
+        return results, versions
 
     # -- expand API -------------------------------------------------------------
 
@@ -815,8 +857,7 @@ class TorchCheckEngine:
                 sub, int(q_obj[i]), int(q_rel[i]), depth, adjacency, bool(root[i]),
                 state.decoder,
             ))
-        self.stats["device_expands"] += n - n_host
-        self.stats["host_expands"] += n_host
+        self._count(device_expands=n - n_host, host_expands=n_host)
         return results
 
     # -- ListObjects / ListSubjects ---------------------------------------------
@@ -918,11 +959,7 @@ class TorchCheckEngine:
         )
 
     def _count_reverse(self, leg: str, n_device: int, n_host: int, causes: dict) -> None:
-        self.stats[f"device_{leg}"] += n_device
-        self.stats[f"host_{leg}"] += n_host
-        host_causes = self.stats["host_cause"]
-        for cause, count in causes.items():
-            host_causes[cause] = host_causes.get(cause, 0) + count
+        self._count(host_cause=causes, **{f"device_{leg}": n_device, f"host_{leg}": n_host})
 
     def _resolve_reverse(self, leg, queries, unknown, needs, decode_fn, host_fn):
         """Both list legs' answers: [] for names the mirror does not know,
@@ -967,38 +1004,40 @@ class TorchCheckEngine:
         max_depth: int = 0,
         frontier_cap: int = 4096,
         chunk_size: int = 0,
+        deadline=None,
     ) -> list[bool]:
         """verdicts[i]: Check(namespace:objects[i]#relation@subject) is a
         member, for a column of candidates sharing one subject. Evaluated
         in chunks of `chunk_size` (0 reads filter.chunk_size, at most the
         largest bucket), each through the vocab, closure, frontier and
-        host tiers."""
+        host tiers. `deadline` (resilience.Deadline | None) is checked
+        before every chunk: past it the call fails with the typed 504."""
         n = len(objects)
         if n == 0:
             return []
-        self.stats["filter_requests"] += 1
+        self._count(filter_requests=1)
         chunk = int(chunk_size or self.config.get("filter.chunk_size", DEFAULT_FILTER_CHUNK_SIZE))
         chunk = max(1, min(chunk, _BUCKETS[-1]))
         out: list[bool] = []
         for i in range(0, n, chunk):
+            if deadline is not None and deadline.expired():
+                raise DeadlineExceededError(
+                    f"filter deadline expired mid-evaluation ({i}/{n} candidates answered)")
             out.extend(self._filter_chunk(namespace, relation, subject,
                                           list(objects[i : i + chunk]), max_depth, frontier_cap))
         return out
 
     def filter_objects(self, namespace: str, relation: str, subject, objects: Sequence[str],
-                       max_depth: int = 0) -> list[str]:
+                       max_depth: int = 0, deadline=None) -> list[str]:
         """The candidates the subject can see, in request order, each
         occurrence of a duplicate answered on its own."""
-        verdicts = self.filter_batch(namespace, relation, subject, objects, max_depth)
+        verdicts = self.filter_batch(namespace, relation, subject, objects, max_depth,
+                                     deadline=deadline)
         return [o for o, ok in zip(objects, verdicts) if ok]
 
     def _count_filter(self, n_closure: int, n_frontier: int, n_host: int, causes: dict) -> None:
-        self.stats["filter_closure"] += n_closure
-        self.stats["filter_frontier"] += n_frontier
-        self.stats["filter_host"] += n_host
-        host_causes = self.stats["host_cause"]
-        for cause, count in causes.items():
-            host_causes[cause] = host_causes.get(cause, 0) + count
+        self._count(host_cause=causes, filter_closure=n_closure, filter_frontier=n_frontier,
+                    filter_host=n_host)
 
     def _filter_chunk(self, namespace, relation, subject, objects, max_depth,
                       frontier_cap) -> list[bool]:
@@ -1023,7 +1062,7 @@ class TorchCheckEngine:
         sub = state.view.encode_subject(proxy)
         if ns_id is not None and rel_id is not None and sub is None and monotone:
             # no edge mentions the subject
-            self.stats["filter_vocab"] += n
+            self._count(filter_vocab=n)
             return [False] * n
         if ns_id is None or rel_id is None or sub is None:
             verdicts = self.reference.filter_objects(namespace, relation, subject, objects,
@@ -1039,7 +1078,7 @@ class TorchCheckEngine:
         n_closure = n_frontier = 0
         if monotone and not c_valid.all():
             resolved |= ~c_valid  # unknown candidates: value stays False
-            self.stats["filter_vocab"] += int((~c_valid).sum())
+            self._count(filter_vocab=int((~c_valid).sum()))
 
         # 1. the closure tier: one launch over the candidate column
         if self.closure_enabled:

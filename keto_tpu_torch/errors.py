@@ -120,3 +120,59 @@ class SnaptokenUnsatisfiableError(KetoError):
     status = 409
     code = "conflict"
     default_message = "snaptoken requires a newer snapshot than this store has"
+
+
+class DeadlineExceededError(KetoError):
+    # the request's end-to-end deadline (x-request-timeout-ms or
+    # serve.check.default_deadline_ms) expired before an answer was
+    # produced: the request fails fast instead of holding a batch slot
+    status = 504
+    code = "deadline_exceeded"
+    default_message = "request deadline exceeded"
+
+
+class OverloadedError(KetoError):
+    # refused before any work: the batcher's queue is at
+    # serve.check.max_queue, or the daemon drains. The REST layer sends
+    # `retry_after_s` as a Retry-After header
+    status = 429
+    code = "too_many_requests"
+    default_message = "server is overloaded, retry later"
+
+    def __init__(self, message: str | None = None, *, debug: str | None = None,
+                 retry_after_s: float | None = None):
+        super().__init__(message, debug=debug)
+        self.retry_after_s = retry_after_s
+
+
+class BatcherClosedError(OverloadedError, RuntimeError):
+    # a check racing the batcher's close: a 429 like the drain's shed,
+    # and a RuntimeError for callers that catch that around
+    # CheckBatcher.check
+    default_message = "check batcher is closed"
+
+
+class CheckBatchFailedError(KetoError, RuntimeError):
+    # an engine batch failed with an untyped exception: every rider gets
+    # this typed error instead of the raw one (api/batcher.py
+    # classify_engine_error)
+    status = 500
+    code = "internal_server_error"
+    default_message = "check batch evaluation failed"
+
+
+class StoreUnavailableError(KetoError):
+    # the check path cannot answer: the batcher raises it while the device
+    # breaker is open (breaker_open, with a Retry-After of the remaining
+    # cooldown), and the check cache's answer floor (api/check_cache.py)
+    # for an answer pinned below the request's token, which only a store
+    # that fails mid-request can cause
+    status = 503
+    code = "store_unavailable"
+    default_message = "the tuple store is unavailable, retry later"
+
+    def __init__(self, message: str | None = None, *, debug: str | None = None,
+                 retry_after_s: float | None = None, breaker_open: bool = False):
+        super().__init__(message, debug=debug)
+        self.retry_after_s = retry_after_s
+        self.breaker_open = breaker_open

@@ -337,3 +337,17 @@ class Tree:
         if self.children:
             d["children"] = [c.to_dict() for c in self.children]
         return d
+
+
+@dataclass
+class GetResponse:
+    """A page of GET /relation-tuples (Keto ketoapi/public_api_definitions.go)."""
+
+    relation_tuples: list[RelationTuple]
+    next_page_token: str = ""
+
+    def to_dict(self) -> dict:
+        return {
+            "relation_tuples": [t.to_dict() for t in self.relation_tuples],
+            "next_page_token": self.next_page_token,
+        }

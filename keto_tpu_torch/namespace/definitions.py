@@ -6,11 +6,21 @@ Parity with Keto's internal/namespace/definitions.go: Namespace{id
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, field
 from typing import Iterable, Mapping, Optional
 
 from ..errors import NamespaceNotFoundError
 from .ast import Relation, relation_from_dict
+
+# every distinct namespace set a manager serves draws a new generation: a
+# namespace change alters check answers without a store version bump, so
+# a cache of verdicts (api/check_cache.py) flushes when it moves
+_config_generation = itertools.count(1)
+
+
+def next_config_generation() -> int:
+    return next(_config_generation)
 
 
 @dataclass
@@ -47,6 +57,7 @@ class MemoryNamespaceManager:
 
     def __init__(self, namespaces: Iterable[Namespace] = ()):
         self._by_name: dict[str, Namespace] = {ns.name: ns for ns in namespaces}
+        self.config_generation = next_config_generation()
 
     def get_namespace_by_name(self, name: str) -> Namespace:
         try:

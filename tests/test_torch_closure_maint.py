@@ -19,14 +19,14 @@ after each step the two hold equal:
   - the engines' closure_hits and closure_fallback by cause;
   - every verdict, which also equals the port's host oracle's.
 The maintainer scenarios drive keto_tpu's Registry-held maintainer and
-the port's over EngineRegistry; their pass and rebuild counts agree
+the port's Registry-held one; their pass and rebuild counts agree
 (keto_tpu also counts Watch events, which the port does not drain).
 
 Also: a writer committing between a refresh's two version reads (the
 re-marked nodes stay dirty), the `_marks_gen` abort, a truncated change
 log (stale, then stuck over the same base), the full-store read past the
 region walk's budget, the maintainer's write listener registered once
-over start/stop/start, and `serve`'s Services running the maintainer.
+over start/stop/start, and `serve`'s Daemon running the maintainer.
 
 Tolerance: exact equality; every output is an integer or a verdict.
 """
@@ -53,7 +53,8 @@ from keto_tpu.registry import Registry
 from keto_tpu.storage import MemoryManager as JMemory
 
 import keto_tpu_torch.storage.memory as tmemory
-from keto_tpu_torch.closure import ClosureMaintainer, EngineRegistry
+from keto_tpu_torch.api.daemon import Daemon as TDaemon
+from keto_tpu_torch.closure import ClosureMaintainer
 from keto_tpu_torch.config import Config as TConfig
 from keto_tpu_torch.engine import closure as tcl
 from keto_tpu_torch.engine.closure_kernel import CL_CAUSE_DIRTY
@@ -61,6 +62,7 @@ from keto_tpu_torch.engine.definitions import Membership
 from keto_tpu_torch.engine.reference import ReferenceEngine as TReference
 from keto_tpu_torch.engine.torch_engine import TorchCheckEngine
 from keto_tpu_torch.ketoapi import RelationTuple as TTuple
+from keto_tpu_torch.registry import Registry as TRegistry
 from keto_tpu_torch.storage import MemoryManager as TMemory
 
 from test_torch_closure import same_closure_vector, same_index
@@ -308,7 +310,7 @@ def test_dirty_marks_transitive_ancestors_only(layout, powering):
 
 class Maintained:
     """keto_tpu's Registry-held engine and maintainer, and the port's
-    engine and maintainer over EngineRegistry, on equal stores."""
+    Registry-held engine and maintainer, on equal stores."""
 
     def __init__(self, layout, powering, **closure):
         tuples, self.owners = deep_tuples()
@@ -321,13 +323,13 @@ class Maintained:
         self.jax = self.reg.check_engine()
         self.jmaint = self.reg.closure_maintainer()
         self.reg.watch_hub()  # the write hooks live
-        tcfg = TConfig(cfg)
+        tcfg = TConfig({**cfg, "check": {"frontier_cap": 4096}})
         tcfg.set_namespaces(port_namespaces(deep_namespaces()))
-        self.tm = TMemory()
+        self.treg = TRegistry(tcfg, device="cpu", layout=layout)
+        self.tm = self.treg.relation_tuple_manager()
         self.tm.write_relation_tuples([TTuple.from_string(s) for s in tuples])
-        self.port = TorchCheckEngine(self.tm, tcfg, device="cpu", frontier_cap=4096,
-                                     layout=layout)
-        self.tmaint = ClosureMaintainer(EngineRegistry(self.tm, {self.port.nid: self.port}))
+        self.port = self.treg.check_engine()
+        self.tmaint = self.treg.closure_maintainer()
         self.oracle = TReference(self.tm, tcfg)
 
     def write(self, s):
@@ -606,19 +608,21 @@ def test_maintainer_listener_registered_once_over_restarts():
     tuples, owners = deep_tuples(n_chains=2)
     cfg = TConfig(config_dict())
     cfg.set_namespaces(port_namespaces(deep_namespaces()))
-    tm = TMemory()
+    registry = TRegistry(cfg, device="cpu")
+    tm = registry.relation_tuple_manager()
     tm.write_relation_tuples([TTuple.from_string(s) for s in tuples])
-    engine = TorchCheckEngine(tm, cfg, device="cpu")
-    maint = ClosureMaintainer(EngineRegistry(tm, {engine.nid: engine}), poll_interval=30)
-    assert tm._write_listeners == []
+    engine = registry.check_engine()
+    maint = ClosureMaintainer(registry, poll_interval=30)
+    # the registry's own listener (engine and cache pokes)
+    assert len(tm._write_listeners) == 1
     for _ in range(2):
         maint.start()
         maint.start()  # a second start is a no-op
         maint.stop()
-    assert len(tm._write_listeners) == 1
+    assert len(tm._write_listeners) == 2
     maint.start()
     try:
-        assert len(tm._write_listeners) == 1
+        assert len(tm._write_listeners) == 2
         engine.closure_ensure_built()
         passes = maint.stats["passes"]
         # a 30 s poll: only the write listener can wake the loop in time
@@ -639,19 +643,21 @@ def test_maintainer_listener_registered_once_over_restarts():
 
 
 def test_serve_runs_the_maintainer_with_the_closure_on():
-    from keto_tpu_torch.__main__ import Services
-
     tuples, owners = deep_tuples(n_chains=2)
     cfg = TConfig({**config_dict(), "serve": {"read": {"host": "127.0.0.1", "port": 0},
                                               "write": {"host": "127.0.0.1", "port": 0}}})
     cfg.set_namespaces(port_namespaces(deep_namespaces()))
-    tm = TMemory()
+    registry = TRegistry(cfg, device="cpu")
+    tm = registry.relation_tuple_manager()
     tm.write_relation_tuples([TTuple.from_string(s) for s in tuples])
-    services = Services(cfg, tm, "cpu")
+    # as `serve` does: the mirror and the index before the daemon
+    registry.check_engine().closure_ensure_built()
+    daemon = TDaemon(registry)
+    daemon.start()
     try:
-        maint = services.maintainer
+        maint = registry._closure_maintainer
         assert maint is not None and maint._thread.is_alive()
-        idx = services.engine.closure_index()
+        idx = registry.check_engine().closure_index()
         assert not idx.needs_rebuild()
         tm.write_relation_tuples([TTuple.from_string("deep:c1f9#owner@served")])
         deadline = time.monotonic() + 10
@@ -660,11 +666,13 @@ def test_serve_runs_the_maintainer_with_the_closure_on():
             time.sleep(0.02)
         assert idx.lag_versions(tm.version()) == 0 and idx.stats["refreshes"] == 1
     finally:
-        services.stop()
-    assert services.maintainer._thread is None
+        daemon.stop()
+    assert maint._thread is None
     off = TConfig({"serve": {"read": {"host": "127.0.0.1", "port": 0},
                              "write": {"host": "127.0.0.1", "port": 0}}})
     off.set_namespaces(port_namespaces(deep_namespaces()))
-    services = Services(off, TMemory(), "cpu")
-    services.stop()
-    assert services.maintainer is None
+    off_registry = TRegistry(off, device="cpu")
+    daemon = TDaemon(off_registry)
+    daemon.start()
+    daemon.stop()
+    assert off_registry._closure_maintainer is None

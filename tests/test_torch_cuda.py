@@ -27,8 +27,10 @@ and indices, M3's bins and M4's cluster on skewed draws, ragged sizes
 and M4's capacity, no memset in either, M5's one pass with F falling and
 rising on one and two streams and across its epoch's wrap, M6's one
 cooperative launch at its capacity, on two streams at once and replayed
-from a CUDA graph, one kernel a call. Tolerance: exact equality (every
-output is an integer, and M8's float32 add is one rounding either way).
+from a CUDA graph, one kernel a call; and 32 threads through the
+CheckBatcher over the engine on the card beside Expand and ListObjects.
+Tolerance: exact equality (every output is an integer, and M8's float32
+add is one rounding either way).
 
 These tests need an NVIDIA card and skip elsewhere; this file imports
 nothing of the JAX package, so it runs where JAX is not installed:
@@ -38,6 +40,7 @@ nothing of the JAX package, so it runs where JAX is not installed:
 
 import json
 import random
+import threading
 
 import numpy as np
 import pytest
@@ -2388,3 +2391,117 @@ def test_engine_after_writes_matches_cpu_on_card(cuda, layout, monkeypatch):
     assert len(outs["cuda"]) == len(outs["cpu"]) > 0
     for i, (g, w) in enumerate(zip(outs["cuda"], outs["cpu"])):
         assert torch.equal(g, w), i
+
+
+# -- the serving plane's threads over the engine on the card ----------------------------
+
+
+def batcher_threads_case(device, closure, n_threads=32):
+    """n_threads threads check every query of videos() through one
+    CheckBatcher (pipeline depth 2) over the Registry-held engine, while
+    one more thread runs Expand and ListObjects on the same engine.
+    Returns the engine's and the batcher's counts and the mismatches."""
+    from keto_tpu_torch.api.batcher import CheckBatcher
+    from keto_tpu_torch.config import Config
+    from keto_tpu_torch.ketoapi import SubjectSet
+    from keto_tpu_torch.registry import Registry
+
+    ns, tuples, queries, depth = videos()
+    cfg = Config({"limit": {"max_read_depth": depth}, "namespaces": ns,
+                  "closure": {"enabled": closure}})
+    registry = Registry(cfg, device=device)
+    registry.relation_tuple_manager().write_relation_tuples(
+        [RelationTuple.from_string(s) for s in tuples])
+    engine = registry.check_engine()
+    if closure:
+        assert engine.closure_ensure_built()
+    parsed = [RelationTuple.from_string(q) for q in queries]
+    # the single-threaded answers
+    want = [r.allowed for r in engine.check_batch(parsed)]
+    subject_sets = [SubjectSet("videos", f"/d{d}/v{d % 10}.mp4", "parent") for d in range(12)]
+    users = [f"user{u}" for u in range(20)]
+    want_trees = [engine.expand(s).to_dict() for s in subject_sets]
+    want_lists = [engine.list_objects("videos", "view", u)[0] for u in users]
+    version = registry.relation_tuple_manager().version()
+    before = dict(engine.stats)
+    batcher = CheckBatcher(engine, window_s=0.001, pipeline_depth=2)
+    bad, errors = [], []
+    stop = {"side": False}
+    side_calls = {"expand": 0, "list_objects": 0}
+
+    def checker(i):
+        try:
+            order = list(range(len(parsed)))
+            random.Random(i).shuffle(order)
+            for j in order:
+                res, v = batcher.check_versioned(parsed[j])
+                if res.allowed != want[j] or v != version:
+                    bad.append((i, queries[j], res.allowed, v))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    def side():
+        try:
+            k = 0
+            while not stop["side"]:
+                d, u = k % len(subject_sets), k % len(users)
+                if engine.expand(subject_sets[d]).to_dict() != want_trees[d]:
+                    bad.append(("expand", d))
+                side_calls["expand"] += 1
+                if engine.list_objects("videos", "view", users[u])[0] != want_lists[u]:
+                    bad.append(("list_objects", u))
+                side_calls["list_objects"] += 1
+                k += 1
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    side_thread = threading.Thread(target=side, daemon=True)
+    side_thread.start()
+    threads = [threading.Thread(target=checker, args=(i,), daemon=True)
+               for i in range(n_threads)]
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+    finally:
+        stop["side"] = True
+        side_thread.join(timeout=600)
+        batcher.close()
+        engine.stop_push_refresh()
+    after = engine.stats
+    return {
+        "errors": errors, "bad": bad, "batcher": batcher.stats, "side_calls": side_calls,
+        "checks": (after["device_checks"] + after["host_checks"])
+        - (before["device_checks"] + before["host_checks"]),
+        "expands": (after["device_expands"] + after["host_expands"])
+        - (before["device_expands"] + before["host_expands"]),
+        "list_objects": (after["device_list_objects"] + after["host_list_objects"])
+        - (before["device_list_objects"] + before["host_list_objects"]),
+        "closure_hits": after["closure_hits"] - before["closure_hits"],
+        "riders": n_threads * len(parsed),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("closure", [False, True], ids=["bfs", "closure"])
+def test_batcher_threads_over_the_card(cuda, closure):
+    """32 threads through the CheckBatcher at pipeline depth 2 over the
+    engine on the card, Expand and ListObjects on a thread beside them:
+    every verdict equals the single-threaded batch's at the store's
+    version, no failed batch, and the engine's counters
+    add up to what was asked of it (none lost to a race)."""
+    got = batcher_threads_case("cuda", closure)
+    assert not got["errors"], got["errors"]
+    assert not got["bad"], got["bad"][:5]
+    b = got["batcher"]
+    assert sum(b["check_batch_failed"].values()) == 0
+    assert sum(b["shed"].values()) == 0 and sum(b["deadline_exceeded"].values()) == 0
+    # every rider either rode a slot or coalesced onto one
+    assert b["batched_checks"] + b["coalesced"] == got["riders"]
+    # the engine counted each slot once, the side thread's calls once each
+    assert got["checks"] == b["batched_checks"]
+    assert got["expands"] == got["side_calls"]["expand"] > 0
+    assert got["list_objects"] == got["side_calls"]["list_objects"] > 0
+    if closure:
+        assert got["closure_hits"] > 0

@@ -57,6 +57,7 @@ from keto_tpu.storage import MemoryManager as JMemory
 
 import keto_tpu_torch.engine.expand_kernel as tek
 import keto_tpu_torch.engine.reverse_kernel as trk
+from keto_tpu_torch.api.daemon import make_batcher
 from keto_tpu_torch.api.rest_server import make_server
 from keto_tpu_torch.config import Config as TConfig
 from keto_tpu_torch.engine import delta as tdelta
@@ -67,6 +68,7 @@ from keto_tpu_torch.engine.torch_engine import TorchCheckEngine
 from keto_tpu_torch.errors import MalformedInputError
 from keto_tpu_torch.ketoapi import RelationTuple as TTuple
 from keto_tpu_torch.ketoapi import SubjectSet as TSubjectSet
+from keto_tpu_torch.registry import Registry as TRegistry
 from keto_tpu_torch.storage import MemoryManager as TMemory
 
 from test_torch_kernel import SCENARIOS as CHECK_SCENARIOS
@@ -709,12 +711,15 @@ def server():
     cfg.set_namespaces(port_namespaces(namespaces))
     tm = TMemory()
     tm.write_relation_tuples([TTuple.from_string(s) for s in tuples])
-    srv = make_server(TorchCheckEngine(tm, cfg, device="cpu"), "127.0.0.1", 0)
+    registry = TRegistry(cfg, device="cpu", manager=tm)
+    batcher = make_batcher(registry)
+    srv = make_server(registry, "127.0.0.1", 0, batcher)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     yield f"http://127.0.0.1:{srv.server_address[1]}"
     srv.shutdown()
     srv.server_close()
+    batcher.close()
 
 
 def _get(base, path, params):

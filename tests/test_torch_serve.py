@@ -20,11 +20,12 @@ from keto_tpu.ketoapi import RelationTuple as JTuple
 from keto_tpu.ketoapi import SubjectSet as JSubjectSet
 from keto_tpu.storage import MemoryManager as JMemory
 
+from keto_tpu_torch.api.daemon import make_batcher
 from keto_tpu_torch.api.rest_server import make_server
 from keto_tpu_torch.engine.snaptoken import encode_snaptoken
 from keto_tpu_torch.config import Config
-from keto_tpu_torch.engine.torch_engine import TorchCheckEngine
 from keto_tpu_torch.ketoapi import RelationTuple
+from keto_tpu_torch.registry import Registry
 from keto_tpu_torch.storage import MemoryManager
 
 from test_torch_filter import TUPLES as FILTER_TUPLES
@@ -76,7 +77,9 @@ def rewrite_server():
                   "namespaces": [ns.to_dict() for ns in namespaces]})
     m = MemoryManager()
     m.write_relation_tuples([RelationTuple.from_string(s) for s in tuples])
-    server = make_server(TorchCheckEngine(m, cfg, device="cpu"), "127.0.0.1", 0)
+    registry = Registry(cfg, device="cpu", manager=m)
+    batcher = make_batcher(registry)
+    server = make_server(registry, "127.0.0.1", 0, batcher)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     jcfg = JConfig({"limit": {"max_read_depth": max_depth}})
@@ -86,6 +89,7 @@ def rewrite_server():
     yield f"http://127.0.0.1:{server.server_address[1]}", queries, JReference(jm, jcfg)
     server.shutdown()
     server.server_close()
+    batcher.close()
 
 
 def test_check_routes_match_oracle(rewrite_server):
@@ -138,7 +142,9 @@ def videos_server():
                   "namespaces": [ns.to_dict() for ns in namespaces]})
     m = MemoryManager()
     m.write_relation_tuples([RelationTuple.from_string(s) for s in tuples])
-    server = make_server(TorchCheckEngine(m, cfg, device="cpu"), "127.0.0.1", 0)
+    registry = Registry(cfg, device="cpu", manager=m)
+    batcher = make_batcher(registry)
+    server = make_server(registry, "127.0.0.1", 0, batcher)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     jcfg = JConfig({"limit": {"max_read_depth": max_depth}})
@@ -148,6 +154,7 @@ def videos_server():
     yield f"http://127.0.0.1:{server.server_address[1]}", TPUCheckEngine(jm, jcfg)
     server.shutdown()
     server.server_close()
+    batcher.close()
 
 
 def _expand_params(subject_set, depth=None):
@@ -194,9 +201,11 @@ def filter_server():
     tcfg = Config({**cfg, "namespaces": [ns.to_dict() for ns in namespaces]})
     m = MemoryManager()
     m.write_relation_tuples([RelationTuple.from_string(s) for s in tuples])
-    engine = TorchCheckEngine(m, tcfg, device="cpu")
+    registry = Registry(tcfg, device="cpu", manager=m)
+    engine = registry.check_engine()
     assert engine.closure_ensure_built()
-    server = make_server(engine, "127.0.0.1", 0)
+    batcher = make_batcher(registry)
+    server = make_server(registry, "127.0.0.1", 0, batcher)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     jcfg = JConfig(cfg)
@@ -206,6 +215,7 @@ def filter_server():
     yield f"http://127.0.0.1:{server.server_address[1]}", TPUCheckEngine(jm, jcfg), engine
     server.shutdown()
     server.server_close()
+    batcher.close()
 
 
 FILTER_ROUTE = "/relation-tuples/filter"

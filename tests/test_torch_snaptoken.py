@@ -16,12 +16,13 @@ from keto_tpu.config import Config as JConfig
 from keto_tpu.ketoapi import RelationTuple as JTuple
 from keto_tpu.registry import Registry
 
+from keto_tpu_torch.api.daemon import make_batcher
 from keto_tpu_torch.api.rest_server import make_server
 from keto_tpu_torch.config import Config
 from keto_tpu_torch.engine import snaptoken
-from keto_tpu_torch.engine.torch_engine import TorchCheckEngine
 from keto_tpu_torch.errors import SnaptokenMalformedError, SnaptokenUnsatisfiableError
 from keto_tpu_torch.ketoapi import RelationTuple
+from keto_tpu_torch.registry import Registry as TRegistry
 from keto_tpu_torch.storage import MemoryManager
 
 
@@ -114,7 +115,9 @@ def servers():
     m = MemoryManager()
     m.write_relation_tuples([RelationTuple.from_string(s) for s in TUPLES])
     cfg = Config({"namespaces": NAMESPACES})
-    server = make_server(TorchCheckEngine(m, cfg, device="cpu"), "127.0.0.1", 0)
+    t_registry = TRegistry(cfg, device="cpu", manager=m)
+    batcher = make_batcher(t_registry)
+    server = make_server(t_registry, "127.0.0.1", 0, batcher)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     registry = Registry(JConfig({
@@ -135,6 +138,7 @@ def servers():
     daemon.stop()
     server.shutdown()
     server.server_close()
+    batcher.close()
 
 
 @pytest.mark.parametrize("token", sorted(TOKENS))

@@ -44,7 +44,9 @@ from keto_tpu.storage import MemoryManager as JMemory
 
 import keto_tpu_torch.engine.compact as tcompact
 import keto_tpu_torch.storage.memory as tmemory
+from keto_tpu_torch.api.daemon import make_batcher
 from keto_tpu_torch.api.rest_server import make_server, make_write_server
+from keto_tpu_torch.registry import Registry as TRegistry
 from keto_tpu_torch.config import Config as TConfig
 from keto_tpu_torch.engine import closure as tcl
 from keto_tpu_torch.engine.delta import DELTA_COMPACT_THRESHOLD
@@ -715,9 +717,12 @@ def daemons():
     tm.write_relation_tuples([TTuple.from_string(s) for s in base_tuples()])
     cfg = TConfig({"limit": {"max_read_depth": MAX_DEPTH}})
     cfg.set_namespaces(port_namespaces(namespaces()))
-    engine = TorchCheckEngine(tm, cfg, device="cpu")
-    tm.add_write_listener(lambda nid: engine.notify_write())
-    servers = [make_server(engine, "127.0.0.1", 0), make_write_server(engine, "127.0.0.1", 0)]
+    # the registry's store listener pokes the engine's refresh thread
+    t_registry = TRegistry(cfg, device="cpu", manager=tm)
+    engine = t_registry.check_engine()
+    batcher = make_batcher(t_registry)
+    servers = [make_server(t_registry, "127.0.0.1", 0, batcher),
+               make_write_server(t_registry, "127.0.0.1", 0)]
     for srv in servers:
         threading.Thread(target=srv.serve_forever, daemon=True).start()
     registry = Registry(JConfig({
@@ -736,10 +741,11 @@ def daemons():
     yield ((servers[0].server_address[1], servers[1].server_address[1]),
            (daemon.read_port, daemon.write_port), engine)
     daemon.stop()
-    engine.stop_push_refresh()
     for srv in servers:
         srv.shutdown()
         srv.server_close()
+    batcher.close()
+    engine.stop_push_refresh()
 
 
 T_NEW = {"namespace": "videos", "object": "/f7/v9", "relation": "owner", "subject_id": "rest"}
