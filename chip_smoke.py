@@ -159,6 +159,32 @@ Phases, in order; any failure exits non-zero without the final line:
                also at F = 2^20 (the row's "large" entry), where M3's
                bin and own passes are logged as its parts
 
+ 12. scale   — (run last, after phases 4-11's engines and stores are
+               released) tools/scale_bench.py's defaults: synth_columns
+               at 1e7 tuples (100,000 users) and synth_rbac_columns (1,000
+               roles), from keto_tpu_torch/tools/scale.py, bulk-loaded into
+               the ColumnarStore of a `dsn: columnar` Registry; (12a) the
+               columnar mirror build split into the encode (the native
+               unique_encode), the probe tables (the native builder; the
+               numpy rounds timed on the direct-edge keys as well, equal
+               table for table), the pack and upload, with the card's peak
+               memory and the process's peak RSS; (12b) batches of 4096
+               checks drawn by scale_bench's law (half owner hits): zero
+               host replays, every verdict equal to the construction's
+               ground truth, 32 equal to the oracle, K1-K4 launched, then
+               K1-K4 against their plain versions on one batch's inputs
+               (each row's "at" entry "scale_1e7"); (12c) batches of 256
+               RBAC roles at depth 4: zero host expands, 32 sampled trees
+               equal to the oracle's, X1, X2, K2 and K4 launched, X1 and
+               X2 against their plain versions; (12d) the reverse and
+               subjects states by the columnar builders (timed), one
+               ListObjects and one ListSubjects batch: zero host replays,
+               32 sampled answers of each equal to the generator's
+               ownership maps, L1-L4 against their plain versions; (12w)
+               a write of 128 ops into the overlay (the next batch holds
+               its verdicts), then 4,096 that compact the mirror over its
+               ArrayMap vocabularies (incremental_merges + 1, no rebuild)
+
 Before the last line it prints the kernel table as one JSON object
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
 A kernel's bound is the larger of its bytes over the H100 SXM's
@@ -251,6 +277,19 @@ LOAD_SECONDS = 8.0
 LOAD_DRAWS_PER_THREAD = 12_000
 HOT_SECONDS = 2.0
 HOT_QUERIES = 256
+# phase 12: tools/scale_bench.py's defaults (:119-127, :206, :244-248,
+# :299-308)
+SCALE_TUPLES = 10_000_000
+SCALE_USERS = 100_000
+SCALE_ROLES = 1_000
+SCALE_DEPTH = 5
+SCALE_EXPAND_BATCH = 256
+SCALE_EXPAND_DEPTH = 4
+SCALE_EXPAND_CAPS = dict(frontier_cap=8192, pool_cap=128 * SCALE_EXPAND_BATCH)
+SCALE_ROUNDS = 10
+SCALE_SAMPLES = 32
+SCALE_WRITE_SMALL = 128
+SCALE_WRITE_LARGE = 4096
 KERNEL_SOURCES = {
     "edge_probe": "keto_tpu_torch/csrc/check_kernels.cu",
     "pair_probe": "keto_tpu_torch/csrc/check_kernels.cu",
@@ -3180,6 +3219,494 @@ def run_microbench():
     return launches, rows, tools
 
 
+# -- phase 12: the scale tier --------------------------------------------------------
+
+
+def scale_namespaces():
+    from keto_tpu_torch.namespace import Namespace
+
+    return [videos_namespace(),
+            Namespace.from_dict({"name": "rbac", "relations": [{"name": "member"}]})]
+
+
+def scale_build(smi):
+    """12a: the data, the store behind a `dsn: columnar` Registry and the
+    columnar mirror, each stage timed; the numpy rounds against the native
+    builder on the direct-edge keys. Returns (engine, store, config,
+    generator draws, record)."""
+    import resource
+
+    import numpy as np
+    import torch
+
+    from keto_tpu_torch.config import Config
+    from keto_tpu_torch.engine import snapshot as tsnap
+    from keto_tpu_torch.engine.torch_engine import TorchCheckEngine
+    from keto_tpu_torch.registry import Registry
+    from keto_tpu_torch.storage.columnar import ColumnarStore
+    from keto_tpu_torch.storage.columns import concat_columns
+    from keto_tpu_torch.tools.scale import synth_columns, synth_rbac_columns
+
+    phase(f"12a scale data: synth_columns({SCALE_TUPLES}, n_users={SCALE_USERS}, seed=7) + "
+          f"synth_rbac_columns({SCALE_ROLES}, {SCALE_USERS}) into a dsn: columnar Registry")
+    rec = {"card": smi}
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    cols, f_names, owners, files_per = synth_columns(SCALE_TUPLES, SCALE_USERS, seed=7)
+    cols = concat_columns([cols, synth_rbac_columns(SCALE_ROLES, SCALE_USERS)])
+    rec["generate_s"] = time.perf_counter() - t
+    rec["tuples"] = len(cols)
+    rec["column_bytes"] = cols.nbytes()
+    config = Config({"dsn": "columnar", "limit": {"max_read_depth": SCALE_DEPTH}})
+    config.set_namespaces(scale_namespaces())
+    store = Registry(config).relation_tuple_manager()
+    if not isinstance(store, ColumnarStore):
+        raise AssertionError(f"dsn columnar gave a {type(store).__name__}")
+    t = time.perf_counter()
+    store.bulk_load(cols)
+    rec["ingest_s"] = time.perf_counter() - t
+    del cols
+    gc.collect()
+    log(f"  {rec['tuples']} tuples ({rec['column_bytes'] / 1e9:.2f} GB of columns): generate "
+        f"{rec['generate_s']:.1f} s, ingest (bulk_load, native dedupe) {rec['ingest_s']:.1f} s")
+
+    engine = TorchCheckEngine(store, config, device="cuda",
+                              frontier_cap=max(1 << 14, 2 * BATCH))
+    t = time.perf_counter()
+    state = engine.ensure_state()
+    torch.cuda.synchronize()
+    rec["mirror_s"] = time.perf_counter() - t
+    rec.update(engine.last_build)  # encode_s, probe_tables_s, pack_upload_s
+    snap = state.snapshot
+    if not isinstance(snap.obj_slots, tsnap.ArrayMap) or engine.stats["snapshot_builds"] != 1:
+        raise AssertionError("the mirror did not build by the columnar builder")
+    nbytes = engine.tables_nbytes()
+    rec["table_bytes"] = sum(nbytes.values())
+    rec["dh_probes"], rec["rh_probes"] = snap.dh_probes, snap.rh_probes
+    rec["objects"], rec["subjects"] = len(snap.obj_slots), len(snap.subj_ids)
+    rec["card_peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["host_peak_rss_bytes"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    log(f"  mirror {rec['mirror_s']:.1f} s: encode {rec['encode_s']:.1f} s, probe tables "
+        f"{rec['probe_tables_s']:.1f} s, pack + upload {rec['pack_upload_s']:.1f} s; "
+        f"{rec['objects']} object slots, {rec['subjects']} subjects (ArrayMaps); dh_probes "
+        f"{snap.dh_probes}, rh_probes {snap.rh_probes}")
+    log(f"  device tables {rec['table_bytes'] / 1e9:.3f} GB; card peak "
+        f"{rec['card_peak_bytes'] / 1e9:.3f} GB; host peak RSS "
+        f"{rec['host_peak_rss_bytes'] / 1e9:.2f} GB")
+    # the direct-edge table once more from the store's columns, through
+    # both builders: each equals the table the mirror holds
+    *edges, keep = tsnap.encode_edge_columns(store.all_tuple_columns(), snap)
+    if not keep.all():
+        raise AssertionError(f"{int((~keep).sum())} rows missing from the base vocabulary")
+    edges, ones = tuple(edges), np.ones(len(keep), dtype=np.int32)
+    del keep
+    t = time.perf_counter()
+    got = tsnap._build_hash_table(edges, ones, snap.layout)
+    rec["dh_native_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    want = tsnap._build_hash_table_plain(edges, ones, snap.layout)
+    rec["dh_numpy_s"] = time.perf_counter() - t
+    held = (snap.dh_obj, snap.dh_rel, snap.dh_skind, snap.dh_sa, snap.dh_sb, snap.dh_val)
+    for name, table in (("native", got), ("numpy rounds'", want)):
+        if table[-1] != snap.dh_probes or any(
+                not np.array_equal(a, b) for a, b in zip(table[:-1], held)):
+            raise AssertionError(f"the {name} direct-edge table differs from the mirror's")
+    del got, want, edges, ones
+    log(f"  direct-edge table of {len(snap.dh_val)} slots: native {rec['dh_native_s']:.2f} s, "
+        f"numpy rounds {rec['dh_numpy_s']:.2f} s, both equal to the mirror's")
+    draws = {"f_names": f_names, "owners": owners, "files_per": files_per}
+    return engine, store, config, draws, rec
+
+
+def scale_checks(draws):
+    """tools/scale_bench.py:244-248's batch: half owner hits, seed 11,
+    and its ground truth; then the expand roles drawn from the same
+    generator (:301-303)."""
+    import numpy as np
+
+    from keto_tpu_torch.ketoapi import RelationTuple, SubjectSet
+
+    rng = np.random.default_rng(11)
+    f_names, owners = draws["f_names"], draws["owners"]
+    fi = rng.integers(0, len(f_names), BATCH)
+    vi = rng.integers(0, draws["files_per"], BATCH)
+    hit = rng.random(BATCH) < 0.5
+    subs = np.where(hit, owners[fi], np.char.add("nobody", fi.astype("U10")))
+    queries = [RelationTuple("videos", f"{f_names[fi[i]]}/v{vi[i]}", "view",
+                             subject_id=str(subs[i])) for i in range(BATCH)]
+    roles = rng.integers(0, SCALE_ROLES, SCALE_EXPAND_BATCH)
+    subjects = [SubjectSet("rbac", f"role{int(r)}", "member") for r in roles]
+    return queries, [bool(h) for h in hit], subjects
+
+
+def scale_kernel_entry(case, note, shape=None):
+    row = time_kernel(*case)
+    return {**{k: row[k] for k in LARGE_KEYS if k != "note"}, "note": note, **(shape or {})}
+
+
+def check_index_limit(engine):
+    """The 32-bit indices of the kernels (cuda_ops.INDEX_LIMIT) at 1e7:
+    the CSR edge counts, the table rows and the list frontiers."""
+    from keto_tpu_torch.engine import cuda_ops
+
+    state = engine.ensure_state()
+    sizes = {"e_obj": len(state.snapshot.e_obj), "dh slots": len(state.snapshot.dh_val)}
+    if state.expand_np is not None:
+        sizes["f_sa"] = len(state.expand_np["f_sa"])
+    if state.reverse_np is not None:
+        sizes.update(rv_pobj=len(state.reverse_np["rv_pobj"]),
+                     rs_obj=len(state.reverse_np["rs_obj"]))
+        S = 1 + state.reverse_np["RK"]
+        sizes["ListObjects F*S"] = LO_CAPS["frontier_cap"] * S
+    over = {k: v for k, v in sizes.items() if v >= cuda_ops.INDEX_LIMIT}
+    if over:
+        raise AssertionError(f"past the kernels' 32-bit index limit at 1e7: {over}")
+    return sizes
+
+
+def scale_check(engine, store, config, queries, truth):
+    """12b: the check batch on the main path once, its launches, zero
+    host replays, the ground truth, 32 verdicts against the oracle, the
+    rate and p50; then K1-K4 on one batch's captured inputs."""
+    import torch
+
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+
+    t0 = phase(f"12b scale check: batches of {BATCH} on the main path over 1e7 tuples")
+    cuda_ops.reset_launch_counts()
+    before = dict(engine.stats)
+    results = engine.check_batch(queries, SCALE_DEPTH)  # the main path, once
+    torch.cuda.synchronize()
+    launches = dict(cuda_ops.launches)
+    if engine.stats["host_checks"] != before["host_checks"]:
+        raise AssertionError(f"{engine.stats['host_checks'] - before['host_checks']} host "
+                             "replays on the 1e7 batch")
+    missing = [k for k in cuda_ops.CHECK_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the 1e7 check path: {missing}")
+    wrong = [i for i, (r, w) in enumerate(zip(results, truth)) if r.allowed != w]
+    if wrong:
+        raise AssertionError(f"{len(wrong)} of {BATCH} verdicts differ from the ground truth")
+    t1 = time.perf_counter()
+    handles = []
+    for _ in range(SCALE_ROUNDS):
+        handles.append(engine.check_batch_submit(queries, SCALE_DEPTH))
+        if len(handles) > 8:
+            engine.check_batch_resolve(handles.pop(0))
+    for h in handles:
+        engine.check_batch_resolve(h)
+    torch.cuda.synchronize()
+    qps = SCALE_ROUNDS * BATCH / (time.perf_counter() - t1)
+    lat = []
+    for _ in range(9):
+        s = time.perf_counter()
+        engine.check_batch(queries, SCALE_DEPTH)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - s) * 1e3)
+    if engine.stats["host_checks"] != before["host_checks"]:
+        raise AssertionError("host replays during the timed 1e7 rounds")
+    oracle = ReferenceEngine(store, config)
+    t = time.perf_counter()
+    sample = random.Random(7).sample(range(BATCH), SCALE_SAMPLES)
+    bad = [i for i in sample
+           if oracle.check_relation_tuple(queries[i], SCALE_DEPTH).allowed != results[i].allowed]
+    if bad:
+        raise AssertionError(f"{len(bad)} of {SCALE_SAMPLES} sampled verdicts differ from the "
+                             "oracle")
+    t_oracle = time.perf_counter() - t
+    log(f"  launches on the main path: {launches}")
+    log(f"  {sum(truth)} allowed of {BATCH}, all equal to the ground truth; {SCALE_SAMPLES} "
+        f"sampled equal the oracle ({t_oracle:.1f} s); zero host replays")
+    log(f"  throughput {qps:.1f} checks/s ({SCALE_ROUNDS} batches of {BATCH}); p50 batch "
+        f"{statistics.median(lat):.2f} ms (min {min(lat):.2f}, max {max(lat):.2f})")
+
+    with Recorder(cuda_ops, step=1) as rec:
+        engine.check_batch(queries, SCALE_DEPTH)
+    cases, k2_shape = kernel_cases(rec)
+    at = [(case[0], "scale_1e7", scale_kernel_entry(
+        case, "one 1e7 check batch, step 1", k2_shape if case[0] == "pair_probe" else None))
+        for case in cases]
+    log(f"  K2 at 1e7: {k2_shape}")
+    log(f"  scale check phase {time.perf_counter() - t0:.1f} s")
+    return launches, at, {"checks_per_s": qps, "p50_batch_ms": statistics.median(lat),
+                          "batch_ms": lat, "allowed": sum(truth), "oracle_s": t_oracle}
+
+
+def scale_expand(engine, store, config, subjects):
+    """12c: the RBAC expand batch on the main path once, zero host
+    expands, 32 sampled trees against the oracle's, the rate and p50;
+    then X1 and X2 on its captured inputs."""
+    import torch
+
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+
+    t0 = phase(f"12c scale expand: batches of {SCALE_EXPAND_BATCH} RBAC roles at depth "
+               f"{SCALE_EXPAND_DEPTH}")
+    t = time.perf_counter()
+    engine.ensure_expand_state()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    cuda_ops.reset_launch_counts()
+    before = engine.stats["host_expands"]
+    trees = engine.expand_batch(subjects, SCALE_EXPAND_DEPTH, **SCALE_EXPAND_CAPS)
+    torch.cuda.synchronize()
+    launches = dict(cuda_ops.launches)
+    if engine.stats["host_expands"] != before:
+        raise AssertionError(f"{engine.stats['host_expands'] - before} host expands at 1e7")
+    missing = [k for k in ("pair_probe", "dedupe_compact", *cuda_ops.EXPAND_KERNELS)
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the 1e7 expand path: {missing}")
+    lat = []
+    for _ in range(SCALE_ROUNDS):
+        s = time.perf_counter()
+        engine.expand_batch(subjects, SCALE_EXPAND_DEPTH, **SCALE_EXPAND_CAPS)
+        lat.append((time.perf_counter() - s) * 1e3)
+    if engine.stats["host_expands"] != before:
+        raise AssertionError("host expands during the timed 1e7 rounds")
+    oracle = ReferenceEngine(store, config)
+    t = time.perf_counter()
+    sample = random.Random(11).sample(range(len(subjects)), SCALE_SAMPLES)
+    bad = [i for i in sample if normalize(trees[i]) != normalize(
+        oracle.expand(subjects[i], SCALE_EXPAND_DEPTH))]
+    if bad:
+        raise AssertionError(f"{len(bad)} of {SCALE_SAMPLES} sampled trees differ from the oracle")
+    t_oracle = time.perf_counter() - t
+    nodes = [tree_size(tr) for tr in trees]
+    log(f"  full-edge CSR by the columnar builder + upload {build_s:.1f} s; tables "
+        f"{sum(engine.tables_nbytes('expand').values()) / 1e9:.3f} GB")
+    log(f"  launches on the main path: {launches}; {SCALE_SAMPLES} sampled trees equal the "
+        f"oracle ({t_oracle:.1f} s); mean tree {sum(nodes) / len(nodes):.1f} nodes")
+    log(f"  throughput {SCALE_ROUNDS * len(subjects) / (sum(lat) / 1e3):.1f} trees/s; p50 batch "
+        f"{statistics.median(lat):.2f} ms")
+    with Recorder(cuda_ops, step=1) as rec:
+        engine.expand_batch(subjects, SCALE_EXPAND_DEPTH, **SCALE_EXPAND_CAPS)
+    at = [(case[0], "scale_1e7", scale_kernel_entry(
+        case, "one 1e7 expand batch, step 1 (X1), its tail (X2)"))
+        for case in expand_kernel_cases(rec)]
+    log(f"  scale expand phase {time.perf_counter() - t0:.1f} s")
+    return launches, at, {"build_upload_s": build_s, "trees_per_s":
+                          SCALE_ROUNDS * len(subjects) / (sum(lat) / 1e3),
+                          "p50_batch_ms": statistics.median(lat), "batch_ms": lat,
+                          "mean_tree_nodes": sum(nodes) / len(nodes), "oracle_s": t_oracle}
+
+
+def scale_lists(engine, draws):
+    """12d: the reverse and subjects states by the columnar builders, one
+    ListObjects batch (256 owners' view) and one ListSubjects batch (256
+    files' view) on the main path, zero host replays, 32 sampled answers
+    of each equal to the generator's ownership maps; L1-L4 on their
+    captured inputs."""
+    import numpy as np
+    import torch
+
+    from keto_tpu_torch.engine import cuda_ops
+
+    t0 = phase("12d scale lists: the columnar reverse and subjects states, one ListObjects "
+               f"and one ListSubjects batch of {LIST_BATCH}")
+    out = {}
+    for path, ensure in (("reverse", engine.ensure_reverse_state),
+                         ("subjects", engine.ensure_subjects_state)):
+        t = time.perf_counter()
+        ensure()
+        torch.cuda.synchronize()
+        out[f"{path}_build_upload_s"] = time.perf_counter() - t
+        out[f"{path}_table_bytes"] = sum(engine.tables_nbytes(path).values())
+        log(f"  {path} state: build + upload {out[f'{path}_build_upload_s']:.1f} s, tables "
+            f"{out[f'{path}_table_bytes'] / 1e9:.3f} GB")
+    f_names, owners, files_per = draws["f_names"], draws["owners"], draws["files_per"]
+    rng = random.Random(12)
+    users = [str(owners[rng.randrange(len(owners))]) for _ in range(LIST_BATCH)]
+    folders = [rng.randrange(len(f_names)) for _ in range(LIST_BATCH)]
+    lo = [("videos", "view", u) for u in users]
+    ls = [("videos", f"{f_names[d]}/v{rng.randrange(files_per)}", "view") for d in folders]
+
+    def owned(user):
+        ds = f_names[owners == user]
+        return sorted([str(d) for d in ds] + [f"{d}/v{k}" for d in ds for k in range(files_per)])
+
+    legs = {}
+    for leg, queries, caps, want_kernels, expected in (
+            ("objects", lo, LO_CAPS, ("pair_probe", "dedupe_compact", "list_emit",
+                                      "reverse_gather", "list_pool_compact"),
+             lambda i: owned(users[i])),
+            ("subjects", ls, LS_CAPS, ("pair_probe", "dedupe_compact", "list_emit",
+                                       "subjects_gather", "list_pool_compact"),
+             lambda i: [str(owners[folders[i]])])):
+        batch = getattr(engine, f"list_{leg}_batch")
+        host_key = f"host_list_{leg}"
+        cuda_ops.reset_launch_counts()
+        before = engine.stats[host_key]
+        t = time.perf_counter()
+        results = batch(queries, LIST_DEPTH, **caps)  # the main path, once
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t) * 1e3
+        launches = dict(cuda_ops.launches)
+        if engine.stats[host_key] != before:
+            raise AssertionError(f"host replays on the 1e7 list_{leg} batch")
+        missing = [k for k in want_kernels if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the 1e7 list_{leg} path: {missing}")
+        sample = random.Random(13).sample(range(len(queries)), SCALE_SAMPLES)
+        bad = [i for i in sample if results[i] != expected(i)]
+        if bad:
+            raise AssertionError(f"{len(bad)} of {SCALE_SAMPLES} sampled list_{leg} answers "
+                                 "differ from the ownership maps")
+        sizes = [len(r) for r in results]
+        legs[leg] = {"launches": launches, "batch_ms": batch_ms,
+                     "mean_results": sum(sizes) / len(sizes), "max_results": max(sizes)}
+        log(f"  list_{leg}: launches {launches}; batch {batch_ms:.1f} ms; mean "
+            f"{legs[leg]['mean_results']:.1f} results (max {max(sizes)}); {SCALE_SAMPLES} "
+            "sampled equal the ownership maps; zero host replays")
+    with Recorder(cuda_ops, step=1, steps={"list_emit": 2}) as rec_lo:
+        engine.list_objects_batch(lo, LIST_DEPTH, **LO_CAPS)
+    with Recorder(cuda_ops, step=1) as rec_ls:
+        engine.list_subjects_batch(ls, LIST_DEPTH, **LS_CAPS)
+    notes = {"list_emit": "one 1e7 ListObjects batch, step 2",
+             "reverse_gather": "one 1e7 ListObjects batch, step 1",
+             "subjects_gather": "one 1e7 ListSubjects batch, step 1",
+             "list_pool_compact": "one 1e7 ListObjects batch's tail"}
+    at = [(case[0], "scale_1e7", scale_kernel_entry(case, notes[case[0]]))
+          for case in list_kernel_cases(rec_lo, rec_ls)]
+    at.append(("list_pool_compact", "scale_1e7_list_subjects", scale_kernel_entry(
+        list_pool_case(*rec_ls.args("list_pool_compact")), "one 1e7 ListSubjects batch's tail")))
+    log(f"  scale lists phase {time.perf_counter() - t0:.1f} s")
+    return legs, at, out
+
+
+def scale_write(engine, store, queries, truth, draws):
+    """12w: SCALE_WRITE_SMALL owner grants and revocations fold into the
+    overlay and the next batch holds their verdicts; SCALE_WRITE_LARGE
+    new files and owners compact the mirror over its ArrayMaps."""
+    import torch
+
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine import snapshot as tsnap
+    from keto_tpu_torch.ketoapi import RelationTuple, SubjectSet
+
+    t0 = phase(f"12w scale write: {SCALE_WRITE_SMALL} ops into the overlay, then "
+               f"{SCALE_WRITE_LARGE} into a compacted base")
+    f_names, owners = draws["f_names"], draws["owners"]
+    rng = random.Random(14)
+    picks = rng.sample(range(len(f_names)), SCALE_WRITE_SMALL)
+    grants, revokes, probe, want = [], [], [], []
+    for k, d in enumerate(picks):
+        folder = str(f_names[d])
+        if k % 2:
+            grants.append(RelationTuple("videos", folder, "owner", subject_id=f"w{k}"))
+            probe.append(RelationTuple("videos", f"{folder}/v1", "view", subject_id=f"w{k}"))
+            want.append(True)
+        else:
+            revokes.append(RelationTuple("videos", folder, "owner", subject_id=str(owners[d])))
+            probe.append(RelationTuple("videos", f"{folder}/v1", "view",
+                                       subject_id=str(owners[d])))
+            want.append(False)
+    revoked = {q.object for q in revokes}
+    base_want = [w and q.object.rsplit("/", 1)[0] not in revoked for q, w in zip(queries, truth)]
+    before = dict(engine.stats)
+    t = time.perf_counter()
+    store.transact_relation_tuples(grants, revokes)
+    t_store = time.perf_counter() - t
+    t = time.perf_counter()
+    state = engine.ensure_state()
+    torch.cuda.synchronize()
+    t_refresh = time.perf_counter() - t
+    if not state.has_delta or engine.stats["snapshot_builds"] != before["snapshot_builds"]:
+        raise AssertionError("the 1e7 write did not fold into the overlay")
+    cuda_ops.reset_launch_counts()
+    t = time.perf_counter()
+    results = engine.check_batch(queries + probe, SCALE_DEPTH)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t
+    launches = dict(cuda_ops.launches)
+    checked = queries + probe
+    wrong = [(str(checked[i]), w) for i, (r, w) in enumerate(zip(results, base_want + want))
+             if r.allowed != w]
+    if wrong:
+        raise AssertionError(f"{len(wrong)} verdicts after the 1e7 write differ from the ground "
+                             f"truth: {wrong[:8]}")
+    replays = engine.stats["host_checks"] - before["host_checks"]
+    log(f"  {len(grants)} grants + {len(revokes)} revocations: store {t_store * 1e3:.1f} ms, "
+        f"delta refresh {t_refresh * 1e3:.1f} ms; next batch ({len(results)} checks) "
+        f"{t_batch * 1e3:.1f} ms, {replays} host replays, every verdict equal to the ground "
+        f"truth; launches {launches}")
+
+    merges, builds = engine.stats["incremental_merges"], engine.stats["snapshot_builds"]
+    big, probe2 = [], []
+    for i in range(SCALE_WRITE_LARGE // 2):
+        d = rng.randrange(len(f_names))
+        folder, obj = str(f_names[d]), f"{f_names[d]}/x{i}"
+        big.append(RelationTuple("videos", obj, "parent",
+                                 subject_set=SubjectSet("videos", folder, "...")))
+        big.append(RelationTuple("videos", obj, "owner", subject_id=f"x{i}"))
+        if i < 64:
+            probe2.append(RelationTuple("videos", obj, "view", subject_id=f"x{i}"))
+    t = time.perf_counter()
+    store.write_relation_tuples(big)
+    t_store2 = time.perf_counter() - t
+    t = time.perf_counter()
+    merged = engine.ensure_state()
+    torch.cuda.synchronize()
+    t_compact = time.perf_counter() - t
+    if engine.stats["incremental_merges"] != merges + 1 or \
+            engine.stats["snapshot_builds"] != builds or merged.has_delta:
+        raise AssertionError(f"the 1e7 write did not compact: {engine.stats}")
+    if not isinstance(merged.snapshot.obj_slots, tsnap.ArrayMap):
+        raise AssertionError("the compacted vocabulary is no ArrayMap")
+    before = dict(engine.stats)
+    t = time.perf_counter()
+    results = engine.check_batch(queries + probe2, SCALE_DEPTH)
+    torch.cuda.synchronize()
+    t_after = time.perf_counter() - t
+    if engine.stats["host_checks"] != before["host_checks"]:
+        raise AssertionError("host replays on the compacted 1e7 base")
+    wrong = [i for i, (r, w) in enumerate(zip(results, base_want + [True] * len(probe2)))
+             if r.allowed != w]
+    if wrong:
+        raise AssertionError(f"{len(wrong)} verdicts after the 1e7 compaction differ")
+    snap = merged.snapshot
+    log(f"  {len(big)} ops: store {t_store2:.2f} s (the write buffer folds into the columns), "
+        f"compaction {t_compact:.2f} s (no rebuild; incremental_merges "
+        f"{engine.stats['incremental_merges']}); next batch {t_after * 1e3:.1f} ms, zero host "
+        f"replays, every verdict equal to the ground truth; dh_probes {snap.dh_probes}, "
+        f"merge_garbage {snap.merge_garbage}")
+    log(f"  scale write phase {time.perf_counter() - t0:.1f} s")
+    return launches, {"small_ops": len(grants) + len(revokes), "store_ms": t_store * 1e3,
+                      "delta_refresh_ms": t_refresh * 1e3, "next_batch_ms": t_batch * 1e3,
+                      "host_replays": replays, "large_ops": len(big), "store_large_s": t_store2,
+                      "compaction_s": t_compact, "next_batch_after_compaction_ms": t_after * 1e3}
+
+
+def run_scale(smi):
+    """Phase 12 on its own engine and store: returns (launches by path,
+    (kernel row, "at" key, entry) triples, the record)."""
+    import resource
+
+    import torch
+
+    engine, store, config, draws, rec = scale_build(smi)
+    queries, truth, subjects = scale_checks(draws)
+    c_launches, at, rec["check"] = scale_check(engine, store, config, queries, truth)
+    x_launches, x_at, rec["expand"] = scale_expand(engine, store, config, subjects)
+    legs, l_at, rec["lists"] = scale_lists(engine, draws)
+    at += x_at + l_at
+    rec["index_sizes"] = check_index_limit(engine)
+    log(f"  32-bit indices at 1e7: {rec['index_sizes']} (limit 2^31)")
+    w_launches, rec["write"] = scale_write(engine, store, queries, truth, draws)
+    rec["card_peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["host_peak_rss_bytes"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    log(f"  phase 12 peaks: card {rec['card_peak_bytes'] / 1e9:.3f} GB, host RSS "
+        f"{rec['host_peak_rss_bytes'] / 1e9:.2f} GB")
+    by_path = {"scale_check": c_launches, "scale_expand": x_launches,
+               "scale_list_objects": legs["objects"]["launches"],
+               "scale_list_subjects": legs["subjects"]["launches"], "scale_write": w_launches}
+    engine.stop_push_refresh()
+    return by_path, at, rec
+
+
+
 def main() -> int:
     import torch
 
@@ -3313,12 +3840,27 @@ def main() -> int:
     del c1_dirty
     m_launches, m_rows, tools = run_microbench()
     rows += m_rows
+    # phase 12 loads its own 1e7-tuple store: release phases 4-11's
+    # engines, stores and captured tensors first
+    for e in (engine, x_engine, d_engine):
+        e.stop_push_refresh()
+    n_tuples = snap.n_tuples
+    del engine, manager, state, snap, rstate, x_engine, x_manager, d_engine, d_manager
+    del rec_c, rec_f, rec_fc, f1_case, searchsorted, case, args2, kw2, owners, d_owners
+    gc.unfreeze()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"== released phases 4-11: {torch.cuda.memory_allocated() / 1e9:.3f} GB still "
+        "allocated on the card")
+    sc_by_path, sc_at, scale = run_scale(smi)
+    for name, key, entry in sc_at:
+        next(row for row in rows if row["name"] == name).setdefault("at", {})[key] = entry
     by_path = {"check": launches, "check_write": w_launches, "serve": s_launches,
                "expand": x_launches,
                "list_objects": lo_launches,
                "list_subjects": ls_launches, "closure_build": b_launches, "closure": c_launches,
                "closure_write": cw_launches, "closure_refresh": cr_launches,
-               "filter": f_launches, "microbench": m_launches}
+               "filter": f_launches, "microbench": m_launches, **sc_by_path}
     # each kernel's count on its own path: check for K1-K4, expand for X1
     # and X2, ListObjects for L1, L2 and L4, ListSubjects for L3, closure
     # for C1, filter for F1, closure_build for P1-P3, microbench for
@@ -3335,7 +3877,7 @@ def main() -> int:
         row["launches"] = by_path[own.get(row["name"], "check")][row["name"]]
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in by_path.items()}
 
-    log(json.dumps({"check": {**check, "card": smi, "tuples": snap.n_tuples,
+    log(json.dumps({"check": {**check, "card": smi, "tuples": n_tuples,
                               "device_table_bytes": sum(nbytes.values()),
                               "profile": profile}}))
     log(json.dumps({"write": {**write, "card": smi}}))
@@ -3347,6 +3889,7 @@ def main() -> int:
     log(json.dumps({"closure": {**d_info, **closure, "powering": powering, "card": smi}}))
     log(json.dumps({"filter": {**filt, "card": smi}}))
     log(json.dumps({"microbench": {**tools, "card": smi}}))
+    log(json.dumps({"scale": scale}))
     log(f"profile windows whose records were not whole launches: {PROFILE_WINDOWS['short']} of "
         f"{PROFILE_WINDOWS['timed']}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

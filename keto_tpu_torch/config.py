@@ -23,8 +23,10 @@ preparation and R·D product outweigh the waves),
 carry, 65536).
 
 The serving plane's keys, with the JAX package's defaults: `dsn` (the
-store; "memory", the only one so far), `check.engine` ("torch", the
-device engine, or "host", the exact host oracle alone),
+store: "memory", the object store, or "columnar", the numpy-column store
+of the scale tier, whose mirror builds by the columnar builders),
+`check.engine` ("torch", the device engine, or "host", the exact host
+oracle alone),
 `check.pipeline_depth` (the batcher's resolve threads, 2),
 `check.batch_window_ms` (how long the collector tops a batch up, 2.0),
 `check.cache.enabled` (true), `check.cache.max_entries` (65536) and

@@ -62,6 +62,7 @@ from .snapshot import (
     INSTR_TTU,
     GraphSnapshot,
     _build_hash_table,
+    vocab_by_id,
 )
 
 # fixed-shape dirty-node table; probed DELTA_PROBES deep
@@ -1054,11 +1055,20 @@ class ClosureIndex:
             ns_names.update({v: k for k, v in overlay.ns_ids.items()})
         want = set(int(s) for s in slots)
         out: dict[int, tuple[str, str]] = {}
-        maps = [base.obj_slots] + ([overlay.obj_slots] if overlay is not None else [])
-        for obj_slots in maps:
-            for (ns_id, obj_name), slot in obj_slots.items():
-                if slot in want and ns_names.get(int(ns_id)) is not None:
-                    out[int(slot)] = (ns_names[int(ns_id)], obj_name)
+
+        def take(ns_id, obj_name, slot):
+            if ns_names.get(int(ns_id)) is not None:
+                out[int(slot)] = (ns_names[int(ns_id)], obj_name)
+
+        base_by_id = vocab_by_id(base.obj_slots)
+        for slot in want:
+            key = base_by_id.get(slot)
+            if key is not None:
+                take(*key, slot)
+        if overlay is not None:
+            for (ns_id, obj_name), slot in overlay.obj_slots.items():
+                if slot in want:
+                    take(ns_id, obj_name, slot)
         return out if len(out) == len(want) else None
 
     def _region_content(self, manager, encoder, dirty_objs: dict, budget_objs: int):

@@ -18,7 +18,8 @@ construction over every edge):
     engine rebuilds in full.
   - vocabularies: names first seen in the ops take ids after the base's,
     exactly as the delta overlay gives them, so existing encodings stay
-    valid. Only dict vocabularies are supported.
+    valid: a dict vocabulary is copied and updated, an ArrayMap merges
+    them in sorted with the base's ids kept.
 
 Every table keeps the snapshot's layout (snapshot.layout). The merge
 answers None, and the caller rebuilds, when the op batch is too large a
@@ -46,6 +47,7 @@ from .snapshot import (
     mix32,
     probe_slot,
     slots_per_bucket,
+    vocab_merged,
 )
 
 # merge only while the op batch is a small fraction of the graph: past
@@ -241,15 +243,6 @@ def encode_ops(snapshot: GraphSnapshot, ops: Sequence[tuple[str, RelationTuple]]
     return enc, is_insert, overlay
 
 
-def _merged_vocab(mapping: dict, new_items: dict) -> dict:
-    """The base vocabulary with the ops' names appended."""
-    if not new_items:
-        return mapping
-    out = dict(mapping)
-    out.update(new_items)
-    return out
-
-
 def _per_row(rows: np.ndarray, ins: np.ndarray, key, payload) -> dict:
     """(row key) -> {"ins": [payloads], "del": {payloads}} of deduplicated
     ops, in op order: a later op on the same payload overrides."""
@@ -334,10 +327,10 @@ def merge_ops_into_snapshot(snapshot: GraphSnapshot, ops: Sequence[tuple[str, Re
     # exactness, and they measure occupancy directly
     n_tuples = snapshot.n_tuples + int(ins_u.sum()) - int((~ins_u).sum())
     merged = GraphSnapshot(
-        ns_ids=_merged_vocab(snapshot.ns_ids, overlay.ns_ids),
-        rel_ids=_merged_vocab(snapshot.rel_ids, overlay.rel_ids),
-        obj_slots=_merged_vocab(snapshot.obj_slots, overlay.obj_slots),
-        subj_ids=_merged_vocab(snapshot.subj_ids, overlay.subj_ids),
+        ns_ids=vocab_merged(snapshot.ns_ids, overlay.ns_ids),
+        rel_ids=vocab_merged(snapshot.rel_ids, overlay.rel_ids),
+        obj_slots=vocab_merged(snapshot.obj_slots, overlay.obj_slots),
+        subj_ids=vocab_merged(snapshot.subj_ids, overlay.subj_ids),
         n_config_rels=snapshot.n_config_rels,
         wildcard_rel=snapshot.wildcard_rel,
         layout=layout,

@@ -46,7 +46,13 @@ from .kernel import (
     tables_from_numpy,
     update_launch_stats,
 )
-from .snapshot import EMPTY, GraphSnapshot, group_rows_csr, slots_per_bucket
+from .snapshot import (
+    EMPTY,
+    GraphSnapshot,
+    group_rows_csr,
+    slots_per_bucket,
+    vocab_by_id,
+)
 
 EXPAND_TABLE_KEYS = ("fh_pack", "f_row_ptr", "f_skind", "f_sa", "f_sb", "dirty_pack")
 # edge slots one step may emit, per frontier task
@@ -85,6 +91,27 @@ def full_csr_from_encoded(t_obj, t_rel, t_skind, t_sa, t_sb, *, layout: str) -> 
         "fh_obj": fh_obj, "fh_rel": fh_rel, "fh_row": fh_row, "fh_probes": fh_probes,
         "f_row_ptr": row_ptr, "f_skind": f_skind, "f_sa": f_sa, "f_sb": f_sb,
     }
+
+
+def columnar_subject_order(cols, keep):
+    """The rows of `keep` in a columnar CSR's within-row child order: the
+    store's identity-key order restricted to the subject fields (the
+    (ns, obj, rel) prefix is constant within a row), which is the host
+    oracle's paged read order, so device trees list children as it does."""
+    k = np.flatnonzero(np.asarray(keep))
+    return k[np.lexsort((cols.srel[k], cols.sobj[k], cols.sns[k], np.asarray(cols.skind)[k]))]
+
+
+def build_full_csr_columnar(cols, snapshot: GraphSnapshot) -> dict:
+    """build_full_csr from TupleColumns: the edges encoded under the
+    snapshot's base vocabulary, vectorised (snapshot.encode_edge_columns),
+    with no RelationTuple object on the way."""
+    from .snapshot import encode_edge_columns
+
+    t_obj, t_rel, t_skind, t_sa, t_sb, keep = encode_edge_columns(cols, snapshot)
+    order = columnar_subject_order(cols, keep)
+    return full_csr_from_encoded(t_obj[order], t_rel[order], t_skind[order], t_sa[order],
+                                 t_sb[order], layout=snapshot.layout)
 
 
 def pack_expand_tables(csr: dict, delta: Optional[dict] = None) -> dict[str, np.ndarray]:
@@ -358,6 +385,11 @@ class _ChainLookup:
         return v
 
 
+# the decoder's memos stop growing here: they cover a serving hot set
+# without a scan of a 1e7 vocabulary turning into its reverse dict
+_DECODER_MEMO_CAP = 200_000
+
+
 class ExpandDecoder:
     """Reverse vocabularies that decode device ids back to names, with
     memos of the decoded subject sets (tree assembly resolves the same hot
@@ -370,8 +402,8 @@ class ExpandDecoder:
         if snapshot is not None:
             self.ns_names = {v: k for k, v in snapshot.ns_ids.items()}
             self.rel_names = {v: k for k, v in snapshot.rel_ids.items()}
-            self.slot_to_obj = {v: k for k, v in snapshot.obj_slots.items()}
-            self.subj_names = {v: k for k, v in snapshot.subj_ids.items()}
+            self.slot_to_obj = vocab_by_id(snapshot.obj_slots)
+            self.subj_names = vocab_by_id(snapshot.subj_ids)
 
     def extended(self, overlay) -> "ExpandDecoder":
         """This decoder with a VocabOverlay's names added, in O(overlay):
@@ -393,14 +425,16 @@ class ExpandDecoder:
             ns_id, obj = self.slot_to_obj[obj_slot]
             ss = SubjectSet(namespace=self.ns_names[ns_id], object=obj,
                             relation=self.rel_names[rel])
-            self._ss_memo[key] = ss
+            if len(self._ss_memo) < _DECODER_MEMO_CAP:
+                self._ss_memo[key] = ss
         return ss
 
     def subject_name(self, subj_id: int) -> str:
         name = self._subj_memo.get(subj_id)
         if name is None:
             name = self.subj_names[subj_id]
-            self._subj_memo[subj_id] = name
+            if len(self._subj_memo) < _DECODER_MEMO_CAP:
+                self._subj_memo[subj_id] = name
         return name
 
 

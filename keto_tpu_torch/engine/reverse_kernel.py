@@ -113,6 +113,18 @@ def build_reverse_state(tuples: Sequence, snapshot: GraphSnapshot, namespaces,
     return _reverse_state_from_encoded(*cols[:, keep], snapshot, namespaces)
 
 
+def build_reverse_state_columnar(cols, snapshot: GraphSnapshot, namespaces) -> dict:
+    """build_reverse_state from TupleColumns: the edges encoded under the
+    snapshot's base vocabulary, vectorised (snapshot.encode_edge_columns),
+    in the store's row order."""
+    from .snapshot import encode_edge_columns
+
+    t_obj, t_rel, t_skind, t_sa, t_sb, keep = encode_edge_columns(cols, snapshot)
+    k = np.flatnonzero(keep)
+    return _reverse_state_from_encoded(t_obj[k], t_rel[k], t_skind[k], t_sa[k], t_sb[k],
+                                       snapshot, namespaces)
+
+
 def _reverse_state_from_encoded(t_obj, t_rel, t_skind, t_sa, t_sb,
                                 snapshot: GraphSnapshot, namespaces) -> dict:
     state = build_reverse_tables(t_obj, t_rel, t_skind, t_sa, t_sb, snapshot.layout)

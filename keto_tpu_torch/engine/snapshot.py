@@ -23,13 +23,15 @@ package's, so both packages build the same tables from the same tuples.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
 from ..ketoapi import RelationTuple
 from ..namespace import ast
+from ..native import build_probe_table, sorted_unique_encode
 from ..namespace.definitions import Namespace
 from .definitions import WILDCARD_RELATION
 
@@ -133,13 +135,12 @@ def table_capacity(n: int, layout: str, min_capacity: int = 64) -> int:
     return cap
 
 
-def _build_hash_table(
-    keys: tuple[np.ndarray, ...], values: np.ndarray, layout: str,
-    min_capacity: int = 64, boost_load: bool = True,
-) -> tuple[np.ndarray, ...]:
-    """Open-addressing table built in probe rounds: per round, the lowest
-    pending index wins each contended free slot and the losers advance
-    one probe. Returns (key column arrays..., value array, probe_limit)."""
+def _hash_table(keys, values, layout, min_capacity, boost_load, build) -> tuple[np.ndarray, ...]:
+    """The capacity, the hashes and the grow-and-retry loop the native and
+    the plain builders share; `build(h1, h2, keys, values, cap, empty, spb)`
+    fills one table ((key columns, values, probe limit), a limit below 1
+    when a key needs more than 64 rounds: the table doubles and builds
+    again)."""
     n = len(values)
     cap = (
         table_capacity(n, layout, min_capacity)
@@ -150,42 +151,70 @@ def _build_hash_table(
     h1 = hash_combine(*keys)
     h2 = mix32(h1 ^ _GOLDEN) | np.uint32(1)  # odd stride, pow2 table
     while True:
-        table_keys = [np.full(cap, EMPTY, dtype=np.int32) for _ in keys]
-        table_vals = np.full(cap, EMPTY, dtype=np.int32)
-        pending = np.arange(n)
-        probe = np.zeros(n, dtype=np.uint32)
-        max_probes = 0
-        while len(pending):
-            max_probes += 1
-            if max_probes > 64:
-                break  # extremely clustered: grow and retry
-            slots = probe_slot(h1[pending], h2[pending], probe[pending], cap, spb)
-            if max_probes == 1:
-                free = np.ones(len(pending), dtype=bool)
-            else:
-                free = table_vals[slots] == EMPTY
-            order = np.argsort(slots[free], kind="stable")
-            free_idx = pending[free][order]
-            free_slots = slots[free][order]
-            if len(free_slots):
-                first = np.concatenate(
-                    [[0], np.flatnonzero(free_slots[1:] != free_slots[:-1]) + 1]
-                )
-            else:
-                first = np.array([], dtype=np.int64)
-            uniq_slots = free_slots[first]
-            winners = free_idx[first]
-            table_vals[uniq_slots] = values[winners]
-            for col, key in zip(table_keys, keys):
-                col[uniq_slots] = key[winners]
-            placed = np.zeros(n, dtype=bool)
-            placed[winners] = True
-            lost = pending[~placed[pending]]
-            probe[lost] += 1
-            pending = lost
-        if not len(pending):
-            return (*table_keys, table_vals, max(max_probes, 1))
+        cols, vals, max_probes = build(h1, h2, keys, values, cap, int(EMPTY), spb)
+        if max_probes >= 1:
+            return (*cols, vals, max_probes)
         cap *= 2
+
+
+def _build_hash_table(
+    keys: tuple[np.ndarray, ...], values: np.ndarray, layout: str,
+    min_capacity: int = 64, boost_load: bool = True,
+) -> tuple[np.ndarray, ...]:
+    """Open-addressing table built in probe rounds: per round, the lowest
+    pending index wins each contended free slot and the losers advance
+    one probe. Returns (key column arrays..., value array, probe_limit).
+    Built by the native builder (keto_tpu_torch/native), which gives the
+    numpy rounds' tables (_build_hash_table_plain) bit for bit."""
+    return _hash_table(keys, values, layout, min_capacity, boost_load, build_probe_table)
+
+
+def _build_hash_table_plain(
+    keys: tuple[np.ndarray, ...], values: np.ndarray, layout: str,
+    min_capacity: int = 64, boost_load: bool = True,
+) -> tuple[np.ndarray, ...]:
+    """The numpy rounds _build_hash_table's native builder stands for:
+    the plain version the tests hold it to."""
+    return _hash_table(keys, values, layout, min_capacity, boost_load, _probe_rounds)
+
+
+def _probe_rounds(h1, h2, keys, values, cap, empty, spb):
+    """One table of the numpy rounds, build_probe_table's signature."""
+    n = len(values)
+    table_keys = [np.full(cap, empty, dtype=np.int32) for _ in keys]
+    table_vals = np.full(cap, empty, dtype=np.int32)
+    pending = np.arange(n)
+    probe = np.zeros(n, dtype=np.uint32)
+    max_probes = 0
+    while len(pending):
+        max_probes += 1
+        if max_probes > 64:
+            return table_keys, table_vals, -1  # extremely clustered: grow and retry
+        slots = probe_slot(h1[pending], h2[pending], probe[pending], cap, spb)
+        if max_probes == 1:
+            free = np.ones(len(pending), dtype=bool)
+        else:
+            free = table_vals[slots] == empty
+        order = np.argsort(slots[free], kind="stable")
+        free_idx = pending[free][order]
+        free_slots = slots[free][order]
+        if len(free_slots):
+            first = np.concatenate(
+                [[0], np.flatnonzero(free_slots[1:] != free_slots[:-1]) + 1]
+            )
+        else:
+            first = np.array([], dtype=np.int64)
+        uniq_slots = free_slots[first]
+        winners = free_idx[first]
+        table_vals[uniq_slots] = values[winners]
+        for col, key in zip(table_keys, keys):
+            col[uniq_slots] = key[winners]
+        placed = np.zeros(n, dtype=bool)
+        placed[winners] = True
+        lost = pending[~placed[pending]]
+        probe[lost] += 1
+        pending = lost
+    return table_keys, table_vals, max(max_probes, 1)
 
 
 def encode_edge_arrays(tuples, ns_ids, rel_ids, obj_slots, subj_ids):
@@ -263,12 +292,243 @@ def build_edge_tables(t_obj, t_rel, t_skind, t_sa, t_sb, layout: str) -> dict:
     }
 
 
+# -- the columnar vocabularies ---------------------------------------------------
+
+_SEP = "\x1f"
+
+
+class ArrayMap:
+    """A vocabulary as a sorted key array: the columnar builder's object
+    slots and subject ids, where a dict of 1e7 entries would cost GBs and
+    seconds of insertion. `get` is one searchsorted; without `values` an
+    id is the key's sorted position. `encode` / `decode` adapt composite
+    keys ((ns_id, obj) <-> "ns_id\\x1fobj"). The dict surface the engine
+    reads: get, in, len, items.
+
+    Keys are unicode (U) or UTF-8 bytes (S); the columnar builder stores
+    S (a quarter of U's bytes, memcmp order), and UTF-8 byte order is
+    code-point order, so both sort alike. The str <-> bytes adaptation
+    happens here, at a lookup."""
+
+    def __init__(self, sorted_keys: np.ndarray, encode=None, decode=None, values=None):
+        self._keys = sorted_keys
+        self._is_bytes = sorted_keys.dtype.kind == "S"
+        # characters (U) or bytes (S) a key holds at most
+        self._width = sorted_keys.dtype.itemsize // (1 if self._is_bytes else 4)
+        self._values = values
+        self._by_id: Optional[np.ndarray] = None  # id -> raw key, built lazily
+        self._encode = encode or (lambda k: k)
+        self._decode = decode or (lambda s: s)
+
+    def keys_by_id_array(self) -> np.ndarray:
+        """Raw keys ordered by id (one inverse permutation, cached)."""
+        if self._by_id is None:
+            if self._values is None:
+                self._by_id = self._keys
+            else:
+                inv = np.empty(len(self._keys), dtype=np.int64)
+                inv[np.asarray(self._values, dtype=np.int64)] = np.arange(
+                    len(self._keys), dtype=np.int64)
+                self._by_id = self._keys[inv]
+        return self._by_id
+
+    def _raw_to_str(self, raw) -> str:
+        return bytes(raw).decode("utf-8") if self._is_bytes else str(raw)
+
+    def key_by_id(self, i: int):
+        """The decoded key of one id."""
+        return self._decode(self._raw_to_str(self.keys_by_id_array()[i]))
+
+    def get(self, key, default=None):
+        k = self._encode(key)
+        if self._is_bytes:
+            k = k.encode("utf-8")
+        # a key longer than the array's width is in no entry; searchsorted
+        # would first widen the whole key array to its width
+        if len(k) > self._width or len(self._keys) == 0:
+            return default
+        i = int(np.searchsorted(self._keys, k))
+        if i < len(self._keys) and self._keys[i] == k:
+            return int(self._values[i]) if self._values is not None else i
+        return default
+
+    def __contains__(self, key) -> bool:
+        return self.get(key) is not None
+
+    def __len__(self) -> int:
+        return len(self._keys)
+
+    def items(self):
+        for i, k in enumerate(self._keys):
+            v = int(self._values[i]) if self._values is not None else i
+            yield self._decode(self._raw_to_str(k)), v
+
+    def merged_with(self, new_items: dict) -> "ArrayMap":
+        """A new ArrayMap with `new_items` (decoded key -> id) inserted.
+        Existing ids are kept, so the merged map carries an explicit value
+        array (a sorted position is no longer an id): the incremental
+        compaction's vocabulary (engine/compact.py)."""
+        if not new_items:
+            return self
+        enc = [self._encode(k) for k in new_items]
+        if self._is_bytes:
+            new_keys = np.array([e.encode("utf-8") for e in enc], dtype="S")
+        else:
+            new_keys = np.array(enc, dtype="U")
+        new_vals = np.fromiter(new_items.values(), dtype=np.int64, count=len(new_items))
+        order = np.argsort(new_keys)
+        new_keys, new_vals = new_keys[order], new_vals[order]
+        base_keys = self._keys
+        # np.insert truncates values longer than the array's itemsize:
+        # widen first
+        if new_keys.dtype.itemsize > base_keys.dtype.itemsize:
+            base_keys = base_keys.astype(new_keys.dtype)
+        else:
+            new_keys = new_keys.astype(base_keys.dtype)
+        base_vals = (np.arange(len(base_keys), dtype=np.int64) if self._values is None
+                     else np.asarray(self._values, dtype=np.int64))
+        pos = np.searchsorted(base_keys, new_keys)
+        return ArrayMap(np.insert(base_keys, pos, new_keys), encode=self._encode,
+                        decode=self._decode, values=np.insert(base_vals, pos, new_vals))
+
+
+class _ArrayIdLookup:
+    """id -> decoded key over an ArrayMap, without a reverse dict: at 1e7
+    slots inverting into a Python dict costs GBs and minutes."""
+
+    __slots__ = ("_amap",)
+
+    def __init__(self, amap: ArrayMap):
+        self._amap = amap
+
+    def __getitem__(self, i):
+        return self._amap.key_by_id(int(i))
+
+    def get(self, i, default=None):
+        i = int(i)
+        return self._amap.key_by_id(i) if 0 <= i < len(self._amap) else default
+
+
+def vocab_by_id(mapping):
+    """id -> key of a vocabulary (a dict or an ArrayMap): indexable, with
+    `get`. An ArrayMap answers from its key array, a dict is inverted."""
+    if isinstance(mapping, ArrayMap):
+        return _ArrayIdLookup(mapping)
+    return {v: k for k, v in mapping.items()}
+
+
+def vocab_merged(mapping, new_items: dict):
+    """The vocabulary with `new_items` (key -> id) appended and the base's
+    ids kept: a dict copies and updates, an ArrayMap merges them in sorted
+    (ArrayMap.merged_with)."""
+    if not new_items:
+        return mapping
+    if isinstance(mapping, ArrayMap):
+        return mapping.merged_with(new_items)
+    out = dict(mapping)
+    out.update(new_items)
+    return out
+
+
+def _encode_obj_key(key) -> str:
+    ns_id, obj = key
+    return f"{ns_id}{_SEP}{obj}"
+
+
+def _decode_obj_key(s: str):
+    ns, _, obj = s.partition(_SEP)
+    return (int(ns), obj)
+
+
+def _compose_keys(ns_ids_arr: np.ndarray, objs: np.ndarray) -> np.ndarray:
+    """Unicode "%d\\x1f%s" composite keys (an ns id holds no separator,
+    so the first one delimits)."""
+    return np.char.add(np.char.add(ns_ids_arr.astype("U11"), _SEP), objs.astype("U"))
+
+
+def _compose_keys_bytes(ns_ids_arr: np.ndarray, objs: np.ndarray) -> np.ndarray:
+    """The composite keys of _compose_keys as UTF-8 bytes (S), assembled
+    by slice assignment into one uint8 buffer a distinct ns id (namespaces
+    are few) in place of np.char.add's per-element passes."""
+    n = len(objs)
+    if n == 0:
+        return np.array([], dtype="S1")
+    obj_s = _encode_utf8(objs)
+    ow = obj_s.dtype.itemsize
+    ids = np.asarray(ns_ids_arr, dtype=np.int64)
+    uniq = np.unique(ids)
+    if len(uniq) > 256:  # many namespaces: one pass beats a slice a namespace
+        return np.char.add(np.char.add(ids.astype("S11"), _SEP.encode()), obj_s)
+    prefixes = {int(u): f"{int(u)}{_SEP}".encode() for u in uniq}
+    total = max(len(p) for p in prefixes.values()) + ow
+    buf = np.zeros((n, total), dtype=np.uint8)
+    ob = np.ascontiguousarray(obj_s).view(np.uint8).reshape(n, ow)
+    for u, p in prefixes.items():
+        rows = np.flatnonzero(ids == u)
+        pw = len(p)
+        buf[rows, :pw] = np.frombuffer(p, dtype=np.uint8)
+        buf[rows, pw: pw + ow] = ob[rows]
+    return buf.view(f"S{total}").ravel()
+
+
+def _encode_utf8(arr: np.ndarray) -> np.ndarray:
+    """U -> S (UTF-8). An all-ASCII array narrows by one cast (a U array
+    is UCS-4, and an ASCII code point is its UTF-8 byte); anything else
+    goes through np.char.encode. Trailing NULs pad as np.char.encode's."""
+    if arr.dtype.kind != "U":
+        arr = arr.astype("U")
+    n = len(arr)
+    if n == 0:
+        return np.array([], dtype="S1")
+    w = arr.dtype.itemsize // 4
+    cp = np.ascontiguousarray(arr).view(np.uint32).reshape(n, w)
+    if cp.max(initial=0) < 128:
+        return np.ascontiguousarray(cp.astype(np.uint8)).view(f"S{w}").ravel()
+    return np.char.encode(arr, "utf-8")
+
+
+def _queries_like(keys: np.ndarray, queries_u: np.ndarray) -> np.ndarray:
+    """A U query array in the key array's dtype: numpy compares S with U
+    elementwise False without an error, so a missed conversion would
+    drop every row silently."""
+    return _encode_utf8(queries_u) if keys.dtype.kind == "S" else queries_u
+
+
+def _compose_keys_like(keys: np.ndarray, ns_ids_arr: np.ndarray, objs: np.ndarray) -> np.ndarray:
+    """Composite queries in the key array's dtype."""
+    if keys.dtype.kind == "S":
+        return _compose_keys_bytes(ns_ids_arr, objs)
+    return _compose_keys(ns_ids_arr, objs)
+
+
+def _sorted_lookup(keys_sorted, vals_sorted, queries, default=-1):
+    """queries -> values by binary search; vals_sorted None means the
+    value is the sorted position (ArrayMap's columnar form)."""
+    n = len(keys_sorted)
+    if n == 0:
+        return np.full(len(queries), default, dtype=np.int32)
+    fits = True
+    if queries.dtype.itemsize > keys_sorted.dtype.itemsize:
+        # searchsorted would widen every key to the queries' width: cut
+        # the queries to the keys' width instead, and let no query longer
+        # than every key match
+        width = keys_sorted.dtype.itemsize // (4 if keys_sorted.dtype.kind == "U" else 1)
+        fits = np.char.str_len(queries) <= width
+        queries = queries.astype(keys_sorted.dtype)
+    idx = np.clip(np.searchsorted(keys_sorted, queries), 0, n - 1)
+    ok = (keys_sorted[idx] == queries) & fits
+    vals = idx if vals_sorted is None else vals_sorted[idx]
+    return np.where(ok, vals, default).astype(np.int32)
+
+
 @dataclass
 class GraphSnapshot:
     """Immutable host mirror of one network's relation graph."""
 
     ns_ids: dict[str, int]
     rel_ids: dict[str, int]
+    # the big vocabularies: dicts from build_snapshot, ArrayMaps from
+    # build_snapshot_columnar (the same get / in / len / items)
     obj_slots: dict  # (ns_id, object) -> slot
     subj_ids: dict  # plain subject string -> id
     n_config_rels: int  # rel ids < this may have rewrite programs
@@ -311,6 +571,9 @@ class GraphSnapshot:
     # CSR edges an incremental compaction left behind when it rewrote
     # their rows at the tail (engine/compact.py)
     merge_garbage: int = 0
+    # _map_sorted_arrays of each vocabulary, built at the first vectorised
+    # encode (the snapshot is immutable)
+    _vocab_cache: dict = field(default_factory=dict, repr=False, compare=False)
 
     def device_arrays(self) -> dict[str, np.ndarray]:
         """The columnar arrays the kernel's packed tables are made from."""
@@ -688,13 +951,265 @@ def build_snapshot(
     )
 
 
+def columnar_encode(cols, namespaces: Sequence[Namespace], *, layout: str, K: int = 8,
+                    version: int = 0) -> tuple[GraphSnapshot, tuple[np.ndarray, ...]]:
+    """The columnar vocabulary build and edge encoding: every per-tuple
+    step a numpy primitive or the native encoder, no Python loop over
+    tuples. `cols` is a storage.columns.TupleColumns. Ids are sorted-unique
+    ranks where build_snapshot gives insertion order (ids never leave the
+    engine); the object slots and subject ids become ArrayMaps.
+
+    Returns (a snapshot with empty edge tables, the encoded edges (t_obj,
+    t_rel, t_skind, t_sa, t_sb)), as the JAX package's columnar_encode."""
+    check_layout(layout)
+    ns_ids: dict[str, int] = {}
+    rel_ids: dict[str, int] = {}
+    _register_config_vocab(
+        namespaces,
+        lambda name: ns_ids.setdefault(name, len(ns_ids)),
+        lambda name: rel_ids.setdefault(name, len(rel_ids)),
+    )
+    n_config_rels = len(rel_ids)
+
+    is_set = cols.skind == 1
+    n_t = len(cols)
+
+    # data namespaces and relations join the small dicts in sorted order,
+    # every row factorised by one sorted-unique encode a name family
+    def factorize(d: dict, own: np.ndarray, sub: np.ndarray):
+        uniq, _, codes = sorted_unique_encode(_encode_utf8(np.concatenate([own, sub[is_set]])))
+        for name in uniq:
+            d.setdefault(name.decode("utf-8"), len(d))
+        rank_to_id = np.array([d[name.decode("utf-8")] for name in uniq], dtype=np.int32)
+        own_ids = rank_to_id[codes[: len(own)]]
+        sub_ids = np.zeros(len(sub), dtype=np.int32)
+        sub_ids[is_set] = rank_to_id[codes[len(own):]]
+        return own_ids, sub_ids
+
+    t_ns, s_ns = factorize(ns_ids, cols.ns, cols.sns)
+    t_rel, s_rel = factorize(rel_ids, cols.rel, cols.srel)
+
+    # object slots: the sorted-unique composite (ns_id, object) keys, in
+    # UTF-8 bytes; a slot is its key's sorted position
+    own_keys = _compose_keys_bytes(t_ns, cols.obj)
+    set_keys = _compose_keys_bytes(s_ns[is_set], cols.sobj[is_set])
+    all_keys = np.concatenate([own_keys, set_keys])
+    all_ns = np.concatenate([t_ns, s_ns[is_set]])
+    if len(all_keys):
+        uniq_keys, first_idx, all_codes = sorted_unique_encode(all_keys)
+    else:
+        uniq_keys, first_idx, all_codes = (np.array([], dtype="S1"),
+                                           np.array([], dtype=np.int64),
+                                           np.array([], dtype=np.int32))
+    obj_slots = ArrayMap(uniq_keys, encode=_encode_obj_key, decode=_decode_obj_key)
+    t_obj = all_codes[: len(own_keys)]
+    sa_set = all_codes[len(own_keys):]
+
+    plain = ~is_set
+    if plain.any():
+        subj_keys, _, sa_plain = sorted_unique_encode(_encode_utf8(cols.sobj[plain]))
+    else:
+        subj_keys, sa_plain = np.array([], "S1"), np.array([], dtype=np.int32)
+    subj_ids = ArrayMap(subj_keys)
+
+    t_skind = cols.skind.astype(np.int32)
+    t_sa = np.zeros(n_t, dtype=np.int32)
+    t_sb = np.zeros(n_t, dtype=np.int32)
+    t_sa[is_set] = sa_set
+    t_sb[is_set] = s_rel[is_set]
+    t_sa[plain] = sa_plain
+
+    n_ns = max(len(ns_ids), 1)
+    objslot_ns = np.zeros(pad_headroom(max(len(uniq_keys), 1)), dtype=np.int32)
+    if len(uniq_keys):
+        objslot_ns[: len(uniq_keys)] = all_ns[first_idx]
+    ns_has_config = np.zeros(pad_headroom(n_ns, 64), dtype=np.int32)
+    for ns in namespaces:
+        if ns.relations:
+            ns_has_config[ns_ids[ns.name]] = 1
+
+    (
+        instr_kind, instr_rel, instr_rel2, prog_flags, K_eff, island_circuits,
+    ) = _build_programs(namespaces, ns_ids, rel_ids, n_config_rels, n_ns, K)
+    z = np.zeros(0, dtype=np.int32)
+    snap = _snapshot_with_tables(
+        build_edge_tables(z, z, z, z, z, layout=layout),
+        ns_ids=ns_ids, rel_ids=rel_ids, obj_slots=obj_slots, subj_ids=subj_ids,
+        n_config_rels=n_config_rels, wildcard_rel=rel_ids[WILDCARD_RELATION], layout=layout,
+        objslot_ns=objslot_ns, ns_has_config=ns_has_config,
+        instr_kind=instr_kind, instr_rel=instr_rel, instr_rel2=instr_rel2,
+        prog_flags=prog_flags, K=K_eff, island_circuits=island_circuits,
+        version=version, n_tuples=n_t,
+    )
+    return snap, (t_obj, t_rel, t_skind, t_sa, t_sb)
+
+
+_TABLE_KEYS = ("dh_obj", "dh_rel", "dh_skind", "dh_sa", "dh_sb", "dh_val", "dh_probes",
+               "rh_obj", "rh_rel", "rh_row", "rh_probes", "row_ptr", "e_obj", "e_rel")
+
+
+def _snapshot_with_tables(tables: dict, **fields) -> GraphSnapshot:
+    return GraphSnapshot(**fields, **{k: tables[k] for k in _TABLE_KEYS})
+
+
+def build_snapshot_columnar(cols, namespaces: Sequence[Namespace], *, layout: str, K: int = 8,
+                            version: int = 0, split: Optional[dict] = None) -> GraphSnapshot:
+    """build_snapshot from TupleColumns: the vectorised vocabulary build
+    and encoding (columnar_encode), then one set of edge tables. `split`,
+    when given, receives the seconds of each (encode_s, probe_tables_s)."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    snap, edges = columnar_encode(cols, namespaces, layout=layout, K=K, version=version)
+    t1 = time.perf_counter()
+    tables = build_edge_tables(*edges, layout=layout)
+    if split is not None:
+        split.update(encode_s=t1 - t0, probe_tables_s=time.perf_counter() - t1)
+    return dataclasses.replace(snap, **{k: tables[k] for k in _TABLE_KEYS})
+
+
+def _map_sorted_arrays(mapping, composite: bool = False):
+    """(sorted keys, values) of a vocabulary dict or ArrayMap for
+    _sorted_lookup; `composite` writes (ns_id, object) dict keys in the
+    ArrayMap's "ns\\x1fobj" form. An ArrayMap without values gives None
+    (the value is the sorted position)."""
+    if isinstance(mapping, ArrayMap):
+        vals = None if mapping._values is None else np.asarray(mapping._values, dtype=np.int64)
+        return mapping._keys, vals
+    if composite:
+        items = [(f"{ns}{_SEP}{obj}", v) for (ns, obj), v in mapping.items()]
+    else:
+        items = list(mapping.items())
+    if not items:
+        return np.array([], dtype="U1"), np.array([], dtype=np.int64)
+    keys = np.array([k for k, _ in items], dtype="U")
+    vals = np.array([v for _, v in items], dtype=np.int64)
+    order = np.argsort(keys)
+    return keys[order], vals[order]
+
+
+def _vocab_arrays(snap: GraphSnapshot, name: str, mapping, composite=False):
+    """_map_sorted_arrays of one vocabulary, cached on the snapshot."""
+    cached = snap._vocab_cache.get(name)
+    if cached is None:
+        cached = _map_sorted_arrays(mapping, composite=composite)
+        snap._vocab_cache[name] = cached
+    return cached
+
+
+def _lookup_name_columns(snap: GraphSnapshot, ns_a, obj_a, rel_a, is_set, sns_a, sobj_a, srel_a):
+    """Base-vocabulary lookups over U name columns. An unknown namespace
+    composes to "-1\\x1f...", which matches nothing. Returns (t_ns, t_rel,
+    t_obj, s_ns, s_rel, s_slot, sid), int32, -1 where the base lacks it."""
+    ns_keys, ns_vals = _vocab_arrays(snap, "ns", snap.ns_ids)
+    rel_keys, rel_vals = _vocab_arrays(snap, "rel", snap.rel_ids)
+    obj_keys, obj_vals = _vocab_arrays(snap, "obj", snap.obj_slots, True)
+    subj_keys, subj_vals = _vocab_arrays(snap, "subj", snap.subj_ids)
+
+    t_ns = _sorted_lookup(ns_keys, ns_vals, ns_a)
+    t_rel = _sorted_lookup(rel_keys, rel_vals, rel_a)
+    t_obj = _sorted_lookup(obj_keys, obj_vals, _compose_keys_like(obj_keys, t_ns, obj_a))
+    s_ns = np.where(is_set, _sorted_lookup(ns_keys, ns_vals, sns_a), -1)
+    s_rel = np.where(is_set, _sorted_lookup(rel_keys, rel_vals, srel_a), -1)
+    s_slot = _sorted_lookup(obj_keys, obj_vals, _compose_keys_like(obj_keys, s_ns, sobj_a))
+    sid = _sorted_lookup(subj_keys, subj_vals, _queries_like(subj_keys, sobj_a))
+    return t_ns, t_rel, t_obj, s_ns, s_rel, s_slot, sid
+
+
+def encode_edge_columns(cols, snapshot: GraphSnapshot):
+    """(t_obj, t_rel, t_skind, t_sa, t_sb, keep) of TupleColumns under a
+    snapshot's base vocabulary, vectorised. A row with a name the base
+    does not know drops (keep False): a tuple written after the base rides
+    the overlay, and its row is dirty, which sends the queries that reach
+    it to the host oracle whatever the CSR holds."""
+    is_set = np.asarray(cols.skind) == 1
+    _, t_rel, t_obj, _, s_rel, s_slot, sa_plain = _lookup_name_columns(
+        snapshot, cols.ns.astype("U"), cols.obj, cols.rel.astype("U"),
+        is_set, cols.sns.astype("U"), cols.sobj, cols.srel.astype("U"),
+    )
+    t_skind = np.asarray(cols.skind, dtype=np.int32)
+    t_sa = np.where(is_set, s_slot, sa_plain).astype(np.int32)
+    t_sb = np.where(is_set, np.maximum(s_rel, 0), 0).astype(np.int32)
+    subject_ok = np.where(is_set, (s_slot != -1) & (s_rel != -1), sa_plain != -1)
+    keep = (t_obj != -1) & (t_rel != -1) & subject_ok
+    return t_obj, t_rel, t_skind, t_sa, t_sb, keep
+
+
+def _encode_nodes(view, ns_l, obj_l, rel_l, present):
+    """(slot, rel, valid) of n (namespace, object, relation) nodes: the
+    base lookups vectorised, then the overlay's small dicts for the nodes
+    the base lacks."""
+    snap = view.snapshot
+    ns_keys, ns_vals = _vocab_arrays(snap, "ns", snap.ns_ids)
+    rel_keys, rel_vals = _vocab_arrays(snap, "rel", snap.rel_ids)
+    obj_keys, obj_vals = _vocab_arrays(snap, "obj", snap.obj_slots, True)
+    t_ns = _sorted_lookup(ns_keys, ns_vals, np.asarray(ns_l, dtype="U"))
+    t_rel = _sorted_lookup(rel_keys, rel_vals, np.asarray(rel_l, dtype="U"))
+    t_obj = _sorted_lookup(obj_keys, obj_vals,
+                           _compose_keys_like(obj_keys, t_ns, np.asarray(obj_l, dtype="U")))
+    valid = present & (t_ns != -1) & (t_rel != -1) & (t_obj != -1)
+    ov = view.overlay
+    if ov is not None:
+        for i in np.flatnonzero(present & ~valid):
+            i = int(i)
+            ns = int(t_ns[i])
+            if ns == -1:
+                ns = ov.ns_ids.get(ns_l[i], -1)
+            rel = int(t_rel[i])
+            if rel == -1:
+                rel = ov.rel_ids.get(rel_l[i], -1)
+            slot = int(t_obj[i])
+            if slot == -1 and ns != -1:
+                slot = ov.obj_slots.get((ns, obj_l[i]), -1)
+            if ns != -1 and rel != -1 and slot != -1:
+                t_obj[i], t_rel[i], valid[i] = slot, rel, True
+    return t_obj, t_rel, valid
+
+
+def encode_node_batch(view, triples, B: int):
+    """(q_obj, q_rel, q_valid) of length B for (namespace, object,
+    relation) triples (None leaves a row invalid), an expand batch's
+    nodes: vectorised over an ArrayMap vocabulary, one node at a time
+    over a dict."""
+    n = len(triples)
+    q_obj = np.zeros(B, dtype=np.int32)
+    q_rel = np.zeros(B, dtype=np.int32)
+    q_valid = np.zeros(B, dtype=bool)
+    if not isinstance(view.snapshot.obj_slots, ArrayMap):
+        for i, tr in enumerate(triples):
+            node = None if tr is None else view.encode_node(*tr)
+            if node is not None:
+                q_obj[i], q_rel[i] = node
+                q_valid[i] = True
+        return q_obj, q_rel, q_valid
+    ns_l, obj_l, rel_l = [""] * n, [""] * n, [""] * n
+    present = np.zeros(n, dtype=bool)
+    for i, tr in enumerate(triples):
+        if tr is not None:
+            ns_l[i], obj_l[i], rel_l[i] = tr
+            present[i] = True
+    t_obj, t_rel, valid = _encode_nodes(view, ns_l, obj_l, rel_l, present)
+    q_obj[:n] = np.where(valid, t_obj, 0)
+    q_rel[:n] = np.where(valid, t_rel, 0)
+    q_valid[:n] = valid
+    return q_obj, q_rel, q_valid
+
+
 def encode_object_column(view, ns_id: int, objects: Sequence[str]):
     """(slots [n] int32, valid [n] bool) of candidate objects of one
-    namespace, the BatchFilter shape: one dict lookup per object, then the
-    view's overlay for names first seen after the base snapshot."""
-    get = view.snapshot.obj_slots.get
-    slots = np.fromiter((get((ns_id, o), -1) for o in objects), dtype=np.int64,
-                        count=len(objects))
+    namespace, the BatchFilter shape: over an ArrayMap vocabulary one
+    composite-key search for the column, over a dict one lookup an object;
+    then the view's overlay for names first seen after the base snapshot."""
+    snap = view.snapshot
+    if isinstance(snap.obj_slots, ArrayMap):
+        obj_keys, obj_vals = _vocab_arrays(snap, "obj", snap.obj_slots, True)
+        slots = _sorted_lookup(obj_keys, obj_vals, _compose_keys_like(
+            obj_keys, np.full(len(objects), ns_id, dtype=np.int32),
+            np.asarray(objects, dtype="U"))).astype(np.int64)
+    else:
+        get = snap.obj_slots.get
+        slots = np.fromiter((get((ns_id, o), -1) for o in objects), dtype=np.int64,
+                            count=len(objects))
     valid = slots != -1
     ov = view.overlay
     if ov is not None and ov.obj_slots and not valid.all():
@@ -713,7 +1228,10 @@ def encode_query_batch(view, tuples: Sequence[RelationTuple], B: int):
     invalid and is answered by exact host replay (a missing relation in a
     configured namespace must still raise). An unknown subject keeps the
     sentinel sa = -2: the walk still runs, so error flags surface, but no
-    direct probe can hit."""
+    direct probe can hit. An ArrayMap-vocabulary snapshot encodes the
+    batch vectorised (_encode_query_columns), a dict one query by query."""
+    if isinstance(view.snapshot.obj_slots, ArrayMap):
+        return _encode_query_columns(view, tuples, B)
     q_obj = np.zeros(B, dtype=np.int32)
     q_rel = np.zeros(B, dtype=np.int32)
     q_skind = np.zeros(B, dtype=np.int32)
@@ -729,4 +1247,76 @@ def encode_query_batch(view, tuples: Sequence[RelationTuple], B: int):
         if subject is not None:
             q_skind[i], q_sa[i], q_sb[i] = subject
         q_valid[i] = True
+    return q_obj, q_rel, q_skind, q_sa, q_sb, q_valid
+
+
+def _encode_query_columns(view, tuples: Sequence[RelationTuple], B: int):
+    """encode_query_batch over an ArrayMap vocabulary: one composite-key
+    search a column for the batch, then the overlay's small dicts for
+    what the base lacks; the same arrays as the loop."""
+    snap = view.snapshot
+    n = len(tuples)
+    ns_l, obj_l, rel_l = [""] * n, [""] * n, [""] * n
+    sns_l, sobj_l, srel_l = [""] * n, [""] * n, [""] * n
+    skind_l = np.zeros(n, dtype=np.int32)
+    for i, t in enumerate(tuples):
+        ns_l[i], obj_l[i], rel_l[i] = t.namespace, t.object, t.relation
+        if t.subject_set is not None:
+            skind_l[i] = 1
+            sns_l[i] = t.subject_set.namespace
+            sobj_l[i] = t.subject_set.object
+            srel_l[i] = t.subject_set.relation
+        else:
+            sobj_l[i] = t.subject_id or ""
+    is_set = skind_l == 1
+    node_obj, node_rel, node_valid = _encode_nodes(view, ns_l, obj_l, rel_l,
+                                                   np.ones(n, dtype=bool))
+    ns_keys, ns_vals = _vocab_arrays(snap, "ns", snap.ns_ids)
+    rel_keys, rel_vals = _vocab_arrays(snap, "rel", snap.rel_ids)
+    obj_keys, obj_vals = _vocab_arrays(snap, "obj", snap.obj_slots, True)
+    subj_keys, subj_vals = _vocab_arrays(snap, "subj", snap.subj_ids)
+    sobj_arr = np.asarray(sobj_l, dtype="U")
+    s_ns = np.where(is_set, _sorted_lookup(ns_keys, ns_vals, np.asarray(sns_l, "U")), -1)
+    s_rel = np.where(is_set, _sorted_lookup(rel_keys, rel_vals, np.asarray(srel_l, "U")), -1)
+    s_slot = _sorted_lookup(obj_keys, obj_vals, _compose_keys_like(obj_keys, s_ns, sobj_arr))
+    sid = _sorted_lookup(subj_keys, subj_vals, _queries_like(subj_keys, sobj_arr))
+    set_ok = is_set & (s_slot != -1) & (s_rel != -1)
+    plain_ok = ~is_set & (sid != -1)
+
+    q_obj = np.zeros(B, dtype=np.int32)
+    q_rel = np.zeros(B, dtype=np.int32)
+    q_skind = np.zeros(B, dtype=np.int32)
+    q_sa = np.full(B, -2, dtype=np.int32)
+    q_sb = np.zeros(B, dtype=np.int32)
+    q_valid = np.zeros(B, dtype=bool)
+    q_obj[:n] = np.where(node_valid, node_obj, 0)
+    q_rel[:n] = np.where(node_valid, node_rel, 0)
+    q_valid[:n] = node_valid
+    q_skind[:n] = np.where(set_ok, 1, 0)
+    q_sa[:n] = np.where(set_ok, s_slot, np.where(plain_ok, sid, -2))
+    q_sb[:n] = np.where(set_ok, s_rel, 0)
+
+    ov = view.overlay
+    if ov is not None:
+        # the subjects the base lacks, through the overlay's small dicts
+        for i in np.flatnonzero(node_valid & ~(set_ok | plain_ok)):
+            i = int(i)
+            t = tuples[i]
+            if t.subject_set is not None:
+                s = t.subject_set
+                sns = int(s_ns[i])
+                if sns == -1:
+                    sns = ov.ns_ids.get(s.namespace, -1)
+                srl = int(s_rel[i])
+                if srl == -1:
+                    srl = ov.rel_ids.get(s.relation, -1)
+                ssl = int(s_slot[i])
+                if ssl == -1 and sns != -1:
+                    ssl = ov.obj_slots.get((sns, s.object), -1)
+                if sns != -1 and srl != -1 and ssl != -1:
+                    q_skind[i], q_sa[i], q_sb[i] = 1, ssl, srl
+            else:
+                sv = ov.subj_ids.get(t.subject_id or "", -1)
+                if sv != -1:
+                    q_skind[i], q_sa[i], q_sb[i] = 0, sv, 0
     return q_obj, q_rel, q_skind, q_sa, q_sb, q_valid

@@ -44,6 +44,14 @@ fall back; closure_ensure_built powers them again over the same base.
 `notify_write`, wired to the store's write listener, folds writes in on
 a background thread, off the request path.
 
+A store that keeps columns (storage/columnar.py's ColumnarStore, `dsn:
+"columnar"`) feeds the columnar builders: the snapshot, the full-edge CSR
+and the transposed mirror are encoded from its numpy columns with no
+RelationTuple object on the way, its object slots and subject ids become
+ArrayMaps (sorted key arrays), and query batches over them encode
+vectorised. Every probe table comes from the native builder
+(keto_tpu_torch/native).
+
 The engine is shared by the serving plane's threads: the batcher submits
 on its launch thread and resolves on its pool threads (a closure batch's
 resolve submits its leftovers from there), while Expand, the list routes
@@ -60,6 +68,7 @@ from __future__ import annotations
 import json
 import logging
 import threading
+import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -98,6 +107,7 @@ from .expand_kernel import (
     ExpandDecoder,
     assemble_tree,
     build_full_csr,
+    build_full_csr_columnar,
     decode_edge_buffer,
     expand_kernel_packed,
     expand_tables_from_numpy,
@@ -122,6 +132,7 @@ from .kernel import (
 from .reference import ReferenceEngine
 from .reverse_kernel import (
     build_reverse_state,
+    build_reverse_state_columnar,
     decode_pool_slice,
     list_objects_kernel_packed,
     list_subjects_kernel_packed,
@@ -138,7 +149,9 @@ from .snapshot import (
     FLAG_ISLAND,
     GraphSnapshot,
     build_snapshot,
+    build_snapshot_columnar,
     check_layout,
+    encode_node_batch,
     encode_object_column,
     encode_query_batch,
     reverse_subject_tag,
@@ -236,6 +249,10 @@ class TorchCheckEngine:
             "filter_frontier": 0,
             "filter_host": 0,
         }
+        # seconds by stage of the last full mirror build: over columns
+        # encode_s and probe_tables_s, over tuple objects snapshot_s; then
+        # pack_upload_s
+        self.last_build: dict = {}
         # an attribute, not re-read per batch, so that a caller can toggle
         # it between calls
         self.closure_enabled = config.closure_enabled()
@@ -275,16 +292,34 @@ class TorchCheckEngine:
             self._state = state
             return state
 
+    def _columns(self):
+        """The store's TupleColumns when it keeps columns (ColumnarStore),
+        else None: a columnar store feeds the columnar builders, with no
+        RelationTuple object on the build path."""
+        columns_fn = getattr(self.manager, "all_tuple_columns", None)
+        return None if columns_fn is None else columns_fn(nid=self.nid)
+
     def _rebuild(self, version: int, config_fp: str, namespaces) -> _EngineState:
-        tuples = self.manager.all_relation_tuples(nid=self.nid)
-        snap = build_snapshot(
-            tuples, namespaces, layout=self.layout, K=REWRITE_INSTR_CAP, version=version,
-        )
+        split: dict = {}
+        t0 = time.perf_counter()
+        cols = self._columns()
+        if cols is not None:
+            snap = build_snapshot_columnar(cols, namespaces, layout=self.layout,
+                                           K=REWRITE_INSTR_CAP, version=version, split=split)
+        else:
+            snap = build_snapshot(self.manager.all_relation_tuples(nid=self.nid), namespaces,
+                                  layout=self.layout, K=REWRITE_INSTR_CAP, version=version)
+            split["snapshot_s"] = time.perf_counter() - t0
+        del cols
         self._state = None  # release the old tables before uploading
+        t1 = time.perf_counter()
+        tables = snapshot_tables(snap, self.device)
+        split["pack_upload_s"] = time.perf_counter() - t1
+        self.last_build = split
         state = _EngineState(
             snapshot=snap,
             view=SnapshotView(snap),
-            tables=snapshot_tables(snap, self.device),
+            tables=tables,
             delta_np=empty_delta_tables(),
             base_version=version,
             covered_version=version,
@@ -487,10 +522,14 @@ class TorchCheckEngine:
             with self._lock:
                 if state.expand_tables is not None:
                     return state
-                tuples = self.manager.all_relation_tuples(nid=self.nid)
+                cols = self._columns()
+                tuples = None if cols is not None else \
+                    self.manager.all_relation_tuples(nid=self.nid)
                 if self.manager.version(nid=self.nid) != state.covered_version:
                     continue
-                csr = build_full_csr(tuples, state.snapshot, view=state.view)
+                csr = (build_full_csr_columnar(cols, state.snapshot) if cols is not None
+                       else build_full_csr(tuples, state.snapshot, view=state.view))
+                del cols, tuples
                 state.expand_np = {**csr, "garbage": 0}
                 self._ensure_decoder(state)
                 # expand_tables is the readiness signal: set it last
@@ -509,10 +548,16 @@ class TorchCheckEngine:
             with self._lock:
                 if state.reverse_tables is not None:
                     return state
-                tuples = self.manager.all_relation_tuples(nid=self.nid)
+                cols = self._columns()
+                tuples = None if cols is not None else \
+                    self.manager.all_relation_tuples(nid=self.nid)
                 if self.manager.version(nid=self.nid) != state.covered_version:
                     continue
-                rnp = build_reverse_state(tuples, state.snapshot, namespaces, view=state.view)
+                rnp = (build_reverse_state_columnar(cols, state.snapshot, namespaces)
+                       if cols is not None
+                       else build_reverse_state(tuples, state.snapshot, namespaces,
+                                                view=state.view))
+                del cols, tuples
                 state.reverse_np = rnp
                 self._ensure_decoder(state)
                 # reverse_tables is the readiness signal: set it last
@@ -822,15 +867,9 @@ class TorchCheckEngine:
         state = self.ensure_expand_state()
         global_max = self.config.max_read_depth()
         depth = max_depth if 0 < max_depth <= global_max else global_max
-        q_obj = np.zeros(B, dtype=np.int32)
-        q_rel = np.zeros(B, dtype=np.int32)
-        q_valid = np.zeros(B, dtype=bool)
-        for i, sub in enumerate(subjects):
-            if isinstance(sub, SubjectSet):
-                node = state.view.encode_node(sub.namespace, sub.object, sub.relation)
-                if node is not None:
-                    q_obj[i], q_rel[i] = node
-                    q_valid[i] = True
+        q_obj, q_rel, q_valid = encode_node_batch(state.view, [
+            (sub.namespace, sub.object, sub.relation) if isinstance(sub, SubjectSet)
+            else None for sub in subjects], B)
         pool_cap = pool_cap or max(32 * B, 4096)
         qpack = torch.from_numpy(pack_expand_queries(q_obj, q_rel, depth, q_valid))
         flat = expand_kernel_packed(

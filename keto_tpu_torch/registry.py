@@ -1,7 +1,8 @@
 """Registry: the serving plane's composition root.
 
 One object builds each service once, lazily, from the config and hands
-it to everything above: the store (chosen by `dsn`), the check engine
+it to everything above: the store (chosen by `dsn`: "memory" or
+"columnar"), the check engine
 (`check.engine`: "torch", the device engine, or "host", the exact host
 oracle alone), the namespace manager, the check cache, the device-path
 circuit breaker, the serving counters, the closure maintainer, and the
@@ -28,6 +29,7 @@ from .engine.reference import ReferenceEngine
 from .ketoapi import RelationQuery, RelationTuple
 from .resilience import CircuitBreaker, ServeCounters
 from .storage.definitions import DEFAULT_NETWORK
+from .storage.columnar import ColumnarStore
 from .storage.memory import MemoryManager
 
 
@@ -105,10 +107,12 @@ class Registry:
         with self._lock:
             if self._manager is None:
                 dsn = self.config.dsn
-                if dsn != "memory":
-                    raise ConfigError(f"unsupported dsn {dsn!r}: the port has the memory store only")
+                stores = {"memory": MemoryManager, "columnar": ColumnarStore}
+                if dsn not in stores:
+                    raise ConfigError(f"unsupported dsn {dsn!r}: the port accepts "
+                                      f"{' and '.join(map(repr, stores))}")
                 manager = self._given_manager if self._given_manager is not None \
-                    else MemoryManager()
+                    else stores[dsn]()
                 manager.add_write_listener(self._push_invalidate)
                 self._manager = manager
             return self._manager

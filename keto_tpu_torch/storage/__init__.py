@@ -1,4 +1,5 @@
 from .definitions import DEFAULT_NETWORK, DEFAULT_PAGE_SIZE
+from .columnar import ColumnarStore
 from .memory import MemoryManager
 
-__all__ = ["MemoryManager", "DEFAULT_NETWORK", "DEFAULT_PAGE_SIZE"]
+__all__ = ["ColumnarStore", "MemoryManager", "DEFAULT_NETWORK", "DEFAULT_PAGE_SIZE"]
