@@ -5,7 +5,8 @@ the port builds, agrees with itself and runs its main path on the GPU.
 
 Phases, in order; any failure exits non-zero without the final line:
 
-  1. card    — nvidia-smi's name and power limit
+  1. card    — nvidia-smi's name and power limit; torch's, grpc's and
+               protobuf's versions
   2. build   — nvcc builds csrc/check_kernels.cu, csrc/expand_kernels.cu,
                csrc/list_kernels.cu, csrc/closure_filter_kernels.cu,
                csrc/closure_power_kernels.cu and csrc/microbench_kernels.cu
@@ -47,10 +48,20 @@ Phases, in order; any failure exits non-zero without the final line:
                DELETE on the write listener, each seen by a check that
                carries the token it returned; GET /version and GET
                /relation-tuples a tuple a page, all on the default serve
-               keys, and serve exits 0 on SIGTERM; then a second serve
-               with a 500 ms batch window and SIGTERM while a check waits
-               in that window: /health/ready answers 503, a new check 429
-               (draining), the admitted check 200, and serve exits 0
+               keys; then over gRPC on the same ports (each port answers
+               REST and gRPC through its mux) a Transact on the write
+               port, Check (allowed and denied at its token), BatchCheck,
+               Expand, ListObjects, ListSubjects, Filter,
+               ListRelationTuples a tuple a page, Version and Health on
+               both ports, each equal to the REST route's answer on the
+               same port and to the host oracle's; serve exits 0 on
+               SIGTERM; then a second serve with a 500 ms batch window, a
+               gRPC Health Watch stream open on it, and SIGTERM while a
+               check waits in that window: /health/ready answers 503, a
+               new check 429 (draining) and a gRPC Check
+               RESOURCE_EXHAUSTED with the same message and a
+               `retry-after` of 1, the admitted check 200, the stream
+               SERVING then NOT_SERVING, and serve exits 0
  6b. serve under load — a Registry over phase 4's store (dsn memory) and a
                Daemon with the default serve keys on free ports; 32
                closed-loop REST clients (bench.py:72-73's SERVE_THREADS and
@@ -63,7 +74,31 @@ Phases, in order; any failure exits non-zero without the final line:
                sheds and breaker transitions, 512 sampled verdicts of the
                miss leg and every verdict of the hot leg (cache hits and
                coalesced riders included) equal to the oracle, K1-K4
-               launched on the "serve" launch path
+               launched on the "serve" launch path; the REST requests
+               pass through the read port's mux
+ 6c. gRPC under load — on 6b's Registry and Daemon, through the read
+               port's mux, clients in a process of their own that imports
+               grpc and protobuf and nothing of torch: (a) 32 closed-loop
+               clients, one channel each, of single CheckService/Check
+               RPCs for 8 s, drawn without repeat and apart from 6b's
+               draws (cache misses), then the same on the read port's
+               direct gRPC listener (no splice) for 8 s; (b) the same
+               clients over 256 new hot
+               checks for 2 s; (c) bench.py:74-79's batch leg, 4 clients
+               of BatchCheck RPCs of 2,048 draws without repeat for 8 s;
+               (d) one Expand, ListObjects, ListSubjects and Filter
+               (10,000 candidates) RPC, the states they read built first:
+               checks/s, per-RPC p50/p95/p99 ms, for (a) and (b) the
+               batcher's mean batch; zero errors, sheds, failed batches,
+               deadline drops, host checks and breaker moves; every
+               verdict of (a)-(c) equal to the ground truth of the
+               generator's ownership maps, 512 sampled of (a) (all of
+               them, when fewer) and of (c) and every one of (b) equal to
+               the oracle; each of (d) equal to
+               the engine's own answer called directly and to the ground
+               truth or the oracle; K1-K4 launched on the "grpc" ((a) and
+               (b)) and "grpc_batch" ((c)) launch paths, (d)'s launches on
+               "grpc_reads"
   7. expand  — (7a) data, (7b) X1 and X2 against their plain versions
                on inputs captured from one real expand batch, as phase 3,
                and X1 again on the same batch at a frontier cap of 32,768
@@ -277,6 +312,16 @@ LOAD_SECONDS = 8.0
 LOAD_DRAWS_PER_THREAD = 12_000
 HOT_SECONDS = 2.0
 HOT_QUERIES = 256
+# phase 6c: bench.py:74-79's batch leg, SERVE_BATCH_CLIENTS clients of
+# SERVE_BATCH_SIZE checks a BatchCheck RPC, for SERVE_SECONDS; each
+# client's draws last GRPC_BATCH_RPCS RPCs (a client that runs out stops,
+# and the leg's rate is taken over its longest client's time)
+GRPC_BATCH_CLIENTS = 4
+GRPC_BATCH = 2048
+GRPC_BATCH_RPCS = 128
+# phase 6c: each single-check client's draws (a leg of 8 s takes a few
+# hundred at 6b's rates)
+GRPC_DRAWS_PER_THREAD = 2_000
 # phase 12: tools/scale_bench.py's defaults (:119-127, :206, :244-248,
 # :299-308)
 SCALE_TUPLES = 10_000_000
@@ -2656,6 +2701,10 @@ def run_serve():
     import urllib.parse
     import urllib.request
 
+    import grpc
+
+    from keto_tpu_torch.api.client import ReadClient
+    from keto_tpu_torch.api.descriptors import HEALTH_SERVICE, pb
     from keto_tpu_torch.engine.snaptoken import encode_snaptoken
     from keto_tpu_torch.ketoapi import RelationTuple
 
@@ -2833,6 +2882,7 @@ def run_serve():
             got_tuples = sorted(str(RelationTuple.from_dict(t)) for p in pages for t in p)
             if [len(p) for p in pages] != [1, 1, 1] or got_tuples != want_tuples:
                 raise AssertionError(f"GET /relation-tuples paged {pages}")
+            serve_grpc(base, write_base, get, version[1]["version"])
 
             proc.send_signal(signal.SIGTERM)
             if proc.wait(timeout=60) != 0:
@@ -2842,6 +2892,29 @@ def run_serve():
             # turns to 503 and a new check is shed while that one answers
             proc = drain_proc
             drain_base, _ = ready(proc)
+            drain_addr = drain_base.split("//", 1)[1]
+            channel = grpc.insecure_channel(drain_addr)
+            watch = channel.unary_stream(
+                f"/{HEALTH_SERVICE}/Watch", request_serializer=lambda m: m.SerializeToString(),
+                response_deserializer=pb.HealthCheckResponse.FromString)(
+                pb.HealthCheckRequest(), timeout=120)
+            statuses = []
+
+            def read_watch():
+                """The stream's first two statuses, or what ended it."""
+                try:
+                    for resp in watch:
+                        statuses.append(resp.status)
+                        if len(statuses) == 2:
+                            return
+                except grpc.RpcError as e:
+                    statuses.append(e.code().name)
+
+            watcher = threading.Thread(target=read_watch, daemon=True)
+            watcher.start()
+            end = time.monotonic() + 60
+            while not statuses and time.monotonic() < end:
+                time.sleep(0.005)
             admitted = {}
             rider = threading.Thread(target=lambda: admitted.update(
                 r=get({**q, "subject_id": "cat lady"}, at=drain_base)), daemon=True)
@@ -2853,6 +2926,16 @@ def run_serve():
             while ready[0] == 200 and time.monotonic() < end:
                 ready = get({}, "/health/ready", at=drain_base)
             shed = get({**q, "subject_id": "john"}, at=drain_base)
+            g_shed = ReadClient(channel)
+            try:
+                g_shed.check(RelationTuple.from_string("videos:/cats/2.mp4#view@john"))
+                g_shed = ("OK",)
+            except grpc.RpcError as e:
+                g_shed = (e.code().name, e.details(),
+                          tuple((k, v) for k, v in e.trailing_metadata() or ()))
+            watcher.join(timeout=60)
+            watch.cancel()
+            channel.close()
             rider.join(timeout=60)
             log(f"  after SIGTERM: /health/ready -> {ready}, a new check -> {shed}, the "
                 f"check admitted before it -> {admitted.get('r')}")
@@ -2862,6 +2945,13 @@ def run_serve():
                 raise AssertionError(f"a check during the drain answered {shed}")
             if admitted.get("r") != (200, {"allowed": True}):
                 raise AssertionError(f"the admitted check answered {admitted.get('r')}")
+            log(f"  gRPC on the draining port: a Check -> {g_shed}; a Health Watch stream -> "
+                f"{statuses}")
+            if g_shed != ("RESOURCE_EXHAUSTED", shed[1]["error"]["message"],
+                          (("retry-after", "1"),)):
+                raise AssertionError(f"a gRPC check during the drain answered {g_shed}")
+            if statuses != [1, 2]:  # SERVING, then NOT_SERVING
+                raise AssertionError(f"the Health Watch stream saw {statuses}")
             if proc.wait(timeout=60) != 0:
                 raise AssertionError(f"serve exited {proc.returncode} after SIGTERM")
         finally:
@@ -2875,6 +2965,123 @@ def run_serve():
                 proc.stdout.close()
                 proc.stderr.close()
     log(f"  serve phase {time.perf_counter() - t0:.1f} s")
+
+
+SERVE_TUPLES = ("videos:/cats#owner@cat lady", "videos:/cats/1.mp4#parent@(videos:/cats#...)",
+                "videos:/cats/2.mp4#owner@john")
+
+
+def serve_grpc(base: str, write_base: str, get, version: str) -> None:
+    """Phase 6's gRPC step on the serve process's ports, after its REST
+    writes (the store holds SERVE_TUPLES again, at version 4): a Transact
+    on the write port, then every read service on the read port at its
+    token, each answer equal to the REST route's on the same port and to
+    the host oracle's over the same tuples; Version and Health on both."""
+    import urllib.request
+
+    from keto_tpu_torch.api.client import ReadClient, WriteClient, open_channel
+    from keto_tpu_torch.config import Config
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+    from keto_tpu_torch.engine.snaptoken import encode_snaptoken
+    from keto_tpu_torch.ketoapi import RelationQuery, RelationTuple, SubjectSet
+    from keto_tpu_torch.storage import MemoryManager
+
+    read_addr, write_addr = base.split("//", 1)[1], write_base.split("//", 1)[1]
+    rc, wc = ReadClient(open_channel(read_addr)), WriteClient(open_channel(write_addr))
+    config = Config({"namespaces": [videos_namespace().to_dict()]})
+    store = MemoryManager()
+    store.write_relation_tuples([RelationTuple.from_string(s) for s in SERVE_TUPLES])
+    oracle = ReferenceEngine(store, config)
+    try:
+        inserts = [RelationTuple.from_string(s) for s in (
+            "videos:/cats/3.mp4#parent@(videos:/cats#...)", "videos:/dogs#owner@john")]
+        tokens = wc.transact(inserts)
+        store.write_relation_tuples(inserts)
+        token = encode_snaptoken(5, "default")
+        if tokens != [token, token]:
+            raise AssertionError(f"Transact answered {tokens}")
+        checks = [RelationTuple.from_string(s) for s in (
+            "videos:/cats/3.mp4#view@cat lady", "videos:/cats/3.mp4#view@john",
+            "videos:/dogs#view@john", "videos:/cats/1.mp4#view@nobody")]
+        got = [rc.check_with_token(t, snaptoken=token) for t in checks]
+        rest = [get({**t.to_url_query(), "snaptoken": token}) for t in checks]
+        want = [oracle.check_relation_tuple(t).allowed for t in checks]
+        log(f"  gRPC: Transact -> {tokens}; Checks at its token -> {got}")
+        if [a for a, _t in got] != want or [r[1]["allowed"] for r in rest] != want or \
+                {t for _a, t in got} != {token} or want != [True, False, True, False]:
+            raise AssertionError(f"gRPC checks {got}, REST {rest}, oracle {want}")
+        batch = rc.check_batch(checks, snaptoken=token)
+        req = urllib.request.Request(base + "/relation-tuples/check/batch", method="POST",
+                                     data=json.dumps({"tuples": [t.to_dict() for t in checks],
+                                                      "snaptoken": token}).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            rest_batch = json.loads(r.read())
+        if batch != [(a, "") for a in want] or \
+                [r["allowed"] for r in rest_batch["results"]] != want:
+            raise AssertionError(f"gRPC BatchCheck {batch}, REST {rest_batch}")
+        for sub in (SubjectSet("videos", "/cats/3.mp4", "parent"),
+                    SubjectSet("videos", "/cats", "owner")):
+            tree = rc.expand(sub)
+            rest_tree = get({"namespace": sub.namespace, "object": sub.object,
+                             "relation": sub.relation}, "/relation-tuples/expand")
+            if rest_tree != (200, tree.to_dict()) or \
+                    normalize(tree) != normalize(oracle.expand(sub)):
+                raise AssertionError(f"gRPC Expand {tree}, REST {rest_tree}")
+        objects = rc.list_objects("videos", "view", "cat lady", snaptoken=token)
+        rest_objects = get({"namespace": "videos", "relation": "view", "subject_id": "cat lady",
+                            "snaptoken": token}, "/relation-tuples/list-objects")
+        want_objects = oracle.list_objects("videos", "view", "cat lady")
+        subjects = rc.list_subjects("videos", "/cats/3.mp4", "view", snaptoken=token)
+        rest_subjects = get({"namespace": "videos", "object": "/cats/3.mp4", "relation": "view",
+                             "snaptoken": token}, "/relation-tuples/list-subjects")
+        candidates = ["/cats/1.mp4", "/cats/2.mp4", "/cats/3.mp4", "/cats/9.mp4", "/dogs"]
+        allowed, f_token = rc.filter("videos", "view", "cat lady", candidates, snaptoken=token)
+        req = urllib.request.Request(base + "/relation-tuples/filter", method="POST",
+                                     data=json.dumps({"namespace": "videos", "relation": "view",
+                                                      "subject_id": "cat lady",
+                                                      "objects": candidates}).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            rest_filter = json.loads(r.read())
+        want_filter = [o for o, ok in zip(candidates, oracle.filter_objects(
+            "videos", "view", "cat lady", candidates)) if ok]
+        log(f"  gRPC: ListObjects -> {objects}, ListSubjects -> {subjects}, Filter -> "
+            f"{allowed}")
+        if objects != (want_objects, "", token) or \
+                rest_objects != (200, {"objects": want_objects, "next_page_token": ""}):
+            raise AssertionError(f"gRPC ListObjects {objects}, REST {rest_objects}")
+        if subjects != (oracle.list_subjects("videos", "/cats/3.mp4", "view"), "", token) or \
+                rest_subjects[1]["subject_ids"] != subjects[0]:
+            raise AssertionError(f"gRPC ListSubjects {subjects}, REST {rest_subjects}")
+        if (allowed, f_token) != (want_filter, token) or \
+                rest_filter != {"allowed_objects": want_filter, "snaptoken": token}:
+            raise AssertionError(f"gRPC Filter {allowed}, REST {rest_filter}")
+        pages, page_token = [], ""
+        while True:
+            page = rc.list_relation_tuples(RelationQuery(namespace="videos"), page_size=1,
+                                           page_token=page_token)
+            rest_page = get({"namespace": "videos", "page_size": "1",
+                             **({"page_token": page_token} if page_token else {})},
+                            "/relation-tuples")
+            if rest_page != (200, page.to_dict()):
+                raise AssertionError(f"gRPC ListRelationTuples {page}, REST {rest_page}")
+            pages.append(page.relation_tuples)
+            page_token = page.next_page_token
+            if not page_token:
+                break
+        listed = sorted(str(t) for p in pages for t in p)
+        if listed != sorted(str(t) for t in store.all_relation_tuples()) or len(pages) != 5:
+            raise AssertionError(f"gRPC ListRelationTuples paged {pages}")
+        for client, where in ((rc, base), (wc, write_base)):
+            health = get({}, "/health/ready", at=where)
+            if (client.get_version(), client.health()) != (version, "SERVING") or \
+                    health != (200, {"status": "ok"}):
+                raise AssertionError(f"gRPC Version/Health on {where}: {client.get_version()}, "
+                                     f"{client.health()}; REST {health}")
+        log(f"  gRPC: BatchCheck, Expand (2), ListRelationTuples ({len(pages)} pages), Version "
+            "and Health on both ports equal REST on the same port and the oracle")
+    finally:
+        rc.close()
+        wc.close()
 
 
 # -- phase 6b: the serving plane under load ------------------------------------------
@@ -2937,11 +3144,12 @@ def load_clients(spec_path: str) -> int:
     return 0
 
 
-def load_draws(owner_of: dict, n: int, seed: int) -> list:
+def load_draws(owner_of: dict, n: int, seed: int, exclude: set = frozenset()) -> list:
     """n distinct (object, subject) checks drawn by phase 4's law: half a
-    folder's owner viewing one of its files (hits), half a random user."""
+    folder's owner viewing one of its files (hits), half a random user;
+    none of them in `exclude`."""
     rng = random.Random(seed)
-    seen, draws = set(), []
+    seen, draws = set(exclude), []
     while len(draws) < n:
         d = rng.randrange(N_FOLDERS)
         obj = f"/d{d}/v{rng.randrange(FILES_PER_FOLDER)}.mp4"
@@ -2969,7 +3177,10 @@ def run_load_leg(host: str, port: int, slices: list, seconds: float, cycle: bool
     return json.loads(proc.stdout)
 
 
-def leg_figures(name: str, results: list, seconds: float, smi: str) -> dict:
+def leg_figures(name: str, results: list, seconds: float, smi: str,
+                checks_per_request: int = 1) -> dict:
+    """A leg's checks/s and per-request latency percentiles (a request
+    carries `checks_per_request` checks)."""
     lat = sorted(x for r in results for x in r["lat"])
     n = len(lat)
     errors = [e for r in results for e in r["errors"]]
@@ -2978,11 +3189,13 @@ def leg_figures(name: str, results: list, seconds: float, smi: str) -> dict:
         return lat[min(n - 1, int(p / 100 * n))] * 1e3 if n else None
 
     fig = {"leg": name, "clients": len(results), "seconds": seconds, "requests": n,
-           "checks_per_s": n / seconds, "p50_ms": pct(50), "p95_ms": pct(95), "p99_ms": pct(99),
+           "checks": n * checks_per_request, "checks_per_s": n * checks_per_request / seconds,
+           "p50_ms": pct(50), "p95_ms": pct(95), "p99_ms": pct(99),
            "max_ms": lat[-1] * 1e3 if n else None, "errors": len(errors),
            "exhausted_clients": sum(bool(r["exhausted"]) for r in results), "card": smi}
-    log(f"  {name}: {n} checks in {seconds:.1f} s by {len(results)} clients = "
-        f"{fig['checks_per_s']:.1f} checks/s; p50 {fig['p50_ms']:.3f} ms, p95 "
+    log(f"  {name}: {n} requests of {checks_per_request} checks in {seconds:.1f} s by "
+        f"{len(results)} clients = {fig['checks_per_s']:.1f} checks/s; p50 "
+        f"{fig['p50_ms']:.3f} ms, p95 "
         f"{fig['p95_ms']:.3f} ms, p99 {fig['p99_ms']:.3f} ms, max {fig['max_ms']:.3f} ms; "
         f"{len(errors)} errors ({smi})")
     if errors:
@@ -3008,9 +3221,11 @@ def run_serve_load(manager, owners, smi: str):
 
     t0 = phase(f"6b serve under load: {LOAD_THREADS} closed-loop REST clients for "
                f"{LOAD_SECONDS:.0f} s, then {HOT_SECONDS:.0f} s over {HOT_QUERIES} hot checks")
+    # the read port's direct gRPC listener serves phase 6c's comparison leg
     config = Config({"dsn": "memory", "limit": {"max_read_depth": MAX_DEPTH},
                      "namespaces": [videos_namespace().to_dict()],
-                     "serve": {"read": {"host": "127.0.0.1", "port": 0},
+                     "serve": {"read": {"host": "127.0.0.1", "port": 0,
+                                        "grpc": {"host": "127.0.0.1", "port": 0}},
                                "write": {"host": "127.0.0.1", "port": 0}}})
     registry = Registry(config, device="cuda", manager=manager)
     t = time.perf_counter()
@@ -3058,78 +3273,458 @@ def run_serve_load(manager, owners, smi: str):
         launches = dict(cuda_ops.launches)
         batcher_after, cache_after = daemon.batcher.stats, dict(cache.counts)
         engine_after = dict(engine.stats)
+        figs = {"miss": leg_figures("miss leg", miss, LOAD_SECONDS, smi),
+                "hot": leg_figures("hot leg", hot_res, HOT_SECONDS, smi)}
+
+        def delta(a, b, key):
+            return b[key] - a[key]
+
+        for name, (b0, b1, c0, c1) in (("miss", (batcher_before, batcher_mid, cache_before,
+                                                 cache_mid)),
+                                       ("hot", (batcher_mid, batcher_after, cache_mid,
+                                                cache_after))):
+            batches = delta(b0, b1, "batches")
+            figs[name].update({
+                "batches": batches, "batched_checks": delta(b0, b1, "batched_checks"),
+                "mean_batch": delta(b0, b1, "batched_checks") / batches if batches else 0.0,
+                "coalesced": delta(b0, b1, "coalesced"),
+                "cache_hits": delta(c0, c1, "hit"), "cache_misses": delta(c0, c1, "miss"),
+                "cache_stale": delta(c0, c1, "stale"),
+            })
+            log(f"  {name} leg: {batches} batches, mean {figs[name]['mean_batch']:.2f} checks a "
+                f"batch; {figs[name]['coalesced']} coalesced riders; cache "
+                f"{figs[name]['cache_hits']} "
+                f"hits, {figs[name]['cache_misses']} misses ({smi})")
+        device = delta(engine_before, engine_after, "device_checks")
+        host = delta(engine_before, engine_after, "host_checks")
+        failed = batcher_after["check_batch_failed"]
+        shed = registry.counters().snapshot()["shed"]
+        log(f"  engine: {device} device checks, {host} host checks; idle share not measured "
+            f"({smi}); failed batches {failed}, shed {shed}, deadline drops "
+            f"{batcher_after['deadline_exceeded']}, breaker {breaker.state} (transitions "
+            f"{list(breaker.transitions)})")
+        log(f"  launches on the serve path: {launches}")
+        if figs["miss"]["errors"] or figs["hot"]["errors"]:
+            raise AssertionError("load clients met errors")
+        if sum(failed.values()) or sum(shed.values()) \
+                or sum(batcher_after["deadline_exceeded"].values()):
+            raise AssertionError("the load met a failed batch, a shed or a deadline drop")
+        if list(breaker.transitions) or breaker.state != "closed":
+            raise AssertionError(f"the breaker moved: {list(breaker.transitions)}")
+        if host:
+            raise AssertionError(f"{host} host checks under load")
+        if figs["miss"]["cache_hits"]:
+            raise AssertionError("draws without repeat hit the cache")
+        missing = [k for k in cuda_ops.CHECK_KERNELS if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the serve path: {missing}")
+        answered = [a for r in miss for a in r["answers"]]
+        oracle = ReferenceEngine(manager, config)
+        sample = random.Random(8).sample(answered, min(512, len(answered)))
+        bad = [(i, allowed) for i, allowed in sample if oracle.check_relation_tuple(
+            RelationTuple("videos", draws[i][0], "view",
+                          subject_id=draws[i][1])).allowed != allowed]
+        if len(sample) < 512 or bad:
+            raise AssertionError(f"{len(bad)} of {len(sample)} sampled verdicts differ from the "
+                                 "oracle")
+        log(f"  512 sampled verdicts equal the oracle; {sum(a for _i, a in answered)} allowed of "
+            f"{len(answered)}")
+        # the hot leg whole: every answer, from a cache hit, a coalesced rider
+        # or a batch slot, against the oracle's verdict on its query
+        hot_want = {i: oracle.check_relation_tuple(
+            RelationTuple("videos", obj, "view", subject_id=sub)).allowed for i, obj, sub in hot}
+        hot_answered = [a for r in hot_res for a in r["answers"]]
+        bad = [(i, allowed) for i, allowed in hot_answered if hot_want[i] != allowed]
+        if not figs["hot"]["cache_hits"] or len(hot_answered) != figs["hot"]["requests"] or bad:
+            raise AssertionError(f"hot leg: {len(bad)} of {len(hot_answered)} verdicts differ "
+                                 f"from the oracle ({figs['hot']['cache_hits']} cache hits)")
+        log(f"  hot leg: all {len(hot_answered)} verdicts ({figs['hot']['cache_hits']} cache hits, "
+            f"{figs['hot']['coalesced']} coalesced riders) equal the oracle, over "
+            f"{len({i for i, _a in hot_answered})} of its {HOT_QUERIES} queries")
+        log(f"  serve-load phase {time.perf_counter() - t0:.1f} s")
+        serve_load = {**figs, "device_checks": device, "host_checks": host,
+                      "solo_batch_ms": solo, "idle_share": "not measured", "window_ms": 2.0,
+                      "pipeline_depth": 2, "card": smi,
+                      "note": "REST through the read port's mux (PortMux)"}
+        g_launches, grpc_load = run_grpc_load(registry, daemon, manager, config, owners,
+                                              set(draws), smi)
+        return launches, serve_load, g_launches, grpc_load
     finally:
         daemon.stop()
-    figs = {"miss": leg_figures("miss leg", miss, LOAD_SECONDS, smi),
-            "hot": leg_figures("hot leg", hot_res, HOT_SECONDS, smi)}
 
-    def delta(a, b, key):
-        return b[key] - a[key]
 
-    for name, (b0, b1, c0, c1) in (("miss", (batcher_before, batcher_mid, cache_before,
-                                             cache_mid)),
-                                   ("hot", (batcher_mid, batcher_after, cache_mid,
-                                            cache_after))):
-        batches = delta(b0, b1, "batches")
-        figs[name].update({
-            "batches": batches, "batched_checks": delta(b0, b1, "batched_checks"),
-            "mean_batch": delta(b0, b1, "batched_checks") / batches if batches else 0.0,
-            "coalesced": delta(b0, b1, "coalesced"),
-            "cache_hits": delta(c0, c1, "hit"), "cache_misses": delta(c0, c1, "miss"),
-            "cache_stale": delta(c0, c1, "stale"),
-        })
-        log(f"  {name} leg: {batches} batches, mean {figs[name]['mean_batch']:.2f} checks a "
-            f"batch; {figs[name]['coalesced']} coalesced riders; cache {figs[name]['cache_hits']} "
-            f"hits, {figs[name]['cache_misses']} misses ({smi})")
-    device = delta(engine_before, engine_after, "device_checks")
-    host = delta(engine_before, engine_after, "host_checks")
-    failed = batcher_after["check_batch_failed"]
-    shed = registry.counters().snapshot()["shed"]
-    log(f"  engine: {device} device checks, {host} host checks; idle share not measured "
-        f"({smi}); failed batches {failed}, shed {shed}, deadline drops "
-        f"{batcher_after['deadline_exceeded']}, breaker {breaker.state} (transitions "
-        f"{list(breaker.transitions)})")
-    log(f"  launches on the serve path: {launches}")
-    if figs["miss"]["errors"] or figs["hot"]["errors"]:
-        raise AssertionError("load clients met errors")
-    if sum(failed.values()) or sum(shed.values()) \
-            or sum(batcher_after["deadline_exceeded"].values()):
-        raise AssertionError("the load met a failed batch, a shed or a deadline drop")
-    if list(breaker.transitions) or breaker.state != "closed":
-        raise AssertionError(f"the breaker moved: {list(breaker.transitions)}")
-    if host:
-        raise AssertionError(f"{host} host checks under load")
-    if figs["miss"]["cache_hits"]:
-        raise AssertionError("draws without repeat hit the cache")
-    missing = [k for k in cuda_ops.CHECK_KERNELS if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the serve path: {missing}")
-    answered = [a for r in miss for a in r["answers"]]
+# -- phase 6c: the gRPC plane under load ---------------------------------------------
+
+
+def grpc_clients(spec_path: str) -> int:
+    """The closed-loop gRPC clients of phase 6c, in a process of their own
+    (`chip_smoke.py --grpc-clients SPEC`, started by run_grpc_leg): one
+    thread and one channel a client. Mode "check": single
+    CheckService/Check RPCs over the client's slice of draws in order (or,
+    with "cycle", round and round) until the leg's seconds are up; mode
+    "batch": BatchCheck RPCs of the spec's "batch" draws each; mode "raw":
+    the spec's serialized requests once each, in order, on one channel.
+    Prints one JSON object: each client's latencies, answers and errors.
+    Imports grpc, google.protobuf and the port's descriptors, nothing of
+    torch."""
+    import base64
+    import threading
+
+    import grpc
+
+    from keto_tpu_torch.api.descriptors import BATCH_CHECK_SERVICE, CHECK_SERVICE, pb
+
+    with open(spec_path, encoding="utf-8") as f:
+        spec = json.load(f)
+    target, seconds, mode = f"{spec['host']}:{spec['port']}", spec["seconds"], spec["mode"]
+
+    def check_request(obj, sub):
+        return pb.RelationTuple(namespace="videos", object=obj, relation="view",
+                                subject=pb.Subject(id=sub))
+
+    if mode == "raw":
+        channel = grpc.insecure_channel(target)
+        out = []
+        for path, request in spec["requests"]:
+            t = time.perf_counter()
+            try:
+                resp = channel.unary_unary(path)(base64.b64decode(request), timeout=600)
+                out.append({"ms": (time.perf_counter() - t) * 1e3, "code": "OK",
+                            "response": base64.b64encode(resp).decode()})
+            except grpc.RpcError as e:
+                out.append({"ms": (time.perf_counter() - t) * 1e3, "code": e.code().name,
+                            "details": e.details()})
+        channel.close()
+    else:
+        out = [None] * len(spec["slices"])
+        start = threading.Barrier(len(out))
+
+        def client(i):
+            draws = spec["slices"][i]
+            lat, answers, errors = [], [], []
+            channel = grpc.insecure_channel(target)
+            grpc.channel_ready_future(channel).result(timeout=60)
+            if mode == "check":
+                rpc = channel.unary_unary(
+                    f"/{CHECK_SERVICE}/Check", request_serializer=lambda m: m.SerializeToString(),
+                    response_deserializer=pb.CheckResponse.FromString)
+                step = 1
+            else:
+                rpc = channel.unary_unary(
+                    f"/{BATCH_CHECK_SERVICE}/BatchCheck",
+                    request_serializer=lambda m: m.SerializeToString(),
+                    response_deserializer=pb.BatchCheckResponse.FromString)
+                step = spec["batch"]
+            start.wait(timeout=60)
+            t_start = time.perf_counter()
+            end = t_start + seconds
+            k = 0
+            while time.perf_counter() < end and (spec["cycle"] or k + step <= len(draws)):
+                group = [draws[(k + j) % len(draws)] for j in range(step)]
+                if mode == "check":
+                    req = pb.CheckRequest(tuple=check_request(group[0][1], group[0][2]))
+                else:
+                    req = pb.BatchCheckRequest(tuples=[check_request(o, u) for _i, o, u in group])
+                t = time.perf_counter()
+                try:
+                    resp = rpc(req, timeout=60)
+                    lat.append(time.perf_counter() - t)
+                    if mode == "check":
+                        answers.append((group[0][0], resp.allowed))
+                    else:
+                        # [first index, a verdict a draw as "0"/"1", the item errors]
+                        answers.append((group[0][0], "".join("1" if r.allowed else "0"
+                                                             for r in resp.results),
+                                        [r.error for r in resp.results if r.error][:5]))
+                except grpc.RpcError as e:
+                    errors.append((group[0][0], e.code().name, e.details()))
+                k += step
+            channel.close()
+            out[i] = {"lat": lat, "answers": answers, "errors": errors,
+                      "elapsed": time.perf_counter() - t_start,
+                      "exhausted": not spec["cycle"] and k + step > len(draws)}
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(out))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    leaked = sorted(m for m in sys.modules if m == "torch" or m.startswith("torch."))
+    if leaked:
+        print(f"the gRPC clients imported {leaked[:3]}", file=sys.stderr)
+        return 1
+    print(json.dumps(out))
+    return 0
+
+
+def run_grpc_leg(host: str, port: int, spec: dict, seconds: float):
+    """One leg of phase 6c's clients in a child process; their results."""
+    with tempfile.NamedTemporaryFile("w", suffix=".json", delete=False) as f:
+        json.dump({"host": host, "port": port, "seconds": seconds, **spec}, f)
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--grpc-clients", f.name],
+            capture_output=True, text=True, timeout=seconds + 600,
+        )
+    finally:
+        os.unlink(f.name)
+    if proc.returncode != 0:
+        raise AssertionError(f"gRPC clients exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout)
+
+
+def run_grpc_load(registry, daemon, manager, config, owners, exclude: set, smi: str):
+    """Phase 6c, on phase 6b's Registry and Daemon, through the read port's
+    mux: (a) 32 closed-loop clients of single CheckService/Check RPCs for
+    8 s, drawn without repeat and apart from 6b's draws (cache misses),
+    then the same on the direct gRPC listener; (b) the same clients over 256 new hot checks for 2 s; (c) bench.py's
+    batch leg, 4 clients of BatchCheck RPCs of 2,048 draws for 8 s; (d)
+    one Expand, ListObjects, ListSubjects and Filter RPC. (a) and (b) are
+    the "grpc" launch path, (c) "grpc_batch", (d) "grpc_reads". Returns
+    (launches by path, figures)."""
+    import base64
+
+    import torch
+    from keto_tpu_torch.api.descriptors import (
+        EXPAND_SERVICE,
+        FILTER_SERVICE,
+        REVERSE_READ_SERVICE,
+        pb,
+    )
+    from keto_tpu_torch.api.messages import subject_to_proto, tree_to_proto
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+    from keto_tpu_torch.ketoapi import RelationTuple, SubjectSet
+
+    t0 = phase(f"6c gRPC under load: {LOAD_THREADS} clients of single Check RPCs for "
+               f"{LOAD_SECONDS:.0f} s, {HOT_SECONDS:.0f} s over {HOT_QUERIES} hot checks, then "
+               f"{GRPC_BATCH_CLIENTS} clients of BatchCheck RPCs of {GRPC_BATCH} for "
+               f"{LOAD_SECONDS:.0f} s, then one Expand, ListObjects, ListSubjects and Filter")
+    engine = registry.check_engine()
+    breaker, cache = registry.circuit_breaker(), registry.check_cache()
+    folders_of, files_of, _files_in = owners
+    owner_of = {f: u for u, folders in folders_of.items() for f in folders}
+    file_owner = {f: u for u, files in files_of.items() for f in files}
+
+    def truth(obj, sub):
+        return owner_of[obj.rsplit("/", 1)[0]] == sub or file_owner.get(obj) == sub
+
+    n = GRPC_DRAWS_PER_THREAD
+    draws = load_draws(owner_of, 2 * LOAD_THREADS * n + HOT_QUERIES, seed=67, exclude=exclude)
+    # the mux leg's slices, then the direct listener's
+    single_slices = [[[(leg * LOAD_THREADS * n + i * n + k, *draws[leg * LOAD_THREADS * n + i * n
+                                                                   + k]) for k in range(n)]
+                      for i in range(LOAD_THREADS)] for leg in range(2)]
+    hot = [(len(draws) - HOT_QUERIES + k, *d) for k, d in enumerate(draws[-HOT_QUERIES:])]
+    hot_slices = [random.Random(100 + i).sample(hot, len(hot)) for i in range(LOAD_THREADS)]
+    per_client = GRPC_BATCH * GRPC_BATCH_RPCS
+    b_draws = load_draws(owner_of, GRPC_BATCH_CLIENTS * per_client, seed=68)
+    batch_slices = [[(i * per_client + k, *b_draws[i * per_client + k])
+                     for k in range(per_client)] for i in range(GRPC_BATCH_CLIENTS)]
     oracle = ReferenceEngine(manager, config)
-    sample = random.Random(8).sample(answered, min(512, len(answered)))
-    bad = [(i, allowed) for i, allowed in sample if oracle.check_relation_tuple(
-        RelationTuple("videos", draws[i][0], "view", subject_id=draws[i][1])).allowed != allowed]
-    if len(sample) < 512 or bad:
-        raise AssertionError(f"{len(bad)} of {len(sample)} sampled verdicts differ from the "
-                             "oracle")
-    log(f"  512 sampled verdicts equal the oracle; {sum(a for _i, a in answered)} allowed of "
-        f"{len(answered)}")
-    # the hot leg whole: every answer, from a cache hit, a coalesced rider
-    # or a batch slot, against the oracle's verdict on its query
+    host = "127.0.0.1"
+
+    def counts():
+        return dict(engine.stats), daemon.batcher.stats, dict(cache.counts)
+
+    def check_clean(name, before, after):
+        """No error, shed, failed batch, deadline drop, host check or
+        breaker move between two counts."""
+        (e0, b0, _c0), (e1, b1, _c1) = before, after
+        failed = {k: b1["check_batch_failed"][k] - b0["check_batch_failed"][k]
+                  for k in b1["check_batch_failed"]}
+        drops = {k: b1["deadline_exceeded"][k] - b0["deadline_exceeded"][k]
+                 for k in b1["deadline_exceeded"]}
+        host_checks = e1["host_checks"] - e0["host_checks"]
+        if sum(failed.values()) or sum(drops.values()) or host_checks:
+            raise AssertionError(f"{name}: failed batches {failed}, deadline drops {drops}, "
+                                 f"host checks {host_checks}")
+        shed = registry.counters().snapshot()["shed"]
+        if sum(shed.values()) or list(breaker.transitions) or breaker.state != "closed":
+            raise AssertionError(f"{name}: shed {shed}, breaker {list(breaker.transitions)}")
+
+    def batcher_figures(fig, before, after):
+        (_e0, b0, c0), (_e1, b1, c1) = before, after
+        batches = b1["batches"] - b0["batches"]
+        fig.update({"batches": batches, "batched_checks": b1["batched_checks"] -
+                    b0["batched_checks"],
+                    "mean_batch": (b1["batched_checks"] - b0["batched_checks"]) / batches
+                    if batches else 0.0,
+                    "coalesced": b1["coalesced"] - b0["coalesced"],
+                    "cache_hits": c1["hit"] - c0["hit"], "cache_misses": c1["miss"] - c0["miss"]})
+        log(f"  {fig['leg']}: {batches} batches, mean {fig['mean_batch']:.2f} checks a batch; "
+            f"{fig['coalesced']} coalesced riders; cache {fig['cache_hits']} hits, "
+            f"{fig['cache_misses']} misses ({smi})")
+
+    # (a), the same on the direct listener, and (b): the "grpc" launch path
+    cuda_ops.reset_launch_counts()
+    c_a0 = counts()
+    single = run_grpc_leg(host, daemon.read_port, {"mode": "check", "cycle": False,
+                                                   "slices": single_slices[0]}, LOAD_SECONDS)
+    c_a1 = counts()
+    direct = run_grpc_leg(host, daemon.read_grpc_port, {"mode": "check", "cycle": False,
+                                                        "slices": single_slices[1]}, LOAD_SECONDS)
+    c_a2 = counts()
+    hot_res = run_grpc_leg(host, daemon.read_port, {"mode": "check", "cycle": True,
+                                                    "slices": hot_slices}, HOT_SECONDS)
+    torch.cuda.synchronize()
+    c_b1 = counts()
+    launches = {"grpc": dict(cuda_ops.launches)}
+    figs = {"single": leg_figures("gRPC single leg", single, LOAD_SECONDS, smi),
+            "single_direct": leg_figures("gRPC single leg, direct listener", direct,
+                                         LOAD_SECONDS, smi),
+            "hot": leg_figures("gRPC hot leg", hot_res, HOT_SECONDS, smi)}
+    batcher_figures(figs["single"], c_a0, c_a1)
+    batcher_figures(figs["single_direct"], c_a1, c_a2)
+    batcher_figures(figs["hot"], c_a2, c_b1)
+    check_clean("gRPC single and hot legs", c_a0, c_b1)
+    if any(f["errors"] for f in figs.values()):
+        raise AssertionError("gRPC clients met errors")
+    if figs["single"]["cache_hits"] or figs["single_direct"]["cache_hits"]:
+        raise AssertionError("gRPC draws without repeat hit the cache")
+    answered = [a for r in single + direct for a in r["answers"]]
+    wrong = [(i, a) for i, a in answered if truth(*draws[i]) != a]
+    sample = random.Random(9).sample(answered, min(512, len(answered)))
+    bad = [(i, a) for i, a in sample if oracle.check_relation_tuple(
+        RelationTuple("videos", draws[i][0], "view", subject_id=draws[i][1])).allowed != a]
+    # every verdict is held to the ground truth; the oracle takes 512 of
+    # them (all, on a host too slow to answer 512 in the two legs)
+    if wrong or bad or not answered:
+        raise AssertionError(f"gRPC single legs: {len(wrong)} of {len(answered)} verdicts differ "
+                             f"from the ground truth, {len(bad)} of {len(sample)} from the oracle")
     hot_want = {i: oracle.check_relation_tuple(
         RelationTuple("videos", obj, "view", subject_id=sub)).allowed for i, obj, sub in hot}
     hot_answered = [a for r in hot_res for a in r["answers"]]
-    bad = [(i, allowed) for i, allowed in hot_answered if hot_want[i] != allowed]
+    bad = [(i, a) for i, a in hot_answered if hot_want[i] != a or truth(*draws[i]) != a]
     if not figs["hot"]["cache_hits"] or len(hot_answered) != figs["hot"]["requests"] or bad:
-        raise AssertionError(f"hot leg: {len(bad)} of {len(hot_answered)} verdicts differ "
-                             f"from the oracle ({figs['hot']['cache_hits']} cache hits)")
-    log(f"  hot leg: all {len(hot_answered)} verdicts ({figs['hot']['cache_hits']} cache hits, "
-        f"{figs['hot']['coalesced']} coalesced riders) equal the oracle, over "
-        f"{len({i for i, _a in hot_answered})} of its {HOT_QUERIES} queries")
-    log(f"  serve-load phase {time.perf_counter() - t0:.1f} s")
-    return launches, {**figs, "device_checks": device, "host_checks": host,
-                      "solo_batch_ms": solo, "idle_share": "not measured", "window_ms": 2.0,
-                      "pipeline_depth": 2, "card": smi}
+        raise AssertionError(f"gRPC hot leg: {len(bad)} of {len(hot_answered)} verdicts differ")
+    log(f"  gRPC single legs: all {len(answered)} verdicts equal the ground truth, "
+        f"{len(sample)} sampled the oracle; hot leg: all {len(hot_answered)} equal the oracle and the ground truth")
+
+    # (c) the batch leg: BatchCheck goes straight to engine.check_batch
+    cuda_ops.reset_launch_counts()
+    c_c0 = counts()
+    batch = run_grpc_leg(host, daemon.read_port, {"mode": "batch", "cycle": False,
+                                                  "batch": GRPC_BATCH, "slices": batch_slices},
+                         LOAD_SECONDS)
+    torch.cuda.synchronize()
+    c_c1 = counts()
+    launches["grpc_batch"] = dict(cuda_ops.launches)
+    elapsed = max(r["elapsed"] for r in batch)
+    fig = leg_figures("gRPC batch leg", batch, elapsed, smi, checks_per_request=GRPC_BATCH)
+    fig["device_checks"] = c_c1[0]["device_checks"] - c_c0[0]["device_checks"]
+    fig["batcher_batches"] = c_c1[1]["batches"] - c_c0[1]["batches"]
+    figs["batch"] = fig
+    check_clean("gRPC batch leg", c_c0, c_c1)
+    item_errors = [e for r in batch for a in r["answers"] for e in a[2]]
+    if fig["errors"] or item_errors:
+        raise AssertionError(f"gRPC batch leg: {fig['errors']} RPC errors, item errors "
+                             f"{item_errors[:3]}")
+    verdicts = {first + j: bit == "1" for r in batch for first, bits, _e in r["answers"]
+                for j, bit in enumerate(bits)}
+    wrong = [i for i, a in verdicts.items() if truth(*b_draws[i]) != a]
+    sample = random.Random(10).sample(sorted(verdicts), min(512, len(verdicts)))
+    bad = [i for i in sample if oracle.check_relation_tuple(RelationTuple(
+        "videos", b_draws[i][0], "view", subject_id=b_draws[i][1])).allowed != verdicts[i]]
+    if wrong or bad or fig["device_checks"] != len(verdicts) or fig["batcher_batches"]:
+        raise AssertionError(f"gRPC batch leg: {len(wrong)} of {len(verdicts)} verdicts differ "
+                             f"from the ground truth, {len(bad)} sampled from the oracle; "
+                             f"{fig['device_checks']} device checks, {fig['batcher_batches']} "
+                             "batcher batches")
+    log(f"  gRPC batch leg: all {len(verdicts)} verdicts equal the ground truth, 512 sampled "
+        f"the oracle; {fig['device_checks']} device checks, no batcher batch")
+
+    # (d) one RPC of each other read verb, against the engine called
+    # directly and the ground truth or the oracle
+    counts_d = sorted((len(folders_of.get(u, ())) * FILES_PER_FOLDER + len(files_of.get(u, ())),
+                       u) for u in folders_of)
+    lo_user = counts_d[0][1]  # the fewest objects: the walk stays inside its caps
+    f_user = owner_of["/d0"]
+    expand_set = SubjectSet("videos", "/d1/v3.mp4", "parent")
+    ls_obj = next(f for f in sorted(file_owner) if f.startswith("/d2/"))
+    candidates = filter_candidates()
+    expand_req = pb.ExpandRequest(max_depth=MAX_DEPTH)
+    expand_req.subject.CopyFrom(subject_to_proto(expand_set))
+    lo_req = pb.ListObjectsRequest(namespace="videos", relation="view", page_size=1 << 20,
+                                   subject=subject_to_proto(lo_user))
+    ls_req = pb.ListSubjectsRequest(namespace="videos", object=ls_obj, relation="view")
+    f_req = pb.FilterRequest(namespace="videos", relation="view",
+                             subject=subject_to_proto(f_user), objects=candidates)
+    requests = [(f"/{EXPAND_SERVICE}/Expand", expand_req),
+                (f"/{REVERSE_READ_SERVICE}/ListObjects", lo_req),
+                (f"/{REVERSE_READ_SERVICE}/ListSubjects", ls_req),
+                (f"/{FILTER_SERVICE}/Filter", f_req)]
+    # the states these verbs read (the expand CSR, the reverse and subjects
+    # mirrors) are built before the RPCs, so that each RPC times serving
+    t = time.perf_counter()
+    engine.expand(SubjectSet("videos", "/d0/v0.mp4", "parent"), MAX_DEPTH)
+    engine.list_objects("videos", "view", counts_d[1][1])
+    engine.list_subjects("videos", "/d0/v0.mp4", "view")
+    engine.filter_objects("videos", "view", counts_d[1][1], candidates)
+    torch.cuda.synchronize()
+    log(f"  the expand, reverse and subjects states built, and one filter run, in "
+        f"{time.perf_counter() - t:.1f} s")
+    cuda_ops.reset_launch_counts()
+    e_d0 = dict(engine.stats)
+    got = run_grpc_leg(host, daemon.read_port, {"mode": "raw", "requests": [
+        (path, base64.b64encode(req.SerializeToString()).decode()) for path, req in requests]},
+        0.0)
+    torch.cuda.synchronize()
+    launches["grpc_reads"] = dict(cuda_ops.launches)
+    e_d1 = dict(engine.stats)
+    if any(g["code"] != "OK" for g in got):
+        raise AssertionError(f"gRPC reads failed: {got}")
+    resp = [cls.FromString(base64.b64decode(g["response"])) for g, cls in zip(got, (
+        pb.ExpandResponse, pb.ListObjectsResponse, pb.ListSubjectsResponse, pb.FilterResponse))]
+    host_reads = {k: e_d1.get(k, 0) - e_d0.get(k, 0) for k in
+                  ("host_expands", "host_list_objects", "host_list_subjects", "filter_host")}
+    if sum(host_reads.values()):
+        raise AssertionError(f"gRPC reads replayed on the host: {host_reads}")
+    # the engine's own answers, called directly
+    tree = engine.expand(expand_set, MAX_DEPTH)
+    direct = (pb.ExpandResponse(tree=tree_to_proto(tree)) if tree is not None
+              else pb.ExpandResponse(),
+              engine.list_objects("videos", "view", lo_user, page_size=1 << 20),
+              engine.list_subjects("videos", ls_obj, "view"),
+              engine.filter_objects("videos", "view", f_user, candidates))
+    if resp[0].SerializeToString() != direct[0].SerializeToString() or \
+            (list(resp[1].objects), resp[1].next_page_token) != tuple(direct[1]) or \
+            (list(resp[2].subject_ids), resp[2].next_page_token) != tuple(direct[2]) or \
+            list(resp[3].allowed_objects) != direct[3]:
+        raise AssertionError("a gRPC read differs from the engine's own answer")
+    # the ground truth and the oracle
+    want_objects = sorted(set(folders_of[lo_user]) | {f"{d}/v{k}.mp4" for d in folders_of[lo_user]
+                                                      for k in range(FILES_PER_FOLDER)}
+                          | set(files_of.get(lo_user, ())))
+    lo_sample = random.Random(11).sample(list(resp[1].objects), min(8, len(resp[1].objects)))
+    want_subjects = sorted({owner_of[ls_obj.rsplit("/", 1)[0]], file_owner[ls_obj]})
+    f_sample = random.Random(12).sample(range(len(candidates)), 200)
+    f_allowed = set(resp[3].allowed_objects)
+    if normalize(tree) != normalize(oracle.expand(expand_set, MAX_DEPTH)) or \
+            list(resp[1].objects) != want_objects or \
+            not all(oracle.check_relation_tuple(RelationTuple(
+                "videos", o, "view", subject_id=lo_user)).allowed for o in lo_sample) or \
+            list(resp[2].subject_ids) != want_subjects or \
+            list(resp[2].subject_ids) != oracle.list_subjects("videos", ls_obj, "view") or \
+            list(resp[3].allowed_objects) != [o for o in candidates if truth(o, f_user)] or \
+            any(oracle.check_relation_tuple(RelationTuple(
+                "videos", candidates[i], "view", subject_id=f_user)).allowed
+                != (candidates[i] in f_allowed) for i in f_sample):
+        raise AssertionError("a gRPC read differs from the ground truth or the oracle")
+    reads = {name: {"ms": g["ms"], **extra} for name, g, extra in zip(
+        ("expand", "list_objects", "list_subjects", "filter"), got,
+        ({"tree_nodes": tree_size(tree)}, {"objects": len(resp[1].objects)},
+         {"subject_ids": len(resp[2].subject_ids)},
+         {"candidates": len(candidates), "allowed": len(resp[3].allowed_objects)}))}
+    log(f"  gRPC reads on videos-1e6, each equal to the engine's own answer and the ground truth "
+        f"or the oracle: {reads} ({smi})")
+    log(f"  launches: {launches}")
+    for path, want in (("grpc", cuda_ops.CHECK_KERNELS), ("grpc_batch", cuda_ops.CHECK_KERNELS)):
+        missing = [k for k in want if launches[path][k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the {path} path: {missing}")
+    log(f"  gRPC load phase {time.perf_counter() - t0:.1f} s")
+    return launches, {**figs, "reads": reads, "idle_share": "not measured", "card": smi}
 
 
 def run_microbench():
@@ -3721,6 +4316,10 @@ def main() -> int:
     log(smi)
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
+    import google.protobuf
+    import grpc
+
+    log(f"  grpc {grpc.__version__}, protobuf {google.protobuf.__version__}")
 
     from keto_tpu_torch.config import Config
     from keto_tpu_torch.engine import cuda_ops
@@ -3759,7 +4358,7 @@ def main() -> int:
     owners = ownership(manager.all_relation_tuples())
     run_islands()
     run_serve()
-    s_launches, serve_load = run_serve_load(manager, owners, smi)
+    s_launches, serve_load, g_launches, grpc_load = run_serve_load(manager, owners, smi)
     # the expand phase's store joins only now, so the check phases run in
     # the same process state as before the expand slice existed
     x_engine, x_manager, x_config, subjects, x_info = setup_expand()
@@ -3856,7 +4455,7 @@ def main() -> int:
     for name, key, entry in sc_at:
         next(row for row in rows if row["name"] == name).setdefault("at", {})[key] = entry
     by_path = {"check": launches, "check_write": w_launches, "serve": s_launches,
-               "expand": x_launches,
+               **g_launches, "expand": x_launches,
                "list_objects": lo_launches,
                "list_subjects": ls_launches, "closure_build": b_launches, "closure": c_launches,
                "closure_write": cw_launches, "closure_refresh": cr_launches,
@@ -3882,6 +4481,7 @@ def main() -> int:
                               "profile": profile}}))
     log(json.dumps({"write": {**write, "card": smi}}))
     log(json.dumps({"serve_load": serve_load}))
+    log(json.dumps({"grpc_load": grpc_load}))
     log(json.dumps({"expand": {**expand, "card": smi}}))
     log(json.dumps({"list": {**l_info, "card": smi, "list_objects": list_objects,
                              "list_subjects": list_subjects, "after_write": list_write,
@@ -3904,6 +4504,8 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--load-clients":
         sys.exit(load_clients(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--grpc-clients":
+        sys.exit(grpc_clients(sys.argv[2]))
     try:
         code = main()
     except Exception:

@@ -31,8 +31,10 @@ Layout:
   registry    — the serving plane's composition root (store, engine,
                 check cache, breaker, readiness)
   api         — the REST routes (Check, batch Check, Expand, List, Filter,
-                the tuple list and the writes), the check batcher, the
-                check cache and the daemon
+                the tuple list and the writes) and their OpenAPI document,
+                the gRPC services over the runtime descriptors and their
+                clients, the check batcher, the check cache and the daemon
+                (REST and gRPC on one port through its mux)
 
 Entry points run on the card (device="cuda") unless the caller passes
 device="cpu", where every kernel runs its plain PyTorch version.

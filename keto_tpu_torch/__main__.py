@@ -9,15 +9,17 @@ routes (`namespaces`, `dsn`, `limit.max_read_depth`, `limit.page_size`,
 config.py lists them), builds a Registry, loads the tuples of `--tuples`
 (one "ns:obj#rel@subject" per line) into its store, builds the device
 mirror (and, with `closure.enabled`, the closure index), and runs a
-Daemon (api/daemon.py): the REST Check, Expand, ListObjects,
-ListSubjects and Filter routes on the read listener, single checks
-coalesced by the check batcher behind the check cache, PUT, DELETE and
-PATCH /admin/relation-tuples on the write listener, and with
-`closure.enabled` the closure maintainer (closure/maintainer.py). SIGINT
-or SIGTERM drains the daemon: readiness turns to 503 and new checks are
-shed with a 429 while admitted ones are answered, then everything stops.
-It prints `serving read=<host>:<port>` and then
-`serving write=<host>:<port>` once it accepts requests.
+Daemon (api/daemon.py): on the read port the REST Check, Expand,
+ListObjects, ListSubjects and Filter routes and the gRPC read services,
+single checks coalesced by the check batcher behind the check cache; on
+the write port PUT, DELETE and PATCH /admin/relation-tuples and the gRPC
+WriteService; each port answers REST and gRPC alike. With
+`closure.enabled` the closure maintainer (closure/maintainer.py) runs
+too. SIGINT or SIGTERM drains the daemon: readiness turns to 503
+(NOT_SERVING) and new checks are shed with a 429 (RESOURCE_EXHAUSTED)
+while admitted ones are answered, then everything stops. It prints
+`serving read=<host>:<port>` and then `serving write=<host>:<port>` once
+it accepts requests.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ def _serve(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m keto_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
-    serve = sub.add_parser("serve", help="serve the REST read and write routes")
+    serve = sub.add_parser("serve", help="serve the read and write APIs, REST and gRPC")
     serve.add_argument("--config", required=True, help="JSON config file")
     serve.add_argument("--tuples", help="file of relation tuples, one per line")
     serve.add_argument("--device", default="cuda", help="torch device (default: cuda)")

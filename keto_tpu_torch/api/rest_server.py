@@ -49,14 +49,17 @@ The write listener (make_write_server), Keto's admin routes:
                                           as one commit
 
 Both listeners: GET /health/alive (200), /health/ready (200, or 503
-{"status": "unavailable"} while the daemon is not ready, e.g. draining)
-and /version ({"version": str}).
+{"status": "unavailable"} while the daemon is not ready, e.g. draining),
+/version ({"version": str}) and /.well-known/openapi.json (api/openapi.py:
+the OpenAPI 3.0 document of the routes that listener serves).
 
 A single check runs the admission gate (resilience.admit_check: a 429
 while draining or at serve.check.max_queue, a 504 for an expired
 deadline), then the check cache, and on a miss rides the batcher
 (api/check_cache.py cached_check), which coalesces concurrent checks
-into device batches. The `x-request-timeout-ms` header (or
+into device batches. `explain=true` (a query parameter, or an `explain`
+body field) answers a typed 501: the DecisionTrace is not ported. The
+`x-request-timeout-ms` header (or
 serve.check.default_deadline_ms) sets the deadline of a check, a batch
 check or a filter. An error that carries a retry hint answers with a
 Retry-After header.
@@ -93,6 +96,7 @@ from ..errors import (
     NamespaceNotFoundError,
     NilSubjectError,
     NotFoundError,
+    NotImplementedYetError,
 )
 from ..ketoapi import (
     GetResponse,
@@ -124,7 +128,26 @@ FILTER_ROUTE = "/relation-tuples/filter"
 ALIVE_ROUTE = "/health/alive"
 READY_ROUTE = "/health/ready"
 VERSION_ROUTE = "/version"
+SPEC_ROUTE = "/.well-known/openapi.json"
 WRITE_ROUTE = "/admin/relation-tuples"
+# which listener answers each route ("shared": both)
+ROUTE_KINDS = {
+    READ_ROUTE_BASE: "read",
+    CHECK_ROUTE: "read",
+    CHECK_OPENAPI_ROUTE: "read",
+    CHECK_BATCH_ROUTE: "read",
+    EXPAND_ROUTE: "read",
+    LIST_OBJECTS_ROUTE: "read",
+    LIST_SUBJECTS_ROUTE: "read",
+    FILTER_ROUTE: "read",
+    WRITE_ROUTE: "write",
+    ALIVE_ROUTE: "shared",
+    READY_ROUTE: "shared",
+    VERSION_ROUTE: "shared",
+    SPEC_ROUTE: "shared",
+}
+EXPLAIN_UNIMPLEMENTED = (
+    "explain=true is not served yet: the DecisionTrace (engine/explain.py) is not ported")
 
 
 def _max_depth(params: dict) -> int:
@@ -172,11 +195,13 @@ def _subject(params: dict):
 
 class _Handler(BaseHTTPRequestHandler):
     """What both listeners share: JSON in and out, typed errors, the
-    health and version routes. Subclasses set `registry` and `_routes`."""
+    health, version and OpenAPI routes. Subclasses set `registry`, `kind`
+    and `_routes`."""
 
     protocol_version = "HTTP/1.1"
     server_version = "keto_tpu_torch"
     registry = None
+    kind = None
 
     def log_message(self, fmt, *args):  # quiet by default
         pass
@@ -232,6 +257,10 @@ class _Handler(BaseHTTPRequestHandler):
                 self._json(200 if ok else 503, {"status": "ok" if ok else "unavailable"})
             elif method == "GET" and path == VERSION_ROUTE:
                 self._json(200, {"version": self.registry.version})
+            elif method == "GET" and path == SPEC_ROUTE:
+                from .openapi import build_spec
+
+                self._json(200, build_spec(self.registry.version, kind=self.kind))
             else:
                 handler = self._routes.get((method, path))
                 if handler is None:
@@ -280,6 +309,7 @@ class ReadHandler(_Handler):
     """The read listener's routes; `batcher` coalesces single checks."""
 
     batcher = None
+    kind = "read"
 
     def _get_relations(self, params: dict) -> None:
         params = self._query()
@@ -295,11 +325,15 @@ class ReadHandler(_Handler):
         reg = self.registry
         # deadline and admission before any work, body parsing included
         rt = self._request_trace()
+        if params.get("explain", "").lower() in ("1", "true"):
+            raise NotImplementedYetError(EXPLAIN_UNIMPLEMENTED)
         admit_check(reg, self.batcher, rt)
         if method != "GET":
             body = self._body()
             if not isinstance(body, dict):
                 raise MalformedInputError("could not unmarshal json: expected object")
+            if body.get("explain"):
+                raise NotImplementedYetError(EXPLAIN_UNIMPLEMENTED)
         max_depth = _max_depth(params)
         t = RelationTuple.from_url_query(params) if method == "GET" else \
             RelationTuple.from_dict(body)
@@ -465,6 +499,8 @@ class WriteHandler(_Handler):
     """The write listener's routes: Keto's admin tuple routes on the
     registry's store."""
 
+    kind = "write"
+
     def _write_token(self) -> str:
         """The token of the store version a write left."""
         reg = self.registry
@@ -516,18 +552,22 @@ class _Server(ThreadingHTTPServer):
     daemon_threads = True
 
 
-def _server(handler: type, registry, host: str, port: int, **members) -> ThreadingHTTPServer:
+def _server(handler: type, registry, host: str, port: int, bind: bool,
+            **members) -> ThreadingHTTPServer:
     cls = type(handler.__name__, (handler,), {"registry": registry, **members})
-    return _Server((host, port), cls)
+    return _Server((host, port), cls, bind_and_activate=bind)
 
 
-def make_server(registry, host: str, port: int, batcher) -> ThreadingHTTPServer:
+def make_server(registry, host: str, port: int, batcher, bind: bool = True) -> ThreadingHTTPServer:
     """A threaded HTTP server of the read routes over `registry`; single
     checks ride `batcher` (api/daemon.py make_batcher builds one from the
-    registry's config)."""
-    return _server(ReadHandler, registry, host, port, batcher=batcher)
+    registry's config). `bind=False`: a server that listens nowhere and
+    serves the connections handed to its `process_request` (the daemon's
+    PortMux)."""
+    return _server(ReadHandler, registry, host, port, bind, batcher=batcher)
 
 
-def make_write_server(registry, host: str, port: int) -> ThreadingHTTPServer:
-    """A threaded HTTP server of the write routes on `registry`'s store."""
-    return _server(WriteHandler, registry, host, port)
+def make_write_server(registry, host: str, port: int, bind: bool = True) -> ThreadingHTTPServer:
+    """A threaded HTTP server of the write routes on `registry`'s store;
+    `bind` as make_server's."""
+    return _server(WriteHandler, registry, host, port, bind)

@@ -100,6 +100,14 @@ class InvalidPageTokenError(KetoError):
     default_message = "invalid page token"
 
 
+class NotImplementedYetError(KetoError):
+    # a request for a feature the port does not serve yet, answered with
+    # this typed 501 (gRPC UNIMPLEMENTED) rather than a silent substitute
+    status = 501
+    code = "not_implemented"
+    default_message = "not yet implemented"
+
+
 class FilterTooLargeError(KetoError):
     # the filter candidate list exceeds `filter.max_objects`: refused
     # before any work

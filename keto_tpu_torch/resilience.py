@@ -20,9 +20,11 @@ they refuse.
     probe batch half-opens it and its outcome closes or re-opens it.
   - `ServeCounters`: the events these count, under the JAX package's
     metric label names, until the port exports metrics.
+  - `RetryPolicy`: the gRPC read client's retry of a shed (UNAVAILABLE,
+    RESOURCE_EXHAUSTED) inside the caller's deadline, its backoff floored
+    by the server's `retry-after` hint.
 
-The JAX package's client retry (`RetryPolicy`, backoff) comes with the
-gRPC client, and its token bucket with Explain.
+The JAX package's explain token bucket comes with Explain.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from __future__ import annotations
 import collections
 import copy
 import math
+import random
 import threading
 import time
 from typing import Optional
@@ -191,6 +194,92 @@ def retry_after_header_value(retry_after_s: Optional[float]) -> str:
     if not retry_after_s or retry_after_s <= 0:
         return "1"
     return str(max(1, int(math.ceil(retry_after_s))))
+
+
+# -- client retry -------------------------------------------------------------
+
+
+class RetryPolicy:
+    """Client-side retry of idempotent reads (the gRPC ReadClient takes
+    one; the WriteClient never does: a retried transact could apply
+    twice).
+
+    Retries the codes this server sheds with, UNAVAILABLE and
+    RESOURCE_EXHAUSTED, after a decorrelated-jitter delay (U[base, 3 x
+    the previous delay], capped), so clients shed at one instant do not
+    come back together. The server's `retry-after` hint (gRPC trailing
+    metadata, or a typed error's `retry_after_s`) floors the delay. A
+    retry whose delay would outlive the caller's budget gives up and
+    re-raises. `stats` counts attempts, retries and give-ups."""
+
+    RETRYABLE_CODES = ("UNAVAILABLE", "RESOURCE_EXHAUSTED")
+
+    def __init__(self, max_attempts: int = 3, base_s: float = 0.05, cap_s: float = 2.0,
+                 codes=None, sleep=time.sleep, rng: Optional[random.Random] = None):
+        self.max_attempts = max(int(max_attempts), 1)
+        self.base_s = float(base_s)
+        self.cap_s = float(cap_s)
+        self.codes = tuple(codes) if codes is not None else self.RETRYABLE_CODES
+        self._sleep = sleep
+        self._rng = rng or random.Random()
+        self.stats = {"attempts": 0, "retries": 0, "giveups": 0}
+
+    def _next_delay(self, prev: float) -> float:
+        return min(self.cap_s, self._rng.uniform(self.base_s, prev * 3.0))
+
+    def _retryable(self, err) -> bool:
+        code = getattr(err, "code", None)
+        if not callable(code):
+            return False
+        try:
+            name = code().name
+        except Exception:  # noqa: BLE001 - a malformed RpcError is not retried
+            return False
+        return name in self.codes
+
+    @staticmethod
+    def retry_after_hint_s(err) -> Optional[float]:
+        """The server's retry hint in seconds, None when the error carries
+        none."""
+        direct = getattr(err, "retry_after_s", None)
+        if isinstance(direct, (int, float)) and direct > 0:
+            return float(direct)
+        trailing = getattr(err, "trailing_metadata", None)
+        if not callable(trailing):
+            return None
+        try:
+            for key, value in trailing() or ():
+                if key == "retry-after":
+                    parsed = float(value)
+                    return parsed if parsed > 0 else None
+        except Exception:  # noqa: BLE001 - malformed metadata is no hint
+            return None
+        return None
+
+    def call(self, fn, budget_s: Optional[float] = None):
+        """`fn(remaining_s)` with retries; `budget_s` is the caller's whole
+        deadline across attempts (None: no deadline)."""
+        start = time.monotonic()
+        attempt = 0
+        prev_delay = self.base_s
+        while True:
+            self.stats["attempts"] += 1
+            remaining = None if budget_s is None else budget_s - (time.monotonic() - start)
+            try:
+                return fn(remaining)
+            except Exception as e:  # noqa: BLE001 - classified just below
+                if not self._retryable(e) or attempt + 1 >= self.max_attempts:
+                    raise
+                prev_delay = delay = self._next_delay(prev_delay)
+                hint = self.retry_after_hint_s(e)
+                if hint is not None:
+                    delay = max(delay, hint)
+                if remaining is not None and delay >= max(remaining, 0.0):
+                    self.stats["giveups"] += 1
+                    raise
+                self.stats["retries"] += 1
+                self._sleep(delay)
+                attempt += 1
 
 
 # -- circuit breaker ----------------------------------------------------------
