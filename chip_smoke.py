@@ -99,6 +99,23 @@ Phases, in order; any failure exits non-zero without the final line:
                truth or the oracle; K1-K4 launched on the "grpc" ((a) and
                (b)) and "grpc_batch" ((c)) launch paths, (d)'s launches on
                "grpc_reads"
+ 6d. asyncio read plane — on phase 4's store and engine, a second Registry
+               and Daemon with `serve.read.grpc.aio`: 6c(a)'s 32 clients of
+               single Check RPCs for 8 s on its aio listener (one loop
+               thread, AioCheckBatcher), then 8 s on 6b's threaded direct
+               listener, draws without repeat and apart from 6b's and 6c's:
+               checks/s, p50/p95/p99 ms, batches and mean batch, K1-K4
+               launches of each leg (the "grpc_aio" and "grpc_direct"
+               launch paths); zero errors, sheds, failed batches, deadline
+               drops, host checks, cache hits and breaker moves, every
+               verdict equal to the ground truth and 512 sampled to the
+               oracle; then the TLS leg: a certificate from `openssl req
+               -x509` (no openssl fails the phase), a third Daemon with
+               `serve.read.tls` and the aio listener, 16 REST and 16 gRPC
+               Checks through the TLS mux and 16 gRPC Checks on the TLS aio
+               listener (the "tls" launch path: K1-K4), each verdict equal
+               to the ground truth and the oracle, and plaintext refused on
+               both ports
   7. expand  — (7a) data, (7b) X1 and X2 against their plain versions
                on inputs captured from one real expand batch, as phase 3,
                and X1 again on the same batch at a frontier cap of 32,768
@@ -3210,7 +3227,9 @@ def run_serve_load(manager, owners, smi: str):
     drawn without repeat (cache misses), then 2 s over 256 hot checks
     (cache hits, singleflight). Every check goes admission -> check cache
     -> CheckBatcher -> check_batch_submit / check_batch_resolve_v on the
-    card: the "serve" launch path. Returns (launches, figures)."""
+    card: the "serve" launch path. Then phases 6c and 6d. Returns the
+    launches and figures of 6b, of 6c (6d's launches among them) and 6d's
+    figures."""
     import torch
     from keto_tpu_torch.api.daemon import Daemon
     from keto_tpu_torch.config import Config
@@ -3346,9 +3365,12 @@ def run_serve_load(manager, owners, smi: str):
                       "solo_batch_ms": solo, "idle_share": "not measured", "window_ms": 2.0,
                       "pipeline_depth": 2, "card": smi,
                       "note": "REST through the read port's mux (PortMux)"}
-        g_launches, grpc_load = run_grpc_load(registry, daemon, manager, config, owners,
-                                              set(draws), smi)
-        return launches, serve_load, g_launches, grpc_load
+        g_launches, grpc_load, g_draws = run_grpc_load(registry, daemon, manager, config,
+                                                       owners, set(draws), smi)
+        a_launches, aio_load = run_aio_load(manager, engine, config, owners,
+                                            set(draws) | g_draws, daemon, smi)
+        g_launches.update(a_launches)
+        return launches, serve_load, g_launches, grpc_load, aio_load
     finally:
         daemon.stop()
 
@@ -3724,7 +3746,223 @@ def run_grpc_load(registry, daemon, manager, config, owners, exclude: set, smi: 
         if missing:
             raise AssertionError(f"kernels never launched on the {path} path: {missing}")
     log(f"  gRPC load phase {time.perf_counter() - t0:.1f} s")
-    return launches, {**figs, "reads": reads, "idle_share": "not measured", "card": smi}
+    return launches, {**figs, "reads": reads, "idle_share": "not measured", "card": smi}, \
+        set(draws)
+
+
+# -- phase 6d: the asyncio read plane, and TLS ---------------------------------------
+
+
+TLS_CHECKS = 16
+
+
+def make_certificate(directory: str) -> tuple:
+    """A self-signed certificate for 127.0.0.1 by `openssl req -x509`
+    (cert path, key path); a missing openssl fails the phase."""
+    cert, key = os.path.join(directory, "cert.pem"), os.path.join(directory, "key.pem")
+    subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048", "-keyout", key,
+                    "-out", cert, "-days", "1", "-nodes", "-subj", "/CN=127.0.0.1",
+                    "-addext", "subjectAltName=IP:127.0.0.1"],
+                   check=True, capture_output=True, timeout=120)
+    return cert, key
+
+
+def run_aio_load(manager, engine, config, owners, exclude: set, daemon, smi: str):
+    """Phase 6d, on phase 4's store and engine: a second Registry and
+    Daemon with `serve.read.grpc.aio`, whose direct read listener is the
+    asyncio plane; 32 closed-loop clients of single Check RPCs (6c(a)'s)
+    for 8 s on it (the "grpc_aio" launch path), then 8 s on 6b's threaded
+    direct listener ("grpc_direct"), draws without repeat and apart from
+    6b's and 6c's; then the TLS leg on a third Daemon with
+    `serve.read.tls` and the aio listener: REST and gRPC Checks through
+    the TLS mux and gRPC Checks on the TLS aio listener ("tls"), each
+    verdict held to the ground truth and the oracle, and plaintext against
+    both ports refused. Returns (launches by path, figures)."""
+    import ssl
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    import grpc
+    import torch
+    from keto_tpu_torch.api.daemon import Daemon
+    from keto_tpu_torch.api.descriptors import CHECK_SERVICE, pb
+    from keto_tpu_torch.config import Config
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+    from keto_tpu_torch.ketoapi import RelationTuple
+    from keto_tpu_torch.registry import Registry
+
+    t0 = phase(f"6d asyncio read plane: {LOAD_THREADS} clients of single Check RPCs for "
+               f"{LOAD_SECONDS:.0f} s on the aio listener, then {LOAD_SECONDS:.0f} s on the "
+               f"threaded direct listener; then {TLS_CHECKS} REST and 2 x {TLS_CHECKS} gRPC "
+               "Checks over TLS")
+    folders_of, files_of, _files_in = owners
+    owner_of = {f: u for u, folders in folders_of.items() for f in folders}
+    file_owner = {f: u for u, files in files_of.items() for f in files}
+
+    def truth(obj, sub):
+        return owner_of[obj.rsplit("/", 1)[0]] == sub or file_owner.get(obj) == sub
+
+    n = GRPC_DRAWS_PER_THREAD
+    draws = load_draws(owner_of, 2 * LOAD_THREADS * n + 3 * TLS_CHECKS, seed=69,
+                       exclude=exclude)
+    slices = [[[(leg * LOAD_THREADS * n + i * n + k, *draws[leg * LOAD_THREADS * n + i * n + k])
+                for k in range(n)] for i in range(LOAD_THREADS)] for leg in range(2)]
+    tls_draws = draws[2 * LOAD_THREADS * n:]
+    oracle = ReferenceEngine(manager, config)
+    namespaces = [videos_namespace().to_dict()]
+
+    def served(serve):
+        registry = Registry(Config({"dsn": "memory", "limit": {"max_read_depth": MAX_DEPTH},
+                                    "namespaces": namespaces, "serve": serve}),
+                            device="cuda", manager=manager, engine=engine)
+        d = Daemon(registry)
+        d.start()
+        return registry, d
+
+    listen = {"host": "127.0.0.1", "port": 0}
+    aio_grpc = {**listen, "aio": True}
+    registry, aio = served({"read": {**listen, "grpc": aio_grpc}, "write": listen})
+    legs = {}
+    try:
+        for name, reg, port, path, sl in (
+                ("aio", registry, aio.read_grpc_port, "grpc_aio", slices[0]),
+                ("threaded_direct", daemon.registry, daemon.read_grpc_port, "grpc_direct",
+                 slices[1])):
+            before = (dict(engine.stats), reg.counters().snapshot(), dict(reg.check_cache().counts),
+                      list(reg.circuit_breaker().transitions))
+            cuda_ops.reset_launch_counts()
+            res = run_grpc_leg("127.0.0.1", port, {"mode": "check", "cycle": False, "slices": sl},
+                               LOAD_SECONDS)
+            torch.cuda.synchronize()
+            launches = dict(cuda_ops.launches)
+            e1, b1, c1 = dict(engine.stats), reg.counters().snapshot(), \
+                dict(reg.check_cache().counts)
+            e0, b0, c0, tr0 = before
+            label = "aio listener" if name == "aio" else "threaded direct listener"
+            fig = leg_figures(f"gRPC single leg, {label}", res, LOAD_SECONDS, smi)
+            batches = b1["batches"] - b0["batches"]
+            fig.update({
+                "batches": batches, "batched_checks": b1["batched_checks"] - b0["batched_checks"],
+                "mean_batch": (b1["batched_checks"] - b0["batched_checks"]) / batches
+                if batches else 0.0,
+                "coalesced": b1["coalesced"] - b0["coalesced"],
+                "cache_hits": c1["hit"] - c0["hit"], "cache_misses": c1["miss"] - c0["miss"],
+                "host_checks": e1["host_checks"] - e0["host_checks"],
+                "launches": {k: launches[k] for k in cuda_ops.CHECK_KERNELS}})
+            log(f"  {label}: {batches} batches, mean {fig['mean_batch']:.2f} checks a batch; "
+                f"{fig['coalesced']} coalesced riders; cache {fig['cache_hits']} hits, "
+                f"{fig['cache_misses']} misses; K1-K4 launches {fig['launches']} ({smi})")
+            failed = {k: b1["check_batch_failed"][k] - b0["check_batch_failed"][k]
+                      for k in b1["check_batch_failed"]}
+            drops = {k: b1["deadline_exceeded"][k] - b0["deadline_exceeded"][k]
+                     for k in b1["deadline_exceeded"]}
+            shed = {k: b1["shed"][k] - b0["shed"][k] for k in b1["shed"]}
+            moved = list(reg.circuit_breaker().transitions)[len(tr0):]
+            if fig["errors"] or sum(failed.values()) or sum(drops.values()) or \
+                    sum(shed.values()) or fig["host_checks"] or moved or fig["cache_hits"]:
+                raise AssertionError(f"6d {name} leg: {fig['errors']} errors, failed batches "
+                                     f"{failed}, deadline drops {drops}, shed {shed}, host checks "
+                                     f"{fig['host_checks']}, breaker {moved}, cache hits "
+                                     f"{fig['cache_hits']}")
+            missing = [k for k in cuda_ops.CHECK_KERNELS if launches[k] == 0]
+            if missing or not batches:
+                raise AssertionError(f"6d {name} leg: kernels never launched {missing}, "
+                                     f"{batches} batches")
+            legs[name] = (fig, res, path, launches)
+    finally:
+        aio.stop()
+    answered = [a for _f, res, _p, _l in legs.values() for r in res for a in r["answers"]]
+    wrong = [(i, a) for i, a in answered if truth(*draws[i]) != a]
+    sample = random.Random(13).sample(answered, min(512, len(answered)))
+    bad = [(i, a) for i, a in sample if oracle.check_relation_tuple(
+        RelationTuple("videos", draws[i][0], "view", subject_id=draws[i][1])).allowed != a]
+    if wrong or bad or not answered:
+        raise AssertionError(f"6d: {len(wrong)} of {len(answered)} verdicts differ from the "
+                             f"ground truth, {len(bad)} of {len(sample)} from the oracle")
+    log(f"  6d legs: all {len(answered)} verdicts equal the ground truth, {len(sample)} sampled "
+        f"the oracle; aio {legs['aio'][0]['checks_per_s']:.1f} checks/s against threaded direct "
+        f"{legs['threaded_direct'][0]['checks_per_s']:.1f} ({smi})")
+
+    # the TLS leg: a TLS mux (REST and gRPC) and the TLS aio listener
+    with tempfile.TemporaryDirectory() as tmp:
+        cert, key = make_certificate(tmp)
+        tls = {"cert_path": cert, "key_path": key}
+        t_reg, t_daemon = served({"read": {**listen, "grpc": aio_grpc, "tls": tls},
+                                  "write": listen})
+        try:
+            ctx = ssl.create_default_context(cafile=cert)
+            with open(cert, "rb") as f:
+                creds = grpc.ssl_channel_credentials(f.read())
+            cuda_ops.reset_launch_counts()
+            e0 = dict(engine.stats)
+            got = []
+            for k, (obj, sub) in enumerate(tls_draws):
+                i = 2 * LOAD_THREADS * n + k
+                if k < TLS_CHECKS:  # REST through the TLS mux
+                    url = (f"https://127.0.0.1:{t_daemon.read_port}/relation-tuples/check?" +
+                           urllib.parse.urlencode({"namespace": "videos", "object": obj,
+                                                   "relation": "view", "subject_id": sub}))
+                    try:
+                        with urllib.request.urlopen(url, context=ctx, timeout=60) as r:
+                            status, body = r.status, json.loads(r.read())
+                    except urllib.error.HTTPError as e:
+                        status, body = e.code, json.loads(e.read())
+                    if (status, body) not in ((200, {"allowed": True}),
+                                              (403, {"allowed": False})):
+                        raise AssertionError(f"TLS REST check answered {status} {body}")
+                    got.append(("rest_mux", i, body["allowed"]))
+                else:  # gRPC through the TLS mux, then on the TLS aio listener
+                    where = "grpc_mux" if k < 2 * TLS_CHECKS else "grpc_aio"
+                    port = t_daemon.read_port if where == "grpc_mux" else t_daemon.read_grpc_port
+                    req = pb.CheckRequest(tuple=pb.RelationTuple(
+                        namespace="videos", object=obj, relation="view", subject=pb.Subject(id=sub)))
+                    with grpc.secure_channel(f"127.0.0.1:{port}", creds) as ch:
+                        resp = ch.unary_unary(
+                            f"/{CHECK_SERVICE}/Check",
+                            request_serializer=lambda m: m.SerializeToString(),
+                            response_deserializer=pb.CheckResponse.FromString)(req, timeout=60)
+                    got.append((where, i, resp.allowed))
+            torch.cuda.synchronize()
+            tls_launches = dict(cuda_ops.launches)
+            host = dict(engine.stats)["host_checks"] - e0["host_checks"]
+            # plaintext against both TLS ports is refused
+            refused = []
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{t_daemon.read_port}/version",
+                                       timeout=10)
+            except Exception:  # noqa: BLE001 - any failure is the refusal wanted
+                refused.append("rest_mux")
+            with grpc.insecure_channel(f"127.0.0.1:{t_daemon.read_grpc_port}") as ch:
+                try:
+                    ch.unary_unary(f"/{CHECK_SERVICE}/Check")(
+                        pb.CheckRequest().SerializeToString(), timeout=10)
+                except grpc.RpcError as e:
+                    if e.code() == grpc.StatusCode.UNAVAILABLE:
+                        refused.append("grpc_aio")
+        finally:
+            t_daemon.stop()
+    wrong = [(w, i, a) for w, i, a in got if truth(*draws[i]) != a or oracle.check_relation_tuple(
+        RelationTuple("videos", draws[i][0], "view", subject_id=draws[i][1])).allowed != a]
+    missing = [k for k in cuda_ops.CHECK_KERNELS if tls_launches[k] == 0]
+    if wrong or len(got) != 3 * TLS_CHECKS or host or missing or \
+            refused != ["rest_mux", "grpc_aio"]:
+        raise AssertionError(f"6d TLS leg: {len(wrong)} of {len(got)} verdicts differ "
+                             f"({wrong[:3]}), {host} host checks, kernels never launched "
+                             f"{missing}, plaintext refused on {refused}")
+    log(f"  TLS leg: {len(got)} checks ({TLS_CHECKS} REST and {TLS_CHECKS} gRPC through the TLS "
+        f"mux, {TLS_CHECKS} gRPC on the TLS aio listener), every verdict equal to the ground "
+        f"truth and the oracle, {sum(a for _w, _i, a in got)} allowed; plaintext refused on both "
+        f"ports; K1-K4 launches {({k: tls_launches[k] for k in cuda_ops.CHECK_KERNELS})}")
+    log(f"  6d phase {time.perf_counter() - t0:.1f} s")
+    launches = {path: counts for _f, _r, path, counts in legs.values()}
+    launches["tls"] = tls_launches
+    return launches, {"aio": legs["aio"][0], "threaded_direct": legs["threaded_direct"][0],
+                      "tls": {"checks": len(got), "allowed": sum(a for _w, _i, a in got),
+                              "plaintext_refused": refused},
+                      "window_ms": 2.0, "pipeline_depth": 2,
+                      "idle_share": "not measured", "card": smi}
 
 
 def run_microbench():
@@ -4358,7 +4596,8 @@ def main() -> int:
     owners = ownership(manager.all_relation_tuples())
     run_islands()
     run_serve()
-    s_launches, serve_load, g_launches, grpc_load = run_serve_load(manager, owners, smi)
+    s_launches, serve_load, g_launches, grpc_load, aio_load = run_serve_load(manager, owners,
+                                                                             smi)
     # the expand phase's store joins only now, so the check phases run in
     # the same process state as before the expand slice existed
     x_engine, x_manager, x_config, subjects, x_info = setup_expand()
@@ -4482,6 +4721,7 @@ def main() -> int:
     log(json.dumps({"write": {**write, "card": smi}}))
     log(json.dumps({"serve_load": serve_load}))
     log(json.dumps({"grpc_load": grpc_load}))
+    log(json.dumps({"grpc_aio": aio_load}))
     log(json.dumps({"expand": {**expand, "card": smi}}))
     log(json.dumps({"list": {**l_info, "card": smi, "list_objects": list_objects,
                              "list_subjects": list_subjects, "after_write": list_write,

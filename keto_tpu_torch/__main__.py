@@ -1,11 +1,14 @@
 """Command line of keto_tpu_torch.
 
     python -m keto_tpu_torch serve --config cfg.json [--tuples tuples.txt] [--device cuda]
+                                   [--pid-file serve.pid]
 
 `serve` reads the JAX package's JSON config keys for the read and write
 routes (`namespaces`, `dsn`, `limit.max_read_depth`, `limit.page_size`,
 `serve.read.host` / `serve.read.port`, `serve.write.host` /
-`serve.write.port`, `check.*`, `serve.check.*`, `closure.*`, `filter.*`;
+`serve.write.port`, `serve.<kind>.grpc` (a direct gRPC listener; with
+`"aio": true` the read side's is the asyncio plane), `serve.<kind>.tls`,
+`serve.<kind>.cors`, `check.*`, `serve.check.*`, `closure.*`, `filter.*`;
 config.py lists them), builds a Registry, loads the tuples of `--tuples`
 (one "ns:obj#rel@subject" per line) into its store, builds the device
 mirror (and, with `closure.enabled`, the closure index), and runs a
@@ -19,7 +22,9 @@ too. SIGINT or SIGTERM drains the daemon: readiness turns to 503
 (NOT_SERVING) and new checks are shed with a 429 (RESOURCE_EXHAUSTED)
 while admitted ones are answered, then everything stops. It prints
 `serving read=<host>:<port>` and then `serving write=<host>:<port>` once
-it accepts requests.
+it accepts requests. `--pid-file` names a file the daemon writes its pid
+to once it serves and removes when it stops, if the pid there is still
+its own.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ def _serve(args) -> int:
         engine.ensure_state()  # build and upload the mirror before serving
         if config.closure_enabled():
             engine.closure_ensure_built()
-    daemon = Daemon(registry)
+    daemon = Daemon(registry, pid_file=args.pid_file)
     stop = threading.Event()
 
     def _stop(*_):
@@ -72,6 +77,9 @@ def main(argv=None) -> int:
     serve.add_argument("--config", required=True, help="JSON config file")
     serve.add_argument("--tuples", help="file of relation tuples, one per line")
     serve.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    serve.add_argument("--pid-file", default=None,
+                       help="write the daemon's pid here once it serves; removed on a clean "
+                            "stop if it still holds this pid")
     args = parser.parse_args(argv)
     if args.command == "serve":
         return _serve(args)

@@ -92,6 +92,31 @@ def classify_engine_error(e: Exception, counters, cause: str) -> KetoError:
     return err
 
 
+def device_failure(breaker, counters, e: Exception | None, cause: str,
+                   device_timeout_s: float | None) -> KetoError:
+    """A failed or stalled device batch: a failure on the breaker, the count
+    under `cause` ("device" or "device_timeout"), and the typed error its
+    riders fail with (a typed engine error passes through, counted "keto").
+    `e` None: the launch watchdog abandoned the batch."""
+    if breaker is not None:
+        breaker.record_failure()
+    if isinstance(e, KetoError):
+        counters.inc("check_batch_failed", "keto")
+        return e
+    counters.inc("check_batch_failed", cause)
+    return CheckBatchFailedError(
+        f"check batch failed on the device: {type(e).__name__}: {e}" if e is not None
+        else f"check batch unresolved after {device_timeout_s * 1e3:g} ms on the device")
+
+
+def breaker_open_error(breaker) -> StoreUnavailableError:
+    """What a check fails with while the breaker is open: a typed 503 whose
+    Retry-After is the breaker's remaining cooldown."""
+    return StoreUnavailableError(
+        "check device circuit breaker is open",
+        retry_after_s=max(breaker.open_remaining_s(), 0.05), breaker_open=True)
+
+
 class _LaunchGuard:
     """Exactly one of the resolver and the launch watchdog finishes a
     launch: the winner releases the in-flight slot and answers the
@@ -347,18 +372,8 @@ class CheckBatcher:
         """A failed or stalled device batch: a failure on the breaker, the
         count under `cause` ("device" or "device_timeout"), and every rider
         failed with a typed error (a typed engine error passes through)."""
-        if self.breaker is not None:
-            self.breaker.record_failure()
-        if isinstance(e, KetoError):
-            self.counters.inc("check_batch_failed", "keto")
-            err = e
-        else:
-            self.counters.inc("check_batch_failed", cause)
-            err = CheckBatchFailedError(
-                f"check batch failed on the device: {type(e).__name__}: {e}" if e is not None
-                else f"check batch unresolved after {self.device_timeout_s * 1e3:g} ms "
-                     "on the device")
-        self._fail_slots(slots, err)
+        self._fail_slots(slots, device_failure(self.breaker, self.counters, e, cause,
+                                               self.device_timeout_s))
 
     def _breaker_open(self, group: list[_Pending]) -> None:
         """The breaker-open route, on the collector: the group's live
@@ -368,10 +383,7 @@ class CheckBatcher:
         if not group:
             return
         self.counters.inc("shed", "breaker_open", n=len(group))
-        err = StoreUnavailableError(
-            "check device circuit breaker is open",
-            retry_after_s=max(self.breaker.open_remaining_s(), 0.05), breaker_open=True)
-        self._fail_slots([group], err)
+        self._fail_slots([group], breaker_open_error(self.breaker))
 
     def _device_timed_out(self, guard, slots) -> None:
         """The launch watchdog: a batch unresolved after device_timeout_ms

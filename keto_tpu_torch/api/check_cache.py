@@ -73,6 +73,24 @@ def cached_check(registry, batcher, nid, t, max_depth, version, rt):
     return res
 
 
+async def cached_check_async(registry, batcher, nid, t, max_depth, version, rt):
+    """cached_check for the asyncio plane (api/aio_server.py): the same
+    cache gate, the batcher's check awaited. The lookup and the store are
+    one lock and a few dict operations, fine on the event loop."""
+    cache = registry.check_cache()
+    gen = None
+    if cache is not None:
+        res = cache.lookup(nid, t, max_depth, version)
+        if res is not None:
+            return res
+        gen = cache.generation()
+    res, computed_v = await batcher.check_versioned(t, max_depth, nid=nid, rt=rt)
+    require_answer_floor(computed_v, version)
+    if cache is not None:
+        cache.store(nid, t, max_depth, res, computed_v, version, gen=gen)
+    return res
+
+
 class _Entry:
     __slots__ = ("result", "version", "expires")
 

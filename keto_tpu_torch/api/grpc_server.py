@@ -40,7 +40,8 @@ Semantics, as the JAX package's servers:
 
 Not served yet, each a typed status: the tuple WatchService (not
 registered: UNIMPLEMENTED), explain (UNIMPLEMENTED), replica workers,
-metrics and tracing, and per-request network ids.
+metrics and tracing, and per-request network ids. api/aio_server.py
+serves these same bodies on the asyncio plane.
 """
 
 from __future__ import annotations
@@ -163,15 +164,21 @@ class _Services:
 
     # -- CheckService, BatchCheckService ----------------------------------------
 
+    def check_tuple(self, req) -> RelationTuple:
+        """A CheckRequest's tuple, the `tuple` field before the deprecated
+        flat fields, its namespaces validated."""
+        src = req.tuple if req.HasField("tuple") else req
+        t = RelationTuple.make(src.namespace, src.object, src.relation,
+                               self._subject(src.subject))
+        self.registry.validate_namespaces(t)
+        return t
+
     def check(self, req, context, rt):
         reg = self.registry
         if req.explain:
             raise NotImplementedYetError(EXPLAIN_UNIMPLEMENTED)
         admit_check(reg, self.batcher, rt)
-        src = req.tuple if req.HasField("tuple") else req
-        t = RelationTuple.make(src.namespace, src.object, src.relation,
-                               self._subject(src.subject))
-        reg.validate_namespaces(t)
+        t = self.check_tuple(req)
         version = self._enforce(req.snaptoken)
         res = cached_check(reg, self.batcher, reg.nid, t, int(req.max_depth), version, rt)
         if res.error is not None:

@@ -51,7 +51,12 @@ The write listener (make_write_server), Keto's admin routes:
 Both listeners: GET /health/alive (200), /health/ready (200, or 503
 {"status": "unavailable"} while the daemon is not ready, e.g. draining),
 /version ({"version": str}) and /.well-known/openapi.json (api/openapi.py:
-the OpenAPI 3.0 document of the routes that listener serves).
+the OpenAPI 3.0 document of the routes that listener serves). With the
+listener's `cors` config enabled (serve.<kind>.cors: enabled,
+allowed_origins, allowed_methods, allowed_headers), every answer to a
+request from an allowed Origin carries the Access-Control-Allow-* headers
+and `Vary: Origin`, and OPTIONS on any path is a preflight: 204 with
+those headers.
 
 A single check runs the admission gate (resilience.admit_check: a 429
 while draining or at serve.check.max_queue, a 504 for an expired
@@ -202,16 +207,40 @@ class _Handler(BaseHTTPRequestHandler):
     server_version = "keto_tpu_torch"
     registry = None
     kind = None
+    cors = None  # the listener's serve.<kind>.cors, or None
 
     def log_message(self, fmt, *args):  # quiet by default
         pass
+
+    def _cors_headers(self) -> list[tuple[str, str]]:
+        """The CORS headers of `serve.<kind>.cors` for a request whose
+        Origin it allows (allowed_origins, default every one), else none;
+        allowed_methods and allowed_headers default as Keto's."""
+        cfg = self.cors
+        if not cfg or not cfg.get("enabled"):
+            return []
+        origin = self.headers.get("Origin")
+        if not origin:
+            return []
+        allowed = cfg.get("allowed_origins") or ["*"]
+        if "*" not in allowed and origin not in allowed:
+            return []
+        methods = cfg.get("allowed_methods") or ["GET", "POST", "PUT", "PATCH", "DELETE",
+                                                 "OPTIONS"]
+        headers = cfg.get("allowed_headers") or ["Authorization", "Content-Type"]
+        return [
+            ("Access-Control-Allow-Origin", "*" if "*" in allowed else origin),
+            ("Access-Control-Allow-Methods", ", ".join(methods)),
+            ("Access-Control-Allow-Headers", ", ".join(headers)),
+            ("Vary", "Origin"),
+        ]
 
     def _json(self, code: int, body, headers=()) -> None:
         data = json.dumps(body).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(data)))
-        for k, v in headers:
+        for k, v in [*headers, *self._cors_headers()]:
             self.send_header(k, v)
         self.end_headers()
         self.wfile.write(data)
@@ -220,7 +249,7 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", "0")
-        for k, v in headers:
+        for k, v in [*headers, *self._cors_headers()]:
             self.send_header(k, v)
         self.end_headers()
 
@@ -287,6 +316,14 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_PATCH(self):
         self._route("PATCH")
+
+    def do_OPTIONS(self):
+        # a CORS preflight: 204 and the allow headers, whatever the path
+        self.send_response(204)
+        for k, v in self._cors_headers():
+            self.send_header(k, v)
+        self.send_header("Content-Length", "0")
+        self.end_headers()
 
     # -- what the read routes share ---------------------------------------------
 
@@ -558,16 +595,18 @@ def _server(handler: type, registry, host: str, port: int, bind: bool,
     return _Server((host, port), cls, bind_and_activate=bind)
 
 
-def make_server(registry, host: str, port: int, batcher, bind: bool = True) -> ThreadingHTTPServer:
+def make_server(registry, host: str, port: int, batcher, bind: bool = True,
+                cors=None) -> ThreadingHTTPServer:
     """A threaded HTTP server of the read routes over `registry`; single
     checks ride `batcher` (api/daemon.py make_batcher builds one from the
     registry's config). `bind=False`: a server that listens nowhere and
     serves the connections handed to its `process_request` (the daemon's
-    PortMux)."""
-    return _server(ReadHandler, registry, host, port, bind, batcher=batcher)
+    PortMux). `cors`: the listener's CORS config (serve.read.cors)."""
+    return _server(ReadHandler, registry, host, port, bind, batcher=batcher, cors=cors)
 
 
-def make_write_server(registry, host: str, port: int, bind: bool = True) -> ThreadingHTTPServer:
+def make_write_server(registry, host: str, port: int, bind: bool = True,
+                      cors=None) -> ThreadingHTTPServer:
     """A threaded HTTP server of the write routes on `registry`'s store;
-    `bind` as make_server's."""
-    return _server(WriteHandler, registry, host, port, bind)
+    `bind` and `cors` (serve.write.cors) as make_server's."""
+    return _server(WriteHandler, registry, host, port, bind, cors=cors)

@@ -37,8 +37,14 @@ unset: twice the pipeline depth, at least 4), `device_timeout_ms` (the
 launch watchdog; unset: off), `default_deadline_ms` and
 `max_deadline_ms` (a request's deadline when it names none, and the cap
 of any; unset: none), `breaker.threshold` (5) and `breaker.cooldown_s`
-(5.0). Schema validation, namespace files and OPL stay with the JAX
-package.
+(5.0). The listeners' options, per kind ("read", "write"):
+`serve.<kind>.grpc` ({host, port}: a direct gRPC listener beside the
+muxed port; `serve.read.grpc.aio`, true: the read side's is the asyncio
+plane; `serve.read.grpc.max_watchers`, 16: concurrent Health Watch
+streams), `serve.<kind>.tls` ({cert_path, key_path}: TLS on the port and
+its direct listener) and `serve.<kind>.cors` ({enabled, allowed_origins,
+allowed_methods, allowed_headers}). Schema validation, namespace files
+and OPL stay with the JAX package.
 """
 
 from __future__ import annotations

@@ -30,6 +30,7 @@ The JAX package's explain token bucket comes with Explain.
 from __future__ import annotations
 
 import collections
+import contextvars
 import copy
 import math
 import random
@@ -73,6 +74,26 @@ class RequestTrace:
 
     def __init__(self, deadline: Optional[Deadline] = None):
         self.deadline = deadline
+
+
+# the executing handler's RequestTrace: a transport sets it so that the
+# layers below (the aio plane's admission and batcher, its delegated
+# bodies on executor threads) reach the request's deadline without an
+# argument through every signature
+CURRENT_TRACE: contextvars.ContextVar[Optional[RequestTrace]] = (
+    contextvars.ContextVar("keto_tpu_torch_request_trace", default=None))
+
+
+def set_request_trace(rt: Optional[RequestTrace]):
+    return CURRENT_TRACE.set(rt)
+
+
+def reset_request_trace(token) -> None:
+    CURRENT_TRACE.reset(token)
+
+
+def current_request_trace() -> Optional[RequestTrace]:
+    return CURRENT_TRACE.get()
 
 
 def parse_timeout_ms(value: Optional[str]) -> Optional[float]:

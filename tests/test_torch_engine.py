@@ -196,10 +196,10 @@ def test_cuda_kernel_wrappers_refuse_cpu_tensors():
 def test_import_boundary():
     """Importing the port, its engine, its serving plane (registry,
     resilience, batcher, check cache, daemon), its gRPC plane (the
-    descriptors, messages, gRPC servers, clients and OpenAPI document),
-    its entry point, its tools and its scale tier (the columnar store and
-    columns, the native encoders, the 1e7 generators) loads neither jax
-    nor any module of keto_tpu."""
+    descriptors, messages, gRPC servers, clients and OpenAPI document), its
+    asyncio read plane, its entry point, its tools and its scale tier (the
+    columnar store and columns, the native encoders, the 1e7 generators)
+    loads neither jax nor any module of keto_tpu."""
     code = (
         "import sys, runpy\n"
         "import keto_tpu_torch, keto_tpu_torch.__main__\n"
@@ -216,7 +216,7 @@ def test_import_boundary():
         "import keto_tpu_torch.tools.scale\n"
         "import keto_tpu_torch.api.descriptors, keto_tpu_torch.api.messages\n"
         "import keto_tpu_torch.api.grpc_server, keto_tpu_torch.api.client\n"
-        "import keto_tpu_torch.api.openapi\n"
+        "import keto_tpu_torch.api.openapi, keto_tpu_torch.api.aio_server\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'keto_tpu' or m.startswith('keto_tpu.'))\n"
         "print(bad)\n"
