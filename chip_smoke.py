@@ -6,7 +6,8 @@ the port builds, agrees with itself and runs its main path on the GPU.
 Phases, in order; any failure exits non-zero without the final line:
 
   1. card    — nvidia-smi's name and power limit; torch's, grpc's and
-               protobuf's versions
+               protobuf's versions, and PyYAML's (or its absence: phase
+               13's config is then JSON)
   2. build   — nvcc builds csrc/check_kernels.cu, csrc/expand_kernels.cu,
                csrc/list_kernels.cu, csrc/closure_filter_kernels.cu,
                csrc/closure_power_kernels.cu and csrc/microbench_kernels.cu
@@ -211,6 +212,40 @@ Phases, in order; any failure exits non-zero without the final line:
                also at F = 2^20 (the row's "large" entry), where M3's
                bin and own passes are logged as its parts
 
+ 13. opl + watch — (after phase 11, before phase 12) a directory holding
+               `namespaces.keto.ts`, the OPL full example of
+               tests/test_opl.py (User, Group, Folder, File: `view` an OR
+               over an AND of two traverses, `edit`, `not` a NOT, `rename`
+               a traverse of `siblings`), named by a Keto config
+               (`namespaces: {location: file://...}`, YAML, or JSON
+               without PyYAML) read by Config.from_file into a Registry
+               and a Daemon, as `serve` builds them; 6,600 folders of 120
+               files, 1,000 groups of 16 users, a folder's viewers a
+               group, owners, viewers and siblings on a quarter, an eighth
+               and a sixteenth of the files (~1.16e6 tuples). (13a) the
+               mirror's build by stage, 20 batches of 4096 checks over the
+               four permits: checks/s, p50, host replays by cause, K1-K4
+               launched (the "opl" launch path), 512 sampled verdicts equal
+               to the oracle's complete walk, K1-K4 against their plain
+               versions on one batch's inputs (each row's "at" entry
+               "opl"); (13b) the file rewritten with `edit` = owners ||
+               viewers: one rebuild, a new config generation, a cached
+               `edit` not served stale, 512 sampled equal to the oracle;
+               then a file that does not parse: no rebuild, the same
+               verdicts, `last_error` names the parse error; (13c) 16
+               closed-loop gRPC Check clients for 8 s beside a writer of 10
+               transactions of 8 ops a second through the write API, each
+               read back at its snaptoken; a threaded gRPC, an aio gRPC
+               and an SSE subscriber opened at one snaptoken each get the
+               change log's events exactly once and in order (commit to
+               delivery p50 and p99 a plane); one killed after a third and
+               resumed from its last token misses and repeats nothing; one
+               of buffer 4 never read gets one RESET, then live events;
+               checks/s and the "opl_watch" launch path; (13d) `python -m
+               keto_tpu_torch serve --config` over a copy of the OPL file
+               and a few hundred tuples answers a REST and a gRPC check as
+               the oracle, a Watch event after a write, and exits 0 on
+               SIGTERM
  12. scale   — (run last, after phases 4-11's engines and stores are
                released) tools/scale_bench.py's defaults: synth_columns
                at 1e7 tuples (100,000 users) and synth_rbac_columns (1,000
@@ -3387,8 +3422,9 @@ def grpc_clients(spec_path: str) -> int:
     "batch": BatchCheck RPCs of the spec's "batch" draws each; mode "raw":
     the spec's serialized requests once each, in order, on one channel.
     Prints one JSON object: each client's latencies, answers and errors.
-    Imports grpc, google.protobuf and the port's descriptors, nothing of
-    torch."""
+    A draw is (index, object, subject[, relation]) in the spec's
+    "namespace" ("videos" and "view" by default). Imports grpc,
+    google.protobuf and the port's descriptors, nothing of torch."""
     import base64
     import threading
 
@@ -3400,8 +3436,10 @@ def grpc_clients(spec_path: str) -> int:
         spec = json.load(f)
     target, seconds, mode = f"{spec['host']}:{spec['port']}", spec["seconds"], spec["mode"]
 
-    def check_request(obj, sub):
-        return pb.RelationTuple(namespace="videos", object=obj, relation="view",
+    namespace = spec.get("namespace", "videos")
+
+    def check_request(obj, sub, relation="view"):
+        return pb.RelationTuple(namespace=namespace, object=obj, relation=relation,
                                 subject=pb.Subject(id=sub))
 
     if mode == "raw":
@@ -3444,9 +3482,9 @@ def grpc_clients(spec_path: str) -> int:
             while time.perf_counter() < end and (spec["cycle"] or k + step <= len(draws)):
                 group = [draws[(k + j) % len(draws)] for j in range(step)]
                 if mode == "check":
-                    req = pb.CheckRequest(tuple=check_request(group[0][1], group[0][2]))
+                    req = pb.CheckRequest(tuple=check_request(*group[0][1:]))
                 else:
-                    req = pb.BatchCheckRequest(tuples=[check_request(o, u) for _i, o, u in group])
+                    req = pb.BatchCheckRequest(tuples=[check_request(*d[1:]) for d in group])
                 t = time.perf_counter()
                 try:
                     resp = rpc(req, timeout=60)
@@ -4052,6 +4090,691 @@ def run_microbench():
     return launches, rows, tools
 
 
+# -- phase 13: OPL namespace files and the Watch API ---------------------------------
+
+
+# tests/test_opl.py's full example (Keto's internal/schema testdata): view is
+# an OR whose first child is an AND of two traverses, `not` a NOT, `rename`
+# a traverse of `siblings` to `edit`
+OPL_FULL_EXAMPLE = """
+class User implements Namespace {
+  related: {
+    manager: User[]
+  }
+}
+
+class Group implements Namespace {
+  related: {
+    members: (User | Group)[]
+  }
+}
+
+class Folder implements Namespace {
+  related: {
+    parents: File[]
+    viewers: SubjectSet<Group, "members">[]
+  }
+
+  permits = {
+    view: (ctx: Context): boolean => this.related.viewers.includes(ctx.subject),
+  }
+}
+
+class File implements Namespace {
+  related: {
+    parents: (File | Folder)[]
+    viewers: (User | SubjectSet<Group, "members">)[]
+    owners: (User | SubjectSet<Group, "members">)[]
+    siblings: File[]
+  }
+
+  // Some comment
+  permits = {
+    view: (ctx: Context): boolean =>
+      (
+      this.related.parents.traverse((p) =>
+        p.related.viewers.includes(ctx.subject),
+      ) &&
+      this.related.parents.traverse(p => p.permits.view(ctx)) ) ||
+      (this.related.viewers.includes(ctx.subject) ||
+      this.related.viewers.includes(ctx.subject) ||
+      this.related.viewers.includes(ctx.subject) ) ||
+      this.related.owners.includes(ctx.subject),
+
+    edit: (ctx: Context) => this.related.owners.includes(ctx.subject),
+
+    not: (ctx: Context) => !this.related.owners.includes(ctx.subject),
+
+    rename: (ctx: Context) =>
+      this.related.siblings.traverse(s => s.permits.edit(ctx)),
+  }
+}
+"""
+OPL_EDIT = "edit: (ctx: Context) => this.related.owners.includes(ctx.subject),"
+OPL_EDIT_WIDE = ("edit: (ctx: Context) => this.related.owners.includes(ctx.subject) || "
+                 "this.related.viewers.includes(ctx.subject),")
+OPL_BROKEN = "class File implements Namespace { related: { owners: User[] "
+OPL_PERMITS = ("view", "edit", "not", "rename")
+# phase 4's videos-1e6 size: 6,600 folders of 120 files, 1,000 groups of 16
+OPL_FOLDERS = 6600
+OPL_FILES = 120
+OPL_GROUPS = 1000
+OPL_GROUP_SIZE = 16
+OPL_ROUNDS = 20
+OPL_SAMPLES = 512
+# 13c: 16 closed-loop gRPC Check clients beside a writer of 10
+# transactions of 8 ops a second, for 8 s
+WATCH_SECONDS = 8.0
+WATCH_TX_PER_S = 10
+WATCH_TX_OPS = 8
+WATCH_CLIENTS = 16
+WATCH_DRAWS_PER_CLIENT = 4_000
+WATCH_RESET_BUFFER = 4
+# 13d: the serve subprocess's few hundred tuples
+OPL_SERVE_SHAPE = dict(n_folders=4, files_per_folder=40, n_groups=8)
+
+
+def build_opl_dataset(n_folders: int, files_per_folder: int, n_groups: int = OPL_GROUPS,
+                      seed: int = 25):
+    """The full example's namespaces filled in: groups of OPL_GROUP_SIZE
+    users, a folder's viewers one group's members, files with a parent
+    folder, owners (a user) on a quarter, viewers (a user) on an eighth,
+    a sibling on a sixteenth. Returns the tuples, a batch of BATCH checks
+    (the four permits in turn; half the subjects a likely hit) and, by
+    file, its owner and viewer."""
+    from keto_tpu_torch.ketoapi import RelationTuple, SubjectSet
+
+    rng = random.Random(seed)
+    n_users = n_groups * OPL_GROUP_SIZE
+    tuples = [RelationTuple("Group", f"g{g}", "members", subject_id=f"u{g * OPL_GROUP_SIZE + k}")
+              for g in range(n_groups) for k in range(OPL_GROUP_SIZE)]
+    group_of, owner_of, viewer_of = {}, {}, {}
+    for d in range(n_folders):
+        g = rng.randrange(n_groups)
+        group_of[d] = g
+        tuples.append(RelationTuple("Folder", f"d{d}", "viewers",
+                                    subject_set=SubjectSet("Group", f"g{g}", "members")))
+        parent = SubjectSet("Folder", f"d{d}", "...")
+        for f in range(files_per_folder):
+            obj = f"d{d}f{f}"
+            tuples.append(RelationTuple("File", obj, "parents", subject_set=parent))
+            if rng.random() < 0.25:
+                owner_of[obj] = f"u{rng.randrange(n_users)}"
+                tuples.append(RelationTuple("File", obj, "owners", subject_id=owner_of[obj]))
+            if rng.random() < 0.125:
+                viewer_of[obj] = f"u{rng.randrange(n_users)}"
+                tuples.append(RelationTuple("File", obj, "viewers", subject_id=viewer_of[obj]))
+            if rng.random() < 0.0625:
+                tuples.append(RelationTuple("File", obj, "siblings", subject_set=SubjectSet(
+                    "File", f"d{d}f{(f + 1) % files_per_folder}", "...")))
+    queries = []
+    for i in range(BATCH):
+        d, f = rng.randrange(n_folders), rng.randrange(files_per_folder)
+        obj, permit = f"d{d}f{f}", OPL_PERMITS[i % 4]
+        if i % 8 < 4:
+            sub = f"u{rng.randrange(n_users)}"
+        elif permit == "view":
+            sub = f"u{group_of[d] * OPL_GROUP_SIZE + rng.randrange(OPL_GROUP_SIZE)}"
+        elif permit == "rename":
+            sub = owner_of.get(f"d{d}f{(f + 1) % files_per_folder}", f"u{rng.randrange(n_users)}")
+        else:
+            sub = owner_of.get(obj) or viewer_of.get(obj) or f"u{rng.randrange(n_users)}"
+        queries.append(RelationTuple("File", obj, permit, subject_id=sub))
+    return tuples, queries, owner_of, viewer_of
+
+
+def write_opl(path: str, text: str, bump_s: float) -> None:
+    """Replace a namespace file at once, its mtime moved `bump_s` past its
+    last one (a hot reload keys on the mtime)."""
+    old = os.stat(path).st_mtime if os.path.exists(path) else time.time()
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
+    os.utime(path, (old + bump_s, old + bump_s))
+
+
+def keto_config(path: str, location: str, serve: dict) -> str:
+    """A Keto config naming its namespaces by `location`, in YAML when
+    PyYAML is there (Keto's own format), else JSON; the file's path."""
+    cfg = {"dsn": "memory", "namespaces": {"location": f"file://{location}"},
+           "limit": {"max_read_depth": MAX_DEPTH}, "serve": serve}
+    try:
+        import yaml
+    except ModuleNotFoundError:
+        path = os.path.splitext(path)[0] + ".json"
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        return path
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def percentile_ms(values: list, p: float):
+    v = sorted(values)
+    return v[min(len(v) - 1, int(p / 100 * len(v)))] * 1e3 if v else None
+
+
+def opl_oracle_check(manager, config, queries, results, what: str) -> None:
+    """OPL_SAMPLES sampled verdicts against the exact oracle's complete
+    walk (visited_pruning=False, the device's semantics: the pruning walk
+    cuts the second traverse of `view`'s AND, which meets the folder's
+    viewers again)."""
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+
+    oracle = ReferenceEngine(manager, config, visited_pruning=False)
+    sample = random.Random(13).sample(range(len(queries)), min(OPL_SAMPLES, len(queries)))
+    bad = [i for i in sample
+           if oracle.check_relation_tuple(queries[i], MAX_DEPTH).allowed != results[i].allowed]
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(sample)} sampled verdicts {what} differ from "
+                             f"the oracle: {[str(queries[i]) for i in bad[:3]]}")
+
+
+def opl_serve_subprocess(tmp: str, repo: str):
+    """13d's `python -m keto_tpu_torch serve --config keto.yml --tuples ...`
+    over a copy of the OPL file: the process, its config, tuples and
+    queries."""
+    d = os.path.join(tmp, "serve_namespaces")
+    os.makedirs(d)
+    write_opl(os.path.join(d, "namespaces.keto.ts"), OPL_FULL_EXAMPLE, 0)
+    listen = {"host": "127.0.0.1", "port": 0}
+    cfg = keto_config(os.path.join(tmp, "serve.yml"), d, {"read": listen, "write": listen})
+    tuples, queries, owner_of, _v = build_opl_dataset(**OPL_SERVE_SHAPE)
+    with open(os.path.join(tmp, "serve_tuples.txt"), "w") as f:
+        f.write("".join(f"{t}\n" for t in tuples))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "keto_tpu_torch", "serve", "--config", cfg,
+         "--tuples", os.path.join(tmp, "serve_tuples.txt")],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": repo})
+    return proc, cfg, tuples, queries, owner_of
+
+
+def run_opl_serve(proc, cfg_path, tuples, queries, owner_of) -> dict:
+    """13d: the serve subprocess answers one REST and one gRPC check equal
+    to the oracle, one Watch event after one write, then stops on
+    SIGTERM."""
+    import signal
+    import urllib.parse
+    import urllib.request
+
+    from keto_tpu_torch.api.client import ReadClient, open_channel
+    from keto_tpu_torch.config import Config
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+    from keto_tpu_torch.ketoapi import RelationTuple
+    from keto_tpu_torch.storage import MemoryManager
+
+    t0 = phase("13d serve: python -m keto_tpu_torch serve --config <keto.yml> under the OPL file")
+    try:
+        line = proc.stdout.readline()
+        if not line.startswith("serving read="):
+            raise AssertionError(f"serve did not start: {line!r} {proc.stderr.read()[-2000:]}")
+        read = line.split("=", 1)[1].strip()
+        line = proc.stdout.readline()
+        if not line.startswith("serving write="):
+            raise AssertionError(f"serve has no write listener: {line!r}")
+        write = line.split("=", 1)[1].strip()
+        t_ready = time.perf_counter() - t0
+        config = Config.from_file(cfg_path)
+        manager = MemoryManager()
+        manager.write_relation_tuples(tuples)
+        oracle = ReferenceEngine(manager, config, visited_pruning=False)
+        owned = next(iter(owner_of))
+        q_rest = RelationTuple("File", owned, "edit", subject_id=owner_of[owned])
+        q_grpc = next(q for q in queries if q.relation == "view"
+                      and oracle.check_relation_tuple(q, MAX_DEPTH).allowed)
+        params = {"namespace": "File", "object": q_rest.object, "relation": "edit",
+                  "subject_id": q_rest.subject_id}
+        with urllib.request.urlopen(f"http://{read}/relation-tuples/check/openapi?"
+                                    + urllib.parse.urlencode(params), timeout=60) as r:
+            rest = json.loads(r.read())["allowed"]
+            token = r.headers["X-Keto-Snaptoken"]
+        client = ReadClient(open_channel(read))
+        try:
+            via_grpc = client.check(q_grpc, timeout=60)
+            want = (oracle.check_relation_tuple(q_rest, MAX_DEPTH).allowed,
+                    oracle.check_relation_tuple(q_grpc, MAX_DEPTH).allowed)
+            if (rest, via_grpc) != want or want != (True, True):
+                raise AssertionError(f"serve answered {(rest, via_grpc)}, the oracle {want}")
+            new = RelationTuple("File", q_rest.object, "owners", subject_id="serve-watch")
+            req = urllib.request.Request(f"http://{write}/admin/relation-tuples", method="PUT",
+                                         data=json.dumps(new.to_dict()).encode())
+            with urllib.request.urlopen(req, timeout=60) as r:
+                if r.status != 201:
+                    raise AssertionError(f"PUT answered {r.status}")
+            events = list(client.watch(snaptoken=token, max_events=1, timeout=60))
+        finally:
+            client.close()
+        got = [(e.event_type, [(op, str(t)) for op, t in e.changes]) for e in events]
+        if got != [("change", [("insert", str(new))])]:
+            raise AssertionError(f"the watch after the write gave {got}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            raise AssertionError(f"serve exited {rc}: {proc.stderr.read()[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log(f"  serve ready {t_ready:.1f} s into 13d; REST check {rest} and gRPC check {via_grpc} "
+        f"equal the oracle; one Watch event after one write: {got[0][0]}; exit 0 on SIGTERM "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"tuples": len(tuples), "ready_s": t_ready, "config": os.path.basename(cfg_path)}
+
+
+def run_opl_watch(smi: str):
+    """Phase 13: OPL namespaces from a Keto config, served by a Registry
+    and a Daemon as `serve` builds them, and the Watch API under load.
+    Returns (the 13a batch's launches, 13c's launches, the K1-K4 "opl"
+    entries, the figures)."""
+    import torch
+
+    from keto_tpu_torch.api.client import ReadClient, open_channel
+    from keto_tpu_torch.api.daemon import Daemon
+    from keto_tpu_torch.config import Config
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.ketoapi import RelationTuple
+    from keto_tpu_torch.registry import Registry
+
+    fig = {"card": smi}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        serve = opl_serve_subprocess(tmp, repo)  # its start overlaps 13a-13c
+        t0 = phase(f"13a opl: {OPL_FOLDERS} folders x {OPL_FILES} files under the OPL full "
+                   "example, from a Keto config")
+        ns_dir = os.path.join(tmp, "namespaces")
+        os.makedirs(ns_dir)
+        ts_path = os.path.join(ns_dir, "namespaces.keto.ts")
+        write_opl(ts_path, OPL_FULL_EXAMPLE, 0)
+        listen = {"host": "127.0.0.1", "port": 0}
+        cfg_path = keto_config(os.path.join(tmp, "keto.yml"), ns_dir, {
+            "read": {**listen, "grpc": {**listen, "aio": True}}, "write": listen})
+        fig["config"] = os.path.basename(cfg_path)
+        t = time.perf_counter()
+        tuples, queries, owner_of, viewer_of = build_opl_dataset(OPL_FOLDERS, OPL_FILES)
+        t_data = time.perf_counter() - t
+        config = Config.from_file(cfg_path)
+        registry = Registry(config)
+        manager = registry.relation_tuple_manager()
+        t = time.perf_counter()
+        manager.write_relation_tuples(tuples)
+        t_store = time.perf_counter() - t
+        n_tuples = len(tuples)
+        del tuples
+        engine = registry.check_engine()
+        t = time.perf_counter()
+        engine.ensure_state()
+        torch.cuda.synchronize()
+        fig["build"] = {"tuples": n_tuples, "data_s": t_data, "store_s": t_store,
+                        "mirror_s": time.perf_counter() - t, **engine.last_build}
+        log(f"  {n_tuples} tuples ({fig['config']}, namespaces "
+            f"{sorted(ns.name for ns in registry.namespace_manager().namespaces())}): data "
+            f"{t_data:.1f} s, store {t_store:.1f} s, mirror {fig['build']['mirror_s']:.1f} s "
+            f"({engine.last_build})")
+
+        cuda_ops.reset_launch_counts()
+        before = dict(engine.stats)
+        results = engine.check_batch(queries, MAX_DEPTH)  # the main path, once
+        torch.cuda.synchronize()
+        launches = dict(cuda_ops.launches)
+        missing = [k for k in cuda_ops.CHECK_KERNELS if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the OPL check path: {missing}")
+        t1 = time.perf_counter()
+        handles = []
+        for _ in range(OPL_ROUNDS):
+            handles.append(engine.check_batch_submit(queries, MAX_DEPTH))
+            if len(handles) > 8:
+                engine.check_batch_resolve(handles.pop(0))
+        for h in handles:
+            engine.check_batch_resolve(h)
+        torch.cuda.synchronize()
+        qps = OPL_ROUNDS * BATCH / (time.perf_counter() - t1)
+        lat = []
+        for _ in range(9):
+            s = time.perf_counter()
+            engine.check_batch(queries, MAX_DEPTH)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - s) * 1e3)
+        runs = 1 + OPL_ROUNDS + 9
+        host = engine.stats["host_checks"] - before["host_checks"]
+        causes = {k: v - before["host_cause"].get(k, 0)
+                  for k, v in engine.stats["host_cause"].items()
+                  if v != before["host_cause"].get(k, 0)}
+        opl_oracle_check(manager, config, queries, results, "under the OPL file")
+        by_permit = {p: sum(r.allowed for q, r in zip(queries, results) if q.relation == p)
+                     for p in OPL_PERMITS}
+        fig["check"] = {"checks_per_s": qps, "p50_batch_ms": statistics.median(lat),
+                        "batch_ms": lat, "allowed_by_permit": by_permit,
+                        "host_replays_per_batch": host / runs, "host_cause": causes,
+                        "launches": launches}
+        log(f"  launches on the main path: {launches}")
+        log(f"  allowed by permit of {BATCH}: {by_permit}; {OPL_SAMPLES} sampled equal the "
+            f"oracle; host replays {host} over {runs} batches, by cause {causes}")
+        log(f"  throughput {qps:.1f} checks/s ({OPL_ROUNDS} batches of {BATCH}); p50 batch "
+            f"{statistics.median(lat):.2f} ms (min {min(lat):.2f}, max {max(lat):.2f}) ({smi})")
+        with Recorder(cuda_ops, step=1) as rec:
+            engine.check_batch(queries, MAX_DEPTH)
+        cases, k2_shape = kernel_cases(rec)
+        at = [(case[0], "opl", scale_kernel_entry(
+            case, "one OPL check batch, step 1", k2_shape if case[0] == "pair_probe" else None))
+            for case in cases]
+        del rec, cases
+        log(f"  13a {time.perf_counter() - t0:.1f} s")
+
+        t0 = phase("13b hot reload: edit = owners || viewers, then a file that does not parse")
+        daemon = Daemon(registry)
+        daemon.start()
+        try:
+            nm = registry.namespace_manager()
+            cache = registry.check_cache()
+            read = f"127.0.0.1:{daemon.read_port}"
+            client = ReadClient(open_channel(read))
+            # a viewer who owns nothing: `edit` flips with the reload
+            obj = next(o for o, v in viewer_of.items() if owner_of.get(o) != v)
+            probe = RelationTuple("File", obj, "edit", subject_id=viewer_of[obj])
+            first = client.check(probe, timeout=60)
+            again = client.check(probe, timeout=60)  # a cache hit at the same version
+            hits0, gen0 = cache.stats()["hit"], nm.config_generation
+            builds0 = engine.stats["snapshot_builds"]
+            write_opl(ts_path, OPL_FULL_EXAMPLE.replace(OPL_EDIT, OPL_EDIT_WIDE), 5)
+            t = time.perf_counter()
+            wide = engine.check_batch(queries, MAX_DEPTH)
+            torch.cuda.synchronize()
+            reload_s = time.perf_counter() - t
+            if engine.stats["snapshot_builds"] != builds0 + 1:
+                raise AssertionError(f"the reload made {engine.stats['snapshot_builds'] - builds0}"
+                                     " builds, not 1")
+            after = client.check(probe, timeout=60)
+            if (first, again, after) != (False, False, True) or nm.config_generation == gen0:
+                raise AssertionError(f"the cache served {first, again, after} across the "
+                                     f"reload (generation {gen0} -> {nm.config_generation})")
+            opl_oracle_check(manager, config, queries, wide, "after the reload")
+            flipped = sum(a.allowed != b.allowed for a, b in zip(results, wide))
+            write_opl(ts_path, OPL_BROKEN, 10)
+            builds1 = engine.stats["snapshot_builds"]
+            broken = engine.check_batch(queries, MAX_DEPTH)
+            kept = client.check(probe, timeout=60)
+            if engine.stats["snapshot_builds"] != builds1 or not kept or \
+                    [r.allowed for r in broken] != [r.allowed for r in wide]:
+                raise AssertionError("a file that does not parse changed what is served")
+            if "could not parse" not in str(nm.last_error):
+                raise AssertionError(f"last_error is {nm.last_error!r}")
+            # the wide file again: a load that succeeds, the same set, no rebuild
+            write_opl(ts_path, OPL_FULL_EXAMPLE.replace(OPL_EDIT, OPL_EDIT_WIDE), 15)
+            engine.check_batch(queries[:64], MAX_DEPTH)
+            if nm.last_error is not None or engine.stats["snapshot_builds"] != builds1:
+                raise AssertionError("restoring the file rebuilt or failed")
+            fig["reload"] = {"rebuild_batch_s": reload_s, "build": dict(engine.last_build),
+                             "verdicts_flipped": flipped, "cache_hits_before": hits0,
+                             "last_error": str(nm.last_error) if nm.last_error else None,
+                             "broken_error": "could not parse"}
+            log(f"  reload: one rebuild, its batch {reload_s:.2f} s ({engine.last_build}); "
+                f"{flipped} of {BATCH} verdicts flipped; the cached `edit` of a viewer "
+                f"{again} before, {after} after (generation {gen0} -> "
+                f"{nm.config_generation}); {OPL_SAMPLES} sampled equal the oracle")
+            log(f"  a file that does not parse: no rebuild, verdicts unchanged, last_error "
+                f"named the parse error; restored without a rebuild "
+                f"({time.perf_counter() - t0:.1f} s)")
+
+            t0 = phase(f"13c watch: {WATCH_CLIENTS} gRPC Check clients beside "
+                       f"{WATCH_TX_PER_S} writes of {WATCH_TX_OPS} ops a second for "
+                       f"{WATCH_SECONDS:.0f} s; threaded, aio and SSE subscribers")
+            fig["watch"] = run_watch_load(registry, daemon, manager, client, owner_of, viewer_of,
+                                          queries, smi)
+            client.close()
+            log(f"  13c {time.perf_counter() - t0:.1f} s")
+        finally:
+            daemon.stop()
+            engine.stop_push_refresh()
+        fig["serve"] = run_opl_serve(*serve)
+    return launches, fig["watch"].pop("launches"), at, fig
+
+
+def run_watch_load(registry, daemon, manager, client, owner_of, viewer_of, queries, smi):
+    """13c (see run_opl_watch)."""
+    import http.client
+    import queue
+    import threading
+    import urllib.parse
+
+    import grpc
+
+    from keto_tpu_torch.api.client import WriteClient, open_channel
+    from keto_tpu_torch.api.descriptors import WATCH_SERVICE, pb
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.engine.snaptoken import encode_snaptoken, parse_snaptoken
+    from keto_tpu_torch.ketoapi import RelationTuple
+
+    nid = registry.nid
+    hub = registry.watch_hub()
+    n_tx = int(WATCH_SECONDS * WATCH_TX_PER_S)
+    v0 = manager.version(nid=nid)
+    tok0 = encode_snaptoken(v0, nid)
+    commit_t: dict = {}
+    # the commit's time, taken by the store's first write listener: before
+    # the hub's, which wakes the tailer
+    manager._write_listeners.insert(
+        0, lambda n: commit_t.setdefault(manager.version(nid=n), time.monotonic()))
+    got = {name: [] for name in ("grpc", "aio", "sse", "resumed")}
+    arrived = {name: {} for name in got}
+    errors = []
+
+    def record(name, version, changes):
+        arrived[name].setdefault(version, time.monotonic())
+        got[name].append((version, changes))
+
+    def grpc_frames(name, port, token, n, calls):
+        ch = grpc.insecure_channel(f"127.0.0.1:{port}")
+        call = ch.unary_stream(f"/{WATCH_SERVICE}/Watch")(
+            pb.WatchRequest(snaptoken=token).SerializeToString(), timeout=WATCH_SECONDS + 120)
+        calls.append(call)
+        k = 0
+        try:
+            for raw in call:
+                e = pb.WatchResponse.FromString(raw)
+                if e.event_type == "heartbeat":
+                    continue
+                record(name, parse_snaptoken(e.snaptoken, nid),
+                       [(c.action, f"{c.relation_tuple.namespace}:{c.relation_tuple.object}#"
+                                   f"{c.relation_tuple.relation}@{c.relation_tuple.subject.id}")
+                        for c in e.changes])
+                k += 1
+                if k >= n:
+                    break
+        finally:
+            call.cancel()
+            ch.close()
+
+    def sub_grpc(name, port):
+        try:
+            grpc_frames(name, port, tok0, n_tx, [])
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append((name, repr(e)))
+
+    def sub_resumed(port):
+        """Killed after a third of the events, resumed from its last token."""
+        try:
+            grpc_frames("resumed", port, tok0, n_tx // 3, [])
+            last = encode_snaptoken(got["resumed"][-1][0], nid)
+            grpc_frames("resumed", port, last, n_tx - len(got["resumed"]), [])
+        except Exception as e:  # noqa: BLE001
+            errors.append(("resumed", repr(e)))
+
+    def sub_sse():
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", daemon.read_port,
+                                              timeout=WATCH_SECONDS + 60)
+            conn.request("GET", "/relation-tuples/watch?" + urllib.parse.urlencode(
+                {"snaptoken": tok0, "max_events": n_tx}))
+            resp = conn.getresponse()
+            if resp.status != 200:
+                raise AssertionError(f"SSE answered {resp.status}")
+            while True:
+                line = resp.readline()
+                if not line:
+                    break
+                if line.startswith(b"data: "):
+                    d = json.loads(line[6:])
+                    record("sse", parse_snaptoken(d["snaptoken"], nid),
+                           [(c["action"], str(RelationTuple.from_dict(c["relation_tuple"])))
+                            for c in d["changes"]])
+            conn.close()
+        except Exception as e:  # noqa: BLE001
+            errors.append(("sse", repr(e)))
+
+    subs_before = len(hub._states[nid].subs) if nid in hub._states else 0
+    threads = [threading.Thread(target=sub_grpc, args=("grpc", daemon.read_port)),
+               threading.Thread(target=sub_grpc, args=("aio", daemon.read_grpc_port)),
+               threading.Thread(target=sub_sse),
+               threading.Thread(target=sub_resumed, args=(daemon.read_grpc_port,))]
+    for th in threads:
+        th.start()
+    reset_sub = hub.subscribe(nid, buffer=WATCH_RESET_BUFFER)  # never read in the window
+    deadline = time.monotonic() + 60
+    while len(hub._states[nid].subs) < subs_before + 5 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    if len(hub._states[nid].subs) < subs_before + 5:
+        raise AssertionError(f"{len(hub._states[nid].subs) - subs_before} of 5 subscribers")
+
+    # the load: draws without repeat over the four permits
+    rng = random.Random(29)
+    files = list(owner_of) + list(viewer_of)
+    draws = []
+    for i in range(WATCH_CLIENTS * WATCH_DRAWS_PER_CLIENT):
+        q = queries[rng.randrange(len(queries))]
+        draws.append((i, q.object if i % 2 else rng.choice(files),
+                      f"u{rng.randrange(OPL_GROUPS * OPL_GROUP_SIZE)}", OPL_PERMITS[i % 4]))
+    slices = [draws[c::WATCH_CLIENTS] for c in range(WATCH_CLIENTS)]
+    load: dict = {}
+
+    def run_load():
+        try:
+            load["results"] = run_grpc_leg("127.0.0.1", daemon.read_port, {
+                "mode": "check", "cycle": False, "slices": slices, "namespace": "File"},
+                WATCH_SECONDS)
+        except Exception as e:  # noqa: BLE001
+            errors.append(("load", repr(e)))
+
+    # the writer: 8 ops a transaction (new owners; from the second on, 2
+    # of the last one's removed), each read back at its snaptoken by a
+    # reader of its own, so that the writer keeps its pace
+    wc = WriteClient(open_channel(f"127.0.0.1:{daemon.write_port}"))
+    owned = list(owner_of)
+    writes, ryw_ms, acked = [], [], queue.Queue()
+
+    def read_back():
+        while (item := acked.get()) is not None:
+            i, token, ins, dels = item
+            t = time.perf_counter()
+            try:
+                seen = client.check(RelationTuple("File", ins.object, "edit",
+                                                  subject_id=ins.subject_id),
+                                    timeout=60, snaptoken=token)
+                gone = [client.check(RelationTuple("File", d.object, "edit",
+                                                   subject_id=d.subject_id),
+                                     timeout=60, snaptoken=token) for d in dels[:1]]
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(("read back", i, repr(e)))
+                continue
+            ryw_ms.append((time.perf_counter() - t) * 1e3)
+            if not seen or any(gone):
+                errors.append(("read back", i, seen, gone))
+
+    cuda_ops.reset_launch_counts()
+    b0 = registry.counters().snapshot()
+    loader = threading.Thread(target=run_load)
+    reader = threading.Thread(target=read_back)
+    loader.start()
+    reader.start()
+    t_start = time.monotonic()
+    prev = []
+    try:
+        for i in range(n_tx):
+            wait = t_start + i / WATCH_TX_PER_S - time.monotonic()
+            if wait > 0:
+                time.sleep(wait)
+            n_del = min(2, len(prev))
+            ins = [RelationTuple("File", owned[rng.randrange(len(owned))], "owners",
+                                 subject_id=f"w{i}_{k}") for k in range(WATCH_TX_OPS - n_del)]
+            tokens = wc.transact(ins, prev[:n_del], timeout=60)
+            acked.put((i, tokens[0], ins[0], prev[:n_del]))
+            writes.append(parse_snaptoken(tokens[0], nid))
+            prev = ins[-2:]
+    finally:
+        t_writes = time.monotonic() - t_start
+        acked.put(None)
+        reader.join(timeout=WATCH_SECONDS + 120)
+        loader.join(timeout=WATCH_SECONDS + 600)
+        wc.close()
+    launches = dict(cuda_ops.launches)
+    b1 = registry.counters().snapshot()
+    batches = b1["batches"] - b0["batches"]
+    batched = b1["batched_checks"] - b0["batched_checks"]
+    if len(ryw_ms) != n_tx:
+        raise AssertionError(f"{len(ryw_ms)} of {n_tx} writes read back: {errors[:3]}")
+    for th in threads:
+        th.join(timeout=60)
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"watch subscribers: {errors}, "
+                             f"{[th.is_alive() for th in threads]} alive")
+    v1 = manager.version(nid=nid)
+    by_v: dict = {}
+    for v, op, t in manager.changelog_since(v0, nid=nid):
+        by_v.setdefault(v, []).append((op, str(t)))
+    want = list(by_v.items())
+    if len(want) != n_tx or v1 != v0 + n_tx or writes != list(range(v0 + 1, v1 + 1)):
+        raise AssertionError(f"{len(want)} committed versions of {n_tx} writes")
+    for name, events in got.items():
+        if events != want:
+            bad = next(i for i, (a, b) in enumerate(zip(events + [None] * len(want), want))
+                       if a != b)
+            raise AssertionError(f"{name}: {len(events)} events; the first difference from "
+                                 f"the change log at {bad}")
+    # the unread subscriber: one RESET, then live events
+    first = reset_sub.get(timeout=10)
+    extra = reset_sub.get(timeout=0.3)
+    wc = WriteClient(open_channel(f"127.0.0.1:{daemon.write_port}"))
+    wc.transact([RelationTuple("File", owned[0], "owners", subject_id="after-reset")], [],
+                timeout=60)
+    wc.close()
+    live = reset_sub.get(timeout=10)
+    reset_sub.close()
+    if first is None or not first.is_reset or extra is not None or live is None \
+            or live.kind != "change" or live.version != v1 + 1:
+        raise AssertionError(f"the unread subscriber got {first}, {extra}, {live}")
+    results = load.get("results") or []
+    legfig = leg_figures("13c gRPC Check beside the writer", results, WATCH_SECONDS, smi)
+    if legfig["errors"]:
+        raise AssertionError(f"{legfig['errors']} load errors")
+    legfig.update(batches=batches, batched_checks=batched,
+                  mean_batch=batched / batches if batches else 0.0)
+    log(f"  the batcher: {batches} batches of {legfig['mean_batch']:.2f} checks on average "
+        "(the load's and the read backs')")
+    missing = [k for k in cuda_ops.CHECK_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched under the watch load: {missing}")
+    planes = {}
+    for name in ("grpc", "aio", "sse"):
+        lat = [arrived[name][v] - commit_t[v] for v in by_v]
+        planes[name] = {"p50_ms": percentile_ms(lat, 50), "p99_ms": percentile_ms(lat, 99),
+                        "max_ms": max(lat) * 1e3, "min_ms": min(lat) * 1e3}
+        log(f"  {name}: {n_tx} events equal the change log, once each, in order; commit to "
+            f"delivery p50 {planes[name]['p50_ms']:.3f} ms, p99 {planes[name]['p99_ms']:.3f} "
+            f"ms (min {planes[name]['min_ms']:.3f}, max {planes[name]['max_ms']:.3f})")
+    log(f"  kill and resume after {n_tx // 3} events: no gap, no duplicate; the unread "
+        f"subscriber (buffer {WATCH_RESET_BUFFER}): one RESET at v{first.version}, then v"
+        f"{live.version} live")
+    log(f"  {n_tx} writes in {t_writes:.2f} s, each seen at its snaptoken (read back p50 "
+        f"{statistics.median(ryw_ms):.2f} ms, one or two checks); hub counts {hub.counts}; "
+        f"launches {launches}")
+    return {"writes": n_tx, "ops_per_write": WATCH_TX_OPS, "write_s": t_writes,
+            "delivery": planes, "ryw_p50_ms": statistics.median(ryw_ms), "load": legfig,
+            "hub": dict(hub.counts), "reset_at": first.version, "launches": launches}
+
+
 # -- phase 12: the scale tier --------------------------------------------------------
 
 
@@ -4558,6 +5281,12 @@ def main() -> int:
     import grpc
 
     log(f"  grpc {grpc.__version__}, protobuf {google.protobuf.__version__}")
+    try:
+        import yaml
+
+        log(f"  PyYAML {yaml.__version__}: phase 13's Keto config is YAML")
+    except ModuleNotFoundError:
+        log("  no PyYAML: phase 13's Keto config is JSON")
 
     from keto_tpu_torch.config import Config
     from keto_tpu_torch.engine import cuda_ops
@@ -4678,6 +5407,11 @@ def main() -> int:
     del c1_dirty
     m_launches, m_rows, tools = run_microbench()
     rows += m_rows
+    # phase 13 on the card after phase 11, before phase 12's release
+    o_launches, ow_launches, o_at, opl = run_opl_watch(smi)
+    for name, key, entry in o_at:
+        next(row for row in rows if row["name"] == name).setdefault("at", {})[key] = entry
+    gc.collect()
     # phase 12 loads its own 1e7-tuple store: release phases 4-11's
     # engines, stores and captured tensors first
     for e in (engine, x_engine, d_engine):
@@ -4698,7 +5432,8 @@ def main() -> int:
                "list_objects": lo_launches,
                "list_subjects": ls_launches, "closure_build": b_launches, "closure": c_launches,
                "closure_write": cw_launches, "closure_refresh": cr_launches,
-               "filter": f_launches, "microbench": m_launches, **sc_by_path}
+               "filter": f_launches, "microbench": m_launches, "opl": o_launches,
+               "opl_watch": ow_launches, **sc_by_path}
     # each kernel's count on its own path: check for K1-K4, expand for X1
     # and X2, ListObjects for L1, L2 and L4, ListSubjects for L3, closure
     # for C1, filter for F1, closure_build for P1-P3, microbench for
@@ -4730,6 +5465,7 @@ def main() -> int:
     log(json.dumps({"filter": {**filt, "card": smi}}))
     log(json.dumps({"microbench": {**tools, "card": smi}}))
     log(json.dumps({"scale": scale}))
+    log(json.dumps({"opl_watch": opl}))
     log(f"profile windows whose records were not whole launches: {PROFILE_WINDOWS['short']} of "
         f"{PROFILE_WINDOWS['timed']}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

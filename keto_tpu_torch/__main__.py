@@ -1,30 +1,34 @@
 """Command line of keto_tpu_torch.
 
-    python -m keto_tpu_torch serve --config cfg.json [--tuples tuples.txt] [--device cuda]
+    python -m keto_tpu_torch serve --config keto.yml [--tuples tuples.txt] [--device cuda]
                                    [--pid-file serve.pid]
 
-`serve` reads the JAX package's JSON config keys for the read and write
-routes (`namespaces`, `dsn`, `limit.max_read_depth`, `limit.page_size`,
-`serve.read.host` / `serve.read.port`, `serve.write.host` /
-`serve.write.port`, `serve.<kind>.grpc` (a direct gRPC listener; with
-`"aio": true` the read side's is the asyncio plane), `serve.<kind>.tls`,
-`serve.<kind>.cors`, `check.*`, `serve.check.*`, `closure.*`, `filter.*`;
+`serve` reads a `.yaml`/`.yml` (Keto's own format; needs PyYAML),
+`.json` or `.toml` config with the JAX package's keys for the read and
+write routes (`namespaces`: an inline list, or a file or directory of
+namespace files, `.ts` in the Ory Permission Language among them, as a
+path or Keto's `{location: file:///...}`, reloaded when a file changes;
+`dsn`, `limit.max_read_depth`, `limit.page_size`, `serve.read.host` /
+`serve.read.port`, `serve.write.host` / `serve.write.port`,
+`serve.<kind>.grpc` (a direct gRPC listener; with `"aio": true` the read
+side's is the asyncio plane), `serve.<kind>.tls`, `serve.<kind>.cors`,
+`check.*`, `serve.check.*`, `closure.*`, `filter.*`, `watch.*`;
 config.py lists them), builds a Registry, loads the tuples of `--tuples`
 (one "ns:obj#rel@subject" per line) into its store, builds the device
 mirror (and, with `closure.enabled`, the closure index), and runs a
 Daemon (api/daemon.py): on the read port the REST Check, Expand,
-ListObjects, ListSubjects and Filter routes and the gRPC read services,
-single checks coalesced by the check batcher behind the check cache; on
-the write port PUT, DELETE and PATCH /admin/relation-tuples and the gRPC
-WriteService; each port answers REST and gRPC alike. With
-`closure.enabled` the closure maintainer (closure/maintainer.py) runs
-too. SIGINT or SIGTERM drains the daemon: readiness turns to 503
-(NOT_SERVING) and new checks are shed with a 429 (RESOURCE_EXHAUSTED)
-while admitted ones are answered, then everything stops. It prints
-`serving read=<host>:<port>` and then `serving write=<host>:<port>` once
-it accepts requests. `--pid-file` names a file the daemon writes its pid
-to once it serves and removes when it stops, if the pid there is still
-its own.
+ListObjects, ListSubjects, Filter and Watch (SSE) routes and the gRPC
+read services, the tuple WatchService among them, single checks
+coalesced by the check batcher behind the check cache; on the write port
+PUT, DELETE and PATCH /admin/relation-tuples and the gRPC WriteService;
+each port answers REST and gRPC alike. With `closure.enabled` the
+closure maintainer (closure/maintainer.py) runs too. SIGINT or SIGTERM
+drains the daemon: readiness turns to 503 (NOT_SERVING) and new checks
+are shed with a 429 (RESOURCE_EXHAUSTED) while admitted ones are
+answered, then everything stops. It prints `serving read=<host>:<port>`
+and then `serving write=<host>:<port>` once it accepts requests.
+`--pid-file` names a file the daemon writes its pid to once it serves
+and removes when it stops, if the pid there is still its own.
 """
 
 from __future__ import annotations
@@ -74,7 +78,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m keto_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     serve = sub.add_parser("serve", help="serve the read and write APIs, REST and gRPC")
-    serve.add_argument("--config", required=True, help="JSON config file")
+    serve.add_argument("--config", required=True,
+                       help="config file: .yaml/.yml, .json or .toml")
     serve.add_argument("--tuples", help="file of relation tuples, one per line")
     serve.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     serve.add_argument("--pid-file", default=None,

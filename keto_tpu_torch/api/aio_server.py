@@ -26,13 +26,18 @@ threaded plane.
     BatchCheck, Expand, both lists, Filter and ListRelationTuples run
     grpc_server._Services' bodies on a blocking executor; Version and
     Health answer in-loop; a Health Watch parks on a pool of
-    serve.read.grpc.max_watchers threads. The request's RequestTrace
+    serve.read.grpc.max_watchers threads. The tuple Watch is loop-native:
+    its subscription's producer wakes the stream through
+    call_soon_threadsafe, no thread parks a stream, and only the
+    subscribe and an overflow's resume (which read the store) run on the
+    blocking executor; the cursor, RESET and heartbeat contract and the
+    watcher slots are the threaded plane's. The request's RequestTrace
     (its deadline) travels in resilience's contextvar.
   - AioReadServer: the listener on its own loop thread; with credentials
     (the daemon passes serve.read.tls's) it serves TLS only.
 
-As on the threaded plane, explain answers UNIMPLEMENTED and the tuple
-WatchService is not registered. Replica workers are not served.
+As on the threaded plane, explain answers UNIMPLEMENTED. Replica workers
+are not served.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from concurrent.futures import ThreadPoolExecutor
 import grpc
 import grpc.aio
 
+from ..engine.snaptoken import encode_snaptoken
 from ..errors import (
     BatcherClosedError,
     DeadlineExceededError,
@@ -77,6 +83,7 @@ from .descriptors import (
     READ_SERVICE,
     REVERSE_READ_SERVICE,
     VERSION_SERVICE,
+    WATCH_SERVICE,
     pb,
 )
 from .grpc_server import _attach_retry_after, _grpc_code, _Services
@@ -474,6 +481,66 @@ class _AioReadServices:
     async def health_check(self, req, context):
         return self._svc.health_check(req, context, None)
 
+    async def watch_tuples(self, req, context):
+        """_Services.watch_tuples as an async generator on the loop: the
+        hub wakes it through call_soon_threadsafe and it drains the
+        subscription in-loop."""
+        svc = self._svc
+        if not svc._watch_slots.acquire(blocking=False):
+            await context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED,
+                                "too many concurrent watchers")
+        try:
+            loop = asyncio.get_running_loop()
+            try:
+                # the subscribe replays history from the store: off the loop
+                sub = await loop.run_in_executor(self._blocking, svc.watch_subscribe, req,
+                                                 context)
+            except KetoError as e:
+                await context.abort(_grpc_code(e), e.message)
+            wake = asyncio.Event()
+
+            def _wake():
+                try:
+                    loop.call_soon_threadsafe(wake.set)
+                except RuntimeError:
+                    pass  # the loop is closing; so is the stream
+
+            sub.add_notify(_wake)
+            hub = svc.registry.watch_hub()
+            heartbeat_s = float(svc.registry.config.get("watch.heartbeat_s", 5.0))
+            last_write = loop.time()
+            try:
+                while not context.cancelled():
+                    if loop.time() - last_write >= heartbeat_s:
+                        last_write = loop.time()
+                        yield pb.WatchResponse(event_type="heartbeat",
+                                               snaptoken=encode_snaptoken(sub.cursor, sub.nid))
+                    event, needs_resume = sub.pop_nowait()
+                    if needs_resume:
+                        try:
+                            # the resume reads the store's log: off the loop
+                            event = await loop.run_in_executor(self._blocking, hub._resume, sub)
+                        except KetoError as e:
+                            await context.abort(_grpc_code(e), e.message)
+                    if event is None:
+                        if sub.closed:  # the daemon's drain ends the stream
+                            break
+                        try:
+                            await asyncio.wait_for(wake.wait(), timeout=0.5)
+                        except asyncio.TimeoutError:
+                            pass
+                        wake.clear()
+                        continue
+                    event = event.filtered(req.namespace)
+                    if event is None:
+                        continue
+                    yield svc.watch_event_to_proto(event)
+                    last_write = loop.time()
+            finally:
+                sub.close()
+        finally:
+            svc._watch_slots.release()
+
     async def health_watch(self, req, context):
         """_Services.health_watch on the loop: the same cap and stream, the
         wait for a readiness change parked on the watch pool."""
@@ -522,6 +589,10 @@ def _aio_handlers(service: _AioReadServices) -> list:
             "ListSubjects": unary(d(svc.list_subjects), pb.ListSubjectsRequest),
         },
         FILTER_SERVICE: {"Filter": unary(d(svc.filter), pb.FilterRequest)},
+        WATCH_SERVICE: {"Watch": grpc.unary_stream_rpc_method_handler(
+            service.watch_tuples,
+            request_deserializer=pb.WatchRequest.FromString,
+            response_serializer=lambda m: m.SerializeToString())},
         VERSION_SERVICE: {"GetVersion": unary(service.get_version, pb.GetVersionRequest)},
         HEALTH_SERVICE: {
             "Check": unary(service.health_check, pb.HealthCheckRequest),

@@ -18,9 +18,9 @@ A hit is as fresh as an uncached ride at the same snaptoken:
     generation flushes the cache.
 
 Invalidation keeps memory down and is never needed for correctness: the
-store's write listener (through the registry) calls `notify_commit(nid)`,
-and a background thread reads the store's change log since its last
-pass and deletes the entries a changed tuple can flip directly: the
+Watch hub's commit listener (the registry's `_push_invalidate`) calls
+`notify_commit(nid)`, and a background thread reads the store's change
+log since its last pass and deletes the entries a changed tuple can flip directly: the
 entry of the changed node row (namespace, object, relation) and every
 entry whose subject is the changed tuple's subject. Entries a change
 flips only through an edge further up die to the version gate and age
@@ -249,9 +249,9 @@ class CheckCache:
     # -- invalidation ----------------------------------------------------------
 
     def notify_commit(self, nid: str) -> None:
-        """A store write listener: on the writer's thread it only flags
-        the network and wakes the invalidation thread, so a burst of
-        writes makes one pass."""
+        """Called by the Watch hub's commit listener on the writer's
+        thread: it only flags the network and wakes the invalidation
+        thread, so a burst of writes makes one pass."""
         if self._closed:
             return
         with self._inval_mu:

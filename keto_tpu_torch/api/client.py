@@ -7,13 +7,14 @@ clients speak Keto's v1alpha2 wire format and the keto_tpu extensions, so
 they work against the port's daemon, the JAX package's, or Keto's own
 (which answers the extensions UNIMPLEMENTED).
 
-Not here yet: `check_explain` and `watch`, whose servers are not ported.
+`ReadClient.watch` iterates the change-log stream (the keto_tpu watch
+extension). Not here yet: `check_explain`, whose server is not ported.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Iterable, Optional
+from typing import Iterable, Iterator, NamedTuple, Optional
 
 import grpc
 
@@ -28,6 +29,7 @@ from .descriptors import (
     REVERSE_READ_SERVICE,
     SERVING_STATUS,
     VERSION_SERVICE,
+    WATCH_SERVICE,
     WRITE_SERVICE,
     pb,
 )
@@ -92,6 +94,16 @@ class _BaseClient:
 
     def close(self) -> None:
         self.channel.close()
+
+
+class WatchStreamEvent(NamedTuple):
+    """One event of ReadClient.watch(): a committed store version
+    ("change"), a gap ("reset"), a store outage ("degraded"), or, when
+    asked for, a heartbeat."""
+
+    event_type: str
+    snaptoken: str  # the resumable cursor
+    changes: list  # [("insert" | "delete", RelationTuple), ...]
 
 
 class ReadClient(_BaseClient):
@@ -161,6 +173,43 @@ class ReadClient(_BaseClient):
         req.objects.extend(objects)
         resp = self._rpc(FILTER_SERVICE, "Filter", req, pb.FilterResponse, timeout)
         return list(resp.allowed_objects), resp.snaptoken
+
+    def watch(self, snaptoken: str = "", namespace: str = "", timeout=None,
+              max_events: Optional[int] = None,
+              yield_heartbeats: bool = False) -> Iterator[WatchStreamEvent]:
+        """The server's change-log stream (WatchService), an event a
+        committed store version; keep the last event's snaptoken and pass
+        it to resume after a disconnect. A "reset" event is a gap the
+        stream cannot fill (re-read your state, then go on), "degraded" a
+        store outage on the server. Heartbeat frames are dropped unless
+        `yield_heartbeats` (then yielded with no changes) and never count
+        toward `max_events`, after which the stream ends; `timeout`
+        bounds the whole stream. Leaving the iterator cancels the call."""
+        req = pb.WatchRequest(snaptoken=snaptoken, namespace=namespace)
+        key = (WATCH_SERVICE, "Watch")
+        stream = self._callables.get(key)
+        if stream is None:
+            stream = self._callables[key] = self.channel.unary_stream(
+                f"/{WATCH_SERVICE}/Watch",
+                request_serializer=lambda m: m.SerializeToString(),
+                response_deserializer=pb.WatchResponse.FromString,
+            )
+        call = stream(req, timeout=timeout)
+        yielded = 0
+        try:
+            for resp in call:
+                if resp.event_type == "heartbeat":
+                    if yield_heartbeats:
+                        yield WatchStreamEvent(resp.event_type, resp.snaptoken, [])
+                    continue
+                yield WatchStreamEvent(
+                    resp.event_type, resp.snaptoken,
+                    [(c.action, tuple_from_proto(c.relation_tuple)) for c in resp.changes])
+                yielded += 1
+                if max_events is not None and yielded >= max_events:
+                    return
+        finally:
+            call.cancel()
 
     def list_relation_tuples(self, query: RelationQuery, page_size: int = 0,
                              page_token: str = "", timeout=None) -> GetResponse:

@@ -25,10 +25,13 @@ metrics listener comes with the metrics.
 
 `start()` builds the servers and the muxes on `serve.read.*` and
 `serve.write.*` (port 0: a free one), starts the maintainer, then sets
-readiness. `stop(grace)` drains: readiness off and draining on
+readiness (the Watch hub runs from the first hand-out of the store, which
+the constructor's probe makes). `stop(grace)` drains: readiness off and draining on
 (admit_check sheds new checks with a typed 429, RESOURCE_EXHAUSTED over
 gRPC), then up to `grace` seconds for every admitted check to be
-answered, then the maintainer, the muxes, the aio listener, the gRPC
+answered, then the maintainer, the Watch hub (which closes every
+subscription, so that no watch stream pins a listener), the muxes, the
+aio listener, the gRPC
 servers (read, then write, each given `grace` for its calls), the REST
 servers, the batcher, the check cache's invalidation thread, the
 engine's refresh thread, and last the pid file.
@@ -444,8 +447,12 @@ class Daemon:
         deadline = time.monotonic() + grace
         while time.monotonic() < deadline and not self._idle():
             time.sleep(0.02)
+        # the maintainer before the hub: its subscriptions close with it
         if reg._closure_maintainer is not None:
             reg._closure_maintainer.stop()
+        # then the hub, ending every watch stream before the listeners go
+        if reg._watch_hub is not None:
+            reg._watch_hub.stop()
         for mux in self._muxes.values():
             mux.stop()
         if self._aio_read is not None:

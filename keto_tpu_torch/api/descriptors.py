@@ -70,7 +70,7 @@ pb = SimpleNamespace(
     ListSubjectsResponse=_msg("keto_tpu.reverse.v1.ListSubjectsResponse"),
     FilterRequest=_msg("keto_tpu.filter.v1.FilterRequest"),
     FilterResponse=_msg("keto_tpu.filter.v1.FilterResponse"),
-    # the tuple watch stream's messages; its service is not served yet
+    # the tuple change-log stream (keto_tpu_watch.proto)
     WatchRequest=_msg("keto_tpu.watch.v1.WatchRequest"),
     WatchChange=_msg("keto_tpu.watch.v1.WatchChange"),
     WatchResponse=_msg("keto_tpu.watch.v1.WatchResponse"),
@@ -89,6 +89,5 @@ HEALTH_SERVICE = "grpc.health.v1.Health"
 BATCH_CHECK_SERVICE = "keto_tpu.batch.v1.BatchCheckService"
 REVERSE_READ_SERVICE = "keto_tpu.reverse.v1.ReverseReadService"
 FILTER_SERVICE = "keto_tpu.filter.v1.FilterService"
-# not registered by the port's servers (a call answers UNIMPLEMENTED):
-# the tuple changelog stream needs the watch hub, which is not ported
+# the tuple change-log stream, served from the Watch hub (watch/hub.py)
 WATCH_SERVICE = "keto_tpu.watch.v1.WatchService"

@@ -8,11 +8,17 @@ the keto_tpu extensions'.
 
 The read server: CheckService, BatchCheckService, ExpandService,
 ReadService (ListRelationTuples), ReverseReadService (ListObjects,
-ListSubjects) and FilterService. The write server: WriteService
+ListSubjects), FilterService and the tuple WatchService (Watch, a stream
+of the store's change log from the Watch hub: every change after the
+request's snaptoken, exactly once and in version order, then the live
+tail; a RESET where the ring overflowed or the log no longer reaches
+the cursor; a `heartbeat` frame every `watch.heartbeat_s` seconds, 5 by
+default). The write server: WriteService
 (TransactRelationTuples, DeleteRelationTuples). Both: VersionService and
 grpc.health.v1 Health (Check, and Watch, a stream of the serving status
-that wakes on every readiness change; at most
-`serve.read.grpc.max_watchers` streams at once, 16 by default).
+that wakes on every readiness change). A tuple Watch and a Health Watch
+draw on one pool of `serve.read.grpc.max_watchers` slots (16 by
+default), since each holds a worker thread for its life.
 
 Semantics, as the JAX package's servers:
   - Check takes the `tuple` field before the deprecated flat fields; an
@@ -38,8 +44,7 @@ Semantics, as the JAX package's servers:
     request's Deadline (resilience.ingest_deadline), capped and defaulted
     by serve.check.*_deadline_ms.
 
-Not served yet, each a typed status: the tuple WatchService (not
-registered: UNIMPLEMENTED), explain (UNIMPLEMENTED), replica workers,
+Not served yet, each a typed status: explain (UNIMPLEMENTED), replica workers,
 metrics and tracing, and per-request network ids. api/aio_server.py
 serves these same bodies on the asyncio plane.
 """
@@ -47,11 +52,12 @@ serves these same bodies on the asyncio plane.
 from __future__ import annotations
 
 import threading
+import time
 from concurrent import futures
 
 import grpc
 
-from ..engine.snaptoken import encode_snaptoken, enforce_snaptoken
+from ..engine.snaptoken import encode_snaptoken, enforce_snaptoken, parse_snaptoken
 from ..errors import KetoError, MalformedInputError, NilSubjectError, NotImplementedYetError
 from ..ketoapi import RelationQuery, RelationTuple, SubjectSet
 from ..resilience import (
@@ -71,6 +77,7 @@ from .descriptors import (
     READ_SERVICE,
     REVERSE_READ_SERVICE,
     VERSION_SERVICE,
+    WATCH_SERVICE,
     WRITE_SERVICE,
     pb,
 )
@@ -118,8 +125,8 @@ class _Services:
     def __init__(self, registry, batcher=None):
         self.registry = registry
         self.batcher = batcher
-        # a Health Watch stream holds one server worker thread for its
-        # life: the cap keeps watchers from taking the whole pool
+        # a Watch stream, tuple or Health, holds one server worker thread
+        # for its life: the cap keeps watchers from taking the whole pool
         self.max_watchers = int(registry.config.get("serve.read.grpc.max_watchers", 16))
         self._watch_slots = threading.BoundedSemaphore(self.max_watchers)
 
@@ -325,6 +332,70 @@ class _Services:
         # SERVING (1) or NOT_SERVING (2)
         return pb.HealthCheckResponse(status=1 if self.registry.ready.is_set() else 2)
 
+    # -- WatchService -----------------------------------------------------------
+
+    @staticmethod
+    def watch_event_to_proto(event):
+        """A WatchEvent (watch/hub.py) as a WatchResponse."""
+        resp = pb.WatchResponse(event_type=event.kind, snaptoken=event.snaptoken)
+        for op, t in event.changes:
+            c = resp.changes.add()
+            c.action = op
+            c.relation_tuple.CopyFrom(tuple_to_proto(t))
+        return resp
+
+    def watch_subscribe(self, req, context):
+        """What both planes' streams open with: the namespace filter
+        validated, the resume cursor parsed, the hub subscription opened.
+        Raises a KetoError (snaptoken 400 or 409, namespace 404)."""
+        reg = self.registry
+        if req.namespace:
+            reg.validate_namespaces(RelationQuery(namespace=req.namespace))
+        min_version = parse_snaptoken(req.snaptoken, reg.nid)
+        return reg.watch_hub().subscribe(reg.nid, min_version)
+
+    def watch_tuples(self, req, context):
+        """The change-log stream: the replay from the request's snaptoken,
+        then the live tail; an overflow is an in-band RESET, never a
+        silent gap. An idle stream writes a `heartbeat` frame (the
+        cursor's snaptoken) every watch.heartbeat_s seconds, so that a
+        half-open connection fails a write and frees its subscription."""
+        if not self._watch_slots.acquire(blocking=False):
+            context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED, "too many concurrent watchers")
+        try:
+            try:
+                sub = self.watch_subscribe(req, context)
+            except KetoError as e:
+                context.abort(_grpc_code(e), e.message)
+            heartbeat_s = float(self.registry.config.get("watch.heartbeat_s", 5.0))
+            last_write = time.monotonic()
+            try:
+                while context.is_active():
+                    # every round, not only an idle one: a stream whose
+                    # events the namespace filter drops is busy and silent
+                    if time.monotonic() - last_write >= heartbeat_s:
+                        last_write = time.monotonic()
+                        yield pb.WatchResponse(event_type="heartbeat",
+                                               snaptoken=encode_snaptoken(sub.cursor, sub.nid))
+                    try:
+                        event = sub.get(timeout=0.5)
+                    except KetoError as e:
+                        # an overflow's resume against a failing store
+                        context.abort(_grpc_code(e), e.message)
+                    if event is None:
+                        if sub.closed:  # the daemon's drain ends the stream
+                            break
+                        continue
+                    event = event.filtered(req.namespace)
+                    if event is None:
+                        continue
+                    yield self.watch_event_to_proto(event)
+                    last_write = time.monotonic()
+            finally:
+                sub.close()
+        finally:
+            self._watch_slots.release()
+
     def health_watch(self, req, context):
         """The current status, then each change until the client leaves
         (grpc.health.v1 Watch): the stream parks on the registry's
@@ -388,6 +459,11 @@ def _service_handlers(services: _Services, write: bool) -> list:
                 "ListSubjects": _unary(s, s.list_subjects, pb.ListSubjectsRequest),
             },
             FILTER_SERVICE: {"Filter": _unary(s, s.filter, pb.FilterRequest)},
+            WATCH_SERVICE: {"Watch": grpc.unary_stream_rpc_method_handler(
+                s.watch_tuples,
+                request_deserializer=pb.WatchRequest.FromString,
+                response_serializer=lambda m: m.SerializeToString(),
+            )},
         })
     return [grpc.method_handlers_generic_handler(name, methods)
             for name, methods in handlers.items()]

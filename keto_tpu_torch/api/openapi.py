@@ -1,11 +1,9 @@
 """The OpenAPI 3.0 document of the REST routes, built from the route
 constants api/rest_server.py dispatches on, so the document cannot drift
 from the router; each listener serves the routes it answers at
-GET /.well-known/openapi.json.
-
-The document is the JAX package's less the routes the port does not
-serve yet: the changelog stream (GET /relation-tuples/watch) and its
-event schema.
+GET /.well-known/openapi.json. The document is the JAX package's whole,
+the change-log stream (GET /relation-tuples/watch) and its `watchEvent`
+schema included.
 """
 
 from __future__ import annotations
@@ -23,6 +21,7 @@ from .rest_server import (
     READY_ROUTE,
     ROUTE_KINDS,
     VERSION_ROUTE,
+    WATCH_ROUTE,
     WRITE_ROUTE,
 )
 
@@ -272,6 +271,41 @@ def _schemas() -> dict:
         "healthStatus": {
             "type": "object",
             "properties": {"status": {"type": "string"}},
+        },
+        "watchEvent": {
+            "type": "object",
+            "required": ["event_type", "snaptoken", "changes"],
+            "properties": {
+                "event_type": {
+                    "type": "string",
+                    "enum": ["change", "reset"],
+                    "description": "change = one committed store version; "
+                                   "reset = unrecoverable gap (overflow, "
+                                   "trimmed changelog) — re-read state and "
+                                   "resume from the carried snaptoken",
+                },
+                "snaptoken": {
+                    "type": "string",
+                    "description": "the committed version's token — the "
+                                   "resumable cursor",
+                },
+                "changes": {
+                    "type": "array",
+                    "items": {
+                        "type": "object",
+                        "required": ["action", "relation_tuple"],
+                        "properties": {
+                            "action": {
+                                "type": "string",
+                                "enum": ["insert", "delete"],
+                            },
+                            "relation_tuple": {
+                                "$ref": "#/components/schemas/relationTuple"
+                            },
+                        },
+                    },
+                },
+            },
         },
         "errorGeneric": {
             "type": "object",
@@ -527,6 +561,45 @@ def build_spec(version: str = "", kind: str | None = None) -> dict:
                 },
             }
         },
+        WATCH_ROUTE: {
+            "get": {
+                "summary": "Stream the tuple changelog as Server-Sent "
+                           "Events (keto_tpu watch extension; Zanzibar's "
+                           "Watch API)",
+                "parameters": [
+                    snaptoken_param,
+                    {"name": "namespace", "in": "query",
+                     "schema": {"type": "string"},
+                     "description": "only stream changes in this "
+                                    "namespace (reset events always "
+                                    "pass the filter)"},
+                    {"name": "max_events", "in": "query",
+                     "schema": {"type": "integer"},
+                     "description": "close the stream after N events "
+                                    "(scripting/testing aid)"},
+                ],
+                "responses": {
+                    "200": {
+                        "description": "SSE stream; each message is one "
+                                       "committed store version (event: "
+                                       "change|reset, data: watchEvent)",
+                        "content": {
+                            "text/event-stream": {
+                                "schema": {
+                                    "$ref": "#/components/schemas/watchEvent"
+                                }
+                            }
+                        },
+                    },
+                    "400": _json_response("malformed snaptoken",
+                                          "errorGeneric"),
+                    "404": _json_response("unknown namespace", "errorGeneric"),
+                    "409": _json_response(
+                        "snaptoken demands a newer snapshot", "errorGeneric"
+                    ),
+                },
+            }
+        },
         WRITE_ROUTE: {
             "put": {
                 "summary": "Create one relation tuple",
@@ -586,6 +659,7 @@ def build_spec(version: str = "", kind: str | None = None) -> dict:
         (FILTER_ROUTE, "post"): "postFilter",
         (LIST_OBJECTS_ROUTE, "get"): "getListObjects",
         (LIST_SUBJECTS_ROUTE, "get"): "getListSubjects",
+        (WATCH_ROUTE, "get"): "getWatch",
         (WRITE_ROUTE, "put"): "createRelationTuple",
         (WRITE_ROUTE, "delete"): "deleteRelationTuples",
         (WRITE_ROUTE, "patch"): "patchRelationTuples",

@@ -35,6 +35,10 @@ The read listener (make_server):
                                           namespace, relation, subject_id or
                                           subject_set, objects, optional
                                           max_depth and snaptoken)
+  GET  /relation-tuples/watch          -> 200 text/event-stream: the store's
+                                          change log as Server-Sent Events
+                                          (params snaptoken, namespace,
+                                          max_events); see ReadHandler._watch
 
 The write listener (make_write_server), Keto's admin routes:
 
@@ -85,16 +89,18 @@ header (check and list routes) or a "snaptoken" body field (batch and
 filter). The engine serves request threads concurrently; no lock is held
 around it here. A write names only configured namespaces (else 404), and
 the engine folds it into its mirror at its next read or, through the
-registry's store listener, on its refresh thread.
+registry's commit listener on the Watch hub, on its refresh thread.
 """
 
 from __future__ import annotations
 
 import json
+import threading
+import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from ..engine.snaptoken import encode_snaptoken, enforce_snaptoken
+from ..engine.snaptoken import encode_snaptoken, enforce_snaptoken, parse_snaptoken
 from ..errors import (
     KetoError,
     MalformedInputError,
@@ -130,6 +136,7 @@ EXPAND_ROUTE = "/relation-tuples/expand"
 LIST_OBJECTS_ROUTE = "/relation-tuples/list-objects"
 LIST_SUBJECTS_ROUTE = "/relation-tuples/list-subjects"
 FILTER_ROUTE = "/relation-tuples/filter"
+WATCH_ROUTE = "/relation-tuples/watch"
 ALIVE_ROUTE = "/health/alive"
 READY_ROUTE = "/health/ready"
 VERSION_ROUTE = "/version"
@@ -145,6 +152,7 @@ ROUTE_KINDS = {
     LIST_OBJECTS_ROUTE: "read",
     LIST_SUBJECTS_ROUTE: "read",
     FILTER_ROUTE: "read",
+    WATCH_ROUTE: "read",
     WRITE_ROUTE: "write",
     ALIVE_ROUTE: "shared",
     READY_ROUTE: "shared",
@@ -343,10 +351,16 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 class ReadHandler(_Handler):
-    """The read listener's routes; `batcher` coalesces single checks."""
+    """The read listener's routes; `batcher` coalesces single checks and
+    `watch_slots` bounds the listener's watch streams."""
 
     batcher = None
+    watch_slots = None
     kind = "read"
+    # the SSE keep-alive period when watch.heartbeat_s is unset; it also
+    # bounds how long a vanished client holds its subscription, since
+    # only a failed write tells
+    WATCH_HEARTBEAT_S = 5.0
 
     def _get_relations(self, params: dict) -> None:
         params = self._query()
@@ -518,6 +532,85 @@ class ReadHandler(_Handler):
         )
         self._json(200, {"allowed_objects": allowed, "snaptoken": token})
 
+    def _watch(self, params: dict) -> None:
+        """The store's change log as Server-Sent Events. `snaptoken`
+        resumes the cursor: every change strictly after it, exactly once,
+        in version order (400 malformed, 409 ahead of the store, an
+        explicit `reset` event where the log no longer reaches it);
+        `namespace` filters; `max_events` ends the stream after N events.
+        Each message is one committed store version:
+
+            event: change | reset | degraded
+            data: {"event_type", "snaptoken", "changes": [
+                      {"action": "insert" | "delete", "relation_tuple": {...}}]}
+
+        An error before the stream opens is a JSON error; past the
+        listener's serve.read.grpc.max_watchers streams, a 429."""
+        params = self._query()
+        reg = self.registry
+        namespace = params.get("namespace", "")
+        if namespace:
+            reg.validate_namespaces(RelationQuery(namespace=namespace))
+        max_events = None
+        if params.get("max_events"):
+            try:
+                max_events = int(params["max_events"])
+            except ValueError:
+                raise MalformedInputError(debug=f"invalid max_events {params['max_events']!r}")
+        min_version = parse_snaptoken(params.get("snaptoken", ""), reg.nid)
+        # a stream holds a server thread, as a gRPC watch holds a worker:
+        # the slots are the listener's own, the limit the shared key's
+        if not self.watch_slots.acquire(blocking=False):
+            self._json(429, {"error": {"code": 429, "status": "Too Many Requests",
+                                       "message": "too many concurrent watchers"}})
+            return
+        try:
+            self._watch_stream(namespace, min_version, max_events)
+        finally:
+            self.watch_slots.release()
+
+    def _watch_stream(self, namespace, min_version, max_events) -> None:
+        reg = self.registry
+        sub = reg.watch_hub().subscribe(reg.nid, min_version)
+        self.close_connection = True  # the stream is the response body
+        try:
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("Connection", "close")
+            for k, v in self._cors_headers():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(b": stream open\n\n")
+            self.wfile.flush()
+            heartbeat_s = float(reg.config.get("watch.heartbeat_s", self.WATCH_HEARTBEAT_S))
+            delivered = 0
+            last_write = time.monotonic()
+            while max_events is None or delivered < max_events:
+                # a keep-alive is due by the clock, not by idle reads: a
+                # stream whose events the filter drops is busy and silent
+                if time.monotonic() - last_write >= heartbeat_s:
+                    last_write = time.monotonic()
+                    self.wfile.write(b": keep-alive\n\n")
+                    self.wfile.flush()
+                event = sub.get(timeout=max(0.05, heartbeat_s - (time.monotonic() - last_write)))
+                if event is None:
+                    if sub.closed:  # the daemon's drain ends the stream
+                        break
+                    continue
+                event = event.filtered(namespace)
+                if event is None:
+                    continue
+                payload = json.dumps(event.to_dict())
+                self.wfile.write(f"event: {event.kind}\ndata: {payload}\n\n".encode())
+                self.wfile.flush()
+                last_write = time.monotonic()
+                delivered += 1
+        except (BrokenPipeError, ConnectionResetError):
+            pass  # the client left: a watch stream's normal end
+        finally:
+            sub.close()
+
     _routes = {
         ("GET", READ_ROUTE_BASE): _get_relations,
         ("GET", CHECK_ROUTE): _check_get,
@@ -529,6 +622,7 @@ class ReadHandler(_Handler):
         ("GET", LIST_OBJECTS_ROUTE): _list_objects,
         ("GET", LIST_SUBJECTS_ROUTE): _list_subjects,
         ("POST", FILTER_ROUTE): _filter,
+        ("GET", WATCH_ROUTE): _watch,
     }
 
 
@@ -602,7 +696,11 @@ def make_server(registry, host: str, port: int, batcher, bind: bool = True,
     registry's config). `bind=False`: a server that listens nowhere and
     serves the connections handed to its `process_request` (the daemon's
     PortMux). `cors`: the listener's CORS config (serve.read.cors)."""
-    return _server(ReadHandler, registry, host, port, bind, batcher=batcher, cors=cors)
+    # one pool of watcher slots a listener, shared by its connections
+    slots = threading.BoundedSemaphore(
+        int(registry.config.get("serve.read.grpc.max_watchers", 16)))
+    return _server(ReadHandler, registry, host, port, bind, batcher=batcher, cors=cors,
+                   watch_slots=slots)
 
 
 def make_write_server(registry, host: str, port: int, bind: bool = True,

@@ -6,8 +6,12 @@ One background thread keeps every built engine's closure index
 use, a base snapshot swapped by a compaction or a rebuild, a dirty
 overflow, a truncated change log), folds every write since into the
 dirty marks by the store's change log, and powers the dirty nodes again
-(`refresh_dirty`), off the request path. The store's write listener wakes
-the loop at once; otherwise it polls every `poll_interval` seconds.
+(`refresh_dirty`), off the request path. Then it drains the network's
+Watch subscription (`_drain_events`): each event's changes mark dirty
+nodes (`apply_changes`), and a RESET (an overflowed ring or a truncated
+change log) marks the index stale, so that the next pass powers it
+again. The Watch hub's commit listener wakes the loop at once; otherwise
+it polls every `poll_interval` seconds.
 
 Correctness never depends on this thread: every closure answer is gated
 at submit on the index's synced version reaching the serving state's
@@ -16,11 +20,9 @@ slow or dead maintainer costs deep checks their latency and nothing
 else. `hold()` and `release()` force that lagging regime in tests.
 
 The loop makes two registry calls (registry.py): `built_engines()`, the
-engines by network id, and `relation_tuple_manager()`, the store whose
-write listener wakes it. Not here yet: the Watch hub's event drain (a
-subscription a network id whose events mark dirty nodes between passes,
-and whose reset marks the index stale) waits for the Watch hub;
-`ensure_for`'s change-log catch-up folds every op without it.
+engines by network id, and `watch_hub()`, whose commit listener wakes it
+and whose subscriptions it drains. `stats` counts passes, rebuilds, the
+tuple changes applied from events, and the RESETs.
 """
 
 from __future__ import annotations
@@ -38,13 +40,13 @@ class ClosureMaintainer:
     def __init__(self, registry, poll_interval: float = DEFAULT_POLL_INTERVAL):
         self.registry = registry
         self.poll_interval = max(float(poll_interval), 0.01)
+        self._subs: dict[str, object] = {}
         self._wake = threading.Event()
         self._stopped = threading.Event()
         self._held = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._mu = threading.Lock()
         self._listener_registered = False
-        # events and resets stay 0 until the Watch hub's drain exists
         self.stats = {"passes": 0, "events": 0, "rebuilds": 0, "resets": 0}
 
     # -- lifecycle ------------------------------------------------------------
@@ -54,11 +56,11 @@ class ClosureMaintainer:
             if self._thread is not None:
                 return
             self._stopped.clear()
-            # a write wakes the loop at once (a flag set on the writer's
-            # thread). Registered once: the store has no way to remove a
+            # a commit wakes the loop at once (a flag set on the writer's
+            # thread). Registered once: the hub has no way to remove a
             # listener, and start/stop/start must not add a second
             if not self._listener_registered:
-                self.registry.relation_tuple_manager().add_write_listener(self._on_commit)
+                self.registry.watch_hub().add_commit_listener(self._on_commit)
                 self._listener_registered = True
             self._thread = threading.Thread(target=self._loop, name="keto-torch-closure-maintainer",
                                             daemon=True)
@@ -71,6 +73,12 @@ class ClosureMaintainer:
         self._wake.set()
         if thread is not None:
             thread.join(timeout=5)
+        for sub in self._subs.values():
+            try:
+                sub.close()
+            except Exception:  # noqa: BLE001 - the teardown completes
+                logger.debug("closure subscription close failed", exc_info=True)
+        self._subs.clear()
 
     def hold(self) -> None:
         """Freeze maintenance: the index lags, and the fallbacks must stay
@@ -101,9 +109,11 @@ class ClosureMaintainer:
                 logger.debug("closure maintenance pass failed", exc_info=True)
 
     def step(self) -> int:
-        """One pass over every built engine whose closure is enabled.
-        Returns the number of watch events applied (0 until the Watch
-        hub's drain exists); tests call it directly."""
+        """One pass over every built engine whose closure is enabled:
+        power what needs it, then drain the watch events into the dirty
+        marks. Returns the number of tuple changes applied; tests call it
+        directly."""
+        applied = 0
         self.stats["passes"] += 1
         for nid, engine in self.registry.built_engines().items():
             if not getattr(engine, "closure_enabled", False):
@@ -118,4 +128,36 @@ class ClosureMaintainer:
                 continue
             if idx.stats["builds"] != before:
                 self.stats["rebuilds"] += 1
-        return 0
+            # after ensure: it advances the op encoder to the engine's
+            # overlay, so an event applied here is one it can encode
+            applied += self._drain_events(nid, idx)
+        return applied
+
+    def _drain_events(self, nid: str, idx) -> int:
+        """Apply the pending events of `nid`'s subscription (opened live
+        on the first call) to `idx`; a RESET marks it stale."""
+        sub = self._subs.get(nid)
+        if sub is None:
+            try:
+                sub = self.registry.watch_hub().subscribe(nid)
+            except RuntimeError:
+                return 0  # the hub is stopped: the daemon is shutting down
+            self._subs[nid] = sub
+        applied = 0
+        while True:
+            try:
+                event = sub.get_nowait()
+            except Exception:  # noqa: BLE001 - a failed resume only costs
+                # the catch-up's work, which ensure_for does anyway
+                break
+            if event is None:
+                break
+            if event.is_reset:
+                # the gap cannot be folded in: the next pass powers again
+                idx.mark_stale()
+                self.stats["resets"] += 1
+                continue
+            idx.apply_changes(event.changes, event.version)
+            applied += len(event.changes)
+        self.stats["events"] += applied
+        return applied

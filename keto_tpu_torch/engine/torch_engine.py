@@ -41,8 +41,8 @@ truncated change log or a failed merge gate rebuilds in full. A write
 marks the closure nodes it may change dirty (a check catches a lagging
 index up inline, within `closure.lag_budget_versions`), so only those
 fall back; closure_ensure_built powers them again over the same base.
-`notify_write`, wired to the store's write listener, folds writes in on
-a background thread, off the request path.
+`notify_write`, wired to the Watch hub's commit listener (registry.py),
+folds writes in on a background thread, off the request path.
 
 A store that keeps columns (storage/columnar.py's ColumnarStore, `dsn:
 "columnar"`) feeds the columnar builders: the snapshot, the full-edge CSR
@@ -473,9 +473,10 @@ class TorchCheckEngine:
     # -- push refresh ------------------------------------------------------------
 
     def notify_write(self) -> None:
-        """A store write listener: wakes the refresh thread (started at
-        the first call), which folds the writes into the mirror off the
-        request path; a burst of writes coalesces into one refresh.
+        """Poked by the registry's commit listener on the Watch hub: wakes
+        the refresh thread (started at the first call), which folds the
+        writes into the mirror off the request path; a burst of writes
+        coalesces into one refresh.
         ensure_state's own version check stays the backstop."""
         if self._refresh_stopped:
             return

@@ -2,16 +2,19 @@
 
 One object builds each service once, lazily, from the config and hands
 it to everything above: the store (chosen by `dsn`: "memory" or
-"columnar"), the check engine
+"columnar"), the Watch hub over it, the check engine
 (`check.engine`: "torch", the device engine, or "host", the exact host
 oracle alone), the namespace manager, the check cache, the device-path
 circuit breaker, the serving counters, the closure maintainer, and the
 readiness and drain flags the daemon flips.
 
-The store's write listener, added when the registry first hands out the
-store, pokes the built engine (`notify_write`: its refresh thread folds
-the write into the mirror) and the check cache (`notify_commit`: its
-invalidation pass); it never builds either.
+The Watch hub (watch/hub.py, `watch.poll_interval`, `watch.buffer`,
+`watch.heartbeat_s`) is built when the registry first hands out the
+store, and is the store's write listener. Its commit listener
+`_push_invalidate` pokes the built engine (`notify_write`: its refresh
+thread folds the write into the mirror) and the check cache
+(`notify_commit`: its invalidation pass); it never builds either. The
+closure maintainer wakes on the same hub.
 
 Not here yet: per-network engines (the tenancy plane's `nid_for` and its
 LRU of `tenancy.max_networks` engines). Asking for another network's
@@ -93,6 +96,7 @@ class Registry:
         self._engine = engine
         self._check_cache = None
         self._check_cache_built = False
+        self._watch_hub = None
         self._breaker = None
         self._counters = ServeCounters()
         self._closure_maintainer = None
@@ -111,14 +115,37 @@ class Registry:
                 if dsn not in stores:
                     raise ConfigError(f"unsupported dsn {dsn!r}: the port accepts "
                                       f"{' and '.join(map(repr, stores))}")
-                manager = self._given_manager if self._given_manager is not None \
+                self._manager = self._given_manager if self._given_manager is not None \
                     else stores[dsn]()
-                manager.add_write_listener(self._push_invalidate)
-                self._manager = manager
+                # the hub is the store's write listener from the start, so
+                # that every commit reaches the engine and the cache
+                self.watch_hub()
             return self._manager
 
+    # -- the Watch API --------------------------------------------------------
+
+    def watch_hub(self):
+        """The process's change-log hub (keto_tpu_torch/watch): the store's
+        write listener, with `_push_invalidate` among its commit
+        listeners. Heartbeats are opt-in (watch.heartbeat_s)."""
+        with self._lock:
+            # the store first: handing it out the first time builds the hub
+            manager = self.relation_tuple_manager()
+            if self._watch_hub is None:
+                from .watch import WatchHub
+
+                hb = self.config.get("watch.heartbeat_s")
+                self._watch_hub = WatchHub(
+                    manager,
+                    poll_interval=float(self.config.get("watch.poll_interval", 0.25)),
+                    buffer=int(self.config.get("watch.buffer", 256)),
+                    heartbeat_s=float(hb) if hb is not None else None,
+                )
+                self._watch_hub.add_commit_listener(self._push_invalidate)
+            return self._watch_hub
+
     def _push_invalidate(self, nid: str) -> None:
-        """The store's write listener: pokes the built engine of `nid` and
+        """The hub's commit listener: pokes the built engine of `nid` and
         the check cache, building neither."""
         with self._lock:
             engine = self._engine if nid == self.nid else None

@@ -17,8 +17,10 @@ against keto_tpu's on the CPU.
       a threaded CheckBatcher, close and the server's stop within their
       grace;
   (c) each known difference beside keto_tpu's behaviour: no host answer
-      for a failing device, explain UNIMPLEMENTED, the tuple WatchService
-      unregistered, the aio listener serving TLS, no replica workers.
+      for a failing device, explain UNIMPLEMENTED, the aio listener
+      serving TLS, no replica workers;
+  (d) the loop-native tuple Watch: a heartbeat, a replay and every kind
+      of snaptoken, equal response bytes, codes and details.
 
 Every wait is bounded. Tolerance: exact equality.
 """
@@ -39,13 +41,13 @@ from keto_tpu.engine.definitions import RESULT_IS_MEMBER as J_MEMBER
 from keto_tpu.ketoapi import RelationTuple as JTuple
 from keto_tpu.registry import Registry as JRegistry
 
-from keto_tpu_torch.api import descriptors as tdesc
 from keto_tpu_torch.api.aio_server import AioCheckBatcher, AioReadServer
 from keto_tpu_torch.api.batcher import CheckBatcher
 from keto_tpu_torch.api.daemon import Daemon as TDaemon
 from keto_tpu_torch.api.descriptors import pb
 from keto_tpu_torch.config import Config as TConfig
 from keto_tpu_torch.engine.definitions import RESULT_IS_MEMBER as T_MEMBER
+from keto_tpu_torch.engine.snaptoken import encode_snaptoken
 from keto_tpu_torch.errors import (
     CheckBatchFailedError,
     DeadlineExceededError,
@@ -71,6 +73,7 @@ from test_torch_grpc import (
     _tuple_pb,
     raw,
     small_pools,
+    watch_raw,
 )
 from test_torch_daemon import wait_until
 from test_torch_resilience import _FailingDeviceEngine
@@ -593,29 +596,41 @@ def test_aio_explain_is_unimplemented(aio_daemons):
     assert got == raw(aio_daemons[0].read_port, CHECK_PATH, req.SerializeToString())
 
 
-def test_aio_watch_service_is_unregistered():
-    """Known difference: keto_tpu's aio listener streams the tuple
-    changelog (here its first heartbeat); the port's answers
-    UNIMPLEMENTED until the Watch hub is ported."""
+# -- (d) the tuple Watch ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("namespace", ["", "groups"])
+def test_aio_watch_stream_equals_keto_tpu(namespace):
+    """The loop-native tuple Watch against keto_tpu's aio listener: with
+    watch.heartbeat_s 0.2 an idle live tail's first frame is a heartbeat
+    at the store's version, then a replay from v0 is one event of the
+    store's commit; both byte for byte, and the port's replay is its own
+    threaded port's."""
     tdaemon, jdaemon = aio_pair(extra={"watch": {"heartbeat_s": 0.2}})
     try:
-        out = []
-        for daemon in (tdaemon, jdaemon):
-            ch = grpc.insecure_channel(f"127.0.0.1:{daemon.read_grpc_port}")
-            stream = ch.unary_stream(f"/{tdesc.WATCH_SERVICE}/Watch")(
-                pb.WatchRequest().SerializeToString(), timeout=WAIT_S)
-            try:
-                first = pb.WatchResponse.FromString(next(stream))
-                out.append(("OK", first.event_type))
-            except grpc.RpcError as e:
-                out.append((e.code().name, None))
-            finally:
-                stream.cancel()
-                ch.close()
-        assert out == [("UNIMPLEMENTED", None), ("OK", "heartbeat")]
+        idle = pb.WatchRequest(namespace=namespace)
+        got, want = (watch_raw(d.read_grpc_port, idle, heartbeats=True)
+                     for d in (tdaemon, jdaemon))
+        assert got == want and got[0] == "OK"
+        assert pb.WatchResponse.FromString(got[1][0]) == pb.WatchResponse(
+            event_type="heartbeat", snaptoken=encode_snaptoken(1, "default"))
+        replay = pb.WatchRequest(snaptoken=encode_snaptoken(0, "default"), namespace=namespace)
+        got, want = (watch_raw(d.read_grpc_port, replay) for d in (tdaemon, jdaemon))
+        assert got == want and got[0] == "OK"
+        assert got == watch_raw(tdaemon.read_port, replay)
+        assert len(pb.WatchResponse.FromString(got[1][0]).changes) == \
+            len([t for t in TUPLES if not namespace or t.startswith(namespace + ":")])
     finally:
         tdaemon.stop(grace=1.0)
         jdaemon.stop(grace=1.0)
+
+
+@pytest.mark.parametrize("token", sorted(TOKENS))
+def test_aio_watch_snaptokens_equal_keto_tpu(aio_daemons, token):
+    req = pb.WatchRequest(snaptoken=TOKENS[token])
+    got, want = (watch_raw(d.read_grpc_port, req, timeout=0.5) for d in aio_daemons)
+    assert got == want, token
+    assert got == watch_raw(aio_daemons[0].read_port, req, timeout=0.5), token
 
 
 def _check_call(channel):

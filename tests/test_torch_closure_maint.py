@@ -19,14 +19,17 @@ after each step the two hold equal:
   - the engines' closure_hits and closure_fallback by cause;
   - every verdict, which also equals the port's host oracle's.
 The maintainer scenarios drive keto_tpu's Registry-held maintainer and
-the port's Registry-held one; their pass and rebuild counts agree
-(keto_tpu also counts Watch events, which the port does not drain).
+the port's Registry-held one; their pass and rebuild counts agree (the
+Watch events each drains depend on when its hub's tailer thread
+broadcast, so they are not compared here: tests/test_torch_watch.py
+holds the drain).
 
 Also: a writer committing between a refresh's two version reads (the
 re-marked nodes stay dirty), the `_marks_gen` abort, a truncated change
 log (stale, then stuck over the same base), the full-store read past the
-region walk's budget, the maintainer's write listener registered once
-over start/stop/start, and `serve`'s Daemon running the maintainer.
+region walk's budget, the maintainer's commit listener on the Watch hub
+registered once over start/stop/start, and `serve`'s Daemon running the
+maintainer.
 
 Tolerance: exact equality; every output is an integer or a verdict.
 """
@@ -613,16 +616,19 @@ def test_maintainer_listener_registered_once_over_restarts():
     tm.write_relation_tuples([TTuple.from_string(s) for s in tuples])
     engine = registry.check_engine()
     maint = ClosureMaintainer(registry, poll_interval=30)
-    # the registry's own listener (engine and cache pokes)
-    assert len(tm._write_listeners) == 1
+    # the store's one listener is the Watch hub; the hub's own commit
+    # listener is the registry's (engine and cache pokes)
+    hub = registry.watch_hub()
+    assert tm._write_listeners == [hub.notify]
+    assert len(hub._commit_listeners) == 1
     for _ in range(2):
         maint.start()
         maint.start()  # a second start is a no-op
         maint.stop()
-    assert len(tm._write_listeners) == 2
+    assert len(hub._commit_listeners) == 2
     maint.start()
     try:
-        assert len(tm._write_listeners) == 2
+        assert len(hub._commit_listeners) == 2 and len(tm._write_listeners) == 1
         engine.closure_ensure_built()
         passes = maint.stats["passes"]
         # a 30 s poll: only the write listener can wake the loop in time

@@ -197,9 +197,10 @@ def test_import_boundary():
     """Importing the port, its engine, its serving plane (registry,
     resilience, batcher, check cache, daemon), its gRPC plane (the
     descriptors, messages, gRPC servers, clients and OpenAPI document), its
-    asyncio read plane, its entry point, its tools and its scale tier (the
-    columnar store and columns, the native encoders, the 1e7 generators)
-    loads neither jax nor any module of keto_tpu."""
+    asyncio read plane, its entry point, its tools, its scale tier (the
+    columnar store and columns, the native encoders, the 1e7 generators),
+    its OPL parser and namespace files, and its Watch hub loads neither jax
+    nor any module of keto_tpu."""
     code = (
         "import sys, runpy\n"
         "import keto_tpu_torch, keto_tpu_torch.__main__\n"
@@ -217,6 +218,8 @@ def test_import_boundary():
         "import keto_tpu_torch.api.descriptors, keto_tpu_torch.api.messages\n"
         "import keto_tpu_torch.api.grpc_server, keto_tpu_torch.api.client\n"
         "import keto_tpu_torch.api.openapi, keto_tpu_torch.api.aio_server\n"
+        "import keto_tpu_torch.opl, keto_tpu_torch.opl.parser, keto_tpu_torch.config\n"
+        "import keto_tpu_torch.watch, keto_tpu_torch.watch.hub\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'keto_tpu' or m.startswith('keto_tpu.'))\n"
         "print(bad)\n"

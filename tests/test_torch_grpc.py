@@ -21,6 +21,10 @@ grpc_server, the PortMux of daemon.py) held against keto_tpu's.
       connection to the gRPC server and hands any other to the REST
       server), and the direct `serve.<kind>.grpc` listener answers as the
       mux does;
+  (g) the tuple WatchService: a replay, the namespace filter and every
+      kind of snaptoken, equal response bytes, codes and details
+      (tests/test_torch_watch.py holds the live tail, the resume and the
+      other planes);
   and explain: keto_tpu's gRPC Check and REST route answer a trace, the
   port's UNIMPLEMENTED and a typed 501.
 
@@ -405,17 +409,54 @@ def test_read_methods_equal_keto_tpu(daemons, case):
         assert tree.node_type == 4 and tree.subject.id == "alice" and not tree.HasField("tuple")
 
 
-def test_watch_service_is_unregistered(daemons):
-    """The tuple WatchService waits for the watch hub: a call answers
-    UNIMPLEMENTED, where keto_tpu streams the changelog."""
-    tdaemon, _ = daemons
-    ch = grpc.insecure_channel(f"127.0.0.1:{tdaemon.read_port}")
-    stream = ch.unary_stream(f"/{tdesc.WATCH_SERVICE}/Watch")(
-        pb.WatchRequest().SerializeToString(), timeout=WAIT_S)
-    with pytest.raises(grpc.RpcError) as e:
-        next(stream)
-    assert e.value.code() == grpc.StatusCode.UNIMPLEMENTED
-    ch.close()
+WATCH_PATH = f"/{tdesc.WATCH_SERVICE}/Watch"
+
+
+def watch_raw(port, req, n=1, timeout=WAIT_S, heartbeats=False):
+    """One Watch call's first `n` frames (heartbeats left out unless
+    asked for): (code, frames, details)."""
+    ch = grpc.insecure_channel(f"127.0.0.1:{port}")
+    call = ch.unary_stream(WATCH_PATH)(req.SerializeToString(), timeout=timeout)
+    frames = []
+    try:
+        for raw in call:
+            if heartbeats or pb.WatchResponse.FromString(raw).event_type != "heartbeat":
+                frames.append(raw)
+            if len(frames) >= n:
+                break
+        return "OK", frames, ""
+    except grpc.RpcError as e:
+        return e.code().name, frames, e.details()
+    finally:
+        call.cancel()
+        ch.close()
+
+
+@pytest.mark.parametrize("namespace", ["", "groups"])
+def test_watch_replay_equals_keto_tpu(daemons, namespace):
+    """The tuple WatchService from v0: the store's one commit (version 1,
+    every tuple) as one event, byte for byte keto_tpu's; the namespace
+    filter keeps the changes of its namespace."""
+    req = pb.WatchRequest(snaptoken=encode_snaptoken(0, NID), namespace=namespace)
+    got, want = (watch_raw(d.read_port, req) for d in daemons)
+    assert got == want and got[0] == "OK"
+    event = pb.WatchResponse.FromString(got[1][0])
+    assert event.event_type == "change" and event.snaptoken == encode_snaptoken(1, NID)
+    kept = [t for t in TUPLES if not namespace or t.startswith(namespace + ":")]
+    assert [c.action for c in event.changes] == ["insert"] * len(kept)
+
+
+@pytest.mark.parametrize("token", sorted(TOKENS))
+def test_watch_snaptokens_equal_keto_tpu(daemons, token):
+    """A bad token ends the stream with keto_tpu's code and details; a
+    token the store satisfies opens a live tail that stays quiet until
+    the client's deadline."""
+    req = pb.WatchRequest(snaptoken=TOKENS[token])
+    got, want = (watch_raw(d.read_port, req, timeout=0.5) for d in daemons)
+    assert got == want, token
+    code = {"malformed": "INVALID_ARGUMENT", "other_network": "INVALID_ARGUMENT",
+            "ahead_of_store": "FAILED_PRECONDITION"}.get(token, "DEADLINE_EXCEEDED")
+    assert got[0] == code and got[1] == [], token
 
 
 TOKEN_METHODS = {
