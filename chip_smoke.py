@@ -246,6 +246,34 @@ Phases, in order; any failure exits non-zero without the final line:
                and a few hundred tuples answers a REST and a gRPC check as
                the oracle, a Watch event after a write, and exits 0 on
                SIGTERM
+ 14. sqlite  — (after phase 13, before phase 12) the durable store: (14a)
+               phase 4's dataset written into a file-backed `sqlite://`
+               store in transactions of 10,000 by a child process
+               (`chip_smoke.py --sqlite-ingest PATH`, started after phase
+               6d, so that it runs beside phases 7-13: tuples/s, the
+               file's size), a Registry over that DSN, the mirror built on the
+               card from the file's columns (all_tuple_columns and every
+               stage timed), 20 batches of 4096 checks: checks/s, p50, no
+               host replay, 512 sampled verdicts equal to the oracle over
+               the file, K1-K4 launched (the "sqlite" launch path) and
+               against their plain versions on one batch's inputs (each
+               row's "at" entry "sqlite"), peak RSS and card memory;
+               (14b) 64 inserts and 64 deletes through the store: the
+               next batch runs on the overlay from the SQLite changelog
+               (no rebuild, K1 and K2 launched, the "sqlite_write" path),
+               its verdicts and the written tuples' equal to the oracle;
+               (14c, on a thread beside 14a and 14b) `python -m
+               keto_tpu_torch serve --config` over a
+               fresh file of a few hundred tuples: a Watch cursor, 20
+               acked REST writes, SIGKILL; the restart answers each by
+               REST and gRPC as the oracle and resumes the cursor with no
+               event lost or repeated; then store_commit_pre,
+               store_commit_post and changelog_append armed in turn by
+               KETO_FAULTS (crash:137!1): exit 137 on the first write, a
+               postmortem of the file (0 lost, 0 phantoms, the store
+               version equal to its commits), the crashed write absent
+               after _pre and changelog_append, present with its
+               changelog row after _post; exit 0 on SIGTERM
  12. scale   — (run last, after phases 4-11's engines and stores are
                released) tools/scale_bench.py's defaults: synth_columns
                at 1e7 tuples (100,000 users) and synth_rbac_columns (1,000
@@ -4775,6 +4803,537 @@ def run_watch_load(registry, daemon, manager, client, owner_of, viewer_of, queri
             "hub": dict(hub.counts), "reset_at": first.version, "launches": launches}
 
 
+# -- phase 14: the durable SQLite store ------------------------------------------------
+
+SQLITE_TX = 10_000  # tuples a transaction of the ingest
+SQLITE_SAMPLES = 512
+SQLITE_SERVE_SHAPE = (5, 60)  # folders x files of 14c's file: a few hundred tuples
+SQLITE_ACKS = 20  # REST writes acked before the SIGKILL
+SQLITE_WATCH_FIRST = 8  # events the cursor reads before the SIGKILL
+FAULT_POINTS = ("store_commit_pre", "store_commit_post", "changelog_append")
+# processes main starts and the directories they write, ended and removed
+# at exit whatever happens (stop_children)
+CHILDREN: list = []
+TEMP_DIRS: list = []
+
+
+def sqlite_oracle_check(manager, config, queries, results, what: str, seed: int) -> None:
+    """SQLITE_SAMPLES sampled verdicts against the exact oracle reading
+    the SQLite store itself."""
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+
+    oracle = ReferenceEngine(manager, config)
+    sample = random.Random(seed).sample(range(len(queries)), min(SQLITE_SAMPLES, len(queries)))
+    bad = [i for i in sample
+           if oracle.check_relation_tuple(queries[i], MAX_DEPTH).allowed != results[i].allowed]
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(sample)} sampled verdicts {what} differ "
+                             f"from the oracle: {[str(queries[i]) for i in bad[:3]]}")
+
+
+def file_bytes(path: str) -> int:
+    """The database file and its write-ahead log."""
+    return sum(os.path.getsize(p) for p in (path, path + "-wal") if os.path.exists(p))
+
+
+def sqlite_config(path: str, dsn_path: str) -> str:
+    """14c's serve config: the videos namespace over `sqlite://<dsn_path>`."""
+    listen = {"host": "127.0.0.1", "port": 0}
+    with open(path, "w") as f:
+        json.dump({"dsn": f"sqlite://{dsn_path}", "namespaces": [videos_namespace().to_dict()],
+                   "limit": {"max_read_depth": MAX_DEPTH},
+                   "serve": {"read": listen, "write": listen}}, f)
+    return path
+
+
+class Serve:
+    """One `python -m keto_tpu_torch serve --config` process, with
+    KETO_FAULTS set to `faults` (none when empty); its stderr goes to a
+    file, read when it fails."""
+
+    def __init__(self, repo: str, cfg_path: str, log_path: str, faults: str = ""):
+        env = {k: v for k, v in os.environ.items() if k != "KETO_FAULTS"}
+        env["PYTHONPATH"] = repo
+        if faults:
+            env["KETO_FAULTS"] = faults
+        self.log_path = log_path
+        self.err = open(log_path, "w")
+        t = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "keto_tpu_torch", "serve", "--config", cfg_path],
+            cwd=repo, stdout=subprocess.PIPE, stderr=self.err, text=True, env=env)
+        self.read = self._address("serving read=")
+        self.write = self._address("serving write=")
+        self.ready_s = time.perf_counter() - t
+
+    def _address(self, prefix: str) -> str:
+        line = self.proc.stdout.readline()
+        if not line.startswith(prefix):
+            raise AssertionError(f"serve did not start: {line!r} {self.stderr()}")
+        return line.split("=", 1)[1].strip()
+
+    def stderr(self) -> str:
+        self.err.flush()
+        with open(self.log_path) as f:
+            return f.read()[-2000:]
+
+    def wait(self, timeout: float = 60) -> int:
+        try:
+            return self.proc.wait(timeout=timeout)
+        finally:
+            self.err.close()
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.wait()
+
+
+def rest_put(write: str, t) -> str:
+    """PUT one tuple through the write API; its snaptoken (201), or raise."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://{write}/admin/relation-tuples", method="PUT",
+                                 data=json.dumps(t.to_dict()).encode())
+    with urllib.request.urlopen(req, timeout=60) as r:
+        if r.status != 201:
+            raise AssertionError(f"PUT {t} answered {r.status}")
+        return r.headers["X-Keto-Snaptoken"]
+
+
+def rest_check(read: str, t, snaptoken: str = "") -> bool:
+    import urllib.parse
+    import urllib.request
+
+    params = {"namespace": t.namespace, "object": t.object, "relation": t.relation,
+              "subject_id": t.subject_id, "max_depth": MAX_DEPTH}
+    if snaptoken:
+        params["snaptoken"] = snaptoken
+    with urllib.request.urlopen(f"http://{read}/relation-tuples/check/openapi?"
+                                + urllib.parse.urlencode(params), timeout=60) as r:
+        return json.loads(r.read())["allowed"]
+
+
+def served_checks(serve: Serve, oracle, checks: list) -> None:
+    """Each (query, snaptoken) by REST and by gRPC, as the oracle answers."""
+    from keto_tpu_torch.api.client import ReadClient, open_channel
+
+    client = ReadClient(open_channel(serve.read))
+    try:
+        for q, token in checks:
+            want = oracle.check_relation_tuple(q, MAX_DEPTH).allowed
+            got = (rest_check(serve.read, q, token), client.check(q, MAX_DEPTH, timeout=60))
+            if got != (want, want):
+                raise AssertionError(f"{q}: REST and gRPC answered {got}, the oracle {want}")
+    finally:
+        client.close()
+
+
+def postmortem(path: str, attempted: set, acked: list) -> dict:
+    """keto_tpu's crash audit (tools/crash_smoke.py), off the file the dead
+    server left: acked writes lost, tuples never attempted (phantoms), the
+    rows present and the store version, the commits in the changelog."""
+    from keto_tpu_torch.storage.sqlite import SQLitePersister
+
+    store = SQLitePersister(path)
+    try:
+        present = {str(t) for t in store.all_relation_tuples()}
+        log = store.changelog_since(0)
+        return {"lost": len([t for t in acked if t not in present]),
+                "phantoms": len([t for t in present if t not in attempted]),
+                "present": len(present), "store_version": store.version(),
+                "commits": len({v for v, _op, _t in log}), "rows": present,
+                "logged": {str(t) for _v, op, t in log if op == "insert"}}
+    finally:
+        store.close()
+
+
+def run_sqlite_restart(tmp: str, repo: str, smi: str, say, serves: list) -> dict:
+    """14c: `serve --config` over a fresh SQLite file; a Watch cursor, 20
+    acked writes, a SIGKILL, a restart that answers each as the oracle and
+    resumes the cursor; three fault-point crashes and their postmortems;
+    exit 0 on SIGTERM. It runs beside 14a and 14b on a thread of its own:
+    `say` keeps its log lines for the main thread, and every server it
+    starts joins `serves`."""
+    import http.client
+    import signal
+
+    from keto_tpu_torch.api.client import ReadClient, open_channel
+    from keto_tpu_torch.config import Config
+    from keto_tpu_torch.engine.reference import ReferenceEngine
+    from keto_tpu_torch.ketoapi import RelationTuple
+    from keto_tpu_torch.storage import MemoryManager, SQLitePersister
+
+    t0 = time.perf_counter()
+    say("== 14c kill and restart: serve --config over sqlite://, SIGKILL, fault points "
+        "(beside 14a and 14b)")
+    path = os.path.join(tmp, "serve.sqlite")
+    tuples, _queries = build_dataset(*SQLITE_SERVE_SHAPE, seed=14)
+    store = SQLitePersister(path)
+    store.write_relation_tuples(tuples)  # version 1
+    store.close()
+    cfg_path = sqlite_config(os.path.join(tmp, "serve.json"), path)
+    config = Config.from_file(cfg_path)
+    attempted = {str(t) for t in tuples}
+    acked = [str(t) for t in tuples]
+    files = sorted({t.object for t in tuples if t.relation == "parent"})
+    writes = [RelationTuple("videos", files[i * 7 % len(files)], "owner", subject_id=f"acked{i}")
+              for i in range(SQLITE_ACKS + len(FAULT_POINTS))]
+    fig = {"tuples": len(tuples), "card": smi}
+
+    def oracle():
+        m = MemoryManager()
+        m.write_relation_tuples([RelationTuple.from_string(s) for s in acked])
+        return ReferenceEngine(m, config)
+
+    serve = Serve(repo, cfg_path, os.path.join(tmp, "serve0.log"))
+    serves.append(serve)
+    try:
+        token0 = encode_snaptoken_of(1)
+        tokens = []
+        for t in writes[:SQLITE_ACKS]:
+            attempted.add(str(t))
+            tokens.append(rest_put(serve.write, t))
+            acked.append(str(t))
+        client = ReadClient(open_channel(serve.read))
+        try:
+            first = list(client.watch(snaptoken=token0, max_events=SQLITE_WATCH_FIRST,
+                                      timeout=60))
+        finally:
+            client.close()
+        serve.proc.send_signal(signal.SIGKILL)
+        rc = serve.wait()
+    finally:
+        serve.kill()
+    if rc != -signal.SIGKILL:
+        raise AssertionError(f"the killed server exited {rc}")
+    fig["ready_s"] = [serve.ready_s]
+
+    serve = Serve(repo, cfg_path, os.path.join(tmp, "serve1.log"))
+    serves.append(serve)
+    try:
+        served_checks(serve, oracle(), list(zip(writes, tokens)))
+        client = ReadClient(open_channel(serve.read))
+        try:
+            rest = list(client.watch(snaptoken=first[-1].snaptoken,
+                                     max_events=SQLITE_ACKS - SQLITE_WATCH_FIRST, timeout=60))
+        finally:
+            client.close()
+        got = [(e.event_type, [(op, str(t)) for op, t in e.changes]) for e in first + rest]
+        want = [("change", [("insert", str(t))]) for t in writes[:SQLITE_ACKS]]
+        if got != want:
+            raise AssertionError(f"the Watch cursor across the kill gave {got[:3]}..., "
+                                 f"not the {SQLITE_ACKS} acked writes once each in order")
+        serve.proc.send_signal(signal.SIGTERM)
+        if serve.wait() != 0:
+            raise AssertionError(f"serve exited {serve.proc.returncode} on SIGTERM")
+    finally:
+        serve.kill()
+    fig["ready_s"].append(serve.ready_s)
+    say(f"  {len(tuples)} tuples in a fresh file; {SQLITE_ACKS} acked writes, the cursor read "
+        f"{SQLITE_WATCH_FIRST} events, SIGKILL; the restart answered every acked write by REST "
+        f"and gRPC as the oracle and resumed the cursor: {len(rest)} events, none lost or "
+        f"repeated; exit 0 on SIGTERM")
+
+    cycles = []
+    for i, point in enumerate(FAULT_POINTS):
+        serve = Serve(repo, cfg_path, os.path.join(tmp, f"fault{i}.log"),
+                      faults=f"{point}=crash:137!1")
+        serves.append(serve)
+        try:
+            if cycles:  # this start is the last crash's restart
+                served_checks(serve, oracle(), [(writes[SQLITE_ACKS + i - 1], "")])
+            t = writes[SQLITE_ACKS + i]
+            attempted.add(str(t))
+            try:
+                rest_put(serve.write, t)
+                raise AssertionError(f"the write under {point} was acked")
+            except (OSError, http.client.HTTPException):
+                pass  # the server died under the request
+            rc = serve.wait()
+        finally:
+            serve.kill()
+        pm = postmortem(path, attempted, acked)
+        committed = str(t) in pm["rows"]
+        if rc != 137 or pm["lost"] or pm["phantoms"] or pm["store_version"] != pm["commits"]:
+            raise AssertionError(f"{point}: exit {rc}, postmortem {pm}")
+        if committed != (point == "store_commit_post") or committed != (str(t) in pm["logged"]):
+            raise AssertionError(f"{point}: the crashed write present {committed}, "
+                                 f"logged {str(t) in pm['logged']}")
+        if committed:
+            acked.append(str(t))  # durable but unacked: the restart may serve it
+        cycles.append({"tag": point, "exit_code": rc, "ready_s": serve.ready_s,
+                       "postmortem": {k: pm[k] for k in ("lost", "phantoms", "present",
+                                                         "store_version")},
+                       "crashed_write_present": committed})
+        say(f"  {point}=crash:137!1: exit {rc}; lost {pm['lost']}, phantoms {pm['phantoms']}, "
+            f"present {pm['present']}, store version {pm['store_version']} = its commits; the "
+            f"crashed write {'present, with its changelog row' if committed else 'absent'}")
+    serve = Serve(repo, cfg_path, os.path.join(tmp, "final.log"))
+    serves.append(serve)
+    try:
+        served_checks(serve, oracle(), [(writes[-1], "")] + list(zip(writes, tokens)))
+        serve.proc.send_signal(signal.SIGTERM)
+        if serve.wait() != 0:
+            raise AssertionError(f"serve exited {serve.proc.returncode} on SIGTERM")
+    finally:
+        serve.kill()
+    fig.update(cycles=cycles, acked_writes=SQLITE_ACKS, watch_events=len(first) + len(rest),
+               seconds=time.perf_counter() - t0)
+    say(f"  the last restart answered every acked write again; exit 0 on SIGTERM "
+        f"({fig['seconds']:.1f} s)")
+    return fig
+
+
+def encode_snaptoken_of(version: int) -> str:
+    from keto_tpu_torch.engine.snaptoken import encode_snaptoken
+
+    return encode_snaptoken(version, "default")
+
+
+def sqlite_ingest(path: str) -> int:
+    """`python3 chip_smoke.py --sqlite-ingest PATH`: phase 4's dataset (the
+    same build_dataset and seed) written into a sqlite:// file at PATH in
+    transactions of SQLITE_TX; its figures as one JSON line. It imports
+    the port's store and no torch."""
+    from keto_tpu_torch.storage.sqlite import SQLitePersister
+
+    tuples, _queries = build_dataset(N_FOLDERS, FILES_PER_FOLDER)
+    store = SQLitePersister(path)
+    t = time.perf_counter()
+    for i in range(0, len(tuples), SQLITE_TX):
+        store.write_relation_tuples(tuples[i:i + SQLITE_TX])
+    seconds = time.perf_counter() - t
+    fig = {"tuples": len(tuples), "seconds": seconds, "tuples_per_s": len(tuples) / seconds,
+           "commits": store.version(), "file_bytes": file_bytes(path)}
+    store.close()
+    print(json.dumps(fig), flush=True)
+    return 0
+
+
+def start_sqlite_ingest():
+    """Phase 14a's ingest in a child process, started after phase 6d so
+    that its minutes of host work (one core, in the store) run beside
+    phases 7-13 and not beside the serve loads; (the process, the
+    file's path). `stop_children` ends it and removes its directory."""
+    tmp = tempfile.mkdtemp(prefix="keto-sqlite-")
+    TEMP_DIRS.append(tmp)
+    path = os.path.join(tmp, "keto.sqlite")
+    err = open(os.path.join(tmp, "ingest.log"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sqlite-ingest", path],
+                            stdout=subprocess.PIPE, stderr=err, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    err.close()
+    CHILDREN.append(proc)
+    log(f"  phase 14a's ingest started in process {proc.pid}, beside phases 7-13")
+    return proc, path
+
+
+def stop_children() -> None:
+    """End every child process main started that still runs, and remove
+    their directories."""
+    import shutil
+
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for d in TEMP_DIRS:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def run_sqlite(smi: str, queries, ingest):
+    """Phase 14: phase 4's dataset in a file-backed `sqlite://` store (the
+    `ingest` child of start_sqlite_ingest), a Registry over its DSN, the
+    mirror built from its columns on the card and Checks served from it
+    (14a); a write into the overlay from the SQLite changelog (14b); 14c
+    on a thread beside them (it waits on its servers). Returns (14a's
+    launches, 14b's, the K1-K4 "sqlite" entries, the figures)."""
+    import shutil
+    import threading
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    fig = {"card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        lines, failed, serves, restart = [], [], [], {}
+
+        def leg():
+            try:
+                restart.update(run_sqlite_restart(tmp, repo, smi, lines.append, serves))
+            except Exception:  # raised by the main thread once 14b is done
+                failed.append(traceback.format_exc())
+
+        thread = threading.Thread(target=leg, name="phase-14c")
+        thread.start()
+        try:
+            launches, w_launches, at = run_sqlite_mirror(ingest, queries, smi, fig)
+        finally:
+            thread.join(timeout=600)
+            for serve in serves:
+                serve.kill()
+        for line in lines:
+            log(line)
+        if thread.is_alive() or failed:
+            raise AssertionError("14c failed: " + (failed[0] if failed else "it did not end"))
+        fig["restart"] = restart
+    shutil.rmtree(os.path.dirname(ingest[1]), ignore_errors=True)
+    return launches, w_launches, at, fig
+
+
+def run_sqlite_mirror(ingest, queries, smi: str, fig: dict):
+    """14a and 14b over the file the `ingest` child writes, their figures
+    into `fig`; (14a's launches, 14b's, the K1-K4 "sqlite" entries)."""
+    import resource
+
+    import torch
+
+    from keto_tpu_torch.config import Config
+    from keto_tpu_torch.engine import cuda_ops
+    from keto_tpu_torch.ketoapi import RelationQuery, RelationTuple
+    from keto_tpu_torch.registry import Registry
+
+    t0 = phase(f"14a sqlite: {N_FOLDERS} folders x {FILES_PER_FOLDER} files in a sqlite:// "
+               f"file, written in transactions of {SQLITE_TX}; a Registry over its DSN")
+    proc, path = ingest
+    t = time.perf_counter()
+    out, _ = proc.communicate(timeout=1200)
+    waited = time.perf_counter() - t
+    if proc.returncode != 0:
+        with open(os.path.join(os.path.dirname(path), "ingest.log")) as f:
+            raise AssertionError(f"the ingest exited {proc.returncode}: {f.read()[-2000:]}")
+    fig["ingest"] = {**json.loads(out.strip().splitlines()[-1]), "waited_s": waited}
+    ing = fig["ingest"]
+    log(f"  {ing['tuples']} tuples written in {ing['seconds']:.1f} s ({ing['tuples_per_s']:.0f} "
+        f"tuples/s, {ing['commits']} commits) by the child beside phases 7-13 (waited "
+        f"{waited:.1f} s for it here); the file {ing['file_bytes'] / 1e6:.1f} MB")
+    config = Config({"dsn": f"sqlite://{path}", "limit": {"max_read_depth": MAX_DEPTH},
+                     "namespaces": [videos_namespace().to_dict()]})
+    registry = Registry(config)
+    manager = registry.relation_tuple_manager()
+    if manager.version() != ing["commits"]:
+        raise AssertionError(f"the Registry's store is at version {manager.version()}")
+    engine = registry.check_engine()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    state = engine.ensure_state()
+    torch.cuda.synchronize()
+    fig["mirror"] = {"seconds": time.perf_counter() - t, **engine.last_build,
+                     "layout": state.snapshot.layout}
+    log(f"  the mirror from the file's columns: {fig['mirror']['seconds']:.1f} s "
+        f"({engine.last_build}; all_tuple_columns {engine.last_build['columns_s']:.1f} s)")
+
+    cuda_ops.reset_launch_counts()
+    before = dict(engine.stats)
+    results = engine.check_batch(queries, MAX_DEPTH)  # the main path, once
+    torch.cuda.synchronize()
+    launches = dict(cuda_ops.launches)
+    missing = [k for k in cuda_ops.CHECK_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the SQLite check path: {missing}")
+    t = time.perf_counter()
+    handles = []
+    for _ in range(ROUNDS):
+        handles.append(engine.check_batch_submit(queries, MAX_DEPTH))
+        if len(handles) > 8:
+            engine.check_batch_resolve(handles.pop(0))
+    for h in handles:
+        engine.check_batch_resolve(h)
+    torch.cuda.synchronize()
+    qps = ROUNDS * BATCH / (time.perf_counter() - t)
+    lat = []
+    for _ in range(9):
+        s = time.perf_counter()
+        engine.check_batch(queries, MAX_DEPTH)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - s) * 1e3)
+    host = engine.stats["host_checks"] - before["host_checks"]
+    if host:
+        raise AssertionError(f"{host} host replays over the SQLite mirror")
+    sqlite_oracle_check(manager, config, queries, results, "over the SQLite mirror", 14)
+    fig["check"] = {"checks_per_s": qps, "p50_batch_ms": statistics.median(lat),
+                    "batch_ms": lat, "host_replays": host, "launches": launches,
+                    "allowed": sum(r.allowed for r in results)}
+    log(f"  launches on the main path: {launches}")
+    log(f"  throughput {qps:.1f} checks/s ({ROUNDS} batches of {BATCH}); p50 batch "
+        f"{statistics.median(lat):.2f} ms (min {min(lat):.2f}, max {max(lat):.2f}); no host "
+        f"replay; {SQLITE_SAMPLES} sampled equal the oracle over the file ({smi})")
+    with Recorder(cuda_ops, step=1) as rec:
+        engine.check_batch(queries, MAX_DEPTH)
+    cases, k2_shape = kernel_cases(rec)
+    at = [(case[0], "sqlite", scale_kernel_entry(
+        case, "one Check batch over the SQLite mirror, step 1",
+        k2_shape if case[0] == "pair_probe" else None)) for case in cases]
+    del rec, cases
+    fig["peaks"] = {"card_peak_bytes": torch.cuda.max_memory_allocated(),
+                    "host_peak_rss_bytes":
+                        resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
+    log(f"  peaks: card {fig['peaks']['card_peak_bytes'] / 1e9:.3f} GB, host RSS "
+        f"{fig['peaks']['host_peak_rss_bytes'] / 1e9:.3f} GB; 14a "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = phase(f"14b write: {WRITE_SMALL} inserts + {WRITE_SMALL} deletes through the "
+               "SQLite store into the overlay")
+    rng = random.Random(141)
+    files = sorted({q.object for q in queries})
+    deletes = []
+    for f in rng.sample(files, 8 * WRITE_SMALL):  # a quarter of the files have an owner
+        rows, _ = manager.get_relation_tuples(
+            RelationQuery(namespace="videos", object=f, relation="owner"))
+        deletes += rows[:1]
+    deletes = deletes[:WRITE_SMALL]
+    if len(deletes) != WRITE_SMALL:
+        raise AssertionError(f"found {len(deletes)} file owners to delete")
+    inserts = [RelationTuple("videos", f, "owner", subject_id=f"user{rng.randrange(N_USERS)}")
+               for f in rng.sample(files, WRITE_SMALL)]
+    builds = engine.stats["snapshot_builds"]
+    v0 = manager.version()
+    manager.transact_relation_tuples(inserts, deletes)
+    t = time.perf_counter()
+    state = engine.ensure_state()
+    torch.cuda.synchronize()
+    t_refresh = time.perf_counter() - t
+    ops = manager.changes_since(state.base_version)
+    if not state.has_delta or engine.stats["snapshot_builds"] != builds or \
+            state.covered_version != v0 + 1:
+        raise AssertionError("the SQLite write did not fold into the overlay")
+    cuda_ops.reset_launch_counts()
+    causes = dict(engine.stats["host_cause"])
+    host0 = engine.stats["host_checks"]
+    t = time.perf_counter()
+    after = engine.check_batch(queries, MAX_DEPTH)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t
+    w_launches = dict(cuda_ops.launches)
+    if w_launches["edge_probe"] == 0 or w_launches["pair_probe"] == 0:
+        raise AssertionError(f"K1 and K2 not launched on the overlay: {w_launches}")
+    replays = {k: v - causes.get(k, 0) for k, v in engine.stats["host_cause"].items()
+               if v != causes.get(k, 0)}
+    if set(replays) - {"dirty_row"}:
+        raise AssertionError(f"host replays after the write other than dirty_row: {replays}")
+    sqlite_oracle_check(manager, config, queries, after, "after the write", 142)
+    written = [RelationTuple("videos", t.object, "view", subject_id=t.subject_id)
+               for t in inserts + deletes]
+    got = engine.check_batch(written, MAX_DEPTH)
+    sqlite_oracle_check(manager, config, written, got, "of the written tuples", 143)
+    fig["write"] = {"inserts": len(inserts), "deletes": len(deletes), "ops": len(ops),
+                    "refresh_ms": t_refresh * 1e3, "batch_ms": t_batch * 1e3,
+                    "dirty_row_replays": engine.stats["host_checks"] - host0,
+                    "launches": w_launches}
+    log(f"  {len(ops)} ops from the SQLite changelog into the overlay: refresh "
+        f"{t_refresh * 1e3:.1f} ms, no rebuild; the next batch {t_batch * 1e3:.1f} ms with "
+        f"has_delta, {fig['write']['dirty_row_replays']} dirty_row replays; launches "
+        f"{w_launches}; {SQLITE_SAMPLES} sampled and the written tuples' views equal the "
+        f"oracle ({time.perf_counter() - t0:.1f} s)")
+    engine.stop_push_refresh()
+    registry.watch_hub().stop()
+    manager.close()
+    del engine, state, registry, manager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, w_launches, at
+
+
 # -- phase 12: the scale tier --------------------------------------------------------
 
 
@@ -5327,6 +5886,7 @@ def main() -> int:
     run_serve()
     s_launches, serve_load, g_launches, grpc_load, aio_load = run_serve_load(manager, owners,
                                                                              smi)
+    ingest = start_sqlite_ingest()
     # the expand phase's store joins only now, so the check phases run in
     # the same process state as before the expand slice existed
     x_engine, x_manager, x_config, subjects, x_info = setup_expand()
@@ -5411,6 +5971,10 @@ def main() -> int:
     o_launches, ow_launches, o_at, opl = run_opl_watch(smi)
     for name, key, entry in o_at:
         next(row for row in rows if row["name"] == name).setdefault("at", {})[key] = entry
+    # phase 14 after phase 13, before phase 12
+    q_launches, qw_launches, q_at, sqlite_fig = run_sqlite(smi, queries, ingest)
+    for name, key, entry in q_at:
+        next(row for row in rows if row["name"] == name).setdefault("at", {})[key] = entry
     gc.collect()
     # phase 12 loads its own 1e7-tuple store: release phases 4-11's
     # engines, stores and captured tensors first
@@ -5433,7 +5997,8 @@ def main() -> int:
                "list_subjects": ls_launches, "closure_build": b_launches, "closure": c_launches,
                "closure_write": cw_launches, "closure_refresh": cr_launches,
                "filter": f_launches, "microbench": m_launches, "opl": o_launches,
-               "opl_watch": ow_launches, **sc_by_path}
+               "opl_watch": ow_launches, "sqlite": q_launches, "sqlite_write": qw_launches,
+               **sc_by_path}
     # each kernel's count on its own path: check for K1-K4, expand for X1
     # and X2, ListObjects for L1, L2 and L4, ListSubjects for L3, closure
     # for C1, filter for F1, closure_build for P1-P3, microbench for
@@ -5466,6 +6031,7 @@ def main() -> int:
     log(json.dumps({"microbench": {**tools, "card": smi}}))
     log(json.dumps({"scale": scale}))
     log(json.dumps({"opl_watch": opl}))
+    log(json.dumps({"sqlite": sqlite_fig}))
     log(f"profile windows whose records were not whole launches: {PROFILE_WINDOWS['short']} of "
         f"{PROFILE_WINDOWS['timed']}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -5482,9 +6048,13 @@ if __name__ == "__main__":
         sys.exit(load_clients(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--grpc-clients":
         sys.exit(grpc_clients(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--sqlite-ingest":
+        sys.exit(sqlite_ingest(sys.argv[2]))
     try:
         code = main()
     except Exception:
         traceback.print_exc()
         code = 1
+    finally:
+        stop_children()
     sys.exit(code)

@@ -23,7 +23,9 @@ Layout:
   ketoapi     — relation tuples, subject sets, string and JSON forms
   namespace   — namespace model and rewrite AST
   config      — JSON configuration of the read paths
-  storage     — in-memory versioned tuple store
+  storage     — versioned tuple stores: in memory, columnar, and the
+                durable SQLite store with its changelog
+  faults      — named fault points (KETO_FAULTS) for tests and drills
   engine      — snapshot compiler, host oracle, check, expand, list,
                 closure and filter kernels, the closure index, the engine
   closure     — the closure maintainer: keeps each engine's index fresh

@@ -8,7 +8,8 @@
 write routes (`namespaces`: an inline list, or a file or directory of
 namespace files, `.ts` in the Ory Permission Language among them, as a
 path or Keto's `{location: file:///...}`, reloaded when a file changes;
-`dsn`, `limit.max_read_depth`, `limit.page_size`, `serve.read.host` /
+`dsn` ("memory", "columnar", or `sqlite://<path>`, a durable file that a
+restart serves again), `limit.max_read_depth`, `limit.page_size`, `serve.read.host` /
 `serve.read.port`, `serve.write.host` / `serve.write.port`,
 `serve.<kind>.grpc` (a direct gRPC listener; with `"aio": true` the read
 side's is the asyncio plane), `serve.<kind>.tls`, `serve.<kind>.cors`,

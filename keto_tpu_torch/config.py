@@ -289,6 +289,18 @@ class Config:
                 raise ConfigError("invalid `namespaces` config value")
         return self._namespace_manager
 
+    def legacy_namespace_ids(self) -> Optional[dict]:
+        """The deprecated numeric namespace id -> name map that the SQL
+        store's strings-to-UUIDs data migration resolves legacy rows by
+        (Keto's namespaceIDtoName); None when no configured namespace
+        carries a numeric id."""
+        legacy = {
+            ns.id: ns.name
+            for ns in self.namespace_manager().namespaces()
+            if ns.id is not None
+        }
+        return legacy or None
+
     def set_namespaces(self, namespaces: list[Namespace]) -> None:
         """Programmatic namespace injection (embedders and tests)."""
         self._namespace_manager = MemoryNamespaceManager(namespaces)

@@ -75,6 +75,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import faults as _faults
 from ..config import DEFAULT_FILTER_CHUNK_SIZE, Config
 from ..errors import DeadlineExceededError
 from ..ketoapi import RelationTuple, Subject, SubjectSet, Tree
@@ -250,8 +251,8 @@ class TorchCheckEngine:
             "filter_host": 0,
         }
         # seconds by stage of the last full mirror build: over columns
-        # encode_s and probe_tables_s, over tuple objects snapshot_s; then
-        # pack_upload_s
+        # columns_s (the store's read), encode_s and probe_tables_s, over
+        # tuple objects snapshot_s; then pack_upload_s
         self.last_build: dict = {}
         # an attribute, not re-read per batch, so that a caller can toggle
         # it between calls
@@ -304,6 +305,7 @@ class TorchCheckEngine:
         t0 = time.perf_counter()
         cols = self._columns()
         if cols is not None:
+            split["columns_s"] = time.perf_counter() - t0
             snap = build_snapshot_columnar(cols, namespaces, layout=self.layout,
                                            K=REWRITE_INSTR_CAP, version=version, split=split)
         else:
@@ -697,6 +699,9 @@ class TorchCheckEngine:
         n = len(tuples)
         if n == 0:
             return ("empty", None, None)
+        # fault point (faults.py): a stall is a wedged launch, an error a
+        # dying card, before any state build
+        _faults.inject("device_launch")
         state = self.ensure_state()
         global_max = self.config.max_read_depth()
         depth = max_depth if 0 < max_depth <= global_max else global_max
@@ -794,6 +799,11 @@ class TorchCheckEngine:
             flat, B, meta["island_cap"], snap.K
         )
         ctx_hit = ctx_hit.copy()
+        if _faults.get("batch_corrupt") is not None:
+            # fault point (faults.py): every slot to the exact host replay,
+            # the escape hatch of the capacity overflows
+            _faults.inject("batch_corrupt")
+            needs_host = np.maximum(needs_host, 1)
         if n_isl:
             member = combine_islands(
                 ctx_hit, isl_parent, isl_pid, n_isl, snap.island_circuits, B, snap.K

@@ -184,3 +184,10 @@ class StoreUnavailableError(KetoError):
         super().__init__(message, debug=debug)
         self.retry_after_s = retry_after_s
         self.breaker_open = breaker_open
+
+
+class StoreBusyError(StoreUnavailableError):
+    # SQLITE_BUSY / "database is locked" past the connection's busy
+    # timeout (storage/sqlite.py _PrepConn): contention a client backs off
+    # from and retries, 503 / UNAVAILABLE like its parent
+    default_message = "the tuple store is busy (locked), retry"

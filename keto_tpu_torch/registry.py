@@ -1,8 +1,9 @@
 """Registry: the serving plane's composition root.
 
 One object builds each service once, lazily, from the config and hands
-it to everything above: the store (chosen by `dsn`: "memory" or
-"columnar"), the Watch hub over it, the check engine
+it to everything above: the store (chosen by `dsn`: "memory", "columnar",
+or a SQL DSN, `sqlite://<path>` or `sqlite://:memory:`, through the
+strict router of storage/dialect.py), the Watch hub over it, the check engine
 (`check.engine`: "torch", the device engine, or "host", the exact host
 oracle alone), the namespace manager, the check cache, the device-path
 circuit breaker, the serving counters, the closure maintainer, and the
@@ -17,8 +18,11 @@ thread folds the write into the mirror) and the check cache
 closure maintainer wakes on the same hub.
 
 Not here yet: per-network engines (the tenancy plane's `nid_for` and its
-LRU of `tenancy.max_networks` engines). Asking for another network's
-engine raises: one network's mirror never answers for another.
+LRU of `tenancy.max_networks` engines), the follower plane, and the store
+health guard that the JAX package wraps a SQL store in (per-op timeouts,
+a typed 503 from a wedged store). Asking for another network's engine
+raises: one network's mirror never answers for another; a config that
+sets `tenancy.header` or `follower.enabled` fails at construction.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import threading
 from typing import Optional
 
 from . import __version__
+from . import faults as _faults
 from .config import Config, ConfigError
 from .engine.reference import ReferenceEngine
 from .ketoapi import RelationQuery, RelationTuple
@@ -85,6 +90,14 @@ class Registry:
     def __init__(self, config: Optional[Config] = None, nid: str = DEFAULT_NETWORK, *,
                  device="cuda", layout: str = "bucketized", manager=None, engine=None):
         self.config = config or Config()
+        # keys whose services are not ported: serving them with the
+        # default network's store would answer, and write, for the wrong
+        # tenant or the wrong role
+        for key, module in (("tenancy.header", "ketoctx.py and Registry.nid_for"),
+                            ("follower.enabled", "api/follower.py")):
+            if self.config.get(key):
+                raise ConfigError(f"{key} is set, but keto_tpu_torch has no {module} yet: "
+                                  "it serves one network as a leader")
         self.nid = nid
         self.device = device
         self.layout = layout
@@ -110,17 +123,26 @@ class Registry:
     def relation_tuple_manager(self):
         with self._lock:
             if self._manager is None:
-                dsn = self.config.dsn
-                stores = {"memory": MemoryManager, "columnar": ColumnarStore}
-                if dsn not in stores:
-                    raise ConfigError(f"unsupported dsn {dsn!r}: the port accepts "
-                                      f"{' and '.join(map(repr, stores))}")
                 self._manager = self._given_manager if self._given_manager is not None \
-                    else stores[dsn]()
+                    else self._open_store(self.config.dsn)
                 # the hub is the store's write listener from the start, so
                 # that every commit reaches the engine and the cache
                 self.watch_hub()
             return self._manager
+
+    def _open_store(self, dsn: str):
+        if dsn == "memory":
+            return MemoryManager()
+        if dsn == "columnar":
+            return ColumnarStore()
+        # sqlite:// (and the server schemes, which raise
+        # StoreDriverMissing) through the strict dialect router: an
+        # unknown scheme or a bare typo ('Memory') raises, and a failing
+        # connect or migration fails startup; nothing falls back to
+        # another store
+        from .storage.sqlite import SQLPersister
+
+        return SQLPersister(dsn, legacy_namespaces=self.config.legacy_namespace_ids())
 
     # -- the Watch API --------------------------------------------------------
 
@@ -147,6 +169,7 @@ class Registry:
     def _push_invalidate(self, nid: str) -> None:
         """The hub's commit listener: pokes the built engine of `nid` and
         the check cache, building neither."""
+        _faults.inject("cache_invalidation")
         with self._lock:
             engine = self._engine if nid == self.nid else None
             cache = self._check_cache

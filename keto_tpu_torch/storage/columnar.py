@@ -30,6 +30,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .. import faults as _faults
 from ..errors import InvalidPageTokenError
 from ..ketoapi import RelationQuery, RelationTuple
 from .columns import TupleColumns, concat_columns
@@ -437,6 +438,7 @@ class ColumnarStore(WriteHookMixin):
         store's everywhere: pages, the host oracle's reads and the
         columnar expand CSR's child order (expand_kernel.
         columnar_subject_order) agree."""
+        _faults.inject("store_read")
         token_key = _decode_token(page_token)
         if page_size <= 0:
             page_size = DEFAULT_PAGE_SIZE

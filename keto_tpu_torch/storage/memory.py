@@ -24,6 +24,7 @@ import threading
 from collections import defaultdict, deque
 from typing import Optional, Sequence
 
+from .. import faults as _faults
 from ..ketoapi import RelationQuery, RelationTuple
 from .definitions import (
     DEFAULT_NETWORK,
@@ -79,6 +80,7 @@ class MemoryManager(WriteHookMixin):
         page_size: int = DEFAULT_PAGE_SIZE,
         nid: str = DEFAULT_NETWORK,
     ) -> tuple[list[RelationTuple], str]:
+        _faults.inject("store_read")
         token = validate_page_token(page_token)
         if page_size <= 0:
             page_size = DEFAULT_PAGE_SIZE

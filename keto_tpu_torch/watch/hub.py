@@ -20,8 +20,9 @@ The Zanzibar Watch contract on the port's stores:
     change log no longer reaches gets a RESET at once.
   - `min_active_version(nid)` is the lowest version an open cursor may
     resume from: the trim guard of a store that trims its log (the hub
-    registers it where the store has `set_trim_guard`; neither of the
-    port's stores has one).
+    registers it where the store has `set_trim_guard`: the SQL store,
+    storage/sqlite.py, keeps the rows an open cursor still needs past
+    its soft cap).
   - A store that raises StoreUnavailableError while the tailer reads it
     gets one DEGRADED event a subscriber per episode; heartbeats
     (`heartbeat_s`) go on through it.
@@ -48,6 +49,7 @@ import time
 from collections import deque
 from typing import Callable, Optional, Sequence
 
+from .. import faults as _faults
 from ..engine.snaptoken import encode_snaptoken
 from ..errors import SnaptokenUnsatisfiableError, StoreUnavailableError
 from ..ketoapi import RelationTuple
@@ -601,6 +603,10 @@ class WatchHub:
                 sub._force_reset(event)
                 self._count_reset()
         else:
+            # fault point (faults.py): the changelog is read, nothing is
+            # fanned out yet; the tail position is derived, never kept,
+            # so a resumed cursor gets these events from the store
+            _faults.inject("watch_broadcast")
             delivered = 0
             broadcast = False
             for event in self._group(nid, ops):

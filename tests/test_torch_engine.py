@@ -199,8 +199,9 @@ def test_import_boundary():
     descriptors, messages, gRPC servers, clients and OpenAPI document), its
     asyncio read plane, its entry point, its tools, its scale tier (the
     columnar store and columns, the native encoders, the 1e7 generators),
-    its OPL parser and namespace files, and its Watch hub loads neither jax
-    nor any module of keto_tpu."""
+    its OPL parser and namespace files, its Watch hub, its durable store
+    (the SQLite persister, the dialects, the UUID mapping) and its fault
+    points loads neither jax nor any module of keto_tpu."""
     code = (
         "import sys, runpy\n"
         "import keto_tpu_torch, keto_tpu_torch.__main__\n"
@@ -220,6 +221,8 @@ def test_import_boundary():
         "import keto_tpu_torch.api.openapi, keto_tpu_torch.api.aio_server\n"
         "import keto_tpu_torch.opl, keto_tpu_torch.opl.parser, keto_tpu_torch.config\n"
         "import keto_tpu_torch.watch, keto_tpu_torch.watch.hub\n"
+        "import keto_tpu_torch.faults, keto_tpu_torch.storage.sqlite\n"
+        "import keto_tpu_torch.storage.dialect, keto_tpu_torch.storage.mapping\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'keto_tpu' or m.startswith('keto_tpu.'))\n"
         "print(bad)\n"

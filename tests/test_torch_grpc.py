@@ -791,9 +791,14 @@ def test_mux_routes_each_connection_by_its_first_bytes():
 
     def serve_grpc():
         conn, _ = grpc_backend.accept()
+        # the whole 24-byte preface, so that the close cannot land while
+        # the client still sends it
         data = b""
-        while len(data) < 16:
-            data += conn.recv(64)
+        while len(data) < 24:
+            chunk = conn.recv(64)
+            if not chunk:
+                break
+            data += chunk
         conn.sendall(b"grpc:" + data)
         conn.close()
 

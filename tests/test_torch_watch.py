@@ -19,7 +19,11 @@ against keto_tpu's, on the CPU.
   (d) the registry's push invalidation through the hub pokes a built
       engine and the check cache, and builds no engine;
   (e) the closure maintainer's `_drain_events` against keto_tpu's on a
-      recording index: the changes applied, a RESET marks it stale.
+      recording index: the changes applied, a RESET marks it stale;
+  (f) the durable store: tests/test_watch.py's TestRetentionTrim (the
+      hub's trim guard on the SQLite changelog) and TestRestartResume (a
+      cursor resumed after a restart over the same SQLite file, through
+      the hub and through a daemon's SSE route), each equal to keto_tpu's.
 
 Every wait is bounded and every stream closed. Tolerance: exact equality.
 """
@@ -43,6 +47,7 @@ from keto_tpu.config import Config as JConfig
 from keto_tpu.errors import StoreUnavailableError as JStoreDown
 from keto_tpu.ketoapi import RelationTuple as JTuple
 from keto_tpu.registry import Registry as JRegistry
+from keto_tpu.storage.sqlite import SQLitePersister as JSQLite
 from keto_tpu.watch import WatchHub as JHub
 
 import keto_tpu_torch.storage.columnar as tcol_mod
@@ -57,6 +62,7 @@ from keto_tpu_torch.engine.snaptoken import encode_snaptoken, parse_snaptoken
 from keto_tpu_torch.errors import StoreUnavailableError as TStoreDown
 from keto_tpu_torch.ketoapi import RelationTuple as TTuple
 from keto_tpu_torch.registry import Registry as TRegistry
+from keto_tpu_torch.storage.sqlite import SQLitePersister as TSQLite
 from keto_tpu_torch.watch import WatchHub as THub
 
 from test_torch_grpc import LISTEN, small_pools
@@ -942,3 +948,181 @@ def test_maintainer_drain_equals_keto_tpu():
     assert applied == [0, 3, 0, 1]
     assert [c[0] for c in calls] == ["apply", "apply", "stale", "apply"]
     assert stats["events"] == 4 and stats["resets"] == 1
+
+
+# -- (f) the durable store: retention trim and restart resume ---------------------------
+
+
+def _log_rows(p):
+    return p._conn.execute("SELECT COUNT(*) FROM keto_change_log").fetchone()[0]
+
+
+def _sqlite_side(jax):
+    """A SQLite persister of one package, its hub class and tuple type."""
+    if jax:
+        return JSQLite("memory"), JHub, JTuple
+    return TSQLite("memory"), THub, TTuple
+
+
+def trim_active_cursor_pins_rows(jax):
+    p, Hub, T = _sqlite_side(jax)
+    p.CHANGE_LOG_CAP = 8
+    hub = Hub(p, poll_interval=0.05)
+    sub = hub.subscribe(NID)  # cursor at version 0
+    try:
+        for i in range(20):
+            p.write_relation_tuples([T.from_string(vt(i))])
+        out = [_log_rows(p), len(p.changelog_since(0, nid=NID))]
+        assert out == [20, 20]  # the guard (cursor 0) holds every row
+        out.append(drain(sub, 20))
+        assert sub.cursor == 20
+        p.write_relation_tuples([T.from_string(vt(100))])
+        out.append(_log_rows(p))
+        assert out[-1] <= p.CHANGE_LOG_CAP + 1
+        return out
+    finally:
+        sub.close()
+        hub.stop()
+
+
+def trim_no_cursor_at_soft_cap(jax):
+    p, Hub, T = _sqlite_side(jax)
+    p.CHANGE_LOG_CAP = 8
+    hub = Hub(p, poll_interval=0.05)  # the guard wired, nobody subscribed
+    try:
+        for i in range(20):
+            p.write_relation_tuples([T.from_string(vt(i))])
+        assert _log_rows(p) <= 9
+        return _log_rows(p)
+    finally:
+        hub.stop()
+
+
+def trim_stuck_cursor_bounded_by_hard_cap(jax):
+    p, Hub, T = _sqlite_side(jax)
+    p.CHANGE_LOG_CAP = 4
+    hub = Hub(p, poll_interval=0.05)
+    sub = hub.subscribe(NID)  # never reads: its cursor stays at 0
+    try:
+        for i in range(40):
+            p.write_relation_tuples([T.from_string(vt(i))])
+        rows = _log_rows(p)
+        assert rows <= p.CHANGE_LOG_CAP * p.CHANGE_LOG_HARD_FACTOR + 1
+        sub2 = hub.subscribe(NID, min_version=1)
+        try:
+            event = sub2.get(timeout=WAIT_S)
+            assert event.is_reset
+            return rows, norm(event)
+        finally:
+            sub2.close()
+    finally:
+        sub.close()
+        hub.stop()
+
+
+def trim_broken_guard_never_fails_writes(jax):
+    p, _Hub, T = _sqlite_side(jax)
+    p.set_trim_guard(lambda nid: 1 / 0)
+    p.write_relation_tuples([T.from_string(vt(0))])
+    assert p.version(nid=NID) == 1
+    return p.version(nid=NID), _log_rows(p)
+
+
+RETENTION = {f.__name__: f for f in (
+    trim_active_cursor_pins_rows, trim_no_cursor_at_soft_cap,
+    trim_stuck_cursor_bounded_by_hard_cap, trim_broken_guard_never_fails_writes)}
+
+
+@pytest.mark.parametrize("script", sorted(RETENTION))
+def test_retention_trim_equals_keto_tpu(script):
+    """tests/test_watch.py's TestRetentionTrim on each package's SQLite
+    store and hub: the hub's trim guard keeps what an open cursor needs,
+    a stuck cursor is bounded by the hard cap and gets a RESET."""
+    assert RETENTION[script](False) == RETENTION[script](True)
+
+
+def _file_registry(jax, path):
+    cfg = {"dsn": f"sqlite://{path}", "check": {"engine": "host"}, "namespaces": NAMESPACES,
+           "serve": LISTEN, "watch": {"poll_interval": 0.05}}
+    if jax:
+        return JRegistry(JConfig(cfg)), JTuple
+    return TRegistry(TConfig(cfg), device="cpu"), TTuple
+
+
+def hub_resume_across_reopen(jax, path):
+    # "process 1": write, watch, consume a prefix, die without handing
+    # anything over; only the file remains
+    reg1, T = _file_registry(jax, path)
+    m1, hub1 = reg1.relation_tuple_manager(), reg1.watch_hub()
+    sub = hub1.subscribe(NID)
+    for i in range(4):  # versions 1..4
+        m1.write_relation_tuples([T.from_string(vt(i))])
+    m1.delete_relation_tuples([T.from_string(vt(1))])  # version 5
+    consumed = drain(sub, 3)
+    assert [e[1] for e in consumed] == [1, 2, 3]
+    cursor = consumed[-1][1]
+    m1.write_relation_tuples([T.from_string(vt(9, "late"))])  # version 6, never read
+    hub1.stop()
+    m1.close()
+    # "process 2" over the same file resumes at the cursor
+    reg2, T = _file_registry(jax, path)
+    m2, hub2 = reg2.relation_tuple_manager(), reg2.watch_hub()
+    try:
+        sub2 = hub2.subscribe(NID, min_version=cursor)
+        m2.write_relation_tuples([T.from_string(vt(10, "after-restart"))])  # version 7
+        events = drain(sub2, 4)
+        assert [e[0] for e in events] == ["change"] * 4
+        assert [e[1] for e in events] == [4, 5, 6, 7]
+        log = [(v, op, str(t)) for v, op, t in m2.changelog_since(cursor, nid=NID)]
+        assert [(e[1], op, t) for e in events for op, t in e[3]] == log
+        return consumed, events
+    finally:
+        hub2.stop()
+        m2.close()
+
+
+def daemon_sse_resume_across_restart(jax, path):
+    def make():
+        reg, T = _file_registry(jax, path)
+        d = (JDaemon if jax else TDaemon)(reg)
+        with small_pools():
+            d.start()
+        return d, T
+
+    def read(port, token, n):
+        _status, _h, lines = sse(port, {"snaptoken": token, "max_events": n})
+        return [json.loads(ln[len("data: "):]) for ln in lines if ln.startswith("data: ")]
+
+    d1, T = make()
+    try:
+        m = d1.registry.relation_tuple_manager()
+        for i in range(3):  # versions 1..3
+            m.write_relation_tuples([T.from_string(vt(i))])
+        first = read(d1.read_port, encode_snaptoken(0, NID), 2)
+        cursor_token = first[-1]["snaptoken"]
+        assert parse_snaptoken(cursor_token, NID) == 2
+    finally:
+        d1.stop(grace=1.0)
+    d1.registry.relation_tuple_manager().close()
+    d2, T = make()  # a restart over the same file
+    try:
+        d2.registry.relation_tuple_manager().write_relation_tuples(
+            [T.from_string(vt(7, "post-restart"))])
+        events = read(d2.read_port, cursor_token, 2)
+        assert [parse_snaptoken(e["snaptoken"], NID) for e in events] == [3, 4]
+        assert all(e["event_type"] == "change" for e in events)
+        return first, events
+    finally:
+        d2.stop(grace=1.0)
+
+
+@pytest.mark.parametrize("script", [hub_resume_across_reopen, daemon_sse_resume_across_restart],
+                         ids=lambda f: f.__name__)
+def test_restart_resume_equals_keto_tpu(script, tmp_path):
+    """tests/test_watch.py's TestRestartResume on each package over a
+    SQLite file: the cursor resumed after the first process is gone sees
+    every change after it once, in version order, and the events equal
+    keto_tpu's."""
+    got = script(False, str(tmp_path / "port.sqlite"))
+    want = script(True, str(tmp_path / "jax.sqlite"))
+    assert got == want
